@@ -1,0 +1,14 @@
+"""apex_tpu_torch: the PyTorch + CUDA port of apex_tpu for NVIDIA Hopper.
+
+The package mirrors ``apex_tpu``'s layout and names; every TPU kernel it
+ports is a CUDA C++ kernel under ``csrc/``, built with ``nvcc`` for
+sm_90a at first use (:mod:`apex_tpu_torch.kernels._build`). Importing
+the package builds nothing and touches no GPU. Entry points run on the
+card unless the caller asks for the CPU, where each kernel wrapper takes
+its plain PyTorch version.
+
+Ported so far: KV-cache generation (``models.generate``) for
+RMSNorm/RoPE/GQA/SwiGLU decoder LMs such as TinyLlama-1.1B.
+"""
+
+__version__ = "0.1.0"

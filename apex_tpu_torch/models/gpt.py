@@ -1,0 +1,78 @@
+"""GPT language model over the KV-cache transformer stack.
+
+Counterpart of ``apex_tpu.models.GPTModel`` built with ``decode=True``:
+token embedding, the layer stack over the Megatron [s, b, h] layout, the
+final norm and the LM head (untied ``lm_head`` [hidden, vocab], or the
+embedding table when tied), logits in fp32.
+"""
+
+import torch
+from torch import nn
+
+from apex_tpu_torch.models.kv_cache import KVCache
+from apex_tpu_torch.models.transformer_lm import (
+    ParallelTransformer,
+    TransformerConfig,
+    _make_norm,
+)
+from apex_tpu_torch.transformer.tensor_parallel import VocabParallelEmbedding
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for another. Asking for CUDA without one raises; nothing falls back
+    to the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but torch.cuda.is_available() is "
+            f"False; pass device='cpu' to run the plain PyTorch versions "
+            f"on the CPU")
+    return device
+
+
+class GPTModel(nn.Module):
+    """Causal LM: tokens [b, s] and their absolute positions [b, s] (or
+    [1, s]; None means the cache's index onward) -> logits [b, s, vocab]
+    in fp32, appending the chunk's K/V to ``cache`` (updated in place,
+    index advanced by s)."""
+
+    def __init__(self, config: TransformerConfig, num_layers=None,
+                 device=None):
+        super().__init__()
+        device = resolve_device(device)
+        cfg = config
+        self.config = cfg
+        self.num_layers = (num_layers if num_layers is not None
+                           else cfg.num_layers)
+        self.word_embeddings = VocabParallelEmbedding(
+            cfg.vocab_size, cfg.hidden_size, cfg.params_dtype, device)
+        self.transformer = ParallelTransformer(cfg, self.num_layers, device)
+        self.final_layernorm = _make_norm(cfg, device)
+        self.lm_head = (None if cfg.tie_word_embeddings else nn.Parameter(
+            torch.empty(cfg.hidden_size, cfg.vocab_size,
+                        dtype=cfg.params_dtype, device=device)))
+
+    @property
+    def device(self) -> torch.device:
+        return self.word_embeddings.weight.device
+
+    def forward(self, tokens, position_ids, cache: KVCache):
+        cfg = self.config
+        s = tokens.shape[1]
+        cache.check_room(s)
+        h = self.word_embeddings(tokens).to(cfg.compute_dtype)
+        h = h.transpose(0, 1).contiguous()  # [s, b, h]
+        positions = (None if position_ids is None
+                     else position_ids.transpose(0, 1))  # [s, b] or [s, 1]
+        h = self.transformer(h, positions, cache)
+        cache.advance(s)
+        h = self.final_layernorm(h, out_dtype=cfg.compute_dtype)
+        if cfg.tie_word_embeddings:
+            logits = self.word_embeddings.attend(h)
+        else:
+            # bf16 x bf16 products accumulated in fp32, as the JAX head's
+            # einsum with preferred_element_type=float32
+            head = self.lm_head.to(cfg.compute_dtype).float()
+            logits = torch.matmul(h.float(), head)
+        return logits.transpose(0, 1)  # [b, s, vocab]

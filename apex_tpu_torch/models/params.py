@@ -1,0 +1,61 @@
+"""Parameters of :class:`apex_tpu_torch.models.GPTModel`: carried over from
+the JAX package's flax tree, or drawn from a seed.
+
+The port keeps the JAX package's parameter names and layouts, so the
+flax tree of ``apex_tpu.models.GPTModel`` maps one to one onto the
+port's ``state_dict``: nested keys joined with ".", and the flax layer
+scopes ``layer_<i>`` become the entries ``layers.<i>`` of the module
+list.
+"""
+
+import re
+
+import numpy as np
+import torch
+
+_LAYER = re.compile(r"^transformer\.layer_(\d+)\.")
+
+
+def _flatten(tree, prefix=""):
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, dict) or hasattr(value, "items"):
+            yield from _flatten(value, name + ".")
+        else:
+            yield name, value
+
+
+def from_jax_params(tree, config=None):
+    """The port's ``state_dict`` from a flax ``params`` tree whose leaves
+    are numpy arrays (``jax.tree.map(np.asarray, params)``). ``config``
+    (a port :class:`TransformerConfig`) checks that the tree's depth
+    matches it."""
+    state = {_LAYER.sub(r"transformer.layers.\1.", name):
+             torch.from_numpy(np.array(value, copy=True))
+             for name, value in _flatten(tree)}
+    if config is not None:
+        layers = {int(m.group(1)) for name in state
+                  if (m := re.match(r"transformer\.layers\.(\d+)\.", name))}
+        if len(layers) != config.num_layers:
+            raise ValueError(f"tree has {len(layers)} layers, config "
+                             f"{config.num_layers}")
+    return state
+
+
+@torch.no_grad()
+def init_weights(model, seed: int):
+    """Random weights from ``seed``, drawn on the model's device: matrices
+    ~ N(0, 1/fan_in) (flax's lecun_normal scale, untruncated), the
+    embedding and the LM head ~ N(0, 0.02) as the JAX package initialises
+    them, norm weights 1, biases 0."""
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(seed)
+    for name, p in model.named_parameters():
+        if name.endswith("layernorm.weight"):
+            p.fill_(1.0)
+        elif name.endswith("bias"):
+            p.zero_()
+        elif name in ("word_embeddings.weight", "lm_head"):
+            p.normal_(0.0, 0.02, generator=gen)
+        else:
+            p.normal_(0.0, p.shape[0] ** -0.5, generator=gen)

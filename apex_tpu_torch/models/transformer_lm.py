@@ -1,0 +1,345 @@
+"""Megatron-style transformer blocks, KV-cache decode path.
+
+Counterpart of ``apex_tpu/models/transformer_lm.py`` in decode mode
+(``ParallelTransformer(decode=True)``): pre-norm layers over the
+Megatron [s, b, h] layout, a fused QKV projection, RoPE at absolute
+positions, a KV cache written in place, and attention through the
+ported kernels: :func:`apex_tpu_torch.kernels.fused_cc.window_attention`
+for a chunk of several tokens (the prompt), and
+:func:`apex_tpu_torch.contrib.gqa_decode.gqa_flash_decode` for each
+single-token step. Norms go through the RMSNorm kernel.
+
+Dtypes follow the JAX modules: parameters in ``params_dtype`` (fp32),
+activations and the cache in ``compute_dtype``, norm statistics, RoPE,
+softmax and the MLP's activation in fp32. The training forward (flash
+attention) and the LayerNorm/alibi/MoE variants are later slices.
+"""
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from apex_tpu_torch.contrib import gqa_decode
+from apex_tpu_torch.kernels import fused_cc
+from apex_tpu_torch.normalization import FusedRMSNorm
+from apex_tpu_torch.transformer.tensor_parallel import (
+    ColumnParallelLinear,
+    RowParallelLinear,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeScaling:
+    """Frequency-rescaled RoPE (HF modeling_rope_utils semantics):
+    ``"linear"`` divides every inverse frequency by ``factor``;
+    ``"llama3"`` (Llama-3.1) keeps short wavelengths, divides long ones by
+    ``factor`` and interpolates in between."""
+
+    rope_type: str = "llama3"
+    factor: float = 8.0
+    low_freq_factor: float = 1.0
+    high_freq_factor: float = 4.0
+    original_max_position_embeddings: int = 8192
+
+
+def _scale_rope_freqs(inv, scaling: RopeScaling):
+    if scaling.rope_type == "linear":
+        return inv / scaling.factor
+    if scaling.rope_type != "llama3":
+        raise ValueError(f"unknown rope_type {scaling.rope_type!r}")
+    old_len = scaling.original_max_position_embeddings
+    low_wavelen = old_len / scaling.low_freq_factor
+    high_wavelen = old_len / scaling.high_freq_factor
+    wavelen = 2 * math.pi / inv
+    scaled = torch.where(wavelen > low_wavelen, inv / scaling.factor, inv)
+    smooth = ((old_len / wavelen - scaling.low_freq_factor)
+              / (scaling.high_freq_factor - scaling.low_freq_factor))
+    smoothed = (1 - smooth) * scaled / scaling.factor + smooth * scaled
+    medium = (wavelen >= high_wavelen) & (wavelen <= low_wavelen)
+    return torch.where(medium, smoothed, scaled)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """The fields of ``apex_tpu.models.TransformerConfig`` that the decode
+    path reads, with torch dtypes. Values this slice cannot run (learned
+    or alibi positions, LayerNorm) are refused."""
+
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_attention_heads: int = 16
+    ffn_hidden_size: Optional[int] = None
+    vocab_size: int = 50257
+    max_position_embeddings: int = 1024
+    layernorm_epsilon: float = 1e-5
+    params_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+    num_query_groups: Optional[int] = None
+    position_embedding_type: str = "rope"
+    rotary_base: float = 10000.0
+    rope_scaling: Optional[RopeScaling] = None
+    rotary_percent: float = 1.0
+    rotary_interleaved: bool = False
+    activation: str = "swiglu"
+    head_dim: Optional[int] = None
+    sliding_window: Optional[int] = None
+    sliding_window_pattern: int = 1
+    attn_logit_softcapping: Optional[float] = None
+    query_pre_attn_scalar: Optional[float] = None
+    normalization: str = "rmsnorm"
+    tie_word_embeddings: bool = False
+
+    def __post_init__(self):
+        if self.position_embedding_type != "rope":
+            raise ValueError(
+                f"position_embedding_type {self.position_embedding_type!r}: "
+                f"only 'rope' is ported so far")
+        if self.normalization != "rmsnorm":
+            raise ValueError(f"normalization {self.normalization!r}: only "
+                             f"'rmsnorm' is ported so far (LayerNorm's kernel "
+                             f"comes with training)")
+        if self.activation not in ("gelu", "gelu_exact", "relu", "relu2",
+                                   "swiglu", "geglu"):
+            raise ValueError(f"unknown activation {self.activation!r}")
+        if self.sliding_window is not None and self.sliding_window < 1:
+            raise ValueError(
+                f"sliding_window ({self.sliding_window}) must be >= 1")
+        if self.sliding_window_pattern < 1:
+            raise ValueError(f"sliding_window_pattern "
+                             f"({self.sliding_window_pattern}) must be >= 1")
+        if (self.attn_logit_softcapping is not None
+                and self.attn_logit_softcapping <= 0):
+            raise ValueError(f"attn_logit_softcapping "
+                             f"({self.attn_logit_softcapping}) must be > 0")
+        if not 0.0 < self.rotary_percent <= 1.0:
+            raise ValueError(
+                f"rotary_percent ({self.rotary_percent}) must be in (0, 1]")
+        if self.num_attention_heads % self.query_groups:
+            raise ValueError(
+                f"num_attention_heads ({self.num_attention_heads}) must be a "
+                f"multiple of num_query_groups ({self.query_groups})")
+
+    @property
+    def ffn_size(self):
+        return self.ffn_hidden_size or 4 * self.hidden_size
+
+    @property
+    def kv_channels(self):
+        return self.head_dim or self.hidden_size // self.num_attention_heads
+
+    @property
+    def query_groups(self):
+        return self.num_query_groups or self.num_attention_heads
+
+
+def apply_rotary_emb(x, base: float = 10000.0, positions=None,
+                     percent: float = 1.0, interleaved: bool = False,
+                     scaling: Optional[RopeScaling] = None):
+    """Rotary position embedding on [s, b, n, d] (rotate-half convention,
+    or GPT-J's interleaved pairs). ``positions`` is [s] or [s, b]
+    (default 0..s-1); fp32 trig, cast back to x's dtype. ``percent`` < 1
+    rotates only the leading dims of each head (GPT-NeoX rotary_pct)."""
+    d_full = x.shape[-1]
+    if percent < 1.0:
+        rot_n = int(d_full * percent + 1e-6)
+        width = 2 * ((rot_n + 1) // 2)
+        out = _rope_core(x[..., :width], base, positions, rot_n,
+                         interleaved, scaling)
+        return torch.cat([out, x[..., width:]], dim=-1)
+    return _rope_core(x, base, positions, d_full, interleaved, scaling)
+
+
+def _rope_core(x, base, positions, freq_dim, interleaved=False,
+               scaling=None):
+    s = x.shape[0]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    exponents = torch.arange(0, freq_dim, 2, dtype=torch.float32,
+                             device=x.device) / freq_dim
+    inv = 1.0 / torch.pow(torch.tensor(base, dtype=torch.float32,
+                                       device=x.device), exponents)
+    if scaling is not None:
+        inv = _scale_rope_freqs(inv, scaling)
+    freqs = positions[..., None].float() * inv  # [s(, b), d/2]
+    if freqs.dim() == 2:
+        freqs = freqs[:, None, :]
+    cos = torch.cos(freqs)[:, :, None, :]
+    sin = torch.sin(freqs)[:, :, None, :]
+    xf = x.float()
+    if interleaved:
+        x1, x2 = xf[..., 0::2], xf[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                          dim=-1).reshape(x.shape)
+    else:
+        x1, x2 = xf.chunk(2, dim=-1)
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _make_norm(cfg, device):
+    return FusedRMSNorm(cfg.hidden_size, eps=cfg.layernorm_epsilon,
+                        device=device)
+
+
+class ParallelAttention(nn.Module):
+    """Self-attention over the KV cache: fused QKV projection (columns
+    ``[q heads | per-group (k_g | v_g)]`` under GQA, per-head
+    ``[q_i | k_i | v_i]`` blocks under MHA), RoPE at absolute positions,
+    the chunk's K/V written at the cache's index, attention through the
+    window kernel (s > 1) or the decode kernel (s == 1), and the output
+    projection."""
+
+    def __init__(self, config: TransformerConfig, layer_number: int = 0,
+                 device=None):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.layer_number = layer_number
+        kv = cfg.kv_channels
+        if cfg.query_groups == cfg.num_attention_heads:
+            width = 3 * cfg.num_attention_heads * kv
+        else:
+            width = (cfg.num_attention_heads + 2 * cfg.query_groups) * kv
+        self.query_key_value = ColumnParallelLinear(
+            cfg.hidden_size, width, bias=True, params_dtype=cfg.params_dtype,
+            device=device)
+        self.dense = RowParallelLinear(
+            cfg.num_attention_heads * kv, cfg.hidden_size, bias=True,
+            params_dtype=cfg.params_dtype, device=device)
+
+    def _layer_window(self):
+        """This layer's sliding window, or None (every
+        sliding_window_pattern-th layer runs full causal attention)."""
+        cfg = self.config
+        if cfg.sliding_window is None:
+            return None
+        if (cfg.sliding_window_pattern > 1
+                and (self.layer_number + 1) % cfg.sliding_window_pattern == 0):
+            return None
+        return cfg.sliding_window
+
+    def forward(self, hidden_states, position_ids, cache):
+        cfg = self.config
+        n = cfg.num_attention_heads
+        kv = cfg.kv_channels
+        s, b = hidden_states.shape[:2]
+        proj = self.query_key_value(hidden_states.to(cfg.compute_dtype))
+        if cfg.query_groups == n:
+            q, k, v = proj.reshape(s, b, n, 3 * kv).split(kv, dim=-1)
+        else:
+            g = cfg.query_groups
+            q = proj[..., :n * kv].reshape(s, b, n, kv)
+            k, v = proj[..., n * kv:].reshape(s, b, g, 2 * kv).split(kv,
+                                                                    dim=-1)
+        return self._decode_attention(q, k, v, position_ids, cache)
+
+    def _decode_attention(self, q, k, v, position_ids, cache):
+        """Rotate at absolute positions, write the chunk's rows at the
+        cache's index, attend over the filled prefix."""
+        cfg = self.config
+        s, b, n, kv = q.shape
+        n_kv = k.shape[2]
+        rep = n // n_kv
+        idx = cache.index
+        pos = (position_ids if position_ids is not None
+               else idx + torch.arange(s, device=q.device))
+        q = apply_rotary_emb(q, cfg.rotary_base, pos, cfg.rotary_percent,
+                             cfg.rotary_interleaved, cfg.rope_scaling)
+        k = apply_rotary_emb(k, cfg.rotary_base, pos, cfg.rotary_percent,
+                             cfg.rotary_interleaved, cfg.rope_scaling)
+        ck = cache.keys[self.layer_number]
+        cv = cache.values[self.layer_number]
+        ck[idx:idx + s] = k
+        cv[idx:idx + s] = v
+        qg = q.reshape(s, b, n_kv, rep, kv).to(cfg.compute_dtype).contiguous()
+        sm = 1.0 / math.sqrt(cfg.query_pre_attn_scalar or kv)
+        if s == 1:
+            ctx = gqa_decode.gqa_flash_decode(
+                qg[0], ck, cv, idx + 1, sm, window=self._layer_window(),
+                softcap=cfg.attn_logit_softcapping)
+        else:
+            ctx = fused_cc.window_attention(
+                qg, ck, cv, idx, sm, window=self._layer_window(),
+                softcap=cfg.attn_logit_softcapping)
+        return self.dense(ctx.reshape(s, b, n * kv).to(cfg.compute_dtype))
+
+
+class ParallelMLP(nn.Module):
+    """h -> ffn (column) -> activation -> ffn -> h (row). The gated forms
+    (swiglu, geglu) use one fused ``[gate | up]`` projection and no
+    biases; the others have biases."""
+
+    def __init__(self, config: TransformerConfig, device=None):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        gated = cfg.activation in ("swiglu", "geglu")
+        self.dense_h_to_4h = ColumnParallelLinear(
+            cfg.hidden_size, (2 if gated else 1) * cfg.ffn_size,
+            bias=not gated, params_dtype=cfg.params_dtype, device=device)
+        self.dense_4h_to_h = RowParallelLinear(
+            cfg.ffn_size, cfg.hidden_size, bias=not gated,
+            params_dtype=cfg.params_dtype, device=device)
+
+    def forward(self, hidden_states):
+        cfg = self.config
+        x = self.dense_h_to_4h(hidden_states.to(cfg.compute_dtype)).float()
+        if cfg.activation in ("swiglu", "geglu"):
+            gate, up = x.chunk(2, dim=-1)
+            act = (F.silu(gate) if cfg.activation == "swiglu"
+                   else F.gelu(gate, approximate="tanh"))
+            x = act * up
+        elif cfg.activation in ("relu", "relu2"):
+            x = F.relu(x)
+            if cfg.activation == "relu2":
+                x = x * x
+        else:
+            x = F.gelu(x, approximate="tanh" if cfg.activation == "gelu"
+                       else "none")
+        return self.dense_4h_to_h(x.to(cfg.compute_dtype))
+
+
+class ParallelTransformerLayer(nn.Module):
+    """Pre-norm block: x + attn(norm(x)), then x + mlp(norm(x)). The
+    norms read the residual stream as it is and write ``compute_dtype``
+    (the JAX layer casts to fp32 before the norm and back after it: the
+    same values, without the two cast passes)."""
+
+    def __init__(self, config: TransformerConfig, layer_number: int = 0,
+                 device=None):
+        super().__init__()
+        self.config = config
+        self.input_layernorm = _make_norm(config, device)
+        self.self_attention = ParallelAttention(config, layer_number, device)
+        self.post_attention_layernorm = _make_norm(config, device)
+        self.mlp = ParallelMLP(config, device)
+
+    def forward(self, hidden_states, position_ids, cache):
+        compute = self.config.compute_dtype
+        attn_out = self.self_attention(
+            self.input_layernorm(hidden_states, out_dtype=compute),
+            position_ids, cache)
+        hidden_states = hidden_states + attn_out.to(hidden_states.dtype)
+        mlp_out = self.mlp(
+            self.post_attention_layernorm(hidden_states, out_dtype=compute))
+        return hidden_states + mlp_out.to(hidden_states.dtype)
+
+
+class ParallelTransformer(nn.Module):
+    """A stack of ``num_layers`` layers sharing one KV cache."""
+
+    def __init__(self, config: TransformerConfig, num_layers=None,
+                 device=None):
+        super().__init__()
+        n = num_layers if num_layers is not None else config.num_layers
+        self.layers = nn.ModuleList(
+            ParallelTransformerLayer(config, i, device) for i in range(n))
+
+    def forward(self, hidden_states, position_ids, cache):
+        for layer in self.layers:
+            hidden_states = layer(hidden_states, position_ids, cache)
+        return hidden_states

@@ -29,7 +29,10 @@ setup(
     version="0.1.0",
     description="TPU-native mixed-precision and model-parallel training "
                 "framework (JAX/XLA/Pallas)",
-    packages=find_packages(include=["apex_tpu", "apex_tpu.*"]),
+    packages=find_packages(include=["apex_tpu", "apex_tpu.*",
+                                    "apex_tpu_torch", "apex_tpu_torch.*"]),
+    # the PyTorch port's CUDA sources, compiled with nvcc at first use
+    package_data={"apex_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     ext_modules=ext_modules,
     python_requires=">=3.10",
     install_requires=["jax", "flax", "numpy", "einops"],

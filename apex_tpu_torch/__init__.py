@@ -7,8 +7,10 @@ the package builds nothing and touches no GPU. Entry points run on the
 card unless the caller asks for the CPU, where each kernel wrapper takes
 its plain PyTorch version.
 
-Ported so far: KV-cache generation (``models.generate``) for
-RMSNorm/RoPE/GQA/SwiGLU decoder LMs such as TinyLlama-1.1B.
+Ported so far, for RMSNorm/RoPE/GQA/SwiGLU decoder LMs such as
+TinyLlama-1.1B: KV-cache generation (``models.generate``) and the
+training step with flash attention off (``GPTModel`` without a cache,
+``models.gpt_loss_fn``, ``optimizers.FusedAdam``).
 """
 
 __version__ = "0.1.0"

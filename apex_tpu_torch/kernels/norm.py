@@ -1,9 +1,10 @@
-"""RMSNorm forward: the CUDA kernel (csrc/rms_norm.cu) and its plain
-PyTorch version.
+"""RMSNorm forward and backward-dx: the CUDA kernels (csrc/rms_norm.cu)
+and their plain PyTorch versions.
 
-Counterpart of ``apex_tpu/kernels/norm.py`` ``rms_fwd``. The public
-entry point stays in :mod:`apex_tpu_torch.ops.layer_norm`. The LayerNorm
-kernels and the backward-dx kernels of that module come with training.
+Counterparts of ``apex_tpu/kernels/norm.py`` ``rms_fwd`` and
+``rms_bwd_dx``. The public entry point, with its autograd, stays in
+:mod:`apex_tpu_torch.ops.layer_norm`. The LayerNorm kernels of that
+module come with the GPT-2 slice.
 """
 
 import ctypes
@@ -14,6 +15,7 @@ import torch
 from apex_tpu_torch.kernels import _build, _checks, registry
 
 RMS_NORM = registry.register("rms_norm")
+RMS_BWD = registry.register("rms_bwd")
 
 
 def rms_fwd_plain(x2d, weight, eps, out_dtype=None):
@@ -63,3 +65,58 @@ def rms_fwd(x2d, weight, eps, out_dtype=None):
     _checks.status("rms_fwd", rc)
     registry.count(RMS_NORM)
     return y
+
+
+def rms_bwd_dx_plain(dy2d, x2d, weight, eps):
+    """dx of RMSNorm for rows x2d [n, h] and their output gradient dy2d
+    [n, h]: (w*dy - xhat * mean(w*dy*xhat)) * rstd in fp32, the row
+    statistics recomputed from x2d; returned in x2d's dtype, as
+    ``apex_tpu.kernels.norm.rms_bwd_dx``."""
+    dy = dy2d.float()
+    x = x2d.float()
+    ms = torch.mean(x * x, dim=-1, keepdim=True)
+    rstd = torch.rsqrt(ms + eps)
+    xhat = x * rstd
+    wdy = dy * weight.float() if weight is not None else dy
+    c = torch.mean(wdy * xhat, dim=-1, keepdim=True)
+    return ((wdy - xhat * c) * rstd).to(x2d.dtype)
+
+
+@functools.lru_cache(maxsize=1)
+def _bwd_kernel():
+    p, i = _checks.ptr, ctypes.c_int
+    return _build.function(
+        "rms_norm", "apex_rms_norm_bwd_dx",
+        [p, p, p, p, ctypes.c_longlong, i, ctypes.c_float, i, i, p])
+
+
+def rms_bwd_dx(dy2d, x2d, weight, eps):
+    """RMSNorm backward-dx of rows x2d [n, h] (fp32 or bf16) given dy2d
+    [n, h] (fp32 or bf16) and the fp32 weight [h] (or None); dx in x2d's
+    dtype. A CPU tensor takes :func:`rms_bwd_dx_plain`; a CUDA tensor
+    launches the kernel or raises."""
+    tensors = (dy2d, x2d) if weight is None else (dy2d, x2d, weight)
+    if not _checks.on_cuda("rms_bwd_dx", *tensors):
+        return rms_bwd_dx_plain(dy2d, x2d, weight, eps)
+    if x2d.dim() != 2 or dy2d.shape != x2d.shape:
+        raise ValueError(f"rms_bwd_dx: x2d and dy2d must be one [n, h] shape, "
+                         f"got {tuple(x2d.shape)} and {tuple(dy2d.shape)}")
+    n, h = x2d.shape
+    if weight is None:
+        weight = torch.ones(h, dtype=torch.float32, device=x2d.device)
+    if weight.dtype != torch.float32 or tuple(weight.shape) != (h,):
+        raise ValueError(f"rms_bwd_dx: weight must be float32 [{h}], got "
+                         f"{weight.dtype} {tuple(weight.shape)}")
+    _checks.contiguous("rms_bwd_dx", dy2d=dy2d, x2d=x2d, weight=weight)
+    dy_code = _checks.dtype_code("rms_bwd_dx", dy2d, "dy2d")
+    x_code = _checks.dtype_code("rms_bwd_dx", x2d, "x2d")
+    dx = torch.empty_like(x2d)
+    if n == 0:
+        return dx
+    with torch.cuda.device(x2d.device):
+        rc = _bwd_kernel()(dy2d.data_ptr(), x2d.data_ptr(), weight.data_ptr(),
+                           dx.data_ptr(), n, h, float(eps), dy_code, x_code,
+                           _checks.stream(x2d))
+    _checks.status("rms_bwd_dx", rc)
+    registry.count(RMS_BWD)
+    return dx

@@ -1,4 +1,5 @@
-"""Decoder LMs and KV-cache generation."""
+"""Decoder LMs: KV-cache generation and the training step's model and
+loss."""
 
 from apex_tpu_torch.models.generation import (
     decode_step,
@@ -8,13 +9,18 @@ from apex_tpu_torch.models.generation import (
     prefill,
     sample_logits,
 )
-from apex_tpu_torch.models.gpt import GPTModel
+from apex_tpu_torch.models.gpt import GPTModel, gpt_loss_fn
 from apex_tpu_torch.models.kv_cache import KVCache
-from apex_tpu_torch.models.params import from_jax_params, init_weights
+from apex_tpu_torch.models.params import (
+    from_jax_params,
+    init_weights,
+    load_jax_adam_state,
+)
 from apex_tpu_torch.models.transformer_lm import RopeScaling, TransformerConfig
 
 __all__ = [
     "GPTModel", "KVCache", "RopeScaling", "TransformerConfig",
     "decode_step", "filter_logits", "from_jax_params", "generate",
-    "init_cache", "init_weights", "prefill", "sample_logits",
+    "gpt_loss_fn", "init_cache", "init_weights", "load_jax_adam_state",
+    "prefill", "sample_logits",
 ]

@@ -1,21 +1,28 @@
-"""GPT language model over the KV-cache transformer stack.
+"""GPT language model over the transformer stack, and its loss.
 
-Counterpart of ``apex_tpu.models.GPTModel`` built with ``decode=True``:
-token embedding, the layer stack over the Megatron [s, b, h] layout, the
+Counterpart of ``apex_tpu.models.GPTModel`` and ``gpt_loss_fn``: token
+embedding, the layer stack over the Megatron [s, b, h] layout, the
 final norm and the LM head (untied ``lm_head`` [hidden, vocab], or the
-embedding table when tied), logits in fp32.
+embedding table when tied), logits in fp32. With a KV cache the model
+runs as JAX's ``decode=True`` model; without one it runs the training
+forward, and a step is
+
+    loss = gpt_loss_fn(model(tokens), labels)
+    loss.backward(); opt.step(); opt.zero_grad()
 """
 
 import torch
 from torch import nn
 
-from apex_tpu_torch.models.kv_cache import KVCache
 from apex_tpu_torch.models.transformer_lm import (
     ParallelTransformer,
     TransformerConfig,
     _make_norm,
 )
-from apex_tpu_torch.transformer.tensor_parallel import VocabParallelEmbedding
+from apex_tpu_torch.transformer.tensor_parallel import (
+    VocabParallelEmbedding,
+    vocab_parallel_cross_entropy,
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -33,9 +40,11 @@ def resolve_device(device=None) -> torch.device:
 
 class GPTModel(nn.Module):
     """Causal LM: tokens [b, s] and their absolute positions [b, s] (or
-    [1, s]; None means the cache's index onward) -> logits [b, s, vocab]
-    in fp32, appending the chunk's K/V to ``cache`` (updated in place,
-    index advanced by s)."""
+    [1, s]) -> logits [b, s, vocab] in fp32. With ``cache`` the chunk's
+    K/V are appended to it (updated in place, index advanced by s) and
+    positions default to the cache's index onward; without one the
+    training forward runs (positions default to 0..s-1), differentiable
+    in every parameter."""
 
     def __init__(self, config: TransformerConfig, num_layers=None,
                  device=None):
@@ -57,16 +66,19 @@ class GPTModel(nn.Module):
     def device(self) -> torch.device:
         return self.word_embeddings.weight.device
 
-    def forward(self, tokens, position_ids, cache: KVCache):
+    def forward(self, tokens, position_ids=None, cache=None,
+                attention_mask=None):
         cfg = self.config
         s = tokens.shape[1]
-        cache.check_room(s)
+        if cache is not None:
+            cache.check_room(s)
         h = self.word_embeddings(tokens).to(cfg.compute_dtype)
         h = h.transpose(0, 1).contiguous()  # [s, b, h]
         positions = (None if position_ids is None
                      else position_ids.transpose(0, 1))  # [s, b] or [s, 1]
-        h = self.transformer(h, positions, cache)
-        cache.advance(s)
+        h = self.transformer(h, positions, cache, attention_mask)
+        if cache is not None:
+            cache.advance(s)
         h = self.final_layernorm(h, out_dtype=cfg.compute_dtype)
         if cfg.tie_word_embeddings:
             logits = self.word_embeddings.attend(h)
@@ -76,3 +88,15 @@ class GPTModel(nn.Module):
             head = self.lm_head.to(cfg.compute_dtype).float()
             logits = torch.matmul(h.float(), head)
         return logits.transpose(0, 1)  # [b, s, vocab]
+
+
+def gpt_loss_fn(logits, labels, loss_mask=None):
+    """Mean per-token cross entropy of logits [b, s, vocab] against labels
+    [b, s]; with ``loss_mask`` [b, s], the masked mean (at least one
+    token in the denominator)."""
+    losses = vocab_parallel_cross_entropy(logits, labels)
+    if loss_mask is not None:
+        loss_mask = loss_mask.float()
+        return torch.sum(losses * loss_mask) / torch.clamp(
+            torch.sum(loss_mask), min=1.0)
+    return torch.mean(losses)

@@ -1,5 +1,6 @@
 """Parameters of :class:`apex_tpu_torch.models.GPTModel`: carried over from
-the JAX package's flax tree, or drawn from a seed.
+the JAX package's flax tree, or drawn from a seed; and the state of the
+JAX ``FusedAdam`` carried into the port's optimizer.
 
 The port keeps the JAX package's parameter names and layouts, so the
 flax tree of ``apex_tpu.models.GPTModel`` maps one to one onto the
@@ -40,6 +41,36 @@ def from_jax_params(tree, config=None):
             raise ValueError(f"tree has {len(layers)} layers, config "
                              f"{config.num_layers}")
     return state
+
+
+@torch.no_grad()
+def load_jax_adam_state(optimizer, model, state):
+    """Carry the JAX ``FusedAdam`` state of ``model``'s parameters into
+    the port's ``optimizer`` (a :class:`apex_tpu_torch.optimizers.FusedAdam`
+    over ``model.parameters()``, in one group). ``state`` is the JAX
+    optimizer's ``{"step", "exp_avg", "exp_avg_sq"}`` with numpy leaves
+    (``jax.tree.map(np.asarray, opt_state)``): each buffer goes to the
+    parameter of the same name, and the group's step count becomes
+    ``step``."""
+    if len(optimizer.param_groups) != 1:
+        raise ValueError("load_jax_adam_state: the optimizer must hold one "
+                         "parameter group")
+    params = dict(model.named_parameters())
+    for name in ("exp_avg", "exp_avg_sq"):
+        tree = from_jax_params(state[name])
+        if tree.keys() != params.keys():
+            raise ValueError(f"load_jax_adam_state: {name} names "
+                             f"{sorted(tree.keys() ^ params.keys())} do not "
+                             f"match the model's parameters")
+        for key, value in tree.items():
+            p = params[key]
+            if value.shape != p.shape:
+                raise ValueError(f"load_jax_adam_state: {name} of {key} has "
+                                 f"shape {tuple(value.shape)}, the parameter "
+                                 f"{tuple(p.shape)}")
+            optimizer.state[p][name] = value.to(device=p.device,
+                                                dtype=torch.float32)
+    optimizer.param_groups[0]["step"] = int(state["step"])
 
 
 @torch.no_grad()

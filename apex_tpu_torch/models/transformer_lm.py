@@ -1,18 +1,26 @@
-"""Megatron-style transformer blocks, KV-cache decode path.
+"""Megatron-style transformer blocks: the KV-cache decode path and the
+training forward.
 
-Counterpart of ``apex_tpu/models/transformer_lm.py`` in decode mode
-(``ParallelTransformer(decode=True)``): pre-norm layers over the
-Megatron [s, b, h] layout, a fused QKV projection, RoPE at absolute
-positions, a KV cache written in place, and attention through the
-ported kernels: :func:`apex_tpu_torch.kernels.fused_cc.window_attention`
-for a chunk of several tokens (the prompt), and
-:func:`apex_tpu_torch.contrib.gqa_decode.gqa_flash_decode` for each
-single-token step. Norms go through the RMSNorm kernel.
+Counterpart of ``apex_tpu/models/transformer_lm.py``: pre-norm layers
+over the Megatron [s, b, h] layout, a fused QKV projection and RoPE.
 
-Dtypes follow the JAX modules: parameters in ``params_dtype`` (fp32),
-activations and the cache in ``compute_dtype``, norm statistics, RoPE,
-softmax and the MLP's activation in fp32. The training forward (flash
-attention) and the LayerNorm/alibi/MoE variants are later slices.
+- With a KV cache (``ParallelTransformer(decode=True)`` in JAX): RoPE at
+  absolute positions, the cache written in place, and attention through
+  :func:`apex_tpu_torch.kernels.fused_cc.window_attention` for a chunk
+  of several tokens (the prompt) or
+  :func:`apex_tpu_torch.contrib.gqa_decode.gqa_flash_decode` for each
+  single-token step.
+- Without one, the training forward with ``use_flash_attention=False``:
+  K/V broadcast to their query heads, fp32 scores from the
+  ``compute_dtype`` operands, the causal softmax kernel (forward and
+  backward) of :mod:`apex_tpu_torch.transformer.functional`, and the
+  context product in fp32. Flash attention is the next slice.
+
+Norms go through the RMSNorm kernels (forward, and backward-dx under
+autograd). Dtypes follow the JAX modules: parameters in
+``params_dtype`` (fp32), activations and the cache in
+``compute_dtype``, norm statistics, RoPE, scores, softmax and the MLP's
+activation in fp32. The LayerNorm/alibi/MoE variants are later slices.
 """
 
 import dataclasses
@@ -26,6 +34,10 @@ from torch import nn
 from apex_tpu_torch.contrib import gqa_decode
 from apex_tpu_torch.kernels import fused_cc
 from apex_tpu_torch.normalization import FusedRMSNorm
+from apex_tpu_torch.transformer.enums import AttnMaskType
+from apex_tpu_torch.transformer.functional import (
+    scaled_upper_triang_masked_softmax,
+)
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -66,8 +78,9 @@ def _scale_rope_freqs(inv, scaling: RopeScaling):
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The fields of ``apex_tpu.models.TransformerConfig`` that the decode
-    path reads, with torch dtypes. Values this slice cannot run (learned
-    or alibi positions, LayerNorm) are refused."""
+    path and the training forward read, with torch dtypes. Values the
+    port cannot run yet (learned or alibi positions, LayerNorm) are
+    refused."""
 
     hidden_size: int = 1024
     num_layers: int = 24
@@ -78,6 +91,8 @@ class TransformerConfig:
     layernorm_epsilon: float = 1e-5
     params_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
+    use_flash_attention: bool = True
+    attn_mask_type: AttnMaskType = AttnMaskType.causal
     num_query_groups: Optional[int] = None
     position_embedding_type: str = "rope"
     rotary_base: float = 10000.0
@@ -100,8 +115,8 @@ class TransformerConfig:
                 f"only 'rope' is ported so far")
         if self.normalization != "rmsnorm":
             raise ValueError(f"normalization {self.normalization!r}: only "
-                             f"'rmsnorm' is ported so far (LayerNorm's kernel "
-                             f"comes with training)")
+                             f"'rmsnorm' is ported so far (LayerNorm's kernels "
+                             f"come with the GPT-2 slice)")
         if self.activation not in ("gelu", "gelu_exact", "relu", "relu2",
                                    "swiglu", "geglu"):
             raise ValueError(f"unknown activation {self.activation!r}")
@@ -186,12 +201,13 @@ def _make_norm(cfg, device):
 
 
 class ParallelAttention(nn.Module):
-    """Self-attention over the KV cache: fused QKV projection (columns
-    ``[q heads | per-group (k_g | v_g)]`` under GQA, per-head
-    ``[q_i | k_i | v_i]`` blocks under MHA), RoPE at absolute positions,
-    the chunk's K/V written at the cache's index, attention through the
-    window kernel (s > 1) or the decode kernel (s == 1), and the output
-    projection."""
+    """Self-attention: fused QKV projection (columns ``[q heads |
+    per-group (k_g | v_g)]`` under GQA, per-head ``[q_i | k_i | v_i]``
+    blocks under MHA), RoPE, attention, and the output projection. With
+    a KV cache, the chunk's K/V are written at the cache's index and the
+    window kernel (s > 1) or the decode kernel (s == 1) attends over the
+    filled prefix; without one, the training forward attends causally
+    over the chunk through the causal softmax kernel."""
 
     def __init__(self, config: TransformerConfig, layer_number: int = 0,
                  device=None):
@@ -222,7 +238,8 @@ class ParallelAttention(nn.Module):
             return None
         return cfg.sliding_window
 
-    def forward(self, hidden_states, position_ids, cache):
+    def forward(self, hidden_states, position_ids=None, cache=None,
+                attention_mask=None):
         cfg = self.config
         n = cfg.num_attention_heads
         kv = cfg.kv_channels
@@ -235,7 +252,75 @@ class ParallelAttention(nn.Module):
             q = proj[..., :n * kv].reshape(s, b, n, kv)
             k, v = proj[..., n * kv:].reshape(s, b, g, 2 * kv).split(kv,
                                                                     dim=-1)
-        return self._decode_attention(q, k, v, position_ids, cache)
+        if cache is not None:
+            if attention_mask is not None:
+                raise ValueError(
+                    "decode mode does not support attention_mask: batch "
+                    "unpadded prompts (left-trim or group by length)")
+            return self._decode_attention(q, k, v, position_ids, cache)
+        return self._train_attention(q, k, v, position_ids, attention_mask)
+
+    def _check_train_path(self, s, attention_mask):
+        """Refuse what the training forward's causal softmax path cannot
+        run yet, naming the slice that brings it."""
+        cfg = self.config
+        if cfg.use_flash_attention:
+            raise NotImplementedError(
+                "the training forward with use_flash_attention=True needs "
+                "the flash attention kernels, which come with the next slice "
+                "of apex_tpu_torch (slice 3); set use_flash_attention=False "
+                "for the causal softmax path")
+        if attention_mask is not None:
+            raise NotImplementedError(
+                "an explicit attention_mask needs the masked softmax kernel, "
+                "which comes with the BERT slice of apex_tpu_torch")
+        if cfg.attn_mask_type != AttnMaskType.causal:
+            raise NotImplementedError(
+                f"attn_mask_type {cfg.attn_mask_type} needs the unmasked "
+                f"softmax kernel, which comes with the BERT slice of "
+                f"apex_tpu_torch")
+        window = self._layer_window()
+        if window is not None and window < s:
+            raise NotImplementedError(
+                f"a sliding window ({window} < {s} positions) in the "
+                f"training forward needs the masked softmax kernel (BERT "
+                f"slice) or flash attention (slice 3) of apex_tpu_torch")
+
+    def _train_attention(self, q, k, v, position_ids, attention_mask):
+        """Causal attention over the chunk, as the JAX model's softmax
+        path: RoPE at ``position_ids`` (default 0..s-1), each K/V group
+        repeated for its query heads, fp32 scores from ``compute_dtype``
+        operands, the causal softmax kernel, the context product in fp32
+        from ``compute_dtype`` probabilities. The ``.float()`` casts make
+        the bf16 x bf16 products accumulate in fp32 and send the
+        operands' gradients back in their own dtype, as JAX's einsum with
+        ``preferred_element_type=float32`` does."""
+        cfg = self.config
+        s, b, n, kv = q.shape
+        self._check_train_path(s, attention_mask)
+        q = apply_rotary_emb(q, cfg.rotary_base, position_ids,
+                             cfg.rotary_percent, cfg.rotary_interleaved,
+                             cfg.rope_scaling)
+        k = apply_rotary_emb(k, cfg.rotary_base, position_ids,
+                             cfg.rotary_percent, cfg.rotary_interleaved,
+                             cfg.rope_scaling)
+        if k.shape[2] != n:  # head i reads group i // rep
+            rep = n // k.shape[2]
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        # [s, b, n, d] -> [b, n, s, d]
+        qt, kt, vt = (t.permute(1, 2, 0, 3).to(cfg.compute_dtype)
+                      for t in (q, k, v))
+        scores = torch.matmul(qt.float(), kt.float().transpose(-1, -2))
+        scores = scores / math.sqrt(cfg.query_pre_attn_scalar or kv)
+        if cfg.attn_logit_softcapping is not None:
+            cap = cfg.attn_logit_softcapping
+            scores = cap * torch.tanh(scores / cap)
+        probs = scaled_upper_triang_masked_softmax(
+            scores.reshape(b * n, s, s), 1.0).reshape(b, n, s, s)
+        ctx = torch.matmul(probs.to(cfg.compute_dtype).float(), vt.float())
+        ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, n * kv)
+        return self.dense(ctx.to(cfg.compute_dtype))
 
     def _decode_attention(self, q, k, v, position_ids, cache):
         """Rotate at absolute positions, write the chunk's rows at the
@@ -318,11 +403,12 @@ class ParallelTransformerLayer(nn.Module):
         self.post_attention_layernorm = _make_norm(config, device)
         self.mlp = ParallelMLP(config, device)
 
-    def forward(self, hidden_states, position_ids, cache):
+    def forward(self, hidden_states, position_ids=None, cache=None,
+                attention_mask=None):
         compute = self.config.compute_dtype
         attn_out = self.self_attention(
             self.input_layernorm(hidden_states, out_dtype=compute),
-            position_ids, cache)
+            position_ids, cache, attention_mask)
         hidden_states = hidden_states + attn_out.to(hidden_states.dtype)
         mlp_out = self.mlp(
             self.post_attention_layernorm(hidden_states, out_dtype=compute))
@@ -330,7 +416,8 @@ class ParallelTransformerLayer(nn.Module):
 
 
 class ParallelTransformer(nn.Module):
-    """A stack of ``num_layers`` layers sharing one KV cache."""
+    """A stack of ``num_layers`` layers (sharing one KV cache when one is
+    given)."""
 
     def __init__(self, config: TransformerConfig, num_layers=None,
                  device=None):
@@ -339,7 +426,9 @@ class ParallelTransformer(nn.Module):
         self.layers = nn.ModuleList(
             ParallelTransformerLayer(config, i, device) for i in range(n))
 
-    def forward(self, hidden_states, position_ids, cache):
+    def forward(self, hidden_states, position_ids=None, cache=None,
+                attention_mask=None):
         for layer in self.layers:
-            hidden_states = layer(hidden_states, position_ids, cache)
+            hidden_states = layer(hidden_states, position_ids, cache,
+                                  attention_mask)
         return hidden_states

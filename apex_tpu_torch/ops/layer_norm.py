@@ -1,23 +1,54 @@
-"""Fused RMSNorm entry point (forward only).
+"""Fused RMSNorm entry point with its gradient.
 
-Counterpart of ``apex_tpu/ops/layer_norm.py`` ``rms_norm``. The kernel
-lives in :mod:`apex_tpu_torch.kernels.norm`; this module keeps the shape
-handling. The serving path needs no gradient, so there is no autograd
-here yet: the backward kernel comes with training, as does LayerNorm.
+Counterpart of ``apex_tpu/ops/layer_norm.py`` ``rms_norm`` and its
+custom VJP. The kernels live in :mod:`apex_tpu_torch.kernels.norm`; this
+module keeps the shape handling and the autograd: the forward launches
+the RMSNorm kernel and saves its input and weight, the backward
+launches the backward-dx kernel (which recomputes the row statistics)
+and computes the weight's gradient in plain PyTorch, as the JAX VJP
+computes it outside its kernel. LayerNorm comes with the GPT-2 slice.
 """
 
 import math
 
+import torch
+
 from apex_tpu_torch.kernels import norm as _kernels
+
+
+class _RMSNorm(torch.autograd.Function):
+    """y = rms_fwd(x2d, w) rounded to x2d's dtype, then to ``out_dtype``."""
+
+    @staticmethod
+    def forward(ctx, x2d, weight, eps, out_dtype):
+        ctx.save_for_backward(x2d, weight)
+        ctx.eps = eps
+        return _kernels.rms_fwd(x2d, weight, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, weight = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # the JAX VJP rounds dy to x's dtype before the kernel
+            dx = _kernels.rms_bwd_dx(dy.to(x2d.dtype).contiguous(), x2d,
+                                     weight, ctx.eps)
+        if weight is not None and ctx.needs_input_grad[1]:
+            x = x2d.float()
+            ms = torch.mean(x * x, dim=-1, keepdim=True)
+            xhat = x * torch.rsqrt(ms + ctx.eps)
+            dw = torch.sum(dy.float() * xhat, dim=0).to(weight.dtype)
+        return dx, dw, None, None
 
 
 def rms_norm(x, normalized_shape, weight=None, eps=1e-5, out_dtype=None):
     """RMSNorm over the trailing ``normalized_shape`` dims, statistics in
-    fp32, output in ``out_dtype`` (default: x's dtype)."""
+    fp32, output in ``out_dtype`` (default: x's dtype); differentiable in
+    x and weight."""
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
     h = math.prod(normalized_shape)
     x2d = x.reshape(-1, h)
     w = weight.reshape(h) if weight is not None else None
-    y = _kernels.rms_fwd(x2d, w, float(eps), out_dtype or x.dtype)
+    y = _RMSNorm.apply(x2d, w, float(eps), out_dtype or x.dtype)
     return y.reshape(x.shape)

@@ -1,0 +1,8 @@
+"""Enums (counterpart of ``apex_tpu/transformer/enums.py``)."""
+
+import enum
+
+
+class AttnMaskType(enum.Enum):
+    padding = 1
+    causal = 2

@@ -1,5 +1,8 @@
 """Tensor-parallel layers (world size 1 in this slice)."""
 
+from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
+    vocab_parallel_cross_entropy,
+)
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -7,4 +10,4 @@ from apex_tpu_torch.transformer.tensor_parallel.layers import (
 )
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding"]
+           "VocabParallelEmbedding", "vocab_parallel_cross_entropy"]

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive apex_tpu_torch's serving path on one NVIDIA GPU and hold each of
-its CUDA kernels against its plain PyTorch version.
+"""Drive apex_tpu_torch's serving path and training step on one NVIDIA
+GPU and hold each of its CUDA kernels against its plain PyTorch version.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase
+    python3 chip_smoke.py kernels        # build + kernel checks only
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -17,12 +18,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    same inputs within a stated tolerance, also on the options the path
    does not take (window, softcap, ragged T, head dim 128, fp32), and
    time kernel, plain version and one PyTorch library call as yardstick.
-3. slice: ``GPTModel`` at TinyLlama-1.1B width (22 layers, seeded random
-   weights) and ``generate(batch 8, prompt 128, 32 new tokens, greedy)``
-   with every launch count set to 0 just before and read just after;
-   the prefill and first decode step's logits against the same model
-   run through the plain versions on the card; prefill ms and decode
-   tokens/s.
+   The training kernels likewise at the training step's shapes (RMSNorm
+   backward-dx [2048, 2048] bf16, causal softmax forward and backward
+   [64, 1024, 1024] fp32, Adam over TinyLlama's 179 fp32 tensors) and
+   off them (fp32, bf16, sk > sq, 16384 keys, L2 decay, the noop flag,
+   more tensors than one launch takes). Malformed CUDA inputs to every
+   wrapper are refused and not counted.
+3. serving: ``GPTModel`` at TinyLlama-1.1B width (22 layers, seeded
+   random weights) and ``generate(batch 8, prompt 128, 32 new tokens,
+   greedy)`` with every launch count set to 0 just before and read just
+   after; the prefill and first decode step's logits against the same
+   model run through the plain versions on the card; prefill ms and
+   decode tokens/s.
+4. training: the same model with ``use_flash_attention=False`` takes
+   three ``FusedAdam(lr=1e-4)`` steps on a seeded batch of 2 x 1024
+   tokens, the counts set to 0 before each step and checked after it;
+   the loss must fall; step 1 (loss, every gradient, every update) is
+   held against the same step through the plain versions on the card;
+   step ms, tokens/s, peak memory and a profile of one step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -52,6 +65,9 @@ MODEL = dict(hidden_size=2048, num_layers=22, num_attention_heads=32,
              tie_word_embeddings=False)
 BATCH, PROMPT, NEW_TOKENS, SEED = 8, 128, 32, 0
 DECODE_LENGTH = PROMPT + NEW_TOKENS // 2  # a mid-run decode step
+# the training step: micro-batch 2 x 1024 tokens, FusedAdam as bench.py
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 2, 1024, 1e-4
+COUNTED_STEPS, TIMED_STEPS = 3, 5
 
 # Tolerances, kernel against plain version on the same inputs:
 # RMSNorm: the same fp32 operations with the sum in another order, so a
@@ -65,6 +81,35 @@ ATTN_TOL = 1e-4
 # difference in the last place propagates through the later layers;
 # logits have a standard deviation of ~1.
 LOGIT_TOL = 0.25
+# RMSNorm backward-dx: fp32 row sums in another order and rsqrtf against
+# torch.rsqrt; dx = (w*dy - xhat*c)*rstd cancels where w*dy ~ xhat*c, so
+# the absolute part is 1e-5 of the largest |dx|; bf16 may round either
+# way: one bf16 ulp.
+NORM_BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# softmax forward: the same fp32 operations (expf, IEEE division) with
+# the row max and sum taken in another order; probabilities <= 1.
+SOFTMAX_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+SOFTMAX_ATOL = 1e-6
+# softmax backward: scale*y*(dy - sum(dy*y)) cancels where dy ~ the sum:
+# the absolute part is 1e-5 of the largest |dx|.
+SOFTMAX_BWD_RTOL = SOFTMAX_RTOL
+# Adam: the same fp32 operations in the same order, elementwise with no
+# sums, so the kernel is expected to equal the plain version bit for bit;
+# held within 2 fp32 ulps.
+ADAM_RTOL = 2.0 ** -22
+# the training step, kernels against plain versions on the same weights
+# and batch (bf16 activations, 22 layers): the step-1 loss within 1e-3
+# relative; each gradient within 5e-2 relative (Frobenius): a bf16
+# rounding that flips after an fp32 difference in the last place flows
+# back through the layers. Adam's first step is lr * g / (|g| + eps),
+# lr * sign(g) for all but the smallest entries, so the two updates
+# differ only where the two gradients' signs do: a share f of such
+# entries gives a relative update error of 2 * sqrt(f). Only entries
+# whose |g| lies within the gradients' difference can flip, some 4 % of
+# them at a 5e-2 difference, hence 0.4 over all parameters and 0.5 for
+# each (a wrong or missing update is off by 1 or more).
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-3, 5e-2
+TRAIN_UPDATE_RTOL, TRAIN_TENSOR_UPDATE_RTOL = 0.4, 0.5
 
 
 def log(msg):
@@ -139,21 +184,28 @@ def max_rel(a, b):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the model's three kernel calls to their plain versions (for
-    the reference run on the card); the wrappers themselves are left as
-    they are."""
+    """Route the model's and the optimizer's kernel calls to their plain
+    versions (for the reference runs on the card). The wrappers are
+    swapped in their modules, so the autograd Functions and the
+    optimizer that call them stay the same."""
     from apex_tpu_torch.contrib import gqa_decode
-    from apex_tpu_torch.kernels import fused_cc, norm
-    saved = (norm.rms_fwd, fused_cc.window_attention,
-             gqa_decode.gqa_flash_decode)
-    norm.rms_fwd = norm.rms_fwd_plain
-    fused_cc.window_attention = fused_cc.window_attention_plain
-    gqa_decode.gqa_flash_decode = gqa_decode.gqa_decode_plain
+    from apex_tpu_torch.kernels import fused_cc, norm, optim, softmax
+    swaps = [(norm, "rms_fwd", norm.rms_fwd_plain),
+             (norm, "rms_bwd_dx", norm.rms_bwd_dx_plain),
+             (fused_cc, "window_attention", fused_cc.window_attention_plain),
+             (gqa_decode, "gqa_flash_decode", gqa_decode.gqa_decode_plain),
+             (softmax, "causal_softmax_fwd",
+              softmax.causal_softmax_fwd_plain),
+             (softmax, "softmax_bwd", softmax.softmax_bwd_plain),
+             (optim, "adam", optim.adam_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        (norm.rms_fwd, fused_cc.window_attention,
-         gqa_decode.gqa_flash_decode) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 # ---------------------------------------------------------------- phase 1
@@ -181,13 +233,22 @@ def entry(name, shape, got, want, tolerance, kernel, plain, library,
           bound_ms_by):
     """One kernel's line: its error against the plain version on the
     same inputs, and the device time of the kernel, the plain version and
-    the library call (and the kernel's eager call time, host included)."""
+    the library call (and the kernel's eager call time, host included).
+    ``library`` None: there is no one PyTorch call for the function."""
     return dict(name=name, shape=shape, max_abs_err=max_abs(got, want),
                 max_rel_err=max_rel(got, want), tolerance=tolerance,
                 ms=device_ms(kernel), call_ms=call_ms(kernel),
                 plain_ms=device_ms(plain, iters=5),
-                library_ms=device_ms(library), bound_ms=bound_ms_by[0],
-                bound_by=bound_ms_by[1])
+                library_ms=None if library is None else device_ms(library),
+                bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1])
+
+
+def assert_close_scaled(got, want, rtol, scaled_atol=1e-5):
+    """Elementwise ``rtol``, with an absolute part of ``scaled_atol``
+    times the largest |want| (for outputs that cancel to ~0)."""
+    atol = scaled_atol * want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
 
 
 def check_rms_norm(gen):
@@ -337,11 +398,219 @@ def check_gqa_decode(gen):
         _attention_bound(BATCH, g, rep, d, 1, L - 1, None))]
 
 
+def check_rms_bwd(gen):
+    from apex_tpu_torch.kernels import norm
+    h = MODEL["hidden_size"]
+    eps = MODEL["layernorm_epsilon"]
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    w = 1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+    for n in (8, rows):
+        for tx in (torch.float32, torch.bfloat16):
+            for tdy in (torch.float32, torch.bfloat16):
+                for weight in (w, None):
+                    x = _randn(gen, n, h, dtype=tx, scale=3.0)
+                    dy = _randn(gen, n, h, dtype=tdy)
+                    got = norm.rms_bwd_dx(dy, x, weight, eps)
+                    want = norm.rms_bwd_dx_plain(dy, x, weight, eps)
+                    torch.cuda.synchronize()
+                    assert got.dtype == tx and got.shape == x.shape
+                    assert_close_scaled(got, want, NORM_BWD_RTOL[tx])
+    # the path's call: dy of the bf16 norm output, the bf16 residual
+    x = _randn(gen, rows, h, scale=3.0)
+    dy = _randn(gen, rows, h)
+    got = norm.rms_bwd_dx(dy, x, w, eps)
+    want = norm.rms_bwd_dx_plain(dy, x, w, eps)
+    assert_close_scaled(got, want, NORM_BWD_RTOL[torch.bfloat16])
+    library = None
+    if hasattr(torch.ops.aten, "_fused_rms_norm_backward"):
+        # the backward op of F.rms_norm (one dtype: a bf16 weight)
+        w_lib = w.to(x.dtype)
+        _, rstd = torch.ops.aten._fused_rms_norm(x, [h], w_lib, eps)
+
+        def library():
+            return torch.ops.aten._fused_rms_norm_backward(
+                dy, x, [h], rstd, w_lib, [True, False])
+    return [entry(
+        "rms_bwd", f"dy, x [{rows},{h}] bf16 -> dx bf16", got, want,
+        f"rtol {NORM_BWD_RTOL[torch.bfloat16]} atol 1e-5*max|dx|",
+        lambda: norm.rms_bwd_dx(dy, x, w, eps),
+        lambda: norm.rms_bwd_dx_plain(dy, x, w, eps), library,
+        bound(rows * h * 2 * 3 + h * 4, 10 * rows * h, FP32_OPS_PER_S))]
+
+
+def _live_keys(sq, sk):
+    """Keys the causal mask leaves live, summed over the sq rows."""
+    return sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
+
+
+def check_softmax(gen):
+    from apex_tpu_torch.kernels import softmax
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, sq, sk in ((4, 128, 128), (3, 100, 357), (5, 33, 1000),
+                          (2, 7, softmax.MAX_KEYS)):
+            for scale in (1.0, 0.125):
+                x = _randn(gen, b, sq, sk, dtype=dtype, scale=4.0)
+                got = softmax.causal_softmax_fwd(x, scale)
+                want = softmax.causal_softmax_fwd_plain(x, scale)
+                torch.cuda.synchronize()
+                assert got.dtype == dtype and got.shape == x.shape
+                live = torch.ones(sq, sk, dtype=torch.bool,
+                                  device="cuda").tril(sk - sq)
+                assert (got[:, ~live] == 0).all(), "a masked key is not 0"
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=SOFTMAX_RTOL[dtype],
+                                           atol=SOFTMAX_ATOL)
+                dy = _randn(gen, b, sq, sk, dtype=dtype)
+                got = softmax.softmax_bwd(want, dy, scale)
+                ref = softmax.softmax_bwd_plain(want, dy, scale)
+                torch.cuda.synchronize()
+                assert got.dtype == dtype
+                assert_close_scaled(got, ref, SOFTMAX_BWD_RTOL[dtype])
+    # the path: [b * heads, s, s] fp32 scores, scale 1
+    B = TRAIN_BATCH * MODEL["num_attention_heads"]
+    S = TRAIN_SEQ
+    x = _randn(gen, B, S, S, dtype=torch.float32, scale=4.0)
+    got = softmax.causal_softmax_fwd(x, 1.0)
+    want = softmax.causal_softmax_fwd_plain(x, 1.0)
+    torch.testing.assert_close(got, want, rtol=SOFTMAX_RTOL[torch.float32],
+                               atol=SOFTMAX_ATOL)
+    live = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    x_masked = x.masked_fill(~live, float("-inf"))
+    keys = _live_keys(S, S)
+    fwd = entry(
+        "causal_softmax", f"x [{B},{S},{S}] fp32, scale 1", got, want,
+        f"rtol {SOFTMAX_RTOL[torch.float32]} atol {SOFTMAX_ATOL}",
+        lambda: softmax.causal_softmax_fwd(x, 1.0),
+        lambda: softmax.causal_softmax_fwd_plain(x, 1.0),
+        lambda: torch.softmax(x_masked, dim=-1),  # the mask applied before
+        bound(B * keys * 4 + B * S * S * 4, 5 * B * keys, FP32_OPS_PER_S))
+    y = want
+    dy = _randn(gen, B, S, S, dtype=torch.float32)
+    got = softmax.softmax_bwd(y, dy, 1.0)
+    ref = softmax.softmax_bwd_plain(y, dy, 1.0)
+    assert_close_scaled(got, ref, SOFTMAX_BWD_RTOL[torch.float32])
+    bwd = entry(
+        "softmax_bwd", f"y, dy [{B},{S},{S}] fp32, scale 1", got, ref,
+        f"rtol {SOFTMAX_BWD_RTOL[torch.float32]} atol 1e-5*max|dx|",
+        lambda: softmax.softmax_bwd(y, dy, 1.0),
+        lambda: softmax.softmax_bwd_plain(y, dy, 1.0),
+        lambda: torch._softmax_backward_data(dy, y, -1, torch.float32),
+        bound(3 * B * S * S * 4, 5 * B * S * S, FP32_OPS_PER_S))
+    return [fwd, bwd]
+
+
+def _adam_state(gen, shapes):
+    """fp32 g, p, m, v lists on the card (v >= 0)."""
+    def each(fn):
+        return [fn(s) for s in shapes]
+    g = each(lambda s: torch.randn(s, generator=gen, device="cuda"))
+    p = each(lambda s: torch.randn(s, generator=gen, device="cuda"))
+    m = each(lambda s: 0.1 * torch.randn(s, generator=gen, device="cuda"))
+    v = each(lambda s: 0.01 * torch.rand(s, generator=gen, device="cuda"))
+    return g, p, m, v
+
+
+def _max_errs(got, want):
+    """(max abs err, max abs err / max |want|) over lists of tensors."""
+    pairs = [(a, b) for a, b in zip(got, want) if b.numel()]
+    err = max(max_abs(a, b) for a, b in pairs)
+    ref = max(b.abs().max().item() for _, b in pairs)
+    return err, err / ref
+
+
+def check_adam(gen):
+    import math
+
+    from apex_tpu_torch.kernels import optim, registry
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    from apex_tpu_torch.ops.multi_tensor import bias_corrections
+
+    def run_both(g, p, m, v, noop, lr, b1, b2, eps, wd, adam_w, bc):
+        """Kernel and plain version on copies of the same state; returns
+        both (p, m, v) and the kernel's launches."""
+        kw = dict(lr=lr, bc1=bc[0], bc2=bc[1], b1=b1, b2=b2, eps=eps,
+                  weight_decay=wd, adam_w=adam_w)
+        ker = [[t.clone() for t in ts] for ts in (p, m, v)]
+        pln = [[t.clone() for t in ts] for ts in (p, m, v)]
+        before = registry.launches()["adam"]
+        optim.adam(noop, g, *ker, **kw)
+        launched = registry.launches()["adam"] - before
+        optim.adam_plain(noop, g, *pln, **kw)
+        torch.cuda.synchronize()
+        return ker, pln, launched
+
+    noop0 = torch.zeros(1, device="cuda")
+    # options the path does not take, over more tensors than one launch's
+    # table holds, with sizes from 0 to several chunks
+    sizes = [0, 1, 3, 255, 65536, 65537, 200003] + [
+        int(n) for n in torch.randint(1, 5000, (140,), generator=gen,
+                                      device="cuda").tolist()]
+    g, p, m, v = _adam_state(gen, [(n,) for n in sizes])
+    for adam_w, wd, step, corrected in ((False, 0.01, 1, True),
+                                        (True, 0.01, 5, True),
+                                        (True, 0.0, 2, False),
+                                        (False, 0.0, 3, True)):
+        bc = bias_corrections(0.9, 0.999, step) if corrected else (1.0, 1.0)
+        ker, pln, launched = run_both(g, p, m, v, noop0, 1e-3, 0.9, 0.999,
+                                      1e-8, wd, adam_w, bc)
+        assert launched == math.ceil(len(sizes) / optim.MAX_TENSORS)
+        for a, b in zip(ker, pln):
+            _, rel = _max_errs(a, b)
+            assert rel <= ADAM_RTOL, (adam_w, wd, step, rel)
+    # the noop flag leaves p, m and v bit-identical
+    ker, _, _ = run_both(g, p, m, v, torch.ones(1, device="cuda"), 1e-3,
+                         0.9, 0.999, 1e-8, 0.01, True,
+                         bias_corrections(0.9, 0.999, 1))
+    for a, b in zip(ker, (p, m, v)):
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), "noop moved"
+    log(f"kernels: adam over {len(sizes)} tensors "
+        f"({math.ceil(len(sizes) / optim.MAX_TENSORS)} launches, L2 and "
+        f"decoupled decay, with and without bias correction) matches its "
+        f"plain version; noop = 1 leaves p, m, v bit-identical")
+    del g, p, m, v, ker, pln
+
+    # the path: FusedAdam's step over TinyLlama-1.1B's fp32 tensors
+    cfg = TransformerConfig(**MODEL, use_flash_attention=False)
+    shapes = [tuple(t.shape) for t in
+              GPTModel(cfg, device="meta").parameters()]
+    n = sum(math.prod(s) for s in shapes)
+    g, p, m, v = _adam_state(gen, shapes)
+    lr, b1, b2, eps = TRAIN_LR, 0.9, 0.999, 1e-8
+    bc = bias_corrections(b1, b2, 1)
+    ker, pln, launched = run_both(g, p, m, v, noop0, lr, b1, b2, eps, 0.0,
+                                  True, bc)
+    err, rel = zip(*(_max_errs(a, b) for a, b in zip(ker, pln)))
+    assert max(rel) <= ADAM_RTOL, rel
+    kw = dict(lr=lr, bc1=bc[0], bc2=bc[1], b1=b1, b2=b2, eps=eps,
+              weight_decay=0.0, adam_w=True)
+    steps = [torch.ones((), device="cuda") for _ in shapes]
+    result = dict(
+        name="adam", shape=f"{len(shapes)} fp32 tensors, {n} params",
+        max_abs_err=max(err), max_rel_err=max(rel),
+        tolerance=f"rel {ADAM_RTOL} (bit-identical expected)",
+        ms=device_ms(lambda: optim.adam(noop0, g, *ker, **kw), iters=5,
+                     replays=2),
+        call_ms=call_ms(lambda: optim.adam(noop0, g, *ker, **kw), 5, 1),
+        plain_ms=call_ms(lambda: optim.adam_plain(noop0, g, *pln, **kw),
+                         3, 1),
+        library_ms=call_ms(lambda: torch._fused_adamw_(
+            pln[0], g, pln[1], pln[2], [], steps, lr=lr, beta1=b1,
+            beta2=b2, weight_decay=0.0, eps=eps, amsgrad=False,
+            maximize=False), 5, 1))
+    result["bound_ms"], result["bound_by"] = bound(28 * n, 15 * n,
+                                                    FP32_OPS_PER_S)
+    log(f"kernels: adam over the path's {len(shapes)} tensors: "
+        f"{launched} launches")
+    del g, p, m, v, ker, pln
+    torch.cuda.empty_cache()
+    return [result]
+
+
 def check_refusals():
     """On a CUDA tensor a wrapper launches its kernel or raises: what the
     kernels do not take is refused, never sent to the plain version."""
     from apex_tpu_torch.contrib import gqa_decode
-    from apex_tpu_torch.kernels import fused_cc, norm, registry
+    from apex_tpu_torch.kernels import fused_cc, norm, optim, registry, softmax
 
     def refused(exc, fn):
         try:
@@ -365,12 +634,42 @@ def check_refusals():
     refused(ValueError, lambda: gqa_decode.gqa_flash_decode(  # head dim 32
         q[0, ..., :32].contiguous(), k[..., :32].contiguous(),
         k[..., :32].contiguous(), 4, 0.1))
+    # the training kernels
+    x = torch.zeros(4, 64, device="cuda")
+    refused(TypeError, lambda: norm.rms_bwd_dx(x.half(), x, None, 1e-5))
+    refused(ValueError, lambda: norm.rms_bwd_dx(x, x[:, :32], None, 1e-5))
+    refused(ValueError, lambda: norm.rms_bwd_dx(x.t(), x.t(), None, 1e-5))
+    refused(ValueError, lambda: norm.rms_bwd_dx(
+        x, x, torch.ones(32, device="cuda"), 1e-5))
+    s3 = torch.zeros(2, 8, 8, device="cuda")
+    refused(ValueError, lambda: softmax.causal_softmax_fwd(s3[None], 1.0))
+    refused(ValueError, lambda: softmax.causal_softmax_fwd(
+        s3.transpose(1, 2), 1.0))
+    refused(TypeError, lambda: softmax.causal_softmax_fwd(s3.half(), 1.0))
+    refused(ValueError, lambda: softmax.causal_softmax_fwd(torch.zeros(
+        1, 1, softmax.MAX_KEYS + 1, device="cuda"), 1.0))
+    refused(TypeError, lambda: softmax.softmax_bwd(s3, s3.bfloat16(), 1.0))
+    refused(ValueError, lambda: softmax.softmax_bwd(s3, s3[:, :4], 1.0))
+    t = [torch.zeros(8, device="cuda")]
+    kw = dict(lr=1e-3, bc1=0.1, bc2=0.001, b1=0.9, b2=0.999, eps=1e-8,
+              weight_decay=0.0, adam_w=True)
+    noop = torch.zeros(1, device="cuda")
+    refused(TypeError, lambda: optim.adam(noop, [t[0].bfloat16()], t, t, t,
+                                          **kw))
+    refused(ValueError, lambda: optim.adam(
+        noop, t, t, t, [torch.zeros(4, device="cuda")], **kw))
+    refused(ValueError, lambda: optim.adam(noop, t * 2, t, t, t, **kw))
+    refused(ValueError, lambda: optim.adam(torch.zeros(2, device="cuda"),
+                                           t, t, t, t, **kw))
+    uneven = [torch.zeros(16, device="cuda")[::2]]
+    refused(ValueError, lambda: optim.adam(noop, uneven, uneven, uneven,
+                                           uneven, **kw))
     assert registry.launches() == before, "a refused call was counted"
     log("kernels: malformed CUDA inputs are refused (dtype, layout, range, "
-        "head dim)")
+        "head dim, shapes, list lengths)")
 
 
-# ---------------------------------------------------------------- phase 3
+# ------------------------------------------------------------- phases 3, 4
 
 def profile_window(label, fn, top=6):
     """Device busy share of one call of ``fn`` under torch.profiler (the
@@ -384,7 +683,8 @@ def profile_window(label, fn, top=6):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]  # ranges, not device work
     if not kernels:
         log(f"profile {label}: the profiler saw no device work; busy share "
             f"not measured")
@@ -402,7 +702,22 @@ def profile_window(label, fn, top=6):
         log(f"  {us:9.1f} us {n:5d}x {name[:90]}")
 
 
-def phase_slice():
+def _wall_ms(fn):
+    """(host ms of one synchronized call of ``fn``, its result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _spread(xs):
+    xs = sorted(xs)
+    return (f"median {statistics.median(xs):.2f} ms, min {xs[0]:.2f}, "
+            f"max {xs[-1]:.2f} over {len(xs)}")
+
+
+def phase_serving():
     from apex_tpu_torch.kernels import registry
     from apex_tpu_torch.models import (
         GPTModel,
@@ -427,13 +742,15 @@ def phase_slice():
     # the main path, counted
     registry.reset()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()  # the serving path's own peak
     t0 = time.perf_counter()
     tokens = generate(model, prompt, NEW_TOKENS)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = registry.launches()
     forwards = NEW_TOKENS  # one prefill + NEW_TOKENS - 1 decode steps
-    expected = {"rms_norm": (2 * cfg.num_layers + 1) * forwards,
+    expected = {**dict.fromkeys(launches, 0),  # no training kernel
+                "rms_norm": (2 * cfg.num_layers + 1) * forwards,
                 "window_attention": cfg.num_layers,
                 "gqa_decode": cfg.num_layers * (forwards - 1)}
     log(f"slice: generate({BATCH}x{PROMPT} prompt, {NEW_TOKENS} new tokens,"
@@ -483,20 +800,8 @@ def phase_slice():
         pos = torch.arange(PROMPT, device=model.device)[None, :]
         return prefill(model, cache, prompt.cuda(), pos)
 
-    def wall_ms(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3, out
-
-    def spread(xs):
-        xs = sorted(xs)
-        return (f"median {statistics.median(xs):.2f} ms, min {xs[0]:.2f}, "
-                f"max {xs[-1]:.2f} over {len(xs)}")
-
     run_prefill()  # warm
-    prefill_ms = [wall_ms(run_prefill)[0] for _ in range(7)]
+    prefill_ms = [_wall_ms(run_prefill)[0] for _ in range(7)]
     cache, logits = run_prefill()
     nxt = tokens[:, PROMPT:PROMPT + 1]
 
@@ -507,11 +812,11 @@ def phase_slice():
 
     step_ms = []
     for i in range(NEW_TOKENS - 1):
-        ms, (cache, logits) = wall_ms(lambda: step(i))
+        ms, (cache, logits) = _wall_ms(lambda: step(i))
         step_ms.append(ms)
     med = statistics.median(step_ms)
-    log(f"slice: prefill ({BATCH}x{PROMPT} tokens) {spread(prefill_ms)}; "
-        f"decode step {spread(step_ms)} = {BATCH / med * 1e3:.1f} tokens/s "
+    log(f"slice: prefill ({BATCH}x{PROMPT} tokens) {_spread(prefill_ms)}; "
+        f"decode step {_spread(step_ms)} = {BATCH / med * 1e3:.1f} tokens/s "
         f"at batch {BATCH} (host clock, synchronized); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_window("prefill", run_prefill)
@@ -520,13 +825,174 @@ def phase_slice():
     return launches
 
 
-def main():
+def _rel_fro(got, want):
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+def phase_training():
+    import math
+
+    from apex_tpu_torch.kernels import optim, registry
+    from apex_tpu_torch.models import (
+        GPTModel,
+        TransformerConfig,
+        gpt_loss_fn,
+        init_weights,
+    )
+    from apex_tpu_torch.optimizers import FusedAdam
+    cfg = TransformerConfig(**MODEL, compute_dtype=torch.bfloat16,
+                            use_flash_attention=False)
+    t0 = time.perf_counter()
+    model = GPTModel(cfg)  # on the card by default
+    init_weights(model, SEED)
+    params = dict(model.named_parameters())
+    w0 = {n: p.detach().to("cpu", copy=True) for n, p in params.items()}
+    n_params = sum(p.numel() for p in params.values())
+    log(f"training: GPTModel {cfg.num_layers} layers, hidden "
+        f"{cfg.hidden_size}, {len(params)} tensors, {n_params} params, "
+        f"use_flash_attention=False, in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    tokens = torch.randint(0, cfg.vocab_size, shape, generator=gen).cuda()
+    labels = torch.randint(0, cfg.vocab_size, shape, generator=gen).cuda()
+
+    def step(opt):
+        loss = gpt_loss_fn(model(tokens), labels)
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        return loss
+
+    # the main path, counted step by step
+    L = cfg.num_layers
+    per_step = {"rms_norm": 2 * L + 1, "rms_bwd": 2 * L + 1,
+                "causal_softmax": L, "softmax_bwd": L,
+                "adam": math.ceil(len(params) / optim.MAX_TENSORS)}
+    totals = dict.fromkeys(per_step, 0)
+    opt = FusedAdam(model.parameters(), lr=TRAIN_LR)
+    losses, step_ms = [], []
+    for k in range(COUNTED_STEPS):
+        registry.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = gpt_loss_fn(model(tokens), labels)
+        loss.backward()
+        if k == 0:
+            g1 = {n: p.grad.detach().to("cpu", copy=True)
+                  for n, p in params.items()}
+        opt.step()
+        opt.zero_grad()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = registry.launches()
+        got = {name: launches[name] for name in per_step}
+        assert got == per_step, (k, got, per_step)
+        for name in per_step:
+            totals[name] += got[name]
+        assert torch.isfinite(loss), loss
+        losses.append(loss.item())
+        if k == 0:
+            p1 = {n: p.detach().to("cpu", copy=True)
+                  for n, p in params.items()}
+            moved = sum(not torch.equal(p1[n], w0[n]) for n in params)
+            assert moved == len(params), (moved, len(params))
+    assert opt.param_groups[0]["step"] == COUNTED_STEPS
+    log(f"training: {COUNTED_STEPS} steps of batch {TRAIN_BATCH}x"
+        f"{TRAIN_SEQ}: losses {losses}; launches per step {per_step} "
+        f"(every step), the {len(params)} tensors updated by "
+        f"{per_step['adam']} Adam launches; step ms {step_ms}")
+    assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
+
+    # step time, tokens/s, peak memory through the same entry points
+    torch.cuda.reset_peak_memory_stats()
+    timed = [_wall_ms(lambda: step(opt))[0] for _ in range(TIMED_STEPS)]
+    med = statistics.median(timed)
+    log(f"training: step (forward, backward, FusedAdam) {_spread(timed)} "
+        f"= {TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.1f} tokens/s (host "
+        f"clock, synchronized); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_window("training step", lambda: step(opt), top=10)
+
+    # step 1 again from the same weights, through the plain versions
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(w0[n])
+    opt = FusedAdam(model.parameters(), lr=TRAIN_LR)
+    registry.reset()
+    with plain_versions():
+        loss = gpt_loss_fn(model(tokens), labels)
+        loss.backward()
+        grad_err = {n: _rel_fro(g1[n].cuda(), p.grad)
+                    for n, p in params.items()}
+        opt.step()
+        opt.zero_grad()
+    assert not any(registry.launches().values()), registry.launches()
+    loss_err = abs(losses[0] - loss.item()) / abs(loss.item())
+    num = den = flipped = 0.0
+    update_err = {}
+    for n, p in params.items():
+        want = p.detach() - w0[n].cuda()
+        got = p1[n].cuda() - w0[n].cuda()
+        update_err[n] = _rel_fro(got, want)
+        num += (got - want).float().norm().item() ** 2
+        den += want.float().norm().item() ** 2
+        flipped += (torch.sign(got) != torch.sign(want)).sum().item()
+    total_err = math.sqrt(num / den)
+    worst_g = max(grad_err, key=grad_err.get)
+    worst_u = max(update_err, key=update_err.get)
+    log(f"training: step 1 kernels vs plain versions: loss {losses[0]:.6f} "
+        f"vs {loss.item():.6f} (rel err {loss_err:.3e}, tolerance "
+        f"{TRAIN_LOSS_RTOL}); largest gradient rel err {grad_err[worst_g]:.3e}"
+        f" ({worst_g}; tolerance {TRAIN_GRAD_RTOL}); update rel err "
+        f"{total_err:.3e} over all parameters (tolerance "
+        f"{TRAIN_UPDATE_RTOL}), largest {update_err[worst_u]:.3e} "
+        f"({worst_u}; tolerance {TRAIN_TENSOR_UPDATE_RTOL}); updates of "
+        f"opposite sign: {flipped / n_params:.3e} of the entries")
+    assert loss_err <= TRAIN_LOSS_RTOL, loss_err
+    assert grad_err[worst_g] <= TRAIN_GRAD_RTOL, (worst_g, grad_err[worst_g])
+    assert total_err <= TRAIN_UPDATE_RTOL, total_err
+    assert update_err[worst_u] <= TRAIN_TENSOR_UPDATE_RTOL, (
+        worst_u, update_err[worst_u])
+    return totals
+
+
+PHASES = ("kernels", "serving", "training")
+SOURCES = {  # kernel -> (its source, the TPU kernel it replaces)
+    "rms_norm": ("apex_tpu_torch/csrc/rms_norm.cu",
+                 "apex_tpu/kernels/norm.py:85"),
+    "rms_bwd": ("apex_tpu_torch/csrc/rms_norm.cu",
+                "apex_tpu/kernels/norm.py:94"),
+    "window_attention": ("apex_tpu_torch/csrc/window_attention.cu",
+                         "apex_tpu/kernels/fused_cc.py:313"),
+    "gqa_decode": ("apex_tpu_torch/csrc/gqa_decode.cu",
+                   "apex_tpu/contrib/gqa_decode.py:66"),
+    "causal_softmax": ("apex_tpu_torch/csrc/softmax.cu",
+                       "apex_tpu/kernels/softmax.py:79"),
+    "softmax_bwd": ("apex_tpu_torch/csrc/softmax.cu",
+                    "apex_tpu/kernels/softmax.py:95"),
+    "adam": ("apex_tpu_torch/csrc/adam.cu", "apex_tpu/kernels/optim.py:90"),
+}
+
+
+def _us(ms):
+    return "none" if ms is None else f"{ms * 1e3:.2f} us"
+
+
+def main(argv):
+    phases = argv[1:] or list(PHASES)
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        print(f"chip_smoke: unknown phases {unknown}; choose from {PHASES}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on an NVIDIA GPU", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     log(f"torch {torch.__version__} CUDA {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     card = card_line()
@@ -534,39 +1000,51 @@ def main():
 
     phase_build()
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    entries = (check_rms_norm(gen) + check_window_attention(gen)
-               + check_gqa_decode(gen))
-    check_refusals()
-    for e in entries:
-        log(f"kernel {e['name']} [{e['shape']}]: max abs err "
-            f"{e['max_abs_err']:.3e} rel {e['max_rel_err']:.3e} "
-            f"({e['tolerance']}); {e['ms'] * 1e3:.2f} us on the device "
-            f"({e['call_ms'] * 1e3:.2f} us a call, host included), plain "
-            f"{e['plain_ms'] * 1e3:.2f} us, library "
-            f"{e['library_ms'] * 1e3:.2f} us, bound "
-            f"{e['bound_ms'] * 1e3:.3f} us by {e['bound_by']}")
+    entries = []
+    if "kernels" in phases:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        entries = (check_rms_norm(gen) + check_window_attention(gen)
+                   + check_gqa_decode(gen) + check_rms_bwd(gen)
+                   + check_softmax(gen) + check_adam(gen))
+        check_refusals()
+        for e in entries:
+            log(f"kernel {e['name']} [{e['shape']}]: max abs err "
+                f"{e['max_abs_err']:.3e} rel {e['max_rel_err']:.3e} "
+                f"({e['tolerance']}); {_us(e['ms'])} on the device "
+                f"({_us(e['call_ms'])} a call, host included), plain "
+                f"{_us(e['plain_ms'])}, library {_us(e['library_ms'])}, "
+                f"bound {e['bound_ms'] * 1e3:.3f} us by {e['bound_by']}")
+        torch.cuda.empty_cache()
 
-    launches = phase_slice()
+    by_path = {}
+    if "serving" in phases:
+        by_path["serving"] = phase_serving()
+        torch.cuda.empty_cache()
+    if "training" in phases:
+        by_path["training"] = phase_training()
+        torch.cuda.empty_cache()
+    log(f"chip_smoke: phases {phases} in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    if list(phases) != list(PHASES):
+        log("chip_smoke: a partial run prints no result")
+        return 0
 
-    sources = {"rms_norm": ("apex_tpu_torch/csrc/rms_norm.cu",
-                            "apex_tpu/kernels/norm.py:85"),
-               "window_attention": ("apex_tpu_torch/csrc/window_attention.cu",
-                                    "apex_tpu/kernels/fused_cc.py:313"),
-               "gqa_decode": ("apex_tpu_torch/csrc/gqa_decode.cu",
-                              "apex_tpu/contrib/gqa_decode.py:66")}
     kernels, seen = [], set()
     for e in entries:  # the first (main-path) shape of each kernel
         if e["name"] in seen:
             continue
         seen.add(e["name"])
-        src, replaces = sources[e["name"]]
+        src, replaces = SOURCES[e["name"]]
+        paths = {path: counts[e["name"]] for path, counts in by_path.items()
+                 if counts.get(e["name"])}
         kernels.append(dict(
             name=e["name"], route="cuda", source=src, replaces=replaces,
-            launches=launches[e["name"]], max_abs_err=e["max_abs_err"],
-            ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
+            launches=sum(paths.values()), launches_by_path=paths,
+            max_abs_err=e["max_abs_err"], ms=e["ms"],
+            plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=e["library_ms"],
             call_ms=e["call_ms"], shape=e["shape"]))
+    assert seen == set(SOURCES), (seen, set(SOURCES))
     assert all(k["launches"] > 0 for k in kernels), kernels
     log(json.dumps({"kernels": kernels, "card": card}))
     log(json.dumps({"ok": True, "device": {
@@ -576,4 +1054,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

@@ -89,7 +89,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 def test_real_sources_and_flags():
     names = {p.name for p in _build.sources()}
-    assert {"gqa_decode.cu", "rms_norm.cu", "window_attention.cu"} <= names
+    assert {"adam.cu", "gqa_decode.cu", "rms_norm.cu", "softmax.cu",
+            "window_attention.cu"} <= names
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     assert _build.BUILD_DIR == (Path(__file__).resolve().parents[1]
@@ -99,15 +100,25 @@ def test_real_sources_and_flags():
 def test_plain_versions_count_no_launch():
     """CPU tensors take the plain versions, which are not launches."""
     from apex_tpu_torch.contrib import gqa_decode
-    from apex_tpu_torch.kernels import fused_cc, norm
+    from apex_tpu_torch.kernels import fused_cc, norm, optim, softmax
     registry.reset()
     q = torch.randn(2, 1, 2, 2, 16)
     k = torch.randn(8, 1, 2, 16)
-    norm.rms_fwd(torch.randn(3, 16), None, 1e-5)
+    x = torch.randn(3, 16)
+    norm.rms_fwd(x, None, 1e-5)
+    norm.rms_bwd_dx(x, x, None, 1e-5)
     fused_cc.window_attention(q, k, k, 0, 0.25)
     gqa_decode.gqa_flash_decode(q[0], k, k, 3, 0.25)
-    assert registry.launches() == {"rms_norm": 0, "window_attention": 0,
-                                   "gqa_decode": 0}
+    y = softmax.causal_softmax_fwd(x[None], 1.0)
+    softmax.softmax_bwd(y, y, 1.0)
+    optim.adam(torch.zeros(1), [x], [x.clone()], [x.clone()], [x.abs()],
+               lr=1e-3, bc1=0.1, bc2=0.001, b1=0.9, b2=0.999, eps=1e-8,
+               weight_decay=0.0, adam_w=True)
+    kernels = ("rms_norm", "rms_bwd", "window_attention", "gqa_decode",
+               "causal_softmax", "softmax_bwd", "adam")
+    launches = registry.launches()
+    assert set(kernels) <= launches.keys()
+    assert not any(launches[name] for name in kernels), launches
 
 
 def test_registry_counts_and_resets():

@@ -1,5 +1,5 @@
-"""apex_tpu_torch RMSNorm (kernels/norm, ops/layer_norm, FusedRMSNorm)
-against apex_tpu's on the CPU.
+"""apex_tpu_torch RMSNorm (kernels/norm, ops/layer_norm, FusedRMSNorm),
+forward and gradient, against apex_tpu's on the CPU.
 
 The port's wrapper takes its plain PyTorch version for CPU tensors; the
 JAX side runs its public function both through the jnp oracle and
@@ -9,14 +9,17 @@ seeds and go to both sides as the same values.
 Tolerances: fp32 output within 2e-6 relative (the same fp32 operations,
 summed in another order); bf16 output within one bf16 ulp (2**-7
 relative: a value that sits on a rounding boundary may round either
-way after an fp32 difference of one ulp).
+way after an fp32 difference of one ulp). The weight's gradient, a sum
+over rows in fp32, within 1e-5 relative.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from apex_tpu.kernels import norm as jax_kernels
 from apex_tpu.kernels.registry import get_kernel_registry
 from apex_tpu.normalization import FusedRMSNorm as JaxFusedRMSNorm
 from apex_tpu.ops.layer_norm import rms_norm as jax_rms_norm
@@ -104,7 +107,9 @@ def test_fused_rms_norm_module_matches_jax(jax_path):
 def test_plain_version_counts_no_launch():
     registry.reset()
     port_kernels.rms_fwd(torch.ones(2, 8), None, 1e-5)
+    port_kernels.rms_bwd_dx(torch.ones(2, 8), torch.ones(2, 8), None, 1e-5)
     assert registry.launches()["rms_norm"] == 0
+    assert registry.launches()["rms_bwd"] == 0
 
 
 def test_non_cpu_non_cuda_tensor_raises():
@@ -112,3 +117,77 @@ def test_non_cpu_non_cuda_tensor_raises():
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         port_kernels.rms_fwd(x, None, 1e-5)
 
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dy_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("affine", [True, False])
+def test_rms_bwd_dx_plain_matches_jax_kernel(x_dtype, dy_dtype, affine):
+    """The backward-dx against the interpreted Pallas kernel: dx in x's
+    dtype, the row statistics recomputed from x."""
+    rng = np.random.RandomState(13)
+    x = rng.randn(24, 64).astype(np.float32) * 2.0
+    dy = rng.randn(24, 64).astype(np.float32)
+    w = (1.0 + 0.1 * rng.randn(64)).astype(np.float32) if affine else None
+    want = jax_kernels.rms_bwd_dx(
+        jnp.asarray(dy, _JAX[dy_dtype]), jnp.asarray(x, _JAX[x_dtype]),
+        None if w is None else jnp.asarray(w), 1e-5, interpret=True)
+    got = port_kernels.rms_bwd_dx(
+        torch.from_numpy(dy).to(_TORCH[dy_dtype]),
+        torch.from_numpy(x).to(_TORCH[x_dtype]),
+        None if w is None else torch.from_numpy(w), 1e-5)
+    assert got.dtype == _TORCH[x_dtype]
+    _assert_close(got, _to_np(want), x_dtype)
+
+
+def _jax_grads(x, w, dy, x_dtype, cast_to_fp32):
+    """jax.grad of sum(rms_norm(x) * dy) in x and w. With
+    ``cast_to_fp32`` the JAX layer's form: the bf16 residual cast to
+    fp32 before the norm, the output rounded to bf16 after it."""
+    def f(xj, wj):
+        xin = xj.astype(jnp.float32) if cast_to_fp32 else xj
+        y = jax_rms_norm(xin, 64, wj, 1e-5)
+        if cast_to_fp32:
+            y = y.astype(jnp.bfloat16)
+        return jnp.sum(y.astype(jnp.float32) * jnp.asarray(dy))
+    return jax.grad(f, argnums=(0, 1))(jnp.asarray(x, _JAX[x_dtype]),
+                                        jnp.asarray(w))
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_rms_norm_gradients_match_jax_grad(jax_path, x_dtype):
+    rng = np.random.RandomState(17)
+    x = rng.randn(6, 5, 64).astype(np.float32) * 2.0
+    w = (1.0 + 0.1 * rng.randn(64)).astype(np.float32)
+    dy = rng.randn(6, 5, 64).astype(np.float32)
+    dx_j, dw_j = _jax_grads(x, w, dy, x_dtype, cast_to_fp32=False)
+    xt = torch.from_numpy(x).to(_TORCH[x_dtype]).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    y = rms_norm(xt, 64, wt, 1e-5)
+    y.backward(torch.from_numpy(dy).to(y.dtype))
+    assert xt.grad.dtype == xt.dtype and wt.grad.dtype == torch.float32
+    _assert_close(xt.grad, _to_np(dx_j), x_dtype)
+    np.testing.assert_allclose(wt.grad.numpy(), _to_np(dw_j), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_layer_form_gradients_match_jax_grad(jax_path):
+    """The layer's form: the port's norm reads the bf16 residual and
+    writes bf16, its gradient in bf16 is computed in fp32 and rounded
+    once, as JAX's cast to fp32, fp32 VJP, and the cast's transpose
+    back to the bf16 residual."""
+    rng = np.random.RandomState(19)
+    x = rng.randn(6, 5, 64).astype(np.float32) * 2.0
+    w = (1.0 + 0.1 * rng.randn(64)).astype(np.float32)
+    dy = rng.randn(6, 5, 64).astype(np.float32)
+    dx_j, dw_j = _jax_grads(x, w, dy, "bfloat16", cast_to_fp32=True)
+    assert dx_j.dtype == jnp.bfloat16
+    mod = FusedRMSNorm(64, eps=1e-5, device="cpu")
+    mod.load_state_dict({"weight": torch.from_numpy(w)})
+    xt = torch.from_numpy(x).bfloat16().requires_grad_()
+    y = mod(xt, out_dtype=torch.bfloat16)
+    y.float().backward(torch.from_numpy(dy))
+    assert xt.grad.dtype == torch.bfloat16
+    _assert_close(xt.grad, _to_np(dx_j), "bfloat16")
+    np.testing.assert_allclose(mod.weight.grad.numpy(), _to_np(dw_j),
+                               rtol=1e-5, atol=1e-5)

@@ -1,0 +1,299 @@
+"""apex_tpu_torch's training step (GPTModel's training forward,
+gpt_loss_fn, backward, FusedAdam) against apex_tpu's on the CPU: the
+slice as a whole.
+
+Small Llama-shaped model (hidden 64, 2 layers, 4 heads, 2 KV groups,
+vocab 256, swiglu, rmsnorm, rope) with ``use_flash_attention=False``,
+seq 32, batch 2. The JAX model is initialised from a PRNG key and its
+params go to the port through ``from_jax_params``; tokens and labels
+come from a numpy seed. The JAX side is
+``jax.value_and_grad(lambda p: gpt_loss_fn(model.apply({"params": p},
+tokens), labels))`` and ``FusedAdam.step``, with its RMSNorm and softmax
+kernels in Pallas interpret mode.
+
+The bf16 reference runs op by op (not under ``jax.jit``): XLA's CPU
+compiler keeps excess precision across the model's fp32 -> bf16 -> fp32
+round trips under jit, so the jitted model is not the bf16 arithmetic
+written in the JAX code; op by op it is, and the port follows it.
+
+Tolerances (relative errors are Frobenius norms; "update" is a
+parameter's change over the steps taken):
+- fp32 ``compute_dtype``: loss within 1e-6 relative; every gradient
+  within 1e-5 (measured ~1e-6: the same fp32 arithmetic, summed in
+  another order); every parameter's update after each of two steps
+  within 1e-3 (measured <= 1.7e-4: Adam divides each gradient by its
+  own magnitude, so an entry whose gradient is ~0 moves by +-lr on a
+  difference of one ulp).
+- bf16 ``compute_dtype``: loss within 2e-4 relative (measured <= 6e-5);
+  every gradient within 1e-2 (measured up to 1.3e-3: where an fp32 sum
+  in another order puts a value across a bf16 rounding boundary, the
+  one-ulp difference, 2**-8 relative, flows back through the earlier
+  layers); the update of all parameters together within 5e-2 (measured
+  1.2e-2), and of each parameter within 0.5: Adam's first steps are
+  sign-like, so the few entries of a small tensor whose gradients are
+  near 0 may move by +-lr on either side (measured up to 0.17 for a
+  64-entry bias), while a wrong or missing update is off by 1 or more.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apex_tpu.kernels import softmax as _jax_softmax  # noqa: F401 (gate)
+from apex_tpu.kernels.registry import get_kernel_registry
+from apex_tpu.models import GPTModel as JaxGPTModel
+from apex_tpu.models import TransformerConfig as JaxConfig
+from apex_tpu.models.gpt import gpt_loss_fn as jax_gpt_loss_fn
+from apex_tpu.optimizers import FusedAdam as JaxFusedAdam
+from apex_tpu.transformer import parallel_state
+from apex_tpu.transformer.tensor_parallel import (
+    vocab_parallel_cross_entropy as jax_cross_entropy,
+)
+from apex_tpu_torch.kernels import registry
+from apex_tpu_torch.models import (
+    GPTModel,
+    TransformerConfig,
+    from_jax_params,
+    gpt_loss_fn,
+    init_cache,
+    init_weights,
+    load_jax_adam_state,
+)
+from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.transformer.enums import AttnMaskType
+from apex_tpu_torch.transformer.tensor_parallel import (
+    vocab_parallel_cross_entropy,
+)
+
+KW = dict(hidden_size=64, num_layers=2, num_attention_heads=4,
+          num_query_groups=2, ffn_hidden_size=128, vocab_size=256,
+          max_position_embeddings=128, normalization="rmsnorm",
+          position_embedding_type="rope", activation="swiglu")
+BATCH, SEQ, LR, STEPS = 2, 32, 1e-3, 2
+TOL = {"float32": dict(loss=1e-6, grad=1e-5, update=1e-3, total=1e-3),
+       "bfloat16": dict(loss=2e-4, grad=1e-2, update=0.5, total=5e-2)}
+_KERNELS = ["softmax", "rmsnorm", "adam"]
+
+
+@pytest.fixture(autouse=True)
+def _interpret():
+    parallel_state.destroy_model_parallel()
+    reg = get_kernel_registry()
+    reg.force_interpret(True, _KERNELS)
+    yield
+    reg.force_interpret(False, _KERNELS)
+
+
+def _batch(seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, 256, size=(BATCH, SEQ)),
+            rng.randint(0, 256, size=(BATCH, SEQ)))
+
+
+def _np_tree(tree):
+    return jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(dtype):
+    """The JAX side's initial params and, for each step, its loss, grads,
+    params after the update and optimizer state (numpy trees); built
+    once per dtype."""
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    model = JaxGPTModel(JaxConfig(**KW, compute_dtype=jdt,
+                                  use_flash_attention=False))
+    tokens, labels = (jnp.asarray(a) for a in _batch())
+    params = model.init(jax.random.PRNGKey(0), tokens)["params"]
+    opt = JaxFusedAdam(lr=LR)
+
+    def step(p, s):
+        loss, grads = jax.value_and_grad(
+            lambda q: jax_gpt_loss_fn(model.apply({"params": q}, tokens),
+                                      labels))(p)
+        new_p, new_s = opt.step(grads, s, p)
+        return loss, grads, new_p, new_s
+
+    if dtype == "float32":
+        step = jax.jit(step)
+    out, p, s = [], params, opt.init(params)
+    for _ in range(STEPS):
+        loss, grads, p, s = step(p, s)
+        out.append(dict(loss=float(loss), grads=_np_tree(grads),
+                        params=_np_tree(p), state=jax.tree.map(np.asarray,
+                                                               s)))
+    return _np_tree(params), out
+
+
+def _port_model(dtype, params):
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    cfg = TransformerConfig(**KW, compute_dtype=tdt,
+                            use_flash_attention=False)
+    model = GPTModel(cfg, device="cpu")
+    model.load_state_dict(from_jax_params(params, cfg))
+    return model
+
+
+def _rel(got, want):
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
+                                                   1e-30))
+
+
+def _assert_updates(model, before, want_after, tol, what):
+    """Each parameter's update (after - before) within ``tol["update"]``
+    relative of the JAX update, and all of them together within
+    ``tol["total"]``."""
+    after = {n: p.detach().float().numpy()
+             for n, p in model.named_parameters()}
+    want = {n: t.numpy() - before[n]
+            for n, t in from_jax_params(want_after).items()}
+    errs = {n: _rel(after[n] - before[n], want[n]) for n in after}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= tol["update"], (what, worst, errs[worst])
+    diff = np.sqrt(sum(np.sum((after[n] - before[n] - want[n]) ** 2)
+                       for n in after))
+    total = diff / np.sqrt(sum(np.sum(w ** 2) for w in want.values()))
+    assert total <= tol["total"], (what, total)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_loss_and_every_gradient_match_jax(dtype):
+    params, steps = _reference(dtype)
+    model = _port_model(dtype, params)
+    tokens, labels = (torch.from_numpy(a) for a in _batch())
+    logits = model(tokens)
+    assert logits.dtype == torch.float32
+    assert logits.shape == (BATCH, SEQ, KW["vocab_size"])
+    loss = gpt_loss_fn(logits, labels)
+    loss.backward()
+    tol = TOL[dtype]
+    assert abs(loss.item() - steps[0]["loss"]) <= tol["loss"] * abs(
+        steps[0]["loss"])
+    want = from_jax_params(steps[0]["grads"])
+    grads = dict(model.named_parameters())
+    assert grads.keys() == want.keys()
+    for name, p in grads.items():
+        assert p.grad is not None and p.grad.dtype == torch.float32, name
+        err = _rel(p.grad.numpy(), want[name].numpy())
+        assert err <= tol["grad"], (name, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_fused_adam_steps_match_jax(dtype):
+    params, steps = _reference(dtype)
+    model = _port_model(dtype, params)
+    opt = FusedAdam(model.parameters(), lr=LR)
+    tokens, labels = (torch.from_numpy(a) for a in _batch())
+    before = from_jax_params(params)
+    before = {n: t.numpy() for n, t in before.items()}
+    for k in range(STEPS):
+        loss = gpt_loss_fn(model(tokens), labels)
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        assert abs(loss.item() - steps[k]["loss"]) <= TOL[dtype]["loss"] * abs(
+            steps[k]["loss"]), (k, loss.item(), steps[k]["loss"])
+        _assert_updates(model, before, steps[k]["params"], TOL[dtype],
+                        f"step {k + 1}")
+    assert opt.param_groups[0]["step"] == STEPS
+
+
+def test_second_step_from_the_jax_state_matches_jax():
+    """The port's model and optimizer started from the JAX params and
+    FusedAdam state after step 1 take JAX's step 2 (fp32)."""
+    params, steps = _reference("float32")
+    model = _port_model("float32", steps[0]["params"])
+    opt = FusedAdam(model.parameters(), lr=LR)
+    load_jax_adam_state(opt, model, steps[0]["state"])
+    tokens, labels = (torch.from_numpy(a) for a in _batch())
+    loss = gpt_loss_fn(model(tokens), labels)
+    loss.backward()
+    opt.step()
+    assert abs(loss.item() - steps[1]["loss"]) <= 1e-6 * abs(steps[1]["loss"])
+    before = {n: t.numpy() for n, t in from_jax_params(
+        steps[0]["params"]).items()}
+    _assert_updates(model, before, steps[1]["params"], TOL["float32"],
+                    "step 2")
+
+
+def test_loss_mask_and_label_smoothing_match_jax():
+    rng = np.random.RandomState(3)
+    logits = rng.randn(2, 5, 16).astype(np.float32) * 3
+    labels = rng.randint(0, 16, size=(2, 5))
+    mask = (rng.rand(2, 5) > 0.4).astype(np.float32)
+    want = jax_gpt_loss_fn(jnp.asarray(logits), jnp.asarray(labels),
+                           jnp.asarray(mask))
+    got = gpt_loss_fn(torch.from_numpy(logits), torch.from_numpy(labels),
+                      torch.from_numpy(mask))
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+    want_ls = jax_cross_entropy(jnp.asarray(logits), jnp.asarray(labels),
+                                label_smoothing=0.1)
+    got_ls = vocab_parallel_cross_entropy(torch.from_numpy(logits),
+                                          torch.from_numpy(labels), 0.1)
+    np.testing.assert_allclose(got_ls.numpy(), np.asarray(want_ls),
+                               rtol=1e-6, atol=1e-6)
+    # the gradient is softmax minus one-hot, over the token count
+    x = torch.from_numpy(logits).requires_grad_()
+    gpt_loss_fn(x, torch.from_numpy(labels)).backward()
+    onehot = torch.nn.functional.one_hot(torch.from_numpy(labels), 16)
+    torch.testing.assert_close(
+        x.grad, (torch.softmax(x.detach(), -1) - onehot) / 10, rtol=1e-5,
+        atol=1e-7)
+
+
+def test_training_step_on_plain_versions_counts_no_launch():
+    params, _ = _reference("float32")
+    model = _port_model("float32", params)
+    registry.reset()
+    tokens, labels = (torch.from_numpy(a) for a in _batch())
+    gpt_loss_fn(model(tokens), labels).backward()
+    FusedAdam(model.parameters()).step()
+    assert not any(registry.launches().values()), registry.launches()
+
+
+def _tiny(**over):
+    cfg = TransformerConfig(**{**KW, "num_layers": 1,
+                               "use_flash_attention": False, **over})
+    return GPTModel(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(use_flash_attention=True), "flash attention"),
+    (dict(sliding_window=8), "sliding window"),
+    (dict(attn_mask_type=AttnMaskType.padding), "BERT slice"),
+])
+def test_training_forward_refuses_what_it_cannot_run(over, match):
+    tokens = torch.zeros(1, 16, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match=match):
+        _tiny(**over)(tokens)
+
+
+def test_training_forward_refuses_an_attention_mask():
+    tokens = torch.zeros(1, 16, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="attention_mask"):
+        _tiny()(tokens, attention_mask=torch.zeros(1, 1, 16, 16,
+                                                   dtype=torch.bool))
+
+
+def test_window_covering_the_sequence_is_plain_causal():
+    """As in the JAX model, a window no shorter than the sequence masks
+    nothing more than causality."""
+    tokens = torch.from_numpy(_batch()[0][:, :16])
+    a = _tiny(sliding_window=16)
+    init_weights(a, 0)
+    b = _tiny()
+    b.load_state_dict(a.state_dict())
+    torch.testing.assert_close(a(tokens), b(tokens), rtol=0, atol=0)
+
+
+def test_decode_refuses_an_attention_mask():
+    """As in the JAX model, the KV-cache path takes no attention_mask."""
+    model = _tiny()
+    init_weights(model, 0)
+    cache = init_cache(model, 1)
+    with pytest.raises(ValueError, match="attention_mask"):
+        model(torch.zeros(1, 4, dtype=torch.long), None, cache,
+              attention_mask=torch.zeros(1, 1, 4, 4, dtype=torch.bool))

@@ -9,8 +9,10 @@ its plain PyTorch version.
 
 Ported so far, for RMSNorm/RoPE/GQA/SwiGLU decoder LMs such as
 TinyLlama-1.1B: KV-cache generation (``models.generate``) and the
-training step with flash attention off (``GPTModel`` without a cache,
-``models.gpt_loss_fn``, ``optimizers.FusedAdam``).
+training step with flash attention on or off (``GPTModel`` without a
+cache, ``models.gpt_loss_fn``, ``optimizers.FusedAdam``); flash
+attention itself (``contrib.fmha``) and the multi-head attention modules
+(``contrib.multihead_attn``).
 """
 
 __version__ = "0.1.0"

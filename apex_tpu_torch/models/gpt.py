@@ -14,6 +14,7 @@ forward, and a step is
 import torch
 from torch import nn
 
+from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.models.transformer_lm import (
     ParallelTransformer,
     TransformerConfig,
@@ -23,19 +24,6 @@ from apex_tpu_torch.transformer.tensor_parallel import (
     VocabParallelEmbedding,
     vocab_parallel_cross_entropy,
 )
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the card unless the caller asks
-    for another. Asking for CUDA without one raises; nothing falls back
-    to the CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} requested but torch.cuda.is_available() is "
-            f"False; pass device='cpu' to run the plain PyTorch versions "
-            f"on the CPU")
-    return device
 
 
 class GPTModel(nn.Module):

@@ -10,11 +10,22 @@ over the Megatron [s, b, h] layout, a fused QKV projection and RoPE.
   of several tokens (the prompt) or
   :func:`apex_tpu_torch.contrib.gqa_decode.gqa_flash_decode` for each
   single-token step.
-- Without one, the training forward with ``use_flash_attention=False``:
-  K/V broadcast to their query heads, fp32 scores from the
-  ``compute_dtype`` operands, the causal softmax kernel (forward and
-  backward) of :mod:`apex_tpu_torch.transformer.functional`, and the
-  context product in fp32. Flash attention is the next slice.
+- Without one, the training forward. Under the JAX model's condition
+  (``use_flash_attention``, no ``attention_mask``, no softcap,
+  ``query_pre_attn_scalar`` unset or the head dim, a sequence that is a
+  multiple of 128 and a head dim of 64, 128 or 256): K/V repeated for
+  their query heads and :func:`apex_tpu_torch.contrib.fmha.flash_attention`
+  over ``[b, n, s, d]`` (causal or full, with the layer's sliding window
+  when it is shorter than the sequence). The JAX package also asks that
+  its backend be a TPU, so on the CPU it never takes flash; the port
+  mirrors what it does on its accelerator and takes flash on the CPU too
+  (through the kernels' plain versions). Otherwise the causal softmax
+  path: fp32 scores from the ``compute_dtype`` operands, the causal
+  softmax kernel (forward and backward) of
+  :mod:`apex_tpu_torch.transformer.functional`, and the context product
+  in fp32; an ``attention_mask``, a padding mask type or a window
+  shorter than the sequence raise there until the BERT slice brings the
+  masked softmax kernel.
 
 Norms go through the RMSNorm kernels (forward, and backward-dx under
 autograd). Dtypes follow the JAX modules: parameters in
@@ -31,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from apex_tpu_torch.contrib import gqa_decode
+from apex_tpu_torch.contrib import fmha, gqa_decode
 from apex_tpu_torch.kernels import fused_cc
 from apex_tpu_torch.normalization import FusedRMSNorm
 from apex_tpu_torch.transformer.enums import AttnMaskType
@@ -112,7 +123,9 @@ class TransformerConfig:
         if self.position_embedding_type != "rope":
             raise ValueError(
                 f"position_embedding_type {self.position_embedding_type!r}: "
-                f"only 'rope' is ported so far")
+                f"only 'rope' is ported so far (ALiBi needs an ALiBi path "
+                f"in the decode and softmax kernels; the flash kernels take "
+                f"slopes: contrib.fmha.flash_attention(alibi_slopes=...))")
         if self.normalization != "rmsnorm":
             raise ValueError(f"normalization {self.normalization!r}: only "
                              f"'rmsnorm' is ported so far (LayerNorm's kernels "
@@ -206,8 +219,8 @@ class ParallelAttention(nn.Module):
     blocks under MHA), RoPE, attention, and the output projection. With
     a KV cache, the chunk's K/V are written at the cache's index and the
     window kernel (s > 1) or the decode kernel (s == 1) attends over the
-    filled prefix; without one, the training forward attends causally
-    over the chunk through the causal softmax kernel."""
+    filled prefix; without one, the training forward attends over the
+    chunk through flash attention or the causal softmax kernel."""
 
     def __init__(self, config: TransformerConfig, layer_number: int = 0,
                  device=None):
@@ -260,44 +273,55 @@ class ParallelAttention(nn.Module):
             return self._decode_attention(q, k, v, position_ids, cache)
         return self._train_attention(q, k, v, position_ids, attention_mask)
 
-    def _check_train_path(self, s, attention_mask):
-        """Refuse what the training forward's causal softmax path cannot
-        run yet, naming the slice that brings it."""
+    def _flash(self, s, attention_mask):
+        """Whether the training forward takes flash attention: the JAX
+        model's condition, its backend test left out."""
         cfg = self.config
-        if cfg.use_flash_attention:
-            raise NotImplementedError(
-                "the training forward with use_flash_attention=True needs "
-                "the flash attention kernels, which come with the next slice "
-                "of apex_tpu_torch (slice 3); set use_flash_attention=False "
-                "for the causal softmax path")
+        return (cfg.use_flash_attention and attention_mask is None
+                and cfg.attn_logit_softcapping is None
+                and cfg.query_pre_attn_scalar in (None, cfg.kv_channels)
+                and _flash_available(s, cfg.kv_channels))
+
+    def _check_softmax_path(self, s, attention_mask):
+        """Refuse what the causal softmax path cannot run yet, naming the
+        slice that brings it."""
+        cfg = self.config
         if attention_mask is not None:
             raise NotImplementedError(
                 "an explicit attention_mask needs the masked softmax kernel, "
                 "which comes with the BERT slice of apex_tpu_torch")
         if cfg.attn_mask_type != AttnMaskType.causal:
             raise NotImplementedError(
-                f"attn_mask_type {cfg.attn_mask_type} needs the unmasked "
-                f"softmax kernel, which comes with the BERT slice of "
-                f"apex_tpu_torch")
+                f"attn_mask_type {cfg.attn_mask_type} on the softmax path "
+                f"needs the unmasked softmax kernel, which comes with the "
+                f"BERT slice of apex_tpu_torch; flash attention runs it "
+                f"(use_flash_attention=True, seq a multiple of 128, head "
+                f"dim 64, 128 or 256)")
         window = self._layer_window()
         if window is not None and window < s:
             raise NotImplementedError(
-                f"a sliding window ({window} < {s} positions) in the "
-                f"training forward needs the masked softmax kernel (BERT "
-                f"slice) or flash attention (slice 3) of apex_tpu_torch")
+                f"a sliding window ({window} < {s} positions) on the softmax "
+                f"path needs the masked softmax kernel (BERT slice of "
+                f"apex_tpu_torch); flash attention runs it "
+                f"(use_flash_attention=True, seq a multiple of 128, head "
+                f"dim 64, 128 or 256)")
 
     def _train_attention(self, q, k, v, position_ids, attention_mask):
-        """Causal attention over the chunk, as the JAX model's softmax
-        path: RoPE at ``position_ids`` (default 0..s-1), each K/V group
-        repeated for its query heads, fp32 scores from ``compute_dtype``
-        operands, the causal softmax kernel, the context product in fp32
-        from ``compute_dtype`` probabilities. The ``.float()`` casts make
-        the bf16 x bf16 products accumulate in fp32 and send the
-        operands' gradients back in their own dtype, as JAX's einsum with
-        ``preferred_element_type=float32`` does."""
+        """Attention over the chunk, as the JAX model's training forward:
+        RoPE at ``position_ids`` (default 0..s-1), each K/V group
+        repeated for its query heads, then flash attention (see
+        :meth:`_flash`) or the softmax path: fp32 scores from
+        ``compute_dtype`` operands, the causal softmax kernel, the
+        context product in fp32 from ``compute_dtype`` probabilities.
+        The ``.float()`` casts make the bf16 x bf16 products accumulate
+        in fp32 and send the operands' gradients back in their own
+        dtype, as JAX's einsum with ``preferred_element_type=float32``
+        does."""
         cfg = self.config
         s, b, n, kv = q.shape
-        self._check_train_path(s, attention_mask)
+        flash = self._flash(s, attention_mask)
+        if not flash:
+            self._check_softmax_path(s, attention_mask)
         q = apply_rotary_emb(q, cfg.rotary_base, position_ids,
                              cfg.rotary_percent, cfg.rotary_interleaved,
                              cfg.rope_scaling)
@@ -308,17 +332,26 @@ class ParallelAttention(nn.Module):
             rep = n // k.shape[2]
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
-        # [s, b, n, d] -> [b, n, s, d]
-        qt, kt, vt = (t.permute(1, 2, 0, 3).to(cfg.compute_dtype)
-                      for t in (q, k, v))
-        scores = torch.matmul(qt.float(), kt.float().transpose(-1, -2))
-        scores = scores / math.sqrt(cfg.query_pre_attn_scalar or kv)
-        if cfg.attn_logit_softcapping is not None:
-            cap = cfg.attn_logit_softcapping
-            scores = cap * torch.tanh(scores / cap)
-        probs = scaled_upper_triang_masked_softmax(
-            scores.reshape(b * n, s, s), 1.0).reshape(b, n, s, s)
-        ctx = torch.matmul(probs.to(cfg.compute_dtype).float(), vt.float())
+        if flash:
+            # q, k, v as the projection left them (fp32 after its bias,
+            # as in JAX), [s, b, n, d] -> [b, n, s, d]
+            window = self._layer_window()
+            ctx = fmha.flash_attention(
+                *(t.permute(1, 2, 0, 3) for t in (q, k, v)),
+                causal=cfg.attn_mask_type == AttnMaskType.causal,
+                window=window if window is not None and window < s else None)
+        else:
+            qt, kt, vt = (t.permute(1, 2, 0, 3).to(cfg.compute_dtype)
+                          for t in (q, k, v))
+            scores = torch.matmul(qt.float(), kt.float().transpose(-1, -2))
+            scores = scores / math.sqrt(cfg.query_pre_attn_scalar or kv)
+            if cfg.attn_logit_softcapping is not None:
+                cap = cfg.attn_logit_softcapping
+                scores = cap * torch.tanh(scores / cap)
+            probs = scaled_upper_triang_masked_softmax(
+                scores.reshape(b * n, s, s), 1.0).reshape(b, n, s, s)
+            ctx = torch.matmul(probs.to(cfg.compute_dtype).float(),
+                               vt.float())
         ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, n * kv)
         return self.dense(ctx.to(cfg.compute_dtype))
 
@@ -351,6 +384,11 @@ class ParallelAttention(nn.Module):
                 qg, ck, cv, idx, sm, window=self._layer_window(),
                 softcap=cfg.attn_logit_softcapping)
         return self.dense(ctx.reshape(s, b, n * kv).to(cfg.compute_dtype))
+
+
+def _flash_available(seq, head_dim):
+    """JAX's ``_flash_available`` without its backend test."""
+    return seq % 128 == 0 and head_dim in fmha.HEAD_DIMS
 
 
 class ParallelMLP(nn.Module):

@@ -4,6 +4,7 @@ GPU and hold each of its CUDA kernels against its plain PyTorch version.
 
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py kernels        # build + kernel checks only
+    python3 chip_smoke.py flash_training mha   # any subset of the phases
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -22,8 +23,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    backward-dx [2048, 2048] bf16, causal softmax forward and backward
    [64, 1024, 1024] fp32, Adam over TinyLlama's 179 fp32 tensors) and
    off them (fp32, bf16, sk > sq, 16384 keys, L2 decay, the noop flag,
-   more tensors than one launch takes). Malformed CUDA inputs to every
-   wrapper are refused and not counted.
+   more tensors than one launch takes). The flash kernels at the flash
+   training step's shape ([2, 32, 2048, 64] fp32, causal; and bf16) and
+   off it (full, windows, ALiBi, head dims 128 and 256, tails, one
+   head). Malformed CUDA inputs to every wrapper are refused and not
+   counted.
 3. serving: ``GPTModel`` at TinyLlama-1.1B width (22 layers, seeded
    random weights) and ``generate(batch 8, prompt 128, 32 new tokens,
    greedy)`` with every launch count set to 0 just before and read just
@@ -36,6 +40,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the loss must fall; step 1 (loss, every gradient, every update) is
    held against the same step through the plain versions on the card;
    step ms, tokens/s, peak memory and a profile of one step.
+5. flash_training: the same, with ``use_flash_attention=True`` (the
+   JAX model's default) at TinyLlama's pretraining length, 2 x 2048
+   tokens: each step launches each flash kernel once per layer and the
+   causal softmax kernels not at all.
+6. mha: ``SelfMultiheadAttn`` at BERT-large width (h 1024, 16 heads,
+   s 512, batch 8, bf16, ``impl="fast"``) forward and backward through
+   the non-causal flash kernels, counted, and held against the same
+   module through the plain versions.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -68,6 +80,11 @@ DECODE_LENGTH = PROMPT + NEW_TOKENS // 2  # a mid-run decode step
 # the training step: micro-batch 2 x 1024 tokens, FusedAdam as bench.py
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 2, 1024, 1e-4
 COUNTED_STEPS, TIMED_STEPS = 3, 5
+# the flash training step: TinyLlama's pretraining sequence length
+FLASH_BATCH, FLASH_SEQ = 2, 2048
+# SelfMultiheadAttn at BERT-large width (bert-large-uncased config.json:
+# hidden 1024, 16 heads) over a batch of 8 sequences of 512
+MHA_HIDDEN, MHA_HEADS, MHA_SEQ, MHA_BATCH = 1024, 16, 512, 8
 
 # Tolerances, kernel against plain version on the same inputs:
 # RMSNorm: the same fp32 operations with the sum in another order, so a
@@ -110,6 +127,21 @@ ADAM_RTOL = 2.0 ** -22
 # each (a wrong or missing update is off by 1 or more).
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-3, 5e-2
 TRAIN_UPDATE_RTOL, TRAIN_TENSOR_UPDATE_RTOL = 0.4, 0.5
+# flash attention, kernel against plain version on the same inputs, as
+# (rtol, absolute part as a share of the largest |want|):
+# fp32 O: fp32 sums over up to 2048 keys and 64 dims in another order,
+# outputs of magnitude ~1: 1e-4 (as ATTN_TOL). lse (values ~8): the same
+# sums inside a log, 1e-5 relative. Gradients: the same sums, and ds =
+# p * (dp - delta) cancels where dp ~ delta, so the absolute part is
+# 1e-4 of the largest |gradient|. bf16 O and gradients are rounded from
+# fp32 values that may differ in the last place: one bf16 ulp, 2**-7
+# relative, and 2**-8 of the largest magnitude for entries near 0.
+FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 2.0 ** -8)}
+FLASH_LSE_RTOL = 1e-5
+# the multi-head attention module, kernels against plain versions: bf16
+# context entries one ulp apart (2**-8 relative) pass through the bf16
+# output projection and its backward: 1e-2 relative (Frobenius).
+MHA_RTOL = 1e-2
 
 
 def log(msg):
@@ -188,7 +220,7 @@ def plain_versions():
     versions (for the reference runs on the card). The wrappers are
     swapped in their modules, so the autograd Functions and the
     optimizer that call them stay the same."""
-    from apex_tpu_torch.contrib import gqa_decode
+    from apex_tpu_torch.contrib import fmha, gqa_decode
     from apex_tpu_torch.kernels import fused_cc, norm, optim, softmax
     swaps = [(norm, "rms_fwd", norm.rms_fwd_plain),
              (norm, "rms_bwd_dx", norm.rms_bwd_dx_plain),
@@ -197,7 +229,9 @@ def plain_versions():
              (softmax, "causal_softmax_fwd",
               softmax.causal_softmax_fwd_plain),
              (softmax, "softmax_bwd", softmax.softmax_bwd_plain),
-             (optim, "adam", optim.adam_plain)]
+             (optim, "adam", optim.adam_plain),
+             (fmha, "flash_fwd", fmha.flash_fwd_plain),
+             (fmha, "flash_bwd", fmha.flash_bwd_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -499,6 +533,136 @@ def check_softmax(gen):
     return [fwd, bwd]
 
 
+def _live_pairs(s, causal, window):
+    """(query, key) pairs the mask leaves visible in one head."""
+    if not causal:
+        return s * s
+    return sum(min(i + 1, window or s) for i in range(s))
+
+
+def _flash_inputs(gen, b, n, s, d, dtype, alibi):
+    q, k, v, do = (_randn(gen, b, n, s, d, dtype=dtype) for _ in range(4))
+    slopes = (torch.rand(n, generator=gen, device="cuda") * 0.2 if alibi
+              else None)
+    return q, k, v, do, slopes
+
+
+def _flash_close(got, want, dtype):
+    rtol, scaled_atol = FLASH_TOL[dtype]
+    assert_close_scaled(got, want, rtol, scaled_atol)
+
+
+def _flash_check(q, k, v, do, slopes, causal, window):
+    """Each flash kernel against its plain version on the same inputs:
+    the forward's o and lse, then dq and dk/dv from the kernel's o and
+    lse (so the backward is held alone). Returns the results."""
+    from apex_tpu_torch.contrib import fmha
+    scale = q.shape[-1] ** -0.5
+    o, lse = fmha.flash_fwd(q, k, v, scale, causal, window, slopes)
+    o_p, lse_p = fmha.flash_fwd_plain(q, k, v, scale, causal, window, slopes)
+    torch.cuda.synchronize()
+    assert o.dtype == q.dtype and lse.dtype == torch.float32
+    _flash_close(o, o_p, q.dtype)
+    torch.testing.assert_close(lse, lse_p, rtol=FLASH_LSE_RTOL,
+                               atol=FLASH_LSE_RTOL)
+    delta = fmha._delta(o, do)
+    args = (q, k, v, do, lse, delta, scale, causal, window, slopes)
+    dq = fmha.flash_dq(*args)
+    dk, dv = fmha.flash_dkv(*args)
+    dq_p = fmha.flash_dq_plain(*args)
+    dk_p, dv_p = fmha.flash_dkv_plain(*args)
+    torch.cuda.synchronize()
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        assert got.dtype == q.dtype
+        _flash_close(got, want, q.dtype)
+    return dict(o=(o, o_p), lse=(lse, lse_p), dq=(dq, dq_p),
+                dkv=(torch.cat([dk, dv]), torch.cat([dk_p, dv_p])),
+                args=args)
+
+
+def check_flash(gen):
+    from apex_tpu_torch.contrib import fmha
+    # off the path: (b, n, s, d, dtype, causal, window, alibi); s = 200,
+    # 300 and 77 leave a ragged last tile, b*n = 1 a single head
+    f32, bf16 = torch.float32, torch.bfloat16
+    for b, n, s, d, dtype, causal, window, alibi in (
+            (1, 1, 200, 64, f32, True, None, False),
+            (2, 2, 256, 64, f32, False, None, False),
+            (1, 2, 256, 64, f32, True, 1, False),
+            (1, 2, 300, 64, bf16, True, 37, True),
+            (1, 2, 512, 64, f32, True, 256, False),
+            (1, 2, 256, 64, f32, True, None, True),
+            (2, 2, 256, 64, bf16, False, None, True),
+            (1, 2, 200, 128, f32, True, 37, False),
+            (1, 2, 256, 128, bf16, False, None, True),
+            (1, 2, 200, 256, f32, True, None, False),
+            (1, 2, 128, 256, bf16, False, None, False),
+            (1, 3, 77, 256, f32, True, 256, True)):
+        _flash_check(*_flash_inputs(gen, b, n, s, d, dtype, alibi), causal,
+                     window)
+    log("kernels: flash fwd, dq and dk/dv match their plain versions off "
+        "the path (full, windows 1/37/256, ALiBi, head dims 128 and 256, "
+        "fp32 and bf16, ragged tails, one head)")
+
+    # the path: the flash training step's q/k/v, [2, 32, 2048, 64], causal,
+    # fp32 (the QKV bias add leaves them fp32, as in JAX); and the same
+    # shape in bf16
+    n, d = MODEL["num_attention_heads"], MODEL["hidden_size"] // MODEL[
+        "num_attention_heads"]
+    B, S = FLASH_BATCH, FLASH_SEQ
+    pairs = B * n * _live_pairs(S, True, None)
+    entries = []
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.finfo(dtype).bits // 8
+        peak = FP32_OPS_PER_S if dtype == torch.float32 else (
+            BF16_TENSOR_OPS_PER_S)
+        q, k, v, do, _ = _flash_inputs(gen, B, n, S, d, dtype, False)
+        r = _flash_check(q, k, v, do, None, True, None)
+        scale = d ** -0.5
+        args = r["args"]
+        shape = f"q,k,v [{B},{n},{S},{d}] {str(dtype)[6:]}, causal"
+        tol = (f"rtol {FLASH_TOL[dtype][0]} atol "
+               f"{FLASH_TOL[dtype][1]}*max|want|")
+        # yardsticks, never called by the port: SDPA, and SDPA's backward
+        # (fwd+bwd minus fwd) as the dq+dk+dv time on both backward rows
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                ql, kl, vl, is_causal=True, scale=scale)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (ql, kl, vl), do)
+
+        sdpa_fwd_ms = call_ms(lambda: sdpa().detach(), 50, 3)
+        sdpa_bwd_ms = call_ms(sdpa_fwd_bwd, 50, 3) - sdpa_fwd_ms
+        bnsd, bns = B * n * S * d * es, B * n * S * 4
+        fwd = entry(
+            "flash_fwd", shape, *r["o"], tol,
+            lambda: fmha.flash_fwd(q, k, v, scale, True),
+            lambda: fmha.flash_fwd_plain(q, k, v, scale, True), None,
+            bound(4 * bnsd + bns, 4 * d * pairs, peak))
+        fwd["library_ms"] = sdpa_fwd_ms
+        fwd["lse_max_abs_err"] = max_abs(*r["lse"])
+        dq = entry(
+            "flash_dq", shape, *r["dq"], tol,
+            lambda: fmha.flash_dq(*args), lambda: fmha.flash_dq_plain(*args),
+            None, bound(5 * bnsd + 2 * bns, 6 * d * pairs, peak))
+        dkv = entry(
+            "flash_dkv", shape, *r["dkv"], tol,
+            lambda: fmha.flash_dkv(*args),
+            lambda: fmha.flash_dkv_plain(*args), None,
+            bound(6 * bnsd + 2 * bns, 8 * d * pairs, peak))
+        fwd["library"] = "SDPA forward, eager"
+        for e in (dq, dkv):
+            e["library_ms"] = sdpa_bwd_ms
+            e["library"] = "SDPA backward, dq+dk+dv: fwd+bwd - fwd, eager"
+        entries += [fwd, dq, dkv]
+        del q, k, v, do, r, args, ql, kl, vl
+        torch.cuda.empty_cache()
+    return entries
+
+
 def _adam_state(gen, shapes):
     """fp32 g, p, m, v lists on the card (v >= 0)."""
     def each(fn):
@@ -609,7 +773,7 @@ def check_adam(gen):
 def check_refusals():
     """On a CUDA tensor a wrapper launches its kernel or raises: what the
     kernels do not take is refused, never sent to the plain version."""
-    from apex_tpu_torch.contrib import gqa_decode
+    from apex_tpu_torch.contrib import fmha, gqa_decode
     from apex_tpu_torch.kernels import fused_cc, norm, optim, registry, softmax
 
     def refused(exc, fn):
@@ -664,9 +828,35 @@ def check_refusals():
     uneven = [torch.zeros(16, device="cuda")[::2]]
     refused(ValueError, lambda: optim.adam(noop, uneven, uneven, uneven,
                                            uneven, **kw))
+    # the flash kernels
+    fq = torch.zeros(1, 2, 128, 64, device="cuda")
+    lse = torch.zeros(1, 2, 128, device="cuda")
+    refused(ValueError, lambda: fmha.flash_fwd(  # head dim 32
+        *[fq[..., :32].contiguous()] * 3, 0.1, True))
+    refused(ValueError, lambda: fmha.flash_fwd(fq, fq, fq.transpose(2, 3)
+                                               .contiguous().transpose(2, 3),
+                                               0.1, True))
+    refused(ValueError, lambda: fmha.flash_fwd(fq[0], fq[0], fq[0], 0.1,
+                                               True))
+    refused(ValueError, lambda: fmha.flash_fwd(fq, fq[:, :, :64], fq, 0.1,
+                                               True))
+    refused(TypeError, lambda: fmha.flash_fwd(*[fq.half()] * 3, 0.1, True))
+    refused(TypeError, lambda: fmha.flash_fwd(fq, fq.bfloat16(), fq, 0.1,
+                                              True))
+    refused(ValueError, lambda: fmha.flash_fwd(fq, fq, fq, 0.1, True, 0))
+    refused(ValueError, lambda: fmha.flash_fwd(
+        fq, fq, fq, 0.1, True, alibi_slopes=torch.zeros(3, device="cuda")))
+    refused(ValueError, lambda: fmha.flash_dq(fq, fq, fq, fq, lse[..., :64],
+                                              lse, 0.1, True))
+    refused(ValueError, lambda: fmha.flash_dkv(fq, fq, fq, fq, lse,
+                                               lse.double(), 0.1, True))
+    refused(TypeError, lambda: fmha.flash_dkv(fq, fq, fq, fq.bfloat16(), lse,
+                                              lse, 0.1, True))
+    refused(ValueError, lambda: fmha.flash_bwd(fq, fq, fq, fq.bfloat16(), lse,
+                                               fq, 0.1, True))
     assert registry.launches() == before, "a refused call was counted"
     log("kernels: malformed CUDA inputs are refused (dtype, layout, range, "
-        "head dim, shapes, list lengths)")
+        "head dim, shapes, list lengths, window, slopes, lse/delta)")
 
 
 # ------------------------------------------------------------- phases 3, 4
@@ -830,7 +1020,11 @@ def _rel_fro(got, want):
             / want.float().norm().clamp_min(1e-30)).item()
 
 
-def phase_training():
+def run_training(label, use_flash, batch, seq):
+    """Three counted ``FusedAdam`` steps of TinyLlama-1.1B (22 layers,
+    seeded random weights) on a seeded batch of ``batch`` x ``seq``
+    tokens, then the timed steps, a profile, and step 1 again through the
+    plain versions; returns the launches of the counted steps."""
     import math
 
     from apex_tpu_torch.kernels import optim, registry
@@ -842,18 +1036,21 @@ def phase_training():
     )
     from apex_tpu_torch.optimizers import FusedAdam
     cfg = TransformerConfig(**MODEL, compute_dtype=torch.bfloat16,
-                            use_flash_attention=False)
+                            use_flash_attention=use_flash)
+    resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = GPTModel(cfg)  # on the card by default
     init_weights(model, SEED)
     params = dict(model.named_parameters())
     w0 = {n: p.detach().to("cpu", copy=True) for n, p in params.items()}
     n_params = sum(p.numel() for p in params.values())
-    log(f"training: GPTModel {cfg.num_layers} layers, hidden "
+    log(f"{label}: GPTModel {cfg.num_layers} layers, hidden "
         f"{cfg.hidden_size}, {len(params)} tensors, {n_params} params, "
-        f"use_flash_attention=False, in {time.perf_counter() - t0:.1f} s")
+        f"use_flash_attention={use_flash}, in "
+        f"{time.perf_counter() - t0:.1f} s; {resident / 2**30:.3f} GiB "
+        f"allocated before the model")
     gen = torch.Generator().manual_seed(SEED + 1)
-    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    shape = (batch, seq)
     tokens = torch.randint(0, cfg.vocab_size, shape, generator=gen).cuda()
     labels = torch.randint(0, cfg.vocab_size, shape, generator=gen).cuda()
 
@@ -866,8 +1063,11 @@ def phase_training():
 
     # the main path, counted step by step
     L = cfg.num_layers
-    per_step = {"rms_norm": 2 * L + 1, "rms_bwd": 2 * L + 1,
-                "causal_softmax": L, "softmax_bwd": L,
+    attention = (dict(flash_fwd=L, flash_dq=L, flash_dkv=L,
+                      causal_softmax=0, softmax_bwd=0) if use_flash else
+                 dict(flash_fwd=0, flash_dq=0, flash_dkv=0,
+                      causal_softmax=L, softmax_bwd=L))
+    per_step = {"rms_norm": 2 * L + 1, "rms_bwd": 2 * L + 1, **attention,
                 "adam": math.ceil(len(params) / optim.MAX_TENSORS)}
     totals = dict.fromkeys(per_step, 0)
     opt = FusedAdam(model.parameters(), lr=TRAIN_LR)
@@ -898,8 +1098,8 @@ def phase_training():
             moved = sum(not torch.equal(p1[n], w0[n]) for n in params)
             assert moved == len(params), (moved, len(params))
     assert opt.param_groups[0]["step"] == COUNTED_STEPS
-    log(f"training: {COUNTED_STEPS} steps of batch {TRAIN_BATCH}x"
-        f"{TRAIN_SEQ}: losses {losses}; launches per step {per_step} "
+    log(f"{label}: {COUNTED_STEPS} steps of batch {batch}x"
+        f"{seq}: losses {losses}; launches per step {per_step} "
         f"(every step), the {len(params)} tensors updated by "
         f"{per_step['adam']} Adam launches; step ms {step_ms}")
     assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
@@ -908,11 +1108,11 @@ def phase_training():
     torch.cuda.reset_peak_memory_stats()
     timed = [_wall_ms(lambda: step(opt))[0] for _ in range(TIMED_STEPS)]
     med = statistics.median(timed)
-    log(f"training: step (forward, backward, FusedAdam) {_spread(timed)} "
-        f"= {TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.1f} tokens/s (host "
+    log(f"{label}: step (forward, backward, FusedAdam) {_spread(timed)} "
+        f"= {batch * seq / med * 1e3:.1f} tokens/s (host "
         f"clock, synchronized); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_window("training step", lambda: step(opt), top=10)
+    profile_window(f"{label} step", lambda: step(opt), top=10)
 
     # step 1 again from the same weights, through the plain versions
     with torch.no_grad():
@@ -941,7 +1141,7 @@ def phase_training():
     total_err = math.sqrt(num / den)
     worst_g = max(grad_err, key=grad_err.get)
     worst_u = max(update_err, key=update_err.get)
-    log(f"training: step 1 kernels vs plain versions: loss {losses[0]:.6f} "
+    log(f"{label}: step 1 kernels vs plain versions: loss {losses[0]:.6f} "
         f"vs {loss.item():.6f} (rel err {loss_err:.3e}, tolerance "
         f"{TRAIN_LOSS_RTOL}); largest gradient rel err {grad_err[worst_g]:.3e}"
         f" ({worst_g}; tolerance {TRAIN_GRAD_RTOL}); update rel err "
@@ -957,7 +1157,60 @@ def phase_training():
     return totals
 
 
-PHASES = ("kernels", "serving", "training")
+def phase_training():
+    return run_training("training", False, TRAIN_BATCH, TRAIN_SEQ)
+
+
+def phase_flash_training():
+    return run_training("flash training", True, FLASH_BATCH, FLASH_SEQ)
+
+
+def phase_mha():
+    """SelfMultiheadAttn at BERT-large width, forward and backward, bf16
+    weights and activations, no dropout: the non-causal flash path."""
+    from apex_tpu_torch.contrib import SelfMultiheadAttn
+    from apex_tpu_torch.kernels import registry
+    torch.manual_seed(SEED)
+    mha = SelfMultiheadAttn(MHA_HIDDEN, MHA_HEADS, bias=True, impl="fast",
+                            param_dtype=torch.bfloat16)  # on the card
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    x = _randn(gen, MHA_SEQ, MHA_BATCH, MHA_HIDDEN)
+    dy = _randn(gen, MHA_SEQ, MHA_BATCH, MHA_HIDDEN)
+    params = dict(mha.named_parameters())
+
+    def fwd_bwd():
+        xg = x.detach().requires_grad_()
+        out = mha(xg)
+        grads = torch.autograd.grad(out, (xg, *params.values()), dy)
+        return out, dict(zip(("x", *params), grads))
+
+    registry.reset()
+    torch.cuda.synchronize()
+    out, grads = fwd_bwd()
+    torch.cuda.synchronize()
+    launches = registry.launches()
+    expected = {**dict.fromkeys(launches, 0),
+                "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    assert launches == expected, (launches, expected)
+    assert out.shape == x.shape and out.dtype == torch.bfloat16
+    assert torch.isfinite(out).all()
+    with plain_versions():
+        out_p, grads_p = fwd_bwd()
+    errs = {"out": _rel_fro(out, out_p),
+            **{n: _rel_fro(grads[n], grads_p[n]) for n in grads}}
+    worst = max(errs, key=errs.get)
+    ms = call_ms(fwd_bwd, 10, 2)
+    log(f"mha: SelfMultiheadAttn(h {MHA_HIDDEN}, {MHA_HEADS} heads, bf16, "
+        f"fast) on [{MHA_SEQ}, {MHA_BATCH}, {MHA_HIDDEN}]: launches "
+        f"{ {k: v for k, v in launches.items() if v} }; kernels vs plain "
+        f"versions: output rel err {errs['out']:.3e}, largest "
+        f"{errs[worst]:.3e} ({worst}; tolerance {MHA_RTOL}); forward + "
+        f"backward {ms:.3f} ms (CUDA events, eager)")
+    assert errs[worst] <= MHA_RTOL, (worst, errs[worst])
+    return launches
+
+
+PHASES = ("kernels", "serving", "training", "flash_training", "mha")
 SOURCES = {  # kernel -> (its source, the TPU kernel it replaces)
     "rms_norm": ("apex_tpu_torch/csrc/rms_norm.cu",
                  "apex_tpu/kernels/norm.py:85"),
@@ -972,6 +1225,12 @@ SOURCES = {  # kernel -> (its source, the TPU kernel it replaces)
     "softmax_bwd": ("apex_tpu_torch/csrc/softmax.cu",
                     "apex_tpu/kernels/softmax.py:95"),
     "adam": ("apex_tpu_torch/csrc/adam.cu", "apex_tpu/kernels/optim.py:90"),
+    "flash_fwd": ("apex_tpu_torch/csrc/flash_attention.cu",
+                  "apex_tpu/contrib/fmha.py:103"),
+    "flash_dq": ("apex_tpu_torch/csrc/flash_attention.cu",
+                 "apex_tpu/contrib/fmha.py:237"),
+    "flash_dkv": ("apex_tpu_torch/csrc/flash_attention.cu",
+                  "apex_tpu/contrib/fmha.py:278"),
 }
 
 
@@ -1005,24 +1264,31 @@ def main(argv):
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         entries = (check_rms_norm(gen) + check_window_attention(gen)
                    + check_gqa_decode(gen) + check_rms_bwd(gen)
-                   + check_softmax(gen) + check_adam(gen))
+                   + check_softmax(gen) + check_adam(gen)
+                   + check_flash(gen))
         check_refusals()
         for e in entries:
             log(f"kernel {e['name']} [{e['shape']}]: max abs err "
                 f"{e['max_abs_err']:.3e} rel {e['max_rel_err']:.3e} "
                 f"({e['tolerance']}); {_us(e['ms'])} on the device "
                 f"({_us(e['call_ms'])} a call, host included), plain "
-                f"{_us(e['plain_ms'])}, library {_us(e['library_ms'])}, "
-                f"bound {e['bound_ms'] * 1e3:.3f} us by {e['bound_by']}")
+                f"{_us(e['plain_ms'])}, library {_us(e['library_ms'])}"
+                f"{' (' + e['library'] + ')' if 'library' in e else ''}, "
+                f"bound {e['bound_ms'] * 1e3:.3f} us by {e['bound_by']}"
+                + (f"; lse max abs err {e['lse_max_abs_err']:.3e}"
+                   if "lse_max_abs_err" in e else ""))
         torch.cuda.empty_cache()
 
     by_path = {}
     if "serving" in phases:
         by_path["serving"] = phase_serving()
         torch.cuda.empty_cache()
-    if "training" in phases:
-        by_path["training"] = phase_training()
-        torch.cuda.empty_cache()
+    for name, run in (("training", phase_training),
+                      ("flash_training", phase_flash_training),
+                      ("mha", phase_mha)):
+        if name in phases:
+            by_path[name] = run()
+            torch.cuda.empty_cache()
     log(f"chip_smoke: phases {phases} in "
         f"{time.perf_counter() - t_start:.1f} s")
     if list(phases) != list(PHASES):
@@ -1043,7 +1309,8 @@ def main(argv):
             max_abs_err=e["max_abs_err"], ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=e["library_ms"],
-            call_ms=e["call_ms"], shape=e["shape"]))
+            call_ms=e["call_ms"], shape=e["shape"],
+            **{k: e[k] for k in ("library", "lse_max_abs_err") if k in e}))
     assert seen == set(SOURCES), (seen, set(SOURCES))
     assert all(k["launches"] > 0 for k in kernels), kernels
     log(json.dumps({"kernels": kernels, "card": card}))

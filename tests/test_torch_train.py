@@ -4,7 +4,12 @@ slice as a whole.
 
 Small Llama-shaped model (hidden 64, 2 layers, 4 heads, 2 KV groups,
 vocab 256, swiglu, rmsnorm, rope) with ``use_flash_attention=False``,
-seq 32, batch 2. The JAX model is initialised from a PRNG key and its
+seq 32, batch 2; and with ``use_flash_attention=True`` (head dim 64, seq
+128, GQA or MHA, with and without a 40-position sliding window), where
+the JAX model takes its flash branch with the Pallas kernels in
+interpret mode (``_flash_available`` and ``fmha._use_pallas`` patched
+true, as the JAX suite does: its own test asks for a TPU backend) and
+the port its flash branch through the kernels' plain versions. The JAX model is initialised from a PRNG key and its
 params go to the port through ``from_jax_params``; tokens and labels
 come from a numpy seed. The JAX side is
 ``jax.value_and_grad(lambda p: gpt_loss_fn(model.apply({"params": p},
@@ -43,6 +48,8 @@ import numpy as np
 import pytest
 import torch
 
+import apex_tpu.contrib.fmha as jax_fmha
+import apex_tpu.models.transformer_lm as jax_tlm
 from apex_tpu.kernels import softmax as _jax_softmax  # noqa: F401 (gate)
 from apex_tpu.kernels.registry import get_kernel_registry
 from apex_tpu.models import GPTModel as JaxGPTModel
@@ -53,6 +60,7 @@ from apex_tpu.transformer import parallel_state
 from apex_tpu.transformer.tensor_parallel import (
     vocab_parallel_cross_entropy as jax_cross_entropy,
 )
+from apex_tpu_torch.contrib import fmha
 from apex_tpu_torch.kernels import registry
 from apex_tpu_torch.models import (
     GPTModel,
@@ -74,24 +82,48 @@ KW = dict(hidden_size=64, num_layers=2, num_attention_heads=4,
           max_position_embeddings=128, normalization="rmsnorm",
           position_embedding_type="rope", activation="swiglu")
 BATCH, SEQ, LR, STEPS = 2, 32, 1e-3, 2
+FLASH_SEQ = 128
+# (num_query_groups, sliding_window) of the flash cases
+FLASH = {"gqa": (2, None), "gqa-window40": (2, 40), "mha": (None, None),
+         "mha-window40": (None, 40)}
 TOL = {"float32": dict(loss=1e-6, grad=1e-5, update=1e-3, total=1e-3),
        "bfloat16": dict(loss=2e-4, grad=1e-2, update=0.5, total=5e-2)}
+# the flash cases' model (head dim 64, seq 128) in bf16: more entries per
+# tensor and more tokens per gradient than the flash-off model above,
+# so more entries with near-zero gradients whose sign can flip (measured
+# total 0.070 with flash off at this size, 0.073-0.082 with flash on; a
+# share f of flipped entries gives 2 * sqrt(f), f ~ 1.4e-3)
+FLASH_TOL = {"float32": TOL["float32"],
+             "bfloat16": dict(TOL["bfloat16"], total=0.15)}
 _KERNELS = ["softmax", "rmsnorm", "adam"]
 
 
 @pytest.fixture(autouse=True)
-def _interpret():
+def _interpret(monkeypatch):
     parallel_state.destroy_model_parallel()
     reg = get_kernel_registry()
     reg.force_interpret(True, _KERNELS)
+    monkeypatch.setattr(jax_fmha, "_INTERPRET", True)
+    monkeypatch.setattr(jax_fmha, "_use_pallas", lambda: True)
+    monkeypatch.setattr(jax_tlm, "_flash_available", lambda s, d: True)
     yield
     reg.force_interpret(False, _KERNELS)
 
 
-def _batch(seed=0):
+def _batch(seed=0, seq=SEQ):
     rng = np.random.RandomState(seed)
-    return (rng.randint(0, 256, size=(BATCH, SEQ)),
-            rng.randint(0, 256, size=(BATCH, SEQ)))
+    return (rng.randint(0, 256, size=(BATCH, seq)),
+            rng.randint(0, 256, size=(BATCH, seq)))
+
+
+def _kw(flash):
+    """Config fields (and the sequence) of the flash-off model, or of a
+    flash case of FLASH."""
+    if flash is None:
+        return dict(KW, use_flash_attention=False), SEQ
+    groups, window = FLASH[flash]
+    return dict(KW, use_flash_attention=True, head_dim=64,
+                num_query_groups=groups, sliding_window=window), FLASH_SEQ
 
 
 def _np_tree(tree):
@@ -99,14 +131,14 @@ def _np_tree(tree):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(dtype):
+def _reference(dtype, flash=None):
     """The JAX side's initial params and, for each step, its loss, grads,
     params after the update and optimizer state (numpy trees); built
-    once per dtype."""
+    once per dtype and model."""
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
-    model = JaxGPTModel(JaxConfig(**KW, compute_dtype=jdt,
-                                  use_flash_attention=False))
-    tokens, labels = (jnp.asarray(a) for a in _batch())
+    kw, seq = _kw(flash)
+    model = JaxGPTModel(JaxConfig(**kw, compute_dtype=jdt))
+    tokens, labels = (jnp.asarray(a) for a in _batch(seq=seq))
     params = model.init(jax.random.PRNGKey(0), tokens)["params"]
     opt = JaxFusedAdam(lr=LR)
 
@@ -128,10 +160,9 @@ def _reference(dtype):
     return _np_tree(params), out
 
 
-def _port_model(dtype, params):
+def _port_model(dtype, params, flash=None):
     tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    cfg = TransformerConfig(**KW, compute_dtype=tdt,
-                            use_flash_attention=False)
+    cfg = TransformerConfig(**_kw(flash)[0], compute_dtype=tdt)
     model = GPTModel(cfg, device="cpu")
     model.load_state_dict(from_jax_params(params, cfg))
     return model
@@ -201,6 +232,58 @@ def test_two_fused_adam_steps_match_jax(dtype):
     assert opt.param_groups[0]["step"] == STEPS
 
 
+@pytest.fixture
+def flash_calls(monkeypatch):
+    """Counts the port's flash forwards (plain versions on the CPU)."""
+    calls = []
+    plain = fmha.flash_fwd_plain
+
+    def counted(*args, **kwargs):
+        calls.append(args[4:6])  # causal, window
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(fmha, "flash_fwd_plain", counted)
+    return calls
+
+
+@pytest.mark.parametrize("flash", list(FLASH))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_loss_and_every_gradient_match_jax(dtype, flash, flash_calls):
+    params, steps = _reference(dtype, flash)
+    model = _port_model(dtype, params, flash)
+    tokens, labels = (torch.from_numpy(a) for a in _batch(seq=FLASH_SEQ))
+    loss = gpt_loss_fn(model(tokens), labels)
+    loss.backward()
+    window = FLASH[flash][1]
+    assert flash_calls == [(True, window)] * KW["num_layers"]
+    tol = TOL[dtype]
+    assert abs(loss.item() - steps[0]["loss"]) <= tol["loss"] * abs(
+        steps[0]["loss"]), (loss.item(), steps[0]["loss"])
+    want = from_jax_params(steps[0]["grads"])
+    for name, p in model.named_parameters():
+        err = _rel(p.grad.numpy(), want[name].numpy())
+        assert err <= tol["grad"], (name, err)
+
+
+@pytest.mark.parametrize("flash", ["gqa-window40", "mha"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_two_fused_adam_steps_match_jax(dtype, flash):
+    params, steps = _reference(dtype, flash)
+    model = _port_model(dtype, params, flash)
+    opt = FusedAdam(model.parameters(), lr=LR)
+    tokens, labels = (torch.from_numpy(a) for a in _batch(seq=FLASH_SEQ))
+    before = {n: t.numpy() for n, t in from_jax_params(params).items()}
+    for k in range(STEPS):
+        loss = gpt_loss_fn(model(tokens), labels)
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        assert abs(loss.item() - steps[k]["loss"]) <= TOL[dtype]["loss"] * abs(
+            steps[k]["loss"]), (k, loss.item(), steps[k]["loss"])
+        _assert_updates(model, before, steps[k]["params"], FLASH_TOL[dtype],
+                        f"step {k + 1}")
+
+
 def test_second_step_from_the_jax_state_matches_jax():
     """The port's model and optimizer started from the JAX params and
     FusedAdam state after step 1 take JAX's step 2 (fp32)."""
@@ -261,7 +344,8 @@ def _tiny(**over):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(use_flash_attention=True), "flash attention"),
+    # seq 16: flash is not taken, and the softmax path has no window
+    (dict(use_flash_attention=True, sliding_window=8), "flash attention"),
     (dict(sliding_window=8), "sliding window"),
     (dict(attn_mask_type=AttnMaskType.padding), "BERT slice"),
 ])
@@ -297,3 +381,37 @@ def test_decode_refuses_an_attention_mask():
     with pytest.raises(ValueError, match="attention_mask"):
         model(torch.zeros(1, 4, dtype=torch.long), None, cache,
               attention_mask=torch.zeros(1, 1, 4, 4, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("over,seq", [
+    (dict(), 16),                               # seq not a multiple of 128
+    (dict(head_dim=None), 128),                 # head dim 16
+    (dict(attn_logit_softcapping=30.0), 128),   # softcap
+    (dict(query_pre_attn_scalar=32.0), 128),    # another score scale
+])
+def test_flash_is_taken_only_under_the_jax_condition(over, seq, flash_calls):
+    """Otherwise the softmax path runs, as the JAX model's does; its
+    output equals the flash-off model's."""
+    cfg = {**KW, "num_layers": 1, "head_dim": 64, **over}
+    a = GPTModel(TransformerConfig(**cfg, use_flash_attention=True),
+                 device="cpu")
+    init_weights(a, 0)
+    b = GPTModel(TransformerConfig(**cfg, use_flash_attention=False),
+                 device="cpu")
+    b.load_state_dict(a.state_dict())
+    tokens = torch.from_numpy(_batch(seq=seq)[0])
+    torch.testing.assert_close(a(tokens), b(tokens), rtol=0, atol=0)
+    assert flash_calls == []
+
+
+def test_flash_runs_the_padding_mask_type_as_full_attention(flash_calls):
+    """attn_mask_type padding without a mask: flash with causal=False (the
+    softmax path refuses it until the BERT slice)."""
+    cfg = TransformerConfig(**dict(KW, num_layers=1, head_dim=64),
+                            attn_mask_type=AttnMaskType.padding)
+    model = GPTModel(cfg, device="cpu")
+    init_weights(model, 0)
+    tokens = torch.from_numpy(_batch(seq=FLASH_SEQ)[0])
+    logits = model(tokens)
+    assert torch.isfinite(logits).all()
+    assert flash_calls == [(False, None)]

@@ -7,12 +7,14 @@ the package builds nothing and touches no GPU. Entry points run on the
 card unless the caller asks for the CPU, where each kernel wrapper takes
 its plain PyTorch version.
 
-Ported so far, for RMSNorm/RoPE/GQA/SwiGLU decoder LMs such as
-TinyLlama-1.1B: KV-cache generation (``models.generate``) and the
-training step with flash attention on or off (``GPTModel`` without a
-cache, ``models.gpt_loss_fn``, ``optimizers.FusedAdam``); flash
-attention itself (``contrib.fmha``) and the multi-head attention modules
-(``contrib.multihead_attn``).
+Ported so far, for GPT-2-shaped (learned positions, LayerNorm, gelu)
+and Llama-shaped (RoPE, RMSNorm, GQA, SwiGLU) decoder LMs: KV-cache
+generation (``models.generate``) and the training step with flash
+attention on or off (``GPTModel`` without a cache,
+``models.gpt_loss_fn``, ``optimizers.FusedAdam``); BERT pretraining
+(``models.BertModel``, ``models.bert_loss_fn``,
+``optimizers.FusedLAMB``); flash attention itself (``contrib.fmha``)
+and the multi-head attention modules (``contrib.multihead_attn``).
 """
 
 __version__ = "0.1.0"

@@ -1,16 +1,17 @@
 """What the two multi-head attention modules share: JAX's promoting
-``x @ w``, the head split, and the einsum attention path (masks,
-dropout)."""
+``x @ w``, the head split, the einsum attention path (masks, dropout),
+and ``include_norm_add``'s pre-LayerNorm."""
 
 import torch
 from torch import nn
 
 from apex_tpu_torch.contrib.fmha import flash_attention
+from apex_tpu_torch.normalization import FusedLayerNorm
 
 MASK_VALUE = -10000.0  # the reference module's masked score
 
 
-def check_args(embed_dim, num_heads, dropout, impl, include_norm_add):
+def check_args(embed_dim, num_heads, dropout, impl):
     if embed_dim % num_heads:
         raise ValueError(f"embed_dim ({embed_dim}) must be a multiple of "
                          f"num_heads ({num_heads})")
@@ -18,10 +19,20 @@ def check_args(embed_dim, num_heads, dropout, impl, include_norm_add):
         raise ValueError(f"dropout ({dropout}) must be in [0, 1]")
     if impl not in ("fast", "default"):
         raise ValueError(f"impl must be 'fast' or 'default', got {impl!r}")
-    if include_norm_add:
-        raise NotImplementedError(
-            "include_norm_add=True needs FusedLayerNorm, whose kernels come "
-            "with the GPT-2/LayerNorm slice of apex_tpu_torch")
+
+
+def norm(include_norm_add, embed_dim, device):
+    """``lyr_norm``, the pre-LayerNorm of ``include_norm_add`` (fp32
+    parameters, eps 1e-5), or None."""
+    return FusedLayerNorm(embed_dim, device=device) if include_norm_add else None
+
+
+def pre_norm(lyr_norm, query):
+    """The query normalised in fp32 and cast back to its dtype, as the
+    JAX modules do; the query itself without ``include_norm_add``."""
+    if lyr_norm is None:
+        return query
+    return lyr_norm(query.float()).to(query.dtype)
 
 
 def weight(rows, cols, dtype, device):

@@ -1,6 +1,8 @@
 """Encoder-decoder multi-head attention (counterpart of
 ``apex_tpu/contrib/multihead_attn/encdec_multihead_attn.py``): Q from
-the decoder stream, a fused KV projection from the encoder stream.
+the decoder stream, a fused KV projection from the encoder stream;
+with ``include_norm_add``, a pre-LayerNorm (``lyr_norm``) of the query
+and the residual add of the query after the output projection.
 
 Parameters keep the JAX names and [in, out] layouts (``q_weight`` [h,
 h], ``kv_weight`` [h, 2h], ``out_proj_weight``, and the biases). Under
@@ -27,9 +29,10 @@ class EncdecMultiheadAttn(nn.Module):
                  include_norm_add=False, impl="fast",
                  param_dtype=torch.float32, device=None):
         super().__init__()
-        _core.check_args(embed_dim, num_heads, dropout, impl,
-                         include_norm_add)
+        _core.check_args(embed_dim, num_heads, dropout, impl)
         device = resolve_device(device)
+        self.include_norm_add = include_norm_add
+        self.lyr_norm = _core.norm(include_norm_add, embed_dim, device)
         h = embed_dim
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.dropout, self.bias, self.impl = dropout, bias, impl
@@ -47,6 +50,8 @@ class EncdecMultiheadAttn(nn.Module):
                 need_weights=False, attn_mask=None, is_training=None,
                 generator=None):
         training = self.training if is_training is None else is_training
+        residual = query
+        query = _core.pre_norm(self.lyr_norm, query)
         q = _core.project(query, self.q_weight, self.q_bias)
         k, v = _core.project(key, self.kv_weight, self.kv_bias).chunk(2, -1)
         drop = self.dropout if training else 0.0
@@ -60,4 +65,6 @@ class EncdecMultiheadAttn(nn.Module):
             query.dtype, attn_mask, key_padding_mask, False, drop, generator)
         out = _core.project(_core.from_heads(ctx), self.out_proj_weight,
                             self.out_proj_bias)
+        if self.include_norm_add:
+            out = out + residual
         return (out, None) if need_weights else out

@@ -3,9 +3,11 @@
 
 A fused QKV projection (or three with ``separate_qkv_params``), the
 attention core, and the output projection, over the reference [s, b, h]
-layout. Parameters keep the JAX names and [in, out] layouts
-(``qkv_weight`` [h, 3h] or ``q_weight``/``k_weight``/``v_weight``,
-``out_proj_weight``, and the biases), so ``models.from_jax_params``
+layout; with ``include_norm_add``, a pre-LayerNorm (``lyr_norm``) of
+the query and the residual add of the input after the projection.
+Parameters keep the JAX names and [in, out] layouts (``qkv_weight`` [h,
+3h] or ``q_weight``/``k_weight``/``v_weight``, ``out_proj_weight``, the
+biases and ``lyr_norm``'s), so ``models.from_jax_params``
 carries a flax tree over as it is. Under JAX's condition (no mask,
 ``impl="fast"``, no live dropout) the core is the non-causal flash
 attention of :mod:`apex_tpu_torch.contrib.fmha`; otherwise fp32 einsum
@@ -25,16 +27,17 @@ class SelfMultiheadAttn(nn.Module):
     ``mask_additive``, is added to the scores); ``key_padding_mask``
     [b, sk]: True masks. ``is_training`` (default: the module's
     ``training``) turns dropout on; its draws come from ``generator``.
-    ``include_norm_add=True`` raises until FusedLayerNorm is ported."""
+    ``include_norm_add=True`` gives ``query + attn(lyr_norm(query))``."""
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, bias=False,
                  include_norm_add=False, impl="fast",
                  separate_qkv_params=False, mask_additive=False,
                  param_dtype=torch.float32, device=None):
         super().__init__()
-        _core.check_args(embed_dim, num_heads, dropout, impl,
-                         include_norm_add)
+        _core.check_args(embed_dim, num_heads, dropout, impl)
         device = resolve_device(device)
+        self.include_norm_add = include_norm_add
+        self.lyr_norm = _core.norm(include_norm_add, embed_dim, device)
         h = embed_dim
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.dropout, self.bias, self.impl = dropout, bias, impl
@@ -60,6 +63,8 @@ class SelfMultiheadAttn(nn.Module):
                 need_weights=False, attn_mask=None, is_training=None,
                 generator=None):
         training = self.training if is_training is None else is_training
+        residual = query
+        query = _core.pre_norm(self.lyr_norm, query)
         if self.separate_qkv_params:
             q, k, v = (self._proj(name, query) for name in ("q", "k", "v"))
         else:
@@ -76,4 +81,6 @@ class SelfMultiheadAttn(nn.Module):
             drop, generator)
         out = _core.project(_core.from_heads(ctx), self.out_proj_weight,
                             self.out_proj_bias)
+        if self.include_norm_add:
+            out = out + residual
         return (out, None) if need_weights else out

@@ -1,9 +1,11 @@
 """GPT language model over the transformer stack, and its loss.
 
 Counterpart of ``apex_tpu.models.GPTModel`` and ``gpt_loss_fn``: token
-embedding, the layer stack over the Megatron [s, b, h] layout, the
-final norm and the LM head (untied ``lm_head`` [hidden, vocab], or the
-embedding table when tied), logits in fp32. With a KV cache the model
+embedding (plus learned ``position_embeddings`` [max_positions, hidden]
+where the model has them, added in ``params_dtype`` before the cast to
+``compute_dtype``), the layer stack over the Megatron [s, b, h] layout,
+the final norm and the LM head (untied ``lm_head`` [hidden, vocab], or
+the embedding table when tied), logits in fp32. With a KV cache the model
 runs as JAX's ``decode=True`` model; without one it runs the training
 forward, and a step is
 
@@ -30,9 +32,12 @@ class GPTModel(nn.Module):
     """Causal LM: tokens [b, s] and their absolute positions [b, s] (or
     [1, s]) -> logits [b, s, vocab] in fp32. With ``cache`` the chunk's
     K/V are appended to it (updated in place, index advanced by s) and
-    positions default to the cache's index onward; without one the
-    training forward runs (positions default to 0..s-1), differentiable
-    in every parameter."""
+    positions default to the cache's index onward (JAX's learned-position
+    model defaults to 0..s-1 there; the two agree on the prefill chunk);
+    without one the training forward runs (positions default to 0..s-1),
+    differentiable in every parameter. ``attention_mask`` (True =
+    masked, broadcast to [b, heads, s, s]) takes the training forward's
+    masked softmax path."""
 
     def __init__(self, config: TransformerConfig, num_layers=None,
                  device=None):
@@ -44,6 +49,10 @@ class GPTModel(nn.Module):
                            else cfg.num_layers)
         self.word_embeddings = VocabParallelEmbedding(
             cfg.vocab_size, cfg.hidden_size, cfg.params_dtype, device)
+        self.position_embeddings = (nn.Parameter(torch.empty(
+            cfg.max_position_embeddings, cfg.hidden_size,
+            dtype=cfg.params_dtype, device=device))
+            if cfg.position_embedding_type == "learned" else None)
         self.transformer = ParallelTransformer(cfg, self.num_layers, device)
         self.final_layernorm = _make_norm(cfg, device)
         self.lm_head = (None if cfg.tie_word_embeddings else nn.Parameter(
@@ -60,8 +69,14 @@ class GPTModel(nn.Module):
         s = tokens.shape[1]
         if cache is not None:
             cache.check_room(s)
-        h = self.word_embeddings(tokens).to(cfg.compute_dtype)
-        h = h.transpose(0, 1).contiguous()  # [s, b, h]
+        h = self.word_embeddings(tokens)
+        if self.position_embeddings is not None:
+            if position_ids is None:
+                start = cache.index if cache is not None else 0
+                position_ids = torch.arange(start, start + s,
+                                            device=tokens.device)[None, :]
+            h = h + self.position_embeddings[position_ids]
+        h = h.to(cfg.compute_dtype).transpose(0, 1).contiguous()  # [s, b, h]
         positions = (None if position_ids is None
                      else position_ids.transpose(0, 1))  # [s, b] or [s, 1]
         h = self.transformer(h, positions, cache, attention_mask)

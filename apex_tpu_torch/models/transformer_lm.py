@@ -2,10 +2,13 @@
 training forward.
 
 Counterpart of ``apex_tpu/models/transformer_lm.py``: pre-norm layers
-over the Megatron [s, b, h] layout, a fused QKV projection and RoPE.
+(LayerNorm or RMSNorm) over the Megatron [s, b, h] layout, a fused QKV
+projection, and learned positions (added by the model below the stack)
+or RoPE (applied here).
 
 - With a KV cache (``ParallelTransformer(decode=True)`` in JAX): RoPE at
-  absolute positions, the cache written in place, and attention through
+  absolute positions where the model uses it, the cache written in
+  place, and attention through
   :func:`apex_tpu_torch.kernels.fused_cc.window_attention` for a chunk
   of several tokens (the prompt) or
   :func:`apex_tpu_torch.contrib.gqa_decode.gqa_flash_decode` for each
@@ -19,19 +22,19 @@ over the Megatron [s, b, h] layout, a fused QKV projection and RoPE.
   when it is shorter than the sequence). The JAX package also asks that
   its backend be a TPU, so on the CPU it never takes flash; the port
   mirrors what it does on its accelerator and takes flash on the CPU too
-  (through the kernels' plain versions). Otherwise the causal softmax
-  path: fp32 scores from the ``compute_dtype`` operands, the causal
-  softmax kernel (forward and backward) of
-  :mod:`apex_tpu_torch.transformer.functional`, and the context product
-  in fp32; an ``attention_mask``, a padding mask type or a window
-  shorter than the sequence raise there until the BERT slice brings the
-  masked softmax kernel.
+  (through the kernels' plain versions). Otherwise the softmax path:
+  fp32 scores from the ``compute_dtype`` operands; a window shorter than
+  the sequence folded into the mask; the causal softmax kernel for the
+  causal mask type without a mask, else the masked softmax kernel (the
+  scaled one when there is no mask), forward and backward, of
+  :mod:`apex_tpu_torch.transformer.functional`; the context product in
+  fp32.
 
-Norms go through the RMSNorm kernels (forward, and backward-dx under
-autograd). Dtypes follow the JAX modules: parameters in
-``params_dtype`` (fp32), activations and the cache in
+Norms go through the LayerNorm or RMSNorm kernels (forward, and
+backward-dx under autograd). Dtypes follow the JAX modules: parameters
+in ``params_dtype`` (fp32), activations and the cache in
 ``compute_dtype``, norm statistics, RoPE, scores, softmax and the MLP's
-activation in fp32. The LayerNorm/alibi/MoE variants are later slices.
+activation in fp32. The ALiBi/MoE variants are later slices.
 """
 
 import dataclasses
@@ -44,9 +47,10 @@ from torch import nn
 
 from apex_tpu_torch.contrib import fmha, gqa_decode
 from apex_tpu_torch.kernels import fused_cc
-from apex_tpu_torch.normalization import FusedRMSNorm
+from apex_tpu_torch.normalization import FusedLayerNorm, FusedRMSNorm
 from apex_tpu_torch.transformer.enums import AttnMaskType
 from apex_tpu_torch.transformer.functional import (
+    scaled_masked_softmax,
     scaled_upper_triang_masked_softmax,
 )
 from apex_tpu_torch.transformer.tensor_parallel import (
@@ -89,9 +93,9 @@ def _scale_rope_freqs(inv, scaling: RopeScaling):
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The fields of ``apex_tpu.models.TransformerConfig`` that the decode
-    path and the training forward read, with torch dtypes. Values the
-    port cannot run yet (learned or alibi positions, LayerNorm) are
-    refused."""
+    path and the training forward read, with torch dtypes and JAX's
+    defaults (the GPT-2 family: learned positions, gelu, LayerNorm).
+    ALiBi positions, which the port cannot run yet, are refused."""
 
     hidden_size: int = 1024
     num_layers: int = 24
@@ -105,37 +109,42 @@ class TransformerConfig:
     use_flash_attention: bool = True
     attn_mask_type: AttnMaskType = AttnMaskType.causal
     num_query_groups: Optional[int] = None
-    position_embedding_type: str = "rope"
+    position_embedding_type: str = "learned"
     rotary_base: float = 10000.0
     rope_scaling: Optional[RopeScaling] = None
     rotary_percent: float = 1.0
     rotary_interleaved: bool = False
-    activation: str = "swiglu"
+    activation: str = "gelu"
     head_dim: Optional[int] = None
     sliding_window: Optional[int] = None
     sliding_window_pattern: int = 1
     attn_logit_softcapping: Optional[float] = None
     query_pre_attn_scalar: Optional[float] = None
-    normalization: str = "rmsnorm"
+    normalization: str = "layernorm"
     tie_word_embeddings: bool = False
 
     def __post_init__(self):
-        if self.position_embedding_type != "rope":
+        if self.position_embedding_type == "alibi":
+            raise NotImplementedError(
+                "position_embedding_type 'alibi' is not ported yet (it "
+                "needs an ALiBi path in the decode kernels and on the "
+                "softmax path; the flash kernels take slopes: "
+                "contrib.fmha.flash_attention(alibi_slopes=...))")
+        if self.position_embedding_type not in ("learned", "rope"):
+            raise ValueError(f"unknown position_embedding_type "
+                             f"{self.position_embedding_type!r}")
+        if self.normalization not in ("layernorm", "rmsnorm"):
             raise ValueError(
-                f"position_embedding_type {self.position_embedding_type!r}: "
-                f"only 'rope' is ported so far (ALiBi needs an ALiBi path "
-                f"in the decode and softmax kernels; the flash kernels take "
-                f"slopes: contrib.fmha.flash_attention(alibi_slopes=...))")
-        if self.normalization != "rmsnorm":
-            raise ValueError(f"normalization {self.normalization!r}: only "
-                             f"'rmsnorm' is ported so far (LayerNorm's kernels "
-                             f"come with the GPT-2 slice)")
+                f"unknown normalization {self.normalization!r}")
         if self.activation not in ("gelu", "gelu_exact", "relu", "relu2",
                                    "swiglu", "geglu"):
             raise ValueError(f"unknown activation {self.activation!r}")
-        if self.sliding_window is not None and self.sliding_window < 1:
-            raise ValueError(
-                f"sliding_window ({self.sliding_window}) must be >= 1")
+        if self.sliding_window is not None:
+            if self.sliding_window < 1:
+                raise ValueError(
+                    f"sliding_window ({self.sliding_window}) must be >= 1")
+            if self.attn_mask_type != AttnMaskType.causal:
+                raise ValueError("sliding_window requires causal attention")
         if self.sliding_window_pattern < 1:
             raise ValueError(f"sliding_window_pattern "
                              f"({self.sliding_window_pattern}) must be >= 1")
@@ -209,8 +218,17 @@ def _rope_core(x, base, positions, freq_dim, interleaved=False,
 
 
 def _make_norm(cfg, device):
-    return FusedRMSNorm(cfg.hidden_size, eps=cfg.layernorm_epsilon,
-                        device=device)
+    norm = FusedRMSNorm if cfg.normalization == "rmsnorm" else FusedLayerNorm
+    return norm(cfg.hidden_size, eps=cfg.layernorm_epsilon, device=device)
+
+
+def _rotate(cfg, x, positions):
+    """RoPE at ``positions`` where the model uses it; x as it is
+    otherwise (learned positions are added below the stack)."""
+    if cfg.position_embedding_type != "rope":
+        return x
+    return apply_rotary_emb(x, cfg.rotary_base, positions, cfg.rotary_percent,
+                            cfg.rotary_interleaved, cfg.rope_scaling)
 
 
 class ParallelAttention(nn.Module):
@@ -282,65 +300,45 @@ class ParallelAttention(nn.Module):
                 and cfg.query_pre_attn_scalar in (None, cfg.kv_channels)
                 and _flash_available(s, cfg.kv_channels))
 
-    def _check_softmax_path(self, s, attention_mask):
-        """Refuse what the causal softmax path cannot run yet, naming the
-        slice that brings it."""
-        cfg = self.config
-        if attention_mask is not None:
-            raise NotImplementedError(
-                "an explicit attention_mask needs the masked softmax kernel, "
-                "which comes with the BERT slice of apex_tpu_torch")
-        if cfg.attn_mask_type != AttnMaskType.causal:
-            raise NotImplementedError(
-                f"attn_mask_type {cfg.attn_mask_type} on the softmax path "
-                f"needs the unmasked softmax kernel, which comes with the "
-                f"BERT slice of apex_tpu_torch; flash attention runs it "
-                f"(use_flash_attention=True, seq a multiple of 128, head "
-                f"dim 64, 128 or 256)")
-        window = self._layer_window()
-        if window is not None and window < s:
-            raise NotImplementedError(
-                f"a sliding window ({window} < {s} positions) on the softmax "
-                f"path needs the masked softmax kernel (BERT slice of "
-                f"apex_tpu_torch); flash attention runs it "
-                f"(use_flash_attention=True, seq a multiple of 128, head "
-                f"dim 64, 128 or 256)")
-
     def _train_attention(self, q, k, v, position_ids, attention_mask):
         """Attention over the chunk, as the JAX model's training forward:
-        RoPE at ``position_ids`` (default 0..s-1), each K/V group
-        repeated for its query heads, then flash attention (see
-        :meth:`_flash`) or the softmax path: fp32 scores from
-        ``compute_dtype`` operands, the causal softmax kernel, the
-        context product in fp32 from ``compute_dtype`` probabilities.
-        The ``.float()`` casts make the bf16 x bf16 products accumulate
-        in fp32 and send the operands' gradients back in their own
-        dtype, as JAX's einsum with ``preferred_element_type=float32``
-        does."""
+        RoPE at ``position_ids`` (default 0..s-1) where the model uses
+        it, each K/V group repeated for its query heads, then flash
+        attention (see :meth:`_flash`) or the softmax path: fp32 scores
+        from ``compute_dtype`` operands, a window shorter than the
+        sequence folded into ``attention_mask`` (True = masked), the
+        causal softmax kernel for the causal mask type without a mask,
+        else the masked (or, with no mask, the scaled) softmax kernel,
+        the context product in fp32 from ``compute_dtype``
+        probabilities. The ``.float()`` casts make the bf16 x bf16
+        products accumulate in fp32 and send the operands' gradients
+        back in their own dtype, as JAX's einsum with
+        ``preferred_element_type=float32`` does."""
         cfg = self.config
         s, b, n, kv = q.shape
-        flash = self._flash(s, attention_mask)
-        if not flash:
-            self._check_softmax_path(s, attention_mask)
-        q = apply_rotary_emb(q, cfg.rotary_base, position_ids,
-                             cfg.rotary_percent, cfg.rotary_interleaved,
-                             cfg.rope_scaling)
-        k = apply_rotary_emb(k, cfg.rotary_base, position_ids,
-                             cfg.rotary_percent, cfg.rotary_interleaved,
-                             cfg.rope_scaling)
+        q = _rotate(cfg, q, position_ids)
+        k = _rotate(cfg, k, position_ids)
         if k.shape[2] != n:  # head i reads group i // rep
             rep = n // k.shape[2]
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
-        if flash:
+        window = self._layer_window()
+        if window is not None and window >= s:
+            window = None  # a window covering the sequence is plain causal
+        if self._flash(s, attention_mask):
             # q, k, v as the projection left them (fp32 after its bias,
             # as in JAX), [s, b, n, d] -> [b, n, s, d]
-            window = self._layer_window()
             ctx = fmha.flash_attention(
                 *(t.permute(1, 2, 0, 3) for t in (q, k, v)),
                 causal=cfg.attn_mask_type == AttnMaskType.causal,
-                window=window if window is not None and window < s else None)
+                window=window)
         else:
+            if window is not None:
+                i = torch.arange(s, device=q.device)[:, None]
+                j = torch.arange(s, device=q.device)[None, :]
+                band = (j > i) | (i - j >= window)
+                attention_mask = (band if attention_mask is None
+                                  else band | attention_mask.bool())
             qt, kt, vt = (t.permute(1, 2, 0, 3).to(cfg.compute_dtype)
                           for t in (q, k, v))
             scores = torch.matmul(qt.float(), kt.float().transpose(-1, -2))
@@ -348,16 +346,20 @@ class ParallelAttention(nn.Module):
             if cfg.attn_logit_softcapping is not None:
                 cap = cfg.attn_logit_softcapping
                 scores = cap * torch.tanh(scores / cap)
-            probs = scaled_upper_triang_masked_softmax(
-                scores.reshape(b * n, s, s), 1.0).reshape(b, n, s, s)
+            if (cfg.attn_mask_type == AttnMaskType.causal
+                    and attention_mask is None):
+                probs = scaled_upper_triang_masked_softmax(
+                    scores.reshape(b * n, s, s), 1.0).reshape(b, n, s, s)
+            else:
+                probs = scaled_masked_softmax(scores, attention_mask, 1.0)
             ctx = torch.matmul(probs.to(cfg.compute_dtype).float(),
                                vt.float())
         ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, n * kv)
         return self.dense(ctx.to(cfg.compute_dtype))
 
     def _decode_attention(self, q, k, v, position_ids, cache):
-        """Rotate at absolute positions, write the chunk's rows at the
-        cache's index, attend over the filled prefix."""
+        """Rotate at absolute positions (RoPE models), write the chunk's
+        rows at the cache's index, attend over the filled prefix."""
         cfg = self.config
         s, b, n, kv = q.shape
         n_kv = k.shape[2]
@@ -365,10 +367,8 @@ class ParallelAttention(nn.Module):
         idx = cache.index
         pos = (position_ids if position_ids is not None
                else idx + torch.arange(s, device=q.device))
-        q = apply_rotary_emb(q, cfg.rotary_base, pos, cfg.rotary_percent,
-                             cfg.rotary_interleaved, cfg.rope_scaling)
-        k = apply_rotary_emb(k, cfg.rotary_base, pos, cfg.rotary_percent,
-                             cfg.rotary_interleaved, cfg.rope_scaling)
+        q = _rotate(cfg, q, pos)
+        k = _rotate(cfg, k, pos)
         ck = cache.keys[self.layer_number]
         cv = cache.values[self.layer_number]
         ck[idx:idx + s] = k

@@ -89,7 +89,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 def test_real_sources_and_flags():
     names = {p.name for p in _build.sources()}
-    assert {"adam.cu", "gqa_decode.cu", "rms_norm.cu", "softmax.cu",
+    assert {"adam.cu", "flash_attention.cu", "gqa_decode.cu", "lamb.cu",
+            "layer_norm.cu", "rms_norm.cu", "softmax.cu",
             "window_attention.cu"} <= names
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
@@ -114,8 +115,16 @@ def test_plain_versions_count_no_launch():
     optim.adam(torch.zeros(1), [x], [x.clone()], [x.clone()], [x.abs()],
                lr=1e-3, bc1=0.1, bc2=0.001, b1=0.9, b2=0.999, eps=1e-8,
                weight_decay=0.0, adam_w=True)
+    norm.ln_fwd(x, None, None, 1e-5)
+    norm.ln_bwd_dx(x, x, None, 1e-5)
+    softmax.scaled_softmax_fwd(x, 1.0)
+    softmax.scaled_masked_softmax_fwd(x, x > 0, 1.0)
+    optim.lamb(torch.zeros(1), [x.clone()], [x], [x.clone()], [x.abs()],
+               clip=None, bc1=0.1, bc2=0.001, b1=0.9, b2=0.999, beta3=0.1,
+               eps=1e-6, weight_decay=0.0, adam_w=True)
     kernels = ("rms_norm", "rms_bwd", "window_attention", "gqa_decode",
-               "causal_softmax", "softmax_bwd", "adam")
+               "causal_softmax", "softmax_bwd", "adam", "layer_norm",
+               "ln_bwd", "scaled_softmax", "masked_softmax", "lamb")
     launches = registry.launches()
     assert set(kernels) <= launches.keys()
     assert not any(launches[name] for name in kernels), launches

@@ -68,14 +68,18 @@ def _masks(rng, sq, sk, which):
     return attn, key_pad
 
 
-def _compare(jax_mod, port, inputs, dtype, attn, key_pad, seed):
+def _compare(jax_mod, port, inputs, dtype, attn, key_pad, seed,
+             perturb=None):
     """Forward and every gradient of the JAX module and the port's, with
-    the JAX params loaded into the port."""
+    the JAX params (passed through ``perturb``, if given) loaded into the
+    port."""
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     jx = [jnp.asarray(a, jdt) for a in inputs]
     params = jax_mod.init(jax.random.PRNGKey(seed), *jx,
                           is_training=False)["params"]
+    if perturb is not None:
+        params = perturb(params)
     np_params = jax.tree.map(np.asarray, params)
     port.load_state_dict(from_jax_params(np_params))
     jmask = None if attn is None else jnp.asarray(attn)
@@ -201,10 +205,64 @@ def test_dropout_in_the_module_draws_from_its_generator():
                                atol=0)
 
 
+def _perturb_norm(seed):
+    """A params transform giving ``lyr_norm`` a weight and bias that are
+    not the identity's ones and zeros."""
+    def perturb(params):
+        rng = np.random.RandomState(seed)
+        params = jax.tree.map(lambda a: a, params)
+        norm = dict(params["lyr_norm"])
+        norm["weight"] = norm["weight"] + jnp.asarray(
+            0.2 * rng.randn(*norm["weight"].shape), jnp.float32)
+        norm["bias"] = norm["bias"] + jnp.asarray(
+            0.2 * rng.randn(*norm["bias"].shape), jnp.float32)
+        return {**params, "lyr_norm": norm}
+    return perturb
+
+
+@pytest.mark.parametrize("impl,masks,dtype", [
+    ("fast", None, "float32"),        # flash
+    ("fast", None, "bfloat16"),       # flash
+    ("default", "both", "float32"),   # einsum with masks
+    ("fast", "pad", "bfloat16"),
+])
+def test_self_include_norm_add_matches_jax(impl, masks, dtype):
+    """include_norm_add: lyr_norm on the fp32 query, cast back, and the
+    residual add; lyr_norm's weight and bias get their gradients."""
+    s = 128
+    rng = np.random.RandomState(11)
+    x = rng.randn(s, BATCH, H).astype(np.float32)
+    attn, key_pad = _masks(rng, s, s, masks)
+    kw = dict(embed_dim=H, num_heads=HEADS, bias=True, impl=impl,
+              include_norm_add=True)
+    port = SelfMultiheadAttn(**kw, device="cpu")
+    assert {"lyr_norm.weight", "lyr_norm.bias"} <= dict(
+        port.named_parameters()).keys()
+    _compare(JaxSelf(**kw), port, [x], dtype, attn, key_pad, 7,
+             perturb=_perturb_norm(12))
+
+
+@pytest.mark.parametrize("sk,masks,dtype", [
+    (128, None, "float32"), (96, "pad", "bfloat16")])
+def test_encdec_include_norm_add_matches_jax(sk, masks, dtype):
+    sq = 128
+    rng = np.random.RandomState(sk)
+    q = rng.randn(sq, BATCH, H).astype(np.float32)
+    k = rng.randn(sk, BATCH, H).astype(np.float32)
+    attn, key_pad = _masks(rng, sq, sk, masks)
+    kw = dict(embed_dim=H, num_heads=HEADS, bias=True, include_norm_add=True)
+    port = EncdecMultiheadAttn(**kw, device="cpu")
+    _compare(JaxEncdec(**kw), port, [q, k], dtype, attn, key_pad, 9,
+             perturb=_perturb_norm(13))
+
+
 def test_include_norm_add_and_bad_arguments_raise():
+    """include_norm_add builds lyr_norm (it raised before LayerNorm was
+    ported); bad arguments raise."""
     for cls in (SelfMultiheadAttn, EncdecMultiheadAttn):
-        with pytest.raises(NotImplementedError, match="GPT-2/LayerNorm"):
-            cls(64, 2, include_norm_add=True, device="cpu")
+        mod = cls(64, 2, include_norm_add=True, device="cpu")
+        assert mod.lyr_norm.weight.shape == (64,)
+        assert cls(64, 2, device="cpu").lyr_norm is None
         with pytest.raises(ValueError, match="impl"):
             cls(64, 2, impl="cutlass", device="cpu")
         with pytest.raises(ValueError, match="multiple of num_heads"):

@@ -69,7 +69,7 @@ from apex_tpu_torch.models import (
     gpt_loss_fn,
     init_cache,
     init_weights,
-    load_jax_adam_state,
+    load_jax_optimizer_state,
 )
 from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.transformer.enums import AttnMaskType
@@ -290,7 +290,7 @@ def test_second_step_from_the_jax_state_matches_jax():
     params, steps = _reference("float32")
     model = _port_model("float32", steps[0]["params"])
     opt = FusedAdam(model.parameters(), lr=LR)
-    load_jax_adam_state(opt, model, steps[0]["state"])
+    load_jax_optimizer_state(opt, model, steps[0]["state"])
     tokens, labels = (torch.from_numpy(a) for a in _batch())
     loss = gpt_loss_fn(model(tokens), labels)
     loss.backward()
@@ -344,22 +344,81 @@ def _tiny(**over):
 
 
 @pytest.mark.parametrize("over,match", [
-    # seq 16: flash is not taken, and the softmax path has no window
-    (dict(use_flash_attention=True, sliding_window=8), "flash attention"),
-    (dict(sliding_window=8), "sliding window"),
-    (dict(attn_mask_type=AttnMaskType.padding), "BERT slice"),
+    # ALiBi positions are not ported yet; a window needs causal attention
+    # (JAX's check); an unknown normalization
+    (dict(position_embedding_type="alibi"), "alibi"),
+    (dict(sliding_window=8, attn_mask_type=AttnMaskType.padding), "causal"),
+    (dict(normalization="batchnorm"), "normalization"),
 ])
 def test_training_forward_refuses_what_it_cannot_run(over, match):
     tokens = torch.zeros(1, 16, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises((NotImplementedError, ValueError), match=match):
         _tiny(**over)(tokens)
 
 
 def test_training_forward_refuses_an_attention_mask():
+    """An attention_mask that does not broadcast to the [b, n, s, s]
+    scores is refused (one that does runs the masked softmax path)."""
     tokens = torch.zeros(1, 16, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="attention_mask"):
-        _tiny()(tokens, attention_mask=torch.zeros(1, 1, 16, 16,
+    with pytest.raises(ValueError, match="broadcast"):
+        _tiny()(tokens, attention_mask=torch.zeros(1, 1, 16, 8,
                                                    dtype=torch.bool))
+
+
+# the softmax path's other branches: (config fields, attention mask kind)
+SOFTMAX_PATH = {
+    "window": (dict(sliding_window=8), None),
+    "padding-type": (dict(attn_mask_type=AttnMaskType.padding), None),
+    "padding-mask": (dict(attn_mask_type=AttnMaskType.padding), "pad"),
+    "causal-mask": (dict(), "random"),
+    "window-mask": (dict(sliding_window=8), "random"),
+}
+
+
+def _attention_mask(kind, seq):
+    """A [b, 1, s, s] bool mask (True = masked): key padding of the last
+    3 keys of row 1, or random with the diagonal kept; None for None."""
+    if kind is None:
+        return None
+    if kind == "pad":
+        keep = np.ones((BATCH, seq), bool)
+        keep[1, -3:] = False
+        return ~(keep[:, None, None, :] & np.ones((BATCH, 1, seq, 1), bool))
+    m = np.random.RandomState(seq).rand(BATCH, 1, seq, seq) < 0.3
+    m[..., np.arange(seq), np.arange(seq)] = False
+    return m
+
+
+@pytest.mark.parametrize("case", list(SOFTMAX_PATH))
+def test_softmax_path_masks_and_windows_match_jax(case):
+    """The flash-off training forward with a window folded into the mask,
+    the padding mask type (scaled softmax without a mask, masked softmax
+    with one) and explicit masks: loss and every gradient against the JAX
+    model's (fp32, its softmax kernels interpreted), within the fp32
+    tolerances above."""
+    over, kind = SOFTMAX_PATH[case]
+    kw = dict(KW, use_flash_attention=False, **over)
+    model_j = JaxGPTModel(JaxConfig(**kw, compute_dtype=jnp.float32))
+    tokens, labels = _batch()
+    mask = _attention_mask(kind, SEQ)
+    jmask = None if mask is None else jnp.asarray(mask)
+    params = model_j.init(jax.random.PRNGKey(0), jnp.asarray(tokens))[
+        "params"]
+    loss_j, grads_j = jax.value_and_grad(lambda p: jax_gpt_loss_fn(
+        model_j.apply({"params": p}, jnp.asarray(tokens),
+                      attention_mask=jmask), jnp.asarray(labels)))(params)
+    cfg = TransformerConfig(**kw, compute_dtype=torch.float32)
+    model = GPTModel(cfg, device="cpu")
+    model.load_state_dict(from_jax_params(_np_tree(params), cfg))
+    loss = gpt_loss_fn(model(torch.from_numpy(tokens), attention_mask=(
+        None if mask is None else torch.from_numpy(mask))),
+        torch.from_numpy(labels))
+    loss.backward()
+    assert abs(loss.item() - float(loss_j)) <= 1e-6 * abs(float(loss_j))
+    want = from_jax_params(_np_tree(grads_j))
+    for name, p in model.named_parameters():
+        err = _rel(p.grad.numpy(), want[name].numpy())
+        assert err <= TOL["float32"]["grad"], (name, err)
 
 
 def test_window_covering_the_sequence_is_plain_causal():
@@ -405,8 +464,8 @@ def test_flash_is_taken_only_under_the_jax_condition(over, seq, flash_calls):
 
 
 def test_flash_runs_the_padding_mask_type_as_full_attention(flash_calls):
-    """attn_mask_type padding without a mask: flash with causal=False (the
-    softmax path refuses it until the BERT slice)."""
+    """attn_mask_type padding without a mask: flash with causal=False (as
+    in JAX; flash off takes the scaled softmax kernel)."""
     cfg = TransformerConfig(**dict(KW, num_layers=1, head_dim=64),
                             attn_mask_type=AttnMaskType.padding)
     model = GPTModel(cfg, device="cpu")

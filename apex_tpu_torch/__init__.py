@@ -14,7 +14,11 @@ attention on or off (``GPTModel`` without a cache,
 ``models.gpt_loss_fn``, ``optimizers.FusedAdam``); BERT pretraining
 (``models.BertModel``, ``models.bert_loss_fn``,
 ``optimizers.FusedLAMB``); flash attention itself (``contrib.fmha``)
-and the multi-head attention modules (``contrib.multihead_attn``).
+and the multi-head attention modules (``contrib.multihead_attn``);
+speculative generation (``models.speculative_generate``) and the
+continuous-batching serving engine (``serving.ServeEngine``,
+``serving.Scheduler``) with a bf16 or int8 KV cache
+(``parallel.compression``'s int8 block core).
 """
 
 __version__ = "0.1.0"

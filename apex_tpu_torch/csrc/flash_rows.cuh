@@ -1,12 +1,20 @@
-// Shared body of the two KV-cache attention kernels (window_attention.cu,
-// gqa_decode.cu): flash attention of a few query rows of one
-// (batch, kv-group) cell against that cell's slice of the cache.
+// Shared body of the three KV-cache attention kernels (window_attention.cu,
+// gqa_decode.cu, spec_verify.cu): flash attention of a few query rows of
+// one (batch, kv-group) cell against that cell's slice of the cache.
 //
 // Layouts (all contiguous, the JAX package's):
 //   q, out  [w, b, g, rep, d]   (decode: w = 1, i.e. [b, g, rep, d]); out fp32
-//   k, v    [T, b, g, d]        the per-layer cache buffers
+//   k, v    [T, b, g, d]        the per-layer cache buffers (DenseKV), or
+//   kq, vq  [T, b, nb, B] int8 with ks, vs [T, b, nb] fp32 block scales:
+//                               the int8 serving store (Int8KV), whose
+//                               lane l of a cache row holds the group
+//                               l / d's column l % d
+//   starts  [b] int32           each batch row's own offset
 // A cell's query rows are numbered r = i * rep + j (window position i,
-// head j of the group); row r sits at absolute position start + r / rep.
+// head j of the group); row r sits at absolute position start + r / rep,
+// where start = starts[batch row] + start_bias (window and verify: the
+// chunk's first position, bias 0; decode: the live length, bias -1), so
+// the rows of one launch may sit at different fill levels.
 // Key t is visible to row r iff t <= pos(r) and, with a window,
 // pos(r) - t < window. Masked scores are -1e30 (not -inf), as in the TPU
 // kernels, and the softcap is cap * tanh(s / cap) after the scale.
@@ -29,6 +37,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace apex_flash {
 
@@ -56,13 +65,51 @@ __device__ __forceinline__ float warp_sum(float v) {
 struct CellArgs {
   int n_rows;        // w * rep query rows in the cell
   int rep;           // query heads per kv group
+  int groups;        // g: cells of one batch row
   long long pos_stride;  // elements between window positions in q/out (b*g*rep*d)
-  long long kv_stride;   // elements between cache rows (b*g*d)
-  int start;         // absolute position of window position 0
+  const int* starts; // [b] per-row offsets on the device
+  int start_bias;    // start = starts[row] + start_bias
   int cache_len;     // T
   int window;        // <= 0: no sliding window
   float sm_scale;
   float softcap;     // <= 0: no softcap
+};
+
+// K/V of one cell from the per-layer cache buffers [T, b, g, d].
+template <typename T>
+struct DenseKV {
+  const T* k;        // cache row 0 of the cell
+  const T* v;
+  long long stride;  // elements between cache rows (b*g*d)
+  __device__ __forceinline__ void load(long long t, int c, float* kv,
+                                       float* vv) const {
+    const long long off = t * stride + c;
+    *kv = to_float(k[off]);
+    *vv = to_float(v[off]);
+  }
+};
+
+// K/V of one cell from the int8 serving store: codes [T, b, nb, B] and
+// fp32 scales [T, b, nb], dequantized on the way into shared memory
+// (kq * ks per block, the TPU kernel's in-VMEM widening), so the
+// dequantized cache never exists in device memory.
+struct Int8KV {
+  const int8_t* kq;  // row 0 of the cell's batch row, lane 0
+  const int8_t* vq;
+  const float* ks;   // scale 0 of the cell's batch row
+  const float* vs;
+  long long stride;        // bytes between cache rows (b*nb*B)
+  long long scale_stride;  // scales between cache rows (b*nb)
+  int lane0;               // the cell's first lane: group * d
+  int block;               // B
+  __device__ __forceinline__ void load(long long t, int c, float* kv,
+                                       float* vv) const {
+    const int lane = lane0 + c;
+    const long long s = t * scale_stride + lane / block;
+    const long long off = t * stride + lane;
+    *kv = static_cast<float>(kq[off]) * ks[s];
+    *vv = static_cast<float>(vq[off]) * vs[s];
+  }
 };
 
 // kTile * (D + 1) floats of K and of V fit the 48 KB of static shared
@@ -74,14 +121,15 @@ struct Tile {
   static constexpr int kColsPerLane = D / 32;
 };
 
-// Block body. q_cell/out_cell point at row 0 of the cell, k_cell/v_cell
-// at cache row 0 of the cell; row0 is the block's first row.
-template <typename T, int D>
+// Block body. q_cell/out_cell point at row 0 of the cell, kv reads the
+// cell's cache rows; row0 is the block's first row, start the absolute
+// position of the cell's window position 0.
+template <typename T, int D, typename KV>
 __device__ __forceinline__ void attend_rows(const T* __restrict__ q_cell,
-                                            const T* __restrict__ k_cell,
-                                            const T* __restrict__ v_cell,
+                                            const KV& kv_cell,
                                             float* __restrict__ out_cell,
-                                            int row0, const CellArgs& a) {
+                                            int row0, int start,
+                                            const CellArgs& a) {
   constexpr int kKeys = Tile<D>::kKeys;
   constexpr int kKPL = Tile<D>::kKeysPerLane;
   constexpr int kCPL = Tile<D>::kColsPerLane;
@@ -96,8 +144,8 @@ __device__ __forceinline__ void attend_rows(const T* __restrict__ q_cell,
   const int row_end = min(row0 + kRows, a.n_rows);
 
   // live key range of the block's rows
-  const int first_pos = a.start + row0 / a.rep;
-  const int last_pos = a.start + (row_end - 1) / a.rep;
+  const int first_pos = start + row0 / a.rep;
+  const int last_pos = start + (row_end - 1) / a.rep;
   const int t_hi = min(last_pos, a.cache_len - 1);
   const int t_lo = a.window > 0 ? max(first_pos - a.window + 1, 0) : 0;
 
@@ -118,7 +166,7 @@ __device__ __forceinline__ void attend_rows(const T* __restrict__ q_cell,
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     m[rr] = kNegInf;
     l[rr] = 0.f;
-    qpos[rr] = a.start + (row0 + warp * kRowsPerWarp + rr) / a.rep;
+    qpos[rr] = start + (row0 + warp * kRowsPerWarp + rr) / a.rep;
 #pragma unroll
     for (int j = 0; j < kCPL; ++j) acc[rr][j] = 0.f;
   }
@@ -129,11 +177,7 @@ __device__ __forceinline__ void attend_rows(const T* __restrict__ q_cell,
       const int tt = idx / D, c = idx % D;
       const int t = t0 + tt;
       float kv = 0.f, vv = 0.f;
-      if (t <= t_hi) {
-        const long long off = t * a.kv_stride + c;
-        kv = to_float(k_cell[off]);
-        vv = to_float(v_cell[off]);
-      }
+      if (t <= t_hi) kv_cell.load(t, c, &kv, &vv);
       k_s[tt][c] = kv;
       v_s[tt][c] = vv;
     }
@@ -220,9 +264,10 @@ attend_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, float* __restrict__ out, CellArgs a) {
   const long long cell = blockIdx.x;
   const long long q_off = cell * a.rep * D;
-  const long long kv_off = cell * D;
-  attend_rows<T, D>(q + q_off, k + kv_off, v + kv_off, out + q_off,
-                    blockIdx.y * kRows, a);
+  const DenseKV<T> kv{k + cell * D, v + cell * D,
+                      a.pos_stride / a.rep};  // b*g*d
+  const int start = a.starts[cell / a.groups] + a.start_bias;
+  attend_rows<T, D>(q + q_off, kv, out + q_off, blockIdx.y * kRows, start, a);
 }
 
 template <typename T, int D>

@@ -5,9 +5,11 @@
 // `_window_pallas` under `window_attention`): flash attention of a
 // w-position chunk of queries, qg [w, b, g, rep, d], against the cache
 // buffers k/v [T, b, g, d] whose rows [start, start + w) the chunk has
-// just written; query row (i, j) at position start + i sees keys
-// t <= start + i (and, with a window, start + i - t < window); optional
-// tanh softcap; fp32 output [w, b, g, rep, d].
+// just written, each batch row at its own start (starts [b] int32 on the
+// device: the serving engine's slots sit at different fill levels);
+// query row (i, j) at position start + i sees keys t <= start + i (and,
+// with a window, start + i - t < window); optional tanh softcap; fp32
+// output [w, b, g, rep, d].
 //
 // Bound on the H100: at the path's shapes (a 128-token prompt at rep 8,
 // d 64) the arithmetic is ~1 GFLOP per layer and the bytes are the
@@ -29,14 +31,16 @@
 extern "C" int apex_window_attention(const void* q, const void* k,
                                      const void* v, float* out, int w, int b,
                                      int g, int rep, int d, int cache_len,
-                                     int start, int window, float sm_scale,
-                                     float softcap, int dtype, void* stream) {
+                                     const int* starts, int window,
+                                     float sm_scale, float softcap, int dtype,
+                                     void* stream) {
   apex_flash::CellArgs a;
   a.n_rows = w * rep;
   a.rep = rep;
+  a.groups = g;
   a.pos_stride = static_cast<long long>(b) * g * rep * d;
-  a.kv_stride = static_cast<long long>(b) * g * d;
-  a.start = start;
+  a.starts = starts;
+  a.start_bias = 0;
   a.cache_len = cache_len;
   a.window = window;
   a.sm_scale = sm_scale;

@@ -50,3 +50,28 @@ def status(name: str, rc: int) -> None:
     if rc:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc}")
+
+
+def row_offsets(name: str, value, b: int, device, what: str):
+    """Per-row offsets as the kernels read them: an int32 [b] tensor on
+    ``device``. A host int is broadcast to every row; a tensor of shape
+    [] or [b] (any integer dtype) is converted."""
+    if isinstance(value, torch.Tensor):
+        if value.dtype.is_floating_point or value.dtype == torch.bool:
+            raise TypeError(f"{name}: {what} must be an integer tensor, got "
+                            f"{value.dtype}")
+        if value.dim() > 1 or (value.dim() == 1 and value.shape[0] != b):
+            raise ValueError(f"{name}: {what} must be a host int or a "
+                             f"tensor of shape [] or [{b}], got "
+                             f"{tuple(value.shape)}")
+        value = value.to(device=device, dtype=torch.int32)
+        return value.expand(b).contiguous()
+    return torch.full((b,), int(value), dtype=torch.int32, device=device)
+
+
+def plain_offsets(value, b: int, device):
+    """Per-row offsets [b] (int64) for a plain version: a host int (filled
+    on the device, no copy) or a tensor of shape [] or [b]."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.long).reshape(-1).expand(b)
+    return torch.full((b,), int(value), dtype=torch.long, device=device)

@@ -1,0 +1,141 @@
+"""Blockwise symmetric int8 quantize and dequantize: the CUDA kernels
+(csrc/quant8.cu) and their plain PyTorch versions.
+
+Counterparts of ``apex_tpu/parallel/compression.py`` ``_quant_kernel``
+and ``_dequant_kernel`` with the jnp oracle around them
+(``block_scales``, ``_quantize_jnp``, ``_dequantize_jnp``). Rows of
+``n`` lanes are cut into ``nb = ceil(n / block)`` blocks, the last one
+zero-padded; each block has the scale ``max(absmax, 1e-12) / 127`` and
+the codes ``clip(round(x / scale), -127, 127)`` (round half to even).
+Kernel, plain version and the JAX oracle agree bit for bit. The public
+functions with the JAX package's names are in
+:mod:`apex_tpu_torch.parallel.compression`.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from apex_tpu_torch.kernels import _build, _checks, registry
+
+QMAX = 127.0
+QUANTIZE = registry.register("quantize_int8")
+DEQUANTIZE = registry.register("dequantize_int8")
+
+
+def _blocks(n: int, block: int) -> int:
+    return -(-n // block)
+
+
+def block_scales(x3d):
+    """Per-block scales [..., nb, 1] of blocked fp32 lanes [..., nb, B]:
+    absmax / 127, floored so an all-zero block dequantizes to zeros."""
+    absmax = torch.amax(torch.abs(x3d), dim=-1, keepdim=True)
+    # divided by a tensor, not the Python scalar: on CUDA tensors PyTorch
+    # turns a division by a scalar into a product with its reciprocal,
+    # which is not the IEEE division JAX and the kernel round to
+    return torch.clamp_min(absmax, 1e-12) / torch.full_like(absmax, QMAX)
+
+
+def quantize_rows_plain(x2d, block: int):
+    """x2d [rows, n] (fp32 or bf16) -> (q [rows, nb, block] int8, scales
+    [rows, nb, 1] fp32)."""
+    rows, n = x2d.shape
+    nb = _blocks(n, block)
+    x = torch.nn.functional.pad(x2d.float(), (0, nb * block - n))
+    x = x.reshape(rows, nb, block)
+    scales = block_scales(x)
+    q = torch.clamp(torch.round(x / scales), -QMAX, QMAX).to(torch.int8)
+    return q, scales
+
+
+def dequantize_rows_plain(q, scales, n=None, out_dtype=torch.float32):
+    """(q [rows, nb, B] int8 or int32, scales [rows, nb, 1]) -> [rows, n]
+    in ``out_dtype`` (default n: every lane, nb * B)."""
+    rows, nb, block = q.shape
+    out = (q.float() * scales).reshape(rows, nb * block)
+    if n is not None:
+        out = out[:, :n]
+    return out.to(out_dtype)
+
+
+@functools.lru_cache(maxsize=1)
+def _quant_kernel():
+    p, i = _checks.ptr, ctypes.c_int
+    return _build.function("quant8", "apex_quant8",
+                           [p, p, p, ctypes.c_longlong, i, i, i, i, p])
+
+
+@functools.lru_cache(maxsize=1)
+def _dequant_kernel():
+    p, i = _checks.ptr, ctypes.c_int
+    return _build.function("quant8", "apex_dequant8",
+                           [p, p, p, ctypes.c_longlong, i, i, i, i, p])
+
+
+def quantize_rows(x2d, block: int):
+    """Blockwise int8 codes of each row of x2d [rows, n] (fp32 or bf16):
+    (q [rows, nb, block] int8, scales [rows, nb, 1] fp32), the block
+    scales computed in the kernel. A CPU tensor takes
+    :func:`quantize_rows_plain`; a CUDA tensor launches the kernel or
+    raises."""
+    if not _checks.on_cuda("quantize_rows", x2d):
+        return quantize_rows_plain(x2d, block)
+    if x2d.dim() != 2:
+        raise ValueError(f"quantize_rows: x2d must be [rows, n], got "
+                         f"{tuple(x2d.shape)}")
+    if block < 1:
+        raise ValueError(f"quantize_rows: block ({block}) must be >= 1")
+    rows, n = x2d.shape
+    nb = _blocks(n, block)
+    code = _checks.dtype_code("quantize_rows", x2d, "x2d")
+    _checks.contiguous("quantize_rows", x2d=x2d)
+    q = torch.empty((rows, nb, block), dtype=torch.int8, device=x2d.device)
+    out_scales = torch.empty((rows, nb, 1), dtype=torch.float32,
+                             device=x2d.device)
+    if rows == 0 or n == 0:
+        return q.zero_(), out_scales
+    with torch.cuda.device(x2d.device):
+        rc = _quant_kernel()(
+            x2d.data_ptr(), q.data_ptr(), out_scales.data_ptr(), rows, n, nb,
+            block, code, _checks.stream(x2d))
+    _checks.status("quantize_rows", rc)
+    registry.count(QUANTIZE)
+    return q, out_scales
+
+
+def dequantize_rows(q, scales, n=None, out_dtype=torch.float32):
+    """q [rows, nb, B] int8 codes times their fp32 scales [rows, nb, 1]
+    -> [rows, n] in ``out_dtype`` (fp32 or bf16: the fp32 product
+    rounded; default n: nb * B). A CPU tensor takes
+    :func:`dequantize_rows_plain`; a CUDA tensor launches the kernel or
+    raises."""
+    if not _checks.on_cuda("dequantize_rows", q, scales):
+        return dequantize_rows_plain(q, scales, n, out_dtype)
+    if q.dim() != 3:
+        raise ValueError(f"dequantize_rows: q must be [rows, nb, B], got "
+                         f"{tuple(q.shape)}")
+    rows, nb, block = q.shape
+    n = nb * block if n is None else n
+    if q.dtype != torch.int8:
+        raise TypeError(f"dequantize_rows: q must be int8, got {q.dtype}")
+    if scales.dtype != torch.float32 or tuple(scales.shape) != (rows, nb, 1):
+        raise ValueError(f"dequantize_rows: scales must be float32 "
+                         f"[{rows}, {nb}, 1], got {scales.dtype} "
+                         f"{tuple(scales.shape)}")
+    if not 0 <= n <= nb * block:
+        raise ValueError(f"dequantize_rows: n ({n}) must be in [0, "
+                         f"{nb * block}]")
+    _checks.contiguous("dequantize_rows", q=q, scales=scales)
+    out = torch.empty((rows, n), dtype=out_dtype, device=q.device)
+    code = _checks.dtype_code("dequantize_rows", out, "out_dtype")
+    if rows == 0 or n == 0:
+        return out
+    with torch.cuda.device(q.device):
+        rc = _dequant_kernel()(q.data_ptr(), scales.data_ptr(),
+                               out.data_ptr(), rows, n, nb, block, code,
+                               _checks.stream(q))
+    _checks.status("dequantize_rows", rc)
+    registry.count(DEQUANTIZE)
+    return out

@@ -9,6 +9,8 @@ from apex_tpu_torch.models.generation import (
     init_cache,
     prefill,
     sample_logits,
+    speculative_generate,
+    verify_step,
 )
 from apex_tpu_torch.models.gpt import GPTModel, gpt_loss_fn
 from apex_tpu_torch.models.kv_cache import KVCache
@@ -24,4 +26,5 @@ __all__ = [
     "bert_loss_fn", "decode_step", "filter_logits", "from_jax_params",
     "generate", "gpt_loss_fn", "init_cache", "init_weights",
     "load_jax_optimizer_state", "prefill", "sample_logits",
+    "speculative_generate", "verify_step",
 ]

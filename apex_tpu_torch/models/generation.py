@@ -11,7 +11,9 @@ decoding and the filtered logits (:func:`filter_logits`) are the same.
     model = GPTModel(cfg)                      # on the card
     out = generate(model, prompt_tokens, max_new_tokens=64)
 
-Beam search, shared prefixes, speculative decoding and tensor
+:func:`speculative_generate` is greedy speculative decoding over a
+draft model, on the same :func:`verify_step` body the serving engine's
+speculative round runs. Beam search, shared prefixes and tensor
 parallelism come in later slices.
 """
 
@@ -86,13 +88,15 @@ def decode_step(model, cache, tokens, positions):
     return cache, logits[:, -1]
 
 
-def _validate_decode(fn_name, model, prompt_tokens, max_new_tokens):
+def _validate_decode(fn_name, model, prompt_tokens, max_new_tokens,
+                     extra=0, extra_label="draft window"):
     plen = prompt_tokens.shape[1]
     limit = model.config.max_position_embeddings
-    if plen + max_new_tokens > limit:
+    if plen + max_new_tokens + extra > limit:
+        extra_s = f" + {extra_label} ({extra})" if extra else ""
         raise ValueError(
-            f"prompt ({plen}) + max_new_tokens ({max_new_tokens}) exceeds "
-            f"max_position_embeddings ({limit})")
+            f"prompt ({plen}) + max_new_tokens ({max_new_tokens})"
+            f"{extra_s} exceeds max_position_embeddings ({limit})")
     if max_new_tokens < 1:
         raise ValueError(f"{fn_name}() needs max_new_tokens >= 1")
 
@@ -131,3 +135,120 @@ def generate(model, prompt_tokens, max_new_tokens: int, *, generator=None,
             pos = torch.full((b, 1), plen + i, device=model.device)
             cache, logits = decode_step(model, cache, nxt[:, None], pos)
     return torch.cat([prompt_tokens, torch.stack(out, dim=1)], dim=1)
+
+
+@torch.no_grad()
+def verify_step(model, cache, chunk, positions):
+    """One speculative-verification forward. ``chunk`` [b, k+1] is each
+    row's last emitted token followed by the draft's k proposals, at
+    absolute ``positions`` [b, k+1]; the target runs the whole window in
+    one chunked forward over its KV cache (the window kernel, each row
+    at its own offset). Returns ``(cache, v, logits)``: the greedy
+    verdicts ``v`` [b, k+1] int64, ``v[:, i]`` the target's argmax for
+    the position after ``chunk[:, i]``, and the logits [b, k+1, vocab]
+    fp32."""
+    logits = model(chunk, positions, cache)
+    return cache, torch.argmax(logits.float(), dim=-1), logits
+
+
+@torch.no_grad()
+def speculative_round(target_model, draft_model, tcache, dcache, last, n,
+                      k: int):
+    """One greedy speculative round, each row from its own level ``n``
+    (int [b] tensor, the absolute position of ``last`` [b]): the draft
+    takes ``k + 1`` decode steps through ``dcache`` (k proposals, then
+    the completion feed of the last one, so that its cache has no hole
+    after a full accept), and the target verifies ``[last, d_1..d_k]``
+    in one chunked forward through ``tcache`` (:func:`verify_step`).
+    Returns ``(d [b, k], v [b, k+1], logits [b, k+1, vocab], accepted
+    [b])``, ``accepted[i]`` the length of row i's matching prefix. The
+    caller applies its acceptance rule, emits, and rolls both caches
+    back."""
+    n = n.long()
+    tok, proposals = last, []
+    for i in range(k + 1):
+        _, lg = decode_step(draft_model, dcache, tok[:, None],
+                            (n + i)[:, None])
+        tok = torch.argmax(lg.float(), dim=-1)
+        proposals.append(tok)
+    d = torch.stack(proposals[:k], dim=1)  # [b, k]; the last: the feed
+    chunk = torch.cat([last[:, None], d], dim=1)
+    steps = torch.arange(k + 1, device=n.device)
+    _, v, logits = verify_step(target_model, tcache, chunk,
+                               n[:, None] + steps)
+    accepted = torch.cumprod((d == v[:, :k]).long(), dim=1).sum(dim=1)
+    return d, v, logits, accepted
+
+
+def _set_cache_index(cache, value):
+    """Roll every row's fill level to ``value`` (a host int or a [b]
+    tensor): rows beyond it stay resident but masked, since the decode
+    attention masks by absolute position, so a rollback is just the
+    level. Returns the cache."""
+    cache.set_lengths(value)
+    return cache
+
+
+@torch.no_grad()
+def speculative_generate(target_model, draft_model, prompt_tokens,
+                         max_new_tokens: int, *, num_draft_tokens: int = 4,
+                         eos_token_id: Optional[int] = None,
+                         pad_token_id: int = 0):
+    """Greedy speculative decoding: rounds of
+    :func:`speculative_round` (``num_draft_tokens`` draft proposals
+    verified in one chunked target forward), each emitting the longest
+    matching prefix plus
+    one target token (the correction, or a bonus on full accept) is
+    emitted. Token-exact against ``generate(target_model, ...)`` greedy:
+    every token is a target argmax over the same prefix. The rows of the
+    batch accept the round's minimum across the batch (still exact per
+    row). Both caches roll back by their fill levels. Returns [batch,
+    prompt + max_new_tokens] int64, positions after an eos set to
+    ``pad_token_id``. Both models hold their weights on one device and
+    share a vocabulary."""
+    k = int(num_draft_tokens)
+    if k < 1:
+        raise ValueError(f"num_draft_tokens ({num_draft_tokens}) must be "
+                         f">= 1")
+    if target_model.config.vocab_size != draft_model.config.vocab_size:
+        raise ValueError(
+            f"target vocab ({target_model.config.vocab_size}) != draft vocab "
+            f"({draft_model.config.vocab_size}): the models must share a "
+            f"tokenizer")
+    device = target_model.device
+    prompt_tokens = torch.as_tensor(prompt_tokens, device=device,
+                                    dtype=torch.long)
+    for m in (target_model, draft_model):
+        # the draft window overshoots the emitted tokens by up to k
+        _validate_decode("speculative_generate", m, prompt_tokens,
+                         max_new_tokens, extra=k)
+    b, plen = prompt_tokens.shape
+    tcache = init_cache(target_model, b)
+    dcache = init_cache(draft_model, b)
+    pos = torch.arange(plen, device=device)[None, :]
+    tcache, logits = prefill(target_model, tcache, prompt_tokens, pos)
+    prefill(draft_model, dcache, prompt_tokens, pos)
+    last = torch.argmax(logits.float(), dim=-1)
+    out = torch.full((b, max_new_tokens), pad_token_id, dtype=torch.long,
+                     device=device)
+    out[:, 0] = last
+    n = 1
+    while n < max_new_tokens:
+        t0 = plen + n - 1  # absolute position of `last`
+        d, v, _, accepted = speculative_round(
+            target_model, draft_model, tcache, dcache, last,
+            torch.full((b,), t0, device=device), k)
+        a = int(accepted.min())
+        last = v[:, a]
+        emit = torch.cat([d[:, :a], last[:, None]], dim=1)
+        width = min(a + 1, max_new_tokens - n)
+        out[:, n:n + width] = emit[:, :width]
+        n += a + 1
+        # both caches hold exactly the positions before the new `last`
+        _set_cache_index(tcache, plen + n - 1)
+        _set_cache_index(dcache, plen + n - 1)
+    if eos_token_id is not None:
+        is_eos = (out == eos_token_id).long()
+        after = (torch.cumsum(is_eos, dim=1) - is_eos) > 0
+        out = out.masked_fill(after, pad_token_id)
+    return torch.cat([prompt_tokens, out], dim=1)

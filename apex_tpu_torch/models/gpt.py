@@ -31,9 +31,10 @@ from apex_tpu_torch.transformer.tensor_parallel import (
 class GPTModel(nn.Module):
     """Causal LM: tokens [b, s] and their absolute positions [b, s] (or
     [1, s]) -> logits [b, s, vocab] in fp32. With ``cache`` the chunk's
-    K/V are appended to it (updated in place, index advanced by s) and
-    positions default to the cache's index onward (JAX's learned-position
-    model defaults to 0..s-1 there; the two agree on the prefill chunk);
+    K/V are appended to it at each row's own fill level (updated in
+    place, every level advanced by s) and positions default to each
+    row's level onward (JAX's learned-position model defaults to 0..s-1
+    there; the two agree on the prefill chunk);
     without one the training forward runs (positions default to 0..s-1),
     differentiable in every parameter. ``attention_mask`` (True =
     masked, broadcast to [b, heads, s, s]) takes the training forward's
@@ -68,14 +69,17 @@ class GPTModel(nn.Module):
         cfg = self.config
         s = tokens.shape[1]
         if cache is not None:
-            cache.check_room(s)
+            cache.chunk(s)
         h = self.word_embeddings(tokens)
         if self.position_embeddings is not None:
             if position_ids is None:
-                start = cache.index if cache is not None else 0
-                position_ids = torch.arange(start, start + s,
-                                            device=tokens.device)[None, :]
-            h = h + self.position_embeddings[position_ids]
+                position_ids = (cache.positions.t() if cache is not None
+                                else torch.arange(s, device=tokens.device
+                                                  )[None, :])
+            # clamped as JAX's gather clamps: a free serving slot that
+            # pads a bucket advances its level past the table
+            h = h + self.position_embeddings[position_ids.clamp(
+                max=cfg.max_position_embeddings - 1)]
         h = h.to(cfg.compute_dtype).transpose(0, 1).contiguous()  # [s, b, h]
         positions = (None if position_ids is None
                      else position_ids.transpose(0, 1))  # [s, b] or [s, 1]

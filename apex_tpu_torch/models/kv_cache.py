@@ -5,17 +5,29 @@ Counterpart of the flax ``cache`` collection that
 mode: per layer, ``cached_key`` and ``cached_value`` buffers of shape
 [max_len, b, g, d] in ``compute_dtype`` holding rotated K/V at group
 granularity, and the number of filled rows (``cache_index``). JAX keeps
-one index per layer, all equal; here the model advances one index after
-all its layers have written their rows. The buffers are updated in
-place.
+one scalar index per layer, all equal, and the serving engine vmaps the
+model over slots so that each slot has its own. Here one int32 [b]
+tensor on the cache's device, :attr:`KVCache.lengths`, holds every
+row's fill level: the rows of one batch may sit at different levels
+(the serving engine's slots), each row's chunk is written at its own
+level and attends up to its own position. The model advances the levels
+after all its layers have written their rows; the buffers are updated
+in place.
+
+``index`` is the host's copy of the level while every row shares one
+(``generate``), so that a chunk that would overflow the buffers is
+refused before it runs; after :meth:`KVCache.set_lengths` with a device
+tensor it is None and the caller bounds the levels (the serving
+engine's admission does). Writes past ``max_len`` are clamped as JAX's
+``dynamic_update_slice`` clamps them.
 """
 
 import torch
 
 
 class KVCache:
-    """Per-layer K/V buffers [max_len, batch, groups, head_dim] and the
-    count of filled rows, on one device."""
+    """Per-layer K/V buffers [max_len, batch, groups, head_dim] and each
+    row's count of filled rows, on one device."""
 
     def __init__(self, num_layers, max_len, batch, groups, head_dim, dtype,
                  device):
@@ -25,14 +37,70 @@ class KVCache:
         self.values = [torch.zeros(shape, dtype=dtype, device=device)
                        for _ in range(num_layers)]
         self.max_len = max_len
+        self.lengths = torch.zeros(batch, dtype=torch.int32, device=device)
         self.index = 0
+        self._chunk = None
+
+    @classmethod
+    def from_buffers(cls, keys, values, lengths):
+        """A cache over existing per-layer buffers [max_len, b, g, d] (not
+        copied) with fill levels ``lengths`` (int32 [b] on their device)."""
+        cache = cls.__new__(cls)
+        cache.keys, cache.values = list(keys), list(values)
+        cache.max_len = keys[0].shape[0]
+        cache.lengths = lengths
+        cache.index = None
+        cache._chunk = None
+        return cache
+
+    @property
+    def batch(self):
+        return self.lengths.shape[0]
 
     def check_room(self, s):
-        """Raise unless ``s`` more rows fit."""
-        if self.index + s > self.max_len:
+        """Raise unless ``s`` more rows fit (checked while the host knows
+        the level)."""
+        if self.index is not None and self.index + s > self.max_len:
             raise ValueError(f"KV cache full: {self.index} rows + {s} new "
                              f"exceed max_len {self.max_len}")
 
+    def chunk(self, s):
+        """Index tensors for a chunk of ``s`` tokens, shared by every
+        layer of one forward (made once, until the levels move): the
+        tokens' absolute positions [s, b] (each row's level onward), the
+        rows [s, b] and columns [s, b] its K/V are written at (the same,
+        the start clamped so the chunk fits, as JAX's
+        ``dynamic_update_slice``) and each row's live length after the
+        chunk (int32 [b])."""
+        if self._chunk == s:
+            return
+        self.check_room(s)
+        device = self.lengths.device
+        steps = torch.arange(s, device=device)[:, None]
+        self.positions = self.lengths[None, :].long() + steps
+        start = self.lengths.clamp(max=self.max_len - s)
+        self.write_rows = start[None, :].long() + steps
+        self.write_cols = torch.arange(self.batch,
+                                       device=device)[None, :].expand(s, -1)
+        self.live = self.lengths + s
+        self._chunk = s
+
     def advance(self, s):
         self.check_room(s)
-        self.index += s
+        self.lengths += s
+        if self.index is not None:
+            self.index += s
+        self._chunk = None
+
+    def set_lengths(self, lengths):
+        """Roll every row's level to ``lengths`` (a host int, or an
+        integer tensor [b] on the cache's device): rows past a level stay
+        resident but masked, since attention masks by absolute position
+        (a speculative rollback or a padded prefill's true length)."""
+        if isinstance(lengths, torch.Tensor):
+            self.lengths.copy_(lengths)
+            self.index = None
+        else:
+            self.lengths.fill_(int(lengths))
+            self.index = int(lengths)
+        self._chunk = None

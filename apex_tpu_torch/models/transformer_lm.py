@@ -8,7 +8,8 @@ or RoPE (applied here).
 
 - With a KV cache (``ParallelTransformer(decode=True)`` in JAX): RoPE at
   absolute positions where the model uses it, the cache written in
-  place, and attention through
+  place at each batch row's own fill level (the serving engine's slots
+  differ), and attention through
   :func:`apex_tpu_torch.kernels.fused_cc.window_attention` for a chunk
   of several tokens (the prompt) or
   :func:`apex_tpu_torch.contrib.gqa_decode.gqa_flash_decode` for each
@@ -235,9 +236,9 @@ class ParallelAttention(nn.Module):
     """Self-attention: fused QKV projection (columns ``[q heads |
     per-group (k_g | v_g)]`` under GQA, per-head ``[q_i | k_i | v_i]``
     blocks under MHA), RoPE, attention, and the output projection. With
-    a KV cache, the chunk's K/V are written at the cache's index and the
-    window kernel (s > 1) or the decode kernel (s == 1) attends over the
-    filled prefix; without one, the training forward attends over the
+    a KV cache, the chunk's K/V are written at each row's fill level and
+    the window kernel (s > 1) or the decode kernel (s == 1) attends over
+    each row's filled prefix; without one, the training forward attends over the
     chunk through flash attention or the causal softmax kernel."""
 
     def __init__(self, config: TransformerConfig, layer_number: int = 0,
@@ -359,29 +360,31 @@ class ParallelAttention(nn.Module):
 
     def _decode_attention(self, q, k, v, position_ids, cache):
         """Rotate at absolute positions (RoPE models), write the chunk's
-        rows at the cache's index, attend over the filled prefix."""
+        rows at each batch row's own fill level, attend over each row's
+        filled prefix (the JAX decode branch, run per slot)."""
         cfg = self.config
         s, b, n, kv = q.shape
         n_kv = k.shape[2]
         rep = n // n_kv
-        idx = cache.index
+        cache.chunk(s)
         pos = (position_ids if position_ids is not None
-               else idx + torch.arange(s, device=q.device))
+               else cache.positions)  # [s, b] absolute positions
         q = _rotate(cfg, q, pos)
         k = _rotate(cfg, k, pos)
         ck = cache.keys[self.layer_number]
         cv = cache.values[self.layer_number]
-        ck[idx:idx + s] = k
-        cv[idx:idx + s] = v
+        rows, cols = cache.write_rows, cache.write_cols
+        ck[rows, cols] = k.to(ck.dtype)
+        cv[rows, cols] = v.to(cv.dtype)
         qg = q.reshape(s, b, n_kv, rep, kv).to(cfg.compute_dtype).contiguous()
         sm = 1.0 / math.sqrt(cfg.query_pre_attn_scalar or kv)
         if s == 1:
             ctx = gqa_decode.gqa_flash_decode(
-                qg[0], ck, cv, idx + 1, sm, window=self._layer_window(),
+                qg[0], ck, cv, cache.live, sm, window=self._layer_window(),
                 softcap=cfg.attn_logit_softcapping)
         else:
             ctx = fused_cc.window_attention(
-                qg, ck, cv, idx, sm, window=self._layer_window(),
+                qg, ck, cv, cache.lengths, sm, window=self._layer_window(),
                 softcap=cfg.attn_logit_softcapping)
         return self.dense(ctx.reshape(s, b, n * kv).to(cfg.compute_dtype))
 

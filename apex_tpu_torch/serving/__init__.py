@@ -1,0 +1,51 @@
+"""apex_tpu_torch.serving: continuous-batching decode on the GPU.
+
+Counterpart of ``apex_tpu.serving``: a
+:class:`~apex_tpu_torch.serving.engine.ServeEngine` runs bucketed
+prefill and decode over a preallocated, slotted, optionally int8 KV
+cache (:mod:`~apex_tpu_torch.serving.kv_cache`), and a host-side
+:class:`~apex_tpu_torch.serving.scheduler.Scheduler` batches concurrent
+requests through it: admission into free slots, eviction on finish,
+per-request TTFT and per-token latency, admission control, deadlines,
+per-slot NaN quarantine, decode retries and drain
+(:mod:`~apex_tpu_torch.serving.robust`). ``ServeConfig(draft_model=...)``
+makes each decode call one speculative round.
+
+    from apex_tpu_torch.serving import (ServeConfig, ServeEngine,
+                                        synthetic_trace)
+    engine = ServeEngine(model, ServeConfig(
+        batch_buckets=(2, 4, 8), prefill_buckets=(32, 64, 128),
+        num_slots=8, cache_mode="int8"))
+    completed, stats = engine.serve(synthetic_trace(16, seed=1))
+
+The prefix cache, the fleet router, KV migration, tensor-parallel
+serving and the telemetry hooks are still to be ported (ROADMAP).
+"""
+
+from apex_tpu_torch.serving.engine import ServeConfig, ServeEngine
+from apex_tpu_torch.serving.kv_cache import (
+    KVCacheSpec,
+    payload_checksum,
+    store_lengths,
+)
+from apex_tpu_torch.serving.robust import (
+    DecodeFailedError,
+    DrainReport,
+    NonFiniteError,
+    RejectedRequest,
+    RobustConfig,
+    ServeHealth,
+)
+from apex_tpu_torch.serving.scheduler import (
+    CompletedRequest,
+    Request,
+    Scheduler,
+    synthetic_trace,
+)
+
+__all__ = [
+    "CompletedRequest", "DecodeFailedError", "DrainReport", "KVCacheSpec",
+    "NonFiniteError", "RejectedRequest", "Request", "RobustConfig",
+    "Scheduler", "ServeConfig", "ServeEngine", "ServeHealth",
+    "payload_checksum", "store_lengths", "synthetic_trace",
+]

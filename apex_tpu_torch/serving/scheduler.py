@@ -1,0 +1,593 @@
+"""Host-side continuous batching: admit, decode, evict, and survive.
+
+Counterpart of ``apex_tpu/serving/scheduler.py``. The scheduler is plain
+Python over numpy: it owns the request queue and the slot map, and the
+only device work it starts is calls into the engine's prefill and
+decode (it reads the sampled tokens once a step).
+
+Time has two faces here. *Arrivals* are virtual: ``Request.arrival`` is
+measured in decode ticks (one tick per scheduler step), so a trace is
+deterministic: the same seed yields the same admission schedule and the
+same bucket sequence on every run, whatever the host's speed.
+*Latencies* and *deadlines* are wall-clock: TTFT runs from the moment a
+request became eligible (arrival tick reached) to its first sampled
+token landing on the host, so queueing for a slot counts.
+
+Fault tolerance (:mod:`apex_tpu_torch.serving.robust` holds the policy):
+a bounded pending queue with reject-newest or shed-oldest shedding; TTFT
+and total-latency deadlines checked each tick (status
+``deadline_exceeded``); per-slot quarantine of a sequence whose logits
+went non-finite (status ``poisoned``, its KV rows already zeroed on the
+device), escalating to
+:class:`~apex_tpu_torch.serving.robust.NonFiniteError` when every slot
+of a batch goes non-finite at once; decode retries inside the engine,
+past which only the implicated requests fail (status ``failed``); and a
+graceful :meth:`Scheduler.drain`.
+
+:meth:`Scheduler.stats` keeps its own latency samples (TTFT and
+per-token latency percentiles, tokens/s, decode steps, prefill calls).
+The JAX package's ``serve/*`` registry metrics and trace spans, and the
+``PreemptionGuard`` trigger, come with the telemetry and resilience
+slices.
+"""
+
+import dataclasses
+import time
+import warnings
+from typing import List, Optional
+
+import numpy as np
+
+from apex_tpu_torch.serving import robust as robust_mod
+
+
+@dataclasses.dataclass
+class Request:
+    """One serving request. ``arrival`` is in decode ticks (virtual
+    time; see the module docstring); ``max_new_tokens`` bounds
+    generation (eos, when the engine's config defines one, may end it
+    earlier). ``ttft_deadline_s`` / ``total_deadline_s`` override the
+    scheduler's :class:`~apex_tpu_torch.serving.robust.RobustConfig`
+    defaults for this request (None = inherit). ``tier`` is the SLO
+    class a fleet router reads (the scheduler itself is tier-blind)."""
+
+    rid: int
+    prompt: np.ndarray
+    max_new_tokens: int
+    arrival: float = 0.0
+    ttft_deadline_s: Optional[float] = None
+    total_deadline_s: Optional[float] = None
+    tier: Optional[str] = None
+
+
+@dataclasses.dataclass
+class CompletedRequest:
+    rid: int
+    tokens: np.ndarray          # generated tokens (prompt excluded)
+    ttft_s: float               # eligible -> first token; NaN if never served
+    mean_tok_latency_s: float   # decode steps only (excludes TTFT)
+    finish_reason: str          # robust.OK_STATUSES | robust.FAILURE_STATUSES
+
+
+def synthetic_trace(n_requests=16, *, seed=0, mean_interarrival=0.5,
+                    prompt_lens=(4, 8, 12, 24), max_new=(8, 16, 24),
+                    vocab_size=256, shared_prefix_len=0,
+                    shared_frac=0.8):
+    """Deterministic many-user trace: Poisson arrivals (exponential
+    inter-arrival gaps in decode ticks) with mixed prompt/output
+    lengths (the JAX package's ``bench.py serve_decode`` workload). Same
+    seed, same trace, byte for byte, as the JAX package's.
+
+    ``shared_prefix_len > 0`` makes the trace prefix-heavy (the
+    realistic millions-of-users shape): one ``shared_prefix_len``-token
+    system prompt is drawn once, and each request opens with it with
+    probability ``shared_frac`` (its ``prompt_lens`` draw then sizes
+    the UNIQUE tail). The default (0) leaves the legacy byte stream
+    untouched — no extra RNG draws happen."""
+    rs = np.random.RandomState(seed)
+    gaps = rs.exponential(mean_interarrival, size=n_requests)
+    arrivals = np.cumsum(gaps) - gaps[0]        # first request at t=0
+    shared = (rs.randint(0, vocab_size,
+                         size=int(shared_prefix_len)).astype(np.int32)
+              if shared_prefix_len else None)
+    out = []
+    for i in range(n_requests):
+        plen = int(rs.choice(prompt_lens))
+        prompt = rs.randint(0, vocab_size, size=plen).astype(np.int32)
+        if shared is not None and rs.random_sample() < shared_frac:
+            prompt = np.concatenate([shared, prompt])
+        out.append(Request(
+            rid=i,
+            prompt=prompt,
+            max_new_tokens=int(rs.choice(max_new)),
+            arrival=float(arrivals[i])))
+    return out
+
+
+class _Active:
+    __slots__ = ("req", "tokens", "last", "latencies", "ttft_s")
+
+    def __init__(self, req, first_token, ttft_s):
+        self.req = req
+        self.tokens = [int(first_token)]
+        self.last = int(first_token)
+        self.latencies = []
+        self.ttft_s = float(ttft_s)
+
+
+class Scheduler:
+    """Continuous batching over one
+    :class:`~apex_tpu_torch.serving.engine.ServeEngine`.
+
+    One :meth:`step` = expire deadline-blown requests, admit every
+    eligible request into free slots (grouped prefills; skipped while
+    draining), then one decode pass over the active set (padded to the
+    engine's batch bucket with distinct free slots), then evict
+    finished or poisoned sequences. :meth:`run` drives a request list to
+    completion and fast-forwards virtual time across idle gaps.
+    """
+
+    def __init__(self, engine, *, clock=time.perf_counter, robust=None,
+                 guard=None):
+        if guard is not None:
+            raise NotImplementedError(
+                "a preemption guard is not ported yet; it comes with the "
+                "resilience slice (ROADMAP queue A item 7): call drain()")
+        self.engine = engine
+        self._clock = clock
+        self.robust = robust or robust_mod.RobustConfig()
+        self.num_slots = engine.config.num_slots
+        self.free = list(range(self.num_slots))
+        self.pending: List[Request] = []
+        self.active = {}                      # slot -> _Active
+        self.completed: List[CompletedRequest] = []
+        self.rejected: List[robust_mod.RejectedRequest] = []
+        self.health = robust_mod.ServeHealth()
+        self.tick = 0.0
+        self.decode_steps = 0
+        self.prefill_calls = 0
+        self.tokens_generated = 0
+        self.draining = False
+        self.drain_report: Optional[robust_mod.DrainReport] = None
+        self._drain_reason = None
+        self._drain_start_wall = None
+        self._drain_start_tick = None
+        self._drain_completed_before = 0
+        self._known_rids = set()
+        self._eligible_wall = {}
+        self._ttft_ms = []
+        self._tok_latency_ms = []
+        # speculative-decode acceptance accounting
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self._t_start = None
+        self._t_end = None
+        self._retries_before = engine.decode_retries_total
+
+    # -- submission & admission control ------------------------------------
+
+    def _reject(self, request, reason, detail=""):
+        """Record one shed or bounced request. Returns False (the
+        ``submit`` contract)."""
+        self.rejected.append(robust_mod.RejectedRequest(
+            rid=request.rid, reason=reason, tick=self.tick,
+            prompt_len=len(request.prompt), detail=detail))
+        self.health.rejected += 1
+        return False
+
+    def submit(self, request: Request):
+        """Queue a request, or shed it. Returns True when queued; False
+        when rejected, with the reason recorded in :attr:`rejected`
+        (never an exception: admission control is traffic policy, not a
+        caller bug)."""
+        rc = self.robust
+        eng = self.engine
+        plen = len(request.prompt)
+        self.health.submitted += 1
+        if request.rid in self._known_rids:
+            return self._reject(
+                request, "duplicate_rid",
+                f"rid {request.rid} is already tracked by this scheduler")
+        if self.draining:
+            return self._reject(
+                request, "draining",
+                "scheduler is draining; admissions are closed")
+        if plen > eng.config.prefill_buckets[-1]:
+            return self._reject(
+                request, "prompt_too_long",
+                f"prompt ({plen}) exceeds the largest prefill bucket "
+                f"({eng.config.prefill_buckets[-1]})")
+        headroom = eng.decode_headroom
+        if plen + request.max_new_tokens + headroom > eng.max_len:
+            return self._reject(
+                request, "budget_too_long",
+                f"prompt ({plen}) + max_new_tokens "
+                f"({request.max_new_tokens})"
+                + (f" + speculative window ({headroom})" if headroom
+                   else "")
+                + f" exceeds max_position_embeddings ({eng.max_len})")
+        if rc.max_pending is not None and len(self.pending) >= rc.max_pending:
+            if rc.admission_policy == "reject_newest":
+                return self._reject(
+                    request, "queue_full",
+                    f"pending queue at max_pending ({rc.max_pending})")
+            # shed_oldest: the newcomer is the one a user is still
+            # waiting at; the oldest queued request has already blown
+            # the most patience
+            oldest = self.pending.pop(0)
+            self._known_rids.discard(oldest.rid)
+            self._reject(oldest, "shed",
+                         f"shed for rid {request.rid} "
+                         f"(max_pending {rc.max_pending})")
+        self._known_rids.add(request.rid)
+        self.pending.append(request)
+        self.pending.sort(key=lambda r: (r.arrival, r.rid))
+        return True
+
+    # -- terminal bookkeeping ----------------------------------------------
+
+    def _terminal(self, req, reason, *, tokens=(), ttft_s=float("nan"),
+                  latencies=()):
+        """Land one request in a terminal state (every failure path
+        funnels through here, so no request vanishes silently)."""
+        rec = CompletedRequest(
+            rid=req.rid,
+            tokens=np.asarray(list(tokens), np.int32),
+            ttft_s=float(ttft_s),
+            mean_tok_latency_s=(float(np.mean(list(latencies)))
+                                if latencies else 0.0),
+            finish_reason=reason)
+        self.completed.append(rec)
+        return rec
+
+    # -- the phases --------------------------------------------------------
+
+    def _ttft_deadline(self, req):
+        return (req.ttft_deadline_s if req.ttft_deadline_s is not None
+                else self.robust.ttft_deadline_s)
+
+    def _total_deadline(self, req):
+        return (req.total_deadline_s if req.total_deadline_s is not None
+                else self.robust.total_deadline_s)
+
+    def _expire_deadlines(self):
+        """Evict every request past its budget (queued ones past their
+        TTFT deadline, active ones past their total-latency deadline)
+        with the ``deadline_exceeded`` terminal status."""
+        now = self._clock()
+        # eligibility is stamped here (not only at admission) so a
+        # request stuck in the queue accrues wait time toward its TTFT
+        # deadline from the moment it became eligible
+        for r in self.pending:
+            if r.arrival <= self.tick:
+                self._eligible_wall.setdefault(r.rid, now)
+        for r in list(self.pending):
+            limit = self._ttft_deadline(r)
+            t0 = self._eligible_wall.get(r.rid)
+            if limit is None or t0 is None or now - t0 <= limit:
+                continue
+            self.pending.remove(r)
+            self.health.expired += 1
+            self._terminal(r, "deadline_exceeded")
+        for slot in sorted(self.active):
+            st = self.active[slot]
+            limit = self._total_deadline(st.req)
+            t0 = self._eligible_wall.get(st.req.rid)
+            if limit is None or t0 is None or now - t0 <= limit:
+                continue
+            del self.active[slot]
+            self._release(slot)
+            self.health.expired += 1
+            self._terminal(st.req, "deadline_exceeded", tokens=st.tokens,
+                           ttft_s=st.ttft_s, latencies=st.latencies)
+
+    def _admit(self):
+        now = self._clock()
+        eligible = [r for r in self.pending if r.arrival <= self.tick]
+        for r in eligible:
+            self._eligible_wall.setdefault(r.rid, now)
+        buckets = self.engine.config.batch_buckets
+        while eligible and self.free:
+            # the prefill call occupies a whole batch bucket (real + pad
+            # slots, all distinct), so the group shrinks to the largest
+            # bucket that fits entirely inside the free pool
+            fits = [b for b in buckets if b <= len(self.free)]
+            if not fits:
+                break
+            group = eligible[:min(len(self.free), fits[-1])]
+            eligible = eligible[len(group):]
+            for r in group:
+                self.pending.remove(r)
+            slots = [self.free.pop(0) for _ in group]
+            first = self.engine.prefill(
+                slots, [r.prompt for r in group], pad_slot_ids=self.free)
+            t1 = self._clock()
+            self.prefill_calls += 1
+            for slot, r, tok in zip(slots, group, first):
+                ttft = t1 - self._eligible_wall[r.rid]
+                self._ttft_ms.append(ttft * 1e3)
+                self.tokens_generated += 1
+                st = _Active(r, tok, ttft)
+                if self._finished(st):
+                    self._evict(slot, st)
+                else:
+                    self.active[slot] = st
+
+    def _finished(self, st):
+        eos = self.engine.config.eos_token_id
+        if eos is not None and st.last == eos:
+            return True
+        return len(st.tokens) >= st.req.max_new_tokens
+
+    def _decode_once(self):
+        if not self.active:
+            return
+        rc = self.robust
+        spec = self.engine.spec_enabled
+        max_bucket = self.engine.config.batch_buckets[-1]
+        slots = sorted(self.active)
+        for i in range(0, len(slots), max_bucket):
+            chunk = slots[i:i + max_bucket]
+            toks = [self.active[s].last for s in chunk]
+            t0 = self._clock()
+            try:
+                out = self.engine.decode(
+                    chunk, toks, pad_slot_ids=self.free,
+                    retries=rc.decode_retries,
+                    backoff_s=rc.retry_backoff_s,
+                    backoff_cap_s=rc.retry_backoff_cap_s)
+                if spec:
+                    emitted, counts, finite = out
+                else:
+                    nxt, finite = out
+            except robust_mod.DecodeFailedError:
+                # persistent failure: fail only this chunk's requests;
+                # other chunks (and future traffic) continue
+                self.health.decode_failures += 1
+                for s in chunk:
+                    st = self.active.pop(s)
+                    self._release(s)
+                    self.health.failed += 1
+                    self._terminal(st.req, "failed", tokens=st.tokens,
+                                   ttft_s=st.ttft_s, latencies=st.latencies)
+                continue
+            dt = self._clock() - t0
+            self.decode_steps += 1
+            if rc.quarantine and len(chunk) >= 2 and not finite.any():
+                # every slot non-finite at once: poisoned weights or
+                # activations, not one poisoned request (a 1-slot batch
+                # cannot tell the two apart, so it stays a quarantine)
+                self.health.all_slots_nonfinite += 1
+                for s in chunk:
+                    st = self.active.pop(s)
+                    self._quarantine(s, st)
+                raise robust_mod.NonFiniteError(
+                    f"every slot in the decode batch ({list(chunk)}) "
+                    f"produced non-finite logits at tick {self.tick}: this "
+                    f"is model-level poison (weights/activations), not a "
+                    f"per-request fault")
+            if spec:
+                # proposed = k per real slot; accepted = counts - 1 (the
+                # +1 is the target's own correction or bonus token)
+                k = int(self.engine.config.num_draft_tokens)
+                self.spec_proposed += k * len(chunk)
+                self.spec_accepted += int(sum(
+                    int(c) - 1 for c, ok in zip(counts, finite) if ok))
+                blocks = [list(emitted[j][:int(counts[j])])
+                          for j in range(len(chunk))]
+            else:
+                blocks = [[tok] for tok in nxt]
+            for s, block, ok in zip(chunk, blocks, finite):
+                st = self.active[s]
+                if rc.quarantine and not ok:
+                    del self.active[s]
+                    self._quarantine(s, st)
+                    continue
+                # one call may emit several verified tokens; the
+                # per-token latency is the call amortized over them, and
+                # eos / max_new truncate the block exactly where a
+                # one-token engine would have stopped
+                per_tok = dt / max(len(block), 1)
+                done = False
+                for tok in block:
+                    st.tokens.append(int(tok))
+                    st.last = int(tok)
+                    st.latencies.append(per_tok)
+                    self._tok_latency_ms.append(per_tok * 1e3)
+                    self.tokens_generated += 1
+                    if self._finished(st):
+                        done = True
+                        break
+                if done:
+                    del self.active[s]
+                    self._evict(s, st)
+
+    def _release(self, slot):
+        self.free.append(slot)
+        self.free.sort()
+
+    def _quarantine(self, slot, st):
+        """Evict one poisoned sequence: its KV rows were already zeroed
+        by the decode step; the slot returns to the free pool and the
+        request lands with status ``poisoned``."""
+        self._release(slot)
+        self.health.quarantined += 1
+        self._terminal(st.req, "poisoned", tokens=st.tokens,
+                       ttft_s=st.ttft_s, latencies=st.latencies)
+
+    def _evict(self, slot, st):
+        if slot in self.active:
+            del self.active[slot]
+        self._release(slot)
+        eos = self.engine.config.eos_token_id
+        reason = "eos" if (eos is not None and st.last == eos) else "length"
+        self._terminal(st.req, reason, tokens=st.tokens, ttft_s=st.ttft_s,
+                       latencies=st.latencies)
+
+    # -- drain -------------------------------------------------------------
+
+    def drain(self, reason="requested"):
+        """Stop admissions now; :meth:`run` finishes in-flight work up to
+        ``robust.drain_deadline_s`` and records the drain report."""
+        if not self.draining:
+            self.draining = True
+            self._drain_reason = reason
+            self._drain_start_wall = self._clock()
+            self._drain_start_tick = self.tick
+            self._drain_completed_before = len(self.completed)
+
+    def _drain_deadline_passed(self):
+        return (self._clock() - self._drain_start_wall
+                > self.robust.drain_deadline_s)
+
+    def _finish_drain(self):
+        """Cancel whatever the drain deadline stranded (status
+        ``drained``) and record the report."""
+        cancelled_active = 0
+        for slot in sorted(self.active):
+            st = self.active.pop(slot)
+            self._release(slot)
+            self.health.drained += 1
+            cancelled_active += 1
+            self._terminal(st.req, "drained", tokens=st.tokens,
+                           ttft_s=st.ttft_s, latencies=st.latencies)
+        cancelled_pending = 0
+        for r in list(self.pending):
+            self.pending.remove(r)
+            self.health.drained += 1
+            cancelled_pending += 1
+            self._terminal(r, "drained")
+        self.drain_report = robust_mod.DrainReport(
+            reason=self._drain_reason,
+            started_tick=self._drain_start_tick,
+            drain_s=self._clock() - self._drain_start_wall,
+            completed_in_drain=(len(self.completed)
+                                - self._drain_completed_before
+                                - cancelled_active - cancelled_pending),
+            cancelled_active=cancelled_active,
+            cancelled_pending=cancelled_pending,
+            deadline_hit=cancelled_active > 0)
+
+    # -- driving -----------------------------------------------------------
+
+    def step(self):
+        """One scheduler iteration: expire deadline-blown requests, admit
+        (unless draining), decode once, advance the virtual clock one
+        tick."""
+        if self._t_start is None:
+            self._t_start = self._clock()
+        self._expire_deadlines()
+        if not self.draining:
+            self._admit()
+        self._decode_once()
+        self.tick += 1.0
+
+    def run(self, requests=None, *, max_steps=100_000):
+        """Drive ``requests`` (plus anything already submitted) to a
+        terminal state; returns the completed list in finish order.
+        Every request ends with an explicit ``finish_reason``."""
+        for r in requests or ():
+            self.submit(r)
+        steps = 0
+        while self.pending or self.active:
+            if self.draining and (not self.active
+                                  or self._drain_deadline_passed()):
+                break
+            if not self.active and self.pending and \
+                    min(r.arrival for r in self.pending) > self.tick:
+                # idle gap: fast-forward virtual time to the next arrival
+                self.tick = min(r.arrival for r in self.pending)
+            self.step()
+            steps += 1
+            if steps > max_steps:
+                self._exhaust_max_steps(max_steps)
+                break
+        if self.draining:
+            self._finish_drain()
+        self._t_end = self._clock()
+        return self.completed
+
+    def _exhaust_max_steps(self, max_steps):
+        """``max_steps`` ran out with work left: cancel it loudly
+        (terminal status ``max_steps`` per request plus a warning)."""
+        stranded_active = len(self.active)
+        stranded_pending = len(self.pending)
+        for slot in sorted(self.active):
+            st = self.active.pop(slot)
+            self._release(slot)
+            self.health.max_steps += 1
+            self._terminal(st.req, "max_steps", tokens=st.tokens,
+                           ttft_s=st.ttft_s, latencies=st.latencies)
+        for r in list(self.pending):
+            self.pending.remove(r)
+            self.health.max_steps += 1
+            self._terminal(r, "max_steps")
+        warnings.warn(
+            f"scheduler exhausted max_steps ({max_steps}) with "
+            f"{stranded_pending} pending / {stranded_active} active "
+            f"request(s): all cancelled with terminal status 'max_steps' "
+            f"(a request was not converging)", stacklevel=3)
+
+    # -- accounting --------------------------------------------------------
+
+    @staticmethod
+    def _pct(samples, q):
+        return float(np.percentile(samples, q)) if samples else None
+
+    def stats(self):
+        """Summary of the run, from the scheduler's own samples. Goodput
+        counts only requests that finished ``length``/``eos``; every
+        failure mode has its own count next to the shed rate."""
+        wall = ((self._t_end or self._clock())
+                - (self._t_start or self._clock()))
+        self.health.decode_retries = (self.engine.decode_retries_total
+                                      - self._retries_before)
+        by_reason = {}
+        goodput_tokens = 0
+        for c in self.completed:
+            by_reason[c.finish_reason] = by_reason.get(c.finish_reason,
+                                                       0) + 1
+            if c.finish_reason in robust_mod.OK_STATUSES:
+                goodput_tokens += len(c.tokens)
+        h = self.health
+        extra = {}
+        if self.engine.spec_enabled:
+            extra.update({
+                "spec_proposed": self.spec_proposed,
+                "spec_accepted": self.spec_accepted,
+                "acceptance_rate": round(
+                    self.spec_accepted / self.spec_proposed, 4)
+                if self.spec_proposed else 0.0,
+                # every emitted token is target-verified, so the
+                # accepted-tokens rate is the engine's tokens/s
+                "accepted_tokens_per_sec": (self.tokens_generated / wall)
+                if wall > 0 else None,
+            })
+        return {
+            **extra,
+            "requests_completed": len(self.completed),
+            "requests_ok": sum(by_reason.get(r, 0)
+                               for r in robust_mod.OK_STATUSES),
+            "requests_by_reason": by_reason,
+            "requests_rejected": h.rejected,
+            "requests_expired": h.expired,
+            "requests_quarantined": h.quarantined,
+            "requests_failed": h.failed,
+            "requests_drained": h.drained,
+            "shed_rate": round(h.shed_rate(), 4),
+            "decode_retries": h.decode_retries,
+            "tokens_generated": self.tokens_generated,
+            "goodput_tokens": goodput_tokens,
+            "wall_s": wall,
+            "tokens_per_sec": (self.tokens_generated / wall)
+            if wall > 0 else None,
+            "goodput_tokens_per_sec": (goodput_tokens / wall)
+            if wall > 0 else None,
+            "decode_steps": self.decode_steps,
+            "prefill_calls": self.prefill_calls,
+            "ttft_p50_ms": self._pct(self._ttft_ms, 50),
+            "ttft_p99_ms": self._pct(self._ttft_ms, 99),
+            "tok_latency_p50_ms": self._pct(self._tok_latency_ms, 50),
+            "tok_latency_p99_ms": self._pct(self._tok_latency_ms, 99),
+            "slot_occupancy_last": len(self.active) / self.num_slots,
+        }

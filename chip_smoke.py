@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Drive apex_tpu_torch's serving path and training step on one NVIDIA
+"""Drive apex_tpu_torch's serving paths and training steps on one NVIDIA
 GPU and hold each of its CUDA kernels against its plain PyTorch version.
 
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py kernels        # build + kernel checks only
     python3 chip_smoke.py gpt2_training  # any subset of the phases
+    python3 chip_smoke.py serve_bf16 serve_int8 serve_spec
+    python3 chip_smoke.py serve_bf16 serve_int8 serve_int8 serve_bf16
+                                         # phases run in the order given
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -31,14 +34,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    128, 128] fp32 scores with a [64, 1, 128, 128] mask (off the path:
    partial masks, fully masked rows, which are NaN as in JAX, uint8
    masks, 16384 keys), LAMB over BERT-large's 302 tensors (off the path:
-   L2 decay, no clip, noop). Malformed CUDA inputs to every wrapper are
-   refused and not counted.
+   L2 decay, no clip, noop). The int8 block quantize and dequantize
+   kernels bit for bit at the serving store's [16384, 256] rows (8 slots
+   x 2048 positions of one K or V leaf), at one position per slot and on
+   ragged rows and blocks; the int8-cache verify kernel at the TinyLlama
+   verify window (w 5, g 4, rep 8, d 64) over a 2048-position int8 store
+   with each slot at its own start, and with padding lanes (g*d < nb*B);
+   the window and decode kernels with per-row starts and lengths.
+   Malformed CUDA inputs to every wrapper are refused and not counted.
 3. serving: ``GPTModel`` at TinyLlama-1.1B width (22 layers, seeded
    random weights) and ``generate(batch 8, prompt 128, 32 new tokens,
    greedy)`` with every launch count set to 0 just before and read just
    after; the prefill and first decode step's logits against the same
    model run through the plain versions on the card; prefill ms and
    decode tokens/s.
+3a. serve_bf16, serve_int8, serve_spec: ``serving.ServeEngine`` at
+   TinyLlama-1.1B width and depth (seeded random weights, bf16
+   activations) serves ``bench.py bench_serve_decode``'s trace at steps
+   = 32 (16 requests, prompts of 8-96 tokens, 16-64 new tokens, greedy;
+   8 slots, batch buckets 2/4/8, prefill buckets 32/64/128) after a
+   4-request warm-up, with every launch count set to 0 just before and
+   read just after: each request finishes, the counts equal the engine's
+   per-step and per-prefill launches, and the streams match the same
+   engine's through the plain versions (where two streams differ, the
+   top-2 logit margin at the first differing token must be below
+   LOGIT_TOL). serve_int8 also prints the stores' bytes and holds the
+   dequantized int8 store to absmax/254 of the bf16 store after one
+   prefill; serve_spec (bench.py ``_serve_spec_setup``: layers past the
+   first scaled by 0.25, a 1-layer draft sharing the embedding, layer 0,
+   final norm and head, 4 draft tokens a round, bf16 cache) holds its
+   streams to the plain engine's on the same model. Tokens/s, TTFT and
+   per-token latency p50/p99, decode steps, prefill calls, and a profile
+   of one decode step (or round) of a full bucket.
 4. training: the same model with ``use_flash_attention=False`` takes
    three ``FusedAdam(lr=1e-4)`` steps on a seeded batch of 2 x 1024
    tokens, the counts set to 0 before each step and checked after it;
@@ -73,6 +100,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -117,6 +145,16 @@ BERT = dict(hidden_size=1024, num_layers=24, num_attention_heads=16,
             vocab_size=30528, max_position_embeddings=512)
 BERT_BATCH, BERT_SEQ, BERT_LR, BERT_WD = 64, 128, 1e-3, 0.01
 BERT_EPS, BERT_MAX_GRAD_NORM = 1e-6, 1.0  # FusedLAMB's defaults, bench_bert's
+# the serving engine as bench.py bench_serve_decode drives it (steps = 32):
+# 8 slots, batch buckets (2, 4, 8), prefill buckets (32, 64, 128), 16
+# requests of synthetic_trace(seed 1, Poisson arrivals 1 tick apart,
+# prompts of 8-96 tokens, 16-64 new tokens), greedy; the speculative
+# engine as bench_serve_spec: 4 draft tokens a round
+SERVE_SLOTS, SERVE_BATCH_BUCKETS = 8, (2, 4, 8)
+SERVE_PREFILL_BUCKETS = (32, 64, 128)
+SERVE_REQUESTS, SERVE_SEED = 16, 1
+SERVE_PROMPT_LENS, SERVE_MAX_NEW = (8, 24, 48, 96), (16, 32, 64)
+SPEC_K = 4
 
 # Tolerances, kernel against plain version on the same inputs:
 # RMSNorm: the same fp32 operations with the sum in another order, so a
@@ -208,6 +246,20 @@ def card_line():
         text=True).stdout.strip().splitlines()[0]
 
 
+def card_state():
+    """The card's clocks, power draw, temperature and (where this
+    nvidia-smi knows the field) active clock-event reasons, as nvidia-smi
+    reads them now: a note beside a timing, never a check."""
+    base = "clocks.sm,clocks.mem,power.draw,temperature.gpu"
+    for fields in (base + ",clocks_event_reasons.active", base):
+        out = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+            capture_output=True, text=True)
+        if out.returncode == 0:
+            return f"{fields}: {out.stdout.strip().splitlines()[0]}"
+    return "not read"
+
+
 def device_ms(fn, iters=20, replays=5):
     """Device time of one call of ``fn`` in ms: ``iters`` calls captured
     in one CUDA graph, replayed ``replays`` times between CUDA events, so
@@ -274,8 +326,12 @@ def plain_versions():
     swapped in their modules, so the autograd Functions and the
     optimizer that call them stay the same."""
     from apex_tpu_torch.contrib import fmha, gqa_decode
-    from apex_tpu_torch.kernels import fused_cc, norm, optim, softmax
+    from apex_tpu_torch.kernels import fused_cc, norm, optim, quant, softmax
     swaps = [(norm, "rms_fwd", norm.rms_fwd_plain),
+             (quant, "quantize_rows", quant.quantize_rows_plain),
+             (quant, "dequantize_rows", quant.dequantize_rows_plain),
+             (fused_cc, "spec_verify_attention",
+              fused_cc.spec_verify_reference),
              (norm, "rms_bwd_dx", norm.rms_bwd_dx_plain),
              (norm, "ln_fwd", norm.ln_fwd_plain),
              (norm, "ln_bwd_dx", norm.ln_bwd_dx_plain),
@@ -431,7 +487,9 @@ def check_window_attention(gen):
     q = _randn(gen, PROMPT, BATCH, g, rep, d)
     k, v = _cache(gen, T, BATCH, g, d, PROMPT)
     sm = d ** -0.5
-    got = fused_cc.window_attention(q, k, v, 0, sm)
+    # the path hands the kernel its rows' levels on the device
+    start = torch.zeros(BATCH, dtype=torch.int32, device="cuda")
+    got = fused_cc.window_attention(q, k, v, start, sm)
     want = fused_cc.window_attention_plain(q, k, v, 0, sm)
     torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
     # yardstick: SDPA over the live rows, heads-major views of the same
@@ -443,8 +501,8 @@ def check_window_attention(gen):
         "window_attention",
         f"qg[{PROMPT},{BATCH},{g},{rep},{d}] bf16, cache[{T},{BATCH},{g},"
         f"{d}] bf16, start 0", got, want, f"rtol {ATTN_TOL} atol {ATTN_TOL}",
-        lambda: fused_cc.window_attention(q, k, v, 0, sm),
-        lambda: fused_cc.window_attention_plain(q, k, v, 0, sm),
+        lambda: fused_cc.window_attention(q, k, v, start, sm),
+        lambda: fused_cc.window_attention_plain(q, k, v, start, sm),
         lambda: torch.nn.functional.scaled_dot_product_attention(
             q_l, k_l, v_l, is_causal=True, scale=sm, enable_gqa=True),
         _attention_bound(BATCH, g, rep, d, PROMPT, 0, None))]
@@ -474,7 +532,8 @@ def check_gqa_decode(gen):
     q = _randn(gen, BATCH, g, rep, d)
     k, v = _cache(gen, T, BATCH, g, d, L)
     sm = d ** -0.5
-    got = gqa_decode.gqa_flash_decode(q, k, v, L, sm)
+    lengths = torch.full((BATCH,), L, dtype=torch.int32, device="cuda")
+    got = gqa_decode.gqa_flash_decode(q, k, v, lengths, sm)
     want = gqa_decode.gqa_decode_plain(q, k, v, L, sm)
     torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
     q_l = q.reshape(BATCH, n, 1, d)
@@ -484,8 +543,8 @@ def check_gqa_decode(gen):
         "gqa_decode",
         f"q[{BATCH},{g},{rep},{d}] bf16, cache[{T},{BATCH},{g},{d}] bf16, "
         f"length {L}", got, want, f"rtol {ATTN_TOL} atol {ATTN_TOL}",
-        lambda: gqa_decode.gqa_flash_decode(q, k, v, L, sm),
-        lambda: gqa_decode.gqa_decode_plain(q, k, v, L, sm),
+        lambda: gqa_decode.gqa_flash_decode(q, k, v, lengths, sm),
+        lambda: gqa_decode.gqa_decode_plain(q, k, v, lengths, sm),
         lambda: torch.nn.functional.scaled_dot_product_attention(
             q_l, k_l, v_l, scale=sm, enable_gqa=True),
         _attention_bound(BATCH, g, rep, d, 1, L - 1, None))]
@@ -1071,6 +1130,192 @@ def check_lamb(gen):
     return [result]
 
 
+# ------------------------------------------- phase 2: int8 serving kernels
+
+def _mixed_offsets(b, hi, gen):
+    """int32 [b] offsets in [0, hi) on the card, spread over the range."""
+    return torch.randint(0, hi, (b,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def check_per_row_attention(gen):
+    """#21 and #25 with each batch row at its own offset (the serving
+    engine's slots), against their plain versions."""
+    from apex_tpu_torch.contrib import gqa_decode
+    from apex_tpu_torch.kernels import fused_cc
+    n, g = MODEL["num_attention_heads"], MODEL["num_query_groups"]
+    d, rep, T = MODEL["hidden_size"] // n, n // g, MODEL[
+        "max_position_embeddings"]
+    for w, window, cap in ((1, None, None), (5, None, None),
+                           (PROMPT, None, None), (5, 50, 30.0)):
+        starts = _mixed_offsets(BATCH, T - w + 1, gen)
+        starts[0], starts[-1] = 0, T - w  # both ends of the cache
+        q = _randn(gen, w, BATCH, g, rep, d)
+        k, v = _cache(gen, T, BATCH, g, d, T)
+        got = fused_cc.window_attention(q, k, v, starts, d ** -0.5, window,
+                                        cap)
+        want = fused_cc.window_attention_plain(q, k, v, starts, d ** -0.5,
+                                               window, cap)
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+        lengths = starts + 1
+        got = gqa_decode.gqa_flash_decode(q[0], k, v, lengths, d ** -0.5,
+                                          window, cap)
+        want = gqa_decode.gqa_decode_plain(q[0], k, v, lengths, d ** -0.5,
+                                           window, cap)
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+    torch.cuda.synchronize()
+    log("kernels: window_attention and gqa_decode with per-row starts and "
+        "lengths (w 1, 5, 128; a window and softcap) match their plain "
+        f"versions within {ATTN_TOL}")
+
+
+def _quant_bytes(rows, n, block, in_bytes):
+    nb = -(-n // block)
+    return rows * n * in_bytes + rows * nb * block + rows * nb * 4
+
+
+def check_quant(gen):
+    """#14 and #15 bit for bit against their plain versions: the serving
+    path's [16384, 256] rows (8 slots x 2048 positions of one K or V
+    leaf), one position per slot, ragged rows and blocks, fp32 and bf16,
+    all-zero rows, ties at .5."""
+    from apex_tpu_torch.kernels import quant
+    from apex_tpu_torch.parallel import compression
+    width = MODEL["num_query_groups"] * (
+        MODEL["hidden_size"] // MODEL["num_attention_heads"])
+    rows = BATCH * MODEL["max_position_embeddings"]
+    cases = [(rows, width, 256, torch.bfloat16), (BATCH, width, 256,
+                                                  torch.bfloat16),
+             (rows, width, 256, torch.float32), (999, 300, 256,
+                                                 torch.float32),
+             (1000, 100, 32, torch.bfloat16), (7, 1, 256, torch.float32),
+             (64, 1000, 100, torch.float32)]
+    for r, n, block, dtype in cases:
+        x = _randn(gen, r, n, dtype=dtype, scale=2.0)
+        x[0] = 0  # an all-zero row
+        if n >= 256 and r > 1:  # a block with scale 1.0 and ties at k + .5
+            x[1, :block] = (torch.arange(block, device="cuda") % 20 - 9.5
+                            ).to(dtype)
+            x[1, 0] = 127
+        q, s = quant.quantize_rows(x, block)
+        qp, sp = quant.quantize_rows_plain(x, block)
+        torch.cuda.synchronize()
+        assert torch.equal(q, qp) and torch.equal(s, sp), (r, n, block, dtype)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = quant.dequantize_rows(q, s, n, out_dtype)
+            want = quant.dequantize_rows_plain(q, s, n, out_dtype)
+            assert torch.equal(got, want), (r, n, block, out_dtype)
+    flat = _randn(gen, 1000, dtype=torch.float32)
+    q, s = compression.quantize_blockwise(flat)
+    assert torch.equal(compression.dequantize_blockwise(q, s, 1000),
+                       quant.dequantize_rows_plain(q[None], s[None], 1000)[0])
+    torch.cuda.synchronize()
+    log("kernels: quantize_int8 and dequantize_int8 bit-identical to their "
+        f"plain versions on {len(cases)} shapes (ragged rows and blocks, "
+        "fp32 and bf16 in and out, zero rows, ties at .5)")
+
+    # the path's calls: admission (every position of a leaf, bf16 in) and
+    # the decode step's read (bf16 out); one position per slot per step
+    x = _randn(gen, rows, width, scale=2.0)
+    q, s = quant.quantize_rows(x, 256)
+    qp, sp = quant.quantize_rows_plain(x, 256)
+    qbytes = _quant_bytes(rows, width, 256, 2)
+    entries = [entry(
+        "quantize_int8", f"x[{rows},{width}] bf16 -> int8 + fp32 scales "
+        "(admission, one K or V leaf)", q, qp, "bit-identical",
+        lambda: quant.quantize_rows(x, 256),
+        lambda: quant.quantize_rows_plain(x, 256), None,
+        bound(qbytes, 4 * rows * width, FP32_OPS_PER_S))]
+    assert entries[0]["max_abs_err"] == 0 and torch.equal(s, sp)
+    got = quant.dequantize_rows(q, s, width, torch.bfloat16)
+    want = quant.dequantize_rows_plain(q, s, width, torch.bfloat16)
+    entries.append(entry(
+        "dequantize_int8", f"q[{rows},1,256] int8 + scales -> bf16 (decode "
+        "read, one K or V leaf)", got, want, "bit-identical",
+        lambda: quant.dequantize_rows(q, s, width, torch.bfloat16),
+        lambda: quant.dequantize_rows_plain(q, s, width, torch.bfloat16),
+        None, bound(qbytes, rows * width, FP32_OPS_PER_S)))
+    assert entries[1]["max_abs_err"] == 0
+    # off the entries: one position per slot, and the fp32 output
+    xs = _randn(gen, BATCH, width, scale=2.0)
+    small = device_ms(lambda: quant.quantize_rows(xs, 256))
+    fp32_ms = device_ms(lambda: quant.dequantize_rows(q, s, width))
+    small_bound = _quant_bytes(BATCH, width, 256, 2) / HBM_BYTES_PER_S
+    fp32_bound = _quant_bytes(rows, width, 256, 4) / HBM_BYTES_PER_S
+    log(f"kernel quantize_int8 at one position per slot [{BATCH},{width}] "
+        f"(decode step): {_us(small)} on the device, bound "
+        f"{small_bound * 1e6:.4f} us; dequantize_int8 to fp32 "
+        f"[{rows},{width}]: {_us(fp32_ms)}, bound {fp32_bound * 1e6:.3f} us")
+    return entries
+
+
+def _verify_inputs(gen, b, g, rep, d, T, block, w):
+    """q [w, b, g, rep, d] bf16 and the int8 store's codes and scales of
+    random K/V rows, quantized by the plain version."""
+    from apex_tpu_torch.kernels import quant
+    nb = -(-(g * d) // block)
+
+    def store():
+        x = _randn(gen, T * b, g * d, dtype=torch.float32)
+        q, s = quant.quantize_rows_plain(x, block)
+        return q.reshape(T, b, nb, block), s.reshape(T, b, nb, 1)
+
+    kq, ks = store()
+    vq, vs = store()
+    return _randn(gen, w, b, g, rep, d), kq, ks, vq, vs
+
+
+def check_spec_verify(gen):
+    """#22 against its plain version (dequantize, then the window
+    attention): the TinyLlama verify window over a full-length int8
+    store, each slot at its own start; g * d < nb * B (padding lanes);
+    head dim 128; fp32 queries; the JAX one-slot signature."""
+    from apex_tpu_torch.kernels import fused_cc
+    n, g = MODEL["num_attention_heads"], MODEL["num_query_groups"]
+    d, rep, T = MODEL["hidden_size"] // n, n // g, MODEL[
+        "max_position_embeddings"]
+    w = SPEC_K + 1
+    for gg, rr, dd, block, dtype in ((2, 4, 64, 96, torch.bfloat16),
+                                     (2, 2, 128, 256, torch.bfloat16),
+                                     (4, 8, 64, 256, torch.float32)):
+        starts = _mixed_offsets(3, 1000 - w, gen)
+        q, kq, ks, vq, vs = _verify_inputs(gen, 3, gg, rr, dd, 1000, block,
+                                           w)
+        q = q.to(dtype)
+        got = fused_cc.spec_verify_attention(q, kq, ks, vq, vs, starts,
+                                             dd ** -0.5)
+        want = fused_cc.spec_verify_reference(q, kq, ks, vq, vs, starts,
+                                              dd ** -0.5)
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+        one = fused_cc.spec_verify_attention(
+            q[:, 1].contiguous(), kq[:, 1].contiguous(),
+            ks[:, 1].contiguous(), vq[:, 1].contiguous(),
+            vs[:, 1].contiguous(), int(starts[1]), dd ** -0.5)
+        torch.testing.assert_close(one, want[:, 1], rtol=ATTN_TOL,
+                                   atol=ATTN_TOL)
+    torch.cuda.synchronize()
+    starts = torch.tensor([0, 100, 300, 700, 1100, 1500, 1900, T - w],
+                          dtype=torch.int32, device="cuda")
+    q, kq, ks, vq, vs = _verify_inputs(gen, BATCH, g, rep, d, T, 256, w)
+    sm = d ** -0.5
+    got = fused_cc.spec_verify_attention(q, kq, ks, vq, vs, starts, sm)
+    want = fused_cc.spec_verify_reference(q, kq, ks, vq, vs, starts, sm)
+    torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+    live = int((starts + w).sum())  # cache rows each slot reads
+    keys = sum(int(st) * w + w * (w + 1) // 2 for st in starts.tolist())
+    nbytes = (q.numel() * 2 + 2 * live * (256 + 4)  # codes + scales, K and V
+              + got.numel() * 4)
+    return [entry(
+        "spec_verify", f"q[{w},{BATCH},{g},{rep},{d}] bf16, int8 store "
+        f"[{T},{BATCH},1,256], starts {starts.tolist()}", got, want,
+        f"rtol {ATTN_TOL} atol {ATTN_TOL}",
+        lambda: fused_cc.spec_verify_attention(q, kq, ks, vq, vs, starts,
+                                               sm),
+        lambda: fused_cc.spec_verify_reference(q, kq, ks, vq, vs, starts,
+                                               sm), None,
+        bound(nbytes, 4 * d * g * rep * keys, BF16_TENSOR_OPS_PER_S))]
+
+
 def check_refusals():
     """On a CUDA tensor a wrapper launches its kernel or raises: what the
     kernels do not take is refused, never sent to the plain version."""
@@ -1190,10 +1435,51 @@ def check_refusals():
         noop, t, t, t, t, **dict(lkw, clip=torch.ones(2, device="cuda"))))
     refused(ValueError, lambda: optim.lamb(noop, uneven, uneven, uneven,
                                            uneven, **lkw))
+    # the int8 serving kernels, and per-row offsets
+    from apex_tpu_torch.kernels import quant
+    xq = torch.zeros(4, 256, device="cuda")
+    refused(TypeError, lambda: quant.quantize_rows(xq.half(), 256))
+    refused(ValueError, lambda: quant.quantize_rows(xq.t(), 256))
+    refused(ValueError, lambda: quant.quantize_rows(xq[None], 256))
+    refused(ValueError, lambda: quant.quantize_rows(xq, 0))
+    q8 = torch.zeros(4, 1, 256, dtype=torch.int8, device="cuda")
+    s8 = torch.ones(4, 1, 1, device="cuda")
+    refused(TypeError, lambda: quant.dequantize_rows(q8.int(), s8))
+    refused(ValueError, lambda: quant.dequantize_rows(q8, s8[:2]))
+    refused(ValueError, lambda: quant.dequantize_rows(q8, s8, 300))
+    refused(ValueError, lambda: quant.dequantize_rows(q8, s8.double()))
+    refused(TypeError, lambda: quant.dequantize_rows(
+        q8, s8, out_dtype=torch.half))
+    kq = torch.zeros(16, 2, 1, 256, dtype=torch.int8, device="cuda")
+    ks = torch.ones(16, 2, 1, 1, device="cuda")
+    qv = torch.zeros(3, 2, 4, 2, 64, dtype=torch.bfloat16, device="cuda")
+    refused(ValueError, lambda: fused_cc.spec_verify_attention(
+        qv, kq, ks, kq, ks, 14, 0.1))  # positions past the cache
+    refused(ValueError, lambda: fused_cc.spec_verify_attention(  # g*d 320
+        torch.zeros(3, 2, 5, 2, 64, dtype=torch.bfloat16, device="cuda"),
+        kq, ks, kq, ks, 0, 0.1))
+    refused(TypeError, lambda: fused_cc.spec_verify_attention(
+        qv, kq.float(), ks, kq, ks, 0, 0.1))
+    refused(TypeError, lambda: fused_cc.spec_verify_attention(
+        qv, kq, ks.bfloat16(), kq, ks, 0, 0.1))
+    refused(ValueError, lambda: fused_cc.spec_verify_attention(
+        qv, kq, ks[:8], kq, ks, 0, 0.1))
+    refused(ValueError, lambda: fused_cc.spec_verify_attention(
+        qv, kq[:, :1], ks, kq, ks, 0, 0.1))
+    refused(TypeError, lambda: fused_cc.spec_verify_attention(
+        qv.half(), kq, ks, kq, ks, 0, 0.1))
+    refused(ValueError, lambda: fused_cc.spec_verify_attention(
+        qv, kq, ks, kq, ks, torch.zeros(3, dtype=torch.int32,
+                                        device="cuda"), 0.1))
+    refused(TypeError, lambda: fused_cc.window_attention(
+        q, k, k, torch.zeros(2, device="cuda"), 0.1))
+    refused(ValueError, lambda: gqa_decode.gqa_flash_decode(
+        q[0], k, k, torch.ones(3, dtype=torch.int32, device="cuda"), 0.1))
     assert registry.launches() == before, "a refused call was counted"
     log("kernels: malformed CUDA inputs are refused (dtype, layout, range, "
         "head dim, shapes, list lengths, window, slopes, lse/delta, "
-        "weight/bias, masks that do not broadcast, clip)")
+        "weight/bias, masks that do not broadcast, clip, block, scales, "
+        "codes, lanes, per-row offsets)")
 
 
 # ------------------------------------------------------------- phases 3, 4
@@ -1724,13 +2010,340 @@ def phase_mha():
     return {"mha": totals}
 
 
+# ---------------------------------------------------------- serve phases
+
+def _serve_trace(vocab, n=SERVE_REQUESTS, seed=SERVE_SEED):
+    from apex_tpu_torch.serving import synthetic_trace
+    return synthetic_trace(n, seed=seed, mean_interarrival=1.0,
+                           prompt_lens=SERVE_PROMPT_LENS,
+                           max_new=SERVE_MAX_NEW, vocab_size=vocab)
+
+
+def _streams(completed):
+    return {c.rid: c.tokens.tolist() for c in completed}
+
+
+def _margin_check(label, model, trace, got, want):
+    """Token streams ``got`` against ``want`` (each {rid: tokens}): where
+    a stream differs, the top-2 margin of ``want``'s model logits at the
+    first differing position (the prompt and ``want``'s tokens before it,
+    prefilled through the kernels) must be below LOGIT_TOL and ``got``'s
+    token one of the two: a near tie that an fp32 difference in the last
+    place may break either way, not a wrong token."""
+    from apex_tpu_torch.models import init_cache, prefill
+    same = 0
+    for r in trace:
+        a, b = got[r.rid], want[r.rid]
+        if a == b:
+            same += 1
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        ctx = torch.as_tensor(list(r.prompt) + b[:i],
+                              device=model.device)[None]
+        _, logits = prefill(model, init_cache(model, 1), ctx, torch.arange(
+            ctx.shape[1], device=model.device)[None])
+        top = torch.topk(logits[0].float(), 2)
+        margin = (top.values[0] - top.values[1]).item()
+        log(f"{label}: request {r.rid} first differs at generated token {i} "
+            f"({a[i]} vs {b[i]}); top-2 logit margin there {margin:.4f} "
+            f"(tolerance {LOGIT_TOL}), top-2 tokens {top.indices.tolist()}")
+        assert margin < LOGIT_TOL and a[i] in top.indices.tolist(), (
+            label, r.rid, i, margin)
+    log(f"{label}: {same} of {len(trace)} streams identical")
+
+
+def _serve_counted(label, engine, vocab):
+    """Warm the engine on a short trace, then drive the serving trace
+    through ``engine.serve`` with every launch count set to 0 just
+    before and read just after. Returns (streams, stats, launches)."""
+    from apex_tpu_torch.kernels import registry
+    engine.serve(_serve_trace(vocab, n=4, seed=0))  # warm: cuBLAS, allocator
+    trace = _serve_trace(vocab)
+    # host clock of each engine call (a call ends with its one read of
+    # the sampled tokens, so it spans the device's work too); instance
+    # attributes shadow the methods for this run only
+    # and the CPU time of this thread in it (the wait for the device
+    # spins, so CPU time well below the host clock means the thread was
+    # not running: other work held the host's cores)
+    calls = {"prefill": [], "decode": [], "decode_cpu": []}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            t, c = time.perf_counter(), time.thread_time()
+            out = fn(*args, **kw)
+            calls[name].append(time.perf_counter() - t)
+            if name == "decode":
+                calls["decode_cpu"].append(time.thread_time() - c)
+            return out
+        return run
+
+    engine.prefill = timed("prefill", engine.prefill)
+    engine.decode = timed("decode", engine.decode)
+    log(f"{label}: card before the run: {card_state()}; host load "
+        f"{os.getloadavg()} on {len(os.sched_getaffinity(0))} cores")
+    mem0 = torch.cuda.memory_stats()
+    registry.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    done, stats = engine.serve(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = registry.launches()
+    del engine.prefill, engine.decode
+    mem1 = torch.cuda.memory_stats()
+    log(f"{label}: card after the run: {card_state()}; host load "
+        f"{os.getloadavg()}")
+    steps = sorted(calls["decode"])
+    cpu = sum(calls["decode_cpu"])
+    log(f"{label}: host time {wall * 1e3:.2f} ms = decode calls "
+        f"{sum(steps) * 1e3:.2f} ({len(steps)}: median "
+        f"{statistics.median(steps) * 1e3:.2f}, p10 "
+        f"{steps[len(steps) // 10] * 1e3:.2f}, p90 "
+        f"{steps[len(steps) * 9 // 10] * 1e3:.2f} ms) + prefill calls "
+        f"{sum(calls['prefill']) * 1e3:.2f} ({len(calls['prefill'])}) + "
+        f"scheduler {(wall - sum(steps) - sum(calls['prefill'])) * 1e3:.2f}; "
+        f"the decode calls' thread CPU time {cpu * 1e3:.2f} ms "
+        f"({cpu / sum(steps):.3f} of their host time); "
+        f"allocator during the run: "
+        + ", ".join(f"{k} +{mem1.get(k, 0) - mem0.get(k, 0)}" for k in (
+            "num_device_alloc", "num_device_free", "num_alloc_retries",
+            "segment.all.allocated")))
+    assert len(done) == len(trace), (len(done), len(trace))
+    assert all(c.finish_reason == "length" for c in done), [
+        c.finish_reason for c in done]
+    want_len = {r.rid: r.max_new_tokens for r in trace}
+    assert all(len(c.tokens) == want_len[c.rid] for c in done)
+    assert all(0 <= int(t) < vocab for c in done for t in c.tokens)
+    extra = (f", acceptance {stats['acceptance_rate']} of "
+             f"{stats['spec_proposed']} proposals" if "acceptance_rate"
+             in stats else "")
+    log(f"{label}: {len(done)} requests, {stats['tokens_generated']} tokens "
+        f"in {wall:.2f} s: {stats['tokens_per_sec']:.1f} tokens/s; TTFT p50 "
+        f"{stats['ttft_p50_ms']:.2f} ms, p99 {stats['ttft_p99_ms']:.2f} ms; "
+        f"per-token latency p50 {stats['tok_latency_p50_ms']:.2f} ms, p99 "
+        f"{stats['tok_latency_p99_ms']:.2f} ms; {stats['decode_steps']} "
+        f"decode steps, {stats['prefill_calls']} prefill calls{extra}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return _streams(done), stats, launches
+
+
+def _expect(label, launches, expected):
+    expected = {**dict.fromkeys(launches, 0), **expected}
+    log(f"{label}: launches {launches}, expected {expected}")
+    assert launches == expected, (launches, expected)
+
+
+def _per_step(label, launches, stats, names, per_prefill):
+    """Log the launches of ``names`` a decode step, the prefills' share
+    (``per_prefill`` a call) taken out; :func:`_expect` checks them."""
+    steps, calls = stats["decode_steps"], stats["prefill_calls"]
+    log(f"{label}: launches a decode step: " + ", ".join(
+        f"{n} {(launches[n] - per_prefill.get(n, 0) * calls) / steps:g}"
+        for n in names))
+
+
+# the serve phases' shared model, and serve_bf16's streams for serve_int8
+_SERVE_MODEL = []
+_SERVE_STREAMS = {}
+
+
+def _serve_model():
+    """TinyLlama-1.1B at full width and depth, seeded random weights,
+    bf16 activations: built once for the bf16 and int8 serve phases."""
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    if not _SERVE_MODEL:
+        cfg = TransformerConfig(**MODEL, compute_dtype=torch.bfloat16)
+        _SERVE_MODEL.append(_new_model("serve", lambda: GPTModel(cfg)))
+    return _SERVE_MODEL[0]
+
+
+def _serve_config(**kw):
+    from apex_tpu_torch.serving import ServeConfig
+    return ServeConfig(batch_buckets=SERVE_BATCH_BUCKETS,
+                       prefill_buckets=SERVE_PREFILL_BUCKETS,
+                       num_slots=SERVE_SLOTS, **kw)
+
+
+def _profile_decode(label, engine, vocab):
+    """A profile of one engine decode call (or speculative round) over a
+    full bucket of fresh slots."""
+    prompts = [r.prompt for r in _serve_trace(vocab, n=SERVE_SLOTS, seed=2)]
+    first = engine.prefill(list(range(SERVE_SLOTS)), prompts)
+    profile_window(label, lambda: engine.decode(list(range(SERVE_SLOTS)),
+                                                first))
+
+
+def phase_serve_bf16():
+    from apex_tpu_torch.serving import ServeEngine
+    model = _serve_model()
+    L, vocab = model.num_layers, model.config.vocab_size
+    engine = ServeEngine(model, _serve_config(cache_mode="bf16"))
+    log(f"serve_bf16: kv_cache_bytes {engine.kv_cache_bytes()} "
+        f"({engine.spec.cache_dtype_name()}, {SERVE_SLOTS} slots x "
+        f"{engine.max_len} positions)")
+    streams, stats, launches = _serve_counted("serve_bf16", engine, vocab)
+    steps, calls = stats["decode_steps"], stats["prefill_calls"]
+    _expect("serve_bf16", launches, {
+        "rms_norm": (2 * L + 1) * (steps + calls),
+        "gqa_decode": L * steps, "window_attention": L * calls})
+    _per_step("serve_bf16", launches, stats, ("rms_norm", "gqa_decode"),
+              {"rms_norm": 2 * L + 1})
+    log(f"serve_bf16: window_attention {launches['window_attention'] / calls}"
+        f" a prefill")
+    with plain_versions():
+        plain, _ = ServeEngine(model, _serve_config(cache_mode="bf16")
+                               ).serve(_serve_trace(vocab))
+    _margin_check("serve_bf16 kernels vs plain versions", model,
+                  _serve_trace(vocab), streams, _streams(plain))
+    _profile_decode("serve_bf16 decode step (bucket 8)", engine, vocab)
+    _SERVE_STREAMS["bf16"] = streams
+    return {"serve_bf16": launches}
+
+
+def _int8_bound_check(model):
+    """The same prompts prefilled into a bf16 and an int8 store: every
+    dequantized K/V lane of the int8 store within half a grid step of its
+    block's absmax (absmax / 254) of the bf16 store's value."""
+    from apex_tpu_torch.kernels import quant
+    from apex_tpu_torch.serving import ServeEngine
+    vocab = model.config.vocab_size
+    prompts = [r.prompt for r in _serve_trace(vocab, n=SERVE_SLOTS, seed=3)]
+    engines = [ServeEngine(model, _serve_config(cache_mode=m))
+               for m in ("bf16", "int8")]
+    firsts = [e.prefill(list(range(SERVE_SLOTS)), prompts) for e in engines]
+    assert (firsts[0] == firsts[1]).all()  # one prefill, two stores
+    spec = engines[1].spec
+    worst = 0.0
+    for name in ("keys", "values"):
+        for x, leaf in zip(engines[0]._store[name], engines[1]._store[name]):
+            T, S = x.shape[:2]
+            rows = x.reshape(T * S, spec.width).float()
+            deq = quant.dequantize_rows(leaf["q"].reshape(T * S, 1, -1),
+                                        leaf["scale"].reshape(T * S, 1, 1),
+                                        spec.width)
+            bound_ = rows.abs().amax(-1, keepdim=True) / 254.0
+            err = (deq - rows).abs()
+            # half a step, plus the fp32 roundings of the scale and of
+            # q * s (a lane at a tie sits exactly half a step away)
+            assert (err <= bound_ * (1 + 2 ** -20)
+                    + rows.abs() * 2 ** -22).all(), name
+            worst = max(worst, (err / bound_.clamp_min(1e-30)).max().item())
+    log(f"serve_int8: int8 store vs bf16 store after one prefill of "
+        f"{SERVE_SLOTS} prompts: every dequantized lane within absmax/254 "
+        f"of its block (the largest error {worst:.4f} of the bound)")
+
+
+def phase_serve_int8():
+    from apex_tpu_torch.serving import KVCacheSpec, ServeEngine
+    model = _serve_model()
+    L, vocab = model.num_layers, model.config.vocab_size
+    engine = ServeEngine(model, _serve_config(cache_mode="int8"))
+    bf16_bytes = KVCacheSpec(model, SERVE_SLOTS, mode="bf16").total_bytes()
+    int8_bytes = engine.kv_cache_bytes()
+    fp32_bytes = engine.spec.total_bytes(kv_itemsize=4)
+    log(f"serve_int8: kv_cache_bytes {int8_bytes} (int8 + fp32 scales) vs "
+        f"{bf16_bytes} bf16: {bf16_bytes / int8_bytes:.3f}x smaller; "
+        f"{fp32_bytes / int8_bytes:.3f}x against fp32 ({fp32_bytes})")
+    assert int8_bytes < bf16_bytes
+    streams, stats, launches = _serve_counted("serve_int8", engine, vocab)
+    steps, calls = stats["decode_steps"], stats["prefill_calls"]
+    _expect("serve_int8", launches, {
+        "rms_norm": (2 * L + 1) * (steps + calls),
+        "gqa_decode": L * steps, "window_attention": L * calls,
+        "quantize_int8": 2 * L * (steps + calls),
+        "dequantize_int8": 2 * L * steps})
+    _per_step("serve_int8", launches, stats,
+              ("rms_norm", "gqa_decode", "quantize_int8", "dequantize_int8"),
+              {"rms_norm": 2 * L + 1, "quantize_int8": 2 * L})
+    log(f"serve_int8: quantize_int8 {2 * L} and window_attention {L} a "
+        f"prefill")
+    with plain_versions():
+        plain, _ = ServeEngine(model, _serve_config(cache_mode="int8")
+                               ).serve(_serve_trace(vocab))
+    _margin_check("serve_int8 kernels vs plain versions", model,
+                  _serve_trace(vocab), streams, _streams(plain))
+    if "bf16" in _SERVE_STREAMS:
+        agree = sum(streams[k] == v for k, v in _SERVE_STREAMS["bf16"].items())
+        log(f"serve_int8: {agree} of {len(streams)} streams identical to the "
+            f"bf16 cache's (not a check: int8 rounding moves the logits)")
+    _int8_bound_check(model)
+    _profile_decode("serve_int8 decode step (bucket 8)", engine, vocab)
+    return {"serve_int8": launches}
+
+
+def _spec_models():
+    """bench.py ``_serve_spec_setup`` at TinyLlama width and depth: the
+    target's layers past the first scaled by 0.25 (every parameter), and
+    a 1-layer draft sharing its embedding, layer 0, final norm and
+    head."""
+    import dataclasses
+
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    cfg = TransformerConfig(**MODEL, compute_dtype=torch.bfloat16)
+    target = _new_model("serve_spec target", lambda: GPTModel(cfg))
+    with torch.no_grad():
+        for i, layer in enumerate(target.transformer.layers):
+            if i:
+                for p in layer.parameters():
+                    p.mul_(0.25)
+    draft = GPTModel(dataclasses.replace(cfg, num_layers=1))
+    shared = {k: v for k, v in target.state_dict().items()
+              if not k.startswith("transformer.layers.")
+              or k.startswith("transformer.layers.0.")}
+    draft.load_state_dict(shared)
+    return target, draft
+
+
+def phase_serve_spec():
+    from apex_tpu_torch.serving import ServeEngine
+    _SERVE_MODEL.clear()
+    torch.cuda.empty_cache()
+    target, draft = _spec_models()
+    L, vocab = target.num_layers, target.config.vocab_size
+    plain_engine = ServeEngine(target, _serve_config(cache_mode="bf16"))
+    plain, plain_stats, _ = _serve_counted("serve_spec plain engine",
+                                           plain_engine, vocab)
+    engine = ServeEngine(target, _serve_config(
+        cache_mode="bf16", draft_model=draft, num_draft_tokens=SPEC_K))
+    log(f"serve_spec: target kv_cache_bytes {engine.kv_cache_bytes()}, "
+        f"draft {engine.draft_kv_cache_bytes()}")
+    streams, stats, launches = _serve_counted("serve_spec", engine, vocab)
+    rounds, calls = stats["decode_steps"], stats["prefill_calls"]
+    feeds = SPEC_K + 1  # draft decode steps a round
+    _expect("serve_spec", launches, {
+        "rms_norm": (2 * L + 1 + 3 * feeds) * rounds + (2 * L + 1 + 3) * calls,
+        "gqa_decode": feeds * rounds,
+        "window_attention": L * rounds + (L + 1) * calls})
+    log(f"serve_spec: window_attention {L} a round (the target's verify "
+        f"window) and {L + 1} a prefill (target and draft); gqa_decode "
+        f"{feeds} a round (the draft's steps); {stats['tokens_per_sec']:.1f}"
+        f" tokens/s against the plain engine's "
+        f"{plain_stats['tokens_per_sec']:.1f} on the same model")
+    _margin_check("serve_spec vs the plain engine", target,
+                  _serve_trace(vocab), streams, plain)
+    with plain_versions():
+        plain_spec, _ = ServeEngine(target, _serve_config(
+            cache_mode="bf16", draft_model=draft,
+            num_draft_tokens=SPEC_K)).serve(_serve_trace(vocab))
+    _margin_check("serve_spec kernels vs plain versions", target,
+                  _serve_trace(vocab), streams, _streams(plain_spec))
+    _profile_decode("serve_spec round (bucket 8)", engine, vocab)
+    return {"serve_spec": launches}
+
+
 # kernel name parts whose summed device time a training profile prints
 PROFILE_WATCH = ("ln_fwd_kernel", "ln_bwd_dx_kernel", "masked_fwd_kernel",
                  "causal_fwd_kernel", "::bwd_kernel<", "lamb_kernel",
                  "adam_kernel", "::fwd_kernel<", "::dq_kernel<",
                  "::dkv_kernel<", "rms_")
-PHASES = ("kernels", "serving", "training", "flash_training",
-          "gpt2_training", "bert_training", "mha")
+PHASES = ("kernels", "serving", "serve_bf16", "serve_int8", "serve_spec",
+          "training", "flash_training", "gpt2_training", "bert_training",
+          "mha")
+# kernels that no path of this script launches: held against their plain
+# versions in the kernel phase only (the JAX serving engine does not take
+# the fused int8 verify either: it dequantizes with #15, then verifies)
+KERNEL_PHASE_ONLY = ("spec_verify",)
 SOURCES = {  # kernel -> (its source, the TPU kernel it replaces)
     "rms_norm": ("apex_tpu_torch/csrc/rms_norm.cu",
                  "apex_tpu/kernels/norm.py:85"),
@@ -1760,6 +2373,12 @@ SOURCES = {  # kernel -> (its source, the TPU kernel it replaces)
     "masked_softmax": ("apex_tpu_torch/csrc/softmax.cu",
                        "apex_tpu/kernels/softmax.py:69"),
     "lamb": ("apex_tpu_torch/csrc/lamb.cu", "apex_tpu/kernels/optim.py:137"),
+    "quantize_int8": ("apex_tpu_torch/csrc/quant8.cu",
+                      "apex_tpu/parallel/compression.py:123"),
+    "dequantize_int8": ("apex_tpu_torch/csrc/quant8.cu",
+                        "apex_tpu/parallel/compression.py:128"),
+    "spec_verify": ("apex_tpu_torch/csrc/spec_verify.cu",
+                    "apex_tpu/kernels/fused_cc.py:453"),
 }
 
 
@@ -1795,7 +2414,9 @@ def main(argv):
                    + check_gqa_decode(gen) + check_rms_bwd(gen)
                    + check_softmax(gen) + check_adam(gen)
                    + check_flash(gen) + check_layer_norm(gen)
-                   + check_masked_softmax(gen) + check_lamb(gen))
+                   + check_masked_softmax(gen) + check_lamb(gen)
+                   + check_quant(gen) + check_spec_verify(gen))
+        check_per_row_attention(gen)
         check_refusals()
         for e in entries:
             log(f"kernel {e['name']} [{e['shape']}]: max abs err "
@@ -1813,14 +2434,18 @@ def main(argv):
     if "serving" in phases:
         by_path.update(phase_serving())
         torch.cuda.empty_cache()
-    for name, run in (("training", phase_training),
-                      ("flash_training", phase_flash_training),
-                      ("gpt2_training", phase_gpt2_training),
-                      ("bert_training", phase_bert_training),
-                      ("mha", phase_mha)):
-        if name in phases:
-            by_path.update(run())
-            torch.cuda.empty_cache()
+    runs = {"serve_bf16": phase_serve_bf16, "serve_int8": phase_serve_int8,
+            "serve_spec": phase_serve_spec, "training": phase_training,
+            "flash_training": phase_flash_training,
+            "gpt2_training": phase_gpt2_training,
+            "bert_training": phase_bert_training, "mha": phase_mha}
+    for name in phases:  # in the order given, repeats included
+        if name not in runs:
+            continue  # kernels and serving ran above
+        if not name.startswith("serve"):
+            _SERVE_MODEL.clear()  # the serve phases' model
+        by_path.update(runs[name]())
+        torch.cuda.empty_cache()
     log(f"chip_smoke: phases {phases} in "
         f"{time.perf_counter() - t_start:.1f} s")
     if list(phases) != list(PHASES):
@@ -1844,7 +2469,8 @@ def main(argv):
             call_ms=e["call_ms"], shape=e["shape"],
             **{k: e[k] for k in ("library", "lse_max_abs_err") if k in e}))
     assert seen == set(SOURCES), (seen, set(SOURCES))
-    assert all(k["launches"] > 0 for k in kernels), kernels
+    assert all(k["launches"] > 0 for k in kernels
+               if k["name"] not in KERNEL_PHASE_ONLY), kernels
     log(json.dumps({"kernels": kernels, "card": card}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Decoder LMs and BERT: KV-cache generation and the training step's
-models and losses."""
+"""Decoder LMs, BERT and the DeepSeek MLA model: KV-cache and
+latent-cache generation and the training step's models and losses."""
 
 from apex_tpu_torch.models.bert import BertModel, bert_loss_fn
 from apex_tpu_torch.models.generation import (
@@ -14,6 +14,13 @@ from apex_tpu_torch.models.generation import (
 )
 from apex_tpu_torch.models.gpt import GPTModel, gpt_loss_fn
 from apex_tpu_torch.models.kv_cache import KVCache
+from apex_tpu_torch.models.mla import (
+    DeepseekModel,
+    MLACache,
+    MLAConfig,
+    mla_cached_generate,
+    mla_greedy_generate,
+)
 from apex_tpu_torch.models.params import (
     from_jax_params,
     init_weights,
@@ -22,9 +29,10 @@ from apex_tpu_torch.models.params import (
 from apex_tpu_torch.models.transformer_lm import RopeScaling, TransformerConfig
 
 __all__ = [
-    "BertModel", "GPTModel", "KVCache", "RopeScaling", "TransformerConfig",
-    "bert_loss_fn", "decode_step", "filter_logits", "from_jax_params",
-    "generate", "gpt_loss_fn", "init_cache", "init_weights",
-    "load_jax_optimizer_state", "prefill", "sample_logits",
+    "BertModel", "DeepseekModel", "GPTModel", "KVCache", "MLACache",
+    "MLAConfig", "RopeScaling", "TransformerConfig", "bert_loss_fn",
+    "decode_step", "filter_logits", "from_jax_params", "generate", "gpt_loss_fn", "init_cache",
+    "init_weights", "load_jax_optimizer_state", "mla_cached_generate",
+    "mla_greedy_generate", "prefill", "sample_logits",
     "speculative_generate", "verify_step",
 ]

@@ -1,14 +1,16 @@
-"""Parameters of :class:`apex_tpu_torch.models.GPTModel` and
-:class:`~apex_tpu_torch.models.BertModel`: carried over from the JAX
+"""Parameters of :class:`apex_tpu_torch.models.GPTModel`,
+:class:`~apex_tpu_torch.models.BertModel` and
+:class:`~apex_tpu_torch.models.DeepseekModel`: carried over from the JAX
 package's flax tree, or drawn from a seed; and the state of the JAX
 ``FusedAdam`` or ``FusedLAMB`` carried into the port's optimizer.
 
 The port keeps the JAX package's parameter names and layouts, so the
-flax tree of ``apex_tpu.models.GPTModel`` (Llama- or GPT-2-shaped) or
-``apex_tpu.models.BertModel`` maps one to one onto the port's
-``state_dict``: nested keys joined with ".", and the flax layer scopes
-``layer_<i>`` become the entries ``layers.<i>`` of the module list
-(BERT's flax ``Dense`` heads keep their ``kernel`` and ``bias``).
+flax tree of ``apex_tpu.models.GPTModel`` (Llama- or GPT-2-shaped),
+``apex_tpu.models.BertModel`` or ``apex_tpu.models.mla.DeepseekModel``
+maps one to one onto the port's ``state_dict``: nested keys joined with
+".", and the flax layer scopes ``layer_<i>`` become the entries
+``layers.<i>`` of the module list (flax ``Dense`` layers keep their
+``kernel`` and ``bias``: BERT's heads, MLA's ``q_a`` and ``kv_a``).
 """
 
 import re
@@ -16,7 +18,8 @@ import re
 import numpy as np
 import torch
 
-_LAYER = re.compile(r"^transformer\.layer_(\d+)\.")
+_LAYER = re.compile(r"^(transformer\.)?layer_(\d+)\.")
+_PORT_LAYER = re.compile(r"^(transformer\.)?layers\.(\d+)\.")
 
 
 def _flatten(tree, prefix=""):
@@ -30,15 +33,17 @@ def _flatten(tree, prefix=""):
 
 def from_jax_params(tree, config=None):
     """The port's ``state_dict`` from a flax ``params`` tree whose leaves
-    are numpy arrays (``jax.tree.map(np.asarray, params)``). ``config``
-    (a port :class:`TransformerConfig`) checks that the tree's depth
-    matches it."""
-    state = {_LAYER.sub(r"transformer.layers.\1.", name):
+    are numpy arrays (``jax.tree.map(np.asarray, params)``): of a
+    ``GPTModel`` or ``BertModel`` (layer scopes ``transformer.layer_<i>``)
+    or of a ``DeepseekModel`` (``layer_<i>``). ``config`` (the port's
+    :class:`TransformerConfig` or :class:`MLAConfig`) checks that the
+    tree's depth matches it."""
+    state = {_LAYER.sub(r"\1layers.\2.", name):
              torch.from_numpy(np.array(value, copy=True))
              for name, value in _flatten(tree)}
     if config is not None:
-        layers = {int(m.group(1)) for name in state
-                  if (m := re.match(r"transformer\.layers\.(\d+)\.", name))}
+        layers = {int(m.group(2)) for name in state
+                  if (m := _PORT_LAYER.match(name))}
         if len(layers) != config.num_layers:
             raise ValueError(f"tree has {len(layers)} layers, config "
                              f"{config.num_layers}")
@@ -80,23 +85,26 @@ def load_jax_optimizer_state(optimizer, model, state):
 
 # drawn ~ N(0, 0.02), as the JAX package's initialisers draw them
 _NORMAL_002 = ("word_embeddings.weight", "position_embeddings",
-               "tokentype_embeddings", "lm_head")
+               "tokentype_embeddings", "lm_head", "embed_tokens.weight")
 
 
 @torch.no_grad()
 def init_weights(model, seed: int):
-    """Random weights from ``seed``, drawn on the model's device: matrices
-    ~ N(0, 1/fan_in) (flax's lecun_normal scale, untruncated), the
-    embeddings (word, position, token type) and the LM head ~ N(0, 0.02)
-    as the JAX package initialises them, norm weights 1, biases 0."""
+    """Random weights from ``seed``, drawn on the model's device in the
+    parameters' dtype: matrices ~ N(0, 1/fan_in) (flax's lecun_normal
+    scale, untruncated; a stack of expert matrices [E, in, out] per
+    expert), the embeddings (word, position, token type) and the LM head
+    ~ N(0, 0.02) as the JAX package initialises them, norm weights 1,
+    biases 0."""
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed)
     for name, p in model.named_parameters():
-        if name.endswith("layernorm.weight"):
+        if name.endswith("norm.weight"):
             p.fill_(1.0)
         elif name.endswith("bias"):
             p.zero_()
         elif name in _NORMAL_002:
             p.normal_(0.0, 0.02, generator=gen)
         else:
-            p.normal_(0.0, p.shape[0] ** -0.5, generator=gen)
+            fan_in = p.shape[-2] if p.dim() > 1 else p.shape[0]
+            p.normal_(0.0, fan_in ** -0.5, generator=gen)

@@ -35,7 +35,10 @@ Norms go through the LayerNorm or RMSNorm kernels (forward, and
 backward-dx under autograd). Dtypes follow the JAX modules: parameters
 in ``params_dtype`` (fp32), activations and the cache in
 ``compute_dtype``, norm statistics, RoPE, scores, softmax and the MLP's
-activation in fp32. The ALiBi/MoE variants are later slices.
+activation in fp32. ALiBi positions are a later slice. Mixture of
+experts is ported in :mod:`apex_tpu_torch.transformer.moe` for the
+DeepSeek path (:mod:`apex_tpu_torch.models.mla`); GPT's MoE wiring
+(``num_moe_experts``) stays in ROADMAP queue A item 6.
 """
 
 import dataclasses

@@ -4,8 +4,11 @@ Counterpart of ``apex_tpu/transformer/tensor_parallel/cross_entropy.py``
 ``vocab_parallel_cross_entropy`` on one rank (the whole vocabulary
 local): fp32 logits shifted by their detached row max, the target's
 logit picked out, ``log(sum(exp)) - target``, with optional label
-smoothing. Autograd gives the reference's hand-written backward,
-softmax minus one-hot. There is no kernel here, as in the JAX package.
+smoothing. A target outside ``[0, vocab)`` (an ignore label such as
+-100) is gathered at index 0 and its predicted logit taken as 0, as JAX
+masks a target that lies outside the rank's vocabulary shard. Autograd
+gives the reference's hand-written backward, softmax minus one-hot.
+There is no kernel here, as in the JAX package.
 """
 
 import torch
@@ -17,7 +20,11 @@ def vocab_parallel_cross_entropy(vocab_parallel_logits, target,
     labels ``[...]``."""
     logits = vocab_parallel_logits.float()
     logits = logits - torch.amax(logits.detach(), dim=-1, keepdim=True)
-    predicted = torch.gather(logits, -1, target[..., None].long())[..., 0]
+    target = target.long()
+    in_range = (target >= 0) & (target < logits.shape[-1])
+    masked = torch.where(in_range, target, torch.zeros_like(target))
+    predicted = torch.gather(logits, -1, masked[..., None])[..., 0]
+    predicted = torch.where(in_range, predicted, torch.zeros_like(predicted))
     exp_sum = torch.sum(torch.exp(logits), dim=-1)
     loss = torch.log(exp_sum) - predicted
     if label_smoothing > 0:

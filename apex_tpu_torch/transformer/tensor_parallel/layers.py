@@ -54,7 +54,12 @@ class VocabParallelEmbedding(nn.Module):
             num_embeddings, embedding_dim, dtype=params_dtype, device=device))
 
     def forward(self, tokens):
-        return self.weight[tokens]
+        """Rows of the table, indexed as JAX indexes: a negative token id
+        counts from the end, and an id still outside ``[0,
+        num_embeddings)`` is clamped into it, as JAX's gather clamps."""
+        n = self.weight.shape[0]
+        tokens = torch.where(tokens < 0, tokens + n, tokens)
+        return self.weight[tokens.clamp(0, n - 1)]
 
     def attend(self, h):
         """[..., hidden] @ table.T -> logits [..., vocab] in fp32, from the

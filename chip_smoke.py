@@ -40,8 +40,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ragged rows and blocks; the int8-cache verify kernel at the TinyLlama
    verify window (w 5, g 4, rep 8, d 64) over a 2048-position int8 store
    with each slot at its own start, and with padding lanes (g*d < nb*B);
-   the window and decode kernels with per-row starts and lengths.
-   Malformed CUDA inputs to every wrapper are refused and not counted.
+   the window and decode kernels with per-row starts and lengths. The
+   MLA latent decode kernel at ``bench.py mla_decode``'s step (q [8, 16,
+   576] bf16 over a [4608, 8, 576] bf16 latent cache) at lengths 1, 511,
+   512, 513, 4097 and 4161, and off the path: an fp32 cache and queries,
+   1280-, 512- and 40-row buffers, 128 heads, per-row lengths, dead rows
+   holding 1e4 (bit-identical to clean ones), a narrower latent; RMSNorm
+   on fp32 rows of width 512, 1024 and 2048 into bf16 (the MLA models'
+   norms). Malformed CUDA inputs to every wrapper are refused and not
+   counted.
 3. serving: ``GPTModel`` at TinyLlama-1.1B width (22 layers, seeded
    random weights) and ``generate(batch 8, prompt 128, 32 new tokens,
    greedy)`` with every launch count set to 0 just before and read just
@@ -93,6 +100,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the non-causal flash kernels, counted, and held against the same
    module through the plain versions; then with ``include_norm_add``
    (one LayerNorm forward and backward-dx more).
+9. mla_decode: ``DeepseekModel`` at ``bench.py bench_mla_decode``'s
+   shapes (4 x 1024, 16 heads, kv latent 512 + rope 64, ffn 2816, vocab
+   32000, a 4608-row latent cache, fp32 weights, bf16 compute, seeded
+   random weights): a prefill of 8 x 4096 tokens, one warm step and 64
+   timed greedy steps, counted (13 RMSNorm launches a forward; 4 of the
+   MLA decode kernel a step, none a prefill); the same steps on the
+   model's einsum branch as the yardstick; prefill and step-1 logits
+   held to the plain versions', and the greedy streams: where one
+   differs, each run's own logits rank its token above the other's by
+   less than LOGIT_TOL;
+   prefill ms, step ms, tokens/s and profiles of a step both ways.
+10. deepseek_v2_lite: DeepSeek-V2-Lite's published widths and depth
+   (27 layers, hidden 2048, layer 0 dense, 26 MoE layers of 64 routed
+   experts top-6 plus 2 shared, 15.7 B bf16 parameters, seeded random
+   weights, plain RoPE): ``mla_cached_generate`` of 8 x 512 prompt
+   tokens and 32 greedy tokens, counted (82 RMSNorm a forward, 27 MLA
+   decode a step); prefill ms, step ms, tokens/s, peak memory, a profile
+   of one step; logits and streams held to the plain versions' as in
+   mla_decode, the kernel run's decode replayed bit-exactly, and the
+   share of the prefill's top-6 expert choices the two runs share.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -155,11 +182,44 @@ SERVE_PREFILL_BUCKETS = (32, 64, 128)
 SERVE_REQUESTS, SERVE_SEED = 16, 1
 SERVE_PROMPT_LENS, SERVE_MAX_NEW = (8, 24, 48, 96), (16, 32, 64)
 SPEC_K = 4
+# DeepSeek MLA, dense, at bench.py bench_mla_decode's shapes (bench.py:
+# 1031-1039): 4 x 1024, 16 heads, kv latent 512 + rope 64, fp32 params,
+# bf16 compute; batch 8, a 4096-token prompt, one warm step, 64 timed
+# greedy steps, a 4608-row cache (4096 + 64 + 2 rounded up to 512)
+MLA_DECODE_CFG = dict(vocab_size=32000, hidden_size=1024, num_layers=4,
+                      num_heads=16, q_lora_rank=None, kv_lora_rank=512,
+                      qk_nope_head_dim=128, qk_rope_head_dim=64,
+                      v_head_dim=128, ffn_hidden_size=2816,
+                      max_decode_length=4608)
+MLA_BATCH, MLA_PREFIX, MLA_STEPS = 8, 4096, 64
+MLA_DECODE_LENGTH = MLA_PREFIX + 1 + MLA_STEPS // 2  # a mid-run step
+# DeepSeek-V2-Lite's published widths and depth (huggingface.co/
+# deepseek-ai/DeepSeek-V2-Lite config.json: 27 layers, hidden 2048, 16
+# heads, no q latent, kv latent 512, nope 128, rope 64, v 128, dense ffn
+# 10944 in layer 0, 64 routed experts of 1408 top-6 with raw softmax
+# gates, 2 shared experts, vocab 102400), plain RoPE (its YaRN scaling
+# is not an MLAConfig field), bf16 params and compute; batch 8, a
+# 512-token prompt, 32 greedy tokens through mla_cached_generate
+V2_LITE_CFG = dict(vocab_size=102400, hidden_size=2048, num_layers=27,
+                   num_heads=16, q_lora_rank=None, kv_lora_rank=512,
+                   qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+                   ffn_hidden_size=10944, n_routed_experts=64,
+                   moe_intermediate_size=1408, n_shared_experts=2,
+                   moe_top_k=6, first_k_dense_replace=1,
+                   routed_scaling_factor=1.0, norm_topk_prob=False,
+                   rms_eps=1e-6, rotary_base=10000.0, max_decode_length=1024)
+V2_BATCH, V2_PROMPT, V2_NEW = 8, 512, 32
 
 # Tolerances, kernel against plain version on the same inputs:
 # RMSNorm: the same fp32 operations with the sum in another order, so a
 # bf16 output may round the other way: one bf16 ulp (2**-7 relative).
 NORM_RTOL, NORM_ATOL = 2.0 ** -7, 1e-6
+# ...but only where the fp32 value lies within its last-place difference
+# of a bf16 rounding boundary: a few in 10**6 outputs (0-3.9e-6 on an
+# H100 80GB HBM3). A bf16 output rounded toward zero differs in about
+# half (0.50 there), within NORM_RTOL all the same, so the share that
+# differs is held too.
+NORM_DIFFER_SHARE = 1e-3
 # attention: fp32 scores, softmax and sums over up to 2048 keys in
 # another order; outputs of magnitude ~1.
 ATTN_TOL = 1e-4
@@ -233,6 +293,32 @@ LAMB_RTOL = ADAM_RTOL
 # context entries one ulp apart (2**-8 relative) pass through the bf16
 # output projection and its backward: 1e-2 relative (Frobenius).
 MHA_RTOL = 1e-2
+# the MLA decode kernel against its plain version: fp32 scores over 576
+# columns (q scaled before the dot in the kernel, after it in the plain
+# version, one rounding apart), softmax and sums over up to 4608 rows in
+# another order, outputs convex combinations of rows of magnitude ~1:
+# 1e-4 absolute and relative, as ATTN_TOL.
+MLA_TOL = ATTN_TOL
+# the MLA models' logits, kernels against plain versions on the same
+# weights: in the prefill only the RMSNorm kernel differs from its plain
+# version (one bf16 ulp of its outputs, as NORM_RTOL), in a step from the
+# kernels' own prefix also the decode kernel (fp32 sums in another
+# order, rounded to bf16); those flips propagate through mla_decode's 4
+# bf16 layers as through TinyLlama's 22: LOGIT_TOL. In deepseek_v2_lite
+# they also flip near-tied expert choices (1.1 % of the prefill's top-6
+# choices on an H100 80GB HBM3): a token whose sixth expert changes
+# swaps that expert's output, weighted by a gate near the fifth and
+# seventh (~1/64 of the mass), for another's, a step in the residual
+# stream far above a bf16 ulp, which 26 MoE layers compound. There the
+# prefill's 419 M logits (std 0.9) read 0.2365 against their plain
+# version and 2.27 with a planted RMSNorm fault (MLA_FAULTS); they are
+# held to MOE_LOGIT_TOL, between the two. Step 1 reads 0.149 (and
+# mla_decode's 0.035) against 0.389-2.69 with planted faults, so both
+# phases hold it to LOGIT_TOL. The MLA phases hold their greedy streams
+# with each run's own logits (see _near_tie_check): re-prefilling a
+# context, as the serve phases do, routes its tokens through other bf16
+# roundings than the steps did.
+MOE_LOGIT_TOL = 2 * LOGIT_TOL
 
 
 def log(msg):
@@ -325,9 +411,11 @@ def plain_versions():
     versions (for the reference runs on the card). The wrappers are
     swapped in their modules, so the autograd Functions and the
     optimizer that call them stay the same."""
-    from apex_tpu_torch.contrib import fmha, gqa_decode
+    from apex_tpu_torch.contrib import fmha, gqa_decode, mla_decode
     from apex_tpu_torch.kernels import fused_cc, norm, optim, quant, softmax
     swaps = [(norm, "rms_fwd", norm.rms_fwd_plain),
+             (mla_decode, "mla_flash_decode",
+              mla_decode.mla_decode_reference),
              (quant, "quantize_rows", quant.quantize_rows_plain),
              (quant, "dequantize_rows", quant.dequantize_rows_plain),
              (fused_cc, "spec_verify_attention",
@@ -415,6 +503,30 @@ def check_rms_norm(gen):
                 assert got.dtype == tout and got.shape == x.shape
                 torch.testing.assert_close(got.float(), want.float(),
                                            rtol=NORM_RTOL, atol=NORM_ATOL)
+    # the MLA models' calls: fp32 rows in, bf16 out, at the latent's
+    # width 512 (kv_a_norm) and the hidden widths 1024 (mla_decode) and
+    # 2048 (deepseek_v2_lite), one row per token of a decode step and of
+    # each path's prefill
+    for width, rows in ((512, 8), (512, MLA_BATCH * MLA_PREFIX),
+                        (512, V2_BATCH * V2_PROMPT), (1024, MLA_BATCH),
+                        (1024, MLA_BATCH * MLA_PREFIX), (2048, V2_BATCH),
+                        (2048, V2_BATCH * V2_PROMPT)):
+        wm = 1.0 + 0.1 * torch.randn(width, generator=gen, device="cuda")
+        x = _randn(gen, rows, width, dtype=torch.float32, scale=3.0)
+        got = norm.rms_fwd(x, wm, 1e-6, torch.bfloat16)
+        want = norm.rms_fwd_plain(x, wm, 1e-6, torch.bfloat16)
+        truncated = _toward_zero(norm.rms_fwd)(x, wm, 1e-6, torch.bfloat16)
+        torch.cuda.synchronize()
+        differ = (got != want).float().mean().item()
+        planted = (truncated != want).float().mean().item()
+        log(f"kernel rms_norm x[{rows},{width}] fp32->bf16: share of outputs "
+            f"that differ from the plain version {differ:.3e} (at most "
+            f"{NORM_DIFFER_SHARE}); rounding toward zero planted: "
+            f"{planted:.3e}")
+        torch.testing.assert_close(got.float(), want.float(), rtol=NORM_RTOL,
+                                   atol=NORM_ATOL)
+        assert differ <= NORM_DIFFER_SHARE < planted, (rows, width, differ,
+                                                       planted)
     # the path's call: bf16 residual stream in, bf16 out
     entries = []
     for rows, label in ((BATCH * PROMPT, "prefill"), (BATCH, "decode")):
@@ -1316,6 +1428,100 @@ def check_spec_verify(gen):
         bound(nbytes, 4 * d * g * rep * keys, BF16_TENSOR_OPS_PER_S))]
 
 
+def _latent_cache(gen, T, b, L, filled, dtype=torch.bfloat16):
+    """A latent cache [T, b, L] with rows [0, filled) written and the
+    rest zero, as the model leaves it."""
+    cache = torch.zeros(T, b, L, dtype=dtype, device="cuda")
+    cache[:filled] = _randn(gen, filled, b, L, dtype=dtype)
+    return cache
+
+
+def _mla_bound(b, n, L, lat, lengths):
+    """The MLA decode's least time: q, the live rows of each batch row
+    and the fp32 output moved once; 2*n*(L + lat) operations a live row,
+    fp32 (p stays fp32, as in the TPU kernel)."""
+    live = sum(lengths)
+    nbytes = b * n * L * 2 + live * L * 2 + b * n * lat * 4
+    return bound(nbytes, 2 * n * (L + lat) * live, FP32_OPS_PER_S)
+
+
+def check_mla_decode(gen):
+    from apex_tpu_torch.contrib import mla_decode
+    cfg = MLA_DECODE_CFG
+    n, lat = cfg["num_heads"], cfg["kv_lora_rank"]
+    L = lat + cfg["qk_rope_head_dim"]
+    T, b = cfg["max_decode_length"], MLA_BATCH
+    scale = (cfg["qk_nope_head_dim"] + cfg["qk_rope_head_dim"]) ** -0.5
+
+    def held(q, cache, length, lat=lat, scale=scale):
+        got = mla_decode.mla_flash_decode(q, cache, length, lat, scale)
+        want = mla_decode.mla_decode_reference(q, cache, length, lat, scale)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (
+            q.shape[0], q.shape[1], lat)
+        torch.testing.assert_close(got, want, rtol=MLA_TOL, atol=MLA_TOL)
+        return got, want
+
+    # the path's shapes: bf16 q and cache [4608, 8, 576], lengths across
+    # the 32-row tiles and the 160-row chunks
+    cache = _latent_cache(gen, T, b, L, 4161)
+    q = _randn(gen, b, n, L)
+    for length in (1, 511, 512, 513, 4097, 4161):
+        held(q, cache, length)
+    # off the path: an fp32 cache and queries (the JAX package's fp32
+    # end-to-end tests), a 1280-row buffer (256-row tiles in JAX), short
+    # buffers, 128 heads (8 head groups), each row at its own length, and
+    # dead rows holding 1e4 that must stay invisible
+    held(q.float(), cache.float(), 2049)
+    held(q, cache.float(), 700)
+    for T_off, length in ((1280, 1280), (1280, 1001), (512, 512), (40, 7)):
+        held(q, _latent_cache(gen, T_off, b, L, length), length)
+    held(_randn(gen, 2, 128, L), _latent_cache(gen, 600, 2, L, 600), 333)
+    rows = torch.tensor([1, 31, 32, 33, 160, 161, 2000, 4608],
+                        dtype=torch.int32, device="cuda")
+    held(q, _latent_cache(gen, T, b, L, T), rows)
+    poisoned = cache.clone()
+    poisoned[1000:] = 1e4
+    got, _ = held(q, poisoned, 1000)
+    clean, _ = held(q, cache, 1000)
+    torch.testing.assert_close(got, clean, rtol=0, atol=0)
+    held(q[:, :, :64].contiguous(), cache[..., :64].contiguous(), 99, lat=32)
+
+    # deepseek_v2_lite's steps: a [1024, 8, 576] bf16 cache (32 chunks of
+    # 32 rows), lengths from the prompt's end to the last step's
+    T2, P2 = V2_LITE_CFG["max_decode_length"], V2_PROMPT
+    cache2 = _latent_cache(gen, T2, V2_BATCH, L, P2 + V2_NEW - 1)
+    q2 = _randn(gen, V2_BATCH, V2_LITE_CFG["num_heads"], L)
+    for length in (P2 + 1, P2 + V2_NEW // 2, P2 + V2_NEW - 1):
+        held(q2, cache2, length)
+
+    # the entries: a mid-run decode step of each path
+    held(q, cache, MLA_DECODE_LENGTH)
+    return [_mla_entry("mla_decode", q, cache, MLA_DECODE_LENGTH, lat, scale),
+            _mla_entry("deepseek_v2_lite", q2, cache2, P2 + V2_NEW // 2, lat,
+                       scale)]
+
+
+def _mla_entry(label, q, cache, length, lat, scale):
+    """The MLA decode kernel, its plain version and SDPA timed at one
+    step of a path (held by check_mla_decode's ``held`` before)."""
+    from apex_tpu_torch.contrib import mla_decode
+    b, n, L = q.shape
+    got = mla_decode.mla_flash_decode(q, cache, length, lat, scale)
+    want = mla_decode.mla_decode_reference(q, cache, length, lat, scale)
+    k_l = cache[:length].permute(1, 0, 2)[:, None]  # [b, 1, len, L]
+    return entry(
+        "mla_decode", f"{label}: q[{b},{n},{L}] bf16, cache"
+        f"[{cache.shape[0]},{b},{L}] bf16, length {length}", got, want,
+        f"rtol {MLA_TOL} atol {MLA_TOL}",
+        lambda: mla_decode.mla_flash_decode(q, cache, length, lat, scale),
+        lambda: mla_decode.mla_decode_reference(q, cache, length, lat, scale),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.reshape(b, n, 1, L), k_l, k_l[..., :lat], scale=scale,
+            enable_gqa=True),
+        _mla_bound(b, n, L, lat, [length] * b))
+
+
 def check_refusals():
     """On a CUDA tensor a wrapper launches its kernel or raises: what the
     kernels do not take is refused, never sent to the plain version."""
@@ -1475,11 +1681,46 @@ def check_refusals():
         q, k, k, torch.zeros(2, device="cuda"), 0.1))
     refused(ValueError, lambda: gqa_decode.gqa_flash_decode(
         q[0], k, k, torch.ones(3, dtype=torch.int32, device="cuda"), 0.1))
+    # the MLA decode kernel
+    from apex_tpu_torch.contrib import mla_decode
+    mq = torch.zeros(2, 4, 576, dtype=torch.bfloat16, device="cuda")
+    mc = torch.zeros(64, 2, 576, dtype=torch.bfloat16, device="cuda")
+    refused(ValueError, lambda: mla_decode.mla_flash_decode(
+        mq, mc, 0, 512, 0.1))  # no live row
+    refused(ValueError, lambda: mla_decode.mla_flash_decode(
+        mq, mc, torch.tensor([0, 4], dtype=torch.int32, device="cuda"), 512,
+        0.1))  # no live row in one batch row
+    refused(ValueError, lambda: mla_decode.mla_flash_decode(
+        mq, mc[:, :1], 4, 512, 0.1))  # batch rows differ
+    refused(ValueError, lambda: mla_decode.mla_flash_decode(
+        mq, mc, 4, 576 + 4, 0.1))  # lat past the row
+    refused(ValueError, lambda: mla_decode.mla_flash_decode(
+        mq, mc, 4, 510, 0.1))  # lat not a multiple of 4
+    refused(ValueError, lambda: mla_decode.mla_flash_decode(
+        mq[..., :572].contiguous(), mc[..., :572].contiguous(), 4, 512,
+        0.1))  # L not a multiple of 8
+    refused(ValueError, lambda: mla_decode.mla_flash_decode(
+        mq[0], mc, 4, 512, 0.1))  # q not [b, n, L]
+    refused(ValueError, lambda: mla_decode.mla_flash_decode(
+        mq, mc.transpose(0, 1).contiguous().transpose(0, 1), 4, 512, 0.1))
+    refused(ValueError, lambda: mla_decode.mla_flash_decode(
+        torch.zeros(2 * 4 * 576 + 4, dtype=torch.bfloat16, device="cuda")[
+            4:].view(2, 4, 576), mc, 4, 512, 0.1))  # off a 16-byte boundary
+    refused(TypeError, lambda: mla_decode.mla_flash_decode(
+        mq.half(), mc, 4, 512, 0.1))
+    refused(TypeError, lambda: mla_decode.mla_flash_decode(
+        mq, mc.half(), 4, 512, 0.1))
+    refused(ValueError, lambda: mla_decode.mla_flash_decode(
+        mq, mc, torch.ones(3, dtype=torch.int32, device="cuda"), 512, 0.1))
+    refused(TypeError, lambda: mla_decode.mla_flash_decode(
+        mq, mc, torch.ones(2, device="cuda"), 512, 0.1))
+    refused(ValueError, lambda: mla_decode.mla_flash_decode(
+        mq, mc.cpu(), 4, 512, 0.1))  # two devices
     assert registry.launches() == before, "a refused call was counted"
     log("kernels: malformed CUDA inputs are refused (dtype, layout, range, "
         "head dim, shapes, list lengths, window, slopes, lse/delta, "
         "weight/bias, masks that do not broadcast, clip, block, scales, "
-        "codes, lanes, per-row offsets)")
+        "codes, lanes, per-row offsets, latent widths, alignment)")
 
 
 # ------------------------------------------------------------- phases 3, 4
@@ -1600,14 +1841,8 @@ def phase_serving():
     with plain_versions():
         plain_tokens = generate(model, prompt, NEW_TOKENS)
     assert not any(registry.launches().values()), registry.launches()
-    for name, got, want in (("prefill", k0, p0), ("step 1", k1, p1)):
-        assert torch.isfinite(got).all(), name
-        top2 = torch.topk(want, 2, dim=-1).values
-        log(f"slice: {name} logits kernels vs plain: max abs err "
-            f"{max_abs(got, want):.3e} (tolerance {LOGIT_TOL}), logit std "
-            f"{want.std().item():.3f}, smallest top-2 gap "
-            f"{(top2[:, 0] - top2[:, 1]).min().item():.3e}")
-        torch.testing.assert_close(got, want, rtol=0, atol=LOGIT_TOL)
+    _hold_logits("slice: prefill", k0, p0)
+    _hold_logits("slice: step 1", k1, p1)
     first = tokens[:, PROMPT]
     assert torch.equal(first, torch.argmax(p0, dim=-1)), "first token"
     agree = (tokens[:, PROMPT:] == plain_tokens[:, PROMPT:]).float().mean()
@@ -2332,6 +2567,435 @@ def phase_serve_spec():
     return {"serve_spec": launches}
 
 
+# ------------------------------------------------------- phases 9, 10
+
+def _mla_model(label, cfg):
+    """A DeepseekModel of ``cfg`` on the card with seeded random weights."""
+    from apex_tpu_torch.models import DeepseekModel, init_weights
+    t0 = time.perf_counter()
+    model = DeepseekModel(cfg)
+    init_weights(model, SEED)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"{label}: DeepseekModel {cfg.num_layers} layers, hidden "
+        f"{cfg.hidden_size}, {cfg.num_heads} heads, vocab {cfg.vocab_size}, "
+        f"routed experts {cfg.n_routed_experts} (top {cfg.moe_top_k}), {n} "
+        f"params in {cfg.params_dtype} "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated), "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def _mla_norms(cfg):
+    """RMSNorm launches of one forward: the input, post-attention and
+    kv_a norms of each layer (and q_a_norm with a q latent), and the
+    final norm."""
+    return (3 + bool(cfg.q_lora_rank)) * cfg.num_layers + 1
+
+
+def _greedy_steps(model, cache, tok, steps):
+    """``steps`` single-token decode steps from tokens ``tok`` [b]:
+    (tokens [b, steps], the fp32 logits [steps, b, vocab] each was chosen
+    from, host ms of each synchronized step)."""
+    out, scores, ms = [], [], []
+    for _ in range(steps):
+        t, (logits, cache) = _wall_ms(
+            lambda: model.decode_step(tok[:, None], cache))
+        scores.append(logits[:, -1].float())
+        tok = torch.argmax(scores[-1], dim=-1)
+        out.append(tok)
+        ms.append(t)
+    return torch.stack(out, dim=1), torch.stack(scores), ms
+
+
+def _greedy(model, prompt, new):
+    """Greedy decode of ``new`` tokens after ``prompt`` [b, s] through
+    ``decode_prefill`` and ``decode_step``: (tokens [b, new], the fp32
+    logits [new, b, vocab] each was chosen from)."""
+    logits, cache = model.decode_prefill(prompt)
+    first = logits[:, -1].float()
+    tok = torch.argmax(first, dim=-1)
+    toks, scores, _ = _greedy_steps(model, cache, tok, new - 1)
+    return (torch.cat([tok[:, None], toks], dim=1),
+            torch.cat([first[None], scores]))
+
+
+def _near_tie_check(label, got, got_logits, want, want_logits, tol):
+    """Greedy streams ``got`` against ``want`` ([b, new] each), with the
+    logits [new, b, vocab] each token was chosen from: where a row
+    differs, both runs saw the same tokens before the first difference,
+    and there each run's own logits must rank its token above the other
+    run's by less than LOGIT_TOL, and the two runs' logits must agree
+    within ``tol``, the phase's logits tolerance: a near tie that a
+    last-place difference may break either way, not a wrong token. The
+    other run's token need not be second: in a tie of three, logits
+    that differ by far less than ``tol`` may order all three anew."""
+    same = 0
+    for r in range(got.shape[0]):
+        a, b = got[r].tolist(), want[r].tolist()
+        if a == b:
+            same += 1
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        mine = (got_logits[i, r, a[i]] - got_logits[i, r, b[i]]).item()
+        theirs = (want_logits[i, r, b[i]] - want_logits[i, r, a[i]]).item()
+        rank_mine = int((got_logits[i, r] > got_logits[i, r, b[i]]).sum())
+        rank_theirs = int((want_logits[i, r] > want_logits[i, r, a[i]]).sum())
+        err = max_abs(got_logits[i, r], want_logits[i, r])
+        log(f"{label}: row {r} first differs at generated token {i} ({a[i]} "
+            f"vs {b[i]}); margins there {mine:.4f} (kernels) and "
+            f"{theirs:.4f} (plain versions), tolerance {LOGIT_TOL}; the "
+            f"other run's token ranks {rank_mine + 1} and {rank_theirs + 1}; "
+            f"logits there within {err:.4f} (tolerance {tol})")
+        assert 0 <= mine < LOGIT_TOL and 0 <= theirs < LOGIT_TOL, (
+            label, r, i, mine, theirs)
+        assert err <= tol, (label, r, i, err)
+    log(f"{label}: {same} of {got.shape[0]} streams identical")
+
+
+def _hold_logits(label, got, want, tol=LOGIT_TOL):
+    assert torch.isfinite(got).all(), label
+    top2 = torch.topk(want, 2, dim=-1).values
+    beyond = ((got - want).abs() > LOGIT_TOL).float().mean().item()
+    log(f"{label} logits kernels vs plain: max abs err "
+        f"{max_abs(got, want):.3e} (tolerance {tol}), relative Frobenius "
+        f"{_rel_fro(got, want):.3e}, share beyond {LOGIT_TOL} {beyond:.3e}, "
+        f"logit std {want.std().item():.3f}, smallest top-2 gap "
+        f"{(top2[..., 0] - top2[..., 1]).min().item():.3e}")
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@contextlib.contextmanager
+def _einsum_decode():
+    """The model's single-token steps on its einsum branch (as bench.py
+    runs them with APEX_TPU_MLA_FLASH=0): the branch test answers no."""
+    from apex_tpu_torch.contrib import mla_decode
+    real = mla_decode.use_flash
+    mla_decode.use_flash = lambda *args, **kw: False
+    try:
+        yield
+    finally:
+        mla_decode.use_flash = real
+
+
+@contextlib.contextmanager
+def _recorded_routing(into):
+    """Append each MoE layer's routing (token and expert of every
+    assignment) to ``into`` while it runs."""
+    from apex_tpu_torch.transformer.moe import router
+    real = router.compute_routing_sorted
+
+    def record(*args, **kw):
+        routing = real(*args, **kw)
+        into.append((routing.token_idx, routing.expert_idx))
+        return routing
+
+    router.compute_routing_sorted = record
+    try:
+        yield
+    finally:
+        router.compute_routing_sorted = real
+
+
+def _restored(cache, rows, pos):
+    """``cache`` with its buffers set to ``rows`` and its level to ``pos``:
+    a step then reads the prefix that the step it repeats read."""
+    for buf, t in zip(cache.latent, rows):
+        buf.copy_(t)
+    cache.pos = pos
+    return cache
+
+
+def _skip_last_chunk(real):
+    from apex_tpu_torch.contrib import mla_decode
+
+    def run(q, cache, length, lat, scale):
+        chunk, _ = mla_decode.split_rows(
+            cache.shape[0], q.shape[0], q.shape[1],
+            mla_decode._sm_count(q.device.index or 0))
+        return real(q, cache, max(1, (length - 1) // chunk * chunk), lat,
+                    scale)
+    return run
+
+
+def _no_rope(real):
+    def run(q, cache, length, lat, scale):
+        q = q.clone()
+        q[..., lat:] = 0
+        return real(q, cache, length, lat, scale)
+    return run
+
+
+def _short_mean_square(real):
+    def run(x, w, eps, out_dtype=None):
+        h = x.shape[-1]
+        sq = x.float().square()
+        full = sq.mean(-1, keepdim=True) + eps
+        part = sq[:, :h - h // 8].sum(-1, keepdim=True) / h + eps
+        return (real(x, w, eps, torch.float32)
+                * (full / part).sqrt()).to(out_dtype or x.dtype)
+    return run
+
+
+def _toward_zero(real):
+    def run(x, w, eps, out_dtype=None):
+        y = real(x, w, eps, torch.float32)
+        if (out_dtype or x.dtype) == torch.bfloat16:
+            y = (y.view(torch.int32) & -65536).view(torch.float32)
+        return y.to(out_dtype or x.dtype)
+    return run
+
+
+# deliberate faults in the kernels of the MLA paths, each wrapping the
+# real wrapper (name, wrapper, fault, planted in the prefill too, the
+# logits checks must see it): #26 skips the last live chunk (a bounds
+# fault: the current token's own row among those lost) or the rope
+# columns of the scores; RMSNorm's mean square misses the row's last
+# eighth, or its bf16 output rounds toward zero. That last fault moves
+# half the outputs by less than an ulp, less than the logits' honest
+# error: check_rms_norm's share of outputs that differ holds it.
+MLA_FAULTS = (("mla_decode skips its last chunk", "mla_flash_decode",
+               _skip_last_chunk, False, True),
+              ("mla_decode drops the rope columns", "mla_flash_decode",
+               _no_rope, False, True),
+              ("rms_norm misses an eighth of the row", "rms_fwd",
+               _short_mean_square, True, True),
+              ("rms_norm rounds toward zero", "rms_fwd", _toward_zero, True,
+               False))
+
+
+@contextlib.contextmanager
+def _planted(attr, fault):
+    from apex_tpu_torch.contrib import mla_decode
+    from apex_tpu_torch.kernels import norm
+    mod = mla_decode if attr == "mla_flash_decode" else norm
+    real = getattr(mod, attr)
+    setattr(mod, attr, fault(real))
+    try:
+        yield
+    finally:
+        setattr(mod, attr, real)
+
+
+def _fault_check(label, readings, prefill_tol):
+    """Every planted fault that the logits checks must see reads beyond
+    the tolerance that the honest kernels are held to there: the
+    prefill's ``prefill_tol``, step 1's LOGIT_TOL."""
+    tol = {"prefill": prefill_tol, "step 1": LOGIT_TOL}
+    seen = {f[0] for f in MLA_FAULTS if f[4]}
+    unseen = {k: v for k, v in readings.items()
+              if k[0] in seen and not v > tol[k[1]]}
+    assert not unseen, (label, tol, unseen)
+
+
+def _fault_readings(label, prefill, want0, step, want1):
+    """Each MLA_FAULTS fault planted in turn: the logits of ``prefill()``
+    (RMSNorm's faults) and of ``step()`` against the plain versions'
+    ``want0`` and ``want1``, as _hold_logits reads them. Returns
+    {(fault, "prefill" or "step 1"): max abs err}."""
+    out = {}
+    for name, attr, fault, in_prefill, _ in MLA_FAULTS:
+        runs = ((("prefill", prefill, want0),) if in_prefill else ()) + (
+            ("step 1", step, want1),)
+        for where, fn, want in runs:
+            with _planted(attr, fault):
+                got = fn()
+            err = max_abs(got, want)
+            out[name, where] = err
+            log(f"{label} {where} with a planted fault ({name}): logits max "
+                f"abs err {err:.3e}, relative Frobenius "
+                f"{_rel_fro(got, want):.3e}")
+            del got
+    return out
+
+
+def _choices(routing, tokens, experts):
+    """[tokens, experts] True where a token chose an expert."""
+    chosen = torch.zeros(tokens, experts, dtype=torch.bool,
+                         device=routing[0].device)
+    chosen[routing[0], routing[1]] = True
+    return chosen
+
+
+def phase_mla_decode():
+    from apex_tpu_torch.kernels import registry
+    from apex_tpu_torch.models import MLAConfig
+    cfg = MLAConfig(**MLA_DECODE_CFG, params_dtype=torch.float32,
+                    compute_dtype=torch.bfloat16)
+    model = _mla_model("mla_decode", cfg)
+    b, P, steps, L = MLA_BATCH, MLA_PREFIX, MLA_STEPS, cfg.num_layers
+    prompt = torch.randint(0, cfg.vocab_size, (b, P), generator=torch.Generator(
+        ).manual_seed(SEED)).cuda()
+    norms = _mla_norms(cfg)
+
+    # the main path, counted: a prefill, one warm step, the timed steps
+    registry.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms, (k0, cache) = _wall_ms(lambda: model.decode_prefill(prompt))
+    _expect("mla_decode prefill", registry.launches(), {"rms_norm": norms})
+    tok0 = torch.argmax(k0[:, -1], dim=-1)
+    saved = [t.clone() for t in cache.latent]
+    warm_ms, (k1, cache) = _wall_ms(
+        lambda: model.decode_step(tok0[:, None], cache))
+    tok1 = torch.argmax(k1[:, -1], dim=-1)
+    toks, scores, step_ms = _greedy_steps(model, cache, tok1, steps)
+    launches = registry.launches()
+    _expect("mla_decode", launches, {"rms_norm": norms * (2 + steps),
+                                     "mla_decode": L * (1 + steps)})
+    log(f"mla_decode: launches a decode step: rms_norm {norms}, mla_decode "
+        f"{L}; a prefill: rms_norm {norms}, mla_decode 0; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    stream = torch.cat([tok0[:, None], tok1[:, None], toks], dim=1)
+    stream_logits = torch.cat([k0[None, :, -1].float(),
+                               k1[None, :, -1].float(), scores])
+    del scores
+    assert stream.shape == (b, steps + 2)
+    assert 0 <= int(stream.min()) and int(stream.max()) < cfg.vocab_size
+    again_ms, _ = _wall_ms(lambda: model.decode_prefill(prompt))
+    kernel_s = sum(step_ms) / 1e3
+    log(f"mla_decode: prefill ({b}x{P} tokens) {prefill_ms:.2f} ms (first, "
+        f"counted), {again_ms:.2f} ms (again); warm step {warm_ms:.2f} ms; "
+        f"decode step {_spread(step_ms)}; {b * steps / kernel_s:.1f} tokens/s "
+        f"over the {steps} timed steps (host clock, synchronized)")
+    profile_window("mla_decode decode step (kernel)",
+                   lambda: model.decode_step(stream[:, -1:], cache),
+                   watch=("mla_",))
+
+    # yardstick: the same steps on the model's einsum branch
+    _restored(cache, saved, P)
+    with _einsum_decode():
+        registry.reset()
+        _, (e1, cache) = _wall_ms(
+            lambda: model.decode_step(tok0[:, None], cache))
+        etoks, _, e_ms = _greedy_steps(model, cache,
+                                       torch.argmax(e1[:, -1], dim=-1), steps)
+        assert registry.launches()["mla_decode"] == 0
+        profile_window("mla_decode decode step (einsum branch)",
+                       lambda: model.decode_step(etoks[:, -1:], cache))
+    einsum_s = sum(e_ms) / 1e3
+    agree = (etoks == toks).float().mean().item()
+    log(f"mla_decode: einsum branch decode step {_spread(e_ms)}; "
+        f"{b * steps / einsum_s:.1f} tokens/s against the kernel's "
+        f"{b * steps / kernel_s:.1f} ({einsum_s / kernel_s:.3f}x); timed "
+        f"tokens equal to the kernel run's: {agree:.4f} (not a check)")
+
+    # the same model through the plain versions: the prefill, the first
+    # step on the kernels' prefix and first token, and a greedy stream of
+    # its own
+    def step1():
+        return model.decode_step(tok0[:, None], _restored(cache, saved, P))[0]
+
+    with plain_versions():
+        registry.reset()
+        p0, pcache = model.decode_prefill(prompt)
+        del pcache
+        _hold_logits("mla_decode prefill", k0, p0)
+        del k0
+        p1 = step1()
+        _hold_logits("mla_decode step 1", k1, p1)
+        plain, plain_logits = _greedy(model, prompt, steps + 2)
+        assert not any(registry.launches().values()), registry.launches()
+    _near_tie_check("mla_decode kernels vs plain versions", stream,
+                    stream_logits, plain, plain_logits, LOGIT_TOL)
+    _fault_check("mla_decode", _fault_readings(
+        "mla_decode", lambda: model.decode_prefill(prompt)[0], p0, step1, p1),
+        LOGIT_TOL)
+    return {"mla_decode": launches}
+
+
+def phase_deepseek_v2_lite():
+    from apex_tpu_torch.kernels import registry
+    from apex_tpu_torch.models import MLAConfig, mla_cached_generate
+    cfg = MLAConfig(**V2_LITE_CFG, params_dtype=torch.bfloat16,
+                    compute_dtype=torch.bfloat16)
+    model = _mla_model("deepseek_v2_lite", cfg)
+    b, P, new, L = V2_BATCH, V2_PROMPT, V2_NEW, cfg.num_layers
+    prompt = torch.randint(0, cfg.vocab_size, (b, P), generator=torch.Generator(
+        ).manual_seed(SEED)).cuda()
+    norms = _mla_norms(cfg)
+    moe_layers = L - cfg.first_k_dense_replace
+
+    # the main path, counted
+    registry.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen_ms, tokens = _wall_ms(lambda: mla_cached_generate(model, prompt, new))
+    launches = registry.launches()
+    _expect("deepseek_v2_lite", launches, {"rms_norm": norms * new,
+                                           "mla_decode": L * (new - 1)})
+    log(f"deepseek_v2_lite: mla_cached_generate({b}x{P} prompt, {new} new "
+        f"tokens, greedy) in {gen_ms:.1f} ms; launches a decode step: "
+        f"rms_norm {norms}, mla_decode {L}; a prefill: rms_norm {norms}, "
+        f"mla_decode 0; host syncs a forward: {moe_layers} (one a MoE "
+        f"layer, its expert group sizes); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    assert tokens.shape == (b, P + new)
+    assert torch.equal(tokens[:, :P], prompt)
+    assert 0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size
+
+    # timed: the prefill (its routing recorded) and the steps
+    kernel_routes = []
+    with _recorded_routing(kernel_routes):
+        prefill_ms, (k0, cache) = _wall_ms(
+            lambda: model.decode_prefill(prompt))
+    saved = [t.clone() for t in cache.latent]
+    # the logits each generated token is chosen from, replayed on the
+    # stream's own tokens
+    step_ms, scores = [], [k0[:, -1].float()]
+    for i in range(new - 1):
+        t, (logits, cache) = _wall_ms(
+            lambda: model.decode_step(tokens[:, P + i:P + i + 1], cache))
+        step_ms.append(t)
+        scores.append(logits[:, -1].float())
+        if i == 0:
+            k1 = logits
+    scores = torch.stack(scores)
+    replayed = (scores.argmax(-1).t() == tokens[:, P:]).float().mean().item()
+    log(f"deepseek_v2_lite: prefill ({b}x{P} tokens) {prefill_ms:.2f} ms; "
+        f"decode step {_spread(step_ms)}; "
+        f"{b * (new - 1) / (sum(step_ms) / 1e3):.1f} tokens/s over the "
+        f"{new - 1} steps at batch {b} (host clock, synchronized); the "
+        f"replay's greedy tokens equal mla_cached_generate's: {replayed:.4f}")
+    assert replayed == 1.0, "the kernels' decode is not deterministic"
+    profile_window("deepseek_v2_lite decode step",
+                   lambda: model.decode_step(tokens[:, -1:], cache),
+                   watch=("mla_", "rms_"))
+
+    # the same model through the plain versions: the prefill, the first
+    # step on the kernels' prefix and first token, and a greedy stream of
+    # its own
+    def step1():
+        return model.decode_step(tokens[:, P:P + 1],
+                                 _restored(cache, saved, P))[0]
+
+    plain_routes = []
+    with plain_versions():
+        registry.reset()
+        with _recorded_routing(plain_routes):
+            p0, pcache = model.decode_prefill(prompt)
+        del pcache
+        _hold_logits("deepseek_v2_lite prefill", k0, p0, MOE_LOGIT_TOL)
+        del k0
+        p1 = step1()
+        _hold_logits("deepseek_v2_lite step 1", k1, p1)
+        plain, plain_logits = _greedy(model, prompt, new)
+        assert not any(registry.launches().values()), registry.launches()
+    assert len(kernel_routes) == len(plain_routes) == moe_layers
+    E, k, T = cfg.n_routed_experts, cfg.moe_top_k, b * P
+    agree = sum((_choices(a, T, E) & _choices(p, T, E)).sum().item()
+                for a, p in zip(kernel_routes, plain_routes))
+    log(f"deepseek_v2_lite: prefill top-{k} expert choices equal between the "
+        f"kernel and plain runs: {agree / (moe_layers * T * k):.6f} of "
+        f"{moe_layers * T * k}")
+    _near_tie_check("deepseek_v2_lite kernels vs plain versions",
+                    tokens[:, P:], scores, plain, plain_logits, MOE_LOGIT_TOL)
+    _fault_check("deepseek_v2_lite", _fault_readings(
+        "deepseek_v2_lite", lambda: model.decode_prefill(prompt)[0], p0,
+        step1, p1), MOE_LOGIT_TOL)
+    return {"deepseek_v2_lite": launches}
+
+
 # kernel name parts whose summed device time a training profile prints
 PROFILE_WATCH = ("ln_fwd_kernel", "ln_bwd_dx_kernel", "masked_fwd_kernel",
                  "causal_fwd_kernel", "::bwd_kernel<", "lamb_kernel",
@@ -2339,7 +3003,7 @@ PROFILE_WATCH = ("ln_fwd_kernel", "ln_bwd_dx_kernel", "masked_fwd_kernel",
                  "::dkv_kernel<", "rms_")
 PHASES = ("kernels", "serving", "serve_bf16", "serve_int8", "serve_spec",
           "training", "flash_training", "gpt2_training", "bert_training",
-          "mha")
+          "mha", "mla_decode", "deepseek_v2_lite")
 # kernels that no path of this script launches: held against their plain
 # versions in the kernel phase only (the JAX serving engine does not take
 # the fused int8 verify either: it dequantizes with #15, then verifies)
@@ -2379,6 +3043,8 @@ SOURCES = {  # kernel -> (its source, the TPU kernel it replaces)
                         "apex_tpu/parallel/compression.py:128"),
     "spec_verify": ("apex_tpu_torch/csrc/spec_verify.cu",
                     "apex_tpu/kernels/fused_cc.py:453"),
+    "mla_decode": ("apex_tpu_torch/csrc/mla_decode.cu",
+                   "apex_tpu/contrib/mla_decode.py:62"),
 }
 
 
@@ -2415,7 +3081,8 @@ def main(argv):
                    + check_softmax(gen) + check_adam(gen)
                    + check_flash(gen) + check_layer_norm(gen)
                    + check_masked_softmax(gen) + check_lamb(gen)
-                   + check_quant(gen) + check_spec_verify(gen))
+                   + check_quant(gen) + check_spec_verify(gen)
+                   + check_mla_decode(gen))
         check_per_row_attention(gen)
         check_refusals()
         for e in entries:
@@ -2438,7 +3105,9 @@ def main(argv):
             "serve_spec": phase_serve_spec, "training": phase_training,
             "flash_training": phase_flash_training,
             "gpt2_training": phase_gpt2_training,
-            "bert_training": phase_bert_training, "mha": phase_mha}
+            "bert_training": phase_bert_training, "mha": phase_mha,
+            "mla_decode": phase_mla_decode,
+            "deepseek_v2_lite": phase_deepseek_v2_lite}
     for name in phases:  # in the order given, repeats included
         if name not in runs:
             continue  # kernels and serving ran above

@@ -90,7 +90,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 def test_real_sources_and_flags():
     names = {p.name for p in _build.sources()}
     assert {"adam.cu", "flash_attention.cu", "gqa_decode.cu", "lamb.cu",
-            "layer_norm.cu", "rms_norm.cu", "softmax.cu",
+            "layer_norm.cu", "mla_decode.cu", "rms_norm.cu", "softmax.cu",
             "window_attention.cu"} <= names
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags

@@ -17,8 +17,12 @@ attention on or off (``GPTModel`` without a cache,
 and the multi-head attention modules (``contrib.multihead_attn``);
 speculative generation (``models.speculative_generate``) and the
 continuous-batching serving engine (``serving.ServeEngine``,
-``serving.Scheduler``) with a bf16 or int8 KV cache
-(``parallel.compression``'s int8 block core).
+``serving.Scheduler``) with a bf16 or int8 KV cache; DeepSeek MLA
+(``models.DeepseekModel``); and data parallelism on
+``torch.distributed`` (``parallel``: ``DistributedDataParallel`` with
+bf16, int8 or int4 gradient sync and error feedback, the compressed
+collectives of ``parallel.compression``, ``SyncBatchNorm``, ``LARC``,
+``parallel.multiproc.initialize_distributed`` and its launcher).
 """
 
 __version__ = "0.1.0"

@@ -7,8 +7,9 @@ Counterpart of ``apex_tpu/kernels/fused_cc.py`` family (b):
 ``spec_verify_attention`` (the verify window read straight from the int8
 blockwise serving store). Each batch row may sit at its own offset: the
 serving engine's slots are at different fill levels (the JAX functions
-take one scalar start and run under ``vmap`` over slots). The GEMM and
-int4 kernels of that module are still to be ported.
+take one scalar start and run under ``vmap`` over slots). The fused int4
+kernels of family (c) are in :mod:`apex_tpu_torch.kernels.quant4`, beside
+the unfused ones they fuse; the GEMM of family (a) is still to be ported.
 """
 
 import ctypes

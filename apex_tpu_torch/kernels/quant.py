@@ -6,8 +6,11 @@ and ``_dequant_kernel`` with the jnp oracle around them
 (``block_scales``, ``_quantize_jnp``, ``_dequantize_jnp``). Rows of
 ``n`` lanes are cut into ``nb = ceil(n / block)`` blocks, the last one
 zero-padded; each block has the scale ``max(absmax, 1e-12) / 127`` and
-the codes ``clip(round(x / scale), -127, 127)`` (round half to even).
-Kernel, plain version and the JAX oracle agree bit for bit. The public
+the codes ``clip(round(x / scale), -127, 127)`` (round half to even),
+or the codes against scales given from outside (the data-parallel
+collectives' shared scales). Dequantize takes int8 codes or the int32
+partial sums of those collectives. Kernel, plain version and the JAX
+oracle agree bit for bit. The public
 functions with the JAX package's names are in
 :mod:`apex_tpu_torch.parallel.compression`.
 """
@@ -22,6 +25,8 @@ from apex_tpu_torch.kernels import _build, _checks, registry
 QMAX = 127.0
 QUANTIZE = registry.register("quantize_int8")
 DEQUANTIZE = registry.register("dequantize_int8")
+# code dtypes of apex_dequant8
+CODE_DTYPES = {torch.int8: 0, torch.int32: 1}
 
 
 def _blocks(n: int, block: int) -> int:
@@ -38,14 +43,15 @@ def block_scales(x3d):
     return torch.clamp_min(absmax, 1e-12) / torch.full_like(absmax, QMAX)
 
 
-def quantize_rows_plain(x2d, block: int):
+def quantize_rows_plain(x2d, block: int, scales=None):
     """x2d [rows, n] (fp32 or bf16) -> (q [rows, nb, block] int8, scales
-    [rows, nb, 1] fp32)."""
+    [rows, nb, 1] fp32); given ``scales`` are used, not computed."""
     rows, n = x2d.shape
     nb = _blocks(n, block)
     x = torch.nn.functional.pad(x2d.float(), (0, nb * block - n))
     x = x.reshape(rows, nb, block)
-    scales = block_scales(x)
+    if scales is None:
+        scales = block_scales(x)
     q = torch.clamp(torch.round(x / scales), -QMAX, QMAX).to(torch.int8)
     return q, scales
 
@@ -64,24 +70,26 @@ def dequantize_rows_plain(q, scales, n=None, out_dtype=torch.float32):
 def _quant_kernel():
     p, i = _checks.ptr, ctypes.c_int
     return _build.function("quant8", "apex_quant8",
-                           [p, p, p, ctypes.c_longlong, i, i, i, i, p])
+                           [p, p, p, ctypes.c_longlong, i, i, i, i, i, p])
 
 
 @functools.lru_cache(maxsize=1)
 def _dequant_kernel():
     p, i = _checks.ptr, ctypes.c_int
     return _build.function("quant8", "apex_dequant8",
-                           [p, p, p, ctypes.c_longlong, i, i, i, i, p])
+                           [p, p, p, ctypes.c_longlong, i, i, i, i, i, p])
 
 
-def quantize_rows(x2d, block: int):
+def quantize_rows(x2d, block: int, scales=None):
     """Blockwise int8 codes of each row of x2d [rows, n] (fp32 or bf16):
     (q [rows, nb, block] int8, scales [rows, nb, 1] fp32), the block
-    scales computed in the kernel. A CPU tensor takes
+    scales computed in the kernel, or read from ``scales`` (fp32 [rows,
+    nb, 1], returned as given) when they are given. A CPU tensor takes
     :func:`quantize_rows_plain`; a CUDA tensor launches the kernel or
     raises."""
-    if not _checks.on_cuda("quantize_rows", x2d):
-        return quantize_rows_plain(x2d, block)
+    tensors = (x2d,) if scales is None else (x2d, scales)
+    if not _checks.on_cuda("quantize_rows", *tensors):
+        return quantize_rows_plain(x2d, block, scales)
     if x2d.dim() != 2:
         raise ValueError(f"quantize_rows: x2d must be [rows, n], got "
                          f"{tuple(x2d.shape)}")
@@ -92,23 +100,32 @@ def quantize_rows(x2d, block: int):
     code = _checks.dtype_code("quantize_rows", x2d, "x2d")
     _checks.contiguous("quantize_rows", x2d=x2d)
     q = torch.empty((rows, nb, block), dtype=torch.int8, device=x2d.device)
-    out_scales = torch.empty((rows, nb, 1), dtype=torch.float32,
-                             device=x2d.device)
+    if scales is None:
+        out_scales = torch.empty((rows, nb, 1), dtype=torch.float32,
+                                 device=x2d.device)
+    else:
+        if (scales.dtype != torch.float32
+                or tuple(scales.shape) != (rows, nb, 1)):
+            raise ValueError(f"quantize_rows: scales must be float32 "
+                             f"[{rows}, {nb}, 1], got {scales.dtype} "
+                             f"{tuple(scales.shape)}")
+        _checks.contiguous("quantize_rows", scales=scales)
+        out_scales = scales
     if rows == 0 or n == 0:
         return q.zero_(), out_scales
     with torch.cuda.device(x2d.device):
         rc = _quant_kernel()(
             x2d.data_ptr(), q.data_ptr(), out_scales.data_ptr(), rows, n, nb,
-            block, code, _checks.stream(x2d))
+            block, code, int(scales is not None), _checks.stream(x2d))
     _checks.status("quantize_rows", rc)
     registry.count(QUANTIZE)
     return q, out_scales
 
 
 def dequantize_rows(q, scales, n=None, out_dtype=torch.float32):
-    """q [rows, nb, B] int8 codes times their fp32 scales [rows, nb, 1]
-    -> [rows, n] in ``out_dtype`` (fp32 or bf16: the fp32 product
-    rounded; default n: nb * B). A CPU tensor takes
+    """q [rows, nb, B] int8 codes (or int32 partial sums) times their
+    fp32 scales [rows, nb, 1] -> [rows, n] in ``out_dtype`` (fp32 or bf16:
+    the fp32 product rounded; default n: nb * B). A CPU tensor takes
     :func:`dequantize_rows_plain`; a CUDA tensor launches the kernel or
     raises."""
     if not _checks.on_cuda("dequantize_rows", q, scales):
@@ -118,8 +135,10 @@ def dequantize_rows(q, scales, n=None, out_dtype=torch.float32):
                          f"{tuple(q.shape)}")
     rows, nb, block = q.shape
     n = nb * block if n is None else n
-    if q.dtype != torch.int8:
-        raise TypeError(f"dequantize_rows: q must be int8, got {q.dtype}")
+    code_dtype = CODE_DTYPES.get(q.dtype)
+    if code_dtype is None:
+        raise TypeError(f"dequantize_rows: q must be int8 or int32, got "
+                        f"{q.dtype}")
     if scales.dtype != torch.float32 or tuple(scales.shape) != (rows, nb, 1):
         raise ValueError(f"dequantize_rows: scales must be float32 "
                          f"[{rows}, {nb}, 1], got {scales.dtype} "
@@ -134,8 +153,8 @@ def dequantize_rows(q, scales, n=None, out_dtype=torch.float32):
         return out
     with torch.cuda.device(q.device):
         rc = _dequant_kernel()(q.data_ptr(), scales.data_ptr(),
-                               out.data_ptr(), rows, n, nb, block, code,
-                               _checks.stream(q))
+                               out.data_ptr(), rows, n, nb, block,
+                               code_dtype, code, _checks.stream(q))
     _checks.status("dequantize_rows", rc)
     registry.count(DEQUANTIZE)
     return out

@@ -47,8 +47,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    1280-, 512- and 40-row buffers, 128 heads, per-row lengths, dead rows
    holding 1e4 (bit-identical to clean ones), a narrower latent; RMSNorm
    on fp32 rows of width 512, 1024 and 2048 into bf16 (the MLA models'
-   norms). Malformed CUDA inputs to every wrapper are refused and not
-   counted.
+   norms). The int4 quantize, dequantize, pack and unpack kernels bit for
+   bit at GPT-2 345M's largest gradient bucket ([201216, 256] fp32) and
+   the MLP's ([16400, 256]), and off the path (odd widths, zero and
+   clipped blocks, one row, unpack's n); the int8 quantize on given
+   scales and the int8 dequantize on int32 totals at the GPT-2 bucket.
+   Malformed CUDA inputs to every wrapper are refused and not counted.
 3. serving: ``GPTModel`` at TinyLlama-1.1B width (22 layers, seeded
    random weights) and ``generate(batch 8, prompt 128, 32 new tokens,
    greedy)`` with every launch count set to 0 just before and read just
@@ -120,6 +124,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    of one step; logits and streams held to the plain versions' as in
    mla_decode, the kernel run's decode replayed bit-exactly, and the
    share of the prefill's top-6 expert choices the two runs share.
+11. ddp_gpt2: GPT-2 345M as in phase 6 on a one-rank NCCL group
+   (``multiproc.initialize_distributed()``), with
+   ``DistributedDataParallel(axis_name="dp", compress=mode).sync`` between
+   backward and the optimizer's step (39 buckets of at most 10 M elements
+   in registration order, the residual carried from step to step, the
+   synced gradients back in ``p.grad``) for every mode (none, bf16, int8,
+   int4): counted steps (each bucket one #14 or #16 and one #15 in the
+   int modes, none in the others; the model's kernels as in phase 6),
+   step ms, tokens/s, the sync's ms (CUDA events; its kernels under the
+   profiler), NCCL's share, peak memory, step 3's loss and the modeled
+   wire bytes; the last counted step's sync held bit-identical to its
+   plain route and, at world 1, synced + new residual to g + old residual
+   within one fp32 ulp; then ``psum_scatter_compressed`` (int8, int4) on
+   the flat gradient vector and ``all_gather_compressed`` (bf16, int8,
+   int4) on the flat parameter vector, each counted and held bit-identical
+   to its plain route, the int4 gather within half a step of its grid.
+12. ddp_compressed: ``bench.py bench_ddp_compressed`` as it stands (a 4 x
+   1024 tanh MLP, batch 64, RandomState(0), w - 0.05 g, one bucket) in
+   int8 and int4: counted steps, 30 timed steps, steps/s, the loss falls.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -412,8 +435,22 @@ def plain_versions():
     swapped in their modules, so the autograd Functions and the
     optimizer that call them stay the same."""
     from apex_tpu_torch.contrib import fmha, gqa_decode, mla_decode
-    from apex_tpu_torch.kernels import fused_cc, norm, optim, quant, softmax
+    from apex_tpu_torch.kernels import (
+        fused_cc,
+        norm,
+        optim,
+        quant,
+        quant4,
+        softmax,
+    )
     swaps = [(norm, "rms_fwd", norm.rms_fwd_plain),
+             (quant4, "quantize_int4", quant4.quantize_int4_plain),
+             (quant4, "dequantize_int4", quant4.dequantize_int4_plain),
+             (quant4, "pack_int4", quant4.pack_int4_plain),
+             (quant4, "unpack_int4", quant4.unpack_int4_plain),
+             (quant4, "quantize_pack_int4", quant4.quantize_pack_int4_plain),
+             (quant4, "unpack_dequantize_int4",
+              quant4.unpack_dequantize_int4_plain),
              (mla_decode, "mla_flash_decode",
               mla_decode.mla_decode_reference),
              (quant, "quantize_rows", quant.quantize_rows_plain),
@@ -1361,6 +1398,167 @@ def check_quant(gen):
     return entries
 
 
+# GPT-2 345M's largest gradient bucket (the 51.5 M-element embedding and
+# head, alone in a bucket of 10 M), bench.py ddp_compressed's MLP bucket
+# (4 x 1024 x 1024 + 4 x 1024 = 4,198,400 elements) and GPT-2's flat
+# parameter vector (406,382,592 elements, the ZeRO gather), in blocks of
+# 256
+GPT2_BUCKET_ROWS, MLP_BUCKET_ROWS, GPT2_FLAT_ROWS = 201216, 16400, 1587432
+
+
+def _int4_scales(x2d, with_gmax=False):
+    """The local two-level effective scales [nb, 1] of x2d (and gmax)."""
+    from apex_tpu_torch.kernels import quant4
+    s, _, gmax = quant4.two_level_scales(quant4.block_absmax(x2d))
+    return (s, gmax) if with_gmax else s
+
+
+def _int4_error(x2d, y2d, s, gmax):
+    """Hold the int4 error to half a step of the local grid: s_eff / 2
+    where the code is not clipped at +-7 (|x| <= 7.5 s_eff), and half a
+    level-1 step, gmax / 510, where it is (a block whose sq rounded down
+    leaves its absmax past 7 s_eff). Returns (largest error / s_eff on the
+    unclipped lanes, share of clipped lanes)."""
+    err = (y2d - x2d).abs()
+    s = s.expand_as(err)
+    clipped = x2d.abs() > 7.5 * s
+    ratio = (err / s)[~clipped].max().item() if (~clipped).any() else 0.0
+    assert ratio <= 0.5 * (1 + 2 ** -20), ratio
+    assert (err[clipped] <= gmax / 510 * (1 + 1e-5)).all()
+    return ratio, clipped.float().mean().item()
+
+
+def check_quant4(gen):
+    """#16-#19 and the fused #23/#24 bit for bit against their plain
+    versions at GPT-2's largest bucket and the MLP's bucket, and off the
+    path: an odd block width, all-zero blocks, one row, unpack's ``n``;
+    #23/#24 also at GPT-2's flat parameter vector (the int4 gather); #14
+    with given scales and #15 on int32 totals at the GPT-2 bucket (the
+    data-parallel routes of the int8 kernels)."""
+    from apex_tpu_torch.kernels import quant, quant4
+    cases = [(GPT2_BUCKET_ROWS, 256), (MLP_BUCKET_ROWS, 256), (1000, 33),
+             (1, 256), (1, 7), (77, 2), (300, 100)]
+    for nb, b in cases:
+        x = _randn(gen, nb, b, dtype=torch.float32, scale=1e-3)
+        if nb > 2:
+            x[1] = 0  # an all-zero block
+            x[2] *= 1e-9  # a block whose sq clips up to 1
+        s, gmax = _int4_scales(x, with_gmax=True)
+        q = quant4.quantize_int4(x, s)
+        qp = quant4.quantize_int4_plain(x, s)
+        y = quant4.dequantize_int4(q, s)
+        p = quant4.pack_int4(q)
+        u = quant4.unpack_int4(p, b)
+        u_full = quant4.unpack_int4(p)
+        pf = quant4.quantize_pack_int4(x, s)
+        yf = quant4.unpack_dequantize_int4(pf, s, b)
+        torch.cuda.synchronize()
+        assert torch.equal(q, qp), (nb, b)
+        assert torch.equal(pf, p) and torch.equal(
+            pf, quant4.quantize_pack_int4_plain(x, s)), (nb, b)
+        assert torch.equal(yf, y) and torch.equal(
+            quant4.unpack_dequantize_int4(pf, s),
+            quant4.unpack_dequantize_int4_plain(pf, s)), (nb, b)
+        assert torch.equal(y, quant4.dequantize_int4_plain(q, s)), (nb, b)
+        assert torch.equal(p, quant4.pack_int4_plain(q)), (nb, b)
+        assert torch.equal(u, q) and torch.equal(
+            u_full, quant4.unpack_int4_plain(p)), (nb, b)
+        _int4_error(x, y, s, gmax)
+    # the data-parallel routes of #14 and #15 at the GPT-2 bucket: codes on
+    # given (shared) scales, one row of nb blocks, and int32 totals
+    nb = GPT2_BUCKET_ROWS
+    x = _randn(gen, 1, nb * 256, dtype=torch.float32, scale=1e-3)
+    shared = quant.block_scales(x.reshape(1, nb, 256)) * 1.5
+    q8, s8 = quant.quantize_rows(x, 256, shared)
+    assert s8 is shared
+    assert torch.equal(q8, quant.quantize_rows_plain(x, 256, shared)[0])
+    totals = q8.int() * 3 - 100  # a sum over ranks: beyond int8's range
+    got = quant.dequantize_rows(totals, shared)
+    assert torch.equal(got, quant.dequantize_rows_plain(totals, shared))
+    given_ms = device_ms(lambda: quant.quantize_rows(x, 256, shared))
+    given_plain = device_ms(lambda: quant.quantize_rows_plain(x, 256, shared),
+                            iters=5)
+    i32_ms = device_ms(lambda: quant.dequantize_rows(totals, shared))
+    i32_plain = device_ms(lambda: quant.dequantize_rows_plain(totals, shared),
+                          iters=5)
+    n = nb * 256
+    log(f"kernels: quantize_int4, dequantize_int4, pack_int4, unpack_int4, "
+        f"quantize_pack_int4, unpack_dequantize_int4 bit-identical to their "
+        f"plain versions (and the fused pair to the unfused) on {len(cases)} "
+        f"shapes "
+        f"(odd and even widths, zero and clipped blocks, one row); "
+        f"quantize_int8 on given scales and dequantize_int8 on int32 totals "
+        f"bit-identical at [{nb},256]")
+    log(f"kernel quantize_int8 given scales [{nb},256] fp32: "
+        f"{_us(given_ms)} on the device, plain {_us(given_plain)}, bound "
+        f"{(n * 5 + nb * 4) / HBM_BYTES_PER_S * 1e6:.3f} us; dequantize_int8"
+        f" int32 totals: {_us(i32_ms)}, plain {_us(i32_plain)}, bound "
+        f"{(n * 8 + nb * 4) / HBM_BYTES_PER_S * 1e6:.3f} us")
+    del x, q8, totals, got
+
+    # the entries: GPT-2's largest bucket
+    x = _randn(gen, nb, 256, dtype=torch.float32, scale=1e-3)
+    s = _int4_scales(x)
+    q = quant4.quantize_int4(x, s)
+    p = quant4.pack_int4(q)
+    ops = 4 * n  # a division, a rounding, two clips a lane
+    wide = n * 4 + n + nb * 4  # fp32 lanes, int8 codes, fp32 scales
+    narrow = n + n // 2  # int8 codes, packed bytes
+    shape = f"[{nb},256] (GPT-2's 51.5 M-element bucket)"
+    entries = [
+        entry("quantize_int4", shape + " fp32 -> int8", q,
+              quant4.quantize_int4_plain(x, s), "bit-identical",
+              lambda: quant4.quantize_int4(x, s),
+              lambda: quant4.quantize_int4_plain(x, s), None,
+              bound(wide, ops, FP32_OPS_PER_S)),
+        entry("dequantize_int4", shape + " int8 -> fp32",
+              quant4.dequantize_int4(q, s),
+              quant4.dequantize_int4_plain(q, s), "bit-identical",
+              lambda: quant4.dequantize_int4(q, s),
+              lambda: quant4.dequantize_int4_plain(q, s), None,
+              bound(wide, n, FP32_OPS_PER_S)),
+        entry("pack_int4", shape + " int8 -> uint8 [.,128]", p,
+              quant4.pack_int4_plain(q), "bit-identical",
+              lambda: quant4.pack_int4(q),
+              lambda: quant4.pack_int4_plain(q), None,
+              bound(narrow, 0, FP32_OPS_PER_S)),
+        entry("unpack_int4", shape + " uint8 [.,128] -> int8",
+              quant4.unpack_int4(p), quant4.unpack_int4_plain(p),
+              "bit-identical", lambda: quant4.unpack_int4(p),
+              lambda: quant4.unpack_int4_plain(p), None,
+              bound(narrow, 0, FP32_OPS_PER_S))]
+    del x, s, q, p
+    # the fused pair at GPT-2's flat parameter vector, the int4 gather's
+    nf = GPT2_FLAT_ROWS * 256
+    x = _randn(gen, GPT2_FLAT_ROWS, 256, dtype=torch.float32, scale=1e-2)
+    s = _int4_scales(x)
+    p = quant4.quantize_pack_int4(x, s)
+    fused = nf * 4 + nf // 2 + GPT2_FLAT_ROWS * 4  # fp32, nibbles, scales
+    shape = f"[{GPT2_FLAT_ROWS},256] (GPT-2's flat parameter vector)"
+    entries += [
+        entry("quantize_pack_int4", shape + " fp32 -> uint8 [.,128]", p,
+              quant4.quantize_pack_int4_plain(x, s), "bit-identical",
+              lambda: quant4.quantize_pack_int4(x, s),
+              lambda: quant4.quantize_pack_int4_plain(x, s), None,
+              bound(fused, 4 * nf, FP32_OPS_PER_S)),
+        entry("unpack_dequantize_int4", shape + " uint8 [.,128] -> fp32",
+              quant4.unpack_dequantize_int4(p, s),
+              quant4.unpack_dequantize_int4_plain(p, s), "bit-identical",
+              lambda: quant4.unpack_dequantize_int4(p, s),
+              lambda: quant4.unpack_dequantize_int4_plain(p, s), None,
+              bound(fused, nf, FP32_OPS_PER_S))]
+    del x, s, p
+    assert all(e["max_abs_err"] == 0 for e in entries), entries
+    xm = _randn(gen, MLP_BUCKET_ROWS, 256, dtype=torch.float32, scale=1e-3)
+    sm = _int4_scales(xm)
+    mlp_ms = device_ms(lambda: quant4.quantize_int4(xm, sm))
+    mlp_bound = (MLP_BUCKET_ROWS * 256 * 5 + MLP_BUCKET_ROWS * 4) \
+        / HBM_BYTES_PER_S
+    log(f"kernel quantize_int4 at the MLP bucket [{MLP_BUCKET_ROWS},256]: "
+        f"{_us(mlp_ms)} on the device, bound {mlp_bound * 1e6:.3f} us")
+    return entries
+
+
 def _verify_inputs(gen, b, g, rep, d, T, block, w):
     """q [w, b, g, rep, d] bf16 and the int8 store's codes and scales of
     random K/V rows, quantized by the plain version."""
@@ -1650,7 +1848,38 @@ def check_refusals():
     refused(ValueError, lambda: quant.quantize_rows(xq, 0))
     q8 = torch.zeros(4, 1, 256, dtype=torch.int8, device="cuda")
     s8 = torch.ones(4, 1, 1, device="cuda")
-    refused(TypeError, lambda: quant.dequantize_rows(q8.int(), s8))
+    refused(TypeError, lambda: quant.dequantize_rows(q8.short(), s8))
+    refused(ValueError, lambda: quant.quantize_rows(xq, 256, s8[:2]))
+    refused(ValueError, lambda: quant.quantize_rows(xq, 256, s8.double()))
+    # the int4 kernels
+    from apex_tpu_torch.kernels import quant4
+    x4 = torch.zeros(4, 256, device="cuda")
+    s4 = torch.ones(4, 1, device="cuda")
+    c4 = torch.zeros(4, 256, dtype=torch.int8, device="cuda")
+    p4 = torch.zeros(4, 128, dtype=torch.uint8, device="cuda")
+    refused(TypeError, lambda: quant4.quantize_int4(x4.bfloat16(), s4))
+    refused(ValueError, lambda: quant4.quantize_int4(x4[:, ::2], s4))
+    refused(ValueError, lambda: quant4.quantize_int4(x4, s4[:3]))
+    refused(ValueError, lambda: quant4.quantize_int4(x4, s4.double()))
+    refused(ValueError, lambda: quant4.quantize_int4(x4[None], s4))
+    refused(ValueError, lambda: quant4.dequantize_int4(c4, s4[:2]))
+    refused(ValueError, lambda: quant4.dequantize_int4(c4[:, ::2], s4))
+    refused(TypeError, lambda: quant4.dequantize_int4(c4.int(), s4))
+    refused(TypeError, lambda: quant4.dequantize_int4(c4.float(), s4))
+    refused(TypeError, lambda: quant4.quantize_pack_int4(x4.bfloat16(), s4))
+    refused(ValueError, lambda: quant4.quantize_pack_int4(x4[:, ::2], s4))
+    refused(ValueError, lambda: quant4.quantize_pack_int4(x4, s4[:3]))
+    refused(TypeError, lambda: quant4.unpack_dequantize_int4(c4, s4))
+    refused(ValueError, lambda: quant4.unpack_dequantize_int4(p4[:, ::2],
+                                                              s4))
+    refused(ValueError, lambda: quant4.unpack_dequantize_int4(p4, s4[:2]))
+    refused(ValueError, lambda: quant4.unpack_dequantize_int4(p4, s4, 257))
+    refused(TypeError, lambda: quant4.pack_int4(p4))
+    refused(ValueError, lambda: quant4.pack_int4(c4[:, ::2]))
+    refused(TypeError, lambda: quant4.unpack_int4(c4))
+    refused(ValueError, lambda: quant4.unpack_int4(p4[:, ::2]))
+    refused(ValueError, lambda: quant4.unpack_int4(p4, 257))
+    refused(ValueError, lambda: quant4.quantize_int4(x4, s4.cpu()))
     refused(ValueError, lambda: quant.dequantize_rows(q8, s8[:2]))
     refused(ValueError, lambda: quant.dequantize_rows(q8, s8, 300))
     refused(ValueError, lambda: quant.dequantize_rows(q8, s8.double()))
@@ -1725,11 +1954,15 @@ def check_refusals():
 
 # ------------------------------------------------------------- phases 3, 4
 
-def profile_window(label, fn, top=6, watch=()):
+def profile_window(label, fn, top=6, watch=(), ranges=()):
     """Device busy share of one call of ``fn`` under torch.profiler (the
     kernels' summed time over the span from the first kernel's start to
     the last one's end), the kernels that take most of it, and the summed
-    time of the kernels whose names contain each string of ``watch``."""
+    time of the kernels whose names contain each string of ``watch``.
+    For each name in ``ranges`` (a ``record_function`` range), the
+    device-side span of that range and the kernel time inside it. Returns
+    {"busy_us", "span_us", "watch": {part: us}, "ranges": {name: (span_us,
+    busy_us)}} (None when the profiler saw no device work)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1743,7 +1976,7 @@ def profile_window(label, fn, top=6, watch=()):
     if not kernels:
         log(f"profile {label}: the profiler saw no device work; busy share "
             f"not measured")
-        return
+        return None
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels))
     by_name = {}
@@ -1755,12 +1988,36 @@ def profile_window(label, fn, top=6, watch=()):
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         n = sum(1 for e in kernels if e.name == name)
         log(f"  {us:9.1f} us {n:5d}x {name[:90]}")
+    stats = dict(busy_us=busy, span_us=span, watch={}, ranges={})
     for part in watch:
         names = [k for k in by_name if part in k]
         us = sum(by_name[k] for k in names)
         n = sum(1 for e in kernels if part in e.name)
+        stats["watch"][part] = us
         log(f"  kernels named *{part}*: {us:.1f} us in {n} launches "
             f"({us / busy:.4f} of the busy time)")
+    for name in ranges:  # record_function ranges: their kernels' time
+        found = [e for e in prof.events()
+                 if e.device_type == DeviceType.CPU and e.name == name]
+        if not found:
+            log(f"  range {name}: not in the profile; not measured")
+            continue
+        us = sum(_device_us(e) for e in found)
+        host_us = sum(e.time_range.elapsed_us() for e in found)
+        stats["ranges"][name] = us
+        log(f"  range {name}: its kernels {us:.1f} us on the device "
+            f"({us / busy:.4f} of the busy time); {host_us:.1f} us on the "
+            f"host")
+    return stats
+
+
+def _device_us(event):
+    """The device time of the kernels launched inside a profiler range
+    (the attribute's name differs between torch releases)."""
+    for attr in ("device_time_total", "cuda_time_total"):
+        if hasattr(event, attr):
+            return getattr(event, attr)
+    raise AttributeError("the profiler's events carry no device time")
 
 
 def _wall_ms(fn):
@@ -1887,7 +2144,8 @@ def _rel_fro(got, want):
 
 def train_steps(label, model, loss_of, make_opt, per_step, work,
                 update_rtol=(TRAIN_UPDATE_RTOL, TRAIN_TENSOR_UPDATE_RTOL),
-                falls_from=0, linear_below=None):
+                falls_from=0, linear_below=None, sync=None, hold_plain=True,
+                record=None, watch=None, ranges=()):
     """Three counted steps of ``loss_of()`` (the forward and loss),
     backward, ``opt.step()`` and ``zero_grad`` with every launch count
     set to 0 before each step and checked against ``per_step`` after it
@@ -1899,8 +2157,12 @@ def train_steps(label, model, loss_of, make_opt, per_step, work,
     below that of step ``falls_from + 1``. ``linear_below(g1)``, given
     the step-1 gradients, gives the |g| under which the optimizer's first
     update is linear in g (not sign-like): the share of sign flips there
-    is printed. Returns the launches of the
-    counted steps."""
+    is printed. ``sync(k)``, if given, runs between backward and the
+    optimizer's step (k: the counted step, or None for a later one).
+    ``hold_plain=False`` leaves out the step-1 hold against the plain
+    versions. ``record``, a dict, receives the counted steps' losses
+    ("losses") and the profile's stats ("profile"). Returns the launches
+    of the counted steps."""
     import math
 
     from apex_tpu_torch.kernels import registry
@@ -1912,6 +2174,8 @@ def train_steps(label, model, loss_of, make_opt, per_step, work,
     def step(opt):
         loss = loss_of()
         loss.backward()
+        if sync is not None:
+            sync(None)
         opt.step()
         opt.zero_grad()
         return loss
@@ -1925,9 +2189,11 @@ def train_steps(label, model, loss_of, make_opt, per_step, work,
         t0 = time.perf_counter()
         loss = loss_of()
         loss.backward()
-        if k == 0:
+        if k == 0 and hold_plain:
             g1 = {n: p.grad.detach().to("cpu", copy=True)
                   for n, p in params.items()}
+        if sync is not None:
+            sync(k)
         opt.step()
         opt.zero_grad()
         torch.cuda.synchronize()
@@ -1965,8 +2231,14 @@ def train_steps(label, model, loss_of, make_opt, per_step, work,
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses of "
         f"steps {COUNTED_STEPS + 1}-{COUNTED_STEPS + TIMED_STEPS}: "
         f"{timed_losses}")
-    profile_window(f"{label} step", lambda: step(opt), top=10,
-                   watch=PROFILE_WATCH)
+    stats = profile_window(f"{label} step", lambda: step(opt), top=10,
+                           watch=PROFILE_WATCH if watch is None else watch,
+                           ranges=ranges)
+    if record is not None:
+        record.update(losses=losses, timed_ms=med, profile=stats,
+                      peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if not hold_plain:
+        return totals
 
     # step 1 again from the same weights, through the plain versions
     with torch.no_grad():
@@ -2996,6 +3268,330 @@ def phase_deepseek_v2_lite():
     return {"deepseek_v2_lite": launches}
 
 
+# ------------------------------------------------- data parallelism
+
+# DistributedDataParallel's modes and default bucket cap
+DDP_MODES = (None, "bf16", "int8", "int4")
+DDP_MESSAGE_SIZE = 10000000
+# bench.py bench_ddp_compressed (bench.py:1628-1706): a 4 x 1024 tanh MLP
+# regressor, RandomState(0) weights and data, batch 64, w - 0.05 g
+MLP_DEPTH, MLP_HIDDEN, MLP_BATCH, MLP_LR, MLP_STEPS = 4, 1024, 64, 0.05, 30
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """A one-rank NCCL process group for the length of a phase, as
+    ``multiproc.initialize_distributed()`` makes it with no coordinator."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import multiproc
+    t0 = time.perf_counter()
+    backend = multiproc.initialize_distributed()
+    log(f"process group: {backend}, world size {dist.get_world_size()}, "
+        f"rank {dist.get_rank()}, up in {time.perf_counter() - t0:.2f} s")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _quant_counts(mode, buckets):
+    """The quantize and dequantize launches of one sync of ``buckets``
+    buckets in ``mode``: the int modes quantize each bucket once and
+    dequantize its int32 sum once (#15, in int4 too)."""
+    if mode == "int8":
+        return {"quantize_int8": buckets, "dequantize_int8": buckets}
+    if mode == "int4":
+        return {"quantize_int4": buckets, "dequantize_int8": buckets}
+    return {}
+
+
+def _ulps(got, want):
+    """Largest |got - want| in units of want's fp32 ulp."""
+    mag = want.abs()
+    ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+    return ((got - want).abs() / ulp).max().item()
+
+
+def _hold_sync(label, ddp, grads, residual):
+    """A step's local gradients and incoming residual synced once through
+    the kernels and once under plain_versions(): the synced gradients and
+    the new residual bit-identical; at world 1, synced + new residual
+    equal to g + old residual (the payload quantized) within one fp32 ulp
+    of each element."""
+    from apex_tpu_torch.kernels import registry
+    out, res = ddp.sync(grads, residual)
+    registry.reset()
+    with plain_versions():
+        out_p, res_p = ddp.sync(grads, residual)
+    assert not any(registry.launches().values()), registry.launches()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, out_p)), label
+    assert all(torch.equal(a, b) for a, b in zip(res, res_p)), label
+    worst = max(_ulps(o + r, g.float() + r0)
+                for g, r0, o, r in zip(grads, residual, out, res))
+    log(f"{label}: the sync of step {COUNTED_STEPS}'s gradients and "
+        f"residual is bit-identical to its plain route (gradients and new "
+        f"residual); synced + new residual vs g + old residual: largest "
+        f"difference {worst:.3f} fp32 ulp (limit 1)")
+    assert worst <= 1.0, (label, worst)
+
+
+def _zero_collectives(label, flat_g, flat_p):
+    """The ZeRO collectives on GPT-2's flat fp32 gradient and parameter
+    vectors, each called once with the counts set to 0 around it and
+    held bit-identical to its plain route. Returns their launches."""
+    from apex_tpu_torch.kernels import registry
+    from apex_tpu_torch.parallel import compression
+    totals = {}
+
+    def run(name, fn, expect):
+        registry.reset()
+        ms, out = _wall_ms(fn)
+        launches = {k: v for k, v in registry.launches().items() if v}
+        assert launches == expect, (name, launches, expect)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        with plain_versions():
+            want = fn()
+        assert not any(registry.launches()[k] - launches.get(k, 0)
+                       for k in registry.launches()), registry.launches()
+        outs = out if isinstance(out, tuple) else (out,)
+        wants = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(a, b) for a, b in zip(outs, wants)), name
+        log(f"{label}: {name} of {flat_g.numel()} fp32: launches {launches} "
+            f"(expected), bit-identical to its plain route, {ms:.2f} ms "
+            f"(host clock, synchronized)")
+        return out
+
+    for mode in ("int8", "int4"):
+        run(f"psum_scatter_compressed {mode}",
+            lambda: compression.psum_scatter_compressed(flat_g, "dp",
+                                                        mode=mode),
+            _quant_counts(mode, 1))
+    gathers = {"bf16": {}, "int8": {"quantize_int8": 1, "dequantize_int8": 1},
+               "int4": {"quantize_pack_int4": 1, "unpack_dequantize_int4": 1}}
+    for mode, expect in gathers.items():
+        y = run(f"all_gather_compressed {mode}",
+                lambda: compression.all_gather_compressed(flat_p, "dp",
+                                                          mode=mode),
+                expect)
+    x2d = flat_p.reshape(-1, 256)
+    s, gmax = _int4_scales(x2d, with_gmax=True)
+    ratio, clipped = _int4_error(x2d, y.reshape(-1, 256), s, gmax)
+    log(f"{label}: int4 gather error: largest {ratio:.4f} of the local "
+        f"effective scale (limit 0.5) where the code is not clipped; "
+        f"{clipped:.3e} of the lanes clipped at +-7, each within half a "
+        f"level-1 step (gmax / 510)")
+    return totals
+
+
+def phase_ddp_gpt2():
+    """GPT-2 345M as phase_gpt2_training runs it, with
+    DistributedDataParallel(axis_name="dp", compress=mode).sync between
+    backward and opt.step() on a one-rank NCCL group: bucketed at 10 M
+    elements, the residual carried from step to step, the synced
+    gradients back in p.grad; every mode counted, timed and profiled; the
+    last counted step's sync held to its plain route; then the ZeRO
+    collectives on the model's flat gradient and parameter vectors."""
+    import math
+
+    import numpy as np
+
+    from apex_tpu_torch.kernels import optim
+    from apex_tpu_torch.models import (
+        GPTModel,
+        TransformerConfig,
+        gpt_loss_fn,
+        init_weights,
+    )
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import (
+        DistributedDataParallel,
+        compression,
+        plan_buckets,
+    )
+    cfg = TransformerConfig(**GPT2, compute_dtype=torch.bfloat16,
+                            use_flash_attention=True)
+    launches, results = {}, {}
+    with one_rank_group():
+        model = _new_model("ddp gpt2", lambda: GPTModel(cfg))
+        params = list(model.parameters())
+        n = sum(p.numel() for p in params)
+        buckets = plan_buckets(params, DDP_MESSAGE_SIZE)
+        B = len(buckets)
+        log(f"ddp gpt2: {len(params)} {params[0].dtype} tensors, {n} "
+            f"elements, {compression.num_blocks(n)} blocks of 256; B = {B} "
+            f"buckets of at most {DDP_MESSAGE_SIZE} elements in registration "
+            f"order (largest {max(sum(params[i].numel() for i in b) for b in buckets)})")
+        rng = np.random.RandomState(SEED)  # bench_gpt2's batch
+        shape = (GPT2_BATCH, GPT2_SEQ)
+        tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
+        labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
+        L = cfg.num_layers
+        base = {"layer_norm": 2 * L + 1, "ln_bwd": 2 * L + 1,
+                "flash_fwd": L, "flash_dq": L, "flash_dkv": L,
+                "adam": math.ceil(len(params) / optim.MAX_TENSORS)}
+        held = None
+        for mode in DDP_MODES:
+            name = mode or "fp32"
+            init_weights(model, SEED)
+            ddp = DistributedDataParallel(axis_name="dp", compress=mode)
+            stateful = compression.needs_residual(mode)
+            state = dict(res=None, events=[], held=None)
+
+            def sync(k, ddp=ddp, state=state, stateful=stateful):
+                grads = [p.grad for p in params]
+                if k == COUNTED_STEPS - 1 and stateful:  # kept on the host,
+                    # out of the peak memory of the timed steps
+                    state["held"] = ([g.cpu() for g in grads],
+                                     [r.cpu() for r in state["res"]])
+                ev = None
+                if k is None:  # a timed or profiled step
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    ev[0].record()
+                if stateful:
+                    synced, state["res"] = ddp.sync(grads, state["res"])
+                else:
+                    synced = ddp.sync(grads)
+                if ev:
+                    ev[1].record()
+                    state["events"].append(ev)
+                for p, g in zip(params, synced):
+                    p.grad = g
+
+            rec = {}
+            launches[f"ddp_gpt2_{name}"] = train_steps(
+                f"ddp gpt2 {name}", model,
+                lambda: gpt_loss_fn(model(tokens), labels),
+                lambda ps: FusedAdam(ps, lr=GPT2_LR),
+                {**base, **_quant_counts(mode, B)},
+                (GPT2_BATCH * GPT2_SEQ, "tokens"), sync=sync,
+                hold_plain=False, record=rec,
+                watch=PROFILE_WATCH + ("nccl", "Memcpy", "::quant4_kernel<",
+                                       "::quant_kernel<", "::dequant_kernel<",
+                                       "direct_copy_kernel"),
+                ranges=("ddp/sync",))
+            torch.cuda.synchronize()
+            rec["sync_ms"] = statistics.median(
+                a.elapsed_time(b) for a, b in state["events"][:TIMED_STEPS])
+            results[name] = rec
+            if stateful:
+                grads, residual = ([t.cuda() for t in ts]
+                                   for ts in state["held"])
+                _hold_sync(f"ddp gpt2 {name}", ddp, grads, residual)
+                if mode == "int4":
+                    held = grads
+                del grads, residual
+            del state
+            model.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+
+        fp32 = results["fp32"]
+        for name, rec in results.items():
+            prof = rec["profile"] or {}
+            sync_us = (prof.get("ranges") or {}).get("ddp/sync")
+            nccl = (prof.get("watch") or {}).get("nccl")
+            mode = None if name == "fp32" else name
+            log(f"ddp gpt2 {name}: step {rec['timed_ms']:.2f} ms = "
+                f"{GPT2_BATCH * GPT2_SEQ / rec['timed_ms'] * 1e3:.1f} "
+                f"tokens/s; sync {rec['sync_ms']:.3f} ms by CUDA events "
+                f"({rec['sync_ms'] / rec['timed_ms']:.4f} of the step); "
+                f"the sync's kernels under the profiler "
+                + ("not measured" if sync_us is None else
+                   f"{sync_us / 1e3:.3f} ms on the device "
+                   f"({sync_us / prof['busy_us']:.4f} of the busy time)")
+                + "; NCCL kernels "
+                + ("not measured" if nccl is None else
+                   f"{nccl / prof['busy_us']:.4f} of the busy time")
+                + f"; peak {rec['peak_gib']:.2f} GiB; loss at step "
+                f"{COUNTED_STEPS} {rec['losses'][-1]:.6f} (fp32 "
+                f"{fp32['losses'][-1]:.6f}); modeled wire bytes a step at "
+                f"world 8 (ring model, not a measurement) "
+                f"{compression.estimate_allreduce_bytes(n, world=8, compress=mode)}"
+                f" vs fp32 {compression.estimate_allreduce_bytes(n, world=8)}")
+
+        flat_g = torch.cat([g.reshape(-1) for g in held])
+        del held
+        with torch.no_grad():
+            flat_p = torch.cat([p.reshape(-1) for p in params])
+        del model, params
+        torch.cuda.empty_cache()
+        launches["ddp_gpt2_zero"] = _zero_collectives("ddp gpt2", flat_g,
+                                                      flat_p)
+    return launches
+
+
+def phase_ddp_compressed():
+    """bench.py bench_ddp_compressed as it stands, on a one-rank NCCL
+    group: the 4 x 1024 tanh MLP, batch 64, RandomState(0) weights and
+    data, grads synced by DistributedDataParallel(compress=mode) with
+    error feedback, w - 0.05 g; in "int8" (bench's mode) and "int4"."""
+    import numpy as np
+
+    from apex_tpu_torch.kernels import registry
+    from apex_tpu_torch.parallel import DistributedDataParallel, plan_buckets
+    H = MLP_HIDDEN
+    rng = np.random.RandomState(0)
+    init = {}
+    for i in range(MLP_DEPTH):
+        init[f"w{i}"] = (rng.randn(H, H).astype(np.float32)
+                         / np.sqrt(H)).astype(np.float32)
+        init[f"b{i}"] = np.zeros(H, np.float32)
+    x = torch.from_numpy(rng.randn(MLP_BATCH, H).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randn(MLP_BATCH, H).astype(np.float32)).cuda()
+    launches = {}
+    with one_rank_group():
+        for mode in ("int8", "int4"):
+            params = {k: torch.from_numpy(v).cuda().requires_grad_()
+                      for k, v in init.items()}
+            ddp = DistributedDataParallel(axis_name="dp", compress=mode)
+            B = len(plan_buckets(list(params.values())))
+            state = {"res": None}
+
+            def step(params=params, ddp=ddp, state=state):
+                h = x
+                for i in range(MLP_DEPTH):
+                    h = torch.tanh(h @ params[f"w{i}"] + params[f"b{i}"])
+                loss = torch.mean((h - y) ** 2)
+                grads = dict(zip(params, torch.autograd.grad(
+                    loss, list(params.values()))))
+                grads, state["res"] = ddp.sync(grads, state["res"])
+                with torch.no_grad():
+                    for k, p in params.items():
+                        p -= MLP_LR * grads[k]
+                return loss
+
+            expected = {**dict.fromkeys(registry.launches(), 0),
+                        **_quant_counts(mode, B)}
+            losses, totals = [], dict.fromkeys(expected, 0)
+            for _ in range(COUNTED_STEPS):
+                registry.reset()
+                losses.append(step().item())
+                got = registry.launches()
+                assert got == expected, (mode, got, expected)
+                for k in totals:
+                    totals[k] += got[k]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MLP_STEPS):
+                loss = step()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            losses.append(loss.item())
+            n = sum(p.numel() for p in params.values())
+            log(f"ddp_compressed {mode}: {n} parameters in B = {B} bucket; "
+                f"launches per step { {k: v for k, v in expected.items() if v} }"
+                f" (every counted step); {MLP_STEPS} steps in {secs:.3f} s = "
+                f"{MLP_STEPS / secs:.2f} steps/s (host clock, synchronized); "
+                f"loss {losses[0]:.9f} at step 1, {losses[-1]:.9f} after "
+                f"{COUNTED_STEPS + MLP_STEPS} steps")
+            assert losses[-1] < losses[0], (mode, losses)
+            launches[f"ddp_compressed_{mode}"] = totals
+    return launches
+
+
 # kernel name parts whose summed device time a training profile prints
 PROFILE_WATCH = ("ln_fwd_kernel", "ln_bwd_dx_kernel", "masked_fwd_kernel",
                  "causal_fwd_kernel", "::bwd_kernel<", "lamb_kernel",
@@ -3003,11 +3599,16 @@ PROFILE_WATCH = ("ln_fwd_kernel", "ln_bwd_dx_kernel", "masked_fwd_kernel",
                  "::dkv_kernel<", "rms_")
 PHASES = ("kernels", "serving", "serve_bf16", "serve_int8", "serve_spec",
           "training", "flash_training", "gpt2_training", "bert_training",
-          "mha", "mla_decode", "deepseek_v2_lite")
+          "mha", "mla_decode", "deepseek_v2_lite", "ddp_gpt2",
+          "ddp_compressed")
 # kernels that no path of this script launches: held against their plain
 # versions in the kernel phase only (the JAX serving engine does not take
-# the fused int8 verify either: it dequantizes with #15, then verifies)
-KERNEL_PHASE_ONLY = ("spec_verify",)
+# the fused int8 verify either: it dequantizes with #15, then verifies;
+# no JAX library path dequantizes int4 codes with #17: the int4 sum is
+# int32 and goes through #15; the int4 gather takes the fused #23/#24 by
+# default, and #18/#19 (with #16 and #15) only with its fused_cc gate off)
+KERNEL_PHASE_ONLY = ("spec_verify", "dequantize_int4", "pack_int4",
+                     "unpack_int4")
 SOURCES = {  # kernel -> (its source, the TPU kernel it replaces)
     "rms_norm": ("apex_tpu_torch/csrc/rms_norm.cu",
                  "apex_tpu/kernels/norm.py:85"),
@@ -3045,6 +3646,18 @@ SOURCES = {  # kernel -> (its source, the TPU kernel it replaces)
                     "apex_tpu/kernels/fused_cc.py:453"),
     "mla_decode": ("apex_tpu_torch/csrc/mla_decode.cu",
                    "apex_tpu/contrib/mla_decode.py:62"),
+    "quantize_int4": ("apex_tpu_torch/csrc/quant4.cu",
+                      "apex_tpu/kernels/quant4.py:116"),
+    "dequantize_int4": ("apex_tpu_torch/csrc/quant4.cu",
+                        "apex_tpu/kernels/quant4.py:121"),
+    "pack_int4": ("apex_tpu_torch/csrc/quant4.cu",
+                  "apex_tpu/kernels/quant4.py:125"),
+    "unpack_int4": ("apex_tpu_torch/csrc/quant4.cu",
+                    "apex_tpu/kernels/quant4.py:132"),
+    "quantize_pack_int4": ("apex_tpu_torch/csrc/quant4.cu",
+                           "apex_tpu/kernels/fused_cc.py:598"),
+    "unpack_dequantize_int4": ("apex_tpu_torch/csrc/quant4.cu",
+                               "apex_tpu/kernels/fused_cc.py:606"),
 }
 
 
@@ -3082,7 +3695,7 @@ def main(argv):
                    + check_flash(gen) + check_layer_norm(gen)
                    + check_masked_softmax(gen) + check_lamb(gen)
                    + check_quant(gen) + check_spec_verify(gen)
-                   + check_mla_decode(gen))
+                   + check_mla_decode(gen) + check_quant4(gen))
         check_per_row_attention(gen)
         check_refusals()
         for e in entries:
@@ -3107,7 +3720,9 @@ def main(argv):
             "gpt2_training": phase_gpt2_training,
             "bert_training": phase_bert_training, "mha": phase_mha,
             "mla_decode": phase_mla_decode,
-            "deepseek_v2_lite": phase_deepseek_v2_lite}
+            "deepseek_v2_lite": phase_deepseek_v2_lite,
+            "ddp_gpt2": phase_ddp_gpt2,
+            "ddp_compressed": phase_ddp_compressed}
     for name in phases:  # in the order given, repeats included
         if name not in runs:
             continue  # kernels and serving ran above

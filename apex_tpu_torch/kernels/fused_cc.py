@@ -1,27 +1,229 @@
-"""Window attention over the KV cache and speculative-verify attention
-over the int8 cache: the CUDA kernels (csrc/window_attention.cu,
-csrc/spec_verify.cu) and their plain PyTorch versions.
+"""The fused computation-collective kernels of
+``apex_tpu/kernels/fused_cc.py``: the CUDA kernels and their plain
+PyTorch versions.
 
-Counterpart of ``apex_tpu/kernels/fused_cc.py`` family (b):
-``window_attention`` (the prefill and verify window) and
+Family (a), the tensor-parallel projections joined to their collective
+(mesh2d's row-parallel ``wo``): :func:`matmul_reduce_from` runs the GEMM
+in column tiles and all-reduces each tile as it is done;
+:func:`matmul_reduce_scatter` and :func:`all_gather_matmul` run their
+rings, one send to the next rank and one receive from the previous a
+step, with a chunk GEMM between. The GEMM is :func:`_matmul`, kernel #20
+(csrc/fused_cc_matmul.cu, counted as ``tp_matmul``); its plain version is
+:func:`matmul_plain`. Each fused form hands the collectives exactly the
+elements of its unfused form: T all-reduces of payload/T are one of the
+payload, g - 1 ring steps of a 1/g chunk are one reduce-scatter or
+all-gather.
+
+Family (b): ``window_attention`` (the prefill and verify window) and
 ``spec_verify_attention`` (the verify window read straight from the int8
 blockwise serving store). Each batch row may sit at its own offset: the
 serving engine's slots are at different fill levels (the JAX functions
 take one scalar start and run under ``vmap`` over slots). The fused int4
 kernels of family (c) are in :mod:`apex_tpu_torch.kernels.quant4`, beside
-the unfused ones they fuse; the GEMM of family (a) is still to be ported.
+the unfused ones they fuse.
 """
 
 import ctypes
 import functools
 
 import torch
+import torch.distributed as dist
 
 from apex_tpu_torch.kernels import _build, _checks, quant, registry
+from apex_tpu_torch.parallel import groups
 
 NEG_INF = -1e30
+# column tiles of matmul_reduce_from: each tile's all-reduce follows its
+# GEMM
+DEFAULT_TILES = 4
+TP_MATMUL = registry.register("tp_matmul")
 WINDOW_ATTENTION = registry.register("window_attention")
 SPEC_VERIFY = registry.register("spec_verify")
+
+
+# ------------------------------------------- family (a): GEMM + collective
+
+def matmul_plain(x, w):
+    """``x @ w`` accumulated in fp32 and cast to the result type of x and
+    w, as the TPU kernel computes it (x [..., k], w [k, n])."""
+    return torch.matmul(x.float(), w.float()).to(torch.result_type(x, w))
+
+
+@functools.lru_cache(maxsize=1)
+def _mm_kernel():
+    p, i, ll = _checks.ptr, ctypes.c_int, ctypes.c_longlong
+    return _build.function("fused_cc_matmul", "apex_tp_matmul",
+                           [p, p, p, i, i, i, ll, ll, i, i, p])
+
+
+def _matmul(x, w):
+    """``x @ w`` (x [..., k] fp32 or bf16, w [k, n] fp32 or bf16), fp32
+    accumulation, in the result type of x and w: the compute half of every
+    fused form. A CPU tensor takes :func:`matmul_plain`; a CUDA tensor
+    launches kernel #20 or raises. w may be a column slice of a wider
+    matrix (its rows any distance apart, its columns adjacent): the kernel
+    reads it in place."""
+    name = "tp_matmul"
+    if not _checks.on_cuda(name, x, w):
+        return matmul_plain(x, w)
+    if w.dim() != 2 or x.dim() < 1 or x.shape[-1] != w.shape[0]:
+        raise ValueError(f"{name}: x [..., k] and w [k, n] do not match: "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    xc = _checks.dtype_code(name, x, "x")
+    wc = _checks.dtype_code(name, w, "w")
+    lead, (k, n) = x.shape[:-1], w.shape
+    x2 = x.reshape(-1, k)
+    m = x2.shape[0]
+    if not (m and n and k):
+        raise ValueError(f"{name}: empty product {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    if x2.stride(1) != 1 or w.stride(1) != 1:
+        raise ValueError(f"{name}: the rows of x and w must each be "
+                         f"contiguous")
+    out = torch.empty(m, n, dtype=torch.result_type(x, w), device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _mm_kernel()(x2.data_ptr(), w.data_ptr(), out.data_ptr(), m, n,
+                          k, x2.stride(0), w.stride(0), xc, wc,
+                          _checks.stream(x))
+    _checks.status(name, rc)
+    registry.count(TP_MATMUL)
+    return out.reshape(*lead, n)
+
+
+def _col_tiles(n, want=DEFAULT_TILES):
+    """Largest tile count <= ``want`` dividing the output width."""
+    for t in range(min(want, n), 0, -1):
+        if n % t == 0:
+            return t
+    return 1
+
+
+class _MatmulReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, group, tiles):
+        t = _col_tiles(w.shape[-1], tiles)
+        tn = w.shape[-1] // t
+        outs = []
+        for i in range(t):
+            tile = _matmul(x, w[:, i * tn:(i + 1) * tn])
+            dist.all_reduce(tile, group=group)
+            outs.append(tile)
+        ctx.save_for_backward(x, w)
+        return torch.cat(outs, dim=-1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # reduce_from is the identity under transposition; the products
+        # are the plain local ones (dw is this rank's shard's gradient, dx
+        # feeds copy_to, whose backward all-reduces it)
+        x, w = ctx.saved_tensors
+        dx = torch.matmul(dy, w.t().to(dy.dtype)).to(x.dtype)
+        dy2 = dy.reshape(-1, dy.shape[-1])
+        dw = torch.matmul(x.reshape(-1, x.shape[-1]).t().to(dy.dtype),
+                          dy2).to(w.dtype)
+        return dx, dw, None, None
+
+
+def matmul_reduce_from(x, w, axis_name, tiles=DEFAULT_TILES):
+    """The row-parallel projection joined to the TP reduction:
+    ``reduce_from(x @ w)``, an all-reduce over the axis's group forward
+    and the identity backward. The GEMM runs in ``tiles`` column tiles
+    (kernel #20 on the card) and each tile is all-reduced when it is done,
+    also at world size 1, as JAX sums over a one-device axis; the tiles
+    hand the collective the elements of the one unfused all-reduce."""
+    return _MatmulReduceFrom.apply(x, w, groups.axis_group(axis_name),
+                                   tiles)
+
+
+def _product(x, w):
+    """``x @ w`` in the result type of x and w, as ``jnp`` promotes: the
+    unfused product JAX's rings take at g <= 1."""
+    dtype = torch.result_type(x, w)
+    return torch.matmul(x.to(dtype), w.to(dtype))
+
+
+def _no_grad_ring(name, *tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the ring has no backward here (no library path "
+            f"differentiates it); call it under torch.no_grad()")
+
+
+def _ring_neighbours(group):
+    """(global rank of the next rank, of the previous rank) of the ring
+    r -> r + 1 over ``group``."""
+    g, r = dist.get_world_size(group), dist.get_rank(group)
+    return (dist.get_global_rank(group, (r + 1) % g),
+            dist.get_global_rank(group, (r - 1) % g))
+
+
+def _ppermute(t, group, nxt, prv):
+    """Send ``t`` to the next rank and receive the previous rank's."""
+    got = torch.empty_like(t)
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, t.contiguous(), nxt, group),
+            dist.P2POp(dist.irecv, got, prv, group)]):
+        req.wait()
+    return got
+
+
+def matmul_reduce_scatter(x, w, axis_name):
+    """``reduce_scatter(x @ w)`` over the leading axis: each rank ends with
+    its 1/g row slice of the summed product. At g > 1 a ring: at step s
+    each rank adds the chunk GEMM (#20) of the partial sum passing through
+    it and hands it on, so only an [m/g, n] chunk is live; g - 1 sends of
+    1/g of the product, the elements of one reduce-scatter. At g <= 1 the
+    product ``x @ w``, as JAX. Rows that g does not divide raise
+    ValueError, as JAX's reduce-scatter of the whole product does.
+    Forward only."""
+    name = "matmul_reduce_scatter"
+    _no_grad_ring(name, x, w)
+    m = x.shape[0]
+    g = groups.axis_size(axis_name)
+    if g <= 1:
+        return _product(x, w)
+    if m % g:
+        raise ValueError(f"{name}: {m} rows do not split over {g} ranks "
+                         f"(JAX's psum_scatter refuses them too)")
+    group = groups.axis_group(axis_name)
+    r = dist.get_rank(group)
+    nxt, prv = _ring_neighbours(group)
+    chunk = m // g
+    acc = None
+    for s in range(g):
+        c = (r - 1 - s) % g
+        part = _matmul(x[c * chunk:(c + 1) * chunk], w)
+        acc = part if acc is None else _ppermute(acc, group, nxt, prv) + part
+    return acc
+
+
+def all_gather_matmul(x_shard, w, axis_name):
+    """``all_gather(x_shard) @ w`` (the shards stacked along rows): each
+    rank GEMMs (#20) the chunk it holds into its rows of the output while
+    the ring passes the chunks on, so the gathered activation never
+    exists; g - 1 sends of one shard, the elements of one all-gather. At
+    g <= 1 the product ``x_shard @ w``, as JAX. Forward only."""
+    _no_grad_ring("all_gather_matmul", x_shard, w)
+    g = groups.axis_size(axis_name)
+    if g <= 1:
+        return _product(x_shard, w)
+    group = groups.axis_group(axis_name)
+    r = dist.get_rank(group)
+    nxt, prv = _ring_neighbours(group)
+    ms = x_shard.shape[0]
+    out = torch.empty(g * ms, w.shape[-1],
+                      dtype=torch.result_type(x_shard, w),
+                      device=x_shard.device)
+    cur = x_shard
+    for s in range(g):
+        src = (r - s) % g
+        out[src * ms:(src + 1) * ms] = _matmul(cur, w)
+        if s < g - 1:
+            cur = _ppermute(cur, group, nxt, prv)
+    return out
+
+
+# ------------------------------------- family (b): window attention
 
 
 def window_attention_plain(qg, kt, vt, start, sm_scale, window=None,

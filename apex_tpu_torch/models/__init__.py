@@ -23,6 +23,7 @@ from apex_tpu_torch.models.mla import (
 )
 from apex_tpu_torch.models.params import (
     from_jax_params,
+    from_jax_segments,
     init_weights,
     load_jax_optimizer_state,
 )
@@ -31,8 +32,9 @@ from apex_tpu_torch.models.transformer_lm import RopeScaling, TransformerConfig
 __all__ = [
     "BertModel", "DeepseekModel", "GPTModel", "KVCache", "MLACache",
     "MLAConfig", "RopeScaling", "TransformerConfig", "bert_loss_fn",
-    "decode_step", "filter_logits", "from_jax_params", "generate", "gpt_loss_fn", "init_cache",
-    "init_weights", "load_jax_optimizer_state", "mla_cached_generate",
+    "decode_step", "filter_logits", "from_jax_params", "from_jax_segments",
+    "generate", "gpt_loss_fn", "init_cache", "init_weights",
+    "load_jax_optimizer_state", "mla_cached_generate",
     "mla_greedy_generate", "prefill", "sample_logits",
     "speculative_generate", "verify_step",
 ]

@@ -30,6 +30,7 @@ from apex_tpu_torch.models.transformer_lm import (
 )
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.transformer.enums import AttnMaskType
+from apex_tpu_torch.transformer.parallel_state import refuse_tensor_parallel
 from apex_tpu_torch.transformer.tensor_parallel import (
     VocabParallelEmbedding,
     vocab_parallel_cross_entropy,
@@ -62,6 +63,7 @@ class BertModel(nn.Module):
     def __init__(self, config: TransformerConfig, num_tokentypes=2,
                  add_binary_head=True, device=None):
         super().__init__()
+        refuse_tensor_parallel("BertModel")
         if config.attn_mask_type != AttnMaskType.padding:
             raise ValueError(
                 "BERT is bidirectional: config.attn_mask_type must be "

@@ -22,6 +22,7 @@ from apex_tpu_torch.models.transformer_lm import (
     TransformerConfig,
     _make_norm,
 )
+from apex_tpu_torch.transformer.parallel_state import refuse_tensor_parallel
 from apex_tpu_torch.transformer.tensor_parallel import (
     VocabParallelEmbedding,
     vocab_parallel_cross_entropy,
@@ -43,6 +44,7 @@ class GPTModel(nn.Module):
     def __init__(self, config: TransformerConfig, num_layers=None,
                  device=None):
         super().__init__()
+        refuse_tensor_parallel("GPTModel")
         device = resolve_device(device)
         cfg = config
         self.config = cfg

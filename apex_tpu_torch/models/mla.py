@@ -47,6 +47,7 @@ from apex_tpu_torch.contrib import mla_decode
 from apex_tpu_torch.models.transformer_lm import _rope_core
 from apex_tpu_torch.normalization import FusedRMSNorm
 from apex_tpu_torch.transformer.moe import SwitchMLP
+from apex_tpu_torch.transformer.parallel_state import refuse_tensor_parallel
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -345,6 +346,7 @@ class DeepseekModel(nn.Module):
 
     def __init__(self, config: MLAConfig, device=None):
         super().__init__()
+        refuse_tensor_parallel("DeepseekModel")
         device = resolve_device(device)
         cfg = config
         self.config = cfg

@@ -50,6 +50,20 @@ def from_jax_params(tree, config=None):
     return state
 
 
+def from_jax_segments(segments):
+    """The port's mesh2d segment tuple
+    (:func:`apex_tpu_torch.parallel.mesh2d.gpt2_init`'s layout) from
+    ``apex_tpu.parallel.mesh2d``'s, whose leaves are numpy arrays
+    (``jax.tree.map(np.asarray, seg_params)``): the same nested dicts of
+    CPU tensors, as :func:`from_jax_params` gives them."""
+    def carry(tree):
+        return {k: carry(v) if isinstance(v, dict) or hasattr(v, "items")
+                else torch.from_numpy(np.array(v, copy=True))
+                for k, v in tree.items()}
+
+    return tuple(carry(seg) for seg in segments)
+
+
 @torch.no_grad()
 def load_jax_optimizer_state(optimizer, model, state):
     """Carry the JAX ``FusedAdam`` or ``FusedLAMB`` state of ``model``'s

@@ -5,9 +5,10 @@ Counterpart of ``apex_tpu/parallel``: :mod:`.compression` (the int8 block
 core and the bf16/int8/int4 compressed collectives with error feedback),
 :mod:`.distributed` (``DistributedDataParallel``, bucketed or per-leaf
 gradient sync, ``Reducer``), :mod:`.sync_batchnorm`, :mod:`.LARC`,
-:mod:`.multiproc` (process-group bring-up and the launcher) and
-:mod:`.groups` (mesh axis names -> process groups). ``mesh2d``,
-``overlap`` and ``pipeline`` come with ROADMAP items 3, 2(b) and 6.
+:mod:`.multiproc` (process-group bring-up and the launcher),
+:mod:`.groups` (mesh axis names -> process groups) and :mod:`.mesh2d`
+(the 2-D (data, model) mesh step; import it by name). ``overlap`` and
+``pipeline`` come with ROADMAP items 2(b) and 6.
 """
 
 import copy

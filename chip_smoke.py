@@ -52,6 +52,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the MLP's ([16400, 256]), and off the path (odd widths, zero and
    clipped blocks, one row, unpack's n); the int8 quantize on given
    scales and the int8 dequantize on int32 totals at the GPT-2 bucket.
+   The TP GEMM at GPT-2 345M's two row-parallel tiles ([8192, 4096] and
+   [8192, 1024] fp32 against a strided 256-column tile of wo) and at
+   tp_dp's ([128, 1024] and [128, 256] against a strided 64-column tile),
+   held per element to TP_MATMUL_TOL of |x| @ |w|, with two planted
+   faults at each that must read past it, and off the path (ragged rows, N and K, one row,
+   bf16 x or w, a 3-D x, strided rows of x, a w view off 16 bytes).
    Malformed CUDA inputs to every wrapper are refused and not counted.
 3. serving: ``GPTModel`` at TinyLlama-1.1B width (22 layers, seeded
    random weights) and ``generate(batch 8, prompt 128, 32 new tokens,
@@ -143,6 +149,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 12. ddp_compressed: ``bench.py bench_ddp_compressed`` as it stands (a 4 x
    1024 tanh MLP, batch 64, RandomState(0), w - 0.05 g, one bucket) in
    int8 and int4: counted steps, 30 timed steps, steps/s, the loss falls.
+13. tp_dp: ``parallel.mesh2d``'s 2-D step as ``bench.py bench_tp_dp``
+   builds it (hidden 256, 4 layers, 8 heads, vocab 256, 32 positions,
+   batch 4, int8 on "data", lr 0.05, mode="baseline") on a 1 x 1 mesh
+   over a one-rank NCCL group, fused off and on: counted steps (#20 32 a
+   step fused, 0 unfused; one #14 and #15 a bucket), 10 timed steps,
+   steps/s, the TP all-reduces and their host time, a profile, and the
+   two runs' losses held step by step; the same pair with an fp32 sync,
+   held at every step to step 1's limit, and the fused run with each of
+   two planted #20 faults, which must fail the int8 pair's hold.
+14. tp_gpt2: the same step at GPT-2 345M's widths (24 x 1024, 16 heads,
+   vocab 50304, 8 x 1024 tokens), fused: step 1's loss and six gradients
+   held against the plain versions, counted steps (#20 192 a step), step
+   ms, tokens/s, peak memory, a profile with #20's share of the busy
+   time; one unfused step's loss held against the fused step 1's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -150,6 +170,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -342,6 +363,15 @@ MLA_TOL = ATTN_TOL
 # context, as the serve phases do, routes its tokens through other bf16
 # roundings than the steps did.
 MOE_LOGIT_TOL = 2 * LOGIT_TOL
+# the TP GEMM #20 against its plain version (torch.matmul in fp32, TF32
+# off) on the same inputs: both sum the same fp32 products over k, each
+# in its own order, so two sums differ by a few fp32 roundings of the
+# partial sums, which |x| @ |w| bounds: per element |got - want| <= 1e-6 *
+# (|x| @ |w|) (2**-23 = 1.2e-7 is one rounding of the whole magnitude).
+# A skipped K step of 16 terms, or a column tile shifted by one, reads
+# far past it (TP_MATMUL_FAULTS). A bf16 output adds one bf16 rounding:
+# 2**-8 of |want|.
+TP_MATMUL_TOL = 1e-6
 
 
 def log(msg):
@@ -457,6 +487,7 @@ def plain_versions():
              (quant, "dequantize_rows", quant.dequantize_rows_plain),
              (fused_cc, "spec_verify_attention",
               fused_cc.spec_verify_reference),
+             (fused_cc, "_matmul", fused_cc.matmul_plain),
              (norm, "rms_bwd_dx", norm.rms_bwd_dx_plain),
              (norm, "ln_fwd", norm.ln_fwd_plain),
              (norm, "ln_bwd_dx", norm.ln_bwd_dx_plain),
@@ -1559,6 +1590,111 @@ def check_quant4(gen):
     return entries
 
 
+def _gemm_ratio(got, want, mag):
+    """Largest |got - want| / (|x| @ |w|) over the elements."""
+    return ((got.float() - want.float()).abs()
+            / mag.clamp_min(1e-30)).max().item()
+
+
+def _tp_matmul_raw(x2, w, k):
+    """Kernel #20 launched on x2 [m, >= k] and w [>= k, n] with the
+    contraction cut to k (its first k columns and rows), uncounted: for
+    the planted faults."""
+    from apex_tpu_torch.kernels import _checks, fused_cc
+    out = torch.empty(x2.shape[0], w.shape[1], device="cuda")
+    rc = fused_cc._mm_kernel()(
+        x2.data_ptr(), w.data_ptr(), out.data_ptr(), x2.shape[0],
+        w.shape[1], k, x2.stride(0), w.stride(0), 0, 0, _checks.stream(x2))
+    _checks.status("tp_matmul", rc)
+    return out
+
+
+def check_tp_matmul(gen):
+    """#20 at the row-parallel tiles of both TP paths, each x against the
+    second column tile of the full wo (a strided view read in place):
+    GPT-2 345M's (``tp_gpt2``: x [8192, 4096] and [8192, 1024] fp32, 256
+    of wo's 1024 columns) and ``bench.py tp_dp``'s (x [128, 1024] and
+    [128, 256], 64 of 256 columns: a grid of one block). Each is held to
+    TP_MATMUL_TOL of |x| @ |w| per element; planted faults (the last K
+    step skipped, the tile's columns shifted by one, both through the
+    kernel's own launch) must read past that limit. Off the path: rows
+    not a multiple of 8 and one row, N not a multiple of the block tile,
+    K not a multiple of the K step, bf16 x, bf16 w, a 3-D x, rows of x
+    apart by more than K, a strided w view off a 16-byte boundary."""
+    from apex_tpu_torch.kernels import fused_cc, registry
+    entries, honest, faults = [], [], []
+    tiles = []  # each path's MLP wo tile first, then its attention wo's
+    for path, model, batch in (("tp_gpt2", TP_GPT2_MODEL, TP_GPT2_BATCH),
+                               ("tp_dp", TP_DP_MODEL, TP_DP_BATCH)):
+        rows, h = batch * model["max_seq"], model["hidden"]
+        tiles += [(f"{path} mlp wo", rows, 4 * h, h),
+                  (f"{path} attn wo", rows, h, h)]
+    for label, m, k, width in tiles:
+        n = width // fused_cc.DEFAULT_TILES
+        x = _randn(gen, m, k, dtype=torch.float32)
+        w_full = _randn(gen, k, width, dtype=torch.float32, scale=k ** -0.5)
+        w = w_full[:, n:2 * n]
+        mag = torch.matmul(x.abs(), w.abs())
+        before = registry.launches()["tp_matmul"]
+        got = fused_cc._matmul(x, w)
+        assert registry.launches()["tp_matmul"] == before + 1
+        want = fused_cc.matmul_plain(x, w)
+        torch.cuda.synchronize()
+        honest.append(_gemm_ratio(got, want, mag))
+        faults.append((f"{label}: last K step skipped", _gemm_ratio(
+            _tp_matmul_raw(x, w, k - 16), want, mag)))
+        faults.append((f"{label}: tile columns shifted by one", _gemm_ratio(
+            _tp_matmul_raw(x, w_full[:, n + 1:2 * n + 1], k), want, mag)))
+        entries.append(entry(
+            "tp_matmul", f"{label} tile [{m}, {k}] x [{k}, {n}] of "
+            f"[{k}, {width}] fp32", got, want,
+            f"per element <= {TP_MATMUL_TOL} * (|x| @ |w|); read "
+            f"{honest[-1]:.3e}",
+            lambda: fused_cc._matmul(x, w),
+            lambda: fused_cc.matmul_plain(x, w), lambda: torch.matmul(x, w),
+            bound(4 * (m * k + k * n + m * n), 2 * m * n * k,
+                  FP32_OPS_PER_S)))
+        del x, w_full, w, mag, got, want
+    log(f"kernel tp_matmul: path tiles read {max(honest):.3e} of |x| @ |w| "
+        f"(limit {TP_MATMUL_TOL}); planted faults: "
+        + "; ".join(f"{name} {r:.3e}" for name, r in faults))
+    assert max(honest) <= TP_MATMUL_TOL, honest
+    assert all(r > TP_MATMUL_TOL for _, r in faults), faults
+
+    def f32(*shape, dtype=torch.float32):
+        return _randn(gen, *shape, dtype=dtype)
+
+    wide = f32(256, 300)
+    cases = [("13 rows", f32(13, 256), f32(256, 64)),
+             ("one row", f32(1, 1024), f32(1024, 1024)[:, 256:512]),
+             ("N 100", f32(300, 128), f32(128, 100)),
+             ("K 1000", f32(256, 1000), f32(1000, 128)),
+             ("bf16 x", f32(512, 1024, dtype=torch.bfloat16),
+              f32(1024, 1024)[:, :256]),
+             ("bf16 x and w", f32(64, 512, dtype=torch.bfloat16),
+              f32(512, 96, dtype=torch.bfloat16)),
+             ("bf16 w", f32(64, 512), f32(512, 96, dtype=torch.bfloat16)),
+             ("3-D x", f32(4, 33, 256), f32(256, 64)),
+             ("x rows 512 apart, K 256", f32(64, 512)[:, :256],
+              f32(256, 80)),
+             ("w view off 16 bytes", f32(130, 256), wide[:, 3:203])]
+    for label, x, w in cases:
+        got = fused_cc._matmul(x, w)
+        want = fused_cc.matmul_plain(x, w)
+        mag = torch.matmul(x.float().abs(), w.float().abs())
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape, label
+        tol = mag * TP_MATMUL_TOL
+        if got.dtype == torch.bfloat16:
+            tol = tol + want.float().abs() * 2.0 ** -8
+        over = ((got.float() - want.float()).abs() - tol).max().item()
+        assert over <= 0, (label, over)
+        log(f"kernel tp_matmul {label} {tuple(x.shape)} x {tuple(w.shape)}"
+            f" -> {got.dtype}: {_gemm_ratio(got, want, mag):.3e} of "
+            f"|x| @ |w| (within the limit)")
+    return entries
+
+
 def _verify_inputs(gen, b, g, rep, d, T, block, w):
     """q [w, b, g, rep, d] bf16 and the int8 store's codes and scales of
     random K/V rows, quantized by the plain version."""
@@ -1945,11 +2081,25 @@ def check_refusals():
         mq, mc, torch.ones(2, device="cuda"), 512, 0.1))
     refused(ValueError, lambda: mla_decode.mla_flash_decode(
         mq, mc.cpu(), 4, 512, 0.1))  # two devices
+    # the TP GEMM
+    tx = torch.zeros(16, 64, device="cuda")
+    tw = torch.zeros(64, 32, device="cuda")
+    refused(TypeError, lambda: fused_cc._matmul(tx.half(), tw))
+    refused(TypeError, lambda: fused_cc._matmul(tx, tw.double()))
+    refused(ValueError, lambda: fused_cc._matmul(tx, tw[:32]))  # k differs
+    refused(ValueError, lambda: fused_cc._matmul(tx, tw[None]))  # 3-D w
+    refused(ValueError, lambda: fused_cc._matmul(tx[:0], tw))  # no rows
+    refused(ValueError, lambda: fused_cc._matmul(  # w's columns apart
+        tx, torch.zeros(64, 64, device="cuda")[:, ::2]))
+    refused(ValueError, lambda: fused_cc._matmul(  # x's columns apart
+        torch.zeros(16, 128, device="cuda")[:, ::2], tw))
+    refused(ValueError, lambda: fused_cc._matmul(tx, tw.cpu()))
     assert registry.launches() == before, "a refused call was counted"
     log("kernels: malformed CUDA inputs are refused (dtype, layout, range, "
         "head dim, shapes, list lengths, window, slopes, lse/delta, "
         "weight/bias, masks that do not broadcast, clip, block, scales, "
-        "codes, lanes, per-row offsets, latent widths, alignment)")
+        "codes, lanes, per-row offsets, latent widths, alignment, GEMM "
+        "operands)")
 
 
 # ------------------------------------------------------------- phases 3, 4
@@ -3592,6 +3742,348 @@ def phase_ddp_compressed():
     return launches
 
 
+# ------------------------------------------------- tensor parallelism
+
+# bench.py bench_tp_dp (bench.py:1897; its CLI batch 4): mesh2d's GPT-2
+# block stack at hidden 256, 4 layers, 8 heads, vocab 256, 32 positions,
+# the int8 DP sync on "data", SGD at lr 0.05, 10 timed steps
+TP_DP_MODEL = dict(hidden=256, layers=4, heads=8, vocab=256, max_seq=32)
+TP_DP_BATCH, TP_DP_STEPS = 4, 10
+# mesh2d's model at GPT-2 345M widths (bench_gpt2: 24 x 1024, 16 heads,
+# vocab 50304, 1024 positions), a batch of 8 x 1024 tokens
+TP_GPT2_MODEL = dict(hidden=1024, layers=24, heads=16, vocab=50304,
+                     max_seq=1024)
+TP_GPT2_BATCH = 8
+# the fused and unfused steps' losses: at step 1 the two forwards differ
+# only in #20 against cuBLAS in the row-parallel products, fp32 sums in
+# another order: 1e-5 relative (a skipped K step or a shifted tile moves
+# the loss by far more). Later steps also carry the int8 sync's codes
+# that round the other way where the two gradients straddle a boundary
+# of their block's grid, each a step of lr x the block's scale in some
+# weight, and SGD at lr 0.05 compounds them as the loss falls from 5.9
+# to 0.74 in 13 steps: the runs drift apart to 8.0e-4 relative by step 12
+# on an H100 80GB HBM3 at 700 W; held to 4e-3 (5x that). The phase
+# shows the cause and the limit's reach: with an fp32 sync (no int8
+# codes) the same two runs stay within 6.5e-7 at every step, and are held
+# to the step-1 limit at every step; of the planted #20 faults
+# (TP_DP_FAULTS), a skipped K step reads 1.4e-2 at step 1 and up to 0.22
+# after, past both limits, and bf16 operands read 6.4e-5 at step 1, seen
+# there only (3.5e-3 at most after, under 4e-3). The step-1 loss and
+# gradients of the kernels against the plain versions: TRAIN_LOSS_RTOL
+# and 1e-4 (Frobenius; fp32 throughout).
+TP_FIRST_LOSS_RTOL, TP_LOSS_RTOL, TP_GRAD_RTOL = 1e-5, 4e-3, 1e-4
+
+
+def _skip_last_k_step(real):
+    """#20 with its contraction one K step (16 terms) short."""
+    def fault(x, w):
+        out = _tp_matmul_raw(x.reshape(-1, x.shape[-1]), w, w.shape[0] - 16)
+        return out.reshape(*x.shape[:-1], w.shape[1])
+    return fault
+
+
+def _bf16_operands(real):
+    """#20 on operands rounded to bf16, as a tensor-core product would
+    read them."""
+    return lambda x, w: real(x.bfloat16(), w.bfloat16()).float()
+
+
+# planted into the fused tp_dp run in place of #20: each must fail the
+# fused-vs-unfused loss hold (step 1 or a later step)
+TP_DP_FAULTS = (("#20 skips its last K step", _skip_last_k_step),
+                ("#20 rounds its operands to bf16", _bf16_operands))
+
+
+@contextlib.contextmanager
+def tp_mesh():
+    """mesh2d's 1 x 1 (data, model) mesh on a one-rank NCCL group; the axis
+    names unbound again after the phase."""
+    from apex_tpu_torch.parallel import groups, mesh2d
+    with one_rank_group():
+        try:
+            yield mesh2d.mesh_2d(1, 1)
+        finally:
+            for axis in (mesh2d.DATA_AXIS, mesh2d.MODEL_AXIS):
+                groups.register_axis(axis, None)
+
+
+@contextlib.contextmanager
+def _tp_all_reduces(into):
+    """Record the all-reduces of 3-D activations (the TP row-parallel
+    tiles; the DP sync reduces flat buffers) into ``into``: the host
+    seconds of each call."""
+    import torch.distributed as dist
+    real = dist.all_reduce
+
+    def counted(t, *a, **k):
+        if t.dim() != 3:
+            return real(t, *a, **k)
+        t0 = time.perf_counter()
+        out = real(t, *a, **k)
+        into.append(time.perf_counter() - t0)
+        return out
+
+    dist.all_reduce = counted
+    try:
+        yield
+    finally:
+        dist.all_reduce = real
+
+
+def _tp_expected(layers, fused, buckets):
+    """Each kernel's launches in one mesh2d step: 4 tiles of #20 for each
+    of the 2 row-parallel projections a layer with ``fused``; one #14 and
+    one #15 for each int8 bucket of the DP sync."""
+    from apex_tpu_torch.kernels import registry
+    return {**dict.fromkeys(registry.launches(), 0),
+            "tp_matmul": 8 * layers if fused else 0,
+            "quantize_int8": buckets, "dequantize_int8": buckets}
+
+
+def _tp_steps(label, step, state, batch, expected, timed):
+    """COUNTED_STEPS steps with the counts set to 0 before each and checked
+    after it (and the TP all-reduces of activations counted), then
+    ``timed`` steps on the host clock, synchronized. Returns (losses,
+    launch totals, step ms list, state, TP all-reduces a step, their host
+    ms a step)."""
+    from apex_tpu_torch.kernels import registry
+    sp, res = state
+    losses, totals, per_step, host = [], dict.fromkeys(expected, 0), [], []
+    for k in range(COUNTED_STEPS):
+        calls = []
+        registry.reset()
+        with _tp_all_reduces(calls):
+            sp, res, loss = step(sp, res, *batch)
+            losses.append(loss.item())
+        got = registry.launches()
+        assert got == expected, (label, k, got, expected)
+        for name in totals:
+            totals[name] += got[name]
+        per_step.append(len(calls))
+        host.append(sum(calls) * 1e3)
+    assert len(set(per_step)) == 1, per_step
+    ms = []
+    for _ in range(timed):
+        t, (sp, res, loss) = _wall_ms(lambda: step(sp, res, *batch))
+        ms.append(t)
+        losses.append(loss.item())
+    assert all(math.isfinite(v) for v in losses), losses
+    return (losses, totals, ms, (sp, res), per_step[0],
+            statistics.median(host))
+
+
+def _tp_dp_losses(mesh, seg, batch, fused, compress="int8"):
+    """The losses of COUNTED_STEPS + TP_DP_STEPS tp_dp steps, uncounted:
+    the runs the honest ones are compared with."""
+    from apex_tpu_torch.parallel import mesh2d
+    step, (sp, res) = mesh2d.build_train_step(
+        mesh, seg, hidden=TP_DP_MODEL["hidden"], heads=TP_DP_MODEL["heads"],
+        fused=fused, compress=compress)
+    losses = []
+    for _ in range(COUNTED_STEPS + TP_DP_STEPS):
+        sp, res, loss = step(sp, res, *batch)
+        losses.append(loss.item())
+    return losses
+
+
+def _rel_diffs(a, b):
+    return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+
+def phase_tp_dp():
+    """bench.py bench_tp_dp's 2-D step on a 1 x 1 mesh (one-rank NCCL
+    group): mode="baseline", int8 on "data", fused off and on, 3 counted
+    and 10 timed steps each; the two runs' losses held step by step. Then
+    the same pair with an fp32 sync, held to the step-1 limit at every
+    step, and the fused run with each of TP_DP_FAULTS planted, which must
+    fail the int8 pair's hold."""
+    from apex_tpu_torch.kernels import fused_cc
+    from apex_tpu_torch.parallel import mesh2d, plan_buckets
+    from apex_tpu_torch.parallel.distributed import _leaves
+    m = TP_DP_MODEL
+    launches, runs, faults = {}, {}, {}
+    with tp_mesh() as mesh:
+        seg = mesh2d.gpt2_init(**m)
+        batch = mesh2d.make_batch(mesh, batch_per_replica=TP_DP_BATCH,
+                                  seq=m["max_seq"], vocab=m["vocab"])
+        buckets = len(plan_buckets(_leaves(seg), DDP_MESSAGE_SIZE))
+        for fused in (False, True):
+            name = "fused" if fused else "unfused"
+            step, state = mesh2d.build_train_step(
+                mesh, seg, hidden=m["hidden"], heads=m["heads"],
+                mode="baseline", fused=fused)
+            expected = _tp_expected(m["layers"], fused, buckets)
+            losses, totals, ms, (sp, res), tp_calls, tp_ms = _tp_steps(
+                f"tp_dp {name}", step, state, batch, expected, TP_DP_STEPS)
+            runs[name] = losses
+            launches[f"tp_dp_{name}"] = totals
+            log(f"tp_dp {name}: {m}, batch {TP_DP_BATCH} x {m['max_seq']}, "
+                f"int8 sync ({buckets} bucket): launches per step "
+                f"{ {k: v for k, v in expected.items() if v} } (every "
+                f"counted step); TP all-reduces a step {tp_calls} "
+                f"({tp_ms:.2f} ms of host time, median of the counted "
+                f"steps); {TP_DP_STEPS} steps {_spread(ms)} = "
+                f"{1e3 / statistics.median(ms):.1f} steps/s (host clock, "
+                f"synchronized); losses {runs[name]}")
+            profile_window(f"tp_dp {name} step",
+                           lambda: step(sp, res, *batch), top=5,
+                           watch=("matmul_kernel<", "gemm", "nccl"))
+        fp32_sync = _rel_diffs(
+            _tp_dp_losses(mesh, seg, batch, True, compress=None),
+            _tp_dp_losses(mesh, seg, batch, False, compress=None))
+        for name, fault in TP_DP_FAULTS:
+            real = fused_cc._matmul
+            fused_cc._matmul = fault(real)
+            try:
+                faults[name] = _rel_diffs(
+                    _tp_dp_losses(mesh, seg, batch, True), runs["unfused"])
+            finally:
+                fused_cc._matmul = real
+
+    def fmt(diffs):
+        return [float(f"{d:.3e}") for d in diffs]
+
+    diffs = _rel_diffs(runs["fused"], runs["unfused"])
+    log(f"tp_dp: fused vs unfused losses, relative differences step by "
+        f"step: {fmt(diffs)} (limits {TP_FIRST_LOSS_RTOL} at step 1, "
+        f"{TP_LOSS_RTOL} after); with an fp32 sync: {fmt(fp32_sync)} "
+        f"(limit {TP_FIRST_LOSS_RTOL} at every step)")
+    for name, d in faults.items():
+        log(f"tp_dp: planted fault ({name}): fused vs unfused losses "
+            f"{fmt(d)}")
+    assert diffs[0] <= TP_FIRST_LOSS_RTOL, diffs
+    assert max(diffs) <= TP_LOSS_RTOL, diffs
+    assert max(fp32_sync) <= TP_FIRST_LOSS_RTOL, fp32_sync
+    assert all(d[0] > TP_FIRST_LOSS_RTOL or max(d) > TP_LOSS_RTOL
+               for d in faults.values()), faults
+    assert any(max(d[1:]) > TP_LOSS_RTOL for d in faults.values()), faults
+    assert runs["fused"][-1] < runs["fused"][0], runs["fused"]
+    return launches
+
+
+def _named_leaves(tree, prefix=""):
+    """The dotted names of ``tree``'s leaves in jax.tree_util order (dicts
+    by sorted key, as ``parallel.distributed`` flattens them)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _named_leaves(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree)
+                for n in _named_leaves(t, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def _tp_grads(shards, batch, head_dim, held):
+    """The loss of one fused forward on ``shards`` and the gradients of the
+    leaves named in ``held``."""
+    from apex_tpu_torch.parallel import mesh2d
+    from apex_tpu_torch.parallel.distributed import _leaves, _rebuild
+    leaves = [p.detach().requires_grad_() for p in _leaves(shards)]
+    loss = mesh2d.gpt2_loss(_rebuild(shards, leaves), *batch, head_dim,
+                            fused=True)
+    grads = torch.autograd.grad(loss, leaves)
+    names = _named_leaves(shards)
+    return loss.item(), {n: g for n, g in zip(names, grads) if n in held}
+
+
+def phase_tp_gpt2():
+    """mesh2d's 2-D step at GPT-2 345M widths (8 x 1024 tokens) on a 1 x 1
+    mesh, fused, int8 on "data": step 1's loss and gradients held against
+    the plain versions; 3 counted steps (#20 192 a step), 5 timed, a
+    profile; one unfused step's loss against the fused step 1's."""
+    from apex_tpu_torch.kernels import registry
+    from apex_tpu_torch.parallel import mesh2d, plan_buckets
+    from apex_tpu_torch.parallel.distributed import _leaves
+    m = TP_GPT2_MODEL
+    head_dim = m["hidden"] // m["heads"]
+    with tp_mesh() as mesh:
+        t0 = time.perf_counter()
+        seg = mesh2d.gpt2_init(**m)
+        n = sum(p.numel() for p in _leaves(seg))
+        buckets = len(plan_buckets(_leaves(seg), DDP_MESSAGE_SIZE))
+        batch = mesh2d.make_batch(mesh, batch_per_replica=TP_GPT2_BATCH,
+                                  seq=m["max_seq"], vocab=m["vocab"])
+        log(f"tp_gpt2: mesh2d GPT-2 {m}: {n} fp32 parameters drawn in "
+            f"{time.perf_counter() - t0:.1f} s; batch {TP_GPT2_BATCH} x "
+            f"{m['max_seq']}; int8 sync in {buckets} buckets")
+        # step 1's loss and gradients, kernels against plain versions
+        held = {"0.embed.wte", "0.layer.attn.wo", "0.layer.attn.wq",
+                f"{m['layers'] - 1}.layer.mlp.wi",
+                f"{m['layers'] - 1}.layer.mlp.wo", f"{m['layers'] - 1}.head.w"}
+        registry.reset()
+        loss_k, g_k = _tp_grads(seg, batch, head_dim, held)
+        assert registry.launches()["tp_matmul"] == 8 * m["layers"]
+        torch.cuda.synchronize()
+        registry.reset()
+        with plain_versions():
+            loss_p, g_p = _tp_grads(seg, batch, head_dim, held)
+        assert not any(registry.launches().values()), registry.launches()
+        assert g_k.keys() == held, sorted(g_k)
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        grad_err = {n: _rel_fro(g_k[n], g_p[n]) for n in sorted(held)}
+        del g_k, g_p
+        log(f"tp_gpt2: step 1 kernels vs plain versions: loss {loss_k:.6f} "
+            f"vs {loss_p:.6f} (rel err {loss_err:.3e}, limit "
+            f"{TRAIN_LOSS_RTOL}); gradients (rel Frobenius) "
+            + ", ".join(f"{n} {e:.3e}" for n, e in grad_err.items())
+            + f" (limit {TP_GRAD_RTOL})")
+        assert loss_err <= TRAIN_LOSS_RTOL, loss_err
+        assert max(grad_err.values()) <= TP_GRAD_RTOL, grad_err
+        torch.cuda.empty_cache()
+
+        step, state = mesh2d.build_train_step(
+            mesh, seg, hidden=m["hidden"], heads=m["heads"],
+            mode="baseline", fused=True)
+        expected = _tp_expected(m["layers"], True, buckets)
+        torch.cuda.reset_peak_memory_stats()
+        losses, totals, ms, state, tp_calls, tp_ms = _tp_steps(
+            "tp_gpt2", step, state, batch, expected, TIMED_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        assert tp_calls == 8 * m["layers"], tp_calls
+        med = statistics.median(ms)
+        tokens = TP_GPT2_BATCH * m["max_seq"]
+        log(f"tp_gpt2 fused: launches per step "
+            f"{ {k: v for k, v in expected.items() if v} } (every counted "
+            f"step); TP all-reduces a step {tp_calls} (4 column tiles of "
+            f"each row-parallel projection, all in the forward; the region "
+            f"ops are the identity at world 1), {tp_ms:.2f} ms of host time; "
+            f"step {_spread(ms)} = "
+            f"{tokens / med * 1e3:.1f} tokens/s (host clock, synchronized); "
+            f"peak memory {peak:.2f} GiB; losses {losses}")
+        assert losses[COUNTED_STEPS - 1] < losses[0], losses
+        sp, res = state
+        stats = profile_window(
+            "tp_gpt2 fused step", lambda: step(sp, res, *batch), top=10,
+            watch=("matmul_kernel<", "gemm", "softmax", "nccl", "quant"))
+        if stats:
+            us = stats["watch"]["matmul_kernel<"]
+            log(f"tp_gpt2: #20 {us / 1e3:.3f} ms on the device a step "
+                f"({us / stats['busy_us']:.4f} of the busy time, "
+                f"{us / (8 * m['layers']):.2f} us a launch)")
+        del step, state, sp, res
+        torch.cuda.empty_cache()
+
+        # one unfused step from the same parameters
+        step, state = mesh2d.build_train_step(
+            mesh, seg, hidden=m["hidden"], heads=m["heads"],
+            mode="baseline", fused=False)
+        registry.reset()
+        ms_u, (_, _, loss_u) = _wall_ms(lambda: step(*state, *batch))
+        assert registry.launches()["tp_matmul"] == 0
+        ms_u2, _ = _wall_ms(lambda: step(*state, *batch))
+        diff = abs(loss_u.item() - losses[0]) / abs(loss_u.item())
+        log(f"tp_gpt2 unfused: step 1 loss {loss_u.item():.6f} vs fused "
+            f"{losses[0]:.6f} (rel diff {diff:.3e}, limit "
+            f"{TP_FIRST_LOSS_RTOL}); "
+            f"step {ms_u:.2f} ms, again {ms_u2:.2f} ms (host clock, "
+            f"synchronized) vs fused median {med:.2f}")
+        assert diff <= TP_FIRST_LOSS_RTOL, diff
+        del step, state, seg
+        torch.cuda.empty_cache()
+    return {"tp_gpt2": totals}
+
+
+
 # kernel name parts whose summed device time a training profile prints
 PROFILE_WATCH = ("ln_fwd_kernel", "ln_bwd_dx_kernel", "masked_fwd_kernel",
                  "causal_fwd_kernel", "::bwd_kernel<", "lamb_kernel",
@@ -3600,7 +4092,7 @@ PROFILE_WATCH = ("ln_fwd_kernel", "ln_bwd_dx_kernel", "masked_fwd_kernel",
 PHASES = ("kernels", "serving", "serve_bf16", "serve_int8", "serve_spec",
           "training", "flash_training", "gpt2_training", "bert_training",
           "mha", "mla_decode", "deepseek_v2_lite", "ddp_gpt2",
-          "ddp_compressed")
+          "ddp_compressed", "tp_dp", "tp_gpt2")
 # kernels that no path of this script launches: held against their plain
 # versions in the kernel phase only (the JAX serving engine does not take
 # the fused int8 verify either: it dequantizes with #15, then verifies;
@@ -3658,6 +4150,8 @@ SOURCES = {  # kernel -> (its source, the TPU kernel it replaces)
                            "apex_tpu/kernels/fused_cc.py:598"),
     "unpack_dequantize_int4": ("apex_tpu_torch/csrc/quant4.cu",
                                "apex_tpu/kernels/fused_cc.py:606"),
+    "tp_matmul": ("apex_tpu_torch/csrc/fused_cc_matmul.cu",
+                  "apex_tpu/kernels/fused_cc.py:89"),
 }
 
 
@@ -3695,7 +4189,8 @@ def main(argv):
                    + check_flash(gen) + check_layer_norm(gen)
                    + check_masked_softmax(gen) + check_lamb(gen)
                    + check_quant(gen) + check_spec_verify(gen)
-                   + check_mla_decode(gen) + check_quant4(gen))
+                   + check_mla_decode(gen) + check_quant4(gen)
+                   + check_tp_matmul(gen))
         check_per_row_attention(gen)
         check_refusals()
         for e in entries:
@@ -3722,7 +4217,8 @@ def main(argv):
             "mla_decode": phase_mla_decode,
             "deepseek_v2_lite": phase_deepseek_v2_lite,
             "ddp_gpt2": phase_ddp_gpt2,
-            "ddp_compressed": phase_ddp_compressed}
+            "ddp_compressed": phase_ddp_compressed,
+            "tp_dp": phase_tp_dp, "tp_gpt2": phase_tp_gpt2}
     for name in phases:  # in the order given, repeats included
         if name not in runs:
             continue  # kernels and serving ran above

@@ -14,7 +14,12 @@ import functools
 
 import torch
 
-from apex_tpu_torch.kernels import _build, _checks, registry
+from apex_tpu_torch.kernels import (
+    _build,
+    _checks,
+    kv_attention,
+    registry,
+)
 
 NEG_INF = -1e30
 GQA_DECODE = registry.register("gqa_decode")
@@ -43,7 +48,7 @@ def _kernel():
     p, i, f = _checks.ptr, ctypes.c_int, ctypes.c_float
     return _build.function(
         "gqa_decode", "apex_gqa_decode",
-        [p, p, p, p, i, i, i, i, i, p, i, f, f, i, p])
+        [p, p, p, p, i, i, i, i, i, p, i, f, f, i, i, p, p, p])
 
 
 def gqa_flash_decode(q, k, v, length, sm_scale: float, window=None,
@@ -59,7 +64,8 @@ def gqa_flash_decode(q, k, v, length, sm_scale: float, window=None,
     softcap: optional Gemma-2 tanh score cap.
     Returns ctx [b, g, rep, d] fp32. A CPU tensor takes
     :func:`gqa_decode_plain`; a CUDA tensor launches the kernel (head dim
-    64 or 128, any T) or raises."""
+    64 or 128, any T, tensors on 16-byte boundaries) or raises: one
+    launch, the live range split over the SMs (``kv_attention.plan``)."""
     if not _checks.on_cuda("gqa_flash_decode", q, k, v):
         return gqa_decode_plain(q, k, v, length, sm_scale, window, softcap)
     if q.dim() != 4 or k.dim() != 4:
@@ -80,15 +86,19 @@ def gqa_flash_decode(q, k, v, length, sm_scale: float, window=None,
     if softcap is not None and softcap <= 0:
         raise ValueError(f"gqa_flash_decode: softcap ({softcap}) must be > 0")
     _checks.contiguous("gqa_flash_decode", q=q, k=k, v=v)
+    _checks.aligned16("gqa_flash_decode", q=q, k=k, v=v)
     code = _checks.dtype_code("gqa_flash_decode", q, "q")
     lengths = _checks.row_offsets("gqa_flash_decode", length, b, q.device,
                                   "length")
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
+        splits, scratch, counters = kv_attention.workspace(
+            q.device, rep, b * g, d)
         rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), b, g, rep, d, T, lengths.data_ptr(),
                        window or 0, float(sm_scale), float(softcap or 0.0),
-                       code, _checks.stream(q))
+                       code, splits, _checks.data_ptr(scratch),
+                       _checks.data_ptr(counters), _checks.stream(q))
     _checks.status("gqa_flash_decode", rc)
     registry.count(GQA_DECODE)
     return out

@@ -1,10 +1,11 @@
-// Shared body of the three KV-cache attention kernels (window_attention.cu,
-// gqa_decode.cu, spec_verify.cu): flash attention of a few query rows of
-// one (batch, kv-group) cell against that cell's slice of the cache.
+// Body of the int8-cache verify kernel #22 (spec_verify.cu) alone: flash
+// attention of a few query rows of one (batch, kv-group) cell against
+// that cell's slice of the cache. The window and decode kernels (#21,
+// #25) left it for kv_attention.cuh (split over the keys, tensor cores);
+// #22 can take that body later with an Int8KV loader of its own.
 //
 // Layouts (all contiguous, the JAX package's):
 //   q, out  [w, b, g, rep, d]   (decode: w = 1, i.e. [b, g, rep, d]); out fp32
-//   k, v    [T, b, g, d]        the per-layer cache buffers (DenseKV), or
 //   kq, vq  [T, b, nb, B] int8 with ks, vs [T, b, nb] fp32 block scales:
 //                               the int8 serving store (Int8KV), whose
 //                               lane l of a cache row holds the group
@@ -12,9 +13,9 @@
 //   starts  [b] int32           each batch row's own offset
 // A cell's query rows are numbered r = i * rep + j (window position i,
 // head j of the group); row r sits at absolute position start + r / rep,
-// where start = starts[batch row] + start_bias (window and verify: the
-// chunk's first position, bias 0; decode: the live length, bias -1), so
-// the rows of one launch may sit at different fill levels.
+// where start = starts[batch row] + start_bias (the verify chunk's first
+// position, bias 0), so the rows of one launch may sit at different fill
+// levels.
 // Key t is visible to row r iff t <= pos(r) and, with a window,
 // pos(r) - t < window. Masked scores are -1e30 (not -inf), as in the TPU
 // kernels, and the softcap is cap * tanh(s / cap) after the scale.
@@ -73,20 +74,6 @@ struct CellArgs {
   int window;        // <= 0: no sliding window
   float sm_scale;
   float softcap;     // <= 0: no softcap
-};
-
-// K/V of one cell from the per-layer cache buffers [T, b, g, d].
-template <typename T>
-struct DenseKV {
-  const T* k;        // cache row 0 of the cell
-  const T* v;
-  long long stride;  // elements between cache rows (b*g*d)
-  __device__ __forceinline__ void load(long long t, int c, float* kv,
-                                       float* vv) const {
-    const long long off = t * stride + c;
-    *kv = to_float(k[off]);
-    *vv = to_float(v[off]);
-  }
 };
 
 // K/V of one cell from the int8 serving store: codes [T, b, nb, B] and
@@ -255,41 +242,6 @@ __device__ __forceinline__ void attend_rows(const T* __restrict__ q_cell,
 #pragma unroll
     for (int j = 0; j < kCPL; ++j) out_cell[base + lane + 32 * j] = acc[rr][j] * inv;
   }
-}
-
-// One launch: grid (b*g cells, ceil(n_rows / kRows) row tiles).
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-attend_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, float* __restrict__ out, CellArgs a) {
-  const long long cell = blockIdx.x;
-  const long long q_off = cell * a.rep * D;
-  const DenseKV<T> kv{k + cell * D, v + cell * D,
-                      a.pos_stride / a.rep};  // b*g*d
-  const int start = a.starts[cell / a.groups] + a.start_bias;
-  attend_rows<T, D>(q + q_off, kv, out + q_off, blockIdx.y * kRows, start, a);
-}
-
-template <typename T, int D>
-int launch_attend(const void* q, const void* k, const void* v, float* out,
-                  int cells, const CellArgs& a, cudaStream_t stream) {
-  const dim3 grid(cells, (a.n_rows + kRows - 1) / kRows);
-  attend_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), out, a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// dtype codes: 0 = float32, 1 = bfloat16; head dims 64 and 128.
-inline int dispatch_attend(const void* q, const void* k, const void* v,
-                           float* out, int cells, int d, int dtype,
-                           const CellArgs& a, cudaStream_t stream) {
-  if (cells <= 0 || a.n_rows <= 0) return 0;
-  if (dtype == 0 && d == 64) return launch_attend<float, 64>(q, k, v, out, cells, a, stream);
-  if (dtype == 0 && d == 128) return launch_attend<float, 128>(q, k, v, out, cells, a, stream);
-  if (dtype == 1 && d == 64) return launch_attend<__nv_bfloat16, 64>(q, k, v, out, cells, a, stream);
-  if (dtype == 1 && d == 128) return launch_attend<__nv_bfloat16, 128>(q, k, v, out, cells, a, stream);
-  return -1;
 }
 
 }  // namespace apex_flash

@@ -9,42 +9,62 @@
 // are live (and, with a window, t >= length - window);
 // optional tanh softcap; fp32 output [b, g, rep, d].
 //
-// Bound on the H100: memory. The live K/V rows are 2 * length * b*g*d * 2
-// bytes per layer, ~1.3 MB at length 160 for TinyLlama's b*g*d = 2048,
-// under half a microsecond at 3.35 TB/s. What this design takes instead
-// is latency: each block walks its ~length/64 tiles one after another
-// (load, sync, score, sync), so the time grows with the live length at
-// a fixed, small number of blocks (tens of microseconds on an H100 at
-// length ~150, against a launch of a few).
+// Bound on the H100: bytes. The live K/V rows are 2 * length * b*g*d * 2
+// bytes per layer: 1.2 MB at length 144 for TinyLlama's b*g*d = 2048
+// (0.381 us at 3.35 TB/s with the queries and output), 16.8 MB at a full
+// 2048-row slot (5.0 us).
 //
-// Design: one block per (b, g) cell whose rep query rows (8 for
-// TinyLlama, one window position) share every K/V tile the block
-// streams through shared memory, so each live cache row of the group is
-// read from device memory once per step (flash_rows.cuh, with w = 1 and
-// start = length - 1). Tiles start at max(length - window, 0) and stop
-// at length: each row's dead tiles are skipped at its own length.
-// Known limit: b*g = 32 blocks fill a quarter of the 132 SMs; splitting
-// the key range across blocks (flash-decoding) and merging the partial
-// softmaxes is left for a later change.
+// Design (kv_attention.cuh, flash-decoding): the rep query rows of a
+// (b, g) cell (8 for TinyLlama, one window position) pad one 16-row mma
+// tile, and the cell's live key range [max(length - window, 0), length)
+// is cut into splits of whole 16-key steps, read from `lengths` on the
+// device: the grid has S = 16 splits a cell at b*g = 32 cells on 132 SMs
+// (from the shapes and the SM count), and a range uses one split for
+// every 8 steps, up to S (1 at length 144, 16 at 2048). Within a block
+// the 4 warps take one 16-key step each of every 64-key stage (K/V by
+// cp.async, double-buffered), scores and P.V on the tensor cores
+// (mma.m16n8k16; P as three bf16 terms, exact in fp32), each warp with its
+// own online softmax; the warps merge in shared memory, the splits
+// through fp32 scratch and a per-cell counter: the last split block to
+// arrive merges the partials in index order, in the same launch.
+//
+// First design (flash_rows.cuh, the body #22 keeps): one block per cell
+// walking its tiles in sequence on 32 of the 132 SMs, fp32 FMAs with K/V
+// widened in shared memory, two of its four warps idle at rep 8: 27.66 us
+// at length 144 (PERF.md section 6).
+// Known limit: at length 144 the kernel moves 1.2 MB, so its time is the
+// launch, one stage's load latency and the merge's round trip through L2,
+// not bytes. The int8 serving store still goes through #15's dequantize
+// before this kernel (the Int8KV loader of flash_rows.cuh is not ported
+// to this body yet).
 
-#include "flash_rows.cuh"
+#include "kv_attention.cuh"
 
 extern "C" int apex_gqa_decode(const void* q, const void* k, const void* v,
                                float* out, int b, int g, int rep, int d,
                                int cache_len, const int* lengths, int window,
                                float sm_scale, float softcap, int dtype,
+                               int splits, float* scratch, int* counters,
                                void* stream) {
-  apex_flash::CellArgs a;
+  apex_kv::Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.out = out;
   a.n_rows = rep;
   a.rep = rep;
   a.groups = g;
   a.pos_stride = static_cast<long long>(b) * g * rep * d;
+  a.kv_stride = static_cast<long long>(b) * g * d;
   a.starts = lengths;
   a.start_bias = -1;  // the token sits at position length - 1
   a.cache_len = cache_len;
   a.window = window;
   a.sm_scale = sm_scale;
   a.softcap = softcap;
-  return apex_flash::dispatch_attend(q, k, v, out, b * g, d, dtype, a,
-                                     static_cast<cudaStream_t>(stream));
+  a.splits = splits;
+  a.scratch = scratch;
+  a.counters = counters;
+  return apex_kv::dispatch(a, b * g, d, dtype,
+                           static_cast<cudaStream_t>(stream));
 }

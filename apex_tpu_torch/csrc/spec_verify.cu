@@ -18,9 +18,10 @@
 // scales, ~0.5 MB per slot, and ~10 MFLOP: both bounds are well under a
 // microsecond, so the launch and the tile loop dominate.
 //
-// Design: the body of window_attention.cu (flash_rows.cuh: a grid of
-// (b*g cells, row tiles of 16), the cache streamed through shared memory
-// in tiles, online softmax in fp32) with the Int8KV loader: each tile's
+// Design: the body the window kernel #21 had before its redesign
+// (flash_rows.cuh: a grid of (b*g cells, row tiles of 16), the cache
+// streamed through shared memory in tiles, online softmax in fp32) with
+// the Int8KV loader: each tile's
 // codes are widened and multiplied by their block's scale on the way
 // into shared memory, as the TPU kernel widens them in VMEM, so the
 // dequantized cache never exists in device memory (the alternative the

@@ -38,6 +38,22 @@ def contiguous(name: str, **tensors) -> None:
             raise ValueError(f"{name}: {what} must be contiguous")
 
 
+def aligned16(name: str, **tensors) -> None:
+    """Raise unless each tensor starts on a 16-byte boundary (the kernels'
+    16-byte vector and cp.async copies; a contiguous tensor's rows then
+    stay aligned wherever its last dimension is a multiple of 16 bytes)."""
+    for what, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must start on a 16-byte "
+                             f"boundary")
+
+
+def data_ptr(t) -> int | None:
+    """A tensor's address for a ctypes pointer argument; None (NULL) for
+    an absent tensor."""
+    return None if t is None else t.data_ptr()
+
+
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 

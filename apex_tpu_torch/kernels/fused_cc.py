@@ -29,7 +29,13 @@ import functools
 import torch
 import torch.distributed as dist
 
-from apex_tpu_torch.kernels import _build, _checks, quant, registry
+from apex_tpu_torch.kernels import (
+    _build,
+    _checks,
+    kv_attention,
+    quant,
+    registry,
+)
 from apex_tpu_torch.parallel import groups
 
 NEG_INF = -1e30
@@ -253,7 +259,7 @@ def _kernel():
     p, i, f = _checks.ptr, ctypes.c_int, ctypes.c_float
     return _build.function(
         "window_attention", "apex_window_attention",
-        [p, p, p, p, i, i, i, i, i, i, p, i, f, f, i, p])
+        [p, p, p, p, i, i, i, i, i, i, p, i, f, f, i, i, p, p, p])
 
 
 def window_attention(qg, kt, vt, start, sm_scale: float, window=None,
@@ -268,7 +274,9 @@ def window_attention(qg, kt, vt, start, sm_scale: float, window=None,
             row, or an integer tensor [b] (on the device) for each row.
     Returns ctx [w, b, g, rep, d] fp32. A CPU tensor takes
     :func:`window_attention_plain`; a CUDA tensor launches the kernel
-    (head dim 64 or 128, any T) or raises."""
+    (head dim 64 or 128, any T, tensors on 16-byte boundaries) or raises:
+    one launch, the live range split over the SMs where the row tiles
+    leave them idle (``kv_attention.plan``)."""
     if not _checks.on_cuda("window_attention", qg, kt, vt):
         return window_attention_plain(qg, kt, vt, start, sm_scale, window,
                                       softcap)
@@ -292,15 +300,19 @@ def window_attention(qg, kt, vt, start, sm_scale: float, window=None,
     if softcap is not None and softcap <= 0:
         raise ValueError(f"window_attention: softcap ({softcap}) must be > 0")
     _checks.contiguous("window_attention", qg=qg, kt=kt, vt=vt)
+    _checks.aligned16("window_attention", qg=qg, kt=kt, vt=vt)
     code = _checks.dtype_code("window_attention", qg, "qg")
     starts = _checks.row_offsets("window_attention", start, b, qg.device,
                                  "start")
     out = torch.empty(qg.shape, dtype=torch.float32, device=qg.device)
     with torch.cuda.device(qg.device):
+        splits, scratch, counters = kv_attention.workspace(
+            qg.device, w * rep, b * g, d)
         rc = _kernel()(qg.data_ptr(), kt.data_ptr(), vt.data_ptr(),
                        out.data_ptr(), w, b, g, rep, d, T, starts.data_ptr(),
                        window or 0, float(sm_scale), float(softcap or 0.0),
-                       code, _checks.stream(qg))
+                       code, splits, _checks.data_ptr(scratch),
+                       _checks.data_ptr(counters), _checks.stream(qg))
     _checks.status("window_attention", rc)
     registry.count(WINDOW_ATTENTION)
     return out

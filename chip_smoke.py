@@ -40,7 +40,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ragged rows and blocks; the int8-cache verify kernel at the TinyLlama
    verify window (w 5, g 4, rep 8, d 64) over a 2048-position int8 store
    with each slot at its own start, and with padding lanes (g*d < nb*B);
-   the window and decode kernels with per-row starts and lengths. The
+   the window and decode kernels with per-row starts and lengths, at the
+   engine's other shapes (the verify window at mixed starts, the smallest
+   prefill bucket, a full 2048-row slot, batch 2), and through their C
+   functions with the split count forced to 1, to the planned count and
+   to 16, with planted faults (starts or lengths one key short) that must
+   read past ATTN_TOL. The
    MLA latent decode kernel at ``bench.py mla_decode``'s step (q [8, 16,
    576] bf16 over a [4608, 8, 576] bf16 latent cache) at lengths 1, 511,
    512, 513, 4097 and 4161, and off the path: an fp32 cache and queries,
@@ -624,14 +629,27 @@ def _visible(start, w, window):
     return total, lo
 
 
-def _attention_bound(b, g, rep, d, w, start, window):
+def _attention_work(b, g, rep, d, w, start, window):
+    """(bytes, operations) of b rows at one start."""
     keys, lo = _visible(start, w, window)
     live_rows = start + w - lo
     nbytes = (w * b * g * rep * d * 2          # queries, bf16
               + 2 * live_rows * b * g * d * 2  # live K and V rows, bf16
               + w * b * g * rep * d * 4)       # fp32 output
     ops = 4 * d * b * g * rep * keys           # QK^T and PV products
-    return bound(nbytes, ops, BF16_TENSOR_OPS_PER_S)
+    return nbytes, ops
+
+
+def _attention_bound(b, g, rep, d, w, start, window):
+    return bound(*_attention_work(b, g, rep, d, w, start, window),
+                 BF16_TENSOR_OPS_PER_S)
+
+
+def _attention_bound_rows(starts, g, rep, d, w, window):
+    """The bound of rows each at its own start (the engine's slots)."""
+    work = [_attention_work(1, g, rep, d, w, int(s), window) for s in starts]
+    return bound(sum(x[0] for x in work), sum(x[1] for x in work),
+                 BF16_TENSOR_OPS_PER_S)
 
 
 def _cache(gen, T, b, g, d, filled, dtype=torch.bfloat16):
@@ -677,7 +695,7 @@ def check_window_attention(gen):
     q_l = q.reshape(PROMPT, BATCH, n, d).permute(1, 2, 0, 3)
     k_l = k[:PROMPT].permute(1, 2, 0, 3)
     v_l = v[:PROMPT].permute(1, 2, 0, 3)
-    return [entry(
+    entries = [entry(
         "window_attention",
         f"qg[{PROMPT},{BATCH},{g},{rep},{d}] bf16, cache[{T},{BATCH},{g},"
         f"{d}] bf16, start 0", got, want, f"rtol {ATTN_TOL} atol {ATTN_TOL}",
@@ -686,6 +704,36 @@ def check_window_attention(gen):
         lambda: torch.nn.functional.scaled_dot_product_attention(
             q_l, k_l, v_l, is_causal=True, scale=sm, enable_gqa=True),
         _attention_bound(BATCH, g, rep, d, PROMPT, 0, None))]
+    del q, k, v, q_l, k_l, v_l, got, want
+    # the engine's other shapes: the speculative verify (w 5, 8 slots at
+    # mixed levels; SDPA over the whole cache with each row's mask) and
+    # the smallest prefill bucket (w 32, b 2, from position 0)
+    for w, b, label in ((SPEC_K + 1, BATCH, "verify"), (32, 2, "prefill")):
+        starts = (_mixed_offsets(b, T - w + 1, gen) if label == "verify"
+                  else torch.zeros(b, dtype=torch.int32, device="cuda"))
+        if label == "verify":
+            starts[0], starts[-1] = 0, T - w
+        live = int(starts.max()) + w
+        q = _randn(gen, w, b, g, rep, d)
+        k, v = _cache(gen, T, b, g, d, live)
+        got = fused_cc.window_attention(q, k, v, starts, sm)
+        want = fused_cc.window_attention_plain(q, k, v, starts, sm)
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+        q_l = q.reshape(w, b, n, d).permute(1, 2, 0, 3)
+        pos = (starts[:, None] + torch.arange(w, device="cuda"))[:, :, None]
+        mask = (torch.arange(T, device="cuda")[None, None] <= pos)[:, None]
+        k_l, v_l = k.permute(1, 2, 0, 3), v.permute(1, 2, 0, 3)
+        entries.append(entry(
+            "window_attention",
+            f"{label}: qg[{w},{b},{g},{rep},{d}] bf16, cache[{T},{b},{g},"
+            f"{d}] bf16, starts {starts.tolist()}", got, want,
+            f"rtol {ATTN_TOL} atol {ATTN_TOL}",
+            lambda: fused_cc.window_attention(q, k, v, starts, sm),
+            lambda: fused_cc.window_attention_plain(q, k, v, starts, sm),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q_l, k_l, v_l, attn_mask=mask, scale=sm, enable_gqa=True),
+            _attention_bound_rows(starts.tolist(), g, rep, d, w, None)))
+    return entries
 
 
 def check_gqa_decode(gen):
@@ -719,7 +767,7 @@ def check_gqa_decode(gen):
     q_l = q.reshape(BATCH, n, 1, d)
     k_l = k[:L].permute(1, 2, 0, 3)
     v_l = v[:L].permute(1, 2, 0, 3)
-    return [entry(
+    entries = [entry(
         "gqa_decode",
         f"q[{BATCH},{g},{rep},{d}] bf16, cache[{T},{BATCH},{g},{d}] bf16, "
         f"length {L}", got, want, f"rtol {ATTN_TOL} atol {ATTN_TOL}",
@@ -728,6 +776,26 @@ def check_gqa_decode(gen):
         lambda: torch.nn.functional.scaled_dot_product_attention(
             q_l, k_l, v_l, scale=sm, enable_gqa=True),
         _attention_bound(BATCH, g, rep, d, 1, L - 1, None))]
+    # the engine's other shapes: a full 2048-row slot at b 8, and b 2
+    for b, L in ((BATCH, T), (2, DECODE_LENGTH)):
+        q = _randn(gen, b, g, rep, d)
+        k, v = _cache(gen, T, b, g, d, L)
+        lengths = torch.full((b,), L, dtype=torch.int32, device="cuda")
+        got = gqa_decode.gqa_flash_decode(q, k, v, lengths, sm)
+        want = gqa_decode.gqa_decode_plain(q, k, v, L, sm)
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+        q_l = q.reshape(b, n, 1, d)
+        k_l, v_l = k[:L].permute(1, 2, 0, 3), v[:L].permute(1, 2, 0, 3)
+        entries.append(entry(
+            "gqa_decode",
+            f"q[{b},{g},{rep},{d}] bf16, cache[{T},{b},{g},{d}] bf16, "
+            f"length {L}", got, want, f"rtol {ATTN_TOL} atol {ATTN_TOL}",
+            lambda: gqa_decode.gqa_flash_decode(q, k, v, lengths, sm),
+            lambda: gqa_decode.gqa_decode_plain(q, k, v, lengths, sm),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q_l, k_l, v_l, scale=sm, enable_gqa=True),
+            _attention_bound(b, g, rep, d, 1, L - 1, None)))
+    return entries
 
 
 def check_rms_bwd(gen):
@@ -1349,6 +1417,92 @@ def check_per_row_attention(gen):
         f"versions within {ATTN_TOL}")
 
 
+def _kv_raw(q, k, v, offsets, splits):
+    """Kernel #21 (q [w, b, g, rep, d], ``offsets`` the starts) or #25 (q
+    [b, g, rep, d], the lengths) launched through its C function with S
+    forced to ``splits``, uncounted: for the split checks and the planted
+    faults."""
+    from apex_tpu_torch.contrib import gqa_decode
+    from apex_tpu_torch.kernels import _checks, fused_cc, kv_attention
+    window_kernel = q.dim() == 5
+    w, (b, g, rep, d) = (q.shape[0], q.shape[1:]) if window_kernel else (
+        1, q.shape)
+    out = torch.empty(q.shape, dtype=torch.float32, device="cuda")
+    splits, scratch, counters = kv_attention.workspace(
+        q.device, w * rep, b * g, d, splits)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    dims = (w, b, g, rep, d) if window_kernel else (b, g, rep, d)
+    rc = (fused_cc._kernel() if window_kernel else gqa_decode._kernel())(
+        *head, *dims, k.shape[0], offsets.data_ptr(), 0, d ** -0.5, 0.0,
+        _checks.DTYPE_CODES[q.dtype], splits, _checks.data_ptr(scratch),
+        _checks.data_ptr(counters), _checks.stream(q))
+    _checks.status("window_attention" if window_kernel else "gqa_decode", rc)
+    return out
+
+
+def check_kv_splits(gen):
+    """#21 and #25 through their C functions at S = 1, at the planned S and
+    at S = 16, at the path shapes (``generate``'s prefill and decode step),
+    the speculative verify and a full 2048-row decode, each within
+    ATTN_TOL of the plain version; then planted faults, the starts or
+    lengths one key short, which must read past ATTN_TOL. A range uses
+    one split for every kv_attention.MIN_SPLIT_STEPS steps, at most S: the
+    log names how many the longest row used."""
+    from apex_tpu_torch.contrib import gqa_decode
+    from apex_tpu_torch.kernels import fused_cc, kv_attention, registry
+    n, g = MODEL["num_attention_heads"], MODEL["num_query_groups"]
+    d, rep, T = MODEL["hidden_size"] // n, n // g, MODEL[
+        "max_position_embeddings"]
+    sm = d ** -0.5
+    verify = _mixed_offsets(BATCH, T - SPEC_K, gen)
+    verify[0], verify[-1] = 0, T - SPEC_K - 1
+    cases = (("prefill", PROMPT, torch.zeros(BATCH, dtype=torch.int32,
+                                             device="cuda")),
+             ("verify", SPEC_K + 1, verify),
+             ("decode", 1, torch.full((BATCH,), DECODE_LENGTH,
+                                      dtype=torch.int32, device="cuda")),
+             ("decode 2048", 1, torch.full((BATCH,), T, dtype=torch.int32,
+                                           device="cuda")))
+    before = registry.launches()
+    honest, faults = [], []
+    for label, w, offsets in cases:
+        decode = label.startswith("decode")
+        q = _randn(gen, w, BATCH, g, rep, d)
+        k, v = _cache(gen, T, BATCH, g, d,
+                      int(offsets.max()) + (0 if decode else w))
+        if decode:
+            q = q[0]
+            want = gqa_decode.gqa_decode_plain(q, k, v, offsets, sm)
+        else:
+            want = fused_cc.window_attention_plain(q, k, v, offsets, sm)
+        planned = kv_attention.plan(w * rep, BATCH * g,
+                                    kv_attention.sm_count(0))[1]
+        for splits in sorted({1, planned, kv_attention.MAX_SPLITS}):
+            got = _kv_raw(q, k, v, offsets, splits)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=ATTN_TOL,
+                                       atol=ATTN_TOL)
+            us = device_ms(lambda: _kv_raw(q, k, v, offsets, splits)) * 1e3
+            tag = " (planned)" if splits == planned else ""
+            start = int(offsets.max()) - (1 if decode else 0)
+            rows = kv_attention.ROWS
+            last = (w * rep - 1) // rows * rows  # the last row tile
+            used = kv_attention.used_splits(
+                *kv_attention.live_range(start, last, w * rep, rep, None, T),
+                splits)
+            honest.append(f"{label} S {splits}{tag} (longest row: {used}) "
+                          f"{max_abs(got, want):.3e}, {us:.2f} us")
+        short = _kv_raw(q, k, v, offsets - 1, planned)
+        err = max_abs(short, want)
+        faults.append(f"{label} S {planned} {err:.3e}")
+        assert err > ATTN_TOL, (label, err)
+    assert registry.launches() == before  # the raw launches are uncounted
+    log(f"kernels: window_attention and gqa_decode at forced splits match "
+        f"their plain versions within {ATTN_TOL} (max abs error, device "
+        f"time): " + "; ".join(honest)
+        + "; starts/lengths one key short read " + "; ".join(faults))
+
+
 def _quant_bytes(rows, n, block, in_bytes):
     nb = -(-n // block)
     return rows * n * in_bytes + rows * nb * block + rows * nb * 4
@@ -1884,6 +2038,13 @@ def check_refusals():
     refused(ValueError, lambda: gqa_decode.gqa_flash_decode(  # head dim 32
         q[0, ..., :32].contiguous(), k[..., :32].contiguous(),
         k[..., :32].contiguous(), 4, 0.1))
+    # contiguous, but off a 16-byte boundary (the kernels copy 16 bytes)
+    shifted = torch.zeros(q.numel() + 1, dtype=q.dtype,
+                          device="cuda")[1:].view(q.shape)
+    refused(ValueError, lambda: fused_cc.window_attention(
+        shifted, k, k, 0, 0.1))
+    refused(ValueError, lambda: gqa_decode.gqa_flash_decode(
+        shifted[0], k, k, 1, 0.1))
     # the training kernels
     x = torch.zeros(4, 64, device="cuda")
     refused(TypeError, lambda: norm.rms_bwd_dx(x.half(), x, None, 1e-5))
@@ -4192,6 +4353,7 @@ def main(argv):
                    + check_mla_decode(gen) + check_quant4(gen)
                    + check_tp_matmul(gen))
         check_per_row_attention(gen)
+        check_kv_splits(gen)
         check_refusals()
         for e in entries:
             log(f"kernel {e['name']} [{e['shape']}]: max abs err "

@@ -30,29 +30,55 @@
 // 128] bool mask) the forward moves 134 MB of scores and 1 MB of mask
 // (>= 40.4 us).
 //
-// Design: one block of 256 threads per row; the 65,536 (causal) and
-// 131,072 (BERT) rows of the paths keep all 132 SMs busy. The forward
-// stages the row's live scores, already scaled, in shared memory (sk*4
-// bytes, up to 64 KB for sk = 16384), so x and the mask are read from
-// device memory once (the causal kernel does not read the masked tail
-// at all); a block-wide max and sum follow. The masked kernel stages a
-// masked key as -inf, so its exp is exactly 0, and takes -10000 into the
-// row max in its place, which is the oracle's max. Masked keys are
-// written as exactly 0 (0 / sum, which is NaN only where the oracle's
-// 0 / 0 is, in a row with every key masked). The backward sums dy*y over
-// the row, then writes each dx; its second read of the row is served
-// from L1/L2. The fp32 operation order is the TPU kernel's (IEEE division
-// e / sum, expf, no fast math), and the elementwise expressions are
-// written with round-to-nearest intrinsics so nvcc does not contract
-// them into FMAs the oracle lacks; only the order of the row sums
-// differs.
+// Design of the scaled and masked forward (#8, #9; one body, templated
+// on the mask). A row of up to 2^kRegMaxLog2 = 1024 keys lives in the
+// registers of one group of lanes, with no shared memory and no block
+// barrier: the row length is padded to a power of two, KEYS (template
+// buckets 1 to 1024, as Apex's scaled_masked_softmax_warp_forward), and
+// cut into vectors of VEC keys (16 bytes: 4 fp32 or 8 bf16; 1 on the
+// scalar path). A row takes LANES = min(32, KEYS / VEC) lanes, so a short
+// row shares its warp with others in groups of 2^k lanes and no lane is
+// idle (BERT's 128 fp32 keys: one float4 a lane, a row a warp; in bf16
+// 16 lanes a row). Lane l of a row holds vectors l, l + LANES, ...: each
+// step of the group reads LANES * 16 contiguous bytes. The row max and
+// sum are xor-butterflies of __shfl_xor_sync within the group (log2
+// LANES steps each). Blocks are 4 warps; a row is ~0.5 KB, so an SM keeps
+// 64 rows in flight with no per-row barrier or staging. Keys past sk
+// (the padding) hold -inf for the exp and stay out of the max, so they
+// add exactly 0 to the sum. Scores are read, and probabilities written,
+// with streaming hints (ld.global.cs / st.global.cs: the 67 MB of each
+// must not push the 1 MB mask, which every head re-reads, out of L2);
+// the mask's VEC flags a lane are one 4- or 8-byte load where the row's
+// flags start on that boundary (checked per row, so a mask view at an
+// odd offset reads bytes, while the scores keep 16-byte accesses), else
+// single bytes. The 16-byte path needs sk a multiple of VEC and x, y on
+// 16-byte boundaries; the wrapper's plan (kernels/softmax.py `plan`)
+// picks it from the shapes and data_ptr() % 16 and passes it as `path`,
+// which the launcher checks. Otherwise the scalar path runs with the
+// same lanes (sk = 357, offset views). Rows longer than 1024 keys (up to
+// 16384) take the first design's body, one block of 256 threads a row
+// staging its scaled scores in shared memory (masked_fwd_kernel). Each
+// lane sums its own keys in order, then the butterfly adds the partials:
+// only this order of the row sum differs from the TPU kernel's, whose
+// arithmetic is kept with _rn intrinsics (x*scale, masked keys -10000
+// in the max and -inf in the exp, expf(v - max), e / sum; no fast
+// math). A masked key is written as 0 / sum = 0; a row with every key
+// masked is 0 / 0 = NaN, as in the oracle. The causal forward and the
+// backward use one block of 256 threads per row: the forward stages the
+// row's live scores in shared memory (the causal kernel does not read
+// the masked tail at all), the backward sums dy*y over the row, then
+// writes each dx; its second read of the row is served from L1/L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRegMaxLog2 = 10;  // the register path: sk <= 1024
+constexpr int kWarps = 4;        // warps of a register-path block
 constexpr float kMaskValue = -10000.f;
 constexpr int kDefaultSmem = 48 * 1024;
 
@@ -164,6 +190,184 @@ masked_fwd_kernel(const T* __restrict__ x, const unsigned char* __restrict__ mas
     yr[j] = from_float<T>(__fdiv_rn(row[j], sum));
 }
 
+// Register-path accesses: N consecutive values at p (N = 1 or 16 bytes).
+// Scores are read once and probabilities written once: streaming hints.
+template <int N>
+__device__ __forceinline__ void load_scores(const float* p, float* v) {
+  if constexpr (N == 4) {
+    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {
+    static_assert(N == 1, "fp32: 1 or 4 keys an access");
+    v[0] = __ldcs(p);
+  }
+}
+
+// bf16 -> fp32 is exact: the 16 bits become the top half of the float.
+template <int N>
+__device__ __forceinline__ void load_scores(const __nv_bfloat16* p, float* v) {
+  if constexpr (N == 8) {
+    const uint4 t = __ldcs(reinterpret_cast<const uint4*>(p));
+    const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  } else {
+    static_assert(N == 1, "bf16: 1 or 8 keys an access");
+    v[0] = __uint_as_float(
+        static_cast<unsigned>(__ldcs(reinterpret_cast<const unsigned short*>(p)))
+        << 16);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_probs(float* p, const float* v) {
+  if constexpr (N == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+    __stcs(p, v[0]);
+  }
+}
+
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+template <int N>
+__device__ __forceinline__ void store_probs(__nv_bfloat16* p, const float* v) {
+  if constexpr (N == 8) {
+    uint4 t;
+    t.x = bf16_bits(v[0]) | (bf16_bits(v[1]) << 16);
+    t.y = bf16_bits(v[2]) | (bf16_bits(v[3]) << 16);
+    t.z = bf16_bits(v[4]) | (bf16_bits(v[5]) << 16);
+    t.w = bf16_bits(v[6]) | (bf16_bits(v[7]) << 16);
+    __stcs(reinterpret_cast<uint4*>(p), t);
+  } else {
+    __stcs(reinterpret_cast<unsigned short*>(p),
+           static_cast<unsigned short>(bf16_bits(v[0])));
+  }
+}
+
+// N mask flags at p (non-zero: masked out), read through the read-only
+// cache (a broadcast mask is re-read by every head): one N-byte load when
+// `whole` (p on an N-byte boundary), else N byte loads.
+template <int N>
+__device__ __forceinline__ void load_flags(const unsigned char* p, bool whole,
+                                           bool* out) {
+  if constexpr (N == 4 || N == 8) {
+    if (whole) {
+      unsigned w[N / 4];
+      if constexpr (N == 4) {
+        w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+      } else {
+        const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+        w[0] = t.x;
+        w[1] = t.y;
+      }
+#pragma unroll
+      for (int e = 0; e < N; ++e)
+        out[e] = ((w[e / 4] >> (8 * (e % 4))) & 0xffu) != 0;
+      return;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < N; ++e) out[e] = __ldg(p + e) != 0;
+}
+
+// The register path: rows of sk <= 2^kLog2Keys keys, each held by a group
+// of kLanes lanes (see the header note). kVector: 16-byte accesses (sk a
+// multiple of the vector, x and y 16-byte aligned), else one key an
+// access. kHasMask false: no mask is read (the scaled softmax, #8). The
+// mask arguments are as masked_fwd_kernel's.
+template <typename T, int kLog2Keys, bool kVector, bool kHasMask>
+__global__ void __launch_bounds__(kWarps * 32)
+warp_softmax_fwd(const T* __restrict__ x, const unsigned char* __restrict__ mask,
+                 T* __restrict__ y, long long rows, int n, int sq, int sk,
+                 long long msb, long long msn, long long msq, float scale) {
+  constexpr int kVec = kVector ? 16 / static_cast<int>(sizeof(T)) : 1;
+  constexpr int kKeys = 1 << kLog2Keys;
+  static_assert(kKeys >= kVec, "a row holds at least one vector");
+  constexpr int kVecs = kKeys / kVec;
+  constexpr int kLanes = kVecs < 32 ? kVecs : 32;
+  constexpr int kIters = kVecs / kLanes;
+  constexpr int kRowsPerWarp = 32 / kLanes;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane % kLanes;
+  const long long row0 =
+      (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) *
+      kRowsPerWarp;
+  if (row0 >= rows) return;  // the whole warp: no shuffle is left waiting
+  const long long r = row0 + lane / kLanes;
+  const bool live_row = r < rows;  // a warp's last group may hold no row
+  const T* xr = x + r * sk;
+  T* yr = y + r * sk;
+  const unsigned char* mr = nullptr;
+  bool whole_flags = false;
+  if constexpr (kHasMask) {
+    const long long i = r % sq;
+    const long long bn = r / sq;
+    mr = mask + (bn / n) * msb + (bn % n) * msn + i * msq;
+    whole_flags = (reinterpret_cast<uintptr_t>(mr) % kVec) == 0;
+  }
+  const float neg_inf = -__int_as_float(0x7f800000);
+  float v[kIters][kVec];
+  float mx = neg_inf;
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int j = (it * kLanes + sub) * kVec;  // the vector's first key
+    if (live_row && j < sk) {
+      load_scores<kVec>(xr + j, v[it]);
+      bool out[kVec];
+      if constexpr (kHasMask) load_flags<kVec>(mr + j, whole_flags, out);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const float s = __fmul_rn(v[it][e], scale);
+        if constexpr (kHasMask) {
+          v[it][e] = out[e] ? neg_inf : s;
+          mx = fmaxf(mx, out[e] ? kMaskValue : s);
+        } else {
+          v[it][e] = s;
+          mx = fmaxf(mx, s);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) v[it][e] = neg_inf;
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  float sum = 0.f;
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      v[it][e] = expf(__fsub_rn(v[it][e], mx));
+      sum = __fadd_rn(sum, v[it][e]);
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+  if (!live_row) return;
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int j = (it * kLanes + sub) * kVec;
+    if (j < sk) {
+      float p[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) p[e] = __fdiv_rn(v[it][e], sum);
+      store_probs<kVec>(yr + j, p);
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bwd_kernel(const T* __restrict__ y, const T* __restrict__ dy,
@@ -215,6 +419,74 @@ int launch_masked(const void* x, const void* mask, void* y, long long rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int kLog2Keys, bool kVector, bool kHasMask>
+int launch_warp_rows(const void* x, const void* mask, void* y, long long rows,
+                     int n, int sq, int sk, long long msb, long long msn,
+                     long long msq, float scale, cudaStream_t stream) {
+  constexpr int kVec = kVector ? 16 / static_cast<int>(sizeof(T)) : 1;
+  constexpr int kVecs = (1 << kLog2Keys) / kVec;
+  constexpr long long kRowsPerBlock = kWarps * (kVecs < 32 ? 32 / kVecs : 1);
+  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  warp_softmax_fwd<T, kLog2Keys, kVector, kHasMask>
+      <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(
+          static_cast<const T*>(x), static_cast<const unsigned char*>(mask),
+          static_cast<T*>(y), rows, n, sq, sk, msb, msn, msq, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The register path's instance for rows padded to 2^log2 keys.
+template <typename T, bool kVector, bool kHasMask, int kLog2 = 0>
+int dispatch_warp_rows(int log2, const void* x, const void* mask, void* y,
+                       long long rows, int n, int sq, int sk, long long msb,
+                       long long msn, long long msq, float scale,
+                       cudaStream_t stream) {
+  if constexpr (kLog2 > kRegMaxLog2) {
+    return -1;
+  } else {
+    constexpr int kVec = kVector ? 16 / static_cast<int>(sizeof(T)) : 1;
+    if constexpr ((1 << kLog2) >= kVec) {
+      if (log2 == kLog2)
+        return launch_warp_rows<T, kLog2, kVector, kHasMask>(
+            x, mask, y, rows, n, sq, sk, msb, msn, msq, scale, stream);
+    }
+    return dispatch_warp_rows<T, kVector, kHasMask, kLog2 + 1>(
+        log2, x, mask, y, rows, n, sq, sk, msb, msn, msq, scale, stream);
+  }
+}
+
+// path: 0 = one block a row (masked_fwd_kernel, any sk), 1 = the register
+// path with one key an access, 2 = the register path with 16-byte
+// accesses. -1 where the arguments do not fit the path.
+template <typename T>
+int launch_masked_path(int path, const void* x, const void* mask, void* y,
+                       long long rows, int n, int sq, int sk, long long msb,
+                       long long msn, long long msq, float scale,
+                       cudaStream_t stream) {
+  if (path == 0)
+    return launch_masked<T>(x, mask, y, rows, n, sq, sk, msb, msn, msq, scale,
+                            stream);
+  if (path != 1 && path != 2) return -1;
+  int log2 = 0;
+  while ((1 << log2) < sk) ++log2;
+  if (log2 > kRegMaxLog2) return -1;
+  if (path == 2) {
+    constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+    if (sk % kVec != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(y) % 16 != 0)
+      return -1;
+    if (mask == nullptr)
+      return dispatch_warp_rows<T, true, false>(log2, x, mask, y, rows, n, sq,
+                                                sk, msb, msn, msq, scale, stream);
+    return dispatch_warp_rows<T, true, true>(log2, x, mask, y, rows, n, sq, sk,
+                                             msb, msn, msq, scale, stream);
+  }
+  if (mask == nullptr)
+    return dispatch_warp_rows<T, false, false>(log2, x, mask, y, rows, n, sq, sk,
+                                               msb, msn, msq, scale, stream);
+  return dispatch_warp_rows<T, false, true>(log2, x, mask, y, rows, n, sq, sk,
+                                            msb, msn, msq, scale, stream);
+}
+
 template <typename T>
 int launch_bwd(const void* y, const void* dy, void* dx, long long rows,
                int sk, float scale, cudaStream_t stream) {
@@ -242,19 +514,22 @@ extern "C" int apex_causal_softmax_fwd(const void* x, void* y, long long rows,
 
 // y [rows, sk] = softmax of x [rows, sk] * scale with the keys the mask
 // flags set to -10000, rows = b * n * sq; mask null: no key is masked
-// (n, sq and the strides are not read).
+// (n, sq and the strides are not read). path: as launch_masked_path
+// (kernels/softmax.py `plan` picks it).
 extern "C" int apex_masked_softmax_fwd(const void* x, const void* mask,
                                        void* y, long long rows, int n, int sq,
                                        int sk, long long msb, long long msn,
                                        long long msq, float scale, int dtype,
-                                       void* stream) {
+                                       int path, void* stream) {
   if (rows <= 0) return 0;
-  if (mask != nullptr && (n < 1 || sq < 1)) return -1;
+  if (sk < 1 || (mask != nullptr && (n < 1 || sq < 1))) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_masked<float>(x, mask, y, rows, n, sq, sk, msb, msn, msq, scale, s);
+    return launch_masked_path<float>(path, x, mask, y, rows, n, sq, sk, msb,
+                                     msn, msq, scale, s);
   if (dtype == 1)
-    return launch_masked<__nv_bfloat16>(x, mask, y, rows, n, sq, sk, msb, msn, msq, scale, s);
+    return launch_masked_path<__nv_bfloat16>(path, x, mask, y, rows, n, sq, sk,
+                                             msb, msn, msq, scale, s);
   return -1;
 }
 

@@ -11,17 +11,62 @@ follow the reference convention: non-zero (True) where masked out.
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from apex_tpu_torch.kernels import _build, _checks, registry
 
 MASK_VALUE = -10000.0
-MAX_KEYS = 16384  # the forward stages a row of fp32 scores in shared memory
+MAX_KEYS = 16384  # the block path stages a row of fp32 scores in shared memory
+REG_MAX_KEYS = 1024  # the register path's longest row: 32 fp32 keys a lane
+BLOCK_THREADS = 256  # threads of the block path's one block a row
+WARPS = 4  # warps of a register-path block
+# path codes of apex_masked_softmax_fwd (csrc/softmax.cu)
+BLOCK, SCALAR, VECTOR = 0, 1, 2
 SCALED_SOFTMAX = registry.register("scaled_softmax")
 MASKED_SOFTMAX = registry.register("masked_softmax")
 CAUSAL_SOFTMAX = registry.register("causal_softmax")
 SOFTMAX_BWD = registry.register("softmax_bwd")
+
+
+class Plan(NamedTuple):
+    """How #8/#9 launch for rows of ``sk`` keys. ``path``: BLOCK, SCALAR
+    or VECTOR; ``vec`` keys an access; ``keys`` the row as the kernel
+    holds it (sk padded to a power of two on the register paths); ``lanes``
+    the threads of one row; ``rows_per_block`` rows a block."""
+    path: int
+    vec: int
+    keys: int
+    lanes: int
+    rows_per_block: int
+
+    @property
+    def iters(self) -> int:
+        """Vectors a lane holds (register paths)."""
+        return self.keys // (self.lanes * self.vec)
+
+
+def plan(sk: int, itemsize: int, aligned: bool) -> Plan:
+    """The launch of the scaled and masked forwards for rows of ``sk``
+    keys of ``itemsize`` bytes, from shapes and alignment alone: rows of
+    at most REG_MAX_KEYS keys live in registers, one group of
+    min(32, keys / vec) lanes a row (a short row shares its warp), with
+    16-byte accesses (VECTOR) when sk is a multiple of 16 / itemsize and
+    ``aligned`` (x and y start on 16-byte boundaries: the rows are
+    contiguous, so each row then does too), else one key an access
+    (SCALAR); longer rows take one block of BLOCK_THREADS a row (BLOCK).
+    The mask does not enter: the kernel reads a row's flags in one load
+    where they start on the vector's boundary, else byte by byte."""
+    if sk > REG_MAX_KEYS:
+        return Plan(BLOCK, 1, sk, BLOCK_THREADS, 1)
+    vec = 16 // itemsize
+    if not (aligned and sk % vec == 0):
+        vec = 1
+    keys = 1 << max(0, sk - 1).bit_length()
+    lanes = min(32, keys // vec)
+    return Plan(VECTOR if vec > 1 else SCALAR, vec, keys, lanes,
+                WARPS * 32 // lanes)
 
 
 def causal_softmax_fwd_plain(x, scale):
@@ -80,7 +125,7 @@ def _masked_kernel():
     p, i, ll = _checks.ptr, ctypes.c_int, ctypes.c_longlong
     return _build.function(
         "softmax", "apex_masked_softmax_fwd",
-        [p, p, p, ll, i, i, i, ll, ll, ll, ctypes.c_float, i, p])
+        [p, p, p, ll, i, i, i, ll, ll, ll, ctypes.c_float, i, i, p])
 
 
 @functools.lru_cache(maxsize=1)
@@ -133,6 +178,25 @@ def _check_rows(name, x):
     return _checks.dtype_code(name, x, "x"), _rows(name, x)
 
 
+def _launch_masked(name, x, code, rows, m, scale):
+    """Launch #8 (``m`` None) or #9 on x [..., sk] (checked by
+    :func:`_check_rows`: dtype ``code``, ``rows`` rows) with the mask view
+    ``m`` [b, n, sq, sk]; returns y."""
+    y = torch.empty_like(x)
+    path = plan(x.shape[-1], x.element_size(),
+                x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0).path
+    if m is None:
+        head, dims, strides = (None,), (1, 1), (0, 0, 0)
+    else:
+        head, dims, strides = (m.data_ptr(),), m.shape[1:3], m.stride()[:3]
+    with torch.cuda.device(x.device):
+        rc = _masked_kernel()(x.data_ptr(), *head, y.data_ptr(), rows, *dims,
+                              x.shape[-1], *strides, float(scale), code,
+                              path, _checks.stream(x))
+    _checks.status(name, rc)
+    return y
+
+
 def scaled_softmax_fwd(x, scale):
     """Softmax over the last dim (sk <= 16384) of x*scale, x of any shape,
     fp32 or bf16, in x's dtype. A CPU tensor takes
@@ -141,12 +205,7 @@ def scaled_softmax_fwd(x, scale):
     if not _checks.on_cuda("scaled_softmax_fwd", x):
         return scaled_softmax_fwd_plain(x, scale)
     code, rows = _check_rows("scaled_softmax_fwd", x)
-    y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = _masked_kernel()(x.data_ptr(), None, y.data_ptr(), rows, 1, 1,
-                              x.shape[-1], 0, 0, 0, float(scale), code,
-                              _checks.stream(x))
-    _checks.status("scaled_softmax_fwd", rc)
+    y = _launch_masked("scaled_softmax_fwd", x, code, rows, None, scale)
     registry.count(SCALED_SOFTMAX)
     return y
 
@@ -189,14 +248,8 @@ def scaled_masked_softmax_fwd(x, mask, scale):
                          f"leading dims, got {tuple(x.shape)}")
     code, rows = _check_rows(name, x)
     shape = (1,) * (4 - x.dim()) + tuple(x.shape)
-    m = _mask_view(name, mask, shape)
-    y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = _masked_kernel()(x.data_ptr(), m.data_ptr(), y.data_ptr(), rows,
-                              shape[1], shape[2], shape[3], m.stride(0),
-                              m.stride(1), m.stride(2), float(scale), code,
-                              _checks.stream(x))
-    _checks.status(name, rc)
+    y = _launch_masked(name, x, code, rows, _mask_view(name, mask, shape),
+                       scale)
     registry.count(MASKED_SOFTMAX)
     return y
 

@@ -33,7 +33,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bf16 rows, the scaled and masked softmax at BERT-large's [64, 16,
    128, 128] fp32 scores with a [64, 1, 128, 128] mask (off the path:
    partial masks, fully masked rows, which are NaN as in JAX, uint8
-   masks, 16384 keys), LAMB over BERT-large's 302 tensors (off the path:
+   masks, 16384 keys, one case for each branch of the launch plan, a
+   view off a 16-byte boundary; at the path shape the first design's
+   block path timed through the C function beside the register path,
+   and two planted faults, the mask read one key off and the scale 1e-4
+   too large, that must read past the softmax tolerance), the softmax
+   backward at the same shape, LAMB over BERT-large's 302 tensors (off the path:
    L2 decay, no clip, noop). The int8 block quantize and dequantize
    kernels bit for bit at the serving store's [16384, 256] rows (8 slots
    x 2048 positions of one K or V leaf), at one position per slot and on
@@ -374,8 +379,12 @@ MOE_LOGIT_TOL = 2 * LOGIT_TOL
 # partial sums, which |x| @ |w| bounds: per element |got - want| <= 1e-6 *
 # (|x| @ |w|) (2**-23 = 1.2e-7 is one rounding of the whole magnitude).
 # A skipped K step of 16 terms, or a column tile shifted by one, reads
-# far past it (TP_MATMUL_FAULTS). A bf16 output adds one bf16 rounding:
-# 2**-8 of |want|.
+# far past it (TP_MATMUL_FAULTS). A bf16 output is the kernel's fp32 sum
+# rounded to nearest: it must equal, bit for bit, that rounding of the
+# same kernel's fp32 output on the inputs widened to fp32 (exact), and
+# that output is held to the plain version's fp32 sum as above. (Against
+# the plain version's own bf16 output, two roundings of sums that differ
+# in the last fp32 place land one bf16 ulp apart now and then.)
 TP_MATMUL_TOL = 1e-6
 
 
@@ -1212,14 +1221,79 @@ def _key_mask(gen, shape, share=0.35, nan_row=False):
     return m
 
 
+def _masked_raw(x, m, scale, path, mask_ptr=None):
+    """Kernel #9 (``m`` the [b, n, sq, sk] mask view; None: #8) launched
+    through its C function on ``path``, uncounted, the flags read from
+    ``mask_ptr`` (default: m's first byte): for the first design's time
+    and the planted faults."""
+    from apex_tpu_torch.kernels import _checks, softmax
+    y = torch.empty_like(x)
+    sk = x.shape[-1]
+    if m is None:
+        ptr, dims, strides = None, (1, 1), (0, 0, 0)
+    else:
+        ptr = m.data_ptr() if mask_ptr is None else mask_ptr
+        dims, strides = m.shape[1:3], m.stride()[:3]
+    rc = softmax._masked_kernel()(
+        x.data_ptr(), ptr, y.data_ptr(), x.numel() // sk, *dims, sk,
+        *strides, float(scale), _checks.DTYPE_CODES[x.dtype], path,
+        _checks.stream(x))
+    _checks.status("masked_softmax", rc)
+    return y
+
+
+def _tol_ratio(got, want, rtol, atol):
+    """The largest |got - want| / (atol + rtol * |want|): at most 1 where
+    torch.testing.assert_close passes (NaN against NaN counts 0, NaN
+    against a number infinity)."""
+    g, w = got.float(), want.float()
+    both = torch.isnan(g) & torch.isnan(w)
+    r = torch.where(both, 0.0, (g - w).abs() / (atol + rtol * w.abs()))
+    return torch.nan_to_num(r, nan=float("inf")).max().item()
+
+
+def _check_masked_case(x, m, scale, forms=()):
+    """#9 with the bool mask ``m`` (with a fully masked row) and with each
+    other form of it in ``forms``, then #8, on x against their plain
+    versions: fully masked rows NaN, masked keys exactly 0."""
+    from apex_tpu_torch.kernels import softmax
+    dtype = x.dtype
+    full = m.expand(x.shape)
+    dead = full.all(-1)
+    live = ~dead
+    for mask in (m, *forms):
+        got = softmax.scaled_masked_softmax_fwd(x, mask, scale)
+        want = softmax.scaled_masked_softmax_fwd_plain(x, mask, scale)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == x.shape
+        assert dead.any() and torch.isnan(got[dead]).all(), \
+            "a fully masked row is not NaN (the JAX value)"
+        assert torch.isnan(want[dead]).all()
+        assert (got[full & live[..., None]] == 0).all(), \
+            "a masked key is not 0"
+        torch.testing.assert_close(got[live].float(), want[live].float(),
+                                   rtol=SOFTMAX_RTOL[dtype],
+                                   atol=SOFTMAX_ATOL)
+    got = softmax.scaled_softmax_fwd(x, scale)
+    want = softmax.scaled_softmax_fwd_plain(x, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=SOFTMAX_RTOL[dtype], atol=SOFTMAX_ATOL)
+
+
 def check_masked_softmax(gen):
     """The scaled (no mask) and scaled-masked softmax forwards: options
     off the path (fp32 and bf16, masks broadcast over heads, full ones,
     one [sq, sk] band, a query-side [b, 1, sq, 1] one broadcast over the
     keys, uint8, keys strided in memory, a fully masked row, 16384 keys),
-    then the BERT step's [64, 16, 128, 128] fp32 scores with its [64, 1,
-    128, 128] mask."""
-    from apex_tpu_torch.kernels import softmax
+    each branch of the launch plan (register rows with 16-byte and
+    one-key accesses, rows sharing a warp, the block path past
+    REG_MAX_KEYS; a view at a 4-byte but not 16-byte offset), then the
+    BERT step's [64, 16, 128, 128] fp32 scores with its [64, 1, 128, 128]
+    mask: the first design's block path timed beside the register path,
+    two planted faults through the kernel's own launch, and the softmax
+    backward at the same shape."""
+    from apex_tpu_torch.kernels import registry, softmax
     for dtype in (torch.float32, torch.bfloat16):
         for xs, ms in (((2, 3, 40, 357), (2, 1, 40, 357)),
                        ((2, 3, 40, 357), (2, 3, 40, 357)),
@@ -1231,46 +1305,97 @@ def check_masked_softmax(gen):
                 x = _randn(gen, *xs, dtype=dtype, scale=4.0)
                 m = _key_mask(gen, ms, nan_row=True)
                 strided = m.transpose(-1, -2).contiguous().transpose(-1, -2)
-                for mask in (m, m.to(torch.uint8), strided):
-                    got = softmax.scaled_masked_softmax_fwd(x, mask, scale)
-                    want = softmax.scaled_masked_softmax_fwd_plain(x, mask,
-                                                                   scale)
-                    torch.cuda.synchronize()
-                    assert got.dtype == dtype and got.shape == x.shape
-                    full = m.expand(xs)
-                    dead = full.all(-1)
-                    assert dead.any() and torch.isnan(got[dead]).all(), \
-                        "a fully masked row is not NaN (the JAX value)"
-                    assert torch.isnan(want[dead]).all()
-                    live = ~dead
-                    assert (got[full & live[..., None]] == 0).all(), \
-                        "a masked key is not 0"
-                    torch.testing.assert_close(
-                        got[live].float(), want[live].float(),
-                        rtol=SOFTMAX_RTOL[dtype], atol=SOFTMAX_ATOL)
-                got = softmax.scaled_softmax_fwd(x, scale)
-                want = softmax.scaled_softmax_fwd_plain(x, scale)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(got.float(), want.float(),
-                                           rtol=SOFTMAX_RTOL[dtype],
-                                           atol=SOFTMAX_ATOL)
+                _check_masked_case(x, m, scale,
+                                   (m.to(torch.uint8), strided))
     log("kernels: scaled_softmax and masked_softmax match their plain "
         "versions off the path (fp32/bf16, masks [b,1,sq,sk], [b,n,sq,sk], "
         "[sq,sk], [b,1,sq,1], bool and uint8, keys strided, 16384 keys); "
         "fully masked rows are NaN (NaN for NaN), masked keys exactly 0")
+    # each branch of the launch plan: 2 x 3 x 5 rows (a warp's last group
+    # of rows may hold none), a [2, 1, 5, sk] mask with a fully masked row
+    names = {softmax.BLOCK: "block", softmax.SCALAR: "scalar",
+             softmax.VECTOR: "vector"}
+    reg = softmax.REG_MAX_KEYS
+    taken = []
+    for dtype in (torch.float32, torch.bfloat16):
+        size = torch.tensor([], dtype=dtype).element_size()
+        for sk, offset, path in ((32, 0, softmax.VECTOR),
+                                 (128, 0, softmax.VECTOR),
+                                 (357, 0, softmax.SCALAR),
+                                 (reg, 0, softmax.VECTOR),
+                                 (reg + 1, 0, softmax.BLOCK),
+                                 (softmax.MAX_KEYS, 0, softmax.BLOCK),
+                                 (128, 4, softmax.SCALAR)):
+            shape = (2, 3, 5, sk)
+            flat = _randn(gen, 2 * 3 * 5 * sk + 16 // size, dtype=dtype,
+                          scale=4.0)
+            x = flat[offset // size:][:2 * 3 * 5 * sk].view(shape)
+            assert x.data_ptr() % 16 == offset
+            p = softmax.plan(sk, size, x.data_ptr() % 16 == 0)
+            assert p.path == path, (sk, offset, dtype, p)
+            for scale in (1.0, 0.125):
+                _check_masked_case(x, _key_mask(gen, (2, 1, 5, sk),
+                                                 nan_row=True), scale)
+            taken.append(f"{str(dtype)[6:]} sk {sk}"
+                         + (f" at +{offset} B" if offset else "")
+                         + f": {names[p.path]}, {p.lanes} lanes a row")
+    log("kernels: scaled_softmax and masked_softmax match their plain "
+        "versions on each launch plan branch (" + "; ".join(taken) + ")")
     # the path: BERT-large's scores, its all-ones padding mask (nothing
     # masked) and a partial mask
     b, n, s = BERT_BATCH, BERT["num_attention_heads"], BERT_SEQ
+    assert softmax.plan(s, 4, True).path == softmax.VECTOR
     x = _randn(gen, b, n, s, s, dtype=torch.float32, scale=4.0)
     keep = torch.ones(b, s, dtype=torch.bool, device="cuda")
     mask = ~(keep[:, None, None, :] & keep[:, None, :, None])
-    partial = _key_mask(gen, (b, 1, s, s))
+    # the partial mask in a buffer one flag longer, so that a read one
+    # key ahead stays inside it
+    nm = b * s * s
+    buf = torch.zeros(nm + 16, dtype=torch.bool, device="cuda")
+    buf[:nm] = _key_mask(gen, (b, 1, s, s)).reshape(-1)
+    partial = buf[:nm].view(b, 1, s, s)
     for m in (partial, mask):
         got = softmax.scaled_masked_softmax_fwd(x, m, 1.0)
         want = softmax.scaled_masked_softmax_fwd_plain(x, m, 1.0)
         torch.testing.assert_close(got, want,
                                    rtol=SOFTMAX_RTOL[torch.float32],
                                    atol=SOFTMAX_ATOL)
+    # planted faults through the kernel's own launch (uncounted): flags
+    # read one key off, the scale 1e-4 too large
+    tol = (SOFTMAX_RTOL[torch.float32], SOFTMAX_ATOL)
+    view = partial.expand(b, n, s, s)
+    before = registry.launches()
+    ref = softmax.scaled_masked_softmax_fwd_plain(x, partial, 1.0)
+    readings = {
+        "honest": _masked_raw(x, view, 1.0, softmax.VECTOR),
+        "mask pointer one byte ahead": _masked_raw(
+            x, view, 1.0, softmax.VECTOR, mask_ptr=view.data_ptr() + 1),
+        "scale * (1 + 1e-4)": _masked_raw(x, view, 1.0 + 1e-4,
+                                          softmax.VECTOR)}
+    readings = {k: (_tol_ratio(v, ref, *tol), max_abs(v, ref))
+                for k, v in readings.items()}
+    log("kernel masked_softmax at the path shape, partial mask: "
+        + "; ".join(f"{k}: {r:.3e} of the tolerance (max abs err {e:.3e})"
+                    for k, (r, e) in readings.items()))
+    assert readings["honest"][0] <= 1.0, readings
+    assert all(r > 1.0 for k, (r, _) in readings.items() if k != "honest"), \
+        readings
+    # the first design (one block a row) beside the register path, both
+    # through the C function
+    mview = mask.expand(b, n, s, s)
+    design = {}
+    for label, m in (("masked", mview), ("scaled", None)):
+        for path in (softmax.BLOCK, softmax.VECTOR, softmax.VECTOR,
+                     softmax.BLOCK):
+            design.setdefault((label, path), []).append(device_ms(
+                lambda: _masked_raw(x, m, 1.0, path)) * 1e3)
+    assert registry.launches() == before  # the raw launches are uncounted
+    log("kernels: masked/scaled softmax at the path shape through the C "
+        "function (us, block path first design then register path, in "
+        "turns): " + "; ".join(
+            f"{label} {names[path]} "
+            + "/".join(f"{t:.2f}" for t in ts)
+            for (label, path), ts in design.items()))
     x_filled = x.masked_fill(mask, -10000.0)  # the mask applied before
     nx = b * n * s * s
     masked = entry(
@@ -1292,7 +1417,20 @@ def check_masked_softmax(gen):
         lambda: softmax.scaled_softmax_fwd_plain(x, 1.0),
         lambda: torch.softmax(x, dim=-1),
         bound(2 * nx * 4, 4 * nx, FP32_OPS_PER_S))
-    return [scaled, masked]
+    # the softmax backward (#11) at BERT's shape, as each BERT layer runs it
+    y = want
+    dy = _randn(gen, b, n, s, s, dtype=torch.float32)
+    got = softmax.softmax_bwd(y, dy, 1.0)
+    ref = softmax.softmax_bwd_plain(y, dy, 1.0)
+    assert_close_scaled(got, ref, SOFTMAX_BWD_RTOL[torch.float32])
+    bwd = entry(
+        "softmax_bwd", f"y, dy [{b},{n},{s},{s}] fp32, scale 1", got, ref,
+        f"rtol {SOFTMAX_BWD_RTOL[torch.float32]} atol 1e-5*max|dx|",
+        lambda: softmax.softmax_bwd(y, dy, 1.0),
+        lambda: softmax.softmax_bwd_plain(y, dy, 1.0),
+        lambda: torch._softmax_backward_data(dy, y, -1, torch.float32),
+        bound(3 * nx * 4, 5 * nx, FP32_OPS_PER_S))
+    return [scaled, masked, bwd]
 
 
 def check_lamb(gen):
@@ -1835,17 +1973,21 @@ def check_tp_matmul(gen):
     for label, x, w in cases:
         got = fused_cc._matmul(x, w)
         want = fused_cc.matmul_plain(x, w)
+        ref = torch.matmul(x.float(), w.float())  # want before its cast
         mag = torch.matmul(x.float().abs(), w.float().abs())
         torch.cuda.synchronize()
         assert got.dtype == want.dtype and got.shape == want.shape, label
-        tol = mag * TP_MATMUL_TOL
+        total = got
         if got.dtype == torch.bfloat16:
-            tol = tol + want.float().abs() * 2.0 ** -8
-        over = ((got.float() - want.float()).abs() - tol).max().item()
+            total = fused_cc._matmul(x.float(), w.float())
+            assert torch.equal(got, total.to(torch.bfloat16)), label
+        over = ((total - ref).abs() - mag * TP_MATMUL_TOL).max().item()
         assert over <= 0, (label, over)
         log(f"kernel tp_matmul {label} {tuple(x.shape)} x {tuple(w.shape)}"
-            f" -> {got.dtype}: {_gemm_ratio(got, want, mag):.3e} of "
-            f"|x| @ |w| (within the limit)")
+            f" -> {got.dtype}: {_gemm_ratio(total, ref, mag):.3e} of "
+            f"|x| @ |w| (within the limit)"
+            + ("; the bf16 output is its fp32 sum rounded to nearest, bit "
+               "for bit" if total is not got else ""))
     return entries
 
 
@@ -4246,7 +4388,7 @@ def phase_tp_gpt2():
 
 
 # kernel name parts whose summed device time a training profile prints
-PROFILE_WATCH = ("ln_fwd_kernel", "ln_bwd_dx_kernel", "masked_fwd_kernel",
+PROFILE_WATCH = ("ln_fwd_kernel", "ln_bwd_dx_kernel", "warp_softmax_fwd",
                  "causal_fwd_kernel", "::bwd_kernel<", "lamb_kernel",
                  "adam_kernel", "::fwd_kernel<", "::dq_kernel<",
                  "::dkv_kernel<", "rms_")

@@ -21,25 +21,59 @@
 // rows the forward moves 33.6 MB (>= 10.0 us at 3.35 TB/s) and the
 // backward 50.3 MB (dy, x in, dx out: >= 15.0 us).
 //
-// Design: as rms_norm.cu, one block of 256 threads per row. Each thread
-// sums over a strided slice of the row, a warp-shuffle reduction and a
-// pass through shared memory give the row's sum; the row is read once
-// from device memory and again from L1/L2 for each further pass (three
-// in the forward, four in the backward). The rows of the path (8192)
-// keep all 132 SMs busy. The input may be fp32 or bf16 and the output
-// fp32 or bf16: the model's layers read the bf16 residual stream and
-// write bf16, which gives the JAX layer's cast to fp32 / fp32 norm /
-// rounding to bf16 in one pass; BERT's heads read and write fp32. The
-// elementwise expressions are written with round-to-nearest intrinsics so
-// that nvcc does not contract them into FMAs the TPU kernel's oracle
-// lacks; only the order of the row sums differs.
+// Design of the forward (#4, the first design, unchanged): as
+// rms_norm.cu, one block of 256 threads per row. Each thread sums over a
+// strided slice of the row, a warp-shuffle reduction and a pass through
+// shared memory give the row's sum; the row is read once from device
+// memory and again from L1/L2 for each further pass (three). The input
+// may be fp32 or bf16 and the output fp32 or bf16: the model's layers
+// read the bf16 residual stream and write bf16, which gives the JAX
+// layer's cast to fp32 / fp32 norm / rounding to bf16 in one pass; BERT's
+// heads read and write fp32.
+//
+// Design of the backward-dx (#5): a row of up to kRegMaxH = 1024
+// elements lives in the registers of one warp, with no shared memory and
+// no block barrier (warp_ln_bwd_dx). The first design (ln_bwd_dx_kernel,
+// one block of 256 threads a row: four block sums of two barriers each,
+// four passes over the row, 2-byte accesses) ran at 0.40 of its bound at
+// GPT-2's [8192, 1024] bf16 rows. Lane l holds chunks l, l + 32, ... of
+// VEC elements (16 bytes of the narrower of dy and x: 8 when either is
+// bf16, 4 when both are fp32; 1 on the scalar path): kIters chunks a
+// lane, a template bucket (the chunks a row needs, rounded up to a power
+// of two), at most 32 elements of each a lane. They are held as loaded,
+// bf16 as packed pairs (16 registers for 32 values), and widened to fp32
+// on each use: fewer registers and more warps resident than with the
+// values widened into registers, which ran slower on an H100 80GB HBM3. x and dy are
+// read from device memory once, with streaming hints (ld.global.cs), and
+// dx written once (st.global.cs); w (fp32 [h], 4 KB) is read through the
+// read-only cache in the sums' pass and again in the output pass, 16
+// bytes at a time where it starts on a 16-byte boundary (a launch-wide
+// flag: w does not choose the path). The four row sums (mean, the centred
+// sum of squares, c1, c2; c1 and c2 in one pass) are each a lane's
+// partial over its elements in the order it holds them, then an xor
+// butterfly of __shfl_xor_sync (five steps; every
+// lane ends with the same bits). Blocks are kRowWarps = 4 warps, a row a
+// warp. The 16-byte path needs h a multiple of VEC and dy, x, dx on
+// 16-byte boundaries; the wrapper's plan (kernels/norm.py `ln_bwd_plan`)
+// picks it from the shapes and data_ptr() % 16 and passes it as `path`,
+// which the launcher checks. Otherwise the scalar path runs with the same
+// lanes (h = 1001, views off 16 bytes); rows longer than kRegMaxH keep
+// the first design. Only the order of the four row sums differs from the
+// TPU kernel's two-pass arithmetic (mean first, then the centred squares;
+// not Welford). The elementwise expressions are written with
+// round-to-nearest intrinsics so that nvcc does not contract them into
+// FMAs the TPU kernel's oracle lacks; rsqrtf(var + eps) as before.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRegMaxH = 1024;  // the register path: rows of at most 1024
+constexpr int kRowWarps = 4;    // warps (rows) of a register-path block
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -149,6 +183,266 @@ int launch_bwd(const void* dy, const void* x, const float* w, void* dx,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// N consecutive values of a row as loaded (read once, with streaming
+// hints), widened to fp32 on each use: fp32 as floats, bf16 as pairs
+// packed in 32-bit words (half the registers); N = 1, or 16-byte
+// multiples. bf16 -> fp32 is exact: the 16 bits become the top half.
+template <typename T, int N>
+struct Chunk;
+
+template <int N>
+struct Chunk<float, N> {
+  float v[N];
+  __device__ __forceinline__ void load(const float* p) {
+    if constexpr (N == 1) {
+      v[0] = __ldcs(p);
+    } else {
+      static_assert(N % 4 == 0, "fp32: 1 or a multiple of 4 values");
+#pragma unroll
+      for (int i = 0; i < N; i += 4) {
+        const float4 t = __ldcs(reinterpret_cast<const float4*>(p + i));
+        v[i] = t.x;
+        v[i + 1] = t.y;
+        v[i + 2] = t.z;
+        v[i + 3] = t.w;
+      }
+    }
+  }
+  __device__ __forceinline__ float operator[](int e) const { return v[e]; }
+};
+
+template <int N>
+struct Chunk<__nv_bfloat16, N> {
+  unsigned u[(N + 1) / 2];
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    if constexpr (N == 1) {
+      u[0] = __ldcs(reinterpret_cast<const unsigned short*>(p));
+    } else {
+      static_assert(N % 8 == 0, "bf16: 1 or a multiple of 8 values");
+#pragma unroll
+      for (int i = 0; i < N; i += 8) {
+        const uint4 t = __ldcs(reinterpret_cast<const uint4*>(p + i));
+        u[i / 2] = t.x;
+        u[i / 2 + 1] = t.y;
+        u[i / 2 + 2] = t.z;
+        u[i / 2 + 3] = t.w;
+      }
+    }
+  }
+  __device__ __forceinline__ float operator[](int e) const {
+    return __uint_as_float(e % 2 == 0 ? u[e / 2] << 16
+                                      : u[e / 2] & 0xffff0000u);
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void store_row(float* p, const float* v) {
+  if constexpr (N == 1) {
+    __stcs(p, v[0]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; i += 4)
+      __stcs(reinterpret_cast<float4*>(p + i),
+             make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]));
+  }
+}
+
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+template <int N>
+__device__ __forceinline__ void store_row(__nv_bfloat16* p, const float* v) {
+  if constexpr (N == 1) {
+    __stcs(reinterpret_cast<unsigned short*>(p),
+           static_cast<unsigned short>(bf16_bits(v[0])));
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; i += 8) {
+      uint4 t;
+      t.x = bf16_bits(v[i]) | (bf16_bits(v[i + 1]) << 16);
+      t.y = bf16_bits(v[i + 2]) | (bf16_bits(v[i + 3]) << 16);
+      t.z = bf16_bits(v[i + 4]) | (bf16_bits(v[i + 5]) << 16);
+      t.w = bf16_bits(v[i + 6]) | (bf16_bits(v[i + 7]) << 16);
+      __stcs(reinterpret_cast<uint4*>(p + i), t);
+    }
+  }
+}
+
+// N weights at w + j (fp32, kept in cache): float4 loads when `whole`
+// (w on a 16-byte boundary, N a multiple of 4), else one at a time.
+template <int N>
+__device__ __forceinline__ void load_weight(const float* w, int j, bool whole,
+                                            float* v) {
+  if constexpr (N % 4 == 0) {
+    if (whole) {
+#pragma unroll
+      for (int i = 0; i < N; i += 4) {
+        const float4 t = __ldg(reinterpret_cast<const float4*>(w + j + i));
+        v[i] = t.x;
+        v[i + 1] = t.y;
+        v[i + 2] = t.z;
+        v[i + 3] = t.w;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = __ldg(w + j + i);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The register path: a row of h <= kIters * 32 * kVec elements a warp
+// (see the header note). kVec: elements an access (16 bytes of the
+// narrower type, or 1). w null: no scale; w_whole: w 16-byte aligned.
+template <typename Tdy, typename Tx, int kVec, int kIters>
+__global__ void __launch_bounds__(kRowWarps * 32)
+warp_ln_bwd_dx(const Tdy* __restrict__ dy, const Tx* __restrict__ x,
+               const float* __restrict__ w, Tx* __restrict__ dx,
+               long long rows, int h, float eps, bool w_whole) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kRowWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp: no shuffle is left waiting
+  const Tx* xr = x + row * h;
+  const Tdy* dyr = dy + row * h;
+  Tx* dxr = dx + row * h;
+  Chunk<Tx, kVec> xv[kIters];
+  Chunk<Tdy, kVec> gv[kIters];
+  float s = 0.f;
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int j = (it * 32 + lane) * kVec;  // the chunk's first element
+    if (j < h) {
+      xv[it].load(xr + j);
+      gv[it].load(dyr + j);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) s += xv[it][e];
+    }
+  }
+  const float mean = warp_sum(s) / static_cast<float>(h);
+  float ss = 0.f;
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    if ((it * 32 + lane) * kVec < h) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const float c = __fsub_rn(xv[it][e], mean);
+        ss = __fadd_rn(ss, __fmul_rn(c, c));
+      }
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(ss) / static_cast<float>(h) + eps);
+  // xhat and w*dy, recomputed from the loaded values (w from cache) in
+  // the sums' pass and in the output pass
+  auto terms = [&](int it, int j, float* xhat, float* wdy) {
+    float wv[kVec];
+    if (w != nullptr) load_weight<kVec>(w, j, w_whole, wv);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      xhat[e] = __fmul_rn(__fsub_rn(xv[it][e], mean), rstd);
+      wdy[e] = w != nullptr ? __fmul_rn(gv[it][e], wv[e]) : gv[it][e];
+    }
+  };
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int j = (it * 32 + lane) * kVec;
+    if (j < h) {
+      float xhat[kVec], wdy[kVec];
+      terms(it, j, xhat, wdy);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        s1 += wdy[e];
+        s2 = __fadd_rn(s2, __fmul_rn(wdy[e], xhat[e]));
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+  }
+  const float c1 = s1 / static_cast<float>(h);
+  const float c2 = s2 / static_cast<float>(h);
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int j = (it * 32 + lane) * kVec;
+    if (j < h) {
+      float xhat[kVec], wdy[kVec], d[kVec];
+      terms(it, j, xhat, wdy);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        d[e] = __fmul_rn(__fsub_rn(__fsub_rn(wdy[e], c1), __fmul_rn(xhat[e], c2)),
+                         rstd);
+      store_row<kVec>(dxr + j, d);
+    }
+  }
+}
+
+template <typename Tdy, typename Tx, int kVec, int kIters>
+int launch_warp_rows(const void* dy, const void* x, const float* w, void* dx,
+                     long long rows, int h, float eps, cudaStream_t stream) {
+  const long long blocks = (rows + kRowWarps - 1) / kRowWarps;
+  const bool w_whole = (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  warp_ln_bwd_dx<Tdy, Tx, kVec, kIters>
+      <<<static_cast<unsigned>(blocks), kRowWarps * 32, 0, stream>>>(
+          static_cast<const Tdy*>(dy), static_cast<const Tx*>(x), w,
+          static_cast<Tx*>(dx), rows, h, eps, w_whole);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The register path's instance for `iters` chunks a lane (a power of two).
+template <typename Tdy, typename Tx, int kVec, int kIters = 1>
+int dispatch_warp_rows(int iters, const void* dy, const void* x,
+                       const float* w, void* dx, long long rows, int h,
+                       float eps, cudaStream_t stream) {
+  if constexpr (kIters * 32 * kVec > kRegMaxH) {
+    return -1;
+  } else {
+    if (iters == kIters)
+      return launch_warp_rows<Tdy, Tx, kVec, kIters>(dy, x, w, dx, rows, h,
+                                                     eps, stream);
+    return dispatch_warp_rows<Tdy, Tx, kVec, kIters * 2>(iters, dy, x, w, dx,
+                                                         rows, h, eps, stream);
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// path: 0 = one block a row (the first design, any h), 1 = the register
+// path with one element an access, 2 = the register path with 16-byte
+// accesses. -1 where the arguments do not fit the path.
+template <typename Tdy, typename Tx>
+int launch_bwd_path(int path, const void* dy, const void* x, const float* w,
+                    void* dx, long long rows, int h, float eps,
+                    cudaStream_t stream) {
+  if (path == 0) return launch_bwd<Tdy, Tx>(dy, x, w, dx, rows, h, eps, stream);
+  if ((path != 1 && path != 2) || h > kRegMaxH) return -1;
+  constexpr int kVec =
+      16 / static_cast<int>(sizeof(Tdy) < sizeof(Tx) ? sizeof(Tdy) : sizeof(Tx));
+  const int vec = path == 2 ? kVec : 1;
+  if (path == 2 && (h % kVec != 0 || !aligned16(dy) || !aligned16(x) ||
+                    !aligned16(dx)))
+    return -1;
+  const int chunks = (h + 32 * vec - 1) / (32 * vec);
+  int iters = 1;
+  while (iters < chunks) iters *= 2;
+  if (path == 2)
+    return dispatch_warp_rows<Tdy, Tx, kVec>(iters, dy, x, w, dx, rows, h, eps,
+                                             stream);
+  return dispatch_warp_rows<Tdy, Tx, 1>(iters, dy, x, w, dx, rows, h, eps,
+                                        stream);
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. w and b are fp32 [h] or null.
@@ -168,18 +462,22 @@ extern "C" int apex_layer_norm_fwd(const void* x, const float* w,
 }
 
 // dx [rows, h] in x's dtype from dy and x [rows, h] and the fp32 weight
-// [h] (or null); dtype codes as above. Returns the CUDA error of the
-// launch (0 on success); -1 for a dtype the kernel does not take.
+// [h] (or null); dtype codes as above; path as launch_bwd_path
+// (kernels/norm.py `ln_bwd_plan` picks it). Returns the CUDA error of the
+// launch (0 on success); -1 for a dtype, or a path, the kernel does not
+// take for these arguments.
 extern "C" int apex_layer_norm_bwd_dx(const void* dy, const void* x,
                                       const float* w, void* dx,
                                       long long rows, int h, float eps,
-                                      int dy_dtype, int x_dtype,
+                                      int dy_dtype, int x_dtype, int path,
                                       void* stream) {
   if (rows <= 0) return 0;
+  if (h < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dy_dtype == 0 && x_dtype == 0) return launch_bwd<float, float>(dy, x, w, dx, rows, h, eps, s);
-  if (dy_dtype == 0 && x_dtype == 1) return launch_bwd<float, __nv_bfloat16>(dy, x, w, dx, rows, h, eps, s);
-  if (dy_dtype == 1 && x_dtype == 0) return launch_bwd<__nv_bfloat16, float>(dy, x, w, dx, rows, h, eps, s);
-  if (dy_dtype == 1 && x_dtype == 1) return launch_bwd<__nv_bfloat16, __nv_bfloat16>(dy, x, w, dx, rows, h, eps, s);
+  using bf16 = __nv_bfloat16;
+  if (dy_dtype == 0 && x_dtype == 0) return launch_bwd_path<float, float>(path, dy, x, w, dx, rows, h, eps, s);
+  if (dy_dtype == 0 && x_dtype == 1) return launch_bwd_path<float, bf16>(path, dy, x, w, dx, rows, h, eps, s);
+  if (dy_dtype == 1 && x_dtype == 0) return launch_bwd_path<bf16, float>(path, dy, x, w, dx, rows, h, eps, s);
+  if (dy_dtype == 1 && x_dtype == 1) return launch_bwd_path<bf16, bf16>(path, dy, x, w, dx, rows, h, eps, s);
   return -1;
 }

@@ -42,6 +42,11 @@ NEG_INF = -1e30
 # column tiles of matmul_reduce_from: each tile's all-reduce follows its
 # GEMM
 DEFAULT_TILES = 4
+# #20's launch plan (csrc/fused_cc_matmul.cu): block tiles, largest
+# first; the K step; splits of K at most (each at least one K step)
+MM_TILES = ((128, 128), (128, 64), (64, 64))
+MM_STEP = 32
+MM_MAX_SPLITS = 16
 TP_MATMUL = registry.register("tp_matmul")
 WINDOW_ATTENTION = registry.register("window_attention")
 SPEC_VERIFY = registry.register("spec_verify")
@@ -55,11 +60,64 @@ def matmul_plain(x, w):
     return torch.matmul(x.float(), w.float()).to(torch.result_type(x, w))
 
 
+def plan(m: int, n: int, k: int, sms: int):
+    """(bm, bn, splits) of #20 for out [m, n] = x [m, k] @ w [k, n] on a
+    card of ``sms`` SMs, from the shape alone (never the dtype: a bf16
+    output must be the rounding of the same fp32 sum as an fp32 output).
+    The largest tile of MM_TILES whose output tiles number at least the
+    SMs runs unsplit (S = 1: a split's fp32 partials cost more than the
+    fuller card gains, measured at GPT-2's tiles); where none does, the
+    smallest tile splits K into the S nearest to two blocks an SM, at most
+    MM_MAX_SPLITS and one split a K step of MM_STEP. GPT-2's [8192, k] x
+    [k, 256] tiles take 128 x 64 and S = 1; tp_dp's [128, 1024] x [1024,
+    64] 64 x 64 and S = 16, its [128, 256] x [256, 64] S = 8."""
+    for bm, bn in MM_TILES:
+        tiles = -(-m // bm) * -(-n // bn)
+        if tiles >= sms:
+            return bm, bn, 1
+    most = min(MM_MAX_SPLITS, -(-k // MM_STEP))
+    return bm, bn, max(1, min(most, (2 * sms + tiles // 2) // tiles))
+
+
+def workspace(device, m: int, n: int, k: int, splits=None):
+    """((bm, bn, splits), scratch, counters) for one #20 launch: the plan
+    (``splits`` forced where given: the card checks), and with S > 1 the
+    fp32 partial tiles and the device's zeroed int32 counters (shared
+    with #21/#25, in stream order); with S = 1 neither (None)."""
+    bm, bn, planned = plan(m, n, k, kv_attention.sm_count(device.index))
+    splits = planned if splits is None else splits
+    if splits == 1:
+        return (bm, bn, 1), None, None
+    tiles = -(-m // bm) * -(-n // bn)
+    scratch = torch.empty(tiles * splits * bm * bn, dtype=torch.float32,
+                          device=device)
+    return (bm, bn, splits), scratch, kv_attention.counters(device, tiles)
+
+
 @functools.lru_cache(maxsize=1)
 def _mm_kernel():
     p, i, ll = _checks.ptr, ctypes.c_int, ctypes.c_longlong
     return _build.function("fused_cc_matmul", "apex_tp_matmul",
-                           [p, p, p, i, i, i, ll, ll, i, i, p])
+                           [p, p, p, i, i, i, ll, ll, i, i, i, i, i, p, p,
+                            p])
+
+
+def mm_launch(x2, w, out, k, splits=None):
+    """Launch #20 through its C function, uncounted: out [m, n] = x2[:, :k]
+    @ w[:k] (rows of each contiguous) on the plan for (m, n, k), S forced
+    to ``splits`` where given. The wrapper's launch, and the card checks'
+    (planted faults, forced splits)."""
+    (bm, bn, s), scratch, counters = workspace(x2.device, x2.shape[0],
+                                               w.shape[1], k, splits)
+    with torch.cuda.device(x2.device):
+        rc = _mm_kernel()(x2.data_ptr(), w.data_ptr(), out.data_ptr(),
+                          x2.shape[0], w.shape[1], k, x2.stride(0),
+                          w.stride(0), _checks.DTYPE_CODES[x2.dtype],
+                          _checks.DTYPE_CODES[w.dtype], bm, bn, s,
+                          _checks.data_ptr(scratch),
+                          _checks.data_ptr(counters), _checks.stream(x2))
+    _checks.status("tp_matmul", rc)
+    return out
 
 
 def _matmul(x, w):
@@ -75,8 +133,8 @@ def _matmul(x, w):
     if w.dim() != 2 or x.dim() < 1 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"{name}: x [..., k] and w [k, n] do not match: "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    xc = _checks.dtype_code(name, x, "x")
-    wc = _checks.dtype_code(name, w, "w")
+    _checks.dtype_code(name, x, "x")
+    _checks.dtype_code(name, w, "w")
     lead, (k, n) = x.shape[:-1], w.shape
     x2 = x.reshape(-1, k)
     m = x2.shape[0]
@@ -87,11 +145,7 @@ def _matmul(x, w):
         raise ValueError(f"{name}: the rows of x and w must each be "
                          f"contiguous")
     out = torch.empty(m, n, dtype=torch.result_type(x, w), device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _mm_kernel()(x2.data_ptr(), w.data_ptr(), out.data_ptr(), m, n,
-                          k, x2.stride(0), w.stride(0), xc, wc,
-                          _checks.stream(x))
-    _checks.status(name, rc)
+    mm_launch(x2, w, out, k)
     registry.count(TP_MATMUL)
     return out.reshape(*lead, n)
 

@@ -13,12 +13,15 @@ q, k, v, o and lse only.
 
 On a CPU tensor each wrapper takes its plain version; on a CUDA tensor
 it launches the kernels (fp32 or bf16, head dim 64, 128 or 256, any
-sequence length) or raises.
+sequence length) or raises. The backward's body comes from
+:func:`bwd_plan`: the tensor-core body (products as three TF32 terms)
+for head dims 64 and 128, the first design (fp32 FMAs) for 256.
 """
 
 import ctypes
 import functools
 import numbers
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +34,14 @@ HEAD_DIMS = (64, 128, 256)
 FLASH_FWD = registry.register("flash_fwd")
 FLASH_DQ = registry.register("flash_dq")
 FLASH_DKV = registry.register("flash_dkv")
+# The backward kernels' bodies, as csrc/flash_attention.cu numbers them
+# (the `path` of apex_flash_dq and apex_flash_dkv): the first design, one
+# 256-thread block of fp32 FMAs per 64 rows (32 at head dim 256); the
+# tensor-core body, a block of warps of 16 rows streaming the other
+# operand in tiles through BWD_STAGES cp.async stages. (The C functions
+# also take two codes of planted faults, which the package never passes.)
+BWD_SIMT, BWD_MMA = 0, 1
+BWD_SIMT_THREADS, BWD_STAGES = 256, 2
 
 
 def _visible(sq, sk, causal, window, device):
@@ -132,14 +143,59 @@ def flash_bwd_plain(q, k, v, o, lse, do, scale, causal, window=None,
                                  window, alibi_slopes))
 
 
+class BwdPlan(NamedTuple):
+    """How the backward kernels launch: ``path`` (BWD_SIMT or BWD_MMA);
+    a block owns ``rows`` rows (query rows for dq, key rows for dk/dv)
+    and streams the other operand ``tile`` rows at a time through
+    ``stages`` stages; ``threads`` a block, ``smem`` bytes of dynamic
+    shared memory (the same for dq and dk/dv)."""
+    path: int
+    rows: int
+    tile: int
+    stages: int
+    threads: int
+    smem: int
+
+
+def bwd_plan(d: int, dtype: torch.dtype, aligned: bool = True) -> BwdPlan:
+    """The backward's body for head dim ``d`` and the inputs' dtype, from
+    those alone and ``aligned`` (q, k, v, do and the outputs start on
+    16-byte boundaries, as fresh tensors do; the tensor-core body copies
+    16 bytes at a time). Head dims 64 and 128 take the tensor-core body:
+    warps of 16 rows, the block's own rows (fp32, padded to d + 4), two
+    stages of tiles in the inputs' dtype and the current tile's TF32
+    planes (hi and lo for fp32, hi alone for bf16) side by side in shared
+    memory: 8 warps and 64-row tiles for fp32 at d 64 (the training
+    path), else 4 warps and tiles of 32 rows (d 64) or 16 (d 128). d 256,
+    or unaligned operands, take the first design (fp32 rows padded to d +
+    1)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"bwd_plan: head dim {d} not in {HEAD_DIMS}")
+    size = torch.tensor([], dtype=dtype).element_size()
+    if d <= 128 and aligned:
+        wide = size == 4 and d == 64
+        warps = 8 if wide else 4
+        tile = 64 if wide else 32 if d <= 64 else 16
+        rows, ld = 16 * warps, d + 4
+        planes = 2 if size == 4 else 1
+        smem = (4 * 2 * rows * ld + BWD_STAGES * 2 * tile * d * size
+                + 4 * (BWD_STAGES * 2 * tile + 2 * planes * tile * ld
+                       + 2 * tile))
+        return BwdPlan(BWD_MMA, rows, tile, BWD_STAGES, 32 * warps, smem)
+    b = 64 if d <= 128 else 32
+    smem = 4 * (4 * b * (d + 1) + b * (b + 1) + 2 * b)
+    return BwdPlan(BWD_SIMT, b, b, 1, BWD_SIMT_THREADS, smem)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(symbol):
     p, i, f = _checks.ptr, ctypes.c_int, ctypes.c_float
     outs = {"apex_flash_fwd": 2, "apex_flash_dq": 1, "apex_flash_dkv": 2}
     ins = 3 if symbol == "apex_flash_fwd" else 6
+    path = [] if symbol == "apex_flash_fwd" else [i]
     return _build.function("flash_attention", symbol,
                            [p] * (ins + 1 + outs[symbol])
-                           + [i, i, i, i, f, i, i, i, p])
+                           + [i, i, i, i, f, i, i, i, *path, p])
 
 
 def _check_kernel_args(name, q, k, v, window, alibi_slopes, do=None):
@@ -170,15 +226,16 @@ def _check_kernel_args(name, q, k, v, window, alibi_slopes, do=None):
     return code, alibi_slopes.float().contiguous()
 
 
-def _common(q, scale, causal, window, slopes, code):
-    """The C functions' trailing arguments, and the slopes' pointer. A
-    window of s or more masks nothing more than causality and goes to the
-    kernel as s (a C int)."""
+def _common(q, scale, causal, window, slopes, code, path=()):
+    """The C functions' trailing arguments (the backward's ``path`` as a
+    one-element tuple), and the slopes' pointer. A window of s or more
+    masks nothing more than causality and goes to the kernel as s (a C
+    int)."""
     b, n, s, d = q.shape
     window = 0 if window is None else min(int(window), s)
     return [b * n, n, s, d, float(scale), int(bool(causal)), window,
-            code, _checks.stream(q)], (0 if slopes is None
-                                       else slopes.data_ptr())
+            code, *path, _checks.stream(q)], (0 if slopes is None
+                                              else slopes.data_ptr())
 
 
 def flash_fwd(q, k, v, scale, causal, window=None, alibi_slopes=None):
@@ -215,6 +272,12 @@ def _check_bwd_args(name, q, k, v, do, lse, delta, window,
     return code, slopes
 
 
+def _bwd_path(q, k, v, do, *outs):
+    """The body :func:`bwd_plan` names for these tensors."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, do, *outs))
+    return bwd_plan(q.shape[-1], q.dtype, aligned).path
+
+
 def flash_dq(q, k, v, do, lse, delta, scale, causal, window=None,
              alibi_slopes=None):
     """dq in q's dtype from the output gradient do, lse and delta [b, n,
@@ -227,7 +290,8 @@ def flash_dq(q, k, v, do, lse, delta, scale, causal, window=None,
     code, slopes = _check_bwd_args("flash_dq", q, k, v, do, lse, delta,
                                    window, alibi_slopes)
     dq = torch.empty_like(q)
-    tail, slopes_ptr = _common(q, scale, causal, window, slopes, code)
+    tail, slopes_ptr = _common(q, scale, causal, window, slopes, code,
+                               (_bwd_path(q, k, v, do, dq),))
     with torch.cuda.device(q.device):
         rc = _kernel("apex_flash_dq")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -250,7 +314,8 @@ def flash_dkv(q, k, v, do, lse, delta, scale, causal, window=None,
     code, slopes = _check_bwd_args("flash_dkv", q, k, v, do, lse, delta,
                                    window, alibi_slopes)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
-    tail, slopes_ptr = _common(q, scale, causal, window, slopes, code)
+    tail, slopes_ptr = _common(q, scale, causal, window, slopes, code,
+                               (_bwd_path(q, k, v, do, dk, dv),))
     with torch.cuda.device(q.device):
         rc = _kernel("apex_flash_dkv")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -344,8 +409,9 @@ def flash_attention(q, k, v, causal=True, scale=None,
     package's TPU tiles; they are checked and otherwise unused: the CUDA
     kernels pick their own tiles (64 rows for head dims 64 and 128, 32
     for 256) and take any sequence length, so nothing here falls back to
-    the einsum reference. The function saves q, k, v, o and lse for the
-    backward, never an [s, s] matrix."""
+    the einsum reference; the backward's tiles follow :func:`bwd_plan`.
+    The function saves q, k, v, o and lse for the backward, never an [s,
+    s] matrix."""
     _check_window(window, causal)
     scale = _resolve(q, scale, block_q, block_k)
     window = None if window is None else int(window)

@@ -14,8 +14,8 @@
 //            fp32 running max m and sum l; o = acc / max(l, 1e-30) in
 //            q's dtype, lse = m + log(max(l, 1e-30)) in fp32.
 //   dq:      p = exp(q . k^T * scale (+ alibi) - lse),
-//            ds = p * (do . v^T - delta), dq += (ds . k) * scale.
-//   dk, dv:  dv += p^T . do, dk += (ds^T . q) * scale.
+//            ds = p * (do . v^T - delta), dq = (ds . k) * scale.
+//   dk, dv:  dv = p^T . do, dk = (ds^T . q) * scale.
 // delta = rowsum(do * o) over the saved (rounded) o is the caller's.
 // The scale multiplies q before the product in the forward and the
 // product after it in the backward, as the TPU kernels do.
@@ -23,31 +23,83 @@
 // Bound on the H100: operations. At the training step's shape (bh = 64,
 // s = 2048, d = 64, causal: 1.34e8 live (i, j) pairs) the forward does
 // 4d, dq 6d and dk/dv 8d operations per live pair (34.4, 51.6 and 68.7
-// GFLOP) on ~135-200 MB. Both operands of q.k^T and do.v^T are exact in
-// fp32, but p, ds and the accumulators are fp32, and the model's path
-// hands the kernels fp32 q/k/v (the QKV bias add promotes to fp32), so
-// every product here is fp32 FMA: 67 TFLOP/s at best (0.51 ms for the
-// forward), not the 989 TFLOP/s of the bf16 tensor cores.
+// GFLOP) on ~135-200 MB. The model's path hands the kernels fp32 q/k/v
+// (the QKV bias add promotes to fp32), and p, ds and the accumulators
+// are fp32 everywhere. As fp32 FMAs on the CUDA cores (67 TFLOP/s) the
+// three take at least 513, 770 and 1026 us. On the tensor cores at fp32
+// accuracy each product is three TF32 products (below), at 495 TFLOP/s:
+// at least 208.3, 312.5 and 416.7 us. With bf16 inputs q, k, v and do
+// are exact in TF32 and only p and ds are split: dq does 1 + 1 + 2
+// products (8d operations a pair, 138.9 us) and dk/dv 1 + 1 + 2 + 2
+// (12d, 208.3 us).
 //
-// Design (simple and exact first): one block of 256 threads (a 16 x 16
-// grid) per (head, tile of B query rows) for the forward and dq, per
-// (head, tile of B key rows) for dk/dv; B = 64 for d <= 128 and 32 for
-// d = 256, so every tile fits shared memory. The TPU grid's sequential
-// axis becomes a loop inside the block over the other operand's tiles,
-// staged in shared memory as fp32 rows padded to d + 1 (conflict-free
-// column reads). Only tiles that hold a visible pair are visited: up to
-// the diagonal for causal, and from the window's first key (forward,
-// dq) or up to its last query (dk/dv). Each thread owns a B/16 x B/16
-// patch of the score tile (its rows' softmax statistics reduced over the
-// 16 lanes of a half-warp) and a B/16 x d/16 patch of the output
-// accumulators. p and ds pass through shared memory to the second
-// product. dq and dk/dv stay two kernels, as in JAX: every output tile
-// has one writer, so no atomics and a deterministic result. Tails where
-// s is not a multiple of B are masked. The causal forward and dq visit
-// the longest query tiles first.
+// Forward, and the backward's first design (kept for d = 256, and as
+// path 0 of apex_flash_dq / apex_flash_dkv): one block of 256 threads (a
+// 16 x 16 grid) per (head, tile of B query rows) for the forward and dq,
+// per (head, tile of B key rows) for dk/dv; B = 64 for d <= 128 and 32
+// for d = 256, so every tile fits shared memory. The TPU grid's
+// sequential axis becomes a loop inside the block over the other
+// operand's tiles, staged in shared memory as fp32 rows padded to d + 1
+// (conflict-free column reads). Only tiles that hold a visible pair are
+// visited: up to the diagonal for causal, and from the window's first key
+// (forward, dq) or up to its last query (dk/dv). Each thread owns a B/16
+// x B/16 patch of the score tile (its rows' softmax statistics reduced
+// over the 16 lanes of a half-warp) and a B/16 x d/16 patch of the output
+// accumulators; every product is an fp32 FMA. p and ds pass through
+// shared memory to the second product. Tails where s is not a multiple
+// of B are masked. The causal forward and dq visit the longest query
+// tiles first.
+//
+// Backward on the tensor cores (path 1: d = 64 and 128, 16-byte aligned
+// operands; `fmha.bwd_plan` picks the path from the shapes, and the
+// launcher refuses a path the shapes do not fit):
+//  * Products: mma.sync.m16n8k8 TF32 with fp32 accumulation, fp32 values
+//    split three ways as CUTLASS's "fast fp32" does: hi = rna_tf32(a), lo
+//    = rna_tf32(a - hi) (a - hi is exact in fp32), a . b = lo_a . hi_b +
+//    hi_a . lo_b + hi_a . hi_b, smallest first; the dropped lo . lo term
+//    and lo's rounding leave under 2^-21 of each product. A bf16 operand
+//    is exact in TF32 and takes one term. Every product of both kernels
+//    goes through this; no atomics: dq and dk/dv stay two kernels and
+//    every output tile has one writer, so the result is deterministic.
+//  * dk/dv: a block of kWarps warps owns 16 key rows a warp (one mma M
+//    tile; 8 warps and 128 rows for fp32 at d 64, else 4 and 64) and
+//    keeps K and V in shared memory as fp32 rows padded to d + 4 (the
+//    fragment reads below are then conflict-free), split into terms as
+//    each k step reads them. Query tiles of kTile rows (64 for fp32 at d
+//    64, 32 for bf16, 16 at d 128) of Q and dO, with their lse and delta,
+//    stream through a ring of kStages cp.async stages in the inputs'
+//    dtype; when a tile lands, the block splits it once into hi and lo
+//    planes (fp32 padded rows), which every warp then reads. A warp
+//    computes S^T = K . Q^T and dP^T = V . dO^T for its 16 keys (the
+//    queries are the mma's N, so Q and dO rows are B fragments as they
+//    lie, read for fp32 by ldmatrix), then P^T and dS^T in the accumulator
+//    fragment, then dV += P^T . dO and dK += dS^T . Q.
+//  * dq: the mirror image: a block owns the query rows (Q and dO
+//    resident, lse and delta of a warp's rows in registers) and streams K
+//    and V.
+//  * The accumulator layout of m16n8k8 (row g, columns 2t and 2t + 1 for
+//    lane 4g + t) is not its A layout (row g, columns t and t + 4). The
+//    second products sum over the tile's queries (dk/dv) or keys (dq),
+//    in any order within a k step, so k columns t and t + 4 stand for
+//    rows 2t and 2t + 1 of the step; the accumulator registers of P^T and
+//    dS^T are then the A fragment as they are, with no shuffle, and the B
+//    fragment reads dO, Q or K rows 2t and 2t + 1.
+//  * Ranges as in the first design: causal dq visits key tiles up to its
+//    block's last row, from the window's first key; dk/dv visits query
+//    tiles from its block's first key up to the window's last query. The
+//    longest tiles go first. A warp skips a tile that holds no visible
+//    pair of its 16 rows (its contribution is exactly 0); a tile whose
+//    every pair is visible skips the per-element mask, so only diagonal,
+//    window-edge and ragged tiles mask.
+//  * Paths 2 and 3 (fp32, d = 64 only) are faults planted for the card
+//    check: the lo terms dropped, and the last tile of each causal range
+//    skipped. No caller of the package passes them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -265,7 +317,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------------------ dq
+// ------------------------------------------------------- dq, first design
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -351,7 +403,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// -------------------------------------------------------------- dk, dv
+// --------------------------------------------------- dk, dv, first design
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -455,6 +507,560 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------ backward on the tensor cores (3xTF32)
+
+constexpr int kStages = 2;  // cp.async stages of the streamed tiles
+// path codes of apex_flash_dq and apex_flash_dkv
+constexpr int kPathSimt = 0;       // the first design (any d)
+constexpr int kPathMma = 1;        // the tensor-core body (d 64, 128)
+constexpr int kFaultNoLo = 2;      // planted: the lo terms dropped
+constexpr int kFaultSkipLast = 3;  // planted: a causal range's last tile skipped
+// what a warp's tile holds (band)
+constexpr int kNoPair = 0, kSomePairs = 1, kAllPairs = 2;
+
+// A block of both kernels: kWarps warps of 16 rows own kRows rows and
+// stream the other operand kTile rows at a time. fp32 at d 64 (the
+// training path) takes 8 warps and 64-row tiles, the largest that fit
+// (fewer barriers and splits a product: faster there on an H100 than 4
+// warps and 32-row tiles, which bf16 runs fastest at); d 128 takes
+// 16-row tiles. Shared memory: the block's own rows of two operands (fp32, rows
+// padded to kLd), the ring (kStages x two [kTile][D] tiles in the inputs'
+// dtype, then kStages x two [kTile] fp32 vectors), the planes (two
+// operands x kPlanes x [kTile][kLd] fp32) and the current tile's two
+// vectors. contrib/fmha.py `bwd_plan` mirrors it.
+template <typename T, int D>
+struct MmaLayout {
+  static constexpr bool kSplit = sizeof(T) == 4;  // fp32 inputs: hi + lo
+  static constexpr bool kWide = kSplit && D == 64;
+  static constexpr int kWarps = kWide ? 8 : 4;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kRows = 16 * kWarps;  // one m16 tile a warp
+  static constexpr int kTile = kWide ? 64 : D <= 64 ? 32 : 16;
+  static constexpr int kPlanes = kSplit ? 2 : 1;
+  static constexpr int kLd = D + 4;
+  static constexpr int kRing = kStages * 2 * kTile * D;       // T elements
+  static constexpr int kRingVec = kStages * 2 * kTile;        // floats
+  static constexpr int kPlane = kTile * kLd;                  // floats
+  static constexpr int kBytes =
+      4 * 2 * kRows * kLd + kRing * static_cast<int>(sizeof(T)) +
+      4 * (kRingVec + 2 * kPlanes * kPlane + 2 * kTile);
+  static_assert(kBytes <= 227 * 1024, "more shared memory than a block takes");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (4) bytes global -> shared; src_bytes 0 fills them with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// c += a (16 x 8, row) . b (8 x 8, col) in TF32, fp32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b from the terms, smallest first: lo_a . hi_b, hi_a . lo_b,
+// hi_a . hi_b. kALo / kBLo false: that operand has no lo term. b holds
+// (hi0, hi1, lo0, lo1).
+template <bool kALo, bool kBLo>
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4],
+                                     const uint32_t (&b)[4]) {
+  if constexpr (kALo) mma_tf32(c, alo, b[0], b[1]);
+  if constexpr (kBLo) mma_tf32(c, ahi, b[2], b[3]);
+  mma_tf32(c, ahi, b[0], b[1]);
+}
+
+// the A fragment (a0..a3) as TF32 terms: kSplit, hi = rna(a) and (kLo)
+// lo = rna(a - hi); else a is exact in TF32 (a bf16 input) and is hi
+template <bool kSplit, bool kLo>
+__device__ __forceinline__ void a_frag(float a0, float a1, float a2, float a3,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float a[4] = {a0, a1, a2, a3};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (kSplit) {
+      hi[i] = to_tf32(a[i]);
+      lo[i] = kLo ? to_tf32(a[i] - __uint_as_float(hi[i])) : 0u;
+    } else {
+      hi[i] = __float_as_uint(a[i]);
+      lo[i] = 0u;
+    }
+  }
+}
+
+// a B fragment from the planes: b0 at hi[o0], b1 at hi[o1], and (kLo)
+// their lo terms one plane further (the second products, whose b0 and b1
+// lie in two rows: ldmatrix cannot transpose 4-byte elements)
+template <bool kLo>
+__device__ __forceinline__ void b_frag(const float* hi, int plane, int o0,
+                                       int o1, uint32_t (&b)[4]) {
+  b[0] = __float_as_uint(hi[o0]);
+  b[1] = __float_as_uint(hi[o1]);
+  if constexpr (kLo) {
+    b[2] = __float_as_uint(hi[plane + o0]);
+    b[3] = __float_as_uint(hi[plane + o1]);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// The A fragment of rows [r0, r0 + 16) and columns [c, c + 8) of fp32 rows
+// of LD floats; kLdsm: by one ldmatrix.x4, whose lane 4g + t receives row
+// g, word t of each 8 x 4 block (faster for fp32 on an H100 than four
+// 4-byte loads; bf16 inputs keep the 4-byte loads, which ran faster there)
+template <int LD, bool kLdsm>
+__device__ __forceinline__ void a_rows(const float* m, int r0, int c, int lane,
+                                       float (&a)[4]) {
+  if constexpr (kLdsm) {
+    uint32_t r[4];
+    ldsm_x4(r, m + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + c +
+                   4 * (lane >> 4));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = __uint_as_float(r[i]);
+  } else {
+    const float* p = m + (r0 + (lane >> 2)) * LD + c + (lane & 3);
+    a[0] = p[0];
+    a[1] = p[8 * LD];
+    a[2] = p[4];
+    a[3] = p[8 * LD + 4];
+  }
+}
+
+// The B fragment of rows [r0, r0 + 8) (the mma's n) and columns [c, c +
+// 8) (its k) of the planes: (hi0, hi1) and, kLo, (lo0, lo1) one plane
+// further, by one ldmatrix.x4
+template <int LD, bool kLo>
+__device__ __forceinline__ void b_rows(const float* hi, int plane, int r0, int c,
+                                       int lane, uint32_t (&b)[4]) {
+  if constexpr (kLo) {
+    ldsm_x4(b, hi + (lane >> 4) * plane + (r0 + (lane & 7)) * LD + c +
+                   4 * ((lane >> 3) & 1));
+  } else {
+    const float* p = hi + (r0 + (lane >> 2)) * LD + c + (lane & 3);
+    b[0] = __float_as_uint(p[0]);
+    b[1] = __float_as_uint(p[4]);
+  }
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// rows [r0, r0 + ROWS) of a [s, D] matrix as fp32 rows of D + 4 (0 past
+// s), read 16 bytes (fp32) or 8 (bf16) a thread, NT threads
+template <typename T, int D, int ROWS, int NT>
+__device__ __forceinline__ void load_block_rows(float* dst, const T* __restrict__ src,
+                                                int r0, int s) {
+  constexpr int LD = D + 4;
+  for (int c = threadIdx.x; c < ROWS * D / 4; c += NT) {
+    const int r = c / (D / 4), col = c % (D / 4) * 4;
+    const int row = r0 + r;
+    const float4 x = row < s ? load4(src + static_cast<long long>(row) * D + col)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(dst + r * LD + col) = x;
+  }
+}
+
+// one ring stage: rows [r0, r0 + R) of two [s, D] matrices a and b ([R][D]
+// each, in T) and, with vectors, of two [s] fp32 vectors x and y, copied
+// asynchronously by NT threads; rows past s are zero-filled
+template <typename T, int D, int R, int NT>
+__device__ __forceinline__ void load_stage(T* tiles, float* vecs, const T* a,
+                                           const T* b, const float* x,
+                                           const float* y, int r0, int s) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T)), kPerRow = D / kVec;
+  for (int c = threadIdx.x; c < R * kPerRow; c += NT) {
+    const int r = c / kPerRow, col = c % kPerRow * kVec;
+    const bool ok = r0 + r < s;
+    const long long off = static_cast<long long>(ok ? r0 + r : 0) * D + col;
+    cp_async16(tiles + r * D + col, a + off, ok ? 16 : 0);
+    cp_async16(tiles + (R + r) * D + col, b + off, ok ? 16 : 0);
+  }
+  if (x == nullptr) return;
+  for (int r = threadIdx.x; r < R; r += NT) {
+    const bool ok = r0 + r < s;
+    cp_async4(vecs + r, x + (ok ? r0 + r : 0), ok ? 4 : 0);
+    cp_async4(vecs + R + r, y + (ok ? r0 + r : 0), ok ? 4 : 0);
+  }
+}
+
+// a landed stage's two [R][D] tiles into the planes: for fp32 input hi =
+// rna_tf32(x) and lo = rna_tf32(x - hi), each once for every warp that
+// reads it; bf16 input is exact in TF32 and fills the hi plane only.
+// Plane order: a hi, (a lo), b hi, (b lo), each [R][D + 4]; NT threads.
+template <typename T, int D, int R, int NT>
+__device__ __forceinline__ void split_stage(float* planes, const T* tiles) {
+  constexpr bool kSplit = sizeof(T) == 4;
+  constexpr int kPlanes = kSplit ? 2 : 1, LD = D + 4, kQuads = R * D / 4;
+  for (int c = threadIdx.x; c < 2 * kQuads; c += NT) {
+    const int m = c / kQuads, idx = c % kQuads;
+    const int r = idx / (D / 4), col = idx % (D / 4) * 4;
+    const float4 x = load4(tiles + (m * R + r) * D + col);
+    float* hi = planes + (m * kPlanes * R + r) * LD + col;
+    if constexpr (kSplit) {
+      const uint32_t h0 = to_tf32(x.x), h1 = to_tf32(x.y), h2 = to_tf32(x.z),
+                     h3 = to_tf32(x.w);
+      *reinterpret_cast<uint4*>(hi) = make_uint4(h0, h1, h2, h3);
+      *reinterpret_cast<uint4*>(hi + R * LD) = make_uint4(
+          to_tf32(x.x - __uint_as_float(h0)), to_tf32(x.y - __uint_as_float(h1)),
+          to_tf32(x.z - __uint_as_float(h2)), to_tf32(x.w - __uint_as_float(h3)));
+    } else {
+      *reinterpret_cast<float4*>(hi) = x;
+    }
+  }
+}
+
+// which pairs of queries [qa, qb] x keys [ka, kb] are visible: none, some
+// or all (conservative: "some" may hold none or all)
+__device__ __forceinline__ int band(int qa, int qb, int ka, int kb, int s,
+                                    int causal, int window) {
+  if (qa >= s || ka >= s) return kNoPair;
+  if (causal && (ka > qb || (window > 0 && qa - kb >= window))) return kNoPair;
+  const bool all = qb < s && kb < s &&
+                   (!causal || (kb <= qa && (window <= 0 || qb - ka < window)));
+  return all ? kAllPairs : kSomePairs;
+}
+
+// the number of tiles of R rows from `begin` to `end`, less the last one
+// when the SkipLast fault is planted in a causal launch
+template <int kFault>
+__device__ __forceinline__ int tile_count(int begin, int end, int R, int causal) {
+  const int n = end > begin ? (end - begin + R - 1) / R : 0;
+  return kFault == kFaultSkipLast && causal && n > 0 ? n - 1 : n;
+}
+
+// ----------------------------------------------------------- dq, mma body
+
+template <typename T, int D, int kFault>
+__global__ void __launch_bounds__(MmaLayout<T, D>::kThreads)
+mma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              const float* __restrict__ slopes, T* __restrict__ dq, int heads,
+              int s, float scale, int causal, int window) {
+  using L = MmaLayout<T, D>;
+  constexpr int R = L::kTile, LD = L::kLd, PL = L::kPlane;
+  constexpr int ROWS = L::kRows, NT = L::kThreads;
+  constexpr bool kLo = kFault != kFaultNoLo;       // p, ds take lo terms
+  constexpr bool kInLo = L::kSplit && kLo;         // so do q, k, v, do
+  extern __shared__ __align__(16) float mma_smem[];
+  float* q_s = mma_smem;                            // [ROWS][LD]
+  float* do_s = q_s + ROWS * LD;                    // [ROWS][LD]
+  T* ring = reinterpret_cast<T*>(do_s + ROWS * LD);
+  float* planes = reinterpret_cast<float*>(ring + L::kRing) + L::kRingVec;
+  const float* k_hi = planes;                       // K hi, (lo), V hi, (lo)
+  const float* v_hi = planes + L::kPlanes * PL;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;  // longest first
+  const long long base = static_cast<long long>(bh) * s * D;
+  const long long row_base = static_cast<long long>(bh) * s;
+  const float slope = slopes != nullptr ? slopes[bh % heads] : 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qr = 16 * warp;      // the warp's first row in the block
+  const int row_lo = q0 + qr;
+
+  int k_begin = 0, k_end = s;
+  if (causal) {
+    k_end = min(s, q0 + ROWS);
+    if (window > 0) k_begin = max(q0 - window + 1, 0) / R * R;
+  }
+  const int tiles = tile_count<kFault>(k_begin, k_end, R, causal);
+  for (int st = 0; st < kStages; ++st) {
+    if (st < tiles)
+      load_stage<T, D, R, NT>(ring + st * 2 * R * D, nullptr, k + base, v + base,
+                          nullptr, nullptr, k_begin + st * R, s);
+    cp_async_commit();
+  }
+  load_block_rows<T, D, ROWS, NT>(q_s, q + base, q0, s);
+  load_block_rows<T, D, ROWS, NT>(do_s, dout + base, q0, s);
+  float lse_r[2], delta_r[2];  // rows g and g + 8 of the warp
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + g + 8 * h;
+    lse_r[h] = row < s ? lse[row_base + row] : 0.f;
+    delta_r[h] = row < s ? delta[row_base + row] : 0.f;
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = k_begin + it * R, st = it % kStages;
+    cp_async_wait<kStages - 1>();
+    __syncthreads();  // the tile landed; the planes of the last one consumed
+    split_stage<T, D, R, NT>(planes, ring + st * 2 * R * D);
+    __syncthreads();  // the planes written; the stage free
+    if (it + kStages < tiles)
+      load_stage<T, D, R, NT>(ring + st * 2 * R * D, nullptr, k + base, v + base,
+                          nullptr, nullptr, k0 + kStages * R, s);
+    cp_async_commit();
+
+    const int vis = band(row_lo, row_lo + 15, k0, k0 + R - 1, s, causal, window);
+    if (vis == kNoPair) continue;
+    // S = Q . K^T and dP = dO . V^T: the warp's 16 rows x R keys
+    float sc[R / 8][4], dp[R / 8][4];
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      float qa[4], oa[4];
+      a_rows<LD, kInLo>(q_s, qr, 8 * kk, lane, qa);
+      a_rows<LD, kInLo>(do_s, qr, 8 * kk, lane, oa);
+      uint32_t qh[4], ql[4], oh[4], ol[4];
+      a_frag<L::kSplit, kLo>(qa[0], qa[1], qa[2], qa[3], qh, ql);
+      a_frag<L::kSplit, kLo>(oa[0], oa[1], oa[2], oa[3], oh, ol);
+#pragma unroll
+      for (int j = 0; j < R / 8; ++j) {
+        uint32_t b[4];
+        b_rows<LD, kInLo>(k_hi, PL, 8 * j, 8 * kk, lane, b);
+        mma3<kInLo, kInLo>(sc[j], qh, ql, b);
+        b_rows<LD, kInLo>(v_hi, PL, 8 * j, 8 * kk, lane, b);
+        mma3<kInLo, kInLo>(dp[j], oh, ol, b);
+      }
+    }
+    // P and dS in the accumulator fragment: row g + 8 (e >> 1), key 8j +
+    // 2t + (e & 1)
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row_lo + g + 8 * (e >> 1);
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
+        float x = sc[j][e] * scale;
+        if (slopes != nullptr) x += slope * static_cast<float>(key);
+        if (vis != kAllPairs && !visible(row, key, s, causal, window)) x = kNegInf;
+        const float p = expf(x - lse_r[e >> 1]);
+        dp[j][e] = p * (dp[j][e] - delta_r[e >> 1]);
+      }
+    // dQ += dS . K: k step j sums keys 8j..8j+7, keys 8j + 2t and 8j + 2t +
+    // 1 in k columns t and t + 4, so dS's accumulator is its A fragment
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j) {
+      uint32_t sh[4], sl[4];
+      a_frag<true, kLo>(dp[j][0], dp[j][2], dp[j][1], dp[j][3], sh, sl);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int o = (8 * j + 2 * t) * LD + 8 * n + g;
+        uint32_t b[4];
+        b_frag<kInLo>(k_hi, PL, o, o + LD, b);
+        mma3<kLo, kInLo>(acc[n], sh, sl, b);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + g + 8 * h;
+    if (row >= s) continue;
+    T* out = dq + base + static_cast<long long>(row) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2(out + 8 * n, acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+  }
+}
+
+// ------------------------------------------------------- dk, dv, mma body
+
+template <typename T, int D, int kFault>
+__global__ void __launch_bounds__(MmaLayout<T, D>::kThreads)
+mma_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               const float* __restrict__ slopes, T* __restrict__ dk,
+               T* __restrict__ dv, int heads, int s, float scale, int causal,
+               int window) {
+  using L = MmaLayout<T, D>;
+  constexpr int R = L::kTile, LD = L::kLd, PL = L::kPlane;
+  constexpr int ROWS = L::kRows, NT = L::kThreads;
+  constexpr bool kLo = kFault != kFaultNoLo;
+  constexpr bool kInLo = L::kSplit && kLo;
+  extern __shared__ __align__(16) float mma_smem[];
+  float* k_s = mma_smem;                            // [ROWS][LD]
+  float* v_s = k_s + ROWS * LD;                     // [ROWS][LD]
+  T* ring = reinterpret_cast<T*>(v_s + ROWS * LD);
+  float* ring_vec = reinterpret_cast<float*>(ring + L::kRing);
+  float* planes = ring_vec + L::kRingVec;
+  const float* q_hi = planes;                       // Q hi, (lo), dO hi, (lo)
+  const float* o_hi = planes + L::kPlanes * PL;
+  float* lse_s = planes + 2 * L::kPlanes * PL;      // [R]
+  float* delta_s = lse_s + R;                       // [R]
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * ROWS;  // causal: the first key tiles are longest
+  const long long base = static_cast<long long>(bh) * s * D;
+  const long long row_base = static_cast<long long>(bh) * s;
+  const float slope = slopes != nullptr ? slopes[bh % heads] : 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kr = 16 * warp;      // the warp's first key in the block
+  const int key_lo = k0 + kr;
+
+  // the query tiles that see a key of this block
+  int q_begin = 0, q_end = s;
+  if (causal) {
+    q_begin = k0;  // a multiple of R
+    if (window > 0) q_end = min(s, k0 + ROWS - 1 + window);
+  }
+  const int tiles = tile_count<kFault>(q_begin, q_end, R, causal);
+  for (int st = 0; st < kStages; ++st) {
+    if (st < tiles)
+      load_stage<T, D, R, NT>(ring + st * 2 * R * D, ring_vec + st * 2 * R,
+                          q + base, dout + base, lse + row_base,
+                          delta + row_base, q_begin + st * R, s);
+    cp_async_commit();
+  }
+  load_block_rows<T, D, ROWS, NT>(k_s, k + base, k0, s);
+  load_block_rows<T, D, ROWS, NT>(v_s, v + base, k0, s);
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int q0 = q_begin + it * R, st = it % kStages;
+    cp_async_wait<kStages - 1>();
+    __syncthreads();  // the tile landed; the planes of the last one consumed
+    split_stage<T, D, R, NT>(planes, ring + st * 2 * R * D);
+    for (int r = threadIdx.x; r < R; r += NT) {
+      lse_s[r] = ring_vec[st * 2 * R + r];
+      delta_s[r] = ring_vec[st * 2 * R + R + r];
+    }
+    __syncthreads();  // the planes written; the stage free
+    if (it + kStages < tiles)
+      load_stage<T, D, R, NT>(ring + st * 2 * R * D, ring_vec + st * 2 * R,
+                          q + base, dout + base, lse + row_base,
+                          delta + row_base, q0 + kStages * R, s);
+    cp_async_commit();
+
+    const int vis = band(q0, q0 + R - 1, key_lo, key_lo + 15, s, causal, window);
+    if (vis == kNoPair) continue;
+    // S^T = K . Q^T and dP^T = V . dO^T: the warp's 16 keys x R queries
+    float sc[R / 8][4], dp[R / 8][4];
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      float ka[4], va[4];
+      a_rows<LD, kInLo>(k_s, kr, 8 * kk, lane, ka);
+      a_rows<LD, kInLo>(v_s, kr, 8 * kk, lane, va);
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+      a_frag<L::kSplit, kLo>(ka[0], ka[1], ka[2], ka[3], kh, kl);
+      a_frag<L::kSplit, kLo>(va[0], va[1], va[2], va[3], vh, vl);
+#pragma unroll
+      for (int j = 0; j < R / 8; ++j) {
+        uint32_t b[4];
+        b_rows<LD, kInLo>(q_hi, PL, 8 * j, 8 * kk, lane, b);
+        mma3<kInLo, kInLo>(sc[j], kh, kl, b);
+        b_rows<LD, kInLo>(o_hi, PL, 8 * j, 8 * kk, lane, b);
+        mma3<kInLo, kInLo>(dp[j], vh, vl, b);
+      }
+    }
+    // P^T and dS^T in the accumulator fragment: key g + 8 (e >> 1), query
+    // 8j + 2t + (e & 1)
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key_lo + g + 8 * (e >> 1);
+        const int col = 8 * j + 2 * t + (e & 1);
+        float x = sc[j][e] * scale;
+        if (slopes != nullptr) x += slope * static_cast<float>(key);
+        if (vis != kAllPairs && !visible(q0 + col, key, s, causal, window)) x = kNegInf;
+        const float p = expf(x - lse_s[col]);
+        sc[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - delta_s[col]);
+      }
+    // dV += P^T . dO and dK += dS^T . Q: k step j sums queries 8j..8j+7,
+    // queries 8j + 2t and 8j + 2t + 1 in k columns t and t + 4
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      a_frag<true, kLo>(sc[j][0], sc[j][2], sc[j][1], sc[j][3], ph, pl);
+      a_frag<true, kLo>(dp[j][0], dp[j][2], dp[j][1], dp[j][3], sh, sl);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int o = (8 * j + 2 * t) * LD + 8 * n + g;
+        uint32_t b[4];
+        b_frag<kInLo>(o_hi, PL, o, o + LD, b);
+        mma3<kLo, kInLo>(dv_acc[n], ph, pl, b);
+        b_frag<kInLo>(q_hi, PL, o, o + LD, b);
+        mma3<kLo, kInLo>(dk_acc[n], sh, sl, b);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key_lo + g + 8 * h;
+    if (key >= s) continue;
+    T* krow = dk + base + static_cast<long long>(key) * D + 2 * t;
+    T* vrow = dv + base + static_cast<long long>(key) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      store2(krow + 8 * n, dk_acc[n][2 * h] * scale, dk_acc[n][2 * h + 1] * scale);
+      store2(vrow + 8 * n, dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+    }
+  }
+}
+
 // ------------------------------------------------------------- launches
 
 template <typename Kernel>
@@ -490,43 +1096,109 @@ size_t bwd_smem() {
   return sizeof(float) * (4 * TL::kB * TL::kLd + TL::kB * TL::kLp + 2 * TL::kB);
 }
 
-template <typename T, int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* delta, const float* slopes,
-              void* dq, int bh, int heads, int s, float scale, int causal,
-              int window, cudaStream_t stream) {
-  const size_t smem = bwd_smem<D>();
-  const int err = prepare(dq_kernel<T, D>, smem);
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <typename T, int D, int kFault>
+int launch_mma_dq(const T* q, const T* k, const T* v, const T* dout,
+                  const float* lse, const float* delta, const float* slopes,
+                  T* dq, int bh, int heads, int s, float scale, int causal,
+                  int window, cudaStream_t stream) {
+  using L = MmaLayout<T, D>;
+  constexpr int smem = L::kBytes;
+  const int err = prepare(mma_dq_kernel<T, D, kFault>, smem);
   if (err) return err;
-  dq_kernel<T, D><<<grid_of<D>(bh, s), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      slopes, static_cast<T*>(dq), heads, s, scale, causal, window);
+  mma_dq_kernel<T, D, kFault>
+      <<<dim3(bh, (s + L::kRows - 1) / L::kRows), L::kThreads, smem, stream>>>(
+          q, k, v, dout, lse, delta, slopes, dq, heads, s, scale, causal,
+          window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, const float* slopes,
-               void* dk, void* dv, int bh, int heads, int s, float scale,
-               int causal, int window, cudaStream_t stream) {
-  const size_t smem = bwd_smem<D>();
-  const int err = prepare(dkv_kernel<T, D>, smem);
+template <typename T, int D, int kFault>
+int launch_mma_dkv(const T* q, const T* k, const T* v, const T* dout,
+                   const float* lse, const float* delta, const float* slopes,
+                   T* dk, T* dv, int bh, int heads, int s, float scale,
+                   int causal, int window, cudaStream_t stream) {
+  using L = MmaLayout<T, D>;
+  constexpr int smem = L::kBytes;
+  const int err = prepare(mma_dkv_kernel<T, D, kFault>, smem);
   if (err) return err;
-  dkv_kernel<T, D><<<grid_of<D>(bh, s), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      slopes, static_cast<T*>(dk), static_cast<T*>(dv), heads, s, scale,
-      causal, window);
+  mma_dkv_kernel<T, D, kFault>
+      <<<dim3(bh, (s + L::kRows - 1) / L::kRows), L::kThreads, smem, stream>>>(
+          q, k, v, dout, lse, delta, slopes, dk, dv, heads, s, scale, causal,
+          window);
   return static_cast<int>(cudaGetLastError());
+}
+
+// path: kPathSimt (any d), kPathMma (d 64 and 128, every operand 16-byte
+// aligned) or a planted fault (fp32, d 64); -1 where the path does not fit
+#define APEX_FLASH_MMA_PATHS(LAUNCH, ...)                                     \
+  do {                                                                        \
+    if constexpr (D <= 128) {                                                 \
+      if (path == kPathMma) return LAUNCH<T, D, 0>(__VA_ARGS__);              \
+      if constexpr (std::is_same<T, float>::value && D == 64) {               \
+        if (path == kFaultNoLo) return LAUNCH<T, D, kFaultNoLo>(__VA_ARGS__); \
+        if (path == kFaultSkipLast)                                           \
+          return LAUNCH<T, D, kFaultSkipLast>(__VA_ARGS__);                   \
+      }                                                                       \
+    }                                                                         \
+    return -1;                                                                \
+  } while (0)
+
+template <typename T, int D>
+int launch_dq(int path, const void* q, const void* k, const void* v,
+              const void* dout, const float* lse, const float* delta,
+              const float* slopes, void* dq, int bh, int heads, int s,
+              float scale, int causal, int window, cudaStream_t stream) {
+  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k);
+  const T *tv = static_cast<const T*>(v), *tdo = static_cast<const T*>(dout);
+  T* out = static_cast<T*>(dq);
+  if (path == kPathSimt) {
+    const size_t smem = bwd_smem<D>();
+    const int err = prepare(dq_kernel<T, D>, smem);
+    if (err) return err;
+    dq_kernel<T, D><<<grid_of<D>(bh, s), kThreads, smem, stream>>>(
+        tq, tk, tv, tdo, lse, delta, slopes, out, heads, s, scale, causal,
+        window);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
+      !aligned16(dq))
+    return -1;
+  APEX_FLASH_MMA_PATHS(launch_mma_dq, tq, tk, tv, tdo, lse, delta, slopes, out,
+                       bh, heads, s, scale, causal, window, stream);
+}
+
+template <typename T, int D>
+int launch_dkv(int path, const void* q, const void* k, const void* v,
+               const void* dout, const float* lse, const float* delta,
+               const float* slopes, void* dk, void* dv, int bh, int heads,
+               int s, float scale, int causal, int window, cudaStream_t stream) {
+  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k);
+  const T *tv = static_cast<const T*>(v), *tdo = static_cast<const T*>(dout);
+  T *tdk = static_cast<T*>(dk), *tdv = static_cast<T*>(dv);
+  if (path == kPathSimt) {
+    const size_t smem = bwd_smem<D>();
+    const int err = prepare(dkv_kernel<T, D>, smem);
+    if (err) return err;
+    dkv_kernel<T, D><<<grid_of<D>(bh, s), kThreads, smem, stream>>>(
+        tq, tk, tv, tdo, lse, delta, slopes, tdk, tdv, heads, s, scale, causal,
+        window);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
+      !aligned16(dk) || !aligned16(dv))
+    return -1;
+  APEX_FLASH_MMA_PATHS(launch_mma_dkv, tq, tk, tv, tdo, lse, delta, slopes, tdk,
+                       tdv, bh, heads, s, scale, causal, window, stream);
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16; head dims 64, 128 and 256.
 // Each returns the CUDA error of the launch (0 on success), -1 for a
-// dtype or head dim the kernels do not take. window <= 0: no window;
-// slopes null: no ALiBi.
+// dtype, head dim or (backward) path the kernels do not take. window <=
+// 0: no window; slopes null: no ALiBi.
 
 #define APEX_FLASH_DISPATCH(LAUNCH, ...)                                     \
   do {                                                                       \
@@ -553,23 +1225,26 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                       causal, window);
 }
 
-// dq [bh, s, d] in q's dtype.
+// dq [bh, s, d] in q's dtype. path: 0 the first design, 1 the tensor-core
+// body (d 64 and 128, operands 16-byte aligned), 2 and 3 planted faults
+// (fp32, d 64); `fmha.bwd_plan` picks 0 or 1.
 extern "C" int apex_flash_dq(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
                              const float* delta, const float* slopes, void* dq,
                              int bh, int heads, int s, int d, float scale,
-                             int causal, int window, int dtype, void* stream) {
-  APEX_FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, slopes, dq, bh,
-                      heads, s, scale, causal, window);
+                             int causal, int window, int dtype, int path,
+                             void* stream) {
+  APEX_FLASH_DISPATCH(launch_dq, path, q, k, v, dout, lse, delta, slopes, dq,
+                      bh, heads, s, scale, causal, window);
 }
 
-// dk, dv [bh, s, d] in q's dtype.
+// dk, dv [bh, s, d] in q's dtype; path as apex_flash_dq's.
 extern "C" int apex_flash_dkv(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
                               const float* delta, const float* slopes, void* dk,
                               void* dv, int bh, int heads, int s, int d,
                               float scale, int causal, int window, int dtype,
-                              void* stream) {
-  APEX_FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, slopes, dk, dv, bh,
-                      heads, s, scale, causal, window);
+                              int path, void* stream) {
+  APEX_FLASH_DISPATCH(launch_dkv, path, q, k, v, dout, lse, delta, slopes, dk,
+                      dv, bh, heads, s, scale, causal, window);
 }

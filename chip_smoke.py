@@ -29,8 +29,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    more tensors than one launch takes). The flash kernels at the flash
    training step's shape ([2, 32, 2048, 64] fp32, causal; and bf16) and
    off it (full, windows, ALiBi, head dims 128 and 256, tails, one
-   head). LayerNorm forward and backward-dx at GPT-2's [8192, 1024]
-   bf16 rows (the backward also on each branch of its launch plan, its
+   head, a do off a 16-byte boundary), the backward on the body the
+   wrappers pick (``fmha.bwd_plan``: tensor cores for head dims 64 and
+   128, the first design for 256 or a misaligned operand; asserted),
+   each run twice and bit-identical, window 1's dq and dk held to the
+   float64 truth (FLASH_W1_ULPS); at the path shape the first design timed through
+   the C functions beside the tensor-core body, two planted faults (the
+   lo terms dropped, the last tile of each causal range skipped) that
+   must read past FLASH_TOL, SDPA's backward profiled, and the pair
+   (with and without the delta pass) beside it. LayerNorm forward and
+   backward-dx at GPT-2's [8192, 1024] bf16 rows (the backward also on each branch of its launch plan, its
    first design timed through the C function, and two planted faults,
    the weight read one element ahead and eps raised until rstd moves by
    about 1 %, that must read past LN_RTOL), the scaled and masked softmax at BERT-large's [64, 16,
@@ -199,7 +207,11 @@ import torch
 # published H100 SXM peaks (NVIDIA data sheet), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_OPS_PER_S = 989e12
+TF32_TENSOR_OPS_PER_S = 495e12
 FP32_OPS_PER_S = 67e12
+# fp32 accuracy on the TF32 tensor cores: each product as three (lo.hi,
+# hi.lo, hi.hi), so "the same work" at TF32's rate is three times the ops
+TF32_SPLIT_TERMS = 3
 
 # TinyLlama-1.1B (huggingface.co/TinyLlama/TinyLlama-1.1B-Chat-v1.0,
 # config.json) and the serving run
@@ -342,6 +354,18 @@ LAMB_UPDATE_RTOL, LAMB_TENSOR_UPDATE_RTOL = TRAIN_GRAD_RTOL, 0.25
 # relative, and 2**-8 of the largest magnitude for entries near 0.
 FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 2.0 ** -8)}
 FLASH_LSE_RTOL = 1e-5
+# One case is held otherwise, by name: with window 1 every query sees only
+# its own key, p = 1 and o = v, so ds = do.v - delta is exactly 0 and so
+# are dq = ds k scale and dk = ds q scale; what a kernel returns there is
+# the rounding of the two d-term sums behind ds, and a share of the plain
+# version's largest |dq| (itself such rounding) measures nothing. There dq
+# and dk are held to the true answer, softmax attention's gradients in
+# float64, within FLASH_W1_ULPS fp32 ulps (2**-23) of those sums' scale:
+# |dq[i, c]| <= ulps * 2**-23 * sum_j |do[i, j] v[i, j]| * |k[i, c]| *
+# scale, dk's with q[i, c]. Two fp32 sums of d = 64 products, each product
+# three TF32 terms (up to 6 ulps off), accumulated on the tensor cores,
+# stay within a few ulps of that scale, far from its worst case of ~70.
+FLASH_W1_ULPS = 16
 # LayerNorm forward and backward-dx: as RMSNorm's (the same fp32
 # operations, row sums in another order, rsqrtf against torch.rsqrt);
 # one bf16 ulp where the output is bf16; dx cancels where w*dy ~ its
@@ -930,14 +954,66 @@ def _flash_inputs(gen, b, n, s, d, dtype, alibi):
 
 
 def _flash_close(got, want, dtype):
+    """Hold a flash output to its plain version within FLASH_TOL; returns
+    the reading as a share of the tolerance."""
     rtol, scaled_atol = FLASH_TOL[dtype]
-    assert_close_scaled(got, want, rtol, scaled_atol)
+    atol = scaled_atol * want.float().abs().max().item()
+    reading = _tol_ratio(got, want, rtol, atol)
+    assert reading <= 1.0, (reading, rtol, atol, max_abs(got, want))
+    return reading
 
 
-def _flash_check(q, k, v, do, slopes, causal, window):
+def _flash_w1_close(q, k, v, do, scale, dq, dk):
+    """The window-1 case's dq and dk held to the true answer (softmax
+    attention's gradients by autograd in float64) within FLASH_W1_ULPS of
+    the scale of the sums behind ds (see FLASH_W1_ULPS); returns the
+    readings as shares of that tolerance."""
+    from apex_tpu_torch.contrib import fmha
+    q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
+    sc = torch.matmul(q64, k64.transpose(-1, -2)) * scale
+    live = fmha._visible(sc.shape[-2], sc.shape[-1], True, 1, sc.device)
+    o = torch.matmul(torch.softmax(sc.masked_fill(~live, float("-inf")),
+                                   -1), v64)
+    dq64, dk64 = torch.autograd.grad(o, (q64, k64), do.double())
+    sums = (do.double() * v.double()).abs().sum(-1, keepdim=True)
+    ulps = FLASH_W1_ULPS * 2.0 ** -23 * scale * sums
+    rtol = FLASH_TOL[torch.float32][0]
+    readings = {}
+    for name, got, want, other in (("dq", dq, dq64, k), ("dk", dk, dk64, q)):
+        err = (got.double() - want).abs()
+        tol = ulps * other.double().abs() + rtol * want.abs()
+        reading = torch.where(err == 0, 0.0, err / tol).max().item()
+        assert reading <= 1.0, (name, reading, err.max().item())
+        readings[name] = reading
+    return readings
+
+
+def _flash_bwd_raw(kind, args, path):
+    """dq (kind "dq") or dk and dv concatenated ("dkv") through the C
+    function on ``path`` (fmha.BWD_SIMT, fmha.BWD_MMA or a FLASH_FAULTS
+    code), uncounted: for the first design's time and the planted
+    faults."""
+    from apex_tpu_torch.contrib import fmha
+    from apex_tpu_torch.kernels import _checks
+    q, k, v, do, lse, delta, scale, causal, window, slopes = args
+    outs = [torch.empty_like(q) for _ in range(1 if kind == "dq" else 2)]
+    tail, slopes_ptr = fmha._common(q, scale, causal, window, slopes,
+                                    _checks.DTYPE_CODES[q.dtype], (path,))
+    rc = fmha._kernel(f"apex_flash_{kind}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), slopes_ptr,
+        *(t.data_ptr() for t in outs), *tail)
+    _checks.status(f"flash_{kind}", rc)
+    return outs[0] if kind == "dq" else torch.cat(outs)
+
+
+def _flash_check(q, k, v, do, slopes, causal, window, body):
     """Each flash kernel against its plain version on the same inputs:
     the forward's o and lse, then dq and dk/dv from the kernel's o and
-    lse (so the backward is held alone). Returns the results."""
+    lse (so the backward is held alone), on the backward body ``body``
+    (fmha.BWD_*; the wrappers' choice for these tensors is asserted to be
+    it), run twice: the two runs must be bit-identical. Returns the
+    results and the backward's readings (shares of the tolerance)."""
     from apex_tpu_torch.contrib import fmha
     scale = q.shape[-1] ** -0.5
     o, lse = fmha.flash_fwd(q, k, v, scale, causal, window, slopes)
@@ -949,17 +1025,97 @@ def _flash_check(q, k, v, do, slopes, causal, window):
                                atol=FLASH_LSE_RTOL)
     delta = fmha._delta(o, do)
     args = (q, k, v, do, lse, delta, scale, causal, window, slopes)
+    path = fmha._bwd_path(q, k, v, do)
+    assert path == body, (path, body)
     dq = fmha.flash_dq(*args)
     dk, dv = fmha.flash_dkv(*args)
+    dq2 = fmha.flash_dq(*args)
+    dk2, dv2 = fmha.flash_dkv(*args)
     dq_p = fmha.flash_dq_plain(*args)
     dk_p, dv_p = fmha.flash_dkv_plain(*args)
     torch.cuda.synchronize()
-    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
-        assert got.dtype == q.dtype
-        _flash_close(got, want, q.dtype)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) \
+        and torch.equal(dv, dv2), "two backward runs differ"
+    assert all(t.dtype == q.dtype for t in (dq, dk, dv))
+    window_1 = causal and window == 1
+    if window_1:  # dq and dk: see FLASH_W1_ULPS
+        assert q.dtype == torch.float32 and slopes is None
+        readings = _flash_w1_close(q, k, v, do, scale, dq, dk)
+    else:
+        readings = {"dq": _flash_close(dq, dq_p, q.dtype),
+                    "dk": _flash_close(dk, dk_p, q.dtype)}
+    readings["dv"] = _flash_close(dv, dv_p, q.dtype)
     return dict(o=(o, o_p), lse=(lse, lse_p), dq=(dq, dq_p),
                 dkv=(torch.cat([dk, dv]), torch.cat([dk_p, dv_p])),
-                args=args)
+                args=args, path=path, readings=readings,
+                w1=window_1)
+
+
+def _flash_bounds(d, pairs, dtype):
+    """((fwd, dq, dkv) operations, their peak rate) for the least time the
+    card takes for the products at fp32 accuracy, ``pairs`` live pairs,
+    each product 2d operations a pair: fwd q.k^T and p.v; dq q.k^T,
+    do.v^T and ds.k; dk/dv q.k^T, do.v^T, p^T.do and ds^T.q. p and ds are
+    fp32 whatever the inputs. fp32 x fp32 takes three TF32 products at
+    495 TFLOP/s (cheaper than six bf16 ones at 989): 3 x (2, 3, 4). With
+    bf16 inputs, bf16 x bf16 is one bf16 product at 989, and p or ds
+    against a bf16 operand three bf16 terms at 989 (cheaper than two
+    TF32 ones at 495): 1 + 3, 1 + 1 + 3 and 1 + 1 + 3 + 3."""
+    if dtype == torch.float32:
+        return (tuple(2 * TF32_SPLIT_TERMS * n * d * pairs
+                      for n in (2, 3, 4)), TF32_TENSOR_OPS_PER_S)
+    return (tuple(2 * n * d * pairs for n in (4, 5, 8)),
+            BF16_TENSOR_OPS_PER_S)
+
+
+# the backward's planted faults: csrc/flash_attention.cu's path codes
+# kFaultNoLo and kFaultSkipLast (fp32, head dim 64), which no caller of the
+# package passes
+FLASH_FAULTS = (("lo terms dropped", 2),
+                ("last tile of each causal range skipped", 3))
+
+
+def _flash_faults_and_design(r, dtype):
+    """At the path shape, through the C functions (uncounted): the honest
+    tensor-core launch and two planted faults (the lo terms dropped; the
+    last key tile of each dq range and the last query tile of each dk/dv
+    range skipped), held to FLASH_TOL against the plain versions (the
+    faults must read past it); then the first design timed beside the
+    tensor-core body, in turns. Returns {path: [us, ...]} per kernel."""
+    from apex_tpu_torch.contrib import fmha
+    from apex_tpu_torch.kernels import registry
+    before = registry.launches()
+    args = r["args"]
+    rtol, share = FLASH_TOL[dtype]
+    if dtype == torch.float32:
+        for kind in ("dq", "dkv"):
+            want = r[kind][1]
+            atol = share * want.float().abs().max().item()
+            readings = {label: _tol_ratio(_flash_bwd_raw(kind, args, path),
+                                          want, rtol, atol)
+                        for label, path in (("honest", fmha.BWD_MMA),
+                                            *FLASH_FAULTS)}
+            log(f"kernel flash_{kind} at the path shape (fp32), share of "
+                f"FLASH_TOL: " + "; ".join(f"{k}: {v:.3e}"
+                                          for k, v in readings.items()))
+            assert readings["honest"] <= 1.0, readings
+            assert all(v > 1.0 for k, v in readings.items()
+                       if k != "honest"), readings
+    design = {"dq": {}, "dkv": {}}
+    for path in (fmha.BWD_SIMT, fmha.BWD_MMA, fmha.BWD_MMA, fmha.BWD_SIMT):
+        for kind in ("dq", "dkv"):
+            design[kind].setdefault(path, []).append(device_ms(
+                lambda: _flash_bwd_raw(kind, args, path)) * 1e3)
+    assert registry.launches() == before  # the raw launches are uncounted
+    log(f"kernel flash backward at the path shape ({str(dtype)[6:]}) "
+        f"through the C functions (us, the first design, then the "
+        f"tensor-core body, in turns): " + "; ".join(
+            f"{kind} first design "
+            f"{'/'.join(f'{t:.2f}' for t in design[kind][fmha.BWD_SIMT])}, "
+            f"tensor cores "
+            f"{'/'.join(f'{t:.2f}' for t in design[kind][fmha.BWD_MMA])}"
+            for kind in ("dq", "dkv")))
+    return design
 
 
 def check_flash(gen):
@@ -967,6 +1123,7 @@ def check_flash(gen):
     # off the path: (b, n, s, d, dtype, causal, window, alibi); s = 200,
     # 300 and 77 leave a ragged last tile, b*n = 1 a single head
     f32, bf16 = torch.float32, torch.bfloat16
+    taken = []
     for b, n, s, d, dtype, causal, window, alibi in (
             (1, 1, 200, 64, f32, True, None, False),
             (2, 2, 256, 64, f32, False, None, False),
@@ -980,11 +1137,30 @@ def check_flash(gen):
             (1, 2, 200, 256, f32, True, None, False),
             (1, 2, 128, 256, bf16, False, None, False),
             (1, 3, 77, 256, f32, True, 256, True)):
-        _flash_check(*_flash_inputs(gen, b, n, s, d, dtype, alibi), causal,
-                     window)
+        q, k, v, do, slopes = _flash_inputs(gen, b, n, s, d, dtype, alibi)
+        cases = [("", do, fmha.BWD_MMA if d <= 128 else fmha.BWD_SIMT)]
+        if (s, d, dtype, window) == (200, 64, f32, None):
+            # the same inputs with do 4 bytes past a 16-byte boundary:
+            # the wrappers take the first design
+            flat = torch.empty(do.numel() + 4, dtype=dtype, device="cuda")
+            do4 = flat[1:1 + do.numel()].view(do.shape).copy_(do)
+            assert do4.is_contiguous() and do4.data_ptr() % 16 == 4
+            cases.append((", do at +4 bytes", do4, fmha.BWD_SIMT))
+        for label, do_, body in cases:
+            r = _flash_check(q, k, v, do_, slopes, causal, window, body)
+            taken.append(
+                f"s {s} d {d} {str(dtype)[6:]} "
+                f"{'causal' if causal else 'full'} w {window}"
+                f"{' alibi' if alibi else ''}{label}: "
+                f"{'tensor cores' if body == fmha.BWD_MMA else 'first design'}"
+                f"{' (dq, dk: float64 truth, FLASH_W1_ULPS)' if r['w1'] else ''}"
+                f", " + " ".join(f"{k} {x:.2e}"
+                                 for k, x in r["readings"].items()))
     log("kernels: flash fwd, dq and dk/dv match their plain versions off "
         "the path (full, windows 1/37/256, ALiBi, head dims 128 and 256, "
-        "fp32 and bf16, ragged tails, one head)")
+        "fp32 and bf16, ragged tails, one head, a misaligned do); "
+        "backward bodies and readings as shares of the tolerance, two "
+        "runs bit-identical: " + "; ".join(taken))
 
     # the path: the flash training step's q/k/v, [2, 32, 2048, 64], causal,
     # fp32 (the QKV bias add leaves them fp32, as in JAX); and the same
@@ -996,15 +1172,16 @@ def check_flash(gen):
     entries = []
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.finfo(dtype).bits // 8
-        peak = FP32_OPS_PER_S if dtype == torch.float32 else (
+        fma_peak = FP32_OPS_PER_S if dtype == torch.float32 else (
             BF16_TENSOR_OPS_PER_S)
         q, k, v, do, _ = _flash_inputs(gen, B, n, S, d, dtype, False)
-        r = _flash_check(q, k, v, do, None, True, None)
+        r = _flash_check(q, k, v, do, None, True, None, fmha.BWD_MMA)
         scale = d ** -0.5
         args = r["args"]
         shape = f"q,k,v [{B},{n},{S},{d}] {str(dtype)[6:]}, causal"
         tol = (f"rtol {FLASH_TOL[dtype][0]} atol "
                f"{FLASH_TOL[dtype][1]}*max|want|")
+        design = _flash_faults_and_design(r, dtype)
         # yardsticks, never called by the port: SDPA, and SDPA's backward
         # (fwd+bwd minus fwd) as the dq+dk+dv time on both backward rows
         ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -1018,29 +1195,59 @@ def check_flash(gen):
 
         sdpa_fwd_ms = call_ms(lambda: sdpa().detach(), 50, 3)
         sdpa_bwd_ms = call_ms(sdpa_fwd_bwd, 50, 3) - sdpa_fwd_ms
+        profile_window(f"SDPA forward and backward ({str(dtype)[6:]}), "
+                       f"the yardstick", sdpa_fwd_bwd, top=4)
         bnsd, bns = B * n * S * d * es, B * n * S * 4
+        # the bound at fp32 accuracy on the tensor cores; earlier_bound_ms
+        # keeps the one the table gave before (fp32: FMAs at 67 TFLOP/s;
+        # bf16: one product at the bf16 tensor cores' 989)
+        ops, peak = _flash_bounds(d, pairs, dtype)
         fwd = entry(
             "flash_fwd", shape, *r["o"], tol,
             lambda: fmha.flash_fwd(q, k, v, scale, True),
             lambda: fmha.flash_fwd_plain(q, k, v, scale, True), None,
-            bound(4 * bnsd + bns, 4 * d * pairs, peak))
+            bound(4 * bnsd + bns, ops[0], peak))
         fwd["library_ms"] = sdpa_fwd_ms
         fwd["lse_max_abs_err"] = max_abs(*r["lse"])
+        fwd["earlier_bound_ms"] = bound(4 * bnsd + bns, 4 * d * pairs,
+                                    fma_peak)[0]
         dq = entry(
             "flash_dq", shape, *r["dq"], tol,
             lambda: fmha.flash_dq(*args), lambda: fmha.flash_dq_plain(*args),
-            None, bound(5 * bnsd + 2 * bns, 6 * d * pairs, peak))
+            None, bound(5 * bnsd + 2 * bns, ops[1], peak))
+        dq["earlier_bound_ms"] = bound(5 * bnsd + 2 * bns, 6 * d * pairs,
+                                   fma_peak)[0]
         dkv = entry(
             "flash_dkv", shape, *r["dkv"], tol,
             lambda: fmha.flash_dkv(*args),
             lambda: fmha.flash_dkv_plain(*args), None,
-            bound(6 * bnsd + 2 * bns, 8 * d * pairs, peak))
+            bound(6 * bnsd + 2 * bns, ops[2], peak))
+        dkv["earlier_bound_ms"] = bound(6 * bnsd + 2 * bns, 8 * d * pairs,
+                                    fma_peak)[0]
+        if dtype == torch.bfloat16:
+            # what the design's own products take: the bf16 operands one
+            # TF32 term, p and ds two, all at TF32's 495 TFLOP/s
+            for e, n in ((fwd, 3), (dq, 4), (dkv, 6)):
+                e["design_bound_ms"] = (2 * n * d * pairs
+                                        / TF32_TENSOR_OPS_PER_S * 1e3)
         fwd["library"] = "SDPA forward, eager"
-        for e in (dq, dkv):
+        for e, kind in ((dq, "dq"), (dkv, "dkv")):
             e["library_ms"] = sdpa_bwd_ms
             e["library"] = "SDPA backward, dq+dk+dv: fwd+bwd - fwd, eager"
+            e["first_design_ms"] = statistics.median(
+                design[kind][fmha.BWD_SIMT]) / 1e3
+        o = r["o"][0]
+        delta_ms = device_ms(lambda: fmha._delta(o, do))
+        pair = dq["ms"] + dkv["ms"]
+        log(f"kernel flash backward pair at the path shape "
+            f"({str(dtype)[6:]}): dq + dk/dv {_us(pair)}, with the delta "
+            f"pass {_us(pair + delta_ms)} (delta {_us(delta_ms)}); SDPA's "
+            f"backward {_us(sdpa_bwd_ms)}: pair / SDPA "
+            f"{pair / sdpa_bwd_ms:.4f}, with delta "
+            f"{(pair + delta_ms) / sdpa_bwd_ms:.4f}; first designs "
+            f"{_us(dq['first_design_ms'] + dkv['first_design_ms'])}")
         entries += [fwd, dq, dkv]
-        del q, k, v, do, r, args, ql, kl, vl
+        del q, k, v, do, r, args, ql, kl, vl, o
         torch.cuda.empty_cache()
     return entries
 
@@ -4528,8 +4735,9 @@ def phase_tp_gpt2():
 # kernel name parts whose summed device time a training profile prints
 PROFILE_WATCH = ("ln_fwd_kernel", "ln_bwd_dx", "warp_softmax_fwd",
                  "causal_fwd_kernel", "::bwd_kernel<", "lamb_kernel",
-                 "adam_kernel", "::fwd_kernel<", "::dq_kernel<",
-                 "::dkv_kernel<", "rms_")
+                 "adam_kernel", "::fwd_kernel<", "::mma_dq_kernel<",
+                 "::mma_dkv_kernel<", "::dq_kernel<", "::dkv_kernel<",
+                 "rms_")
 PHASES = ("kernels", "serving", "serve_bf16", "serve_int8", "serve_spec",
           "training", "flash_training", "gpt2_training", "bert_training",
           "mha", "mla_decode", "deepseek_v2_lite", "ddp_gpt2",
@@ -4643,6 +4851,13 @@ def main(argv):
                 f"{_us(e['plain_ms'])}, library {_us(e['library_ms'])}"
                 f"{' (' + e['library'] + ')' if 'library' in e else ''}, "
                 f"bound {e['bound_ms'] * 1e3:.3f} us by {e['bound_by']}"
+                + (f" (earlier bound {e['earlier_bound_ms'] * 1e3:.3f} us)"
+                   if "earlier_bound_ms" in e else "")
+                + (f" (the design's own products "
+                   f"{e['design_bound_ms'] * 1e3:.3f} us)"
+                   if "design_bound_ms" in e else "")
+                + (f"; first design {_us(e['first_design_ms'])}"
+                   if "first_design_ms" in e else "")
                 + (f"; lse max abs err {e['lse_max_abs_err']:.3e}"
                    if "lse_max_abs_err" in e else ""))
         torch.cuda.empty_cache()
@@ -4689,7 +4904,10 @@ def main(argv):
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=e["library_ms"],
             call_ms=e["call_ms"], shape=e["shape"],
-            **{k: e[k] for k in ("library", "lse_max_abs_err") if k in e}))
+            **{k: e[k] for k in ("library", "lse_max_abs_err",
+                                 "earlier_bound_ms", "design_bound_ms",
+                                 "first_design_ms")
+               if k in e}))
     assert seen == set(SOURCES), (seen, set(SOURCES))
     assert all(k["launches"] > 0 for k in kernels
                if k["name"] not in KERNEL_PHASE_ONLY), kernels

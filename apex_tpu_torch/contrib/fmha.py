@@ -13,9 +13,11 @@ q, k, v, o and lse only.
 
 On a CPU tensor each wrapper takes its plain version; on a CUDA tensor
 it launches the kernels (fp32 or bf16, head dim 64, 128 or 256, any
-sequence length) or raises. The backward's body comes from
-:func:`bwd_plan`: the tensor-core body (products as three TF32 terms)
-for head dims 64 and 128, the first design (fp32 FMAs) for 256.
+sequence length) or raises. The forward's body comes from
+:func:`fwd_plan` and the backward's from :func:`bwd_plan`: tensor-core
+bodies for head dims 64 and 128 (fp32 products as three TF32 terms; the
+bf16 forward on bf16 tensor cores with p as three bf16 terms), the first
+design (fp32 FMAs) for 256 and for operands off a 16-byte boundary.
 """
 
 import ctypes
@@ -34,13 +36,14 @@ HEAD_DIMS = (64, 128, 256)
 FLASH_FWD = registry.register("flash_fwd")
 FLASH_DQ = registry.register("flash_dq")
 FLASH_DKV = registry.register("flash_dkv")
-# The backward kernels' bodies, as csrc/flash_attention.cu numbers them
-# (the `path` of apex_flash_dq and apex_flash_dkv): the first design, one
-# 256-thread block of fp32 FMAs per 64 rows (32 at head dim 256); the
-# tensor-core body, a block of warps of 16 rows streaming the other
-# operand in tiles through BWD_STAGES cp.async stages. (The C functions
-# also take two codes of planted faults, which the package never passes.)
-BWD_SIMT, BWD_MMA = 0, 1
+# The kernels' bodies, as csrc/flash_attention.cu numbers them (the `path`
+# of apex_flash_fwd, apex_flash_dq and apex_flash_dkv): the first design,
+# one 256-thread block of fp32 FMAs per 64 rows (32 at head dim 256); the
+# tensor-core bodies, a block of warps of 16 rows streaming the other
+# operand in tiles through cp.async stages (BWD_STAGES for the backward).
+# (The C functions also take two codes of planted faults, which the
+# package never passes.)
+PATH_SIMT, PATH_MMA = 0, 1
 BWD_SIMT_THREADS, BWD_STAGES = 256, 2
 
 
@@ -144,7 +147,7 @@ def flash_bwd_plain(q, k, v, o, lse, do, scale, causal, window=None,
 
 
 class BwdPlan(NamedTuple):
-    """How the backward kernels launch: ``path`` (BWD_SIMT or BWD_MMA);
+    """How the backward kernels launch: ``path`` (PATH_SIMT or PATH_MMA);
     a block owns ``rows`` rows (query rows for dq, key rows for dk/dv)
     and streams the other operand ``tile`` rows at a time through
     ``stages`` stages; ``threads`` a block, ``smem`` bytes of dynamic
@@ -181,10 +184,53 @@ def bwd_plan(d: int, dtype: torch.dtype, aligned: bool = True) -> BwdPlan:
         smem = (4 * 2 * rows * ld + BWD_STAGES * 2 * tile * d * size
                 + 4 * (BWD_STAGES * 2 * tile + 2 * planes * tile * ld
                        + 2 * tile))
-        return BwdPlan(BWD_MMA, rows, tile, BWD_STAGES, 32 * warps, smem)
+        return BwdPlan(PATH_MMA, rows, tile, BWD_STAGES, 32 * warps, smem)
     b = 64 if d <= 128 else 32
     smem = 4 * (4 * b * (d + 1) + b * (b + 1) + 2 * b)
-    return BwdPlan(BWD_SIMT, b, b, 1, BWD_SIMT_THREADS, smem)
+    return BwdPlan(PATH_SIMT, b, b, 1, BWD_SIMT_THREADS, smem)
+
+
+class FwdPlan(NamedTuple):
+    """How the forward kernel launches: ``path`` (PATH_SIMT or PATH_MMA);
+    a block owns ``rows`` query rows and streams K and V ``tile`` keys at
+    a time through ``stages`` stages; ``threads`` a block, ``smem`` bytes
+    of dynamic shared memory."""
+    path: int
+    rows: int
+    tile: int
+    stages: int
+    threads: int
+    smem: int
+
+
+def fwd_plan(d: int, dtype: torch.dtype, aligned: bool = True) -> FwdPlan:
+    """The forward's body for head dim ``d`` and the inputs' dtype, from
+    those alone and ``aligned`` (q, k, v and o start on 16-byte
+    boundaries). Head dims 64 and 128 take the tensor cores: warps of 16
+    query rows, K and V streamed 32 keys at a time through a ring of
+    cp.async stages in the inputs' dtype, rows padded by 16 bytes. fp32
+    (3xTF32): 8 warps at d 64, else 4, two stages, each tile's TF32 planes
+    (K hi and lo as rows of d + 4, V hi and lo transposed as rows of tile
+    + 8) and the block's fp32 Q rows (d + 4). bf16 (m16n8k16): 4 warps,
+    three stages, Q in registers. d 256, or unaligned operands, take the
+    first design (fp32 rows padded to d + 1)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"fwd_plan: head dim {d} not in {HEAD_DIMS}")
+    size = torch.tensor([], dtype=dtype).element_size()
+    if d <= 128 and aligned:
+        fp32 = size == 4
+        warps = 8 if fp32 and d == 64 else 4
+        tile = 32
+        stages = 2 if fp32 else 3
+        rows = 16 * warps
+        planes = 2 * tile * (d + 4) + 2 * d * (tile + 8) if fp32 else 0
+        q_rows = rows * (d + 4) if fp32 else 0
+        smem = (stages * 2 * tile * (d + 16 // size) * size
+                + 4 * (planes + q_rows))
+        return FwdPlan(PATH_MMA, rows, tile, stages, 32 * warps, smem)
+    b = 64 if d <= 128 else 32
+    smem = 4 * (2 * b * (d + 1) + b * (b + 1))
+    return FwdPlan(PATH_SIMT, b, b, 1, BWD_SIMT_THREADS, smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -192,10 +238,9 @@ def _kernel(symbol):
     p, i, f = _checks.ptr, ctypes.c_int, ctypes.c_float
     outs = {"apex_flash_fwd": 2, "apex_flash_dq": 1, "apex_flash_dkv": 2}
     ins = 3 if symbol == "apex_flash_fwd" else 6
-    path = [] if symbol == "apex_flash_fwd" else [i]
     return _build.function("flash_attention", symbol,
                            [p] * (ins + 1 + outs[symbol])
-                           + [i, i, i, i, f, i, i, i, *path, p])
+                           + [i, i, i, i, f, i, i, i, i, p])
 
 
 def _check_kernel_args(name, q, k, v, window, alibi_slopes, do=None):
@@ -226,16 +271,15 @@ def _check_kernel_args(name, q, k, v, window, alibi_slopes, do=None):
     return code, alibi_slopes.float().contiguous()
 
 
-def _common(q, scale, causal, window, slopes, code, path=()):
-    """The C functions' trailing arguments (the backward's ``path`` as a
-    one-element tuple), and the slopes' pointer. A window of s or more
-    masks nothing more than causality and goes to the kernel as s (a C
-    int)."""
+def _common(q, scale, causal, window, slopes, code, path):
+    """The C functions' trailing arguments, and the slopes' pointer. A
+    window of s or more masks nothing more than causality and goes to the
+    kernel as s (a C int)."""
     b, n, s, d = q.shape
     window = 0 if window is None else min(int(window), s)
     return [b * n, n, s, d, float(scale), int(bool(causal)), window,
-            code, *path, _checks.stream(q)], (0 if slopes is None
-                                              else slopes.data_ptr())
+            code, path, _checks.stream(q)], (0 if slopes is None
+                                             else slopes.data_ptr())
 
 
 def flash_fwd(q, k, v, scale, causal, window=None, alibi_slopes=None):
@@ -249,7 +293,8 @@ def flash_fwd(q, k, v, scale, causal, window=None, alibi_slopes=None):
                                       alibi_slopes)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
-    tail, slopes_ptr = _common(q, scale, causal, window, slopes, code)
+    tail, slopes_ptr = _common(q, scale, causal, window, slopes, code,
+                               _fwd_path(q, k, v, o))
     with torch.cuda.device(q.device):
         rc = _kernel("apex_flash_fwd")(q.data_ptr(), k.data_ptr(),
                                        v.data_ptr(), slopes_ptr, o.data_ptr(),
@@ -272,10 +317,18 @@ def _check_bwd_args(name, q, k, v, do, lse, delta, window,
     return code, slopes
 
 
+def _aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _fwd_path(q, k, v, o):
+    """The body :func:`fwd_plan` names for these tensors."""
+    return fwd_plan(q.shape[-1], q.dtype, _aligned(q, k, v, o)).path
+
+
 def _bwd_path(q, k, v, do, *outs):
     """The body :func:`bwd_plan` names for these tensors."""
-    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, do, *outs))
-    return bwd_plan(q.shape[-1], q.dtype, aligned).path
+    return bwd_plan(q.shape[-1], q.dtype, _aligned(q, k, v, do, *outs)).path
 
 
 def flash_dq(q, k, v, do, lse, delta, scale, causal, window=None,
@@ -291,7 +344,7 @@ def flash_dq(q, k, v, do, lse, delta, scale, causal, window=None,
                                    window, alibi_slopes)
     dq = torch.empty_like(q)
     tail, slopes_ptr = _common(q, scale, causal, window, slopes, code,
-                               (_bwd_path(q, k, v, do, dq),))
+                               _bwd_path(q, k, v, do, dq))
     with torch.cuda.device(q.device):
         rc = _kernel("apex_flash_dq")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -315,7 +368,7 @@ def flash_dkv(q, k, v, do, lse, delta, scale, causal, window=None,
                                    window, alibi_slopes)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     tail, slopes_ptr = _common(q, scale, causal, window, slopes, code,
-                               (_bwd_path(q, k, v, do, dk, dv),))
+                               _bwd_path(q, k, v, do, dk, dv))
     with torch.cuda.device(q.device):
         rc = _kernel("apex_flash_dkv")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -407,9 +460,9 @@ def flash_attention(q, k, v, causal=True, scale=None,
     not differentiable (their gradient is zero, as in JAX and the CUDA
     flash-attention convention). ``block_q`` and ``block_k`` are the JAX
     package's TPU tiles; they are checked and otherwise unused: the CUDA
-    kernels pick their own tiles (64 rows for head dims 64 and 128, 32
-    for 256) and take any sequence length, so nothing here falls back to
-    the einsum reference; the backward's tiles follow :func:`bwd_plan`.
+    kernels pick their own tiles (the forward's follow :func:`fwd_plan`,
+    the backward's :func:`bwd_plan`) and take any sequence length, so
+    nothing here falls back to the einsum reference.
     The function saves q, k, v, o and lse for the backward, never an [s,
     s] matrix."""
     _check_window(window, causal)

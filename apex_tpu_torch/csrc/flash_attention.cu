@@ -31,11 +31,14 @@
 // at least 208.3, 312.5 and 416.7 us. With bf16 inputs q, k, v and do
 // are exact in TF32 and only p and ds are split: dq does 1 + 1 + 2
 // products (8d operations a pair, 138.9 us) and dk/dv 1 + 1 + 2 + 2
-// (12d, 208.3 us).
+// (12d, 208.3 us). The bf16 forward takes the bf16 tensor cores (989
+// TFLOP/s): q . k^T one product, p . v three (p split into three bf16
+// terms), 8d operations a pair, at least 69.5 us.
 //
-// Forward, and the backward's first design (kept for d = 256, and as
-// path 0 of apex_flash_dq / apex_flash_dkv): one block of 256 threads (a
-// 16 x 16 grid) per (head, tile of B query rows) for the forward and dq,
+// The first design (kept for d = 256 and unaligned operands, as path 0
+// of apex_flash_fwd, apex_flash_dq and apex_flash_dkv): one block of 256
+// threads (a 16 x 16 grid) per (head, tile of B query rows) for the
+// forward and dq,
 // per (head, tile of B key rows) for dk/dv; B = 64 for d <= 128 and 32
 // for d = 256, so every tile fits shared memory. The TPU grid's
 // sequential axis becomes a loop inside the block over the other
@@ -94,12 +97,46 @@
 //  * Paths 2 and 3 (fp32, d = 64 only) are faults planted for the card
 //    check: the lo terms dropped, and the last tile of each causal range
 //    skipped. No caller of the package passes them.
+//
+// Forward on the tensor cores (path 1 of apex_flash_fwd: d = 64 and 128,
+// q, k, v and o 16-byte aligned; `fmha.fwd_plan` picks the path):
+//  * A block of warps owns 16 query rows a warp (8 warps for fp32 at d
+//    64, else 4) and streams K and V through a ring of cp.async stages of
+//    32-key tiles, rows padded by 16 bytes. S stays
+//    in the accumulator registers, the online softmax runs on them (a
+//    row's max and sum over the 4 lanes of its quad), and P feeds P . V
+//    from there: no shared-memory round trip for p, one writer a row, no
+//    atomics. Causal blocks visit key tiles up to their last row, from the
+//    window's first key, longest query tiles first; a warp skips a tile
+//    none of its rows sees, and only diagonal, window-edge and ragged
+//    tiles mask per element.
+//  * fp32 inputs (mma_fwd_kernel): 3xTF32 on m16n8k8, as the backward.
+//    The block's Q rows stay in shared memory and each k step splits Q *
+//    scale (the TPU kernel's order) as it reads it: with Q's split
+//    fragments held in registers two blocks no longer fit an SM, which
+//    ran slower (PERF.md section 6). Each landed tile
+//    is split once into K hi/lo planes and V^T hi/lo planes (V
+//    transposed): with the k-column trick (keys 2t and 2t + 1 in k columns
+//    t and t + 4) a B fragment of P . V is two neighbours of a V^T row,
+//    one 8-byte read a term. Two barriers a tile (landed; planes written).
+//  * bf16 inputs (bf16_fwd_kernel): m16n8k16 bf16 with fp32 accumulation,
+//    fragments by ldmatrix (V's transposed) from the landed stage as it
+//    lies; one barrier a tile, three stages. k and v are exact and take
+//    one term; p is fp32 in the TPU kernel's P . V and is split into three
+//    bf16 terms (split3: p to within 2^-27); q * scale is one term where
+//    the scale is a power of two (exact in bf16), else three. S's
+//    accumulator is P's A fragment as it lies.
+//  * Paths 2 and 3 as the backward's (fp32, d 64): the lo terms dropped;
+//    the last key tile of each causal range skipped.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cmath>
 #include <type_traits>
+
+#include "kv_attention.cuh"  // apex_kv:: bf16 mma, ldmatrix and split3
 
 namespace {
 
@@ -707,9 +744,9 @@ __device__ __forceinline__ void load_block_rows(float* dst, const T* __restrict_
 }
 
 // one ring stage: rows [r0, r0 + R) of two [s, D] matrices a and b ([R][D]
-// each, in T) and, with vectors, of two [s] fp32 vectors x and y, copied
-// asynchronously by NT threads; rows past s are zero-filled
-template <typename T, int D, int R, int NT>
+// each, in T, rows LDT apart) and, with vectors, of two [s] fp32 vectors x
+// and y, copied asynchronously by NT threads; rows past s are zero-filled
+template <typename T, int D, int R, int NT, int LDT = D>
 __device__ __forceinline__ void load_stage(T* tiles, float* vecs, const T* a,
                                            const T* b, const float* x,
                                            const float* y, int r0, int s) {
@@ -718,8 +755,8 @@ __device__ __forceinline__ void load_stage(T* tiles, float* vecs, const T* a,
     const int r = c / kPerRow, col = c % kPerRow * kVec;
     const bool ok = r0 + r < s;
     const long long off = static_cast<long long>(ok ? r0 + r : 0) * D + col;
-    cp_async16(tiles + r * D + col, a + off, ok ? 16 : 0);
-    cp_async16(tiles + (R + r) * D + col, b + off, ok ? 16 : 0);
+    cp_async16(tiles + r * LDT + col, a + off, ok ? 16 : 0);
+    cp_async16(tiles + (R + r) * LDT + col, b + off, ok ? 16 : 0);
   }
   if (x == nullptr) return;
   for (int r = threadIdx.x; r < R; r += NT) {
@@ -1061,6 +1098,407 @@ mma_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------ forward on the tensor cores
+
+// The forward's block: kWarps warps of 16 query rows own kRows rows and
+// stream K and V kTile keys at a time through kStages cp.async stages in
+// the inputs' dtype, rows padded by 16 bytes (kLdT), so that the fragment
+// reads and the split pass below read shared memory without bank
+// conflicts. fp32 inputs (3xTF32 on m16n8k8): each landed tile is split
+// once into K hi/lo planes ([kTile][D + 4]) and V^T hi/lo planes ([D][kTile
+// + 8]); the block's Q rows stay in shared memory as fp32 ([kRows][D + 4])
+// and each k step splits what it reads. bf16 inputs (m16n8k16): the warps
+// read the landed tiles as they lie, and Q * scale is held in registers
+// as bf16 terms. The numbers are the fastest of a sweep on an H100 (PERF.md
+// section 6): fp32 Q's split fragments held in registers took so many
+// registers that one 8-warp block held an SM, and ran slower than Q in
+// shared memory, where two blocks share an SM. contrib/fmha.py `fwd_plan`
+// mirrors it.
+template <typename T, int D>
+struct FwdLayout {
+  static constexpr bool kSplit = sizeof(T) == 4;
+  static constexpr int kWarps = kSplit && D == 64 ? 8 : 4;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kRows = 16 * kWarps;
+  static constexpr int kTile = 32;
+  static constexpr int kStages = kSplit ? 2 : 3;
+  static constexpr int kLdT = D + 16 / static_cast<int>(sizeof(T));
+  static constexpr int kLd = D + 4;
+  static constexpr int kLdV = kTile + 8;
+  static constexpr int kStage = 2 * kTile * kLdT;  // T elements: K, V
+  static constexpr int kPlanes = kSplit ? 2 * kTile * kLd + 2 * D * kLdV : 0;
+  static constexpr int kQ = kSplit ? kRows * kLd : 0;
+  static constexpr int kBytes =
+      kStages * kStage * static_cast<int>(sizeof(T)) + 4 * (kPlanes + kQ);
+  static_assert(kBytes <= 227 * 1024, "more shared memory than a block takes");
+};
+
+// the online softmax of one key tile on the accumulator fragment (row g +
+// 8h in elements 2h and 2h + 1, key k0 + 8j + 2t + (e & 1)), in the TPU
+// kernel's order: ALiBi after the product, masked scores -1e30, m_new =
+// max(m, row max), p = exp(s - m_new), alpha = exp(m - m_new), l = alpha
+// l + row sum(p), acc *= alpha; sc becomes p. A row's max and sum are
+// over the 4 lanes of its quad. A row whose visited tiles so far hold no
+// visible key keeps m = -1e30 and sums p = 1 over them; its first visible
+// key's alpha = exp(-1e30 - m_new) = 0 wipes that, as in the TPU kernel.
+template <int R, int D>
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[R / 8][4], float (&m)[2], float (&l)[2],
+    float (&acc)[D / 8][4], int row_lo, int k0, int g, int t, int vis, int s,
+    int causal, int window, const float* slopes, float slope) {
+  if (slopes != nullptr || vis != kAllPairs) {
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row_lo + g + 8 * (e >> 1);
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
+        float x = sc[j][e];
+        if (slopes != nullptr) x += slope * static_cast<float>(key);
+        if (vis != kAllPairs && !visible(row, key, s, causal, window)) x = kNegInf;
+        sc[j][e] = x;
+      }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j) mx = fmaxf(mx, fmaxf(sc[j][2 * h], sc[j][2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[h], mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int e = 2 * h; e < 2 * h + 2; ++e) {
+        const float p = expf(sc[j][e] - m_new);
+        sc[j][e] = p;
+        sum += p;
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float alpha = expf(m[h] - m_new);
+    l[h] = alpha * l[h] + sum;
+    m[h] = m_new;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][2 * h] *= alpha;
+      acc[n][2 * h + 1] *= alpha;
+    }
+  }
+}
+
+// o = acc / max(l, 1e-30) in T and lse = m + log(max(l, 1e-30)) for the
+// lane's rows g and g + 8 (columns 8n + 2t, 2t + 1); rows past s write
+// nothing
+template <typename T, int D>
+__device__ __forceinline__ void store_fwd(T* __restrict__ o, float* __restrict__ lse,
+                                          const float (&acc)[D / 8][4],
+                                          const float (&m)[2], const float (&l)[2],
+                                          long long base, long long row_base,
+                                          int row_lo, int g, int t, int s) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + g + 8 * h;
+    if (row >= s) continue;
+    const float lc = fmaxf(l[h], 1e-30f);
+    T* out = o + base + static_cast<long long>(row) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2(out + 8 * n, acc[n][2 * h] / lc, acc[n][2 * h + 1] / lc);
+    if (t == 0) lse[row_base + row] = m[h] + logf(lc);
+  }
+}
+
+__device__ __forceinline__ void split4(float4 x, uint4& hi, uint4& lo) {
+  hi = make_uint4(to_tf32(x.x), to_tf32(x.y), to_tf32(x.z), to_tf32(x.w));
+  lo = make_uint4(to_tf32(x.x - __uint_as_float(hi.x)),
+                  to_tf32(x.y - __uint_as_float(hi.y)),
+                  to_tf32(x.z - __uint_as_float(hi.z)),
+                  to_tf32(x.w - __uint_as_float(hi.w)));
+}
+
+// a landed fp32 stage (K, V: [kTile][kLdT] each) into the planes: K hi
+// and lo as rows, V hi and lo transposed, so that a B fragment of P . V
+// (keys 2t and 2t + 1 of a k step at one head column) is one 8-byte read.
+// Consecutive threads take consecutive rows: conflict-free stage reads and
+// V^T writes.
+template <int D>
+__device__ __forceinline__ void split_kv(float* planes, const float* stage) {
+  using L = FwdLayout<float, D>;
+  constexpr int R = L::kTile, LD = L::kLd, LT = L::kLdT, LV = L::kLdV;
+  float* k_hi = planes;
+  float* vt_hi = planes + 2 * R * LD;
+  for (int c = threadIdx.x; c < R * D / 4; c += L::kThreads) {
+    const int r = c % R, col = c / R * 4;
+    uint4 hi, lo;
+    split4(load4(stage + r * LT + col), hi, lo);
+    *reinterpret_cast<uint4*>(k_hi + r * LD + col) = hi;
+    *reinterpret_cast<uint4*>(k_hi + (R + r) * LD + col) = lo;
+    split4(load4(stage + (R + r) * LT + col), hi, lo);
+    const uint32_t h4[4] = {hi.x, hi.y, hi.z, hi.w}, l4[4] = {lo.x, lo.y, lo.z, lo.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      vt_hi[(col + i) * LV + r] = __uint_as_float(h4[i]);
+      vt_hi[(D + col + i) * LV + r] = __uint_as_float(l4[i]);
+    }
+  }
+}
+
+// The forward for fp32 inputs: products as three TF32 terms (kFault as
+// the backward's: the lo terms dropped, or a causal range's last key tile
+// skipped)
+template <int D, int kFault>
+__global__ void __launch_bounds__(FwdLayout<float, D>::kThreads)
+mma_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ slopes,
+               float* __restrict__ o, float* __restrict__ lse, int heads, int s,
+               float scale, int causal, int window) {
+  using L = FwdLayout<float, D>;
+  constexpr int R = L::kTile, LD = L::kLd, LV = L::kLdV;
+  constexpr int ROWS = L::kRows, NT = L::kThreads, NS = L::kStages;
+  constexpr bool kLo = kFault != kFaultNoLo;
+  extern __shared__ __align__(16) float mma_smem[];
+  float* ring = mma_smem;                        // NS x (K, V) [R][kLdT]
+  float* planes = ring + NS * L::kStage;         // K hi, lo; V^T hi, lo
+  float* q_s = planes + L::kPlanes;              // Q [ROWS][LD]
+  const float* k_hi = planes;
+  const float* vt_hi = planes + 2 * R * LD;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;  // longest first
+  const long long base = static_cast<long long>(bh) * s * D;
+  const float slope = slopes != nullptr ? slopes[bh % heads] : 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qr = 16 * warp;  // the warp's first row in the block
+  const int row_lo = q0 + qr;
+
+  int k_begin = 0, k_end = s;
+  if (causal) {
+    k_end = min(s, q0 + ROWS);
+    if (window > 0) k_begin = max(q0 - window + 1, 0) / R * R;
+  }
+  const int tiles = tile_count<kFault>(k_begin, k_end, R, causal);
+  for (int st = 0; st < NS; ++st) {
+    if (st < tiles)
+      load_stage<float, D, R, NT, L::kLdT>(ring + st * L::kStage, nullptr, k + base,
+                                           v + base, nullptr, nullptr,
+                                           k_begin + st * R, s);
+    cp_async_commit();
+  }
+  load_block_rows<float, D, ROWS, NT>(q_s, q + base, q0, s);
+
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = k_begin + it * R, st = it % NS;
+    cp_async_wait<NS - 1>();
+    __syncthreads();  // the tile landed (and Q's rows); the planes consumed
+    split_kv<D>(planes, ring + st * L::kStage);
+    __syncthreads();  // the planes written; the stage free
+    if (it + NS < tiles)
+      load_stage<float, D, R, NT, L::kLdT>(ring + st * L::kStage, nullptr, k + base,
+                                           v + base, nullptr, nullptr,
+                                           k0 + NS * R, s);
+    cp_async_commit();
+
+    const int vis = band(row_lo, row_lo + 15, k0, k0 + R - 1, s, causal, window);
+    if (vis == kNoPair) continue;
+    // S = (Q * scale) . K^T: the warp's 16 rows x R keys
+    float sc[R / 8][4];
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      // Q * scale (JAX's order: the scale before the product), split
+      float a[4];
+      uint32_t ah[4], al[4];
+      a_rows<LD, kLo>(q_s, qr, 8 * kk, lane, a);
+      a_frag<true, kLo>(a[0] * scale, a[1] * scale, a[2] * scale, a[3] * scale,
+                        ah, al);
+#pragma unroll
+      for (int j = 0; j < R / 8; ++j) {
+        uint32_t b[4];
+        b_rows<LD, kLo>(k_hi, R * LD, 8 * j, 8 * kk, lane, b);
+        mma3<kLo, kLo>(sc[j], ah, al, b);
+      }
+    }
+    online_softmax<R, D>(sc, m_r, l_r, acc, row_lo, k0, g, t, vis, s, causal,
+                         window, slopes, slope);
+    // O += P . V: k step j sums keys 8j..8j+7, keys 8j + 2t and 8j + 2t + 1
+    // in k columns t and t + 4, so P's accumulator is its A fragment and
+    // the B fragment is V^T's two neighbours
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j) {
+      uint32_t ph[4], pl[4];
+      a_frag<true, kLo>(sc[j][0], sc[j][2], sc[j][1], sc[j][3], ph, pl);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const float* p = vt_hi + (8 * n + g) * LV + 8 * j + 2 * t;
+        const float2 hi = *reinterpret_cast<const float2*>(p);
+        uint32_t b[4] = {__float_as_uint(hi.x), __float_as_uint(hi.y), 0u, 0u};
+        if constexpr (kLo) {
+          const float2 lo = *reinterpret_cast<const float2*>(p + D * LV);
+          b[2] = __float_as_uint(lo.x);
+          b[3] = __float_as_uint(lo.y);
+        }
+        mma3<kLo, kLo>(acc[n], ph, pl, b);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  store_fwd<float, D>(o, lse, acc, m_r, l_r, base, static_cast<long long>(bh) * s,
+                      row_lo, g, t, s);
+}
+
+// The forward for bf16 inputs: m16n8k16 bf16 products with fp32
+// accumulation. k and v are bf16 and exact; Q * scale is kQTerms bf16
+// terms (1 where the scale is a power of two and the product is exact in
+// bf16, else 3: hi, mid, lo as split3); p is fp32 and always three terms.
+// Terms are summed smallest first. One barrier a tile: the warps read the
+// landed stage as it lies, and the copy into the stage of the tile before
+// starts after that barrier.
+template <int D, int kQTerms>
+__global__ void __launch_bounds__(FwdLayout<__nv_bfloat16, D>::kThreads)
+bf16_fwd_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                const float* __restrict__ slopes, __nv_bfloat16* __restrict__ o,
+                float* __restrict__ lse, int heads, int s, float scale,
+                int causal, int window) {
+  using bf16 = __nv_bfloat16;
+  using L = FwdLayout<bf16, D>;
+  constexpr int R = L::kTile, LT = L::kLdT;
+  constexpr int ROWS = L::kRows, NT = L::kThreads, NS = L::kStages;
+  extern __shared__ __align__(16) float mma_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(mma_smem);  // NS x (K, V) [R][LT]
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;  // longest first
+  const long long base = static_cast<long long>(bh) * s * D;
+  const float slope = slopes != nullptr ? slopes[bh % heads] : 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row_lo = q0 + 16 * warp;
+
+  int k_begin = 0, k_end = s;
+  if (causal) {
+    k_end = min(s, q0 + ROWS);
+    if (window > 0) k_begin = max(q0 - window + 1, 0) / R * R;
+  }
+  const int tiles = tile_count<0>(k_begin, k_end, R, causal);
+  for (int st = 0; st < NS - 1; ++st) {
+    if (st < tiles)
+      load_stage<bf16, D, R, NT, LT>(ring + st * L::kStage, nullptr, k + base,
+                                     v + base, nullptr, nullptr,
+                                     k_begin + st * R, s);
+    cp_async_commit();
+  }
+  // Q * scale as bf16 terms: A fragments of m16n8k16, register f holding
+  // row g + 8 (f & 1), columns 2t + 8 (f >> 1) and the next of each 16
+  uint32_t qf[kQTerms][D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int row = row_lo + g + 8 * (f & 1);
+      float x0 = 0.f, x1 = 0.f;
+      if (row < s) {
+        const __nv_bfloat162 pair = *reinterpret_cast<const __nv_bfloat162*>(
+            q + base + static_cast<long long>(row) * D + 16 * kk + 2 * t + 8 * (f >> 1));
+        x0 = __low2float(pair) * scale;
+        x1 = __high2float(pair) * scale;
+      }
+      uint32_t hi, mid, lo;
+      apex_kv::split_bf16(x0, x1, hi, mid, lo);
+      qf[0][kk][f] = hi;
+      if constexpr (kQTerms == 3) {
+        qf[1][kk][f] = mid;
+        qf[2][kk][f] = lo;
+      }
+    }
+
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // ldmatrix rows: K's matrices keys 0-7 / 8-15 of a 16-key step (m >> 1)
+  // at dims +0 / +8 (m & 1); V's, transposed, the other way round
+  const int mtx = lane >> 3;
+  const int k_off = (((mtx >> 1) << 3) + (lane & 7)) * LT + ((mtx & 1) << 3);
+  const int v_off = (((mtx & 1) << 3) + (lane & 7)) * LT + ((mtx >> 1) << 3);
+
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = k_begin + it * R;
+    cp_async_wait<NS - 2>();
+    __syncthreads();  // the tile landed; the tile before it consumed
+    if (it + NS - 1 < tiles)
+      load_stage<bf16, D, R, NT, LT>(ring + (it + NS - 1) % NS * L::kStage, nullptr,
+                                     k + base, v + base, nullptr, nullptr,
+                                     k0 + (NS - 1) * R, s);
+    cp_async_commit();
+    const bf16* ks = ring + it % NS * L::kStage;
+    const bf16* vs = ks + R * LT;
+
+    const int vis = band(row_lo, row_lo + 15, k0, k0 + R - 1, s, causal, window);
+    if (vis == kNoPair) continue;
+    float sc[R / 8][4];
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int jj = 0; jj < R / 16; ++jj) {
+        uint32_t b[4];
+        apex_kv::ldmatrix_x4(b, ks + k_off + jj * 16 * LT + kk * 16);
+#pragma unroll
+        for (int u = kQTerms - 1; u >= 0; --u) {
+          apex_kv::mma_bf16(sc[2 * jj], qf[u][kk], b[0], b[1]);
+          apex_kv::mma_bf16(sc[2 * jj + 1], qf[u][kk], b[2], b[3]);
+        }
+      }
+    online_softmax<R, D>(sc, m_r, l_r, acc, row_lo, k0, g, t, vis, s, causal,
+                         window, slopes, slope);
+    // O += P . V, P as three bf16 terms (its accumulator is the A fragment)
+#pragma unroll
+    for (int jj = 0; jj < R / 16; ++jj) {
+      uint32_t hi[4], mid[4], lo[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        apex_kv::split_bf16(sc[2 * jj + (f >> 1)][2 * (f & 1)],
+                            sc[2 * jj + (f >> 1)][2 * (f & 1) + 1], hi[f], mid[f],
+                            lo[f]);
+#pragma unroll
+      for (int dc = 0; dc < D / 16; ++dc) {
+        uint32_t b[4];
+        apex_kv::ldmatrix_x4_trans(b, vs + v_off + jj * 16 * LT + dc * 16);
+        apex_kv::mma_bf16(acc[2 * dc], lo, b[0], b[1]);
+        apex_kv::mma_bf16(acc[2 * dc + 1], lo, b[2], b[3]);
+        apex_kv::mma_bf16(acc[2 * dc], mid, b[0], b[1]);
+        apex_kv::mma_bf16(acc[2 * dc + 1], mid, b[2], b[3]);
+        apex_kv::mma_bf16(acc[2 * dc], hi, b[0], b[1]);
+        apex_kv::mma_bf16(acc[2 * dc + 1], hi, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  store_fwd<bf16, D>(o, lse, acc, m_r, l_r, base, static_cast<long long>(bh) * s,
+                     row_lo, g, t, s);
+}
+
 // ------------------------------------------------------------- launches
 
 template <typename Kernel>
@@ -1075,21 +1513,6 @@ dim3 grid_of(int bh, int s) {
   return dim3(bh, (s + Tile<D>::kB - 1) / Tile<D>::kB);
 }
 
-template <typename T, int D>
-int launch_fwd(const void* q, const void* k, const void* v, const float* slopes,
-               void* o, float* lse, int bh, int heads, int s, float scale,
-               int causal, int window, cudaStream_t stream) {
-  using TL = Tile<D>;
-  const size_t smem = sizeof(float) * (2 * TL::kB * TL::kLd + TL::kB * TL::kLp);
-  const int err = prepare(fwd_kernel<T, D>, smem);
-  if (err) return err;
-  fwd_kernel<T, D><<<grid_of<D>(bh, s), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), slopes, static_cast<T*>(o), lse, heads, s,
-      scale, causal, window);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int D>
 size_t bwd_smem() {
   using TL = Tile<D>;
@@ -1097,6 +1520,30 @@ size_t bwd_smem() {
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <typename T, int D, int kFault>
+int launch_mma_fwd(const T* q, const T* k, const T* v, const float* slopes, T* o,
+                   float* lse, int bh, int heads, int s, float scale, int causal,
+                   int window, cudaStream_t stream) {
+  using L = FwdLayout<T, D>;
+  const dim3 grid(bh, (s + L::kRows - 1) / L::kRows);
+  if constexpr (L::kSplit) {
+    const int err = prepare(mma_fwd_kernel<D, kFault>, L::kBytes);
+    if (err) return err;
+    mma_fwd_kernel<D, kFault><<<grid, L::kThreads, L::kBytes, stream>>>(
+        q, k, v, slopes, o, lse, heads, s, scale, causal, window);
+  } else {
+    static_assert(kFault == 0, "the planted faults are fp32's");
+    int e2;
+    const bool exact = std::frexp(scale, &e2) == 0.5f;  // a power of two
+    auto kernel = exact ? bf16_fwd_kernel<D, 1> : bf16_fwd_kernel<D, 3>;
+    const int err = prepare(kernel, L::kBytes);
+    if (err) return err;
+    kernel<<<grid, L::kThreads, L::kBytes, stream>>>(q, k, v, slopes, o, lse, heads,
+                                                     s, scale, causal, window);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <typename T, int D, int kFault>
 int launch_mma_dq(const T* q, const T* k, const T* v, const T* dout,
@@ -1144,6 +1591,27 @@ int launch_mma_dkv(const T* q, const T* k, const T* v, const T* dout,
     }                                                                         \
     return -1;                                                                \
   } while (0)
+
+template <typename T, int D>
+int launch_fwd(int path, const void* q, const void* k, const void* v,
+               const float* slopes, void* o, float* lse, int bh, int heads,
+               int s, float scale, int causal, int window, cudaStream_t stream) {
+  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  T* out = static_cast<T*>(o);
+  if (path == kPathSimt) {
+    using TL = Tile<D>;
+    const size_t smem = sizeof(float) * (2 * TL::kB * TL::kLd + TL::kB * TL::kLp);
+    const int err = prepare(fwd_kernel<T, D>, smem);
+    if (err) return err;
+    fwd_kernel<T, D><<<grid_of<D>(bh, s), kThreads, smem, stream>>>(
+        tq, tk, tv, slopes, out, lse, heads, s, scale, causal, window);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o)) return -1;
+  APEX_FLASH_MMA_PATHS(launch_mma_fwd, tq, tk, tv, slopes, out, lse, bh, heads, s,
+                       scale, causal, window, stream);
+}
 
 template <typename T, int D>
 int launch_dq(int path, const void* q, const void* k, const void* v,
@@ -1216,13 +1684,16 @@ int launch_dkv(int path, const void* q, const void* k, const void* v,
     return -1;                                                               \
   } while (0)
 
-// o [bh, s, d] in q's dtype and lse [bh, s] fp32.
+// o [bh, s, d] in q's dtype and lse [bh, s] fp32. path: 0 the first
+// design, 1 the tensor-core body (d 64 and 128, q, k, v and o 16-byte
+// aligned), 2 and 3 planted faults (fp32, d 64); `fmha.fwd_plan` picks 0
+// or 1.
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               const float* slopes, void* o, float* lse, int bh,
                               int heads, int s, int d, float scale, int causal,
-                              int window, int dtype, void* stream) {
-  APEX_FLASH_DISPATCH(launch_fwd, q, k, v, slopes, o, lse, bh, heads, s, scale,
-                      causal, window);
+                              int window, int dtype, int path, void* stream) {
+  APEX_FLASH_DISPATCH(launch_fwd, path, q, k, v, slopes, o, lse, bh, heads, s,
+                      scale, causal, window);
 }
 
 // dq [bh, s, d] in q's dtype. path: 0 the first design, 1 the tensor-core

@@ -25,6 +25,14 @@ RMS_BWD = registry.register("rms_bwd")
 LN_BWD_REG_MAX_H = 1024
 LN_BWD_ROW_WARPS = 4
 LN_BWD_BLOCK, LN_BWD_SCALAR, LN_BWD_VECTOR = 0, 1, 2
+# #7's launch (csrc/rms_norm.cu `warp_rms_bwd_dx`): rows of at most
+# RMS_BWD_REG_MAX_H elements live in registers, spread over the fewest of
+# 1, 2, 4 or 8 warps (RMS_BWD_MAX_WARPS) that leave a lane at most
+# RMS_BWD_LANE_MAX elements of each operand; longer rows take one block of
+# 256 threads a row. Path codes of apex_rms_norm_bwd_dx as #5's.
+RMS_BWD_REG_MAX_H = 2048
+RMS_BWD_LANE_MAX = 32
+RMS_BWD_MAX_WARPS = 8
 
 
 def _vector(name, what, t, h):
@@ -248,12 +256,56 @@ def rms_bwd_dx_plain(dy2d, x2d, weight, eps):
     return ((wdy - xhat * c) * rstd).to(x2d.dtype)
 
 
+class RmsBwdPlan(NamedTuple):
+    """How #7 launches for rows of ``h`` elements. ``path``:
+    LN_BWD_BLOCK, LN_BWD_SCALAR or LN_BWD_VECTOR (#5's codes); ``vec``
+    elements an access; ``iters`` chunks of ``vec`` a lane holds and
+    ``warps`` warps a row (register paths; 0 on the block path)."""
+    path: int
+    vec: int
+    iters: int
+    warps: int
+
+
+def rms_bwd_plan(h: int, dy_itemsize: int, x_itemsize: int,
+                 aligned: bool) -> RmsBwdPlan:
+    """#7's launch for rows of ``h`` elements, dy and x of the given
+    itemsizes, from shapes and alignment alone: rows of at most
+    RMS_BWD_REG_MAX_H elements live in registers, with 16-byte accesses
+    of the narrower type (8 elements when either is bf16, 4 when both are
+    fp32) when h is a multiple of that vector and ``aligned`` (dy, x and dx
+    start on 16-byte boundaries), else one element an access, spread over
+    the fewest warps (a power of two, at most RMS_BWD_MAX_WARPS) that
+    leave a lane at most RMS_BWD_LANE_MAX elements (at h 2048 two warps,
+    the fastest of 2, 4 and 8 at [2048, 2048] bf16 rows on an H100:
+    PERF.md section 6); longer rows take one block a row. A lane holds
+    ``iters`` chunks, the chunks a row needs over its lanes rounded up to
+    a power of two (the kernel's template buckets). The weight does not
+    enter: the kernel reads it 16 bytes at a time where it starts on that
+    boundary, else element by element."""
+    if h > RMS_BWD_REG_MAX_H:
+        return RmsBwdPlan(LN_BWD_BLOCK, 1, 0, 0)
+    vec = 16 // min(dy_itemsize, x_itemsize)
+    if not (aligned and h % vec == 0):
+        vec = 1
+    chunks = -(-h // vec)
+
+    def iters(warps):
+        return 1 << max(0, -(-chunks // (32 * warps)) - 1).bit_length()
+
+    warps = 1
+    while warps < RMS_BWD_MAX_WARPS and iters(warps) * vec > RMS_BWD_LANE_MAX:
+        warps *= 2
+    return RmsBwdPlan(LN_BWD_VECTOR if vec > 1 else LN_BWD_SCALAR, vec,
+                      iters(warps), warps)
+
+
 @functools.lru_cache(maxsize=1)
 def _bwd_kernel():
     p, i = _checks.ptr, ctypes.c_int
     return _build.function(
         "rms_norm", "apex_rms_norm_bwd_dx",
-        [p, p, p, p, ctypes.c_longlong, i, ctypes.c_float, i, i, p])
+        [p, p, p, p, ctypes.c_longlong, i, ctypes.c_float, i, i, i, i, p])
 
 
 def rms_bwd_dx(dy2d, x2d, weight, eps):
@@ -277,10 +329,12 @@ def rms_bwd_dx(dy2d, x2d, weight, eps):
     dx = torch.empty_like(x2d)
     if n == 0:
         return dx
+    aligned = all(t.data_ptr() % 16 == 0 for t in (dy2d, x2d, dx))
+    plan = rms_bwd_plan(h, dy2d.element_size(), x2d.element_size(), aligned)
     with torch.cuda.device(x2d.device):
         rc = _bwd_kernel()(dy2d.data_ptr(), x2d.data_ptr(), weight.data_ptr(),
                            dx.data_ptr(), n, h, float(eps), dy_code, x_code,
-                           _checks.stream(x2d))
+                           plan.path, plan.warps, _checks.stream(x2d))
     _checks.status("rms_bwd_dx", rc)
     registry.count(RMS_BWD)
     return dx

@@ -23,21 +23,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    does not take (window, softcap, ragged T, head dim 128, fp32), and
    time kernel, plain version and one PyTorch library call as yardstick.
    The training kernels likewise at the training step's shapes (RMSNorm
-   backward-dx [2048, 2048] bf16, causal softmax forward and backward
+   backward-dx [2048, 2048] bf16, also on each branch of its launch plan,
+   with its first design and the register path at 2, 4 and 8 warps a row
+   timed through the C function at [2048, 2048] and [4096, 2048] in turns,
+   and _fused_rms_norm_backward as yardstick; causal softmax forward and
+   backward
    [64, 1024, 1024] fp32, Adam over TinyLlama's 179 fp32 tensors) and
    off them (fp32, bf16, sk > sq, 16384 keys, L2 decay, the noop flag,
    more tensors than one launch takes). The flash kernels at the flash
-   training step's shape ([2, 32, 2048, 64] fp32, causal; and bf16) and
-   off it (full, windows, ALiBi, head dims 128 and 256, tails, one
-   head, a do off a 16-byte boundary), the backward on the body the
-   wrappers pick (``fmha.bwd_plan``: tensor cores for head dims 64 and
-   128, the first design for 256 or a misaligned operand; asserted),
-   each run twice and bit-identical, window 1's dq and dk held to the
-   float64 truth (FLASH_W1_ULPS); at the path shape the first design timed through
-   the C functions beside the tensor-core body, two planted faults (the
-   lo terms dropped, the last tile of each causal range skipped) that
-   must read past FLASH_TOL, SDPA's backward profiled, and the pair
-   (with and without the delta pass) beside it. LayerNorm forward and
+   training step's shape ([2, 32, 2048, 64] fp32, causal; and bf16), at
+   the MHA phase's bf16 [8, 16, 512, 64] (not causal) and off the path
+   (full, windows, ALiBi, head dims 128 and 256, scales off a power of
+   two, tails, one head, a do and a q off a 16-byte boundary), forward
+   and backward on the bodies the wrappers pick (``fmha.fwd_plan`` and
+   ``bwd_plan``: tensor cores for head dims 64 and 128, the first design
+   for 256 or a misaligned operand; asserted), each run twice and
+   bit-identical, window 1's dq and dk held to the float64 truth
+   (FLASH_W1_ULPS); at the path shape the first designs timed through
+   the C functions beside the tensor-core bodies, two planted faults in
+   each kernel (the lo terms dropped, the last tile of each causal range
+   skipped) that must read past FLASH_TOL, SDPA's backward profiled, and
+   the pair (with and without the delta pass) beside it. LayerNorm forward and
    backward-dx at GPT-2's [8192, 1024] bf16 rows (the backward also on each branch of its launch plan, its
    first design timed through the C function, and two planted faults,
    the weight read one element ahead and eps raised until rstd moves by
@@ -838,6 +844,103 @@ def check_gqa_decode(gen):
     return entries
 
 
+def _rms_bwd_raw(dy, x, w, eps, path, warps):
+    """#7 launched through its C function on ``path`` with ``warps`` warps
+    a row (register paths), uncounted: for the first design's time and
+    the sweep of warps a row."""
+    from apex_tpu_torch.kernels import _checks, norm
+    dx = torch.empty_like(x)
+    rc = norm._bwd_kernel()(
+        dy.data_ptr(), x.data_ptr(), w.data_ptr(), dx.data_ptr(), x.shape[0],
+        x.shape[1], float(eps), _checks.DTYPE_CODES[dy.dtype],
+        _checks.DTYPE_CODES[x.dtype], path, warps, _checks.stream(x))
+    _checks.status("rms_bwd_dx", rc)
+    return dx
+
+
+def _check_rms_bwd_plan(gen, eps):
+    """#7 on each branch of its launch plan, every dtype pair of dy and
+    x, with and without weight, 37 rows: the register path with 16-byte
+    accesses (h 256, 1024 and the limit), with one element an access (h
+    1001 and the limit less one; the limit with dy at a 4-byte but not
+    16-byte offset), and the block path past the limit (limit + 8)."""
+    from apex_tpu_torch.kernels import norm
+    names = {norm.LN_BWD_BLOCK: "block", norm.LN_BWD_SCALAR: "scalar",
+             norm.LN_BWD_VECTOR: "vector"}
+    lim = norm.RMS_BWD_REG_MAX_H
+    rows = 37
+    taken = []
+    for tdy in (torch.float32, torch.bfloat16):
+        for tx in (torch.float32, torch.bfloat16):
+            dy_size = torch.tensor([], dtype=tdy).element_size()
+            x_size = torch.tensor([], dtype=tx).element_size()
+            for h, offset, path in ((256, 0, norm.LN_BWD_VECTOR),
+                                    (1024, 0, norm.LN_BWD_VECTOR),
+                                    (lim, 0, norm.LN_BWD_VECTOR),
+                                    (1001, 0, norm.LN_BWD_SCALAR),
+                                    (lim - 1, 0, norm.LN_BWD_SCALAR),
+                                    (lim + 8, 0, norm.LN_BWD_BLOCK),
+                                    (lim, 4, norm.LN_BWD_SCALAR)):
+                w = 1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+                x = _randn(gen, rows, h, dtype=tx, scale=3.0)
+                flat = _randn(gen, rows * h + 16 // dy_size, dtype=tdy)
+                dy = flat[offset // dy_size:][:rows * h].view(rows, h)
+                assert dy.data_ptr() % 16 == offset
+                p = norm.rms_bwd_plan(h, dy_size, x_size,
+                                      dy.data_ptr() % 16 == 0)
+                assert p.path == path, (h, offset, tdy, tx, p)
+                for weight in (w, None):
+                    got = norm.rms_bwd_dx(dy, x, weight, eps)
+                    want = norm.rms_bwd_dx_plain(dy, x, weight, eps)
+                    torch.cuda.synchronize()
+                    assert got.dtype == tx and got.shape == x.shape
+                    assert_close_scaled(got, want, NORM_BWD_RTOL[tx])
+                if tdy == tx:
+                    taken.append(f"{str(tx)[6:]} h {h}"
+                                 + (f" dy at +{offset} B" if offset else "")
+                                 + f": {names[p.path]}"
+                                 + (f", {p.vec} an access, {p.iters} chunks "
+                                    f"a lane, {p.warps} warps a row"
+                                    if p.iters else ""))
+    log("kernels: rms_bwd matches its plain version on each launch plan "
+        "branch, every dtype pair, with and without weight ("
+        + "; ".join(taken) + ")")
+
+
+def _rms_bwd_design(gen, h, w, eps):
+    """At the flash-off and the flash step's rows ([2048, h] and [4096,
+    h], bf16 dy and x), through #7's C function (uncounted): the first
+    design (one block a row) and the register path at 2, 4 and 8 warps a
+    row, each held to NORM_BWD_RTOL against the plain version, then timed
+    in turns (the first design first and last). Returns {rows: {label:
+    [us, ...]}}."""
+    from apex_tpu_torch.kernels import norm, registry
+    before = registry.launches()
+    vec = norm.LN_BWD_VECTOR
+    out = {}
+    for rows in (TRAIN_BATCH * TRAIN_SEQ, FLASH_BATCH * FLASH_SEQ):
+        x = _randn(gen, rows, h, scale=3.0)
+        dy = _randn(gen, rows, h)
+        want = norm.rms_bwd_dx_plain(dy, x, w, eps)
+        variants = [("first design", norm.LN_BWD_BLOCK, 0)] + [
+            (f"{n} warps a row", vec, n) for n in (2, 4, 8)]
+        for label, path, warps in variants:
+            assert_close_scaled(_rms_bwd_raw(dy, x, w, eps, path, warps),
+                                want, NORM_BWD_RTOL[torch.bfloat16])
+        times = {}
+        for label, path, warps in variants + variants[::-1]:
+            times.setdefault(label, []).append(device_ms(
+                lambda: _rms_bwd_raw(dy, x, w, eps, path, warps)) * 1e3)
+        out[rows] = times
+        plan = norm.rms_bwd_plan(h, 2, 2, True)
+        log(f"kernel rms_bwd [{rows},{h}] bf16 through the C function (us, "
+            f"in turns; the plan takes {plan.warps} warps a row): "
+            + "; ".join(f"{k} {'/'.join(f'{t:.2f}' for t in v)}"
+                        for k, v in times.items()))
+    assert registry.launches() == before  # the raw launches are uncounted
+    return out
+
+
 def check_rms_bwd(gen):
     from apex_tpu_torch.kernels import norm
     h = MODEL["hidden_size"]
@@ -855,9 +958,12 @@ def check_rms_bwd(gen):
                     torch.cuda.synchronize()
                     assert got.dtype == tx and got.shape == x.shape
                     assert_close_scaled(got, want, NORM_BWD_RTOL[tx])
+    _check_rms_bwd_plan(gen, eps)
+    design = _rms_bwd_design(gen, h, w, eps)
     # the path's call: dy of the bf16 norm output, the bf16 residual
     x = _randn(gen, rows, h, scale=3.0)
     dy = _randn(gen, rows, h)
+    assert norm.rms_bwd_plan(h, 2, 2, True).path == norm.LN_BWD_VECTOR
     got = norm.rms_bwd_dx(dy, x, w, eps)
     want = norm.rms_bwd_dx_plain(dy, x, w, eps)
     assert_close_scaled(got, want, NORM_BWD_RTOL[torch.bfloat16])
@@ -870,12 +976,20 @@ def check_rms_bwd(gen):
         def library():
             return torch.ops.aten._fused_rms_norm_backward(
                 dy, x, [h], rstd, w_lib, [True, False])
-    return [entry(
+    e = entry(
         "rms_bwd", f"dy, x [{rows},{h}] bf16 -> dx bf16", got, want,
         f"rtol {NORM_BWD_RTOL[torch.bfloat16]} atol 1e-5*max|dx|",
         lambda: norm.rms_bwd_dx(dy, x, w, eps),
         lambda: norm.rms_bwd_dx_plain(dy, x, w, eps), library,
-        bound(rows * h * 2 * 3 + h * 4, 10 * rows * h, FP32_OPS_PER_S))]
+        bound(rows * h * 2 * 3 + h * 4, 10 * rows * h, FP32_OPS_PER_S))
+    e["first_design_ms"] = statistics.median(
+        design[rows]["first design"]) / 1e3
+    if e["library_ms"] is not None:
+        log(f"kernel rms_bwd at the path shape: {_us(e['ms'])}, first design "
+            f"{_us(e['first_design_ms'])}, _fused_rms_norm_backward "
+            f"{_us(e['library_ms'])}: kernel / library "
+            f"{e['ms'] / e['library_ms']:.4f}")
+    return [e]
 
 
 def _live_keys(sq, sk):
@@ -988,9 +1102,27 @@ def _flash_w1_close(q, k, v, do, scale, dq, dk):
     return readings
 
 
+def _flash_fwd_raw(args, path):
+    """o and lse through the forward's C function on ``path``
+    (fmha.PATH_SIMT, fmha.PATH_MMA or a FLASH_FAULTS code), uncounted: for
+    the first design's time and the planted faults."""
+    from apex_tpu_torch.contrib import fmha
+    from apex_tpu_torch.kernels import _checks
+    q, k, v, _, _, _, scale, causal, window, slopes = args
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    tail, slopes_ptr = fmha._common(q, scale, causal, window, slopes,
+                                    _checks.DTYPE_CODES[q.dtype], path)
+    rc = fmha._kernel("apex_flash_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes_ptr, o.data_ptr(),
+        lse.data_ptr(), *tail)
+    _checks.status("flash_fwd", rc)
+    return o, lse
+
+
 def _flash_bwd_raw(kind, args, path):
     """dq (kind "dq") or dk and dv concatenated ("dkv") through the C
-    function on ``path`` (fmha.BWD_SIMT, fmha.BWD_MMA or a FLASH_FAULTS
+    function on ``path`` (fmha.PATH_SIMT, fmha.PATH_MMA or a FLASH_FAULTS
     code), uncounted: for the first design's time and the planted
     faults."""
     from apex_tpu_torch.contrib import fmha
@@ -998,7 +1130,7 @@ def _flash_bwd_raw(kind, args, path):
     q, k, v, do, lse, delta, scale, causal, window, slopes = args
     outs = [torch.empty_like(q) for _ in range(1 if kind == "dq" else 2)]
     tail, slopes_ptr = fmha._common(q, scale, causal, window, slopes,
-                                    _checks.DTYPE_CODES[q.dtype], (path,))
+                                    _checks.DTYPE_CODES[q.dtype], path)
     rc = fmha._kernel(f"apex_flash_{kind}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), slopes_ptr,
@@ -1007,20 +1139,28 @@ def _flash_bwd_raw(kind, args, path):
     return outs[0] if kind == "dq" else torch.cat(outs)
 
 
-def _flash_check(q, k, v, do, slopes, causal, window, body):
+def _flash_check(q, k, v, do, slopes, causal, window, body, fwd_body,
+                 scale=None):
     """Each flash kernel against its plain version on the same inputs:
-    the forward's o and lse, then dq and dk/dv from the kernel's o and
-    lse (so the backward is held alone), on the backward body ``body``
-    (fmha.BWD_*; the wrappers' choice for these tensors is asserted to be
-    it), run twice: the two runs must be bit-identical. Returns the
-    results and the backward's readings (shares of the tolerance)."""
+    the forward's o and lse on the forward body ``fwd_body``, then dq and
+    dk/dv from the kernel's o and lse (so the backward is held alone), on
+    the backward body ``body`` (fmha.PATH_*; the wrappers' choices for
+    these tensors are asserted to be them), each run twice: the two runs
+    must be bit-identical. ``scale`` defaults to 1/sqrt(d). Returns the
+    results and the readings (shares of the tolerance)."""
     from apex_tpu_torch.contrib import fmha
-    scale = q.shape[-1] ** -0.5
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    fwd_path = fmha.fwd_plan(q.shape[-1], q.dtype,
+                             fmha._aligned(q, k, v)).path
+    assert fwd_path == fwd_body, (fwd_path, fwd_body)
     o, lse = fmha.flash_fwd(q, k, v, scale, causal, window, slopes)
+    o2, lse2 = fmha.flash_fwd(q, k, v, scale, causal, window, slopes)
     o_p, lse_p = fmha.flash_fwd_plain(q, k, v, scale, causal, window, slopes)
     torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), \
+        "two forward runs differ"
     assert o.dtype == q.dtype and lse.dtype == torch.float32
-    _flash_close(o, o_p, q.dtype)
+    fwd_reading = _flash_close(o, o_p, q.dtype)
     torch.testing.assert_close(lse, lse_p, rtol=FLASH_LSE_RTOL,
                                atol=FLASH_LSE_RTOL)
     delta = fmha._delta(o, do)
@@ -1044,7 +1184,8 @@ def _flash_check(q, k, v, do, slopes, causal, window, body):
     else:
         readings = {"dq": _flash_close(dq, dq_p, q.dtype),
                     "dk": _flash_close(dk, dk_p, q.dtype)}
-    readings["dv"] = _flash_close(dv, dv_p, q.dtype)
+    readings = {"o": fwd_reading, **readings,
+                "dv": _flash_close(dv, dv_p, q.dtype)}
     return dict(o=(o, o_p), lse=(lse, lse_p), dq=(dq, dq_p),
                 dkv=(torch.cat([dk, dv]), torch.cat([dk_p, dv_p])),
                 args=args, path=path, readings=readings,
@@ -1068,9 +1209,9 @@ def _flash_bounds(d, pairs, dtype):
             BF16_TENSOR_OPS_PER_S)
 
 
-# the backward's planted faults: csrc/flash_attention.cu's path codes
-# kFaultNoLo and kFaultSkipLast (fp32, head dim 64), which no caller of the
-# package passes
+# the planted faults of the forward and the backward: csrc/flash_attention.cu's
+# path codes kFaultNoLo and kFaultSkipLast (fp32, head dim 64), which no
+# caller of the package passes
 FLASH_FAULTS = (("lo terms dropped", 2),
                 ("last tile of each causal range skipped", 3))
 
@@ -1078,22 +1219,25 @@ FLASH_FAULTS = (("lo terms dropped", 2),
 def _flash_faults_and_design(r, dtype):
     """At the path shape, through the C functions (uncounted): the honest
     tensor-core launch and two planted faults (the lo terms dropped; the
-    last key tile of each dq range and the last query tile of each dk/dv
-    range skipped), held to FLASH_TOL against the plain versions (the
-    faults must read past it); then the first design timed beside the
-    tensor-core body, in turns. Returns {path: [us, ...]} per kernel."""
+    last key tile of each forward and dq range and the last query tile of
+    each dk/dv range skipped), held to FLASH_TOL against the plain
+    versions (the faults must read past it); then the first design timed
+    beside the tensor-core body, in turns. Returns {kind: {path: [us,
+    ...]}} for kinds fwd, dq and dkv."""
     from apex_tpu_torch.contrib import fmha
     from apex_tpu_torch.kernels import registry
     before = registry.launches()
     args = r["args"]
     rtol, share = FLASH_TOL[dtype]
+    raw = {"fwd": lambda path: _flash_fwd_raw(args, path)[0],
+           "dq": lambda path: _flash_bwd_raw("dq", args, path),
+           "dkv": lambda path: _flash_bwd_raw("dkv", args, path)}
     if dtype == torch.float32:
-        for kind in ("dq", "dkv"):
-            want = r[kind][1]
+        for kind, run in raw.items():
+            want = r["o" if kind == "fwd" else kind][1]
             atol = share * want.float().abs().max().item()
-            readings = {label: _tol_ratio(_flash_bwd_raw(kind, args, path),
-                                          want, rtol, atol)
-                        for label, path in (("honest", fmha.BWD_MMA),
+            readings = {label: _tol_ratio(run(path), want, rtol, atol)
+                        for label, path in (("honest", fmha.PATH_MMA),
                                             *FLASH_FAULTS)}
             log(f"kernel flash_{kind} at the path shape (fp32), share of "
                 f"FLASH_TOL: " + "; ".join(f"{k}: {v:.3e}"
@@ -1101,66 +1245,119 @@ def _flash_faults_and_design(r, dtype):
             assert readings["honest"] <= 1.0, readings
             assert all(v > 1.0 for k, v in readings.items()
                        if k != "honest"), readings
-    design = {"dq": {}, "dkv": {}}
-    for path in (fmha.BWD_SIMT, fmha.BWD_MMA, fmha.BWD_MMA, fmha.BWD_SIMT):
-        for kind in ("dq", "dkv"):
+    design = {kind: {} for kind in raw}
+    for path in (fmha.PATH_SIMT, fmha.PATH_MMA, fmha.PATH_MMA,
+                 fmha.PATH_SIMT):
+        for kind, run in raw.items():
             design[kind].setdefault(path, []).append(device_ms(
-                lambda: _flash_bwd_raw(kind, args, path)) * 1e3)
+                lambda: run(path)) * 1e3)
     assert registry.launches() == before  # the raw launches are uncounted
-    log(f"kernel flash backward at the path shape ({str(dtype)[6:]}) "
-        f"through the C functions (us, the first design, then the "
-        f"tensor-core body, in turns): " + "; ".join(
+    log(f"kernel flash at the path shape ({str(dtype)[6:]}) through the C "
+        f"functions (us, the first design, then the tensor-core body, in "
+        f"turns): " + "; ".join(
             f"{kind} first design "
-            f"{'/'.join(f'{t:.2f}' for t in design[kind][fmha.BWD_SIMT])}, "
+            f"{'/'.join(f'{t:.2f}' for t in design[kind][fmha.PATH_SIMT])}, "
             f"tensor cores "
-            f"{'/'.join(f'{t:.2f}' for t in design[kind][fmha.BWD_MMA])}"
-            for kind in ("dq", "dkv")))
+            f"{'/'.join(f'{t:.2f}' for t in design[kind][fmha.PATH_MMA])}"
+            for kind in raw))
     return design
+
+
+def _at_plus4(t):
+    """A contiguous copy of fp32 ``t`` starting 4 bytes past a 16-byte
+    boundary (the wrappers then take the first design)."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = flat[1:1 + t.numel()].view(t.shape).copy_(t)
+    assert t.dtype == torch.float32 and out.is_contiguous() \
+        and out.data_ptr() % 16 == 4
+    return out
+
+
+def _flash_mha_entry(gen):
+    """#1 at the MHA phase's call: SelfMultiheadAttn hands it bf16 q, k and
+    v [MHA_BATCH, MHA_HEADS, MHA_SEQ, 64], not causal: the kernel against
+    its plain version, and its time beside the first design's, the plain
+    version's and SDPA's, in one run."""
+    from apex_tpu_torch.contrib import fmha
+    n, d = MHA_HEADS, MHA_HIDDEN // MHA_HEADS
+    B, S, bf16 = MHA_BATCH, MHA_SEQ, torch.bfloat16
+    q, k, v, _, _ = _flash_inputs(gen, B, n, S, d, bf16, False)
+    scale = d ** -0.5
+    assert fmha.fwd_plan(d, bf16, fmha._aligned(q, k, v)).path == \
+        fmha.PATH_MMA
+    o, _ = fmha.flash_fwd(q, k, v, scale, False)
+    o_p, _ = fmha.flash_fwd_plain(q, k, v, scale, False)
+    _flash_close(o, o_p, bf16)
+    ops, peak = _flash_bounds(d, B * n * S * S, bf16)
+    e = entry(
+        "flash_fwd", f"q,k,v [{B},{n},{S},{d}] bf16, not causal (the MHA "
+        f"phase's call)", o, o_p,
+        f"rtol {FLASH_TOL[bf16][0]} atol {FLASH_TOL[bf16][1]}*max|want|",
+        lambda: fmha.flash_fwd(q, k, v, scale, False),
+        lambda: fmha.flash_fwd_plain(q, k, v, scale, False),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, scale=scale),
+        bound(4 * B * n * S * d * 2 + B * n * S * 4, ops[0], peak))
+    args = (q, k, v, None, None, None, scale, False, None, None)
+    e["first_design_ms"] = device_ms(
+        lambda: _flash_fwd_raw(args, fmha.PATH_SIMT))
+    e["library"] = "SDPA forward"
+    return e
 
 
 def check_flash(gen):
     from apex_tpu_torch.contrib import fmha
-    # off the path: (b, n, s, d, dtype, causal, window, alibi); s = 200,
-    # 300 and 77 leave a ragged last tile, b*n = 1 a single head
+    mma, simt = fmha.PATH_MMA, fmha.PATH_SIMT
+    names = {mma: "tensor cores", simt: "first design"}
+    # off the path: (b, n, s, d, dtype, causal, window, alibi, scale); s =
+    # 200, 300 and 77 leave a ragged last tile, b*n = 1 a single head;
+    # scale None is 1/sqrt(d) (a power of two at d 64, where bf16 q * scale
+    # is one bf16 term; 0.1 and d 128's are not: three terms)
     f32, bf16 = torch.float32, torch.bfloat16
     taken = []
-    for b, n, s, d, dtype, causal, window, alibi in (
-            (1, 1, 200, 64, f32, True, None, False),
-            (2, 2, 256, 64, f32, False, None, False),
-            (1, 2, 256, 64, f32, True, 1, False),
-            (1, 2, 300, 64, bf16, True, 37, True),
-            (1, 2, 512, 64, f32, True, 256, False),
-            (1, 2, 256, 64, f32, True, None, True),
-            (2, 2, 256, 64, bf16, False, None, True),
-            (1, 2, 200, 128, f32, True, 37, False),
-            (1, 2, 256, 128, bf16, False, None, True),
-            (1, 2, 200, 256, f32, True, None, False),
-            (1, 2, 128, 256, bf16, False, None, False),
-            (1, 3, 77, 256, f32, True, 256, True)):
+    for b, n, s, d, dtype, causal, window, alibi, scale in (
+            (1, 1, 200, 64, f32, True, None, False, None),
+            (2, 2, 256, 64, f32, False, None, False, None),
+            (1, 2, 200, 64, f32, False, None, False, 0.3),
+            (1, 2, 256, 64, f32, True, 1, False, None),
+            (1, 2, 300, 64, bf16, True, 37, True, None),
+            (1, 2, 300, 64, bf16, True, 37, True, 0.1),
+            (2, 3, 77, 64, bf16, False, None, False, None),
+            (1, 2, 512, 64, f32, True, 256, False, None),
+            (1, 2, 256, 64, f32, True, None, True, None),
+            (2, 2, 256, 64, bf16, False, None, True, None),
+            (1, 2, 200, 128, f32, True, 37, False, None),
+            (1, 2, 256, 128, bf16, False, None, True, None),
+            (1, 2, 77, 128, bf16, True, None, False, None),
+            (1, 2, 200, 256, f32, True, None, False, None),
+            (1, 2, 128, 256, bf16, False, None, False, None),
+            (1, 3, 77, 256, f32, True, 256, True, None)):
         q, k, v, do, slopes = _flash_inputs(gen, b, n, s, d, dtype, alibi)
-        cases = [("", do, fmha.BWD_MMA if d <= 128 else fmha.BWD_SIMT)]
-        if (s, d, dtype, window) == (200, 64, f32, None):
-            # the same inputs with do 4 bytes past a 16-byte boundary:
-            # the wrappers take the first design
-            flat = torch.empty(do.numel() + 4, dtype=dtype, device="cuda")
-            do4 = flat[1:1 + do.numel()].view(do.shape).copy_(do)
-            assert do4.is_contiguous() and do4.data_ptr() % 16 == 4
-            cases.append((", do at +4 bytes", do4, fmha.BWD_SIMT))
-        for label, do_, body in cases:
-            r = _flash_check(q, k, v, do_, slopes, causal, window, body)
+        body = mma if d <= 128 else simt
+        # (label, q, do, backward body, forward body)
+        cases = [("", q, do, body, body)]
+        if (s, d, dtype, window, scale) == (200, 64, f32, None, None):
+            # the same inputs with do, then q, 4 bytes past a 16-byte
+            # boundary: the wrappers take the first design there
+            cases += [(", do at +4 bytes", q, _at_plus4(do), simt, mma),
+                      (", q at +4 bytes", _at_plus4(q), do, simt, simt)]
+        for label, q_, do_, bwd, fwd in cases:
+            r = _flash_check(q_, k, v, do_, slopes, causal, window, bwd, fwd,
+                             scale)
             taken.append(
                 f"s {s} d {d} {str(dtype)[6:]} "
                 f"{'causal' if causal else 'full'} w {window}"
-                f"{' alibi' if alibi else ''}{label}: "
-                f"{'tensor cores' if body == fmha.BWD_MMA else 'first design'}"
+                f"{' alibi' if alibi else ''}"
+                f"{f' scale {scale}' if scale else ''}{label}: forward "
+                f"{names[fwd]}, backward {names[bwd]}"
                 f"{' (dq, dk: float64 truth, FLASH_W1_ULPS)' if r['w1'] else ''}"
                 f", " + " ".join(f"{k} {x:.2e}"
                                  for k, x in r["readings"].items()))
     log("kernels: flash fwd, dq and dk/dv match their plain versions off "
         "the path (full, windows 1/37/256, ALiBi, head dims 128 and 256, "
-        "fp32 and bf16, ragged tails, one head, a misaligned do); "
-        "backward bodies and readings as shares of the tolerance, two "
-        "runs bit-identical: " + "; ".join(taken))
+        "fp32 and bf16, scales off a power of two, ragged tails, one head, "
+        "a misaligned do and q); bodies and readings as shares of the "
+        "tolerance, two runs bit-identical: " + "; ".join(taken))
 
     # the path: the flash training step's q/k/v, [2, 32, 2048, 64], causal,
     # fp32 (the QKV bias add leaves them fp32, as in JAX); and the same
@@ -1175,7 +1372,7 @@ def check_flash(gen):
         fma_peak = FP32_OPS_PER_S if dtype == torch.float32 else (
             BF16_TENSOR_OPS_PER_S)
         q, k, v, do, _ = _flash_inputs(gen, B, n, S, d, dtype, False)
-        r = _flash_check(q, k, v, do, None, True, None, fmha.BWD_MMA)
+        r = _flash_check(q, k, v, do, None, True, None, mma, mma)
         scale = d ** -0.5
         args = r["args"]
         shape = f"q,k,v [{B},{n},{S},{d}] {str(dtype)[6:]}, causal"
@@ -1225,17 +1422,19 @@ def check_flash(gen):
         dkv["earlier_bound_ms"] = bound(6 * bnsd + 2 * bns, 8 * d * pairs,
                                     fma_peak)[0]
         if dtype == torch.bfloat16:
-            # what the design's own products take: the bf16 operands one
-            # TF32 term, p and ds two, all at TF32's 495 TFLOP/s
-            for e, n in ((fwd, 3), (dq, 4), (dkv, 6)):
-                e["design_bound_ms"] = (2 * n * d * pairs
+            # what the backward's own products take: the bf16 operands one
+            # TF32 term, p and ds two, all at TF32's 495 TFLOP/s (the bf16
+            # forward's products are the bound's own: bf16 terms at 989)
+            for e, n_terms in ((dq, 4), (dkv, 6)):
+                e["design_bound_ms"] = (2 * n_terms * d * pairs
                                         / TF32_TENSOR_OPS_PER_S * 1e3)
         fwd["library"] = "SDPA forward, eager"
-        for e, kind in ((dq, "dq"), (dkv, "dkv")):
+        for e, kind in ((fwd, "fwd"), (dq, "dq"), (dkv, "dkv")):
+            e["first_design_ms"] = statistics.median(
+                design[kind][fmha.PATH_SIMT]) / 1e3
+        for e in (dq, dkv):
             e["library_ms"] = sdpa_bwd_ms
             e["library"] = "SDPA backward, dq+dk+dv: fwd+bwd - fwd, eager"
-            e["first_design_ms"] = statistics.median(
-                design[kind][fmha.BWD_SIMT]) / 1e3
         o = r["o"][0]
         delta_ms = device_ms(lambda: fmha._delta(o, do))
         pair = dq["ms"] + dkv["ms"]
@@ -1246,9 +1445,16 @@ def check_flash(gen):
             f"{pair / sdpa_bwd_ms:.4f}, with delta "
             f"{(pair + delta_ms) / sdpa_bwd_ms:.4f}; first designs "
             f"{_us(dq['first_design_ms'] + dkv['first_design_ms'])}")
+        log(f"kernel flash_fwd at the path shape ({str(dtype)[6:]}): "
+            f"{_us(fwd['ms'])}, first design {_us(fwd['first_design_ms'])} "
+            f"({fwd['first_design_ms'] / fwd['ms']:.3f}x), SDPA "
+            f"{_us(sdpa_fwd_ms)} (kernel / SDPA "
+            f"{fwd['ms'] / sdpa_fwd_ms:.4f}), {fwd['bound_ms'] / fwd['ms']:.3f} "
+            f"of its bound")
         entries += [fwd, dq, dkv]
         del q, k, v, do, r, args, ql, kl, vl, o
         torch.cuda.empty_cache()
+    entries.append(_flash_mha_entry(gen))
     return entries
 
 
@@ -4735,7 +4941,8 @@ def phase_tp_gpt2():
 # kernel name parts whose summed device time a training profile prints
 PROFILE_WATCH = ("ln_fwd_kernel", "ln_bwd_dx", "warp_softmax_fwd",
                  "causal_fwd_kernel", "::bwd_kernel<", "lamb_kernel",
-                 "adam_kernel", "::fwd_kernel<", "::mma_dq_kernel<",
+                 "adam_kernel", "::fwd_kernel<", "::mma_fwd_kernel<",
+                 "::bf16_fwd_kernel<", "::mma_dq_kernel<",
                  "::mma_dkv_kernel<", "::dq_kernel<", "::dkv_kernel<",
                  "rms_")
 PHASES = ("kernels", "serving", "serve_bf16", "serve_int8", "serve_spec",

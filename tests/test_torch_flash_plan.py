@@ -43,7 +43,7 @@ _JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 2.0 ** -8)}
 ATOL_FLOOR = 1e-5
 SMEM_LIMIT = 232448  # bytes of shared memory a block may take on an H100
-MMA, SIMT = fmha.BWD_MMA, fmha.BWD_SIMT
+MMA, SIMT = fmha.PATH_MMA, fmha.PATH_SIMT
 
 
 @pytest.fixture(autouse=True)
@@ -204,8 +204,8 @@ def test_plan_constants_match_the_kernel_source():
 
     assert const("kStages") == fmha.BWD_STAGES
     assert const("kThreads") == fmha.BWD_SIMT_THREADS
-    assert const("kPathSimt") == fmha.BWD_SIMT
-    assert const("kPathMma") == fmha.BWD_MMA
+    assert const("kPathSimt") == fmha.PATH_SIMT
+    assert const("kPathMma") == fmha.PATH_MMA
     # the planted faults' codes, which only chip_smoke.py passes
     smoke = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
     faults = ast.literal_eval(re.search(r"^FLASH_FAULTS = (\(.*?\)\))$",

@@ -23,8 +23,8 @@
 // Bound on the H100: memory. Each element takes a handful of flops, far
 // below the ~295 flops per byte where the tensor cores would become the
 // limit. At the TinyLlama training step's causal shape (B = 2*32, sq = sk
-// = 1024, fp32) the forward moves 384 MB (it reads only the unmasked
-// lower triangle and writes the whole row: >= 115 us at 3.35 TB/s) and
+// = 1024, fp32) the forward moves 403 MB (it reads only the unmasked
+// lower triangle and writes the whole row: >= 120.2 us at 3.35 TB/s) and
 // the backward 768 MB (reads y and dy, writes dx: >= 229 us). At BERT-
 // large's masked shape ([64, 16, 128, 128] fp32 scores, a [64, 1, 128,
 // 128] bool mask) the forward moves 134 MB of scores and 1 MB of mask
@@ -63,11 +63,28 @@
 // arithmetic is kept with _rn intrinsics (x*scale, masked keys -10000
 // in the max and -inf in the exp, expf(v - max), e / sum; no fast
 // math). A masked key is written as 0 / sum = 0; a row with every key
-// masked is 0 / 0 = NaN, as in the oracle. The causal forward and the
-// backward use one block of 256 threads per row: the forward stages the
-// row's live scores in shared memory (the causal kernel does not read
-// the masked tail at all), the backward sums dy*y over the row, then
-// writes each dx; its second read of the row is served from L1/L2.
+// masked is 0 / 0 = NaN, as in the oracle.
+//
+// Design of the causal forward (#10): the same register body and launch
+// plan (`plan`: VECTOR, SCALAR, or the block path past 1024 keys) in a
+// sibling kernel, warp_causal_fwd, on the same load, store and butterfly
+// helpers. Row r's live keys are a prefix, j < live = i + (sk - sq) + 1
+// (clamped to [0, sk]), so a lane reads only the vectors that hold a live
+// key: the dead tail, about half the scores at sq = sk, is never read,
+// and the one vector on the diagonal is read whole and masked key by
+// key. The max starts at -10000 when the row has a dead key (the
+// oracle's masked value enters it); the lane skips the exp of dead
+// vectors (exactly 0, so its partial sum is unchanged bit for bit); every
+// vector of the row is written, each dead key as one quotient 0 / sum
+// taken once a row (0, or NaN for a row with no live key). At the path
+// shape that is 8 float4 a lane, 4 warps a block, a row a warp, no
+// barrier. The first design, one block of 256 threads a row staging the
+// live scores in shared memory with four block barriers
+// (causal_fwd_kernel), stays as path 0 and serves rows of 1025 to 16384
+// keys. At the path shape it reaches 0.81 of the bound above, 1.6x the
+// first design (PERF.md). The backward uses one
+// block of 256 threads per row: it sums dy*y over the row, then writes
+// each dx; its second read of the row is served from L1/L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -279,6 +296,26 @@ __device__ __forceinline__ void load_flags(const unsigned char* p, bool whole,
   for (int e = 0; e < N; ++e) out[e] = __ldg(p + e) != 0;
 }
 
+// The row max and sum over a group of kLanes lanes (a power of two <= 32,
+// aligned in the warp): xor butterflies, every lane of the group ends with
+// the same value. group_sum stops before the step of offset kStop (a
+// planted fault passes 1: the last step skipped).
+template <int kLanes>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+template <int kLanes, int kStop = 0>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = kLanes / 2; off > kStop; off >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
 // The register path: rows of sk <= 2^kLog2Keys keys, each held by a group
 // of kLanes lanes (see the header note). kVector: 16-byte accesses (sk a
 // multiple of the vector, x and y 16-byte aligned), else one key an
@@ -340,9 +377,7 @@ warp_softmax_fwd(const T* __restrict__ x, const unsigned char* __restrict__ mask
       for (int e = 0; e < kVec; ++e) v[it][e] = neg_inf;
     }
   }
-#pragma unroll
-  for (int off = kLanes / 2; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  mx = group_max<kLanes>(mx);
   float sum = 0.f;
 #pragma unroll
   for (int it = 0; it < kIters; ++it) {
@@ -352,9 +387,7 @@ warp_softmax_fwd(const T* __restrict__ x, const unsigned char* __restrict__ mask
       sum = __fadd_rn(sum, v[it][e]);
     }
   }
-#pragma unroll
-  for (int off = kLanes / 2; off > 0; off >>= 1)
-    sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+  sum = group_sum<kLanes>(sum);
   if (!live_row) return;
 #pragma unroll
   for (int it = 0; it < kIters; ++it) {
@@ -363,6 +396,95 @@ warp_softmax_fwd(const T* __restrict__ x, const unsigned char* __restrict__ mask
       float p[kVec];
 #pragma unroll
       for (int e = 0; e < kVec; ++e) p[e] = __fdiv_rn(v[it][e], sum);
+      store_probs<kVec>(yr + j, p);
+    }
+  }
+}
+
+// Planted faults of the causal register path (launch paths 3 and 4; no
+// caller passes them): the diagonal key dropped (live one short), the
+// row sum's last butterfly step skipped.
+constexpr int kNoFault = 0;
+constexpr int kDropDiagonal = 1;
+constexpr int kShortSum = 2;
+
+// The causal forward's register path (#10): rows of sk <= 2^kLog2Keys
+// keys as warp_softmax_fwd holds them, key j of row r live when j < live
+// = clamp(r % sq + (sk - sq) + 1, 0, sk). A lane reads only the vectors
+// that hold a live key: a wholly dead vector is never read and holds -inf
+// (exp gives exactly 0, which the lane does not add: the sum is the same
+// bit for bit); the one vector that straddles the diagonal is read whole
+// and masked per key. The max starts at -10000 when the row has a dead
+// key (the oracle's masked value enters its max). Every vector of the row
+// is written with 16-byte streaming stores (one key on the scalar path);
+// a dead key is 0 / sum, 0, or NaN for a row with no live key (0 / 0).
+template <typename T, int kLog2Keys, bool kVector, int kFault>
+__global__ void __launch_bounds__(kWarps * 32)
+warp_causal_fwd(const T* __restrict__ x, T* __restrict__ y, long long rows,
+                int sq, int sk, float scale) {
+  constexpr int kVec = kVector ? 16 / static_cast<int>(sizeof(T)) : 1;
+  constexpr int kKeys = 1 << kLog2Keys;
+  static_assert(kKeys >= kVec, "a row holds at least one vector");
+  constexpr int kVecs = kKeys / kVec;
+  constexpr int kLanes = kVecs < 32 ? kVecs : 32;
+  constexpr int kIters = kVecs / kLanes;
+  constexpr int kRowsPerWarp = 32 / kLanes;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane % kLanes;
+  const long long row0 =
+      (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) *
+      kRowsPerWarp;
+  if (row0 >= rows) return;  // the whole warp: no shuffle is left waiting
+  const long long r = row0 + lane / kLanes;
+  const bool live_row = r < rows;  // a warp's last group may hold no row
+  const T* xr = x + r * sk;
+  T* yr = y + r * sk;
+  int live = 0;
+  if (live_row) {
+    const int i = static_cast<int>(r % sq);
+    live = min(sk, max(0, i + (sk - sq) + 1 - (kFault == kDropDiagonal)));
+  }
+  const float neg_inf = -__int_as_float(0x7f800000);
+  float v[kIters][kVec];
+  float mx = live < sk ? kMaskValue : neg_inf;
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int j = (it * kLanes + sub) * kVec;  // the vector's first key
+    if (j < live) {
+      load_scores<kVec>(xr + j, v[it]);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        v[it][e] = j + e < live ? __fmul_rn(v[it][e], scale) : neg_inf;
+        mx = fmaxf(mx, v[it][e]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) v[it][e] = neg_inf;
+    }
+  }
+  mx = group_max<kLanes>(mx);
+  float sum = 0.f;
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    if ((it * kLanes + sub) * kVec < live) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        v[it][e] = expf(__fsub_rn(v[it][e], mx));
+        sum = __fadd_rn(sum, v[it][e]);
+      }
+    }
+  }
+  sum = group_sum<kLanes, kFault == kShortSum ? 1 : 0>(sum);
+  if (!live_row) return;
+  const float dead = __fdiv_rn(0.f, sum);
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int j = (it * kLanes + sub) * kVec;
+    if (j < sk) {
+      float p[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        p[e] = j < live ? __fdiv_rn(v[it][e], sum) : dead;
       store_probs<kVec>(yr + j, p);
     }
   }
@@ -400,6 +522,71 @@ int launch_fwd(const void* x, void* y, long long rows, int sq, int sk,
   causal_fwd_kernel<T><<<static_cast<unsigned>(rows), kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), sq, sk, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int kLog2Keys, bool kVector, int kFault>
+int launch_causal_rows(const void* x, void* y, long long rows, int sq, int sk,
+                       float scale, cudaStream_t stream) {
+  constexpr int kVec = kVector ? 16 / static_cast<int>(sizeof(T)) : 1;
+  constexpr int kVecs = (1 << kLog2Keys) / kVec;
+  constexpr long long kRowsPerBlock = kWarps * (kVecs < 32 ? 32 / kVecs : 1);
+  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  warp_causal_fwd<T, kLog2Keys, kVector, kFault>
+      <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(
+          static_cast<const T*>(x), static_cast<T*>(y), rows, sq, sk, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The causal register path's instance for rows padded to 2^log2 keys.
+template <typename T, bool kVector, int kLog2 = 0>
+int dispatch_causal_rows(int log2, const void* x, void* y, long long rows,
+                         int sq, int sk, float scale, cudaStream_t stream) {
+  if constexpr (kLog2 > kRegMaxLog2) {
+    return -1;
+  } else {
+    constexpr int kVec = kVector ? 16 / static_cast<int>(sizeof(T)) : 1;
+    if constexpr ((1 << kLog2) >= kVec) {
+      if (log2 == kLog2)
+        return launch_causal_rows<T, kLog2, kVector, kNoFault>(
+            x, y, rows, sq, sk, scale, stream);
+    }
+    return dispatch_causal_rows<T, kVector, kLog2 + 1>(log2, x, y, rows, sq,
+                                                       sk, scale, stream);
+  }
+}
+
+// path: 0 = one block a row (causal_fwd_kernel, the first design, any sk),
+// 1 = the register path with one key an access, 2 = the register path
+// with 16-byte accesses, 3 and 4 = path 2 with a planted fault (the
+// diagonal key dropped; the row sum's last butterfly step skipped), for
+// rows of 513 to 1024 keys only. -1 where the arguments do not fit the
+// path.
+template <typename T>
+int launch_causal_path(int path, const void* x, void* y, long long rows,
+                       int sq, int sk, float scale, cudaStream_t stream) {
+  if (path == 0) return launch_fwd<T>(x, y, rows, sq, sk, scale, stream);
+  if (path < 1 || path > 4) return -1;
+  int log2 = 0;
+  while ((1 << log2) < sk) ++log2;
+  if (log2 > kRegMaxLog2) return -1;
+  if (path != 1) {
+    constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+    if (sk % kVec != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(y) % 16 != 0)
+      return -1;
+  }
+  if (path == 1)
+    return dispatch_causal_rows<T, false>(log2, x, y, rows, sq, sk, scale,
+                                          stream);
+  if (path == 2)
+    return dispatch_causal_rows<T, true>(log2, x, y, rows, sq, sk, scale,
+                                         stream);
+  if (log2 != kRegMaxLog2) return -1;
+  if (path == 3)
+    return launch_causal_rows<T, kRegMaxLog2, true, kDropDiagonal>(
+        x, y, rows, sq, sk, scale, stream);
+  return launch_causal_rows<T, kRegMaxLog2, true, kShortSum>(
+      x, y, rows, sq, sk, scale, stream);
 }
 
 template <typename T>
@@ -501,14 +688,19 @@ int launch_bwd(const void* y, const void* dy, void* dx, long long rows,
 // dtype codes: 0 = float32, 1 = bfloat16. Each returns the CUDA error of
 // the launch (0 on success); -1 for a dtype the kernel does not take.
 
-// y [rows, sk] = causal softmax of x [rows, sk], rows = B * sq.
+// y [rows, sk] = causal softmax of x [rows, sk], rows = B * sq. path: as
+// launch_causal_path (kernels/softmax.py `plan` picks 0, 1 or 2).
 extern "C" int apex_causal_softmax_fwd(const void* x, void* y, long long rows,
                                        int sq, int sk, float scale,
-                                       int dtype, void* stream) {
+                                       int dtype, int path, void* stream) {
   if (rows <= 0) return 0;
+  if (sq < 1 || sk < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fwd<float>(x, y, rows, sq, sk, scale, s);
-  if (dtype == 1) return launch_fwd<__nv_bfloat16>(x, y, rows, sq, sk, scale, s);
+  if (dtype == 0)
+    return launch_causal_path<float>(path, x, y, rows, sq, sk, scale, s);
+  if (dtype == 1)
+    return launch_causal_path<__nv_bfloat16>(path, x, y, rows, sq, sk, scale,
+                                             s);
   return -1;
 }
 

@@ -12,12 +12,16 @@ points are :func:`apex_tpu_torch.ops.multi_tensor.multi_tensor_adam` and
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from apex_tpu_torch.kernels import _build, _checks, registry
 
 MAX_TENSORS = 64  # tensors in one launch's table (kMaxTensors in the .cu)
+# path codes of apex_adam (csrc/adam.cu): the first design, the streaming
+# body that the wrapper launches
+ADAM_FIRST, ADAM_STREAM = 0, 1
 ADAM = registry.register("adam")
 LAMB = registry.register("lamb")
 
@@ -60,13 +64,36 @@ def adam_plain(noop, gs, ps, ms, vs, *, lr, bc1, bc2, b1, b2, eps,
             old.copy_(torch.where(skip, old, val.to(old.dtype)))
 
 
+class AdamSpan(NamedTuple):
+    """How the streaming body covers one tensor: ``head`` elements one
+    at a time, then ``vectors`` float4 of each of g, p, m and v (16-byte
+    accesses), then ``tail`` elements one at a time."""
+    head: int
+    vectors: int
+    tail: int
+
+
+def adam_plan(size: int, offsets) -> AdamSpan:
+    """The streaming body's cover of a tensor of ``size`` fp32 elements
+    whose g, p, m and v start ``offsets`` (each ``data_ptr() % 16``)
+    bytes past a 16-byte boundary: where the four offsets agree, the
+    scalar head runs up to the first element on the boundary and the
+    vectors to the last whole float4, the tail takes the rest (size % 4
+    past the head); otherwise every element is head (no 16-byte access
+    can serve all four arrays at once)."""
+    if len(set(offsets)) != 1 or offsets[0] % 4:
+        return AdamSpan(size, 0, 0)
+    head = min(size, (16 - offsets[0]) % 16 // 4)
+    vectors = (size - head) // 4
+    return AdamSpan(head, vectors, size - head - 4 * vectors)
+
+
 @functools.lru_cache(maxsize=1)
 def _kernel():
-    p, f = _checks.ptr, ctypes.c_float
+    p, f, i = _checks.ptr, ctypes.c_float, ctypes.c_int
     return _build.function(
         "adam", "apex_adam",
-        [p, p, p, p, p, ctypes.c_int, p, f, f, f, f, f, f, f, f, f,
-         ctypes.c_int, p])
+        [p, p, p, p, p, p, i, p, f, f, f, f, f, f, f, f, f, i, i, p])
 
 
 def _check(name, noop, gs, ps, ms, vs):
@@ -91,17 +118,25 @@ def _check(name, noop, gs, ps, ms, vs):
 
 def _tables(lists):
     """For each run of at most :data:`MAX_TENSORS` tensors that holds an
-    element: the pointer table of each list, the sizes and the count."""
-    ps = lists[1]
-    for a in range(0, len(ps), MAX_TENSORS):
-        b = min(a + MAX_TENSORS, len(ps))
-        n = b - a
-        if not any(t.numel() for t in ps[a:b]):
+    element: the run (each list's slice), the pointer table of each list,
+    the sizes and the count."""
+    for a in range(0, len(lists[1]), MAX_TENSORS):
+        run = [ts[a:a + MAX_TENSORS] for ts in lists]
+        n = len(run[1])
+        if not any(t.numel() for t in run[1]):
             continue  # nothing to update: no launch
-        tables = [(ctypes.c_void_p * n)(*[t.data_ptr() for t in ts[a:b]])
-                  for ts in lists]
-        sizes = (ctypes.c_longlong * n)(*[t.numel() for t in ps[a:b]])
-        yield tables, sizes, n
+        tables = [(ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])
+                  for ts in run]
+        sizes = (ctypes.c_longlong * n)(*[t.numel() for t in run[1]])
+        yield run, tables, sizes, n
+
+
+def _heads(run):
+    """Each tensor's scalar head (:func:`adam_plan`) for a run of g, p,
+    m and v lists, as apex_adam reads them."""
+    return (ctypes.c_longlong * len(run[1]))(*[
+        adam_plan(ts[1].numel(), [t.data_ptr() % 16 for t in ts]).head
+        for ts in zip(*run)])
 
 
 def adam(noop, gs, ps, ms, vs, *, lr, bc1, bc2, b1, b2, eps, weight_decay,
@@ -110,20 +145,21 @@ def adam(noop, gs, ps, ms, vs, *, lr, bc1, bc2, b1, b2, eps, weight_decay,
     exp_avg_sqs, updating ps, ms and vs in place unless ``noop`` (a
     one-element fp32 tensor on their device) is non-zero. ``lr``,
     ``bc1`` and ``bc2`` are the step's values (rounded to fp32). CPU
-    tensors take :func:`adam_plain`; CUDA tensors launch the kernel,
-    once per :data:`MAX_TENSORS` tensors, or raise."""
+    tensors take :func:`adam_plain`; CUDA tensors launch the streaming
+    kernel (:func:`adam_plan` per tensor), once per :data:`MAX_TENSORS`
+    tensors, or raise."""
     kw = dict(lr=lr, bc1=bc1, bc2=bc2, b1=b1, b2=b2, eps=eps,
               weight_decay=weight_decay, adam_w=adam_w)
     if not _checks.on_cuda("adam", noop, *gs, *ps, *ms, *vs):
         return adam_plain(noop, gs, ps, ms, vs, **kw)
     _check("adam", noop, gs, ps, ms, vs)
     fn = _kernel()
-    for tables, sizes, n in _tables((gs, ps, ms, vs)):
+    for run, tables, sizes, n in _tables((gs, ps, ms, vs)):
         with torch.cuda.device(noop.device):
-            rc = fn(*tables, sizes, n, noop.data_ptr(), float(lr), float(bc1),
-                    float(bc2), float(b1), 1.0 - b1, float(b2), 1.0 - b2,
-                    float(eps), float(weight_decay), int(bool(adam_w)),
-                    _checks.stream(noop))
+            rc = fn(*tables, sizes, _heads(run), n, noop.data_ptr(),
+                    float(lr), float(bc1), float(bc2), float(b1), 1.0 - b1,
+                    float(b2), 1.0 - b2, float(eps), float(weight_decay),
+                    int(bool(adam_w)), ADAM_STREAM, _checks.stream(noop))
         _checks.status("adam", rc)
         registry.count(ADAM)
 
@@ -197,7 +233,7 @@ def lamb(noop, gs, ps, ms, vs, *, clip, bc1, bc2, b1, b2, beta3, eps,
                              or clip.numel() != 1):
         raise ValueError("lamb: clip must be a one-element float32 tensor")
     fn = _lamb_kernel()
-    for tables, sizes, n in _tables((gs, ps, ms, vs)):
+    for _, tables, sizes, n in _tables((gs, ps, ms, vs)):
         with torch.cuda.device(noop.device):
             rc = fn(*tables, sizes, n, noop.data_ptr(),
                     None if clip is None else clip.data_ptr(), float(bc1),

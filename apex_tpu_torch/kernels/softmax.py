@@ -22,7 +22,8 @@ MAX_KEYS = 16384  # the block path stages a row of fp32 scores in shared memory
 REG_MAX_KEYS = 1024  # the register path's longest row: 32 fp32 keys a lane
 BLOCK_THREADS = 256  # threads of the block path's one block a row
 WARPS = 4  # warps of a register-path block
-# path codes of apex_masked_softmax_fwd (csrc/softmax.cu)
+# path codes of apex_masked_softmax_fwd and apex_causal_softmax_fwd
+# (csrc/softmax.cu)
 BLOCK, SCALAR, VECTOR = 0, 1, 2
 SCALED_SOFTMAX = registry.register("scaled_softmax")
 MASKED_SOFTMAX = registry.register("masked_softmax")
@@ -31,7 +32,7 @@ SOFTMAX_BWD = registry.register("softmax_bwd")
 
 
 class Plan(NamedTuple):
-    """How #8/#9 launch for rows of ``sk`` keys. ``path``: BLOCK, SCALAR
+    """How #8/#9/#10 launch for rows of ``sk`` keys. ``path``: BLOCK, SCALAR
     or VECTOR; ``vec`` keys an access; ``keys`` the row as the kernel
     holds it (sk padded to a power of two on the register paths); ``lanes``
     the threads of one row; ``rows_per_block`` rows a block."""
@@ -48,8 +49,8 @@ class Plan(NamedTuple):
 
 
 def plan(sk: int, itemsize: int, aligned: bool) -> Plan:
-    """The launch of the scaled and masked forwards for rows of ``sk``
-    keys of ``itemsize`` bytes, from shapes and alignment alone: rows of
+    """The launch of the scaled, masked and causal forwards for rows of
+    ``sk`` keys of ``itemsize`` bytes, from shapes and alignment alone: rows of
     at most REG_MAX_KEYS keys live in registers, one group of
     min(32, keys / vec) lanes a row (a short row shares its warp), with
     16-byte accesses (VECTOR) when sk is a multiple of 16 / itemsize and
@@ -117,7 +118,7 @@ def _fwd_kernel():
     p, i = _checks.ptr, ctypes.c_int
     return _build.function(
         "softmax", "apex_causal_softmax_fwd",
-        [p, p, ctypes.c_longlong, i, i, ctypes.c_float, i, p])
+        [p, p, ctypes.c_longlong, i, i, ctypes.c_float, i, i, p])
 
 
 @functools.lru_cache(maxsize=1)
@@ -145,7 +146,9 @@ def _rows(name, t):
 
 def causal_softmax_fwd(x, scale):
     """Causal softmax of x [B, sq, sk] (fp32 or bf16, sk <= 16384) scaled
-    by ``scale``, in x's dtype. A CPU tensor takes
+    by ``scale``, in x's dtype, launched as :func:`plan` says (the register
+    rows of #8/#9 up to REG_MAX_KEYS keys, reading only the live keys; one
+    block a row past that). A CPU tensor takes
     :func:`causal_softmax_fwd_plain`; a CUDA tensor launches the kernel or
     raises."""
     if not _checks.on_cuda("causal_softmax_fwd", x):
@@ -160,9 +163,11 @@ def causal_softmax_fwd(x, scale):
     code = _checks.dtype_code("causal_softmax_fwd", x, "x")
     rows = _rows("causal_softmax_fwd", x)
     y = torch.empty_like(x)
+    path = plan(sk, x.element_size(),
+                x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0).path
     with torch.cuda.device(x.device):
         rc = _fwd_kernel()(x.data_ptr(), y.data_ptr(), rows, sq, sk,
-                           float(scale), code, _checks.stream(x))
+                           float(scale), code, path, _checks.stream(x))
     _checks.status("causal_softmax_fwd", rc)
     registry.count(CAUSAL_SOFTMAX)
     return y

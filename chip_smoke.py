@@ -997,38 +997,131 @@ def _live_keys(sq, sk):
     return sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
 
 
-def check_softmax(gen):
+def _causal_raw(x, scale, path):
+    """Kernel #10 on x [B, sq, sk] launched through its C function on
+    ``path`` (0 the first design, 1/2 the register path, 3/4 planted
+    faults), uncounted."""
+    from apex_tpu_torch.kernels import _checks, softmax
+    y = torch.empty_like(x)
+    rc = softmax._fwd_kernel()(
+        x.data_ptr(), y.data_ptr(), x.numel() // x.shape[-1], x.shape[-2],
+        x.shape[-1], float(scale), _checks.DTYPE_CODES[x.dtype], path,
+        _checks.stream(x))
+    _checks.status("causal_softmax", rc)
+    return y
+
+
+# planted #10 faults: (what, path code of apex_causal_softmax_fwd)
+CAUSAL_FAULTS = (("the diagonal key dropped", 3),
+                 ("the row sum's last butterfly step skipped", 4))
+
+
+def _check_causal_case(x, scale):
+    """#10 on x against its plain version: rows with no live key (sq >
+    sk) and rows whose live scores all lie far below -10000 are NaN on
+    both sides, NaN for NaN; dead keys of every other row exactly 0."""
     from apex_tpu_torch.kernels import softmax
+    got = softmax.causal_softmax_fwd(x, scale)
+    want = softmax.causal_softmax_fwd_plain(x, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == x.shape
+    sq, sk = x.shape[-2:]
+    live = torch.ones(sq, sk, dtype=torch.bool, device="cuda").tril(sk - sq)
+    nan_rows = torch.isnan(want).any(-1, keepdim=True)
+    assert torch.equal(torch.isnan(got), torch.isnan(want)), \
+        "NaN rows differ from the plain version's"
+    assert (got[~live & ~nan_rows] == 0).all(), "a masked key is not 0"
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=SOFTMAX_RTOL[x.dtype], atol=SOFTMAX_ATOL,
+                               equal_nan=True)
+    return want
+
+
+def check_softmax(gen):
+    """The causal softmax forward #10 and the softmax backward #11: off
+    the path (fp32 and bf16, scales 1 and 0.125, sq = sk, sq < sk and sq >
+    sk with rows of no live key, a row whose live scores lie below
+    -10000), each branch of the launch plan (16-byte register rows, rows
+    sharing a warp, one key an access at sk 357 and at a 4-byte offset,
+    the block path past REG_MAX_KEYS), then the training step's [64,
+    1024, 1024] fp32 scores: two planted faults through the kernel's own
+    launch, the first design timed beside the register path in turns,
+    and the backward at the same shape."""
+    from apex_tpu_torch.kernels import registry, softmax
+    names = {softmax.BLOCK: "block", softmax.SCALAR: "scalar",
+             softmax.VECTOR: "vector"}
+    taken = []
     for dtype in (torch.float32, torch.bfloat16):
-        for b, sq, sk in ((4, 128, 128), (3, 100, 357), (5, 33, 1000),
-                          (2, 7, softmax.MAX_KEYS)):
+        size = torch.tensor([], dtype=dtype).element_size()
+        for b, sq, sk, offset in ((4, 128, 128, 0), (3, 100, 357, 0),
+                                  (5, 33, 1000, 0), (2, 40, 32, 0),
+                                  (3, 9, 8, 0), (2, 16, 4, 0),
+                                  (2, 64, 1024, 0), (2, 5, 1025, 0),
+                                  (2, 7, softmax.MAX_KEYS, 0),
+                                  (3, 50, 128, 4)):
+            n = b * sq * sk
+            flat = _randn(gen, n + 16 // size, dtype=dtype, scale=4.0)
+            x = flat[offset // size:][:n].view(b, sq, sk)
+            assert x.data_ptr() % 16 == offset
+            # row 1 of batch 0: live scores far below -10000 (a max of
+            # -10000, every exp 0: NaN); row 2 just below (a tiny sum)
+            x[0, 1] = -20000.0
+            x[0, 2] = -10048.0
+            plan = softmax.plan(sk, size, offset == 0)
             for scale in (1.0, 0.125):
-                x = _randn(gen, b, sq, sk, dtype=dtype, scale=4.0)
-                got = softmax.causal_softmax_fwd(x, scale)
-                want = softmax.causal_softmax_fwd_plain(x, scale)
-                torch.cuda.synchronize()
-                assert got.dtype == dtype and got.shape == x.shape
-                live = torch.ones(sq, sk, dtype=torch.bool,
-                                  device="cuda").tril(sk - sq)
-                assert (got[:, ~live] == 0).all(), "a masked key is not 0"
-                torch.testing.assert_close(got.float(), want.float(),
-                                           rtol=SOFTMAX_RTOL[dtype],
-                                           atol=SOFTMAX_ATOL)
+                want = _check_causal_case(x, scale)
+                y = want.clone()
+                y[torch.isnan(y)] = 0.0
                 dy = _randn(gen, b, sq, sk, dtype=dtype)
-                got = softmax.softmax_bwd(want, dy, scale)
-                ref = softmax.softmax_bwd_plain(want, dy, scale)
+                got = softmax.softmax_bwd(y, dy, scale)
+                ref = softmax.softmax_bwd_plain(y, dy, scale)
                 torch.cuda.synchronize()
                 assert got.dtype == dtype
                 assert_close_scaled(got, ref, SOFTMAX_BWD_RTOL[dtype])
+            taken.append(f"{str(dtype)[6:]} [{b},{sq},{sk}]"
+                         + (f" at +{offset} B" if offset else "")
+                         + f": {names[plan.path]}, {plan.lanes} lanes a row")
+    log("kernels: causal_softmax and softmax_bwd match their plain versions "
+        "off the path, NaN rows (no live key; live scores below -10000) "
+        "NaN for NaN, dead keys exactly 0 (" + "; ".join(taken) + ")")
     # the path: [b * heads, s, s] fp32 scores, scale 1
     B = TRAIN_BATCH * MODEL["num_attention_heads"]
     S = TRAIN_SEQ
+    assert softmax.plan(S, 4, True).path == softmax.VECTOR
     x = _randn(gen, B, S, S, dtype=torch.float32, scale=4.0)
     got = softmax.causal_softmax_fwd(x, 1.0)
     want = softmax.causal_softmax_fwd_plain(x, 1.0)
     torch.testing.assert_close(got, want, rtol=SOFTMAX_RTOL[torch.float32],
                                atol=SOFTMAX_ATOL)
     live = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    assert (got[:, ~live] == 0).all(), "a masked key is not 0"
+    # planted faults through the kernel's own launch (uncounted)
+    tol = (SOFTMAX_RTOL[torch.float32], SOFTMAX_ATOL)
+    before = registry.launches()
+    readings = {"honest": _causal_raw(x, 1.0, softmax.VECTOR)}
+    for what, path in CAUSAL_FAULTS:
+        readings[what] = _causal_raw(x, 1.0, path)
+    # rows 64 on: a fault's reading where its output stays finite (row 0
+    # with its diagonal dropped has no live key, and a lane pair whose
+    # odd lane holds no live key sums 0 without the last step: NaN)
+    readings = {k: (_tol_ratio(v, want, *tol), max_abs(v, want),
+                    _tol_ratio(v[:, 64:], want[:, 64:], *tol))
+                for k, v in readings.items()}
+    log("kernel causal_softmax at the path shape: "
+        + "; ".join(f"{k}: {r:.3e} of the tolerance, {r64:.3e} from row 64 "
+                    f"on (max abs err {e:.3e})"
+                    for k, (r, e, r64) in readings.items()))
+    assert readings["honest"][0] <= 1.0, readings
+    assert all(r > 1.0 and r64 > 1.0 for k, (r, _, r64) in readings.items()
+               if k != "honest"), readings
+    # the first design (one block a row) beside the register path, both
+    # through the C function, in turns
+    design = {}
+    for path in (softmax.BLOCK, softmax.VECTOR, softmax.VECTOR,
+                 softmax.BLOCK):
+        design.setdefault(path, []).append(device_ms(
+            lambda: _causal_raw(x, 1.0, path)))
+    assert registry.launches() == before  # the raw launches are uncounted
     x_masked = x.masked_fill(~live, float("-inf"))
     keys = _live_keys(S, S)
     fwd = entry(
@@ -1038,6 +1131,18 @@ def check_softmax(gen):
         lambda: softmax.causal_softmax_fwd_plain(x, 1.0),
         lambda: torch.softmax(x_masked, dim=-1),  # the mask applied before
         bound(B * keys * 4 + B * S * S * 4, 5 * B * keys, FP32_OPS_PER_S))
+    fwd["first_design_ms"] = statistics.median(design[softmax.BLOCK])
+    fwd["library"] = "torch.softmax, the mask applied before"
+    log("kernel causal_softmax at the path shape through the C function "
+        "(us, the first design's block path, then the register path, in "
+        "turns): block "
+        + "/".join(f"{t * 1e3:.2f}" for t in design[softmax.BLOCK])
+        + "; vector "
+        + "/".join(f"{t * 1e3:.2f}" for t in design[softmax.VECTOR])
+        + f"; the "
+        f"wrapper {_us(fwd['ms'])}: first design / wrapper "
+        f"{fwd['first_design_ms'] / fwd['ms']:.4f}, wrapper / torch.softmax "
+        f"{fwd['ms'] / fwd['library_ms']:.4f}")
     y = want
     dy = _randn(gen, B, S, S, dtype=torch.float32)
     got = softmax.softmax_bwd(y, dy, 1.0)
@@ -1477,9 +1582,71 @@ def _max_errs(got, want):
     return err, err / ref
 
 
-def check_adam(gen):
-    import math
+def _adam_raw(path, noop, g, p, m, v, *, lr, bc1, bc2, b1, b2, eps,
+              weight_decay, adam_w):
+    """Kernel #12 over the lists, launched through its C function on
+    ``path`` (0 the first design, 1 the streaming body, 2/3 planted
+    faults) as the wrapper launches it, uncounted."""
+    from apex_tpu_torch.kernels import _checks, optim
+    fn = optim._kernel()
+    for run, tables, sizes, n in optim._tables((g, p, m, v)):
+        rc = fn(*tables, sizes, optim._heads(run), n, noop.data_ptr(),
+                float(lr), float(bc1), float(bc2), float(b1), 1.0 - b1,
+                float(b2), 1.0 - b2, float(eps), float(weight_decay),
+                int(bool(adam_w)), path, _checks.stream(noop))
+        _checks.status("adam", rc)
 
+
+# planted #12 faults: (what, path code of apex_adam)
+ADAM_FAULTS = (("m * (1 / bc1) for m / bc1", 2),
+               ("the scalar tails unwritten", 3))
+
+
+def _equal_lists(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _flat_views(gen, sizes, offsets, mixed):
+    """fp32 g, p, m, v lists of ``sizes`` whose tensors are views into
+    one flat buffer a list, tensor k at ``offsets[k]`` bytes past a
+    16-byte boundary (``mixed``: g's views 4 bytes further on, so no
+    16-byte access serves all four arrays)."""
+    state = []
+    for which, (fill, scale) in enumerate(((torch.randn, 1.0),
+                                           (torch.randn, 1.0),
+                                           (torch.randn, 0.1),
+                                           (torch.rand, 0.01))):
+        shift = 4 if mixed and which == 0 else 0
+        starts, at = [], 0
+        for n, off in zip(sizes, offsets):
+            at = -(-at // 4) * 4 + (off + shift) % 16 // 4  # on the offset
+            starts.append(at)
+            at += n
+        flat = scale * fill(at + 4, generator=gen, device="cuda")
+        state.append([flat[st:st + n] for st, n in zip(starts, sizes)])
+    for ts in state:
+        for t, off in zip(ts, offsets):
+            assert t.numel() == 0 or t.data_ptr() % 16 == (
+                (off + 4) % 16 if mixed and ts is state[0] else off)
+    return state
+
+
+def _clone_views(ts):
+    """Copies of views into one flat buffer at the same byte offsets (a
+    clone of each view would start on a fresh 16-byte boundary)."""
+    flat = ts[0]._base.clone()
+    return [flat[t.storage_offset():t.storage_offset() + t.numel()]
+            for t in ts]
+
+
+def check_adam(gen):
+    """Multi-tensor Adam #12: options off the path over more tensors than
+    one launch's table holds; views at 4-, 8- and 12-byte offsets into
+    flat buffers (the streaming body's scalar heads and tails), its two
+    planted faults there; then FusedAdam's step over TinyLlama-1.1B's 179
+    fp32 tensors: the streaming body bit-identical to the first design and
+    to the plain version, the first design timed beside it in turns,
+    ``torch._fused_adamw_`` on the same clocks."""
     from apex_tpu_torch.kernels import optim, registry
     from apex_tpu_torch.models import GPTModel, TransformerConfig
     from apex_tpu_torch.ops.multi_tensor import bias_corrections
@@ -1528,6 +1695,53 @@ def check_adam(gen):
         f"plain version; noop = 1 leaves p, m, v bit-identical")
     del g, p, m, v, ker, pln
 
+    # views into flat buffers: scalar heads and tails beside the vectors
+    # (lr 0.5: an ulp of the update shows in p)
+    kw = dict(lr=0.5, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+              adam_w=False)
+    kw["bc1"], kw["bc2"] = bias_corrections(0.9, 0.999, 1)
+    vsizes = [n for n in (0, 1, 3, 4, 5, 65539) for _ in range(3)]
+    offsets = [4, 8, 12] * 6
+    covered = {}
+    before = registry.launches()
+    for mixed in (False, True):
+        g, p, m, v = _flat_views(gen, vsizes, offsets, mixed)
+        for ts in zip(g, p, m, v):
+            span = optim.adam_plan(ts[1].numel(),
+                                   [t.data_ptr() % 16 for t in ts])
+            for part, count in zip(("head", "vectors", "tail"), span):
+                covered[part] = covered.get(part, 0) + count
+        runs = {}
+        for label, path in (("first", optim.ADAM_FIRST),
+                            ("stream", optim.ADAM_STREAM),
+                            *((what, code) for what, code in ADAM_FAULTS)):
+            state = [_clone_views(ts) for ts in (p, m, v)]
+            _adam_raw(path, noop0, g, *state, **kw)
+            runs[label] = [t for ts in state for t in ts]
+        state = [_clone_views(ts) for ts in (p, m, v)]
+        optim.adam_plain(noop0, g, *state, **kw)
+        torch.cuda.synchronize()
+        plain = [t for ts in state for t in ts]
+        assert _equal_lists(runs["stream"], runs["first"]), mixed
+        _, rel = _max_errs(runs["stream"], plain)
+        assert rel <= ADAM_RTOL, (mixed, rel)
+        for what, _ in ADAM_FAULTS:
+            caught = not _equal_lists(runs[what], runs["first"])
+            views = "g 4 B off p" if mixed else "aligned alike"
+            log(f"kernel adam, flat-buffer views ({views}): planted fault "
+                f"{what}: {'caught' if caught else 'NOT caught'}"
+                f" (max abs err against the first design "
+                f"{_max_errs(runs[what], runs['first'])[0]:.3e})")
+            assert caught or mixed, what  # no tail when nothing is a vector
+    assert registry.launches() == before  # the raw launches are uncounted
+    assert all(covered[k] for k in ("head", "vectors", "tail")), covered
+    log(f"kernels: adam over {len(vsizes)} views at 4/8/12-byte offsets "
+        f"(sizes {sorted(set(vsizes))}; elements as head/vectors*4/tail "
+        f"{covered['head']}/{covered['vectors'] * 4}/{covered['tail']}): "
+        "the streaming body bit-identical to the first design, within "
+        f"{ADAM_RTOL} of the plain version; both planted faults caught")
+    del g, p, m, v, runs, state, plain
+
     # the path: FusedAdam's step over TinyLlama-1.1B's fp32 tensors
     cfg = TransformerConfig(**MODEL, use_flash_attention=False)
     shapes = [tuple(t.shape) for t in
@@ -1542,7 +1756,36 @@ def check_adam(gen):
     assert max(rel) <= ADAM_RTOL, rel
     kw = dict(lr=lr, bc1=bc[0], bc2=bc[1], b1=b1, b2=b2, eps=eps,
               weight_decay=0.0, adam_w=True)
+    # the first design on the same state (the plain copies, reset)
+    for ts, src in zip(pln, (p, m, v)):
+        for t, s0 in zip(ts, src):
+            t.copy_(s0)
+    before = registry.launches()
+    _adam_raw(optim.ADAM_FIRST, noop0, g, *pln, **kw)
+    torch.cuda.synchronize()
+    identical = all(_equal_lists(a, b) for a, b in zip(ker, pln))
+    assert identical, "the streaming body differs from the first design"
+    design = {}
+    for path in (optim.ADAM_FIRST, optim.ADAM_STREAM, optim.ADAM_STREAM,
+                 optim.ADAM_FIRST):
+        design.setdefault(path, []).append(device_ms(
+            lambda: _adam_raw(path, noop0, g, *ker, **kw), iters=5,
+            replays=2))
+    assert registry.launches() == before  # the raw launches are uncounted
     steps = [torch.ones((), device="cuda") for _ in shapes]
+
+    def library():
+        torch._fused_adamw_(pln[0], g, pln[1], pln[2], [], steps, lr=lr,
+                            beta1=b1, beta2=b2, weight_decay=0.0, eps=eps,
+                            amsgrad=False, maximize=False)
+
+    try:
+        library_dev = device_ms(library, iters=5, replays=2)
+    except RuntimeError as err:  # a graph that does not capture it
+        library_dev = None
+        log(f"kernel adam: torch._fused_adamw_ not captured in a CUDA "
+            f"graph ({err})")
+    library_call = call_ms(library, 5, 1)
     result = dict(
         name="adam", shape=f"{len(shapes)} fp32 tensors, {n} params",
         max_abs_err=max(err), max_rel_err=max(rel),
@@ -1552,14 +1795,27 @@ def check_adam(gen):
         call_ms=call_ms(lambda: optim.adam(noop0, g, *ker, **kw), 5, 1),
         plain_ms=call_ms(lambda: optim.adam_plain(noop0, g, *pln, **kw),
                          3, 1),
-        library_ms=call_ms(lambda: torch._fused_adamw_(
-            pln[0], g, pln[1], pln[2], [], steps, lr=lr, beta1=b1,
-            beta2=b2, weight_decay=0.0, eps=eps, amsgrad=False,
-            maximize=False), 5, 1))
+        library_ms=library_call if library_dev is None else library_dev,
+        library="torch._fused_adamw_, "
+        + ("eager call" if library_dev is None else "CUDA graph"),
+        first_design_ms=statistics.median(design[optim.ADAM_FIRST]))
     result["bound_ms"], result["bound_by"] = bound(28 * n, 15 * n,
                                                     FP32_OPS_PER_S)
     log(f"kernels: adam over the path's {len(shapes)} tensors: "
-        f"{launched} launches")
+        f"{launched} launches; bit-identical to the first design")
+    log("kernel adam at the path's tensors through the C function (us, "
+        "the first design, then the streaming body, in turns): first "
+        + "/".join(f"{t * 1e3:.2f}" for t in design[optim.ADAM_FIRST])
+        + "; stream "
+        + "/".join(f"{t * 1e3:.2f}" for t in design[optim.ADAM_STREAM])
+        + f"; the wrapper {_us(result['ms'])} in a graph, "
+        f"{_us(result['call_ms'])} a call; torch._fused_adamw_ "
+        f"{_us(library_dev)} in a graph, {_us(library_call)} a call: "
+        f"call / call {result['call_ms'] / library_call:.4f}"
+        + ("" if library_dev is None else
+           f", graph / graph {result['ms'] / library_dev:.4f}")
+        + f"; first design / wrapper "
+        f"{result['first_design_ms'] / result['ms']:.4f}")
     del g, p, m, v, ker, pln
     torch.cuda.empty_cache()
     return [result]
@@ -4940,9 +5196,10 @@ def phase_tp_gpt2():
 
 # kernel name parts whose summed device time a training profile prints
 PROFILE_WATCH = ("ln_fwd_kernel", "ln_bwd_dx", "warp_softmax_fwd",
-                 "causal_fwd_kernel", "::bwd_kernel<", "lamb_kernel",
-                 "adam_kernel", "::fwd_kernel<", "::mma_fwd_kernel<",
-                 "::bf16_fwd_kernel<", "::mma_dq_kernel<",
+                 "warp_causal_fwd", "causal_fwd_kernel", "::bwd_kernel<",
+                 "lamb_kernel", "adam_kernel", "adam_vec_kernel",
+                 "::fwd_kernel<", "::mma_fwd_kernel<", "::bf16_fwd_kernel<",
+                 "::mma_dq_kernel<",
                  "::mma_dkv_kernel<", "::dq_kernel<", "::dkv_kernel<",
                  "rms_")
 PHASES = ("kernels", "serving", "serve_bf16", "serve_int8", "serve_spec",

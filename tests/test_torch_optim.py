@@ -19,7 +19,15 @@ gradient norm, each tensor's ||p|| and ||update||) are sums in another
 order, so ``multi_tensor_lamb`` and ``FusedLAMB`` are held within 1e-6
 relative plus 1e-7 absolute too (measured: parameters of magnitude ~1
 within 2.4e-7 absolute, one or two fp32 ulps).
+
+The streaming Adam body's plan (``kernels/optim.py`` ``adam_plan``: a
+scalar head, float4 vectors, a scalar tail per tensor) and a model of
+its chunk walk (``csrc/adam.cu`` ``adam_vec_kernel``) are checked to
+cover every element exactly once.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -241,6 +249,116 @@ def test_wrapper_checks_lists_and_devices():
         port_kernels.adam(torch.zeros(1, device="meta"), g, p, m, v,
                           lr=1e-3, bc1=1.0, bc2=1.0, b1=0.9, b2=0.999,
                           eps=1e-8, weight_decay=0.0, adam_w=True)
+
+
+# --------------------------------- the streaming Adam body's plan (#12)
+
+_ADAM_SOURCE = (Path(port_kernels.__file__).resolve().parent.parent / "csrc"
+                / "adam.cu")
+
+
+@pytest.mark.parametrize("size", [0, 1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17,
+                                  64, 65539])
+@pytest.mark.parametrize("offsets", [(0,) * 4, (4,) * 4, (8,) * 4,
+                                     (12,) * 4, (0, 4, 0, 0),
+                                     (8, 8, 8, 12)])
+def test_adam_plan_covers_every_element_once(size, offsets):
+    """head, vectors * 4 and tail partition the tensor; 16-byte accesses
+    only where the four arrays are aligned alike, starting on the
+    boundary; the kernel's scalar index q (element q below the head, q +
+    4 * vectors past it) reaches the head and tail elements once."""
+    span = port_kernels.adam_plan(size, offsets)
+    assert span.head + 4 * span.vectors + span.tail == size
+    assert min(span) >= 0
+    if len(set(offsets)) == 1:
+        assert span.head <= 3 and span.tail <= 3
+        assert span.vectors == 0 or (offsets[0] + 4 * span.head) % 16 == 0
+        assert span.vectors == (size - span.head) // 4
+    else:
+        assert span == (size, 0, 0)
+    scalars = range(size - 4 * span.vectors)
+    elems = [q if q < span.head else q + 4 * span.vectors for q in scalars]
+    elems += range(span.head, span.head + 4 * span.vectors)
+    assert sorted(elems) == list(range(size))
+
+
+def _walk(sizes, heads, threads, unroll, grid):
+    """A model of adam_vec_kernel's walk (csrc/adam.cu) with small
+    blocks: each tensor's chunks are the larger of its vectors over
+    threads * unroll and its scalar elements over four times that; each
+    block walks the chunks grid-stride. Returns each element's visits."""
+    chunk = threads * unroll
+    first = [0]
+    for size, head in zip(sizes, heads):
+        vecs, scal = (size - head) // 4, size - 4 * ((size - head) // 4)
+        first.append(first[-1] + max(-(-vecs // chunk),
+                                     -(-scal // (4 * chunk))))
+    hits = [[0] * size for size in sizes]
+    for block in range(grid):
+        k = 0
+        for c in range(block, first[-1], grid):
+            while first[k + 1] <= c:
+                k += 1
+            local, size, head = c - first[k], sizes[k], heads[k]
+            vecs = (size - head) // 4
+            for t in range(threads):
+                for u in range(unroll):
+                    i = local * chunk + t + u * threads
+                    if i < vecs:
+                        for e in range(4):
+                            hits[k][head + 4 * i + e] += 1
+                end = min((local + 1) * 4 * chunk, size - 4 * vecs)
+                for q in range(local * 4 * chunk + t, end, threads):
+                    hits[k][q if q < head else q + 4 * vecs] += 1
+    return hits
+
+
+@pytest.mark.parametrize("threads,unroll,grid", [(4, 2, 3), (2, 1, 1),
+                                                 (8, 4, 5)])
+def test_adam_walk_visits_every_element_once(threads, unroll, grid):
+    rng = np.random.RandomState(threads + grid)
+    sizes = [int(n) for n in rng.choice([0, 1, 3, 5, 33, 64, 130, 257], 12)]
+    offsets = [int(o) for o in rng.choice([0, 4, 8, 12], 12)]
+    heads = [port_kernels.adam_plan(n, (o,) * 4 if k % 3 else (o, 0, 0, 0)
+                                    ).head
+             for k, (n, o) in enumerate(zip(sizes, offsets))]
+    hits = _walk(sizes, heads, threads, unroll, grid)
+    assert all(h == 1 for hs in hits for h in hs)
+
+
+def test_adam_plan_heads_from_views():
+    """The wrapper's heads for views at 4-, 8- and 12-byte offsets into
+    flat buffers, as the kernel reads them (``_heads``)."""
+    flats = [torch.zeros(64) for _ in range(4)]
+    run = [[f[k:k + 9] for k in (0, 1, 2, 3)] for f in flats]
+    run[0][3] = flats[0][4:13]  # g's view 4 bytes further on than p's
+    assert [f.data_ptr() % 16 for f in flats] == [0] * 4
+    assert list(port_kernels._heads(run)) == [0, 3, 2, 9]
+
+
+def test_adam_runs_match_the_kernel_table():
+    """One launch takes at most kMaxTensors tensors: 179 make three runs
+    of 64, 64 and 51 (empty runs launch nothing)."""
+    src = _ADAM_SOURCE.read_text()
+    assert int(re.search(r"constexpr int kMaxTensors = (\d+);", src).group(1)
+               ) == port_kernels.MAX_TENSORS
+    ts = [torch.zeros(3) for _ in range(179)]
+    runs = list(port_kernels._tables((ts, ts, ts, ts)))
+    assert [n for *_, n in runs] == [64, 64, 51]
+    empty = [torch.zeros(0) for _ in range(70)]
+    assert [n for *_, n in port_kernels._tables((empty,) * 4)] == []
+
+
+def test_adam_path_codes_match_the_kernel_source():
+    """apex_adam's path argument: 0 the first design, 1 the streaming
+    body (the wrapper's), 2 and 3 its planted faults."""
+    src = _ADAM_SOURCE.read_text()
+    assert (port_kernels.ADAM_FIRST, port_kernels.ADAM_STREAM) == (0, 1)
+    assert "if (path == 1) return launch_vec<kNoFault>" in src
+    assert "if (path == 2) return launch_vec<kReciprocal>" in src
+    assert "if (path == 3) return launch_vec<kTailUnwritten>" in src
+    assert "adam_kernel<<<" in src
+    assert re.search(r"path < 0 \|\| path > 3\) return -1", src)
 
 
 # -------------------------------------------------------------------- LAMB

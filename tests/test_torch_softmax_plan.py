@@ -1,7 +1,8 @@
-"""The launch plan of the scaled and masked softmax forwards #8/#9
-(``apex_tpu_torch.kernels.softmax.plan``) and a PyTorch model of the
-register path's arithmetic (``csrc/softmax.cu`` ``warp_softmax_fwd``),
-on the CPU.
+"""The launch plan of the scaled, masked and causal softmax forwards
+#8/#9/#10 (``apex_tpu_torch.kernels.softmax.plan``) and PyTorch models of
+the register paths' arithmetic (``csrc/softmax.cu`` ``warp_softmax_fwd``,
+``warp_causal_fwd``), on the CPU; and the ctypes signatures of the
+softmax and optimizer wrappers against their C definitions.
 
 The plan picks, from shapes and alignment alone, the register path with
 16-byte accesses, the register path with one key an access, or the block
@@ -16,9 +17,14 @@ lanes, then e / sum. It is held against JAX's Pallas ``_masked_fwd_kernel``
 and ``_fwd_kernel`` in interpret mode, on numpy-seeded inputs, within
 the tolerances of ``tests/test_torch_softmax.py`` (fp32 1e-6 relative:
 only the order of the row sum differs; bf16 one ulp). A fully masked row
-is NaN (0 / 0) on both sides.
+is NaN (0 / 0) on both sides. The causal model reads only the live keys
+(a prefix of each row), starts the max at -10000 when a key is dead and
+is held against JAX's ``scaled_upper_triang_masked_softmax`` the same
+way, rows with no live key (sq > sk) or with every live score far below
+-10000 NaN on both sides.
 """
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -29,7 +35,7 @@ import torch
 
 from apex_tpu.kernels import softmax as jax_softmax
 from apex_tpu.kernels.registry import get_kernel_registry
-from apex_tpu_torch.kernels import softmax
+from apex_tpu_torch.kernels import _build, optim, softmax
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -168,9 +174,18 @@ def register_softmax_model(x, mask, scale):
                                  (0, pad), value=float("-inf"))
     mx = mx.amax(-1, keepdim=True)
     e = torch.exp(v - mx)
-    # key k = (it * lanes + lane) * vec + j: lane `lane` holds [it, j]
-    lanes = e.reshape(rows, p.iters, p.lanes, p.vec)
-    part = torch.zeros(rows, p.lanes)
+    part = _lane_sums(e, p)
+    y = e / part[:, :1]
+    return y[:, :sk].reshape(x.shape).to(x.dtype), part
+
+
+def _lane_sums(e, p):
+    """The register path's row sums of e [rows, p.keys] (fp32): each
+    lane's partial over its own keys in the order it holds them (key k =
+    (it * lanes + lane) * vec + j: lane `lane` holds [it, j]), then the
+    xor butterfly over the row's lanes. Returns [rows, lanes]."""
+    lanes = e.reshape(e.shape[0], p.iters, p.lanes, p.vec)
+    part = torch.zeros(e.shape[0], p.lanes)
     for it in range(p.iters):
         for j in range(p.vec):
             part = part + lanes[:, it, :, j]
@@ -179,8 +194,7 @@ def register_softmax_model(x, mask, scale):
     while off:
         part = part + part[:, idx ^ off]
         off //= 2
-    y = e / part[:, :1]
-    return y[:, :sk].reshape(x.shape).to(x.dtype), part
+    return part
 
 
 def _mask(seed, shape):
@@ -254,3 +268,134 @@ def test_register_model_matches_the_plain_version(xshape, mshape):
     want = softmax.scaled_masked_softmax_fwd_plain(x, m, 1.0)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
                                equal_nan=True)
+
+
+# ------------------------------------- the causal forward #10 (same plan)
+
+def causal_register_model(x, scale):
+    """The causal register path of #10 (``warp_causal_fwd``) on x [B, sq,
+    sk], as the kernel computes it for rows aligned as a fresh tensor is:
+    key j of row r live when j < live = clamp(r % sq + sk - sq + 1, 0,
+    sk); x * scale on the live keys, -inf on the dead ones (never read);
+    the max starts at -10000 when the row has a dead key; exp(v - max);
+    the row sum as :func:`_lane_sums` (a lane skips its dead vectors,
+    whose exp is exactly 0); e / sum, so a dead key is 0 / sum. Returns
+    (y in x's dtype, the butterfly's sums [rows, lanes])."""
+    _, sq, sk = x.shape
+    p = softmax.plan(sk, x.element_size(), True)
+    assert p.path != softmax.BLOCK
+    rows = x.numel() // sk
+    live = (torch.arange(rows) % sq + (sk - sq) + 1).clamp(0, sk)[:, None]
+    alive = torch.arange(p.keys)[None, :] < live
+    s = torch.nn.functional.pad(x.float().reshape(rows, sk) * scale,
+                                (0, p.keys - sk))
+    v = torch.where(alive, s, float("-inf"))
+    mx = v.amax(-1, keepdim=True)
+    mx = torch.where(live < sk, mx.clamp_min(softmax.MASK_VALUE), mx)
+    e = torch.exp(v - mx)
+    part = _lane_sums(e, p)
+    y = e / part[:, :1]
+    return y[:, :sk].reshape(x.shape).to(x.dtype), part
+
+
+def _causal_input(shape, low_row):
+    """Scores x 4 from a numpy seed; with ``low_row`` row 1 of batch 0
+    lies far below -10000 (its max is -10000, every exp 0: NaN) and row 2
+    just below (a sum of tiny exps)."""
+    x = np.random.RandomState(sum(shape)).randn(*shape).astype(np.float32)
+    x *= 4
+    if low_row:
+        x[0, 1] = -20000.0
+        x[0, 2] = -10048.0  # exact in bf16
+    return x
+
+
+# (x shape, a row below -10000): sq = sk, the path's row length, sq < sk,
+# sk odd (one key an access), sq > sk (rows with no live key: NaN)
+CAUSAL_CASES = [((2, 128, 128), True), ((1, 48, 1024), True),
+                ((2, 40, 100), False), ((2, 30, 357), True),
+                ((2, 40, 32), False), ((3, 9, 8), True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,low_row", CAUSAL_CASES)
+def test_causal_model_matches_jax_kernel(dtype, shape, low_row):
+    x = _causal_input(shape, low_row)
+    want = np.asarray(jax_softmax.scaled_upper_triang_masked_softmax(
+        jnp.asarray(x, _JAX[dtype]), 1.0).astype(jnp.float32))
+    got, part = causal_register_model(torch.from_numpy(x).to(_TORCH[dtype]),
+                                      1.0)
+    assert got.dtype == _TORCH[dtype] and got.shape == x.shape
+    sums = part.numpy()  # every lane ends with the row's sum, bit for bit
+    assert np.array_equal(sums, sums[:, :1].repeat(sums.shape[1], 1),
+                          equal_nan=True)
+    got = got.float().numpy()
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan)
+    _, sq, sk = shape
+    live = np.tril(np.ones((sq, sk), dtype=bool), sk - sq)
+    if sq > sk or low_row:
+        assert nan.all(-1).any()  # the case has its NaN rows
+    assert (got[np.broadcast_to(~live, x.shape) & ~nan] == 0).all()
+    np.testing.assert_allclose(got[~nan], want[~nan], **_TOL[dtype])
+
+
+@pytest.mark.parametrize("shape,low_row", CAUSAL_CASES[:2])
+@pytest.mark.parametrize("scale", [1.0, 0.125])
+def test_causal_model_matches_the_plain_version(shape, low_row, scale):
+    """The model and the port's plain version (the card's yardstick) agree
+    within the card check's fp32 tolerance, NaN for NaN."""
+    x = torch.from_numpy(_causal_input(shape, low_row))
+    got, _ = causal_register_model(x, scale)
+    want = softmax.causal_softmax_fwd_plain(x, scale)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
+                               equal_nan=True)
+
+
+def test_causal_path_codes_match_the_kernel_source():
+    """apex_causal_softmax_fwd's path: the plan's codes (0 the first
+    design's block a row, 1 and 2 the register path with one key or 16
+    bytes an access), 3 and 4 planted faults on 1024-key rows."""
+    src = _SOURCE.read_text()
+    assert re.search(r"if \(path == 0\) return launch_fwd<T>", src)
+    assert re.search(r"if \(path == 1\)\s+return dispatch_causal_rows<T, "
+                     r"false>", src)
+    assert re.search(r"if \(path == 2\)\s+return dispatch_causal_rows<T, "
+                     r"true>", src)
+    assert re.search(r"if \(path == 3\)\s+return launch_causal_rows<T, "
+                     r"kRegMaxLog2, true, kDropDiagonal>", src)
+    assert re.search(r"return launch_causal_rows<T, kRegMaxLog2, true, "
+                     r"kShortSum>", src)
+    assert "if (path < 1 || path > 4) return -1;" in src
+
+
+def _c_argtypes(source, symbol):
+    """The ctypes types of the C function ``symbol``'s parameters, read
+    from its definition in ``source``: a pointer c_void_p, else by type."""
+    params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)',
+                       source.read_text()).group(1)
+    kinds = []
+    for param in params.split(","):
+        param = " ".join(param.split())
+        if "*" in param:
+            kinds.append(ctypes.c_void_p)
+        else:
+            kinds.append({"long long": ctypes.c_longlong,
+                          "float": ctypes.c_float, "int": ctypes.c_int}[
+                param.rsplit(" ", 1)[0].removeprefix("const ")])
+    return kinds
+
+
+@pytest.mark.parametrize("module,loader", [
+    (softmax, "_fwd_kernel"), (softmax, "_masked_kernel"),
+    (softmax, "_bwd_kernel"), (optim, "_kernel"), (optim, "_lamb_kernel")])
+def test_ctypes_signatures_match_the_c_functions(monkeypatch, module,
+                                                 loader):
+    """The argument types each wrapper's loader hands ``_build.function``
+    (nothing is built) against the C definition in csrc/<library>.cu:
+    the softmax entries (#10 with its path) and Adam's (with its heads
+    and path) and LAMB's."""
+    monkeypatch.setattr(_build, "function", lambda lib, symbol, types: (
+        lib, symbol, list(types)))
+    lib, symbol, types = getattr(module, loader).__wrapped__()
+    assert types == _c_argtypes(_SOURCE.with_name(f"{lib}.cu"), symbol)

@@ -21,15 +21,28 @@
 // rows the forward moves 33.6 MB (>= 10.0 us at 3.35 TB/s) and the
 // backward 50.3 MB (dy, x in, dx out: >= 15.0 us).
 //
-// Design of the forward (#4, the first design, unchanged): as
-// rms_norm.cu, one block of 256 threads per row. Each thread sums over a
-// strided slice of the row, a warp-shuffle reduction and a pass through
-// shared memory give the row's sum; the row is read once from device
-// memory and again from L1/L2 for each further pass (three). The input
-// may be fp32 or bf16 and the output fp32 or bf16: the model's layers
-// read the bf16 residual stream and write bf16, which gives the JAX
-// layer's cast to fp32 / fp32 norm / rounding to bf16 in one pass; BERT's
-// heads read and write fp32.
+// Design of the forward (#4): a row of up to kRegMaxH = 1024 elements
+// lives in the registers of one warp (warp_ln_fwd), laid out as the
+// backward-dx's below: lane l holds chunks l, l + 32, ... of VEC elements
+// (16 bytes of the narrower of x and y: 8 when either is bf16, 4 when
+// both are fp32; 1 on the scalar path), bf16 as packed pairs widened on
+// use. x is read from device memory once (ld.global.cs) and y written
+// once (st.global.cs); w and b (fp32 [h]) through the read-only cache, 16
+// bytes at a time where each starts on a 16-byte boundary (two
+// launch-wide flags). The mean and the centred sum of squares are each a
+// lane's partial in the order it holds its elements, then the xor
+// butterfly; no shared memory, no block barrier, 4 warps a block, a row
+// a warp. The first design (ln_fwd_kernel, one block of 256 threads a
+// row: each thread sums a strided slice, a shuffle and a pass through
+// shared memory give the row's sum, x read three times with 2-byte
+// accesses and four block barriers a row) ran at 0.43 of its bound at
+// GPT-2's [8192, 1024] bf16 rows and stays for rows longer than 1024.
+// The plan (kernels/norm.py `ln_plan`, one rule for both kernels, here
+// on x's and y's itemsizes) passes the path, as for the backward. The
+// input may be fp32 or bf16 and the output fp32 or bf16: the model's
+// layers read the bf16 residual stream and write bf16, which gives the
+// JAX layer's cast to fp32 / fp32 norm / rounding to bf16 in one pass;
+// BERT's heads read and write fp32.
 //
 // Design of the backward-dx (#5): a row of up to kRegMaxH = 1024
 // elements lives in the registers of one warp, with no shared memory and
@@ -54,7 +67,7 @@
 // butterfly of __shfl_xor_sync (five steps; every
 // lane ends with the same bits). Blocks are kRowWarps = 4 warps, a row a
 // warp. The 16-byte path needs h a multiple of VEC and dy, x, dx on
-// 16-byte boundaries; the wrapper's plan (kernels/norm.py `ln_bwd_plan`)
+// 16-byte boundaries; the wrapper's plan (kernels/norm.py `ln_plan`)
 // picks it from the shapes and data_ptr() % 16 and passes it as `path`,
 // which the launcher checks. Otherwise the scalar path runs with the same
 // lanes (h = 1001, views off 16 bytes); rows longer than kRegMaxH keep
@@ -150,6 +163,94 @@ int launch_fwd(const void* x, const float* w, const float* b, void* y,
   ln_fwd_kernel<Tin, Tout><<<static_cast<unsigned>(rows), kThreads, 0, stream>>>(
       static_cast<const Tin*>(x), w, b, static_cast<Tout*>(y), h, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The forward's register path: a row of h <= kIters * 32 * kVec elements
+// a warp (see the header note), the first design's arithmetic with the
+// row sums in the lanes' order. w or b null: no scale or no shift;
+// w_whole, b_whole: 16-byte aligned.
+template <typename Tin, typename Tout, int kVec, int kIters>
+__global__ void __launch_bounds__(kRowWarps * 32)
+warp_ln_fwd(const Tin* __restrict__ x, const float* __restrict__ w,
+            const float* __restrict__ b, Tout* __restrict__ y,
+            long long rows, int h, float eps, bool w_whole, bool b_whole) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kRowWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp: no shuffle is left waiting
+  const Tin* xr = x + row * h;
+  Tout* yr = y + row * h;
+  Chunk<Tin, kVec> xv[kIters];
+  float s = 0.f;
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int j = (it * 32 + lane) * kVec;  // the chunk's first element
+    if (j < h) {
+      xv[it].load(xr + j);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) s += xv[it][e];
+    }
+  }
+  const float mean = warp_sum(s) / static_cast<float>(h);
+  float ss = 0.f;
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    if ((it * 32 + lane) * kVec < h) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const float c = __fsub_rn(xv[it][e], mean);
+        ss = __fadd_rn(ss, __fmul_rn(c, c));
+      }
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(ss) / static_cast<float>(h) + eps);
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int j = (it * 32 + lane) * kVec;
+    if (j < h) {
+      float wv[kVec], bv[kVec], o[kVec];
+      if (w != nullptr) load_weight<kVec>(w, j, w_whole, wv);
+      if (b != nullptr) load_weight<kVec>(b, j, b_whole, bv);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        float v = __fmul_rn(__fsub_rn(xv[it][e], mean), rstd);
+        if (w != nullptr) v = __fmul_rn(v, wv[e]);
+        if (b != nullptr) v = __fadd_rn(v, bv[e]);
+        // rounded to the input type first, as the first design
+        o[e] = to_float(from_float<Tin>(v));
+      }
+      store_row<kVec>(yr + j, o);
+    }
+  }
+}
+
+template <typename Tin, typename Tout, int kVec, int kIters>
+int launch_warp_fwd(const void* x, const float* w, const float* b, void* y,
+                    long long rows, int h, float eps, cudaStream_t stream) {
+  const long long blocks = (rows + kRowWarps - 1) / kRowWarps;
+  warp_ln_fwd<Tin, Tout, kVec, kIters>
+      <<<static_cast<unsigned>(blocks), kRowWarps * 32, 0, stream>>>(
+          static_cast<const Tin*>(x), w, b, static_cast<Tout*>(y), rows, h,
+          eps, (reinterpret_cast<uintptr_t>(w) & 15) == 0,
+          (reinterpret_cast<uintptr_t>(b) & 15) == 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward's register path instance for `iters` chunks a lane (a
+// power of two).
+template <typename Tin, typename Tout, int kVec, int kIters = 1>
+int dispatch_warp_fwd(int iters, const void* x, const float* w,
+                      const float* b, void* y, long long rows, int h,
+                      float eps, cudaStream_t stream) {
+  if constexpr (kIters * 32 * kVec > kRegMaxH) {
+    return -1;
+  } else {
+    if (iters == kIters)
+      return launch_warp_fwd<Tin, Tout, kVec, kIters>(x, w, b, y, rows, h,
+                                                      eps, stream);
+    return dispatch_warp_fwd<Tin, Tout, kVec, kIters * 2>(iters, x, w, b, y,
+                                                          rows, h, eps, stream);
+  }
 }
 
 template <typename Tdy, typename Tx>
@@ -336,27 +437,52 @@ int launch_bwd_path(int path, const void* dy, const void* x, const float* w,
                                         stream);
 }
 
+// The forward's paths, as launch_bwd_path's on x's and y's types.
+template <typename Tin, typename Tout>
+int launch_fwd_path(int path, const void* x, const float* w, const float* b,
+                    void* y, long long rows, int h, float eps,
+                    cudaStream_t stream) {
+  if (path == 0) return launch_fwd<Tin, Tout>(x, w, b, y, rows, h, eps, stream);
+  if ((path != 1 && path != 2) || h > kRegMaxH) return -1;
+  constexpr int kVec = 16 / static_cast<int>(
+      sizeof(Tin) < sizeof(Tout) ? sizeof(Tin) : sizeof(Tout));
+  const int vec = path == 2 ? kVec : 1;
+  if (path == 2 && (h % kVec != 0 || !aligned16(x) || !aligned16(y)))
+    return -1;
+  const int chunks = (h + 32 * vec - 1) / (32 * vec);
+  int iters = 1;
+  while (iters < chunks) iters *= 2;
+  if (path == 2)
+    return dispatch_warp_fwd<Tin, Tout, kVec>(iters, x, w, b, y, rows, h, eps,
+                                              stream);
+  return dispatch_warp_fwd<Tin, Tout, 1>(iters, x, w, b, y, rows, h, eps,
+                                         stream);
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. w and b are fp32 [h] or null.
-// Returns the CUDA error of the launch (0 on success); -1 for a dtype the
-// kernel does not take.
+// path as launch_bwd_path's, on x's and y's types (kernels/norm.py
+// `ln_plan` picks it). Returns the CUDA error of the launch (0 on
+// success); -1 for a dtype, or a path, the kernel does not take for these
+// arguments.
 extern "C" int apex_layer_norm_fwd(const void* x, const float* w,
                                    const float* b, void* y, long long rows,
                                    int h, float eps, int in_dtype,
-                                   int out_dtype, void* stream) {
+                                   int out_dtype, int path, void* stream) {
   if (rows <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 0 && out_dtype == 0) return launch_fwd<float, float>(x, w, b, y, rows, h, eps, s);
-  if (in_dtype == 0 && out_dtype == 1) return launch_fwd<float, __nv_bfloat16>(x, w, b, y, rows, h, eps, s);
-  if (in_dtype == 1 && out_dtype == 0) return launch_fwd<__nv_bfloat16, float>(x, w, b, y, rows, h, eps, s);
-  if (in_dtype == 1 && out_dtype == 1) return launch_fwd<__nv_bfloat16, __nv_bfloat16>(x, w, b, y, rows, h, eps, s);
+  using bf16 = __nv_bfloat16;
+  if (in_dtype == 0 && out_dtype == 0) return launch_fwd_path<float, float>(path, x, w, b, y, rows, h, eps, s);
+  if (in_dtype == 0 && out_dtype == 1) return launch_fwd_path<float, bf16>(path, x, w, b, y, rows, h, eps, s);
+  if (in_dtype == 1 && out_dtype == 0) return launch_fwd_path<bf16, float>(path, x, w, b, y, rows, h, eps, s);
+  if (in_dtype == 1 && out_dtype == 1) return launch_fwd_path<bf16, bf16>(path, x, w, b, y, rows, h, eps, s);
   return -1;
 }
 
 // dx [rows, h] in x's dtype from dy and x [rows, h] and the fp32 weight
 // [h] (or null); dtype codes as above; path as launch_bwd_path
-// (kernels/norm.py `ln_bwd_plan` picks it). Returns the CUDA error of the
+// (kernels/norm.py `ln_plan` picks it). Returns the CUDA error of the
 // launch (0 on success); -1 for a dtype, or a path, the kernel does not
 // take for these arguments.
 extern "C" int apex_layer_norm_bwd_dx(const void* dy, const void* x,

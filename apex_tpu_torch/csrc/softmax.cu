@@ -82,9 +82,27 @@
 // live scores in shared memory with four block barriers
 // (causal_fwd_kernel), stays as path 0 and serves rows of 1025 to 16384
 // keys. At the path shape it reaches 0.81 of the bound above, 1.6x the
-// first design (PERF.md). The backward uses one
-// block of 256 threads per row: it sums dy*y over the row, then writes
-// each dx; its second read of the row is served from L1/L2.
+// first design (PERF.md).
+//
+// Design of the backward (#11): the same register rows and launch plan
+// (`plan`) in a third sibling, warp_softmax_bwd. A lane group reads its
+// row of y and of dy once each with 16-byte streaming loads (one key on
+// the scalar path) into registers, t = sum(dy * y) is each lane's
+// partial over its own keys in order (each product and add rounded,
+// _rn), then group_sum's butterfly, and dx = (scale * y) * (dy - t) is
+// written once with streaming stores. Padding keys past sk hold 0 for y
+// and dy and add exactly 0. At BERT's 128 fp32 keys that is one float4
+// of each a lane, a row a warp, 4 warps a block, no barrier. Every key is
+// read, the dead keys of a causal row too: a non-finite dy on a key whose
+// y is 0 gives JAX's NaN. The first design (bwd_kernel, one block of 256
+// threads a row: dy * y summed in a strided loop, a block sum through
+// shared memory, then y and dy read again from L1/L2 for dx; at 128 keys
+// half its threads hold none) stays as path 0. The plan keeps it past
+// 768 keys (kernels/softmax.py BWD_REG_MAX_KEYS): at 1024 fp32 keys, 4 a
+// thread, it ran 0.4 % ahead of the register path on an H100, both at
+// ~0.92 of the bound; at 128 to 768 keys the register path ran 1.16x to
+// 2.1x faster (PERF.md). The C function takes the register path up to
+// 1024 keys, for that comparison.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -490,6 +508,79 @@ warp_causal_fwd(const T* __restrict__ x, T* __restrict__ y, long long rows,
   }
 }
 
+// Planted faults of the backward's register path (launch paths 3 and 4;
+// no caller passes them): the butterfly's last step skipped; dy read one
+// key ahead (key by key, past the row's end on the last key).
+constexpr int kBwdShortSum = 1;
+constexpr int kBwdDyAhead = 2;
+constexpr int kBwdFaultLog2 = 7;  // the faults' rows: BERT's 128 keys
+
+// The backward's register path (#11): rows of sk <= 2^kLog2Keys keys as
+// warp_softmax_fwd holds them, y and dy read once each into registers;
+// dx = (scale * y) * (dy - t), t = sum(dy * y) over the row (lane
+// partials in order, then the group's butterfly). Keys past sk hold 0.
+template <typename T, int kLog2Keys, bool kVector, int kFault>
+__global__ void __launch_bounds__(kWarps * 32)
+warp_softmax_bwd(const T* __restrict__ y, const T* __restrict__ dy,
+                 T* __restrict__ dx, long long rows, int sk, float scale) {
+  constexpr int kVec = kVector ? 16 / static_cast<int>(sizeof(T)) : 1;
+  constexpr int kKeys = 1 << kLog2Keys;
+  static_assert(kKeys >= kVec, "a row holds at least one vector");
+  constexpr int kVecs = kKeys / kVec;
+  constexpr int kLanes = kVecs < 32 ? kVecs : 32;
+  constexpr int kIters = kVecs / kLanes;
+  constexpr int kRowsPerWarp = 32 / kLanes;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane % kLanes;
+  const long long row0 =
+      (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) *
+      kRowsPerWarp;
+  if (row0 >= rows) return;  // the whole warp: no shuffle is left waiting
+  const long long r = row0 + lane / kLanes;
+  const bool live_row = r < rows;  // a warp's last group may hold no row
+  const T* yr = y + r * sk;
+  const T* dyr = dy + r * sk;
+  T* dxr = dx + r * sk;
+  float yv[kIters][kVec], gv[kIters][kVec];
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int j = (it * kLanes + sub) * kVec;  // the vector's first key
+    if (live_row && j < sk) {
+      load_scores<kVec>(yr + j, yv[it]);
+      if constexpr (kFault == kBwdDyAhead) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) gv[it][e] = to_float(dyr[j + e + 1]);
+      } else {
+        load_scores<kVec>(dyr + j, gv[it]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) yv[it][e] = gv[it][e] = 0.f;
+    }
+  }
+  float t = 0.f;
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+      t = __fadd_rn(t, __fmul_rn(gv[it][e], yv[it][e]));
+  }
+  t = group_sum<kLanes, kFault == kBwdShortSum ? 1 : 0>(t);
+  if (!live_row) return;
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int j = (it * kLanes + sub) * kVec;
+    if (j < sk) {
+      float d[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        d[e] = __fmul_rn(__fmul_rn(scale, yv[it][e]),
+                         __fsub_rn(gv[it][e], t));
+      store_probs<kVec>(dxr + j, d);
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bwd_kernel(const T* __restrict__ y, const T* __restrict__ dy,
@@ -683,6 +774,75 @@ int launch_bwd(const void* y, const void* dy, void* dx, long long rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int kLog2Keys, bool kVector, int kFault>
+int launch_bwd_rows(const void* y, const void* dy, void* dx, long long rows,
+                    int sk, float scale, cudaStream_t stream) {
+  constexpr int kVec = kVector ? 16 / static_cast<int>(sizeof(T)) : 1;
+  constexpr int kVecs = (1 << kLog2Keys) / kVec;
+  constexpr long long kRowsPerBlock = kWarps * (kVecs < 32 ? 32 / kVecs : 1);
+  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  warp_softmax_bwd<T, kLog2Keys, kVector, kFault>
+      <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(
+          static_cast<const T*>(y), static_cast<const T*>(dy),
+          static_cast<T*>(dx), rows, sk, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's register path instance for rows padded to 2^log2 keys.
+template <typename T, bool kVector, int kLog2 = 0>
+int dispatch_bwd_rows(int log2, const void* y, const void* dy, void* dx,
+                      long long rows, int sk, float scale,
+                      cudaStream_t stream) {
+  if constexpr (kLog2 > kRegMaxLog2) {
+    return -1;
+  } else {
+    constexpr int kVec = kVector ? 16 / static_cast<int>(sizeof(T)) : 1;
+    if constexpr ((1 << kLog2) >= kVec) {
+      if (log2 == kLog2)
+        return launch_bwd_rows<T, kLog2, kVector, kNoFault>(
+            y, dy, dx, rows, sk, scale, stream);
+    }
+    return dispatch_bwd_rows<T, kVector, kLog2 + 1>(log2, y, dy, dx, rows, sk,
+                                                    scale, stream);
+  }
+}
+
+// path: 0 = one block a row (bwd_kernel, the first design, any sk), 1 =
+// the register path with one key an access, 2 = the register path with
+// 16-byte accesses (y, dy and dx on 16-byte boundaries), 3 and 4 = path
+// 2 with a planted fault (the butterfly's last step skipped; dy read one
+// key ahead), for rows of 65 to 128 keys only. -1 where the arguments do
+// not fit the path.
+template <typename T>
+int launch_bwd_path(int path, const void* y, const void* dy, void* dx,
+                    long long rows, int sk, float scale,
+                    cudaStream_t stream) {
+  if (path == 0) return launch_bwd<T>(y, dy, dx, rows, sk, scale, stream);
+  if (path < 1 || path > 4) return -1;
+  int log2 = 0;
+  while ((1 << log2) < sk) ++log2;
+  if (log2 > kRegMaxLog2) return -1;
+  if (path != 1) {
+    constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+    if (sk % kVec != 0 || reinterpret_cast<uintptr_t>(y) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(dy) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(dx) % 16 != 0)
+      return -1;
+  }
+  if (path == 1)
+    return dispatch_bwd_rows<T, false>(log2, y, dy, dx, rows, sk, scale,
+                                       stream);
+  if (path == 2)
+    return dispatch_bwd_rows<T, true>(log2, y, dy, dx, rows, sk, scale,
+                                      stream);
+  if (log2 != kBwdFaultLog2) return -1;
+  if (path == 3)
+    return launch_bwd_rows<T, kBwdFaultLog2, true, kBwdShortSum>(
+        y, dy, dx, rows, sk, scale, stream);
+  return launch_bwd_rows<T, kBwdFaultLog2, true, kBwdDyAhead>(
+      y, dy, dx, rows, sk, scale, stream);
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. Each returns the CUDA error of
@@ -725,13 +885,18 @@ extern "C" int apex_masked_softmax_fwd(const void* x, const void* mask,
   return -1;
 }
 
-// dx [rows, sk] = scale * y * (dy - rowsum(dy * y)).
+// dx [rows, sk] = scale * y * (dy - rowsum(dy * y)). path: as
+// launch_bwd_path (kernels/softmax.py `plan` picks 0, 1 or 2).
 extern "C" int apex_softmax_bwd(const void* y, const void* dy, void* dx,
                                 long long rows, int sk, float scale,
-                                int dtype, void* stream) {
+                                int dtype, int path, void* stream) {
   if (rows <= 0) return 0;
+  if (sk < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_bwd<float>(y, dy, dx, rows, sk, scale, s);
-  if (dtype == 1) return launch_bwd<__nv_bfloat16>(y, dy, dx, rows, sk, scale, s);
+  if (dtype == 0)
+    return launch_bwd_path<float>(path, y, dy, dx, rows, sk, scale, s);
+  if (dtype == 1)
+    return launch_bwd_path<__nv_bfloat16>(path, y, dy, dx, rows, sk, scale,
+                                          s);
   return -1;
 }

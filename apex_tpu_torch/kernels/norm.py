@@ -18,9 +18,10 @@ LAYER_NORM = registry.register("layer_norm")
 LN_BWD = registry.register("ln_bwd")
 RMS_NORM = registry.register("rms_norm")
 RMS_BWD = registry.register("rms_bwd")
-# #5's launch (csrc/layer_norm.cu `warp_ln_bwd_dx`): rows of at most
-# REG_MAX_H elements live in the registers of one warp, ROW_WARPS rows a
-# block; longer rows take one block of 256 threads a row. Path codes of
+# #4's and #5's launch (csrc/layer_norm.cu `warp_ln_fwd`,
+# `warp_ln_bwd_dx`): rows of at most REG_MAX_H elements live in the
+# registers of one warp, ROW_WARPS rows a block; longer rows take one
+# block of 256 threads a row. Path codes of apex_layer_norm_fwd and
 # apex_layer_norm_bwd_dx:
 LN_BWD_REG_MAX_H = 1024
 LN_BWD_ROW_WARPS = 4
@@ -76,7 +77,7 @@ def _ln_kernel():
     p, i = _checks.ptr, ctypes.c_int
     return _build.function(
         "layer_norm", "apex_layer_norm_fwd",
-        [p, p, p, p, ctypes.c_longlong, i, ctypes.c_float, i, i, p])
+        [p, p, p, p, ctypes.c_longlong, i, ctypes.c_float, i, i, i, p])
 
 
 def ln_fwd(x2d, weight, bias, eps, out_dtype=None):
@@ -97,10 +98,12 @@ def ln_fwd(x2d, weight, bias, eps, out_dtype=None):
     in_code = _checks.dtype_code("ln_fwd", x2d, "x2d")
     y = torch.empty((n, h), dtype=out_dtype, device=x2d.device)
     out_code = _checks.dtype_code("ln_fwd", y, "out_dtype")
+    path = ln_plan(h, x2d.element_size(), y.element_size(),
+                   x2d.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0).path
     with torch.cuda.device(x2d.device):
         rc = _ln_kernel()(x2d.data_ptr(), _ptr(weight), _ptr(bias),
                           y.data_ptr(), n, h, float(eps), in_code, out_code,
-                          _checks.stream(x2d))
+                          path, _checks.stream(x2d))
     _checks.status("ln_fwd", rc)
     registry.count(LAYER_NORM)
     return y
@@ -122,8 +125,8 @@ def ln_bwd_dx_plain(dy2d, x2d, weight, eps):
     return ((wdy - c1 - xhat * c2) * rstd).to(x2d.dtype)
 
 
-class LnBwdPlan(NamedTuple):
-    """How #5 launches for rows of ``h`` elements. ``path``:
+class LnPlan(NamedTuple):
+    """How #4 or #5 launches for rows of ``h`` elements. ``path``:
     LN_BWD_BLOCK, LN_BWD_SCALAR or LN_BWD_VECTOR; ``vec`` elements an
     access; ``iters`` chunks of ``vec`` a lane holds (register paths; 0 on
     the block path)."""
@@ -132,27 +135,29 @@ class LnBwdPlan(NamedTuple):
     iters: int
 
 
-def ln_bwd_plan(h: int, dy_itemsize: int, x_itemsize: int,
-                aligned: bool) -> LnBwdPlan:
-    """#5's launch for rows of ``h`` elements, dy and x of the given
-    itemsizes, from shapes and alignment alone: rows of at most
-    LN_BWD_REG_MAX_H elements live in one warp's registers, with 16-byte
-    accesses of the narrower type (8 elements when either is bf16, 4 when
-    both are fp32) when h is a multiple of that vector and ``aligned`` (dy,
-    x and dx start on 16-byte boundaries: the rows are contiguous, so each
+def ln_plan(h: int, a_itemsize: int, b_itemsize: int,
+            aligned: bool) -> LnPlan:
+    """The launch of #4 (x and y) or #5 (dy and x) for rows of ``h``
+    elements of two operands of the given itemsizes, from shapes and
+    alignment alone: rows of at most LN_BWD_REG_MAX_H elements live in
+    one warp's registers, with 16-byte accesses of the narrower type (8
+    elements when either is bf16, 4 when both are fp32) when h is a
+    multiple of that vector and ``aligned`` (the row operands and the
+    output start on 16-byte boundaries: the rows are contiguous, so each
     row then does too), else one element an access; longer rows take one
     block a row. A lane holds ``iters`` chunks, the chunks a row needs
-    over 32 lanes rounded up to a power of two (the kernel's template
-    buckets). The weight does not enter: the kernel reads it 16 bytes at a
-    time where it starts on that boundary, else element by element."""
+    over 32 lanes rounded up to a power of two (the kernels' template
+    buckets). The weight and bias do not enter: the kernels read each 16
+    bytes at a time where it starts on that boundary, else element by
+    element."""
     if h > LN_BWD_REG_MAX_H:
-        return LnBwdPlan(LN_BWD_BLOCK, 1, 0)
-    vec = 16 // min(dy_itemsize, x_itemsize)
+        return LnPlan(LN_BWD_BLOCK, 1, 0)
+    vec = 16 // min(a_itemsize, b_itemsize)
     if not (aligned and h % vec == 0):
         vec = 1
     chunks = -(-h // (32 * vec))
-    return LnBwdPlan(LN_BWD_VECTOR if vec > 1 else LN_BWD_SCALAR, vec,
-                     1 << max(0, chunks - 1).bit_length())
+    return LnPlan(LN_BWD_VECTOR if vec > 1 else LN_BWD_SCALAR, vec,
+                  1 << max(0, chunks - 1).bit_length())
 
 
 @functools.lru_cache(maxsize=1)
@@ -183,8 +188,7 @@ def ln_bwd_dx(dy2d, x2d, weight, eps):
     if n == 0:
         return dx
     aligned = all(t.data_ptr() % 16 == 0 for t in (dy2d, x2d, dx))
-    path = ln_bwd_plan(h, dy2d.element_size(), x2d.element_size(),
-                       aligned).path
+    path = ln_plan(h, dy2d.element_size(), x2d.element_size(), aligned).path
     with torch.cuda.device(x2d.device):
         rc = _ln_bwd_kernel()(dy2d.data_ptr(), x2d.data_ptr(), _ptr(weight),
                               dx.data_ptr(), n, h, float(eps), dy_code,

@@ -20,10 +20,14 @@ from apex_tpu_torch.kernels import _build, _checks, registry
 MASK_VALUE = -10000.0
 MAX_KEYS = 16384  # the block path stages a row of fp32 scores in shared memory
 REG_MAX_KEYS = 1024  # the register path's longest row: 32 fp32 keys a lane
+# #11's longest register row: on an H100 the register path beat the first
+# design's block path at 256 to 768 keys and trailed it by 0.4 % at 1024,
+# where the block's 256 threads hold 4 keys each (PERF.md section 6)
+BWD_REG_MAX_KEYS = 768
 BLOCK_THREADS = 256  # threads of the block path's one block a row
 WARPS = 4  # warps of a register-path block
-# path codes of apex_masked_softmax_fwd and apex_causal_softmax_fwd
-# (csrc/softmax.cu)
+# path codes of apex_masked_softmax_fwd, apex_causal_softmax_fwd and
+# apex_softmax_bwd (csrc/softmax.cu)
 BLOCK, SCALAR, VECTOR = 0, 1, 2
 SCALED_SOFTMAX = registry.register("scaled_softmax")
 MASKED_SOFTMAX = registry.register("masked_softmax")
@@ -32,7 +36,7 @@ SOFTMAX_BWD = registry.register("softmax_bwd")
 
 
 class Plan(NamedTuple):
-    """How #8/#9/#10 launch for rows of ``sk`` keys. ``path``: BLOCK, SCALAR
+    """How #8-#11 launch for rows of ``sk`` keys. ``path``: BLOCK, SCALAR
     or VECTOR; ``vec`` keys an access; ``keys`` the row as the kernel
     holds it (sk padded to a power of two on the register paths); ``lanes``
     the threads of one row; ``rows_per_block`` rows a block."""
@@ -48,18 +52,21 @@ class Plan(NamedTuple):
         return self.keys // (self.lanes * self.vec)
 
 
-def plan(sk: int, itemsize: int, aligned: bool) -> Plan:
-    """The launch of the scaled, masked and causal forwards for rows of
-    ``sk`` keys of ``itemsize`` bytes, from shapes and alignment alone: rows of
-    at most REG_MAX_KEYS keys live in registers, one group of
-    min(32, keys / vec) lanes a row (a short row shares its warp), with
-    16-byte accesses (VECTOR) when sk is a multiple of 16 / itemsize and
-    ``aligned`` (x and y start on 16-byte boundaries: the rows are
-    contiguous, so each row then does too), else one key an access
-    (SCALAR); longer rows take one block of BLOCK_THREADS a row (BLOCK).
-    The mask does not enter: the kernel reads a row's flags in one load
-    where they start on the vector's boundary, else byte by byte."""
-    if sk > REG_MAX_KEYS:
+def plan(sk: int, itemsize: int, aligned: bool,
+         max_keys: int = REG_MAX_KEYS) -> Plan:
+    """The launch of the scaled, masked and causal forwards and of the
+    backward for rows of ``sk`` keys of ``itemsize`` bytes, from shapes
+    and alignment alone: rows of at most REG_MAX_KEYS keys live in
+    registers, one group of min(32, keys / vec) lanes a row (a short row
+    shares its warp), with 16-byte accesses (VECTOR) when sk is a
+    multiple of 16 / itemsize and ``aligned`` (x and y, or y, dy and dx,
+    start on 16-byte boundaries: the rows are contiguous, so each row
+    then does too), else one key an access (SCALAR); longer rows take one
+    block of BLOCK_THREADS a row (BLOCK). The backward passes ``max_keys``
+    BWD_REG_MAX_KEYS: its register rows stop there. The mask does not
+    enter: the kernel reads a row's flags in one load where they start on
+    the vector's boundary, else byte by byte."""
+    if sk > max_keys:
         return Plan(BLOCK, 1, sk, BLOCK_THREADS, 1)
     vec = 16 // itemsize
     if not (aligned and sk % vec == 0):
@@ -134,7 +141,7 @@ def _bwd_kernel():
     p, i = _checks.ptr, ctypes.c_int
     return _build.function(
         "softmax", "apex_softmax_bwd",
-        [p, p, p, ctypes.c_longlong, i, ctypes.c_float, i, p])
+        [p, p, p, ctypes.c_longlong, i, ctypes.c_float, i, i, p])
 
 
 def _rows(name, t):
@@ -262,8 +269,10 @@ def scaled_masked_softmax_fwd(x, mask, scale):
 def softmax_bwd(y, dy, scale):
     """Softmax backward over the last dim: dx = scale * y * (dy - sum(dy *
     y)) for y and dy of one shape and dtype (fp32 or bf16), dx in that
-    dtype. A CPU tensor takes :func:`softmax_bwd_plain`; a CUDA tensor
-    launches the kernel or raises."""
+    dtype, launched as :func:`plan` says (the register rows up to
+    BWD_REG_MAX_KEYS keys, every key read; one block a row past that). A
+    CPU tensor takes :func:`softmax_bwd_plain`; a CUDA tensor launches
+    the kernel or raises."""
     if not _checks.on_cuda("softmax_bwd", y, dy):
         return softmax_bwd_plain(y, dy, scale)
     if y.shape != dy.shape or y.dim() < 1 or y.numel() == 0:
@@ -276,9 +285,13 @@ def softmax_bwd(y, dy, scale):
     code = _checks.dtype_code("softmax_bwd", y, "y")
     rows = _rows("softmax_bwd", y)
     dx = torch.empty_like(y)
+    path = plan(y.shape[-1], y.element_size(),
+                all(t.data_ptr() % 16 == 0 for t in (y, dy, dx)),
+                BWD_REG_MAX_KEYS).path
     with torch.cuda.device(y.device):
         rc = _bwd_kernel()(y.data_ptr(), dy.data_ptr(), dx.data_ptr(), rows,
-                           y.shape[-1], float(scale), code, _checks.stream(y))
+                           y.shape[-1], float(scale), code, path,
+                           _checks.stream(y))
     _checks.status("softmax_bwd", rc)
     registry.count(SOFTMAX_BWD)
     return dx

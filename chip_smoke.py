@@ -27,8 +27,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    with its first design and the register path at 2, 4 and 8 warps a row
    timed through the C function at [2048, 2048] and [4096, 2048] in turns,
    and _fused_rms_norm_backward as yardstick; causal softmax forward and
-   backward
-   [64, 1024, 1024] fp32, Adam over TinyLlama's 179 fp32 tensors) and
+   backward [64, 1024, 1024] fp32, the backward on each branch of its
+   plan and its register path timed beside its first design there and
+   at rows of 256, 512 and 768 keys, in turns; Adam over TinyLlama's 179
+   fp32 tensors) and
    off them (fp32, bf16, sk > sq, 16384 keys, L2 decay, the noop flag,
    more tensors than one launch takes). The flash kernels at the flash
    training step's shape ([2, 32, 2048, 64] fp32, causal; and bf16), at
@@ -44,10 +46,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    each kernel (the lo terms dropped, the last tile of each causal range
    skipped) that must read past FLASH_TOL, SDPA's backward profiled, and
    the pair (with and without the delta pass) beside it. LayerNorm forward and
-   backward-dx at GPT-2's [8192, 1024] bf16 rows (the backward also on each branch of its launch plan, its
-   first design timed through the C function, and two planted faults,
-   the weight read one element ahead and eps raised until rstd moves by
-   about 1 %, that must read past LN_RTOL), the scaled and masked softmax at BERT-large's [64, 16,
+   backward-dx at GPT-2's [8192, 1024] bf16 rows (each also on each
+   branch of its launch plan, the forward also at BERT's heads' and the
+   MHA norm-add's fp32 rows, each first design timed through the C
+   function, and two planted faults in each, the weight read one element
+   ahead and eps raised until rstd moves by about 1 %, that must read
+   past LN_RTOL), the scaled and masked softmax at BERT-large's [64, 16,
    128, 128] fp32 scores with a [64, 1, 128, 128] mask (off the path:
    partial masks, fully masked rows, which are NaN as in JAX, uint8
    masks, 16384 keys, one case for each branch of the launch plan, a
@@ -55,7 +59,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    block path timed through the C function beside the register path,
    and two planted faults, the mask read one key off and the scale 1e-4
    too large, that must read past the softmax tolerance), the softmax
-   backward at the same shape, LAMB over BERT-large's 302 tensors (off the path:
+   backward at the same shape (its first design timed beside the register
+   path, two planted faults: the butterfly's last step skipped, dy read
+   one key ahead), LAMB over BERT-large's 302 tensors (off the path:
    L2 decay, no clip, noop). The int8 block quantize and dequantize
    kernels bit for bit at the serving store's [16384, 256] rows (8 slots
    x 2048 positions of one K or V leaf), at one position per slot and on
@@ -203,6 +209,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -566,6 +573,33 @@ def plain_versions():
 
 # ---------------------------------------------------------------- phase 1
 
+def _ptxas_by_kernel(report):
+    """ptxas's -v report summed by kernel template: {name: (fewest and
+    most registers of its instances, instances, bytes spilled)}."""
+    out, name, spill = {}, None, 0
+    for line in report.splitlines():
+        m = re.search(r"Function properties for _ZN?(\w+)", line)
+        if m:  # the last of the mangled name's length-prefixed parts
+            rest = m.group(1)
+            while rest[:1].isdigit():
+                n = re.match(r"\d+", rest).group()
+                name, rest = (rest[len(n):len(n) + int(n)],
+                              rest[len(n) + int(n):])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            lo, hi, n, sp = out.get(name, (999, 0, 0, 0))
+            r = int(m.group(1))
+            out[name] = (min(lo, r), max(hi, r), n + 1, sp + spill)
+            name, spill = None, 0
+    return out
+
+
 def phase_build():
     from apex_tpu_torch.kernels import _build
     t0 = time.perf_counter()
@@ -574,6 +608,10 @@ def phase_build():
     for line in report.splitlines():
         if line.startswith("== ") or "registers" in line:
             log("  " + line.strip())
+    if report:
+        log("ptxas by kernel (registers, instances, bytes spilled): "
+            + "; ".join(f"{k} {lo}-{hi}, {n}, {sp}" for k, (lo, hi, n, sp)
+                        in sorted(_ptxas_by_kernel(report).items())))
     log(f"build: {len(_build.sources())} sources in {secs:.1f} s "
         f"({'built' if report else 'cached'}) into {_build.BUILD_DIR}")
 
@@ -1016,6 +1054,153 @@ CAUSAL_FAULTS = (("the diagonal key dropped", 3),
                  ("the row sum's last butterfly step skipped", 4))
 
 
+def _softmax_bwd_raw(y, dy, path, dy_ptr=None):
+    """#11 on y, dy [..., sk] launched through its C function on ``path``
+    (0 the first design, 1/2 the register path, 3/4 planted faults),
+    uncounted, dy read from ``dy_ptr`` (default: dy's first element)."""
+    from apex_tpu_torch.kernels import _checks, softmax
+    dx = torch.empty_like(y)
+    rc = softmax._bwd_kernel()(
+        y.data_ptr(), dy.data_ptr() if dy_ptr is None else dy_ptr,
+        dx.data_ptr(), y.numel() // y.shape[-1], y.shape[-1], 1.0,
+        _checks.DTYPE_CODES[y.dtype], path, _checks.stream(y))
+    _checks.status("softmax_bwd", rc)
+    return dx
+
+
+def _softmax_bwd_design(y, dy, path):
+    """#11's first design (one block a row) and the register ``path``
+    timed through the C function in turns, first design first; returns
+    {path: [device ms, ...]}."""
+    from apex_tpu_torch.kernels import softmax
+    names = {softmax.BLOCK: "block", softmax.SCALAR: "scalar",
+             softmax.VECTOR: "vector"}
+    design = {}
+    for p in (softmax.BLOCK, path, path, softmax.BLOCK):
+        design.setdefault(p, []).append(device_ms(
+            lambda: _softmax_bwd_raw(y, dy, p)))
+    log(f"kernel softmax_bwd at {list(y.shape)} {str(y.dtype)[6:]} through "
+        f"the C function (us, the first design's block path, then the "
+        f"register path, in turns): " + "; ".join(
+            f"{names[p]} " + "/".join(f"{t * 1e3:.2f}" for t in ts)
+            for p, ts in design.items()))
+    return design
+
+
+def _softmax_bwd_sweep(gen):
+    """#11's first design beside its register path through the C
+    function, in turns, at 64 M fp32 elements in rows of 256, 512 and 768
+    keys (1024: the causal path shape): the measurement behind
+    BWD_REG_MAX_KEYS."""
+    from apex_tpu_torch.kernels import softmax
+    for sk in (256, 512, 768):
+        rows = (64 << 20) // sk
+        y = torch.softmax(torch.randn(rows, sk, generator=gen,
+                                      device="cuda") * 4, -1)
+        dy = torch.randn(rows, sk, generator=gen, device="cuda")
+        _softmax_bwd_design(y, dy, softmax.VECTOR)
+
+
+# planted #11 faults: (what, path code of apex_softmax_bwd)
+SOFTMAX_BWD_FAULTS = (("the butterfly's last step skipped", 3),
+                      ("dy read one key ahead", 4))
+
+
+def _softmax_bwd_faults_and_design(y, dy, ref):
+    """At BERT's shape, through #11's C function (uncounted): the
+    register path and the first design, and two planted faults in the
+    register path (SOFTMAX_BWD_FAULTS; dy copied into a buffer one vector
+    longer for the read ahead), held to SOFTMAX_BWD_RTOL against the
+    plain version (the faults must read past it); then the first design
+    timed beside the register path, in turns. Returns the first design's
+    median device ms."""
+    from apex_tpu_torch.kernels import registry, softmax
+    before = registry.launches()
+    tol = (SOFTMAX_BWD_RTOL[y.dtype], 1e-5 * ref.float().abs().max().item())
+    padded = torch.cat([dy.reshape(-1), dy.new_zeros(16)])
+    readings = {"honest": _softmax_bwd_raw(y, dy, softmax.VECTOR),
+                "first design": _softmax_bwd_raw(y, dy, softmax.BLOCK)}
+    for what, path in SOFTMAX_BWD_FAULTS:
+        readings[what] = _softmax_bwd_raw(y, padded, path)
+    readings = {k: (_tol_ratio(v, ref, *tol), max_abs(v, ref))
+                for k, v in readings.items()}
+    log("kernel softmax_bwd at the path shape: "
+        + "; ".join(f"{k}: {r:.3e} of the tolerance (max abs err {e:.3e})"
+                    for k, (r, e) in readings.items()))
+    honest = ("honest", "first design")
+    assert all(readings[k][0] <= 1.0 for k in honest), readings
+    assert all(r > 1.0 for k, (r, _) in readings.items() if k not in honest), \
+        readings
+    design = _softmax_bwd_design(y, dy, softmax.VECTOR)
+    assert registry.launches() == before  # the raw launches are uncounted
+    return statistics.median(design[softmax.BLOCK])
+
+
+def _check_softmax_bwd_plan(gen):
+    """#11 on each branch of its launch plan (the forwards' ``plan`` up to
+    BWD_REG_MAX_KEYS), fp32 and bf16, 2 x 3 x 5 rows (a warp's last group
+    of rows may hold none): 16-byte register rows (32, 128 and 768 keys),
+    one key an access (357 keys; 128 with y, or dy, at a 4-byte but not
+    16-byte offset), the block path past BWD_REG_MAX_KEYS (776 and 1025
+    keys); scales 1 and 0.125. In every case row 1 holds y = 0 on its
+    second half and dy = inf on its last key: 0 * inf makes that row NaN,
+    as in JAX, on both sides."""
+    from apex_tpu_torch.kernels import softmax
+    names = {softmax.BLOCK: "block", softmax.SCALAR: "scalar",
+             softmax.VECTOR: "vector"}
+    reg = softmax.BWD_REG_MAX_KEYS
+    taken = []
+    for dtype in (torch.float32, torch.bfloat16):
+        size = torch.tensor([], dtype=dtype).element_size()
+        for sk, which, offset, path in ((32, "y", 0, softmax.VECTOR),
+                                        (128, "y", 0, softmax.VECTOR),
+                                        (357, "y", 0, softmax.SCALAR),
+                                        (reg, "y", 0, softmax.VECTOR),
+                                        (reg + 8, "y", 0, softmax.BLOCK),
+                                        (softmax.REG_MAX_KEYS + 1, "y", 0,
+                                         softmax.BLOCK),
+                                        (128, "y", 4, softmax.SCALAR),
+                                        (128, "dy", 4, softmax.SCALAR)):
+            shape = (2, 3, 5, sk)
+            n = 2 * 3 * 5 * sk
+            views = {}
+            for name in ("y", "dy"):
+                off = offset if name == which else 0
+                flat = _randn(gen, n + 16 // size, dtype=torch.float32,
+                              scale=4.0)
+                if name == "y":
+                    flat = torch.softmax(flat[:n].view(shape), -1).reshape(
+                        -1).to(dtype)
+                    flat = torch.cat([flat, flat.new_zeros(16 // size)])
+                else:
+                    flat = flat.to(dtype)
+                views[name] = flat[off // size:][:n].view(shape)
+                assert views[name].data_ptr() % 16 == off
+            y, dy = views["y"], views["dy"]
+            y[0, 0, 1, sk // 2:] = 0.0
+            dy[0, 0, 1, -1] = float("inf")
+            p = softmax.plan(sk, size, y.data_ptr() % 16 == 0
+                             and dy.data_ptr() % 16 == 0, reg)
+            assert p.path == path, (sk, which, offset, dtype, p)
+            for scale in (1.0, 0.125):
+                got = softmax.softmax_bwd(y, dy, scale)
+                want = softmax.softmax_bwd_plain(y, dy, scale)
+                torch.cuda.synchronize()
+                assert got.dtype == dtype and got.shape == y.shape
+                nan = torch.isnan(want).any(-1)
+                assert nan[0, 0, 1] and nan.sum() == 1, nan.nonzero()
+                assert torch.isnan(got[0, 0, 1]).all(), \
+                    "0 * inf does not make the row NaN"
+                assert_close_scaled(got[~nan], want[~nan],
+                                    SOFTMAX_BWD_RTOL[dtype])
+            taken.append(f"{str(dtype)[6:]} sk {sk}"
+                         + (f" {which} at +{offset} B" if offset else "")
+                         + f": {names[p.path]}, {p.lanes} lanes a row")
+    log("kernels: softmax_bwd matches its plain version on each launch plan "
+        "branch, a row with dy inf where y is 0 NaN on both sides ("
+        + "; ".join(taken) + ")")
+
+
 def _check_causal_case(x, scale):
     """#10 on x against its plain version: rows with no live key (sq >
     sk) and rows whose live scores all lie far below -10000 are NaN on
@@ -1084,6 +1269,7 @@ def check_softmax(gen):
     log("kernels: causal_softmax and softmax_bwd match their plain versions "
         "off the path, NaN rows (no live key; live scores below -10000) "
         "NaN for NaN, dead keys exactly 0 (" + "; ".join(taken) + ")")
+    _check_softmax_bwd_plan(gen)
     # the path: [b * heads, s, s] fp32 scores, scale 1
     B = TRAIN_BATCH * MODEL["num_attention_heads"]
     S = TRAIN_SEQ
@@ -1148,6 +1334,21 @@ def check_softmax(gen):
     got = softmax.softmax_bwd(y, dy, 1.0)
     ref = softmax.softmax_bwd_plain(y, dy, 1.0)
     assert_close_scaled(got, ref, SOFTMAX_BWD_RTOL[torch.float32])
+    # the plan keeps the first design past BWD_REG_MAX_KEYS; the register
+    # path, held to the same tolerance, timed beside it in turns here and
+    # at shorter rows
+    path = softmax.plan(S, 4, True, softmax.BWD_REG_MAX_KEYS).path
+    assert path == softmax.BLOCK
+    before = registry.launches()
+    tol = (SOFTMAX_BWD_RTOL[torch.float32],
+           1e-5 * ref.float().abs().max().item())
+    held = _tol_ratio(_softmax_bwd_raw(y, dy, softmax.VECTOR), ref, *tol)
+    log(f"kernel softmax_bwd at the causal path shape, the register path "
+        f"through the C function: {held:.3e} of the tolerance")
+    assert held <= 1.0, held
+    design = _softmax_bwd_design(y, dy, softmax.VECTOR)
+    _softmax_bwd_sweep(gen)
+    assert registry.launches() == before  # the raw launches are uncounted
     bwd = entry(
         "softmax_bwd", f"y, dy [{B},{S},{S}] fp32, scale 1", got, ref,
         f"rtol {SOFTMAX_BWD_RTOL[torch.float32]} atol 1e-5*max|dx|",
@@ -1155,6 +1356,14 @@ def check_softmax(gen):
         lambda: softmax.softmax_bwd_plain(y, dy, 1.0),
         lambda: torch._softmax_backward_data(dy, y, -1, torch.float32),
         bound(3 * B * S * S * 4, 5 * B * S * S, FP32_OPS_PER_S))
+    bwd["first_design_ms"] = statistics.median(design[softmax.BLOCK])
+    bwd["register_path_ms"] = statistics.median(design[softmax.VECTOR])
+    bwd["library"] = "torch._softmax_backward_data"
+    log(f"kernel softmax_bwd at the causal path shape ({names[path]} "
+        f"planned): the wrapper {_us(bwd['ms'])}, register path / first "
+        f"design {bwd['register_path_ms'] / bwd['first_design_ms']:.4f} "
+        f"through the C function, wrapper / _softmax_backward_data "
+        f"{bwd['ms'] / bwd['library_ms']:.4f}")
     return [fwd, bwd]
 
 
@@ -1852,6 +2061,7 @@ def check_layer_norm(gen):
     log("kernels: layer_norm and ln_bwd match their plain versions off the "
         "path (fp32/bf16 in and out, with and without weight and bias, "
         "widths 1000 and 4096)")
+    _check_ln_fwd_plan(gen, eps)
     _check_ln_bwd_plan(gen, eps)
     # the path: the bf16 residual stream in, bf16 out
     h = GPT2["hidden_size"]
@@ -1864,9 +2074,11 @@ def check_layer_norm(gen):
     x = _randn(gen, rows, h, scale=3.0)
     dy = _randn(gen, rows, h)
     bf16 = torch.bfloat16
+    assert norm.ln_plan(h, 2, 2, True).path == norm.LN_BWD_VECTOR
     got = norm.ln_fwd(x, w, b, eps, bf16)
     want = norm.ln_fwd_plain(x, w, b, eps, bf16)
     assert_close_scaled(got, want, LN_RTOL[bf16])
+    first = _ln_fwd_faults_and_design(x, w, b, eps)
     w_lib, b_lib = w.to(bf16), b.to(bf16)  # F.layer_norm takes one dtype
     fwd = entry(
         "layer_norm", f"x [{rows},{h}] bf16->bf16, fp32 weight and bias", got,
@@ -1875,7 +2087,9 @@ def check_layer_norm(gen):
         lambda: norm.ln_fwd_plain(x, w, b, eps, bf16),
         lambda: torch.nn.functional.layer_norm(x, (h,), w_lib, b_lib, eps),
         bound(rows * h * 2 * 2 + 2 * h * 4, 8 * rows * h, FP32_OPS_PER_S))
-    assert norm.ln_bwd_plan(h, 2, 2, True).path == norm.LN_BWD_VECTOR
+    fwd["first_design_ms"] = first
+    fwd["library"] = "F.layer_norm, bf16 weight and bias"
+    assert norm.ln_plan(h, 2, 2, True).path == norm.LN_BWD_VECTOR
     got = norm.ln_bwd_dx(dy, x, w, eps)
     want = norm.ln_bwd_dx_plain(dy, x, w, eps)
     assert_close_scaled(got, want, LN_RTOL[bf16])
@@ -1891,6 +2105,136 @@ def check_layer_norm(gen):
             dy, x, [h], mean, rstd, w_lib, b_lib, [True, False, False]),
         bound(rows * h * 2 * 3 + h * 4, 12 * rows * h, FP32_OPS_PER_S))
     return [fwd, bwd]
+
+
+def _check_ln_fwd_plan(gen, eps):
+    """#4 on each branch of its launch plan, every dtype pair of x and y,
+    37 rows, with weight and bias, with neither, with weight alone, and
+    with both at a 4-byte offset (read element by element): the register
+    path with 16-byte accesses (h 256 and the limit), with one element an
+    access (h 1001; h 1024 with x at a 4-byte but not 16-byte offset),
+    and the block path past the limit (limit + 8); then the other
+    callers' rows on the 16-byte path: BERT's heads ([8192, 1024] fp32 in
+    and out) and the MHA norm-add ([4096, 1024], the bf16 query widened
+    to fp32, fp32 out)."""
+    from apex_tpu_torch.kernels import norm
+    names = {norm.LN_BWD_BLOCK: "block", norm.LN_BWD_SCALAR: "scalar",
+             norm.LN_BWD_VECTOR: "vector"}
+    lim = norm.LN_BWD_REG_MAX_H
+    rows = 37
+    taken = []
+    for tin in (torch.float32, torch.bfloat16):
+        for tout in (torch.float32, torch.bfloat16):
+            in_size = torch.tensor([], dtype=tin).element_size()
+            out_size = torch.tensor([], dtype=tout).element_size()
+            # rounded to the input's dtype first: bf16 if either is
+            rounded = (torch.bfloat16 if torch.bfloat16 in (tin, tout)
+                       else torch.float32)
+            for h, offset, path in ((256, 0, norm.LN_BWD_VECTOR),
+                                    (lim, 0, norm.LN_BWD_VECTOR),
+                                    (1001, 0, norm.LN_BWD_SCALAR),
+                                    (lim + 8, 0, norm.LN_BWD_BLOCK),
+                                    (1024, 4, norm.LN_BWD_SCALAR)):
+                w = 1.0 + 0.1 * torch.randn(h + 1, generator=gen,
+                                            device="cuda")
+                b = 0.1 * torch.randn(h + 1, generator=gen, device="cuda")
+                flat = _randn(gen, rows * h + 16 // in_size, dtype=tin,
+                              scale=3.0) + 1.0
+                x = flat[offset // in_size:][:rows * h].view(rows, h)
+                assert x.data_ptr() % 16 == offset
+                p = norm.ln_plan(h, in_size, out_size,
+                                 x.data_ptr() % 16 == 0)
+                assert p.path == path, (h, offset, tin, tout, p)
+                for weight, bias in ((w[:h], b[:h]), (None, None),
+                                     (w[:h], None), (w[1:], b[1:])):
+                    got = norm.ln_fwd(x, weight, bias, eps, tout)
+                    want = norm.ln_fwd_plain(x, weight, bias, eps, tout)
+                    torch.cuda.synchronize()
+                    assert got.dtype == tout and got.shape == x.shape
+                    assert_close_scaled(got, want, LN_RTOL[rounded])
+                if tin == tout:
+                    taken.append(f"{str(tin)[6:]} h {h}"
+                                 + (f" x at +{offset} B" if offset else "")
+                                 + f": {names[p.path]}"
+                                 + (f", {p.vec} an access, {p.iters} chunks "
+                                    f"a lane" if p.iters else ""))
+    for label, rows, h in (("BERT's heads", BERT_BATCH * BERT_SEQ,
+                            BERT["hidden_size"]),
+                           ("the MHA norm-add", MHA_SEQ * MHA_BATCH,
+                            MHA_HIDDEN)):
+        w = 1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(h, generator=gen, device="cuda")
+        x = _randn(gen, rows, h, dtype=torch.float32, scale=3.0)
+        p = norm.ln_plan(h, 4, 4, x.data_ptr() % 16 == 0)
+        assert p.path == norm.LN_BWD_VECTOR, (label, p)
+        got = norm.ln_fwd(x, w, b, eps, torch.float32)
+        want = norm.ln_fwd_plain(x, w, b, eps, torch.float32)
+        torch.cuda.synchronize()
+        assert_close_scaled(got, want, LN_RTOL[torch.float32])
+        taken.append(f"{label} [{rows},{h}] float32: vector, {p.vec} an "
+                     f"access, {p.iters} chunks a lane")
+    log("kernels: layer_norm matches its plain version on each launch plan "
+        "branch, every dtype pair, with and without weight and bias, both "
+        "at +4 B (" + "; ".join(taken) + ")")
+
+
+def _ln_fwd_raw(x, w_ptr, b_ptr, eps, path, out_dtype):
+    """#4 launched through its C function on ``path``, uncounted, the
+    weight and bias read from ``w_ptr`` and ``b_ptr``: for the first
+    design's time and the planted faults."""
+    from apex_tpu_torch.kernels import _checks, norm
+    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    rc = norm._ln_kernel()(
+        x.data_ptr(), w_ptr, b_ptr, y.data_ptr(), x.shape[0], x.shape[1],
+        float(eps), _checks.DTYPE_CODES[x.dtype],
+        _checks.DTYPE_CODES[out_dtype], path, _checks.stream(x))
+    _checks.status("ln_fwd", rc)
+    return y
+
+
+def _ln_fwd_faults_and_design(x, w, b, eps):
+    """At the path shape (bf16 in and out), through #4's C function
+    (uncounted): the register path and the first design, and two planted
+    faults in the register path (the weight read one element ahead, w in
+    a buffer one vector longer; eps raised until rstd moves by about 1 %
+    at the median row), held to LN_RTOL against the plain version (the
+    faults must read past it); then the first design (one block a row)
+    timed beside the register path, in turns. Returns the first design's
+    median device ms."""
+    from apex_tpu_torch.kernels import norm, registry
+    vec, block = norm.LN_BWD_VECTOR, norm.LN_BWD_BLOCK
+    bf16 = torch.bfloat16
+    before = registry.launches()
+    ref = norm.ln_fwd_plain(x, w, b, eps, bf16)
+    var = x.float().var(-1, unbiased=False).median().item()
+    eps_fault = eps + (1 / 0.99 ** 2 - 1) * var  # rstd * 0.99 at var
+    tol = (LN_RTOL[bf16], 1e-5 * ref.float().abs().max().item())
+
+    def raw(path, w_ptr=w.data_ptr(), e=eps):
+        return _ln_fwd_raw(x, w_ptr, b.data_ptr(), e, path, bf16)
+
+    readings = {
+        "honest": raw(vec), "first design": raw(block),
+        "weight read one element ahead": raw(vec, w.data_ptr() + 4),
+        f"eps {eps_fault:.4g} (rstd about 1 % low)": raw(vec, e=eps_fault)}
+    readings = {k: (_tol_ratio(v, ref, *tol), max_abs(v, ref))
+                for k, v in readings.items()}
+    log("kernel layer_norm at the path shape: "
+        + "; ".join(f"{k}: {r:.3e} of the tolerance (max abs err {e:.3e})"
+                    for k, (r, e) in readings.items()))
+    honest = ("honest", "first design")
+    assert all(readings[k][0] <= 1.0 for k in honest), readings
+    assert all(r > 1.0 for k, (r, _) in readings.items() if k not in honest), \
+        readings
+    design = {}
+    for path in (block, vec, vec, block):
+        design.setdefault(path, []).append(device_ms(lambda: raw(path)))
+    assert registry.launches() == before  # the raw launches are uncounted
+    log("kernel layer_norm at the path shape through the C function (us, "
+        "the first design's block path, then the register path, in turns): "
+        f"block {'/'.join(f'{t * 1e3:.2f}' for t in design[block])}; "
+        f"vector {'/'.join(f'{t * 1e3:.2f}' for t in design[vec])}")
+    return statistics.median(design[block])
 
 
 def _check_ln_bwd_plan(gen, eps):
@@ -1919,8 +2263,8 @@ def _check_ln_bwd_plan(gen, eps):
                 flat = _randn(gen, rows * h + 16 // dy_size, dtype=tdy)
                 dy = flat[offset // dy_size:][:rows * h].view(rows, h)
                 assert dy.data_ptr() % 16 == offset
-                p = norm.ln_bwd_plan(h, dy_size, x_size,
-                                     dy.data_ptr() % 16 == 0)
+                p = norm.ln_plan(h, dy_size, x_size,
+                                 dy.data_ptr() % 16 == 0)
                 assert p.path == path, (h, offset, tdy, tx, p)
                 for weight in (w, None):
                     got = norm.ln_bwd_dx(dy, x, weight, eps)
@@ -2204,6 +2548,7 @@ def check_masked_softmax(gen):
     got = softmax.softmax_bwd(y, dy, 1.0)
     ref = softmax.softmax_bwd_plain(y, dy, 1.0)
     assert_close_scaled(got, ref, SOFTMAX_BWD_RTOL[torch.float32])
+    first = _softmax_bwd_faults_and_design(y, dy, ref)
     bwd = entry(
         "softmax_bwd", f"y, dy [{b},{n},{s},{s}] fp32, scale 1", got, ref,
         f"rtol {SOFTMAX_BWD_RTOL[torch.float32]} atol 1e-5*max|dx|",
@@ -2211,6 +2556,8 @@ def check_masked_softmax(gen):
         lambda: softmax.softmax_bwd_plain(y, dy, 1.0),
         lambda: torch._softmax_backward_data(dy, y, -1, torch.float32),
         bound(3 * nx * 4, 5 * nx, FP32_OPS_PER_S))
+    bwd["first_design_ms"] = first
+    bwd["library"] = "torch._softmax_backward_data"
     return [scaled, masked, bwd]
 
 
@@ -5195,8 +5542,9 @@ def phase_tp_gpt2():
 
 
 # kernel name parts whose summed device time a training profile prints
-PROFILE_WATCH = ("ln_fwd_kernel", "ln_bwd_dx", "warp_softmax_fwd",
-                 "warp_causal_fwd", "causal_fwd_kernel", "::bwd_kernel<",
+PROFILE_WATCH = ("ln_fwd_kernel", "warp_ln_fwd", "ln_bwd_dx",
+                 "warp_softmax_fwd", "warp_causal_fwd", "causal_fwd_kernel",
+                 "::bwd_kernel<", "warp_softmax_bwd",
                  "lamb_kernel", "adam_kernel", "adam_vec_kernel",
                  "::fwd_kernel<", "::mma_fwd_kernel<", "::bf16_fwd_kernel<",
                  "::mma_dq_kernel<",
@@ -5322,6 +5670,8 @@ def main(argv):
                    if "design_bound_ms" in e else "")
                 + (f"; first design {_us(e['first_design_ms'])}"
                    if "first_design_ms" in e else "")
+                + (f"; register path {_us(e['register_path_ms'])}"
+                   if "register_path_ms" in e else "")
                 + (f"; lse max abs err {e['lse_max_abs_err']:.3e}"
                    if "lse_max_abs_err" in e else ""))
         torch.cuda.empty_cache()
@@ -5370,7 +5720,7 @@ def main(argv):
             call_ms=e["call_ms"], shape=e["shape"],
             **{k: e[k] for k in ("library", "lse_max_abs_err",
                                  "earlier_bound_ms", "design_bound_ms",
-                                 "first_design_ms")
+                                 "first_design_ms", "register_path_ms")
                if k in e}))
     assert seen == set(SOURCES), (seen, set(SOURCES))
     assert all(k["launches"] > 0 for k in kernels

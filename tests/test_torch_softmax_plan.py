@@ -1,8 +1,9 @@
 """The launch plan of the scaled, masked and causal softmax forwards
-#8/#9/#10 (``apex_tpu_torch.kernels.softmax.plan``) and PyTorch models of
-the register paths' arithmetic (``csrc/softmax.cu`` ``warp_softmax_fwd``,
-``warp_causal_fwd``), on the CPU; and the ctypes signatures of the
-softmax and optimizer wrappers against their C definitions.
+#8/#9/#10 and of the backward #11 (``apex_tpu_torch.kernels.softmax.plan``)
+and PyTorch models of the register paths' arithmetic (``csrc/softmax.cu``
+``warp_softmax_fwd``, ``warp_causal_fwd``, ``warp_softmax_bwd``), on the
+CPU; and the ctypes signatures of the softmax, LayerNorm and optimizer
+wrappers against their C definitions.
 
 The plan picks, from shapes and alignment alone, the register path with
 16-byte accesses, the register path with one key an access, or the block
@@ -21,7 +22,11 @@ is NaN (0 / 0) on both sides. The causal model reads only the live keys
 (a prefix of each row), starts the max at -10000 when a key is dead and
 is held against JAX's ``scaled_upper_triang_masked_softmax`` the same
 way, rows with no live key (sq > sk) or with every live score far below
--10000 NaN on both sides.
+-10000 NaN on both sides. The backward's model sums t = dy * y as each
+lane's partial over its own keys in order (padding keys 0), then the
+butterfly, and writes (scale * y) * (dy - t); it is held against JAX's
+``_bwd_rows`` in interpret mode within ``tests/test_torch_softmax.py``'s
+gradient tolerance (fp32 1e-5 relative plus 1e-6; bf16 one ulp).
 """
 
 import ctypes
@@ -35,12 +40,14 @@ import torch
 
 from apex_tpu.kernels import softmax as jax_softmax
 from apex_tpu.kernels.registry import get_kernel_registry
-from apex_tpu_torch.kernels import _build, optim, softmax
+from apex_tpu_torch.kernels import _build, norm, optim, softmax
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TOL = {"float32": dict(rtol=1e-6, atol=1e-7),
         "bfloat16": dict(rtol=2.0 ** -7, atol=1e-6)}
+_GRAD_TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
+             "bfloat16": dict(rtol=2.0 ** -7, atol=1e-6)}
 _SIZE = {"float32": 4, "bfloat16": 2}
 _SOURCE = (Path(softmax.__file__).resolve().parent.parent / "csrc"
            / "softmax.cu")
@@ -369,6 +376,153 @@ def test_causal_path_codes_match_the_kernel_source():
     assert "if (path < 1 || path > 4) return -1;" in src
 
 
+# ------------------------------------------ the backward #11 (same plan)
+
+def register_softmax_bwd_model(y, dy, scale):
+    """dx of #11's register path (``warp_softmax_bwd``) on y, dy [...,
+    sk], as the kernel computes it for rows aligned as a fresh tensor is:
+    padding keys past sk hold 0 in y and dy; t = sum(dy * y) as
+    :func:`_lane_sums` (each product rounded, then each lane's partial in
+    order, then the butterfly); dx = (scale * y) * (dy - t) in fp32,
+    returned in y's dtype. Returns (dx, the butterfly's sums [rows,
+    lanes])."""
+    sk = y.shape[-1]
+    p = softmax.plan(sk, y.element_size(), True, softmax.BWD_REG_MAX_KEYS)
+    assert p.path != softmax.BLOCK
+    rows = y.numel() // sk
+    pad = (0, p.keys - sk)
+    yf = torch.nn.functional.pad(y.float().reshape(rows, sk), pad)
+    gf = torch.nn.functional.pad(dy.float().reshape(rows, sk), pad)
+    part = _lane_sums(gf * yf, p)
+    dx = (scale * yf) * (gf - part[:, :1])
+    return dx[:, :sk].reshape(y.shape).to(y.dtype), part
+
+
+def _bwd_input(shape, causal):
+    """y a softmax over each row (with ``causal``, keys past the
+    diagonal 0, as #10 writes them) and dy from a numpy seed."""
+    rng = np.random.RandomState(sum(shape) + causal)
+    s = rng.randn(*shape).astype(np.float32) * 4
+    if causal:
+        sq, sk = shape[-2:]
+        s = np.where(np.tril(np.ones((sq, sk), bool), sk - sq), s, -np.inf)
+    y = np.exp(s - s.max(-1, keepdims=True))
+    y = (y / y.sum(-1, keepdims=True)).astype(np.float32)
+    return y, rng.randn(*shape).astype(np.float32)
+
+
+# (shape, causal): BERT's 128 keys (a float4 a lane), a ragged row padded
+# to a power of two (one key an access at 357; 16-byte vectors at 100 fp32
+# keys), and causal rows with y 0 past the diagonal
+BWD_CASES = [((2, 3, 8, 128), False), ((2, 6, 357), False),
+             ((3, 5, 100), False), ((2, 48, 128), True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,causal", BWD_CASES)
+def test_bwd_model_matches_jax_kernel(dtype, shape, causal):
+    y, dy = _bwd_input(shape, causal)
+    want = np.asarray(jax_softmax._bwd_rows(
+        jnp.asarray(y.reshape(-1, shape[-1]), _JAX[dtype]),
+        jnp.asarray(dy.reshape(-1, shape[-1]), _JAX[dtype]), 0.3,
+        _JAX[dtype]).astype(jnp.float32)).reshape(shape)
+    got, part = register_softmax_bwd_model(
+        torch.from_numpy(y).to(_TORCH[dtype]),
+        torch.from_numpy(dy).to(_TORCH[dtype]), 0.3)
+    assert got.dtype == _TORCH[dtype] and got.shape == y.shape
+    sums = part.numpy()  # every lane ends with the row's sum, bit for bit
+    assert np.array_equal(sums, sums[:, :1].repeat(sums.shape[1], 1))
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               **_GRAD_TOL[dtype])
+
+
+def test_bwd_model_keeps_jax_nan_for_inf_on_a_zero_probability():
+    """Every key is read, dead ones too: dy = inf where y = 0 makes t, and
+    so the whole row, NaN, as JAX's kernel gives it; the other rows stay
+    finite."""
+    y, dy = _bwd_input((1, 16, 128), True)
+    dy[0, 3, 120] = np.inf  # y is 0 there: past row 3's diagonal (115)
+    assert y[0, 3, 120] == 0
+    want = np.asarray(jax_softmax._bwd_rows(
+        jnp.asarray(y[0]), jnp.asarray(dy[0]), 1.0, jnp.float32))
+    got, _ = register_softmax_bwd_model(torch.from_numpy(y),
+                                        torch.from_numpy(dy), 1.0)
+    got = got[0].numpy()
+    assert np.isnan(want[3]).all() and np.isnan(got[3]).all()
+    rest = np.arange(16) != 3
+    assert np.isfinite(got[rest]).all()
+    np.testing.assert_allclose(got[rest], want[rest], **_GRAD_TOL["float32"])
+
+
+@pytest.mark.parametrize("shape,causal", BWD_CASES[:2])
+def test_bwd_model_matches_the_plain_version(shape, causal):
+    """The model and the port's plain version (the card's yardstick) agree
+    within the card check's fp32 tolerance (SOFTMAX_BWD_RTOL: 1e-5
+    relative, 1e-5 of the largest |dx|)."""
+    y, dy = (torch.from_numpy(a) for a in _bwd_input(shape, causal))
+    got, _ = register_softmax_bwd_model(y, dy, 0.3)
+    want = softmax.softmax_bwd_plain(y, dy, 0.3)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+
+
+# (sk, dtype, aligned) -> (path, keys an access, padded keys, lanes a row,
+# rows a block) of the backward's plan: the forwards' up to
+# BWD_REG_MAX_KEYS keys, one block a row past it
+BWD_PLAN_CASES = [
+    ((128, "float32", True), (V, 4, 128, 32, 4)),
+    ((128, "bfloat16", True), (V, 8, 128, 16, 8)),
+    ((357, "float32", True), (S, 1, 512, 32, 4)),
+    ((128, "float32", False), (S, 1, 128, 32, 4)),
+    ((512, "float32", True), (V, 4, 512, 32, 4)),
+    ((softmax.BWD_REG_MAX_KEYS, "float32", True), (V, 4, 1024, 32, 4)),
+    ((softmax.BWD_REG_MAX_KEYS, "bfloat16", False), (S, 1, 1024, 32, 4)),
+    ((softmax.BWD_REG_MAX_KEYS + 4, "float32", True), (B, 1, 772, 256, 1)),
+    ((softmax.REG_MAX_KEYS, "float32", True), (B, 1, 1024, 256, 1)),
+    ((softmax.REG_MAX_KEYS, "bfloat16", True), (B, 1, 1024, 256, 1)),
+]
+
+
+@pytest.mark.parametrize("args,want", BWD_PLAN_CASES)
+def test_bwd_plan_picks_the_branch(args, want):
+    sk, dtype, aligned = args
+    p = softmax.plan(sk, _SIZE[dtype], aligned, softmax.BWD_REG_MAX_KEYS)
+    assert (p.path, p.vec, p.keys, p.lanes, p.rows_per_block) == want
+
+
+def test_bwd_plan_agrees_with_the_forwards_up_to_its_limit():
+    """The backward's register rows are the forwards', key for key, up to
+    BWD_REG_MAX_KEYS, and the block path past it."""
+    lim = softmax.BWD_REG_MAX_KEYS
+    assert lim <= softmax.REG_MAX_KEYS
+    for itemsize in (4, 2):
+        for aligned in (True, False):
+            for sk in range(1, softmax.REG_MAX_KEYS + 2):
+                got = softmax.plan(sk, itemsize, aligned, lim)
+                if sk <= lim:
+                    assert got == softmax.plan(sk, itemsize, aligned)
+                else:
+                    assert got.path == softmax.BLOCK
+
+
+def test_bwd_path_codes_match_the_kernel_source():
+    """apex_softmax_bwd's path: the plan's codes (0 the first design's
+    block a row, 1 and 2 the register path with one key or 16 bytes an
+    access), 3 and 4 planted faults on 128-key rows."""
+    src = _SOURCE.read_text()
+    assert re.search(r"if \(path == 0\) return launch_bwd<T>", src)
+    assert re.search(r"if \(path == 1\)\s+return dispatch_bwd_rows<T, "
+                     r"false>", src)
+    assert re.search(r"if \(path == 2\)\s+return dispatch_bwd_rows<T, "
+                     r"true>", src)
+    assert "constexpr int kBwdFaultLog2 = 7;" in src
+    assert re.search(r"if \(path == 3\)\s+return launch_bwd_rows<T, "
+                     r"kBwdFaultLog2, true, kBwdShortSum>", src)
+    assert re.search(r"return launch_bwd_rows<T, kBwdFaultLog2, true, "
+                     r"kBwdDyAhead>", src)
+    assert "if (path < 1 || path > 4) return -1;" in src
+
+
 def _c_argtypes(source, symbol):
     """The ctypes types of the C function ``symbol``'s parameters, read
     from its definition in ``source``: a pointer c_void_p, else by type."""
@@ -388,13 +542,15 @@ def _c_argtypes(source, symbol):
 
 @pytest.mark.parametrize("module,loader", [
     (softmax, "_fwd_kernel"), (softmax, "_masked_kernel"),
-    (softmax, "_bwd_kernel"), (optim, "_kernel"), (optim, "_lamb_kernel")])
+    (softmax, "_bwd_kernel"), (optim, "_kernel"), (optim, "_lamb_kernel"),
+    (norm, "_ln_kernel"), (norm, "_ln_bwd_kernel")])
 def test_ctypes_signatures_match_the_c_functions(monkeypatch, module,
                                                  loader):
     """The argument types each wrapper's loader hands ``_build.function``
     (nothing is built) against the C definition in csrc/<library>.cu:
-    the softmax entries (#10 with its path) and Adam's (with its heads
-    and path) and LAMB's."""
+    the softmax entries (#10 and #11 with their paths), Adam's (with its
+    heads and path), LAMB's and LayerNorm's (#4 and #5 with their
+    paths)."""
     monkeypatch.setattr(_build, "function", lambda lib, symbol, types: (
         lib, symbol, list(types)))
     lib, symbol, types = getattr(module, loader).__wrapped__()

@@ -12,22 +12,94 @@
 //   ctx_lat[h] = softmax_t(s[h]) @ c[:, :lat]   -> out [b, n, lat] fp32
 // with an online softmax over tiles of rows and acc / max(l, 1e-30).
 //
-// Bound on the H100: operations. At the model's decode step (b 8, 16
-// heads, L 576, lat 512, ~4130 live rows) the live cache is 38 MB, 11.4
-// us at 3.35 TB/s, and the two products take 2*b*n*len*(L + lat) = 1.15
-// GFLOP, 17.2 us at the 67 TFLOP/s of fp32 outside the tensor cores. p
-// stays fp32, as in the TPU kernel, so the tensor cores are not used.
+// apex_mla_decode takes a path (contrib/mla_decode.py `mla_plan` picks
+// it): 0 the first design (any dtype pair), 1 the tensor-core body (bf16
+// q and cache), 2 and 3 planted faults of the tensor-core body for the
+// card checks (the last live split dropped; the rope columns left out of
+// the scores).
 //
-// Design (split along the cache, as flash-decoding): the TPU grid is
-// (b, tiles) with every head of a batch row in one cell; on 132 SMs that
-// is 8 blocks. Here each block takes one batch row, a group of up to 16
-// heads, and one chunk of the cache rows, the chunk sized on the host so
-// that the blocks fill two per SM (b 8: 32 chunks of 144 rows of a
-// 4608-row cache, 256 blocks). A block streams its chunk through shared
-// memory in tiles of 16 rows, kept in the cache's dtype in two buffers
-// (16-byte cp.async: one tile computes while the next arrives) and
-// widened to fp32 as they are read. Three syncs a tile. It keeps the
-// online softmax of its heads:
+// Bound on the H100: bytes. At `bench.py mla_decode`'s step (b 8, 16
+// heads, L 576, lat 512, 4129 live rows) the live cache is 38 MB, 11.5
+// us at 3.35 TB/s; the products take 2*b*n*len*L as one bf16 term and
+// 3*2*b*n*len*lat as three (p below), 2.26 GFLOP, 2.3 us at 989 TFLOP/s.
+// (The first design does them as fp32 FMAs: 1.15 GFLOP, 17.2 us at 67
+// TFLOP/s, so it was bound by operations.)
+//
+// Path 1, the tensor-core body (mma_mla_decode, flash-decoding as
+// kv_attention.cuh's #21/#25 with one latent "KV head" per batch row;
+// lat 512, DeepSeek's kv_lora_rank):
+//  * Grid (S splits, b, head groups of 16); 8 warps a block. The 16 heads
+//    of a group are one mma tile (M = 16), heads past n zero queries that
+//    are never written. A batch row's live range [0, len) is cut into S'
+//    = max(1, min(S, steps / min_steps)) parts of whole 16-key steps (len
+//    read from `lengths` on the device: nothing reads a length on the
+//    host), split s taking steps [s*steps/S', (s+1)*steps/S'); the blocks
+//    of splits past S' leave at once. S and min_steps come from the plan
+//    (`mla_plan`; `split_keys` is the same rule).
+//  * Staging by the copy engine (cp.async.bulk, TMA's one-dimensional
+//    form): Q [16][L + 8] bf16 stays in shared memory (36 k-steps of
+//    register fragments would cost 144 registers a lane for one term),
+//    and the split's cache rows stream through 2 stages of 64 rows, one
+//    1152-byte copy a row issued by warp 0, each stage completing on its
+//    own mbarrier; rows are padded by 16 bytes so that ldmatrix hits no
+//    bank conflicts. Rows the copies do not fill (Q's past n, the last
+//    stage's past the split's end) are zeroed first: P's zeros multiply
+//    them. The values are the first lat columns of the same staged rows,
+//    read transposed (ldmatrix.trans): the cache is read once and never
+//    copied. A stage's copy is issued at the top of the stage before it,
+//    after a barrier frees its slot, so it overlaps a whole stage of
+//    products. (16-byte cp.async by every thread, the first version,
+//    stalled the warps on issue: loads and products ran one after the
+//    other; PERF.md section 6.)
+//  * Scores. Warp w takes keys [8w, 8w + 8) of a stage: S = Q . C^T on
+//    mma.sync.m16n8k16, bf16 in, fp32 accumulate, in four chains (k-step
+//    mod 4) with the next group's fragments loaded before the current
+//    group multiplies. The bf16 products are exact, so the unscaled query
+//    is one term and the scale multiplies the fp32 sum, as
+//    kv_attention.cuh does: this reorders the TPU kernel's (q * scale) . c
+//    only in the last place.
+//  * Softmax, online over the stages, one per block: each warp's row
+//    maxima meet in shared memory (a barrier), every warp takes the same
+//    running max, and p = exp2f((x - m) * log2 e). Keys past a row's
+//    length weigh 0.
+//  * P . C[:, :lat]. P is split into three bf16 terms (apex_kv::split3,
+//    p = hi + mid + lo within 2^-27 p) written as bf16 planes to shared
+//    memory (a barrier); warp w accumulates columns [64w, 64w + 64) of all
+//    heads over every key of the stage, 32 fp32 accumulators a lane: a
+//    16-key step loads all its fragments, then issues its 24 products
+//    term by term, smallest first, so that each accumulator's three terms
+//    lie 8 products apart. P in one bf16 term reads over ATTN_TOL
+//    (kv_attention.cuh's note). Three barriers a stage.
+//  * Merge in the same launch, a tree of fan-in 4 over the S' splits: a
+//    node's partial (m, l and the unnormalized accumulator, fp32, 32 KB)
+//    goes to the wrapper's scratch and bumps its group's counter with one
+//    acquire-release atomic; the last of the group's members to arrive
+//    reads the others' partials through the copy engine and merges the
+//    members in index order (weights exp2((m_i - max m) * log2 e); its
+//    own from registers) into the node one level up, and sets the counter
+//    back to 0; the root's merger writes the output, an unsplit block
+//    writes its own. Which block merges a node depends on the arrival
+//    order; what it computes does not. (One block merging 16 partials
+//    alone spent most of the launch reading them: an SM reads 20-40 GB/s.)
+//    The counters are kernels/kv_attention.py's per-device tensor, which
+//    #21 and #25 share: launches that share them must run in stream
+//    order, as one stream's do (the 27 launches of a DeepSeek-V2-Lite step
+//    run on one).
+//  * Occupancy: 175,104 bytes of shared memory at L 576 and 125
+//    registers a thread (no spills): one block of 8 warps an SM, so the
+//    plan's S fills the 132 SMs once (S = 16 at b 8). 32-row stages with 4
+//    warps (two blocks an SM) measured slower at both path shapes.
+//
+// Path 0, the first design (mla_partial_kernel + mla_merge_kernel):
+// fp32 FMAs on the CUDA cores, split along the cache as flash-decoding.
+// Each block takes one batch row, a group of up to 16 heads, and one
+// chunk of the cache rows, the chunk sized on the host from the buffer
+// length T so that the blocks fill two per SM (b 8: 32 chunks of 144
+// rows of a 4608-row cache, 256 blocks). A block streams its chunk
+// through shared memory in tiles of 16 rows, kept in the cache's dtype
+// in two buffers (16-byte cp.async: one tile computes while the next
+// arrives) and widened to fp32 as they are read. Three syncs a tile. It
+// keeps the online softmax of its heads:
 //   scores: the 576 columns are split over the 8 warps (72 each); a
 //     lane holds 4 rows x 2 heads, so each load of 4 columns of a row or
 //     a query feeds 8 or 16 FMAs (rows padded by 16 bytes, queries by 4
@@ -51,6 +123,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "kv_attention.cuh"  // apex_kv: mma, ldmatrix, split3, cp.async
 
 namespace {
 
@@ -392,26 +466,568 @@ int launch(const void* q, const void* cache, const int* lengths, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------- path 1: the tensor-core body
+
+constexpr int kMmaMaxSplits = 64;  // S of the grid
+constexpr int kLat = 512;          // latent columns (DeepSeek's kv_lora_rank)
+constexpr int kMaxDevices = 64;
+// dynamic shared memory a block may take: the H100's 232,448-byte opt-in
+// limit less room for the static arrays
+constexpr size_t kMaxDynamicShared = 232448 - 2048;
+
+// launch paths of apex_mla_decode past the first design (0); 2 and 3 are
+// planted faults of the tensor-core body, for the card checks only
+constexpr int kPathTensor = 1;
+constexpr int kDropLastSplit = 2;  // the last live split left out (unsplit:
+                                   // the split's last stage)
+constexpr int kNoRope = 3;         // scores over the first lat columns only
+
+struct MmaArgs {
+  const __nv_bfloat16* q;      // [b, n, L]
+  const __nv_bfloat16* cache;  // [T, b, L]
+  const int* lengths;          // [b]
+  float* out;                  // [b, n, kLat]
+  float* acc;     // S > 1: [b * groups * S][16 * kLat] partial accumulators
+  float* ml;      // S > 1: [b * groups * S][16][2] partial (max, sum)
+  int* counters;  // S > 1: [b * groups] int32, zero between launches
+  int b, n, L, T;
+  int splits;     // S, the grid's splits of a (batch row, head group)
+  int min_steps;  // 16-key steps a split takes at least
+  int path;
+  float scale;
+};
+
+// bf16 elements between staged rows (Q and cache): 16 bytes of padding
+__host__ __device__ constexpr int mma_ld(int L) { return L + 8; }
+
+// ------------------------------------------------- bulk copies (TMA)
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   apex_kv::smem_addr(bar)),
+               "r"(count));
+}
+
+// the issuing thread's arrival, expecting ``bytes`` of bulk copies
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   apex_kv::smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = apex_kv::smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// ``bytes`` (a multiple of 16) global -> shared by the copy engine,
+// completing on ``bar``
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(apex_kv::smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(apex_kv::smem_addr(bar))
+      : "memory");
+}
+
+// ------------------------------------------- path 1: the tensor-core body
+
+// the body's shape: 8 warps, stages of 64 cache rows (8 a warp for the
+// scores), 2 stages (about 150 KB at L 576); a warp's P . C columns are
+// 64 (8 n-tiles of 8)
+constexpr int kWarps = 8;
+constexpr int kThreads1 = 32 * kWarps;
+constexpr int kKeys = 8 * kWarps;
+constexpr int kStages = 2;
+constexpr int kNd = kLat / 8 / kWarps;
+constexpr int kPld = kKeys + 8;  // row stride of a P plane
+// counters of a (batch row, head group): the tree's groups, level by
+// level (16 + 4 + 1 at S = 64)
+constexpr int kCountersPerCell = 32;
+
+// Q [16][L + 8], the ring [stages][keys][L + 8] and the three P planes
+// [3][16][keys + 8], all bf16 (contrib/mla_decode.py mirrors this)
+inline size_t mma_shared_bytes(int L) {
+  return 2 * (static_cast<size_t>(16 + kStages * kKeys) * mma_ld(L) +
+              3 * 16 * kPld);
+}
+
+// One (split, batch row, head group) cell of the tensor-core body; see
+// the note at the top of the file.
+__global__ void __launch_bounds__(kThreads1)
+mma_mla_decode(const __grid_constant__ MmaArgs a) {
+  using bf16 = __nv_bfloat16;
+  using apex_kv::kLog2e;
+  constexpr int kThreads = kThreads1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red_m[kWarps][16];
+  __shared__ float red_l[kWarps][16];
+  __shared__ __align__(8) uint64_t bars[kStages + 1 + 3];
+  __shared__ int last_block;
+  uint64_t* bar_q = bars + kStages;
+  uint64_t* bar_m = bar_q + 1;
+  const int L = a.L, ld = mma_ld(L);
+  const uint32_t row_bytes = 2 * L;
+  bf16* q_s = reinterpret_cast<bf16*>(smem);       // [16][ld]
+  bf16* ring = q_s + 16 * ld;                      // [kStages][kKeys][ld]
+  bf16* p_s = ring + kStages * kKeys * ld;         // [hi, mid, lo][16][kPld]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int split = blockIdx.x, bi = blockIdx.y, h0 = blockIdx.z * 16;
+  const int nh = min(16, a.n - h0);
+
+  // the row's live range in 16-key steps, cut into S parts (block-uniform:
+  // the blocks past S leave before any barrier)
+  const int live = min(a.lengths[bi], a.T);
+  const int steps = (live + 15) / 16;
+  const int S = max(1, min(a.splits, steps / a.min_steps));
+  if (split >= S) return;
+  const int j0 = static_cast<int>(static_cast<long long>(steps) * split / S);
+  const int j1 =
+      static_cast<int>(static_cast<long long>(steps) * (split + 1) / S);
+  const int t0 = 16 * j0;
+  const int key_end = min(16 * j1, live);  // the split's keys: [t0, key_end)
+  int n_stages = (key_end - t0 + kKeys - 1) / kKeys;
+  if (a.path == kDropLastSplit && S == 1 && n_stages > 1) --n_stages;
+
+  // The copy engine fills Q's rows and each stage's live rows; rows it
+  // does not fill must hold finite values, as P's zeros multiply them:
+  // Q's rows past n and the last stage's rows past the split's end are
+  // zeroed here (a slot an earlier stage used holds that stage's rows).
+  if (tid == 0) {
+    for (int i = 0; i < kStages + 1 + 3; ++i) mbar_init(bars + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  {
+    const int last = n_stages - 1;
+    const int tail = last >= 0 ? t0 + last * kKeys : 0;
+    const int r_live = last >= 0 ? min(kKeys, key_end - tail) : kKeys;
+    bf16* slot = ring + (last >= 0 ? last % kStages : 0) * kKeys * ld;
+    const int q_words = (16 - nh) * ld / 8, s_words = (kKeys - r_live) * ld / 8;
+    for (int i = tid; i < q_words + s_words; i += kThreads) {
+      bf16* p = i < q_words ? q_s + nh * ld + 8 * i
+                            : slot + r_live * ld + 8 * (i - q_words);
+      *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers are set and the zeros written
+
+  const size_t row_stride = static_cast<size_t>(a.b) * L;
+  const bf16* cache_b = a.cache + static_cast<size_t>(bi) * L;
+  // warp 0 issues a stage: lane 0 expects its bytes, the lanes copy rows
+  auto issue_stage = [&](int st) {
+    const int slot = st % kStages;
+    const int base = t0 + st * kKeys;
+    const int rows = min(kKeys, key_end - base);
+    if (lane == 0) mbar_expect(bars + slot, rows * row_bytes);
+    __syncwarp();
+    for (int r = lane; r < rows; r += 32)
+      bulk_copy(ring + (slot * kKeys + r) * ld,
+                cache_b + static_cast<size_t>(base + r) * row_stride,
+                row_bytes, bars + slot);
+  };
+  if (warp == 0) {
+    const bf16* qg = a.q + (static_cast<size_t>(bi) * a.n + h0) * L;
+    if (lane == 0) mbar_expect(bar_q, nh * row_bytes);
+    __syncwarp();
+    for (int r = lane; r < nh; r += 32)
+      bulk_copy(q_s + r * ld, qg + static_cast<size_t>(r) * L, row_bytes,
+                bar_q);
+    for (int st = 0; st < kStages - 1 && st < n_stages; ++st) issue_stage(st);
+  }
+
+  const int c0 = warp * (kLat / kWarps);  // the warp's latent columns
+  const int groups = (a.path == kNoRope ? kLat : L) / 64;  // 4 k-steps each
+  // online softmax state of the lane's rows gq and gq + 8 (the running max
+  // is the same in every warp; the sum is the lane's share of its warp's
+  // keys)
+  float m_run[2] = {apex_kv::kNegInf, apex_kv::kNegInf};
+  float l_run[2] = {0.f, 0.f};
+  float acc[kNd][4];
+#pragma unroll
+  for (int nd = 0; nd < kNd; ++nd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nd][i] = 0.f;
+
+  // ldmatrix rows of the lane: A fragments (Q, P) as rows 0-15 x 16
+  // columns; the warp's 8 keys' B fragments x (dims +0, +8, +16, +24); C's
+  // transposed B fragments (keys 0-7, 8-15) x (cols +0, +8)
+  const int m4 = lane >> 3;
+  const int a_off = (lane & 15) * ld + (lane >> 4) * 8;
+  const int p_off = (lane & 15) * kPld + (lane >> 4) * 8;
+  const int k_off = (warp * 8 + (lane & 7)) * ld + m4 * 8;
+  const int v_off = (((m4 & 1) << 3) + (lane & 7)) * ld + ((m4 >> 1) << 3) + c0;
+
+  mbar_wait(bar_q, 0);  // Q landed (waited even with no stage: no copy
+                        // may outlive the block)
+  for (int st = 0; st < n_stages; ++st) {
+    // every warp is done with stage st - 1's slot, which warp 0 refills
+    // now, a whole stage of work ahead of its use
+    __syncthreads();
+    if (warp == 0 && st + kStages - 1 < n_stages) issue_stage(st + kStages - 1);
+    mbar_wait(bars + st % kStages, (st / kStages) & 1);  // stage st landed
+    const bf16* cs = ring + (st % kStages) * kKeys * ld;
+    const int key0 = t0 + st * kKeys + warp * 8;
+
+    // the warp's scores over its 8 keys, unscaled: four chains (k-step
+    // mod 4), a group's fragments loaded while the group before multiplies
+    float ch[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ch[c][i] = 0.f;
+    const bf16* ks = cs + k_off;
+    const bf16* qs = q_s + a_off;
+    auto load = [&](uint32_t (&f)[6][4], int g) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        apex_kv::ldmatrix_x4(f[u], qs + (4 * g + u) * 16);
+      apex_kv::ldmatrix_x4(f[4], ks + 4 * g * 16);
+      apex_kv::ldmatrix_x4(f[5], ks + (4 * g + 2) * 16);
+    };
+    auto multiply = [&](const uint32_t (&f)[6][4]) {
+      apex_kv::mma_bf16(ch[0], f[0], f[4][0], f[4][1]);
+      apex_kv::mma_bf16(ch[1], f[1], f[4][2], f[4][3]);
+      apex_kv::mma_bf16(ch[2], f[2], f[5][0], f[5][1]);
+      apex_kv::mma_bf16(ch[3], f[3], f[5][2], f[5][3]);
+    };
+    {
+      uint32_t fa[6][4], fb[6][4];
+      load(fa, 0);
+      for (int g = 0; g < groups; g += 2) {
+        if (g + 1 < groups) load(fb, g + 1);
+        multiply(fa);
+        if (g + 1 < groups) {
+          if (g + 2 < groups) load(fa, g + 2);
+          multiply(fb);
+        }
+      }
+    }
+
+    // the scale on the fp32 sum; keys past the split's end weigh 0
+    float s[4], mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = key0 + 2 * tq + (i & 1);
+      const float x = (ch[0][i] + ch[1][i]) + (ch[2][i] + ch[3][i]);
+      s[i] = key < key_end ? x * a.scale : -INFINITY;
+      mx[i >> 1] = fmaxf(mx[i >> 1], s[i]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(apex_kv::kFull, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(apex_kv::kFull, mx[h], 2));
+    }
+    if (tq == 0) {
+      red_m[warp][gq] = mx[0];
+      red_m[warp][gq + 8] = mx[1];
+    }
+    __syncthreads();  // every warp's row maxima of the stage
+
+    // the block's running max (the stage has a live key: it is finite),
+    // p = exp2((x - m) log2 e) as three bf16 planes, the rescale
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = gq + 8 * h;
+      float m = red_m[0][r];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red_m[w][r]);
+      const float m_new = fmaxf(m_run[h], m);
+      alpha[h] = exp2f((m_run[h] - m_new) * kLog2e);
+      m_run[h] = m_new;
+      const float p0 = exp2f((s[2 * h] - m_new) * kLog2e);
+      const float p1 = exp2f((s[2 * h + 1] - m_new) * kLog2e);
+      l_run[h] = alpha[h] * l_run[h] + (p0 + p1);
+      uint32_t hi, mid, lo;
+      apex_kv::split_bf16(p0, p1, hi, mid, lo);
+      bf16* pr = p_s + r * kPld + warp * 8 + 2 * tq;
+      *reinterpret_cast<uint32_t*>(pr) = hi;
+      *reinterpret_cast<uint32_t*>(pr + 16 * kPld) = mid;
+      *reinterpret_cast<uint32_t*>(pr + 32 * kPld) = lo;
+    }
+#pragma unroll
+    for (int nd = 0; nd < kNd; ++nd) {
+      acc[nd][0] *= alpha[0];
+      acc[nd][1] *= alpha[0];
+      acc[nd][2] *= alpha[1];
+      acc[nd][3] *= alpha[1];
+    }
+    __syncthreads();  // the P planes of every key of the stage
+
+    // acc += P . C[:, c0 : c0 + kLat / kWarps] over the stage, smallest
+    // term first: a step's fragments, then its products term by term
+#pragma unroll
+    for (int j = 0; j < kKeys / 16; ++j) {
+      uint32_t pt[3][4], v[kNd / 2][4];
+      apex_kv::ldmatrix_x4(pt[0], p_s + 32 * kPld + p_off + j * 16);
+      apex_kv::ldmatrix_x4(pt[1], p_s + 16 * kPld + p_off + j * 16);
+      apex_kv::ldmatrix_x4(pt[2], p_s + p_off + j * 16);
+      const bf16* vs = cs + j * 16 * ld + v_off;
+#pragma unroll
+      for (int dc = 0; dc < kNd / 2; ++dc)
+        apex_kv::ldmatrix_x4_trans(v[dc], vs + dc * 16);
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+#pragma unroll
+        for (int dc = 0; dc < kNd / 2; ++dc) {
+          apex_kv::mma_bf16(acc[2 * dc], pt[t], v[dc][0], v[dc][1]);
+          apex_kv::mma_bf16(acc[2 * dc + 1], pt[t], v[dc][2], v[dc][3]);
+        }
+    }
+  }
+
+  // the row sums: the quad's shares, then the warps' in index order
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(apex_kv::kFull, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(apex_kv::kFull, l_run[h], 2);
+  }
+  if (tq == 0) {
+    red_l[warp][gq] = l_run[0];
+    red_l[warp][gq + 8] = l_run[1];
+  }
+  __syncthreads();  // and every warp is done with the ring
+  float l_row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = gq + 8 * h;
+    l_row[h] = red_l[0][r];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) l_row[h] += red_l[w][r];
+  }
+
+  float* out_g = a.out + (static_cast<size_t>(bi) * a.n + h0) * kLat + c0 +
+                 2 * tq;
+  auto write_out = [&](const float (&o)[kNd][4], const float (&l)[2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = gq + 8 * h;
+      if (r >= nh) continue;
+      const float d = fmaxf(l[h], 1e-30f);
+#pragma unroll
+      for (int nd = 0; nd < kNd; ++nd)
+        *reinterpret_cast<float2*>(out_g + r * kLat + 8 * nd) =
+            make_float2(o[nd][2 * h] / d, o[nd][2 * h + 1] / d);
+    }
+  };
+  if (S == 1) {
+    write_out(acc, l_row);
+    return;
+  }
+
+  // S > 1: a tree of fan-in 4 over the splits. A node's partial (m, l and
+  // the unnormalized accumulator in fragment order, float4 nd * kThreads
+  // + tid of a 32 KB slot) goes to scratch and its group's counter moves;
+  // the last of the group's members to arrive merges them in index order
+  // (its own from registers) into the group's node one level up, and the
+  // root's merger writes the output. Which block merges a node depends on
+  // the arrival order; what it computes does not.
+  constexpr int kSlot = kNd * kThreads;  // float4 a slot: 16 x kLat fp32
+  constexpr uint32_t kSlotBytes = 16 * kSlot;
+  const int cell = bi * gridDim.z + blockIdx.z;
+  float4* const scratch =
+      reinterpret_cast<float4*>(a.acc) + static_cast<size_t>(cell) * 2 * a.splits * kSlot;
+  float2* const ml_g = reinterpret_cast<float2*>(a.ml) +
+                       static_cast<size_t>(cell) * 2 * a.splits * 16;
+  int* const ctr = a.counters + cell * kCountersPerCell;
+  float4* buf = reinterpret_cast<float4*>(ring);  // [3][kSlot]: the ring is free
+  float2* ml_s = reinterpret_cast<float2*>(q_s);  // [4][16]: Q is done
+  float* w_s = reinterpret_cast<float*>(ml_s + 4 * 16);  // [4][16]
+  float* top_s = w_s + 4 * 16;                     // [16] merged max
+  float* sum_s = top_s + 16;                       // [16] merged sum
+  float m_d[2] = {m_run[0], m_run[1]};
+  if (a.path == kDropLastSplit && split == S - 1) {  // it weighs nothing
+    m_d[0] = m_d[1] = apex_kv::kNegInf;
+    l_row[0] = l_row[1] = 0.f;
+  }
+  int node = split, width = S, level_slot = 0, level_ctr = 0, phases = 0;
+  while (width > 1) {
+    const int first = node & ~3, members = min(4, width - first);
+    if (members > 1) {
+      {
+        float4* pa = scratch + static_cast<size_t>(level_slot + node) * kSlot + tid;
+#pragma unroll
+        for (int nd = 0; nd < kNd; ++nd)
+          __stcg(pa + nd * kThreads,
+                 make_float4(acc[nd][0], acc[nd][1], acc[nd][2], acc[nd][3]));
+        if (warp == 0 && tq == 0) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            __stcg(ml_g + (level_slot + node) * 16 + gq + 8 * h,
+                   make_float2(m_d[h], l_row[h]));
+        }
+      }
+      __syncthreads();  // the node's partial is written
+      if (tid == 0) {
+        // release: the partial is visible device-wide before the count
+        // moves; acquire: the last member sees every other one's
+        int* c = ctr + level_ctr + (node >> 2);
+        const int prev = apex_kv::atomic_add_acq_rel(c, 1);
+        last_block = prev == members - 1;
+        if (last_block) atomicExch(c, 0);
+      }
+      __syncthreads();
+      if (!last_block) return;
+      // the other members' partials through the copy engine into the free
+      // ring, their (m, l) at once; then weights exp2((m_i - M) log2 e)
+      // and the merged sum, one thread a row
+      if (tid == 0) {
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        for (int i = 0, k = 0; i < members; ++i) {
+          if (first + i == node) continue;
+          mbar_expect(bar_m + k, kSlotBytes);
+          bulk_copy(buf + k * kSlot,
+                    scratch + static_cast<size_t>(level_slot + first + i) * kSlot,
+                    kSlotBytes, bar_m + k);
+          ++k;
+        }
+      }
+      if (tid < 16 * members)
+        ml_s[tid] = __ldcg(ml_g + (level_slot + first) * 16 + tid);
+      __syncthreads();
+      if (tid < 16) {
+        float mx = apex_kv::kNegInf;
+        for (int i = 0; i < members; ++i) mx = fmaxf(mx, ml_s[i * 16 + tid].x);
+        float l = 0.f;
+        for (int i = 0; i < members; ++i) {
+          const float w = exp2f((ml_s[i * 16 + tid].x - mx) * kLog2e);
+          w_s[i * 16 + tid] = w;
+          l += w * ml_s[i * 16 + tid].y;
+        }
+        top_s[tid] = mx;
+        sum_s[tid] = l;
+      }
+      __syncthreads();
+      float o[kNd][4];
+#pragma unroll
+      for (int nd = 0; nd < kNd; ++nd)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[nd][j] = 0.f;
+      for (int i = 0, k = 0; i < members; ++i) {
+        const float wa = w_s[i * 16 + gq], wb = w_s[i * 16 + gq + 8];
+        if (first + i == node) {
+#pragma unroll
+          for (int nd = 0; nd < kNd; ++nd) {
+            o[nd][0] = fmaf(wa, acc[nd][0], o[nd][0]);
+            o[nd][1] = fmaf(wa, acc[nd][1], o[nd][1]);
+            o[nd][2] = fmaf(wb, acc[nd][2], o[nd][2]);
+            o[nd][3] = fmaf(wb, acc[nd][3], o[nd][3]);
+          }
+          continue;
+        }
+        mbar_wait(bar_m + k, (phases >> k) & 1);  // member i landed
+        phases ^= 1 << k;
+        const float4* x4 = buf + k * kSlot + tid;
+#pragma unroll
+        for (int nd = 0; nd < kNd; ++nd) {
+          const float4 x = x4[nd * kThreads];
+          o[nd][0] = fmaf(wa, x.x, o[nd][0]);
+          o[nd][1] = fmaf(wa, x.y, o[nd][1]);
+          o[nd][2] = fmaf(wb, x.z, o[nd][2]);
+          o[nd][3] = fmaf(wb, x.w, o[nd][3]);
+        }
+        ++k;
+      }
+#pragma unroll
+      for (int nd = 0; nd < kNd; ++nd)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[nd][j] = o[nd][j];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m_d[h] = top_s[gq + 8 * h];
+        l_row[h] = sum_s[gq + 8 * h];
+      }
+      __syncthreads();  // the ring, ml_s and the weights are read
+    }
+    node >>= 2;
+    level_slot += width;
+    level_ctr += (width + 3) >> 2;
+    width = (width + 3) >> 2;
+  }
+  write_out(acc, l_row);
+}
+
+// The opt-in shared memory is raised once a device to the largest size
+// launched there (read by the host only).
+int launch_mma(const MmaArgs& a, cudaStream_t stream) {
+  static size_t configured[kMaxDevices] = {};
+  const size_t smem = mma_shared_bytes(a.L);
+  if (smem > kMaxDynamicShared) return -1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices) return -1;
+  if (smem > configured[dev]) {
+    err = cudaFuncSetAttribute(mma_mla_decode,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured[dev] = smem;
+  }
+  const dim3 grid(a.splits, a.b, (a.n + 15) / 16);
+  mma_mla_decode<<<grid, kThreads1, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q (dtype q_dtype: 0 fp32, 1 bf16) [b, n, L]; cache (c_dtype) [T, b, L];
-// lengths int32 [b]; out fp32 [b, n, lat]; scratch acc fp32 [splits, b,
-// n, lat] and ml fp32 [splits, b, n, 2]; chunk rows a block (a multiple
-// of 16), splits = ceil(T / chunk). Requires L % 8 == 0, lat % 4 == 0,
-// 0 < lat <= min(L, 512), L <= 1024, q and cache on 16-byte boundaries.
-// Returns 0, a CUDA error, or -1 for arguments the kernel has no instance
-// for.
+// lengths int32 [b]; out fp32 [b, n, lat]. path 0, the first design:
+// scratch acc fp32 [splits, b, n, lat] and ml fp32 [splits, b, n, 2];
+// chunk rows a block (a multiple of 16), splits = ceil(T / chunk);
+// requires L % 8 == 0, lat % 4 == 0, 0 < lat <= min(L, 512), L <= 1024;
+// counters and min_steps are not read. Paths 1-3, the tensor-core body
+// (2 and 3 planted faults): bf16 q and cache, L % 64 == 0, lat == 512 <=
+// L, splits (the grid's S) 1..64,
+// min_steps >= 1; with splits > 1 scratch acc fp32 [b * ceil(n / 16) * 2 *
+// splits, 16, 512] and ml fp32 [., 16, 2] (the merge tree's nodes) and
+// counters int32 [b * ceil(n / 16) * 32], zero (and left zero); chunk is
+// not read.
+// Every path: q and cache on 16-byte boundaries. Returns 0, a CUDA
+// error, or -1 for arguments the path has no instance for.
 extern "C" int apex_mla_decode(const void* q, const void* cache,
                                const int* lengths, float* out, float* acc,
-                               float* ml, int b, int n, int L, int lat, int T,
-                               int chunk, int splits, float scale,
-                               int q_dtype, int c_dtype, void* stream) {
+                               float* ml, int* counters, int b, int n, int L,
+                               int lat, int T, int chunk, int splits,
+                               int min_steps, float scale,
+                               int q_dtype, int c_dtype, int path,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path != 0) {
+    if (path < kPathTensor || path > kNoRope || q_dtype != 1 ||
+        c_dtype != 1 || L % 64 || lat != kLat || L < lat || splits < 1 ||
+        splits > kMmaMaxSplits || min_steps < 1 ||
+        (splits > 1 && (acc == nullptr || ml == nullptr ||
+                        counters == nullptr)) ||
+        b > 65535 || (n + 15) / 16 > 65535)
+      return -1;
+    if (b <= 0 || n <= 0 || T <= 0) return 0;
+    const MmaArgs args{static_cast<const __nv_bfloat16*>(q),
+                       static_cast<const __nv_bfloat16*>(cache),
+                       lengths, out, acc, ml, counters, b, n, L, T,
+                       splits, min_steps, path, scale};
+    return launch_mma(args, s);
+  }
   if (L % 8 || lat % 4 || lat <= 0 || lat > L || lat > 4 * kColGroups ||
       L > 1024 || chunk <= 0 || chunk % kTile || splits <= 0 ||
       static_cast<long long>(chunk) * splits < T)
     return -1;
   if (b <= 0 || n <= 0 || T <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && c_dtype == 0)
     return launch<float, float>(q, cache, lengths, out, acc, ml, b, n, L, lat,
                                 T, chunk, splits, scale, s);

@@ -13,6 +13,12 @@ partial sums of those collectives. Kernel, plain version and the JAX
 oracle agree bit for bit. The public
 functions with the JAX package's names are in
 :mod:`apex_tpu_torch.parallel.compression`.
+
+Dequantize has two bodies, and :func:`dequant_plan` picks one: the
+streaming body reads the codes as one flat array in 16-byte vectors
+wherever the output rows are contiguous in the codes' order (the serving
+cache's full-width rows, every one-row DDP bucket); the first design
+takes one element a thread (ragged rows, other blocks, unaligned views).
 """
 
 import ctypes
@@ -27,6 +33,10 @@ QUANTIZE = registry.register("quantize_int8")
 DEQUANTIZE = registry.register("dequantize_int8")
 # code dtypes of apex_dequant8
 CODE_DTYPES = {torch.int8: 0, torch.int32: 1}
+# apex_dequant8's paths (2 and 3 are planted faults of the streaming body,
+# passed only by the card checks)
+SCALAR, VECTOR = 0, 1
+VECTOR_BYTES = 16  # the streaming body's code vector
 
 
 def _blocks(n: int, block: int) -> int:
@@ -77,7 +87,37 @@ def _quant_kernel():
 def _dequant_kernel():
     p, i = _checks.ptr, ctypes.c_int
     return _build.function("quant8", "apex_dequant8",
-                           [p, p, p, ctypes.c_longlong, i, i, i, i, i, p])
+                           [p, p, p, ctypes.c_longlong, i, i, i, i, i, i, p])
+
+
+def dequant_plan(rows: int, n: int, nb: int, block: int, code_itemsize: int,
+                 out_itemsize: int, aligned: bool) -> int:
+    """The dequantize body for [rows, nb, block] codes of
+    ``code_itemsize`` bytes into [rows, n] of ``out_itemsize`` bytes:
+    VECTOR where the output rows are contiguous in the codes' order (n ==
+    nb * block, or one row with a ragged tail), block is a power of two
+    holding whole 16-byte code vectors, and codes and output lie on
+    16-byte boundaries (``aligned``); else SCALAR, the first design."""
+    per_vector = VECTOR_BYTES // code_itemsize
+    if (aligned and out_itemsize in (2, 4) and (n == nb * block or rows == 1)
+            and block >= per_vector and block & (block - 1) == 0):
+        return VECTOR
+    return SCALAR
+
+
+def _launch_dequant(q, scales, out, path):
+    """#15 through its C function on ``path``, unchecked and uncounted
+    (:func:`dequantize_rows` checks and counts; the card checks force
+    paths here)."""
+    rows, nb, block = q.shape
+    with torch.cuda.device(q.device):
+        rc = _dequant_kernel()(q.data_ptr(), scales.data_ptr(),
+                               out.data_ptr(), rows, out.shape[1], nb, block,
+                               CODE_DTYPES[q.dtype],
+                               _checks.DTYPE_CODES[out.dtype], path,
+                               _checks.stream(q))
+    _checks.status("dequantize_rows", rc)
+    return out
 
 
 def quantize_rows(x2d, block: int, scales=None):
@@ -148,13 +188,12 @@ def dequantize_rows(q, scales, n=None, out_dtype=torch.float32):
                          f"{nb * block}]")
     _checks.contiguous("dequantize_rows", q=q, scales=scales)
     out = torch.empty((rows, n), dtype=out_dtype, device=q.device)
-    code = _checks.dtype_code("dequantize_rows", out, "out_dtype")
+    _checks.dtype_code("dequantize_rows", out, "out_dtype")
     if rows == 0 or n == 0:
         return out
-    with torch.cuda.device(q.device):
-        rc = _dequant_kernel()(q.data_ptr(), scales.data_ptr(),
-                               out.data_ptr(), rows, n, nb, block,
-                               code_dtype, code, _checks.stream(q))
-    _checks.status("dequantize_rows", rc)
+    path = dequant_plan(rows, n, nb, block, q.element_size(),
+                        out.element_size(),
+                        q.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    _launch_dequant(q, scales, out, path)
     registry.count(DEQUANTIZE)
     return out

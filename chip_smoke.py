@@ -65,7 +65,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    L2 decay, no clip, noop). The int8 block quantize and dequantize
    kernels bit for bit at the serving store's [16384, 256] rows (8 slots
    x 2048 positions of one K or V leaf), at one position per slot and on
-   ragged rows and blocks; the int8-cache verify kernel at the TinyLlama
+   ragged rows and blocks; the dequantize on every branch of its plan
+   (its streaming body also equal to its first design, codes at a 4-byte
+   offset, two planted faults that must not be equal), its first design
+   timed beside it; the int8-cache verify kernel at the TinyLlama
    verify window (w 5, g 4, rep 8, d 64) over a 2048-position int8 store
    with each slot at its own start, and with padding lanes (g*d < nb*B);
    the window and decode kernels with per-row starts and lengths, at the
@@ -75,10 +78,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    to 16, with planted faults (starts or lengths one key short) that must
    read past ATTN_TOL. The
    MLA latent decode kernel at ``bench.py mla_decode``'s step (q [8, 16,
-   576] bf16 over a [4608, 8, 576] bf16 latent cache) at lengths 1, 511,
-   512, 513, 4097 and 4161, and off the path: an fp32 cache and queries,
-   1280-, 512- and 40-row buffers, 128 heads, per-row lengths, dead rows
-   holding 1e4 (bit-identical to clean ones), a narrower latent; RMSNorm
+   576] bf16 over a [4608, 8, 576] bf16 latent cache) at lengths across
+   its steps, stages and splits, and off the path: an fp32 cache and
+   queries, 1280-, 512- and 40-row buffers, 128 heads, per-row lengths,
+   dead rows holding 1e4 (bit-identical to clean ones), narrower latents
+   and other row widths, each case's plan branch asserted; the
+   tensor-core body run twice bit-identical, and at both MLA paths' steps
+   two planted faults (the last live split dropped, the rope columns left
+   out) that must read past MLA_TOL, the first design timed beside it and
+   the sweep of its split sizes; RMSNorm
    on fp32 rows of width 512, 1024 and 2048 into bf16 (the MLA models'
    norms). The int4 quantize, dequantize, pack and unpack kernels bit for
    bit at GPT-2 345M's largest gradient bucket ([201216, 256] fp32) and
@@ -154,7 +162,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    model's einsum branch as the yardstick; prefill and step-1 logits
    held to the plain versions', and the greedy streams: where one
    differs, each run's own logits rank its token above the other's by
-   less than LOGIT_TOL;
+   less than LOGIT_TOL; step 1 again with each planted fault of
+   MLA_FAULTS (the MLA decode's through its own launch), which must read
+   past the logits limits;
    prefill ms, step ms, tokens/s and profiles of a step both ways.
 10. deepseek_v2_lite: DeepSeek-V2-Lite's published widths and depth
    (27 layers, hidden 2048, layer 0 dense, 26 MoE layers of 64 routed
@@ -2774,13 +2784,93 @@ def _quant_bytes(rows, n, block, in_bytes):
     return rows * n * in_bytes + rows * nb * block + rows * nb * 4
 
 
+# planted #15 faults: (what, path code of apex_dequant8)
+DEQUANT_FAULTS = (("the neighbouring block's scale", 2),
+                  ("each vector read one ahead", 3))
+
+
+def _dequant_raw(q, s, n, out_dtype, path):
+    """#15 through its C function on ``path`` (0 the first design, 1 the
+    streaming body, 2/3 DEQUANT_FAULTS), uncounted."""
+    from apex_tpu_torch.kernels import quant
+    out = torch.empty((q.shape[0], n), dtype=out_dtype, device=q.device)
+    return quant._launch_dequant(q, s, out, path)
+
+
+def _check_dequant_plan(gen):
+    """Every branch of ``dequant_plan``, asserted, each held bit for bit
+    to the plain version, and every vector case also to the first design
+    and through both planted faults (which must not be equal): int8 and
+    int32 codes into fp32 and bf16, the serving cache's rows, one-row
+    buckets with and without a ragged tail, ragged rows, blocks of 100 and
+    of 8, and codes at a 4-byte offset. Returns how many cases took each
+    branch."""
+    from apex_tpu_torch.kernels import quant
+    taken = {quant.VECTOR: 0, quant.SCALAR: 0}
+    cases = [(16384, 1, 256, 256, torch.int8), (999, 2, 512, 256, torch.int8),
+             (1, 4, 1000, 256, torch.int8), (1, 3, 731, 256, torch.int32),
+             (5, 3, 768, 256, torch.int32), (999, 2, 300, 256, torch.int8),
+             (64, 10, 1000, 100, torch.int8), (40, 4, 32, 8, torch.int8),
+             (40, 4, 16, 4, torch.int32)]
+    for rows, nb, n, block, codes in cases:
+        hi = 127 if codes == torch.int8 else 5000
+        q = torch.randint(-hi, hi + 1, (rows, nb, block), generator=gen,
+                          device="cuda").to(codes)
+        s = torch.rand(rows, nb, 1, generator=gen, device="cuda") * 0.1
+        for out_dtype in (torch.float32, torch.bfloat16):
+            path = quant.dequant_plan(rows, n, nb, block, q.element_size(),
+                                      out_dtype.itemsize, True)
+            want = quant.dequantize_rows_plain(q, s, n, out_dtype)
+            got = quant.dequantize_rows(q, s, n, out_dtype)
+            assert torch.equal(got, want), (rows, nb, n, block, codes)
+            taken[path] += 1
+            if path != quant.VECTOR:
+                continue
+            assert torch.equal(_dequant_raw(q, s, n, out_dtype, 0), want)
+            for what, code in DEQUANT_FAULTS:
+                bad = _dequant_raw(q, s, n, out_dtype, code)
+                assert not torch.equal(bad, want), (what, rows, nb, n)
+    # the serving cache's rows at a 4-byte offset: the first design
+    buf = torch.randint(-127, 128, (16384 * 256 + 16,), generator=gen,
+                        device="cuda").to(torch.int8)
+    view = buf[4:4 + 16384 * 256].view(16384, 1, 256)
+    s = torch.rand(16384, 1, 1, generator=gen, device="cuda")
+    assert quant.dequant_plan(16384, 256, 1, 256, 1, 2,
+                              view.data_ptr() % 16 == 0) == quant.SCALAR
+    assert torch.equal(quant.dequantize_rows(view, s, 256, torch.bfloat16),
+                       quant.dequantize_rows_plain(view, s, 256,
+                                                   torch.bfloat16))
+    taken[quant.SCALAR] += 1
+    assert all(taken.values()), taken
+    torch.cuda.synchronize()
+    return taken
+
+
+def _dequant_turns(q, s, n, out_dtype):
+    """#15's first design and streaming body through the C function, in
+    turns (first, vector, vector, first): {path: [device ms, ...]}."""
+    times = {0: [], 1: []}
+    for path in (0, 1, 1, 0):
+        times[path].append(device_ms(
+            lambda: _dequant_raw(q, s, n, out_dtype, path)))
+    return times
+
+
 def check_quant(gen):
     """#14 and #15 bit for bit against their plain versions: the serving
     path's [16384, 256] rows (8 slots x 2048 positions of one K or V
     leaf), one position per slot, ragged rows and blocks, fp32 and bf16,
-    all-zero rows, ties at .5."""
+    all-zero rows, ties at .5; #15 on every branch of its plan, its
+    streaming body equal to its first design, two planted faults, and the
+    first design timed beside it."""
     from apex_tpu_torch.kernels import quant
     from apex_tpu_torch.parallel import compression
+    taken = _check_dequant_plan(gen)
+    log(f"kernel dequantize_int8: dequant_plan's branches bit-identical to "
+        f"the plain version ({taken[quant.VECTOR]} vector cases, each also "
+        f"equal to the first design, {taken[quant.SCALAR]} first-design "
+        f"cases incl. codes at +4 bytes); planted faults "
+        f"({'; '.join(w for w, _ in DEQUANT_FAULTS)}) not equal")
     width = MODEL["num_query_groups"] * (
         MODEL["hidden_size"] // MODEL["num_attention_heads"])
     rows = BATCH * MODEL["max_position_embeddings"]
@@ -2829,6 +2919,8 @@ def check_quant(gen):
     assert entries[0]["max_abs_err"] == 0 and torch.equal(s, sp)
     got = quant.dequantize_rows(q, s, width, torch.bfloat16)
     want = quant.dequantize_rows_plain(q, s, width, torch.bfloat16)
+    assert quant.dequant_plan(rows, width, 1, 256, 1, 2, True) == quant.VECTOR
+    turns = _dequant_turns(q, s, width, torch.bfloat16)
     entries.append(entry(
         "dequantize_int8", f"q[{rows},1,256] int8 + scales -> bf16 (decode "
         "read, one K or V leaf)", got, want, "bit-identical",
@@ -2836,16 +2928,27 @@ def check_quant(gen):
         lambda: quant.dequantize_rows_plain(q, s, width, torch.bfloat16),
         None, bound(qbytes, rows * width, FP32_OPS_PER_S)))
     assert entries[1]["max_abs_err"] == 0
+    entries[1]["first_design_ms"] = statistics.median(turns[0])
     # off the entries: one position per slot, and the fp32 output
     xs = _randn(gen, BATCH, width, scale=2.0)
     small = device_ms(lambda: quant.quantize_rows(xs, 256))
     fp32_ms = device_ms(lambda: quant.dequantize_rows(q, s, width))
+    fp32_turns = _dequant_turns(q, s, width, torch.float32)
     small_bound = _quant_bytes(BATCH, width, 256, 2) / HBM_BYTES_PER_S
     fp32_bound = _quant_bytes(rows, width, 256, 4) / HBM_BYTES_PER_S
     log(f"kernel quantize_int8 at one position per slot [{BATCH},{width}] "
         f"(decode step): {_us(small)} on the device, bound "
         f"{small_bound * 1e6:.4f} us; dequantize_int8 to fp32 "
         f"[{rows},{width}]: {_us(fp32_ms)}, bound {fp32_bound * 1e6:.3f} us")
+    log(f"kernel dequantize_int8 [{rows},1,256] int8 through the C function "
+        f"in turns (us; first design, then the streaming body): to bf16 "
+        + "; ".join(f"{'first' if k == 0 else 'vector'} "
+                    f"{'/'.join(f'{t * 1e3:.2f}' for t in v)}"
+                    for k, v in turns.items())
+        + "; to fp32 "
+        + "; ".join(f"{'first' if k == 0 else 'vector'} "
+                    f"{'/'.join(f'{t * 1e3:.2f}' for t in v)}"
+                    for k, v in fp32_turns.items()))
     return entries
 
 
@@ -2932,6 +3035,8 @@ def check_quant4(gen):
     i32_ms = device_ms(lambda: quant.dequantize_rows(totals, shared))
     i32_plain = device_ms(lambda: quant.dequantize_rows_plain(totals, shared),
                           iters=5)
+    assert quant.dequant_plan(1, nb * 256, nb, 256, 4, 4, True) == quant.VECTOR
+    i32_turns = _dequant_turns(totals, shared, nb * 256, torch.float32)
     n = nb * 256
     log(f"kernels: quantize_int4, dequantize_int4, pack_int4, unpack_int4, "
         f"quantize_pack_int4, unpack_dequantize_int4 bit-identical to their "
@@ -2944,7 +3049,10 @@ def check_quant4(gen):
         f"{_us(given_ms)} on the device, plain {_us(given_plain)}, bound "
         f"{(n * 5 + nb * 4) / HBM_BYTES_PER_S * 1e6:.3f} us; dequantize_int8"
         f" int32 totals: {_us(i32_ms)}, plain {_us(i32_plain)}, bound "
-        f"{(n * 8 + nb * 4) / HBM_BYTES_PER_S * 1e6:.3f} us")
+        f"{(n * 8 + nb * 4) / HBM_BYTES_PER_S * 1e6:.3f} us; through the C "
+        f"function in turns (us): first design "
+        f"{'/'.join(f'{t * 1e3:.2f}' for t in i32_turns[0])}, streaming "
+        f"body {'/'.join(f'{t * 1e3:.2f}' for t in i32_turns[1])}")
     del x, q8, totals, got
 
     # the entries: GPT-2's largest bucket
@@ -3215,22 +3323,120 @@ def _latent_cache(gen, T, b, L, filled, dtype=torch.bfloat16):
 
 def _mla_bound(b, n, L, lat, lengths):
     """The MLA decode's least time: q, the live rows of each batch row
-    and the fp32 output moved once; 2*n*(L + lat) operations a live row,
-    fp32 (p stays fp32, as in the TPU kernel)."""
+    and the fp32 output moved once, against the products on the tensor
+    cores by the cheaper exact route: the scores as one bf16 term (2*n*L
+    a live row), P . C as three (p is fp32: 3*2*n*lat)."""
+    live = sum(lengths)
+    nbytes = b * n * L * 2 + live * L * 2 + b * n * lat * 4
+    return bound(nbytes, 2 * n * (L + 3 * lat) * live, BF16_TENSOR_OPS_PER_S)
+
+
+def _mla_bound_fp32(b, n, L, lat, lengths):
+    """The earlier bound: 2*n*(L + lat) operations a live row as fp32 FMAs
+    (p stays fp32, as in the TPU kernel), against the same bytes."""
     live = sum(lengths)
     nbytes = b * n * L * 2 + live * L * 2 + b * n * lat * 4
     return bound(nbytes, 2 * n * (L + lat) * live, FP32_OPS_PER_S)
 
 
+# planted #26 faults of the tensor-core body: (what, path code of
+# apex_mla_decode)
+MLA_KERNEL_FAULTS = (("the last live split dropped in the merge", 2),
+                     ("the rope columns left out of the scores", 3))
+
+
+def _mla_raw(q, cache, lengths, lat, scale, path, **sizes):
+    """#26 through its C function on ``path`` (0 the first design, 1 the
+    tensor-core body, 2/3 MLA_KERNEL_FAULTS), uncounted, ``lengths`` an
+    int32 [b] tensor on the card; ``sizes`` override the plan's (splits,
+    min_steps)."""
+    from apex_tpu_torch.contrib import mla_decode
+    from apex_tpu_torch.kernels import kv_attention
+    plan = mla_decode.plan_for(q, cache, lat)
+    if path == mla_decode.FIRST_DESIGN and plan.path != path:
+        chunk, splits = mla_decode.split_rows(
+            cache.shape[0], q.shape[0], q.shape[1],
+            kv_attention.sm_count(q.device.index or 0))
+        plan = plan._replace(chunk=chunk, splits=splits)
+    return mla_decode._launch(q, cache, lengths, lat, scale,
+                              plan._replace(**sizes), path)
+
+
+def _rows(b, length):
+    return torch.full((b,), length, dtype=torch.int32, device="cuda")
+
+
+def _mla_design_and_faults(label, q, cache, length, lat, scale):
+    """At one path shape, through #26's C function (uncounted): both
+    planted faults held to the plain version (each must read past
+    MLA_TOL), then the first design and the tensor-core body in turns
+    (first, tensor cores, tensor cores, first). Returns the first design's
+    median device ms."""
+    from apex_tpu_torch.contrib import mla_decode
+    from apex_tpu_torch.kernels import registry
+    before = registry.launches()
+    b = q.shape[0]
+    lengths = _rows(b, length)
+    want = mla_decode.mla_decode_reference(q, cache, length, lat, scale)
+    errs = {what: max_abs(_mla_raw(q, cache, lengths, lat, scale, code), want)
+            for what, code in MLA_KERNEL_FAULTS}
+    assert all(e > MLA_TOL for e in errs.values()), (label, errs)
+    times = {0: [], 1: []}
+    for path in (0, 1, 1, 0):
+        times[path].append(device_ms(
+            lambda: _mla_raw(q, cache, lengths, lat, scale, path)))
+    assert registry.launches() == before  # the raw launches are uncounted
+    log(f"kernel mla_decode {label} (length {length}): planted faults "
+        + "; ".join(f"{k}: max abs err {v:.3e} ({v / MLA_TOL:.1f}x MLA_TOL)"
+                    for k, v in errs.items())
+        + "; through the C function in turns (us): first design "
+        f"{'/'.join(f'{t * 1e3:.2f}' for t in times[0])}, tensor cores "
+        f"{'/'.join(f'{t * 1e3:.2f}' for t in times[1])}")
+    return statistics.median(times[0])
+
+
+def _mla_split_sweep(label, q, cache, length, lat, scale):
+    """The tensor-core body's device time at the grid's S splits and the
+    minimum split length (16-key steps) around the plan's: the
+    measurement behind mla_decode.MAX_SPLITS and MIN_SPLIT_STEPS."""
+    from apex_tpu_torch.contrib import mla_decode
+    lengths = _rows(q.shape[0], length)
+    res = {}
+    for splits in (8, 12, 16):
+        for steps in (1, 2, 4, 8):
+            res[splits, steps] = device_ms(lambda: _mla_raw(
+                q, cache, lengths, lat, scale, mla_decode.TENSOR_CORES,
+                splits=splits, min_steps=steps))
+    plan = mla_decode.plan_for(q, cache, lat)
+    log(f"kernel mla_decode {label} (length {length}) split sweep (us; S "
+        f"splits x minimum steps; the plan takes S {plan.splits}, "
+        f"{plan.min_steps}): "
+        + "; ".join(f"S{k[0]}/{k[1]} {v * 1e3:.2f}" for k, v in res.items()))
+
+
 def check_mla_decode(gen):
+    """#26 on every branch of ``mla_plan`` it can run (tensor cores for
+    bf16 q and cache at L a multiple of 64 and lat 512; the first design
+    for fp32 q or cache, another lat, L not a multiple of 64, rows whose
+    stages overflow shared memory; q or cache off a 16-byte boundary is
+    refused, check_refusals), each branch asserted and held to the plain
+    version within MLA_TOL; the tensor-core body run twice bit-identical;
+    at both path shapes its two planted faults and the first design timed
+    beside it, and the split sweep."""
     from apex_tpu_torch.contrib import mla_decode
     cfg = MLA_DECODE_CFG
     n, lat = cfg["num_heads"], cfg["kv_lora_rank"]
     L = lat + cfg["qk_rope_head_dim"]
     T, b = cfg["max_decode_length"], MLA_BATCH
     scale = (cfg["qk_nope_head_dim"] + cfg["qk_rope_head_dim"]) ** -0.5
+    taken = {mla_decode.FIRST_DESIGN: 0, mla_decode.TENSOR_CORES: 0}
 
-    def held(q, cache, length, lat=lat, scale=scale):
+    def held(q, cache, length, lat=lat, scale=scale, path=None):
+        plan = mla_decode.plan_for(q, cache, lat)
+        if path is not None:
+            assert plan.path == path, (plan, tuple(q.shape), q.dtype,
+                                       cache.dtype, lat)
+        taken[plan.path] += 1
         got = mla_decode.mla_flash_decode(q, cache, length, lat, scale)
         want = mla_decode.mla_decode_reference(q, cache, length, lat, scale)
         torch.cuda.synchronize()
@@ -3239,44 +3445,74 @@ def check_mla_decode(gen):
         torch.testing.assert_close(got, want, rtol=MLA_TOL, atol=MLA_TOL)
         return got, want
 
+    tc, first = mla_decode.TENSOR_CORES, mla_decode.FIRST_DESIGN
     # the path's shapes: bf16 q and cache [4608, 8, 576], lengths across
-    # the 32-row tiles and the 160-row chunks
+    # the 16-key steps, the 64-row stages and the splits
     cache = _latent_cache(gen, T, b, L, 4161)
     q = _randn(gen, b, n, L)
-    for length in (1, 511, 512, 513, 4097, 4161):
-        held(q, cache, length)
+    for length in (1, 15, 16, 17, 511, 512, 513, 4097, 4161):
+        held(q, cache, length, path=tc)
     # off the path: an fp32 cache and queries (the JAX package's fp32
     # end-to-end tests), a 1280-row buffer (256-row tiles in JAX), short
     # buffers, 128 heads (8 head groups), each row at its own length, and
     # dead rows holding 1e4 that must stay invisible
-    held(q.float(), cache.float(), 2049)
-    held(q, cache.float(), 700)
+    held(q.float(), cache.float(), 2049, path=first)
+    held(q, cache.float(), 700, path=first)
+    held(q.float(), cache, 700, path=first)
     for T_off, length in ((1280, 1280), (1280, 1001), (512, 512), (40, 7)):
-        held(q, _latent_cache(gen, T_off, b, L, length), length)
-    held(_randn(gen, 2, 128, L), _latent_cache(gen, 600, 2, L, 600), 333)
+        held(q, _latent_cache(gen, T_off, b, L, length), length, path=tc)
+    held(_randn(gen, 2, 128, L), _latent_cache(gen, 600, 2, L, 600), 333,
+         path=tc)
     rows = torch.tensor([1, 31, 32, 33, 160, 161, 2000, 4608],
                         dtype=torch.int32, device="cuda")
-    held(q, _latent_cache(gen, T, b, L, T), rows)
+    held(q, _latent_cache(gen, T, b, L, T), rows, path=tc)
     poisoned = cache.clone()
     poisoned[1000:] = 1e4
-    got, _ = held(q, poisoned, 1000)
-    clean, _ = held(q, cache, 1000)
+    got, _ = held(q, poisoned, 1000, path=tc)
+    clean, _ = held(q, cache, 1000, path=tc)
     torch.testing.assert_close(got, clean, rtol=0, atol=0)
-    held(q[:, :, :64].contiguous(), cache[..., :64].contiguous(), 99, lat=32)
+    held(q[:, :, :64].contiguous(), cache[..., :64].contiguous(), 99, lat=32,
+         path=first)  # another lat
+    held(q[..., :256].contiguous(), cache[..., :256].contiguous(), 99,
+         lat=128, path=first)
+    held(_randn(gen, b, n, 584), _latent_cache(gen, 600, b, 584, 600), 333,
+         path=first)  # L not a multiple of 64
+    held(_randn(gen, 2, n, 1024), _latent_cache(gen, 300, 2, 1024, 300), 257,
+         path=first)  # the stages overflow shared memory
+    # the tensor-core body twice: bit-identical (the merge tree's order
+    # does not follow the blocks' arrival)
+    again = [mla_decode.mla_flash_decode(q, cache, 4129, lat, scale)
+             for _ in range(2)]
+    assert torch.equal(again[0], again[1])
 
-    # deepseek_v2_lite's steps: a [1024, 8, 576] bf16 cache (32 chunks of
-    # 32 rows), lengths from the prompt's end to the last step's
+    # deepseek_v2_lite's steps: a [1024, 8, 576] bf16 cache, lengths from
+    # the prompt's end to the last step's
     T2, P2 = V2_LITE_CFG["max_decode_length"], V2_PROMPT
     cache2 = _latent_cache(gen, T2, V2_BATCH, L, P2 + V2_NEW - 1)
     q2 = _randn(gen, V2_BATCH, V2_LITE_CFG["num_heads"], L)
     for length in (P2 + 1, P2 + V2_NEW // 2, P2 + V2_NEW - 1):
-        held(q2, cache2, length)
+        held(q2, cache2, length, path=tc)
+    log(f"kernel mla_decode: mla_plan's branches held to the plain version "
+        f"within {MLA_TOL} (tensor cores {taken[tc]} cases, first design "
+        f"{taken[first]}); the tensor-core body run twice bit-identical")
 
-    # the entries: a mid-run decode step of each path
-    held(q, cache, MLA_DECODE_LENGTH)
-    return [_mla_entry("mla_decode", q, cache, MLA_DECODE_LENGTH, lat, scale),
-            _mla_entry("deepseek_v2_lite", q2, cache2, P2 + V2_NEW // 2, lat,
-                       scale)]
+    # the entries: a mid-run decode step of each path, with the first
+    # design and the planted faults at the same shape
+    held(q, cache, MLA_DECODE_LENGTH, path=tc)
+    v2_length = P2 + V2_NEW // 2
+    design = {"mla_decode": _mla_design_and_faults(
+        "mla_decode", q, cache, MLA_DECODE_LENGTH, lat, scale),
+              "deepseek_v2_lite": _mla_design_and_faults(
+        "deepseek_v2_lite", q2, cache2, v2_length, lat, scale)}
+    _mla_split_sweep("mla_decode", q, cache, MLA_DECODE_LENGTH, lat, scale)
+    _mla_split_sweep("deepseek_v2_lite", q2, cache2, v2_length, lat, scale)
+    entries = [_mla_entry("mla_decode", q, cache, MLA_DECODE_LENGTH, lat,
+                          scale),
+               _mla_entry("deepseek_v2_lite", q2, cache2, v2_length, lat,
+                          scale)]
+    for e, label in zip(entries, ("mla_decode", "deepseek_v2_lite")):
+        e["first_design_ms"] = design[label]
+    return entries
 
 
 def _mla_entry(label, q, cache, length, lat, scale):
@@ -3287,7 +3523,7 @@ def _mla_entry(label, q, cache, length, lat, scale):
     got = mla_decode.mla_flash_decode(q, cache, length, lat, scale)
     want = mla_decode.mla_decode_reference(q, cache, length, lat, scale)
     k_l = cache[:length].permute(1, 0, 2)[:, None]  # [b, 1, len, L]
-    return entry(
+    e = entry(
         "mla_decode", f"{label}: q[{b},{n},{L}] bf16, cache"
         f"[{cache.shape[0]},{b},{L}] bf16, length {length}", got, want,
         f"rtol {MLA_TOL} atol {MLA_TOL}",
@@ -3297,6 +3533,8 @@ def _mla_entry(label, q, cache, length, lat, scale):
             q.reshape(b, n, 1, L), k_l, k_l[..., :lat], scale=scale,
             enable_gqa=True),
         _mla_bound(b, n, L, lat, [length] * b))
+    e["earlier_bound_ms"] = _mla_bound_fp32(b, n, L, lat, [length] * b)[0]
+    return e
 
 
 def check_refusals():
@@ -4578,24 +4816,17 @@ def _restored(cache, rows, pos):
     return cache
 
 
-def _skip_last_chunk(real):
-    from apex_tpu_torch.contrib import mla_decode
-
-    def run(q, cache, length, lat, scale):
-        chunk, _ = mla_decode.split_rows(
-            cache.shape[0], q.shape[0], q.shape[1],
-            mla_decode._sm_count(q.device.index or 0))
-        return real(q, cache, max(1, (length - 1) // chunk * chunk), lat,
-                    scale)
-    return run
-
-
-def _no_rope(real):
-    def run(q, cache, length, lat, scale):
-        q = q.clone()
-        q[..., lat:] = 0
-        return real(q, cache, length, lat, scale)
-    return run
+def _mla_kernel_fault(code):
+    """A planted #26 fault of MLA_KERNEL_FAULTS in place of the wrapper:
+    the same call, launched on fault path ``code``."""
+    def fault(real):
+        def run(q, cache, length, lat, scale):
+            from apex_tpu_torch.kernels import _checks
+            lengths = _checks.row_offsets("mla_flash_decode", length,
+                                          q.shape[0], q.device, "length")
+            return _mla_raw(q, cache, lengths, lat, scale, code)
+        return run
+    return fault
 
 
 def _short_mean_square(real):
@@ -4618,18 +4849,19 @@ def _toward_zero(real):
     return run
 
 
-# deliberate faults in the kernels of the MLA paths, each wrapping the
+# deliberate faults in the kernels of the MLA paths, each in place of the
 # real wrapper (name, wrapper, fault, planted in the prefill too, the
-# logits checks must see it): #26 skips the last live chunk (a bounds
-# fault: the current token's own row among those lost) or the rope
-# columns of the scores; RMSNorm's mean square misses the row's last
-# eighth, or its bf16 output rounds toward zero. That last fault moves
-# half the outputs by less than an ulp, less than the logits' honest
-# error: check_rms_norm's share of outputs that differ holds it.
-MLA_FAULTS = (("mla_decode skips its last chunk", "mla_flash_decode",
-               _skip_last_chunk, False, True),
-              ("mla_decode drops the rope columns", "mla_flash_decode",
-               _no_rope, False, True),
+# logits checks must see it): #26, through its own launch (fault paths of
+# the tensor-core body), drops its last live split in the merge (the
+# current token's own row among those lost; unsplit, its last stage) or
+# leaves the rope columns out of its scores; RMSNorm's mean square misses
+# the row's last eighth, or its bf16 output rounds toward zero. That last
+# fault moves half the outputs by less than an ulp, less than the logits'
+# honest error: check_rms_norm's share of outputs that differ holds it.
+MLA_FAULTS = (("mla_decode drops its last live split", "mla_flash_decode",
+               _mla_kernel_fault(2), False, True),
+              ("mla_decode leaves the rope columns out of its scores",
+               "mla_flash_decode", _mla_kernel_fault(3), False, True),
               ("rms_norm misses an eighth of the row", "rms_fwd",
                _short_mean_square, True, True),
               ("rms_norm rounds toward zero", "rms_fwd", _toward_zero, True,
@@ -5549,7 +5781,7 @@ PROFILE_WATCH = ("ln_fwd_kernel", "warp_ln_fwd", "ln_bwd_dx",
                  "::fwd_kernel<", "::mma_fwd_kernel<", "::bf16_fwd_kernel<",
                  "::mma_dq_kernel<",
                  "::mma_dkv_kernel<", "::dq_kernel<", "::dkv_kernel<",
-                 "rms_")
+                 "rms_", "mma_mla_decode", "dequant_vec_kernel")
 PHASES = ("kernels", "serving", "serve_bf16", "serve_int8", "serve_spec",
           "training", "flash_training", "gpt2_training", "bert_training",
           "mha", "mla_decode", "deepseek_v2_lite", "ddp_gpt2",

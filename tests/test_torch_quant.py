@@ -10,8 +10,13 @@ same values.
 Tolerance: none. Codes, scales and dequantized values are compared bit
 for bit: the same fp32 operations (a max, one IEEE division for the
 scale and one per value, round half to even, one product) in the same
-order on both sides.
+order on both sides. The streaming dequantize body's plan, a model of
+its index math (held to JAX's jnp oracle) and its path codes are checked
+here too.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -162,3 +167,103 @@ def test_plain_versions_count_no_launch():
     launches = registry.launches()
     assert launches["quantize_int8"] == 0
     assert launches["dequantize_int8"] == 0
+
+
+# ----------------------------------------------------------------------
+# The streaming dequantize (csrc/quant8.cu `dequant_vec_kernel`): its plan,
+# a model of its index math, its path codes and its C signature.
+
+_CU = Path(quant.__file__).resolve().parent.parent / "csrc" / "quant8.cu"
+
+
+@pytest.mark.parametrize("code,out", [(1, 2), (1, 4), (4, 4), (4, 2)])
+def test_dequant_plan_streams_whole_rows(code, out):
+    """int8 and int32 codes into bf16 and fp32: the serving cache's
+    [16384, 1, 256] rows and a DDP bucket (one row, ragged or not) take
+    the vector body."""
+    assert quant.dequant_plan(16384, 256, 1, 256, code, out, True) == \
+        quant.VECTOR
+    assert quant.dequant_plan(999, 512, 2, 256, code, out, True) == \
+        quant.VECTOR
+    assert quant.dequant_plan(1, 1000, 4, 256, code, out, True) == \
+        quant.VECTOR
+    assert quant.dequant_plan(1, 51_511_296, 201_216, 256, code, out,
+                              True) == quant.VECTOR
+
+
+def test_dequant_plan_keeps_the_first_design_elsewhere():
+    """Ragged rows (n < nb * block with rows > 1), a block that is not a
+    power of two or holds less than a 16-byte code vector, and codes off
+    a 16-byte boundary (a view at +4 bytes) take the first design."""
+    assert quant.dequant_plan(999, 300, 2, 256, 1, 4, True) == quant.SCALAR
+    assert quant.dequant_plan(64, 1000, 10, 100, 1, 4, True) == quant.SCALAR
+    assert quant.dequant_plan(8, 16, 2, 8, 1, 2, True) == quant.SCALAR
+    assert quant.dequant_plan(8, 16, 8, 2, 4, 4, True) == quant.SCALAR
+    assert quant.dequant_plan(8, 32, 8, 4, 4, 4, True) == quant.VECTOR
+    buf = torch.zeros(16 * 256 + 16, dtype=torch.int8)
+    view = buf[4:4 + 16 * 256].view(16, 1, 256)
+    assert buf.data_ptr() % 16 == 0 and view.data_ptr() % 16 == 4
+    assert quant.dequant_plan(16, 256, 1, 256, 1, 2,
+                              view.data_ptr() % 16 == 0) == quant.SCALAR
+    # the wrapper's CPU path on that view still gives the plain values
+    s = torch.rand(16, 1, 1)
+    _same(quant.dequantize_rows(view, s, 256),
+          quant.dequantize_rows_plain(view.contiguous(), s, 256))
+
+
+def _vector_model(q, scales, n, out_dtype):
+    """dequant_vec_kernel's index math on the CPU: the codes as one flat
+    array of 16-byte vectors, vector i's elements e = i * V .. e + V - 1
+    scaled by block e >> log2(block), one fp32 product each (rounded to
+    bf16 where asked), written up to the rows' n elements (the last
+    vector of a ragged one-row call element by element)."""
+    rows, nb, block = q.shape
+    per = 16 // q.element_size()
+    flat, s = q.reshape(-1), scales.reshape(-1)
+    total = rows * n
+    out = torch.empty(total, dtype=out_dtype)
+    shift = block.bit_length() - 1
+    for i in range(-(-total // per)):
+        e = i * per
+        v = flat[e:e + per].float() * s[e >> shift]
+        k = min(per, total - e)
+        out[e:e + k] = v[:k].to(out_dtype)
+    return out.reshape(rows, n)
+
+
+@pytest.mark.parametrize("rows,nb,n,codes", [
+    (12, 1, 256, "int8"), (5, 3, 768, "int32"), (1, 4, 1000, "int8"),
+    (1, 4, 1001, "int32"), (1, 1, 37, "int8")])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_vector_index_math_matches_jax(rows, nb, n, codes, out_dtype):
+    """The model, on numpy-seeded codes and scales, bit for bit against
+    JAX's ``_dequantize_jnp`` (a one-row call with a ragged n included)."""
+    rng = np.random.RandomState(rows * 1000 + n)
+    hi = 127 if codes == "int8" else 5000
+    q = rng.randint(-hi, hi + 1, (rows, nb, 256)).astype(codes)
+    s = (rng.rand(rows, nb, 1) * 0.1).astype(np.float32)
+    tq, ts = torch.from_numpy(q), torch.from_numpy(s)
+    td = getattr(torch, out_dtype)
+    assert quant.dequant_plan(rows, n, nb, 256, tq.element_size(),
+                              td.itemsize, True) == quant.VECTOR
+    got = _vector_model(tq, ts, n, td)
+    want = jax_comp._dequantize_jnp(jnp.asarray(q.reshape(-1, 256)),
+                                    jnp.asarray(s.reshape(-1, 1)))
+    want = want.reshape(rows, nb * 256)[:, :n].astype(getattr(jnp, out_dtype))
+    _same(got.float(), np.asarray(want.astype(jnp.float32)))
+    _same(got.float(), quant.dequantize_rows_plain(tq, ts, n, td).float())
+
+
+def test_dequant_path_codes_match_the_kernel_source():
+    """apex_dequant8's paths: 0 the first design, 1 the streaming body, 2
+    and 3 its planted faults (the neighbouring block's scale; each vector
+    read one ahead); the vector is 16 bytes."""
+    src = _CU.read_text()
+    assert "if (path < 0 || path > 3) return -1;" in src
+    assert "return launch_vec<C, O, kNoFault>(" in src
+    assert re.search(r"if \(path == 2\)\s+return launch_vec<C, O, "
+                     r"kNeighbourScale>", src)
+    assert re.search(r"if \(path == 3\)\s+return launch_vec<C, O, "
+                     r"kReadAhead>", src)
+    assert "constexpr int V = 16 / sizeof(C);" in src
+    assert quant.VECTOR_BYTES == 16 and (quant.SCALAR, quant.VECTOR) == (0, 1)

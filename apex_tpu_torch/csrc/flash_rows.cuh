@@ -1,8 +1,9 @@
-// Body of the int8-cache verify kernel #22 (spec_verify.cu) alone: flash
+// The first design of the int8-cache verify kernel #22 (spec_verify.cu's
+// path 0: fp32 q, and cells whose lanes cross a block of the store): flash
 // attention of a few query rows of one (batch, kv-group) cell against
 // that cell's slice of the cache. The window and decode kernels (#21,
-// #25) left it for kv_attention.cuh (split over the keys, tensor cores);
-// #22 can take that body later with an Int8KV loader of its own.
+// #25) and #22's path 1 run the body of kv_attention.cuh instead (split
+// over the keys, tensor cores; #22 through its Int8KV source there).
 //
 // Layouts (all contiguous, the JAX package's):
 //   q, out  [w, b, g, rep, d]   (decode: w = 1, i.e. [b, g, rep, d]); out fp32

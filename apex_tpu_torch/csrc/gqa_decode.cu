@@ -28,15 +28,16 @@
 // through fp32 scratch and a per-cell counter: the last split block to
 // arrive merges the partials in index order, in the same launch.
 //
-// First design (flash_rows.cuh, the body #22 keeps): one block per cell
-// walking its tiles in sequence on 32 of the 132 SMs, fp32 FMAs with K/V
-// widened in shared memory, two of its four warps idle at rep 8: 27.66 us
-// at length 144 (PERF.md section 6).
+// First design (flash_rows.cuh, which #22 keeps for fp32 queries and
+// blocks that split a cell): one block per cell walking its tiles in
+// sequence on 32 of the 132 SMs, fp32 FMAs with K/V widened in shared
+// memory, two of its four warps idle at rep 8: 27.66 us at length 144
+// (PERF.md section 6).
 // Known limit: at length 144 the kernel moves 1.2 MB, so its time is the
 // launch, one stage's load latency and the merge's round trip through L2,
-// not bytes. The int8 serving store still goes through #15's dequantize
-// before this kernel (the Int8KV loader of flash_rows.cuh is not ported
-// to this body yet).
+// not bytes. The engine's int8 store still goes through #15's dequantize
+// before this kernel, as the JAX engine's does (the body reads the int8
+// store itself only in #22, through its Int8KV source).
 
 #include "kv_attention.cuh"
 

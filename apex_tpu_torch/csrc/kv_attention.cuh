@@ -1,8 +1,12 @@
 // Shared body of the KV-cache attention kernels #21 (window_attention.cu:
-// the prefill and speculative-verify window) and #25 (gqa_decode.cu: the
-// one-token decode): flash attention of the query rows of one (batch,
-// kv-group) cell against that cell's live slice of the cache, split over
-// the SMs along the keys and merged in the same launch.
+// the prefill and speculative-verify window), #25 (gqa_decode.cu: the
+// one-token decode) and #22's path 1 (spec_verify.cu: the verify window
+// over the int8 serving store): flash attention of the query rows of one
+// (batch, kv-group) cell against that cell's live slice of the cache,
+// split over the SMs along the keys and merged in the same launch. The
+// kernel takes its K/V through a source type: DenseKV (#21, #25: the
+// bf16 or fp32 cache as it is) or Int8KV (#22: codes and block scales,
+// below its definition).
 //
 // Layouts (all contiguous, the JAX package's):
 //   q, out  [w, b, g, rep, d]   (decode: w = 1, i.e. [b, g, rep, d]); out fp32
@@ -133,7 +137,19 @@ struct Args {
   int splits;            // S, 1 .. kMaxSplits
   float* scratch;        // S > 1: [cells*tiles*S, 16, d] acc, then [., 16, 2] (m, l)
   int* counters;         // S > 1: [cells*tiles] int32, zero between launches
+  // the int8 store (Int8KV): k, v are codes [T, b, nb, B] and kv_stride
+  // is in bytes (b*nb*B); the rest is unused by the dense caches
+  const float* ks;       // [T, b, nb] fp32 block scales of k
+  const float* vs;       // and of v
+  long long scale_stride;  // scales between cache rows (b*nb)
+  int nb;                // blocks of a store row
+  int block;             // B lanes a block
 };
+
+// planted faults of the int8 body (#22's paths 2 and 3; kNeighbourScale
+// is Int8KV's kSwapScales)
+constexpr int kNoFault = 0;
+constexpr int kDropLastSplit = 1;  // the last live split left out of the merge
 
 // ------------------------------------------------------------ primitives
 
@@ -151,6 +167,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// 4 bytes global -> shared; src_bytes 0 writes a zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
 }
 
 template <int N>
@@ -223,14 +247,29 @@ __device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi,
   lo = pack_bf16(l0, l1);
 }
 
+// four int8 codes (bytes 0-3 of w) -> the bf16 pairs (c0, c1) and (c2,
+// c3), exactly: c + 128 set into the mantissa of 2^23, less 2^23 + 128,
+// is c in fp32, whose upper half is its bf16 (|c| <= 128 has 8
+// significant bits)
+__device__ __forceinline__ void i8x4_to_bf16x2(uint32_t w, uint32_t& lo,
+                                               uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;  // c + 128 in each byte
+  float f[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    f[k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + k)) -
+           8388736.f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
 // ------------------------------------------------- shared-memory layout
 
-template <typename T, int D>
+// Src: the K/V source (DenseKV or Int8KV below), which sets a stage's bytes
+template <typename Src>
 struct Layout {
-  static constexpr int kLd = D + 16 / static_cast<int>(sizeof(T));  // K/V row
-  static constexpr int kTile = kStageKeys * kLd;  // one of K, V in one stage
-  static constexpr int kKVBytes =
-      kStages * 2 * kTile * static_cast<int>(sizeof(T));
+  static constexpr int D = Src::kD;
+  static constexpr int kKVBytes = kStages * Src::kStageBytes;
   static constexpr int kAccLd = D + 4;           // fp32 rows: partials, fp32 Q
   // after the key loop the stages hold the warps' partials and the merge's
   // per-row weights
@@ -238,7 +277,8 @@ struct Layout {
       kWarps * kRows * kAccLd + 2 * kWarps * kRows + kRows * kWarps + 2 * kRows;
   static constexpr int kUnionBytes =
       kKVBytes > 4 * kMergeFloats ? kKVBytes : 4 * kMergeFloats;
-  static constexpr int kQBytes = sizeof(T) == 4 ? 4 * kRows * kAccLd : 0;
+  static constexpr int kQBytes =
+      sizeof(typename Src::Query) == 4 ? 4 * kRows * kAccLd : 0;
   static constexpr int kBytes = kUnionBytes + kQBytes;
 };
 
@@ -388,15 +428,342 @@ struct WarpOps<float, D> {
   }
 };
 
+// ------------------------------------------------------- K/V sources
+//
+// A source knows where a cell's cache rows lie, how a stage of them lands
+// in shared memory (load), where a warp's 16-key step of a landed stage
+// is (k_step, v_step), which key a score column holds (key_col) and where
+// an accumulator element's dim is (store_acc). Ops are its warp products.
+
+// k, v [T, b, g, d] of the query type (#21, #25): a stage holds K and V
+// rows as they are, padded by 16 bytes for ldmatrix
+template <typename T, int D>
+struct DenseKV {
+  using Query = T;
+  using Ops = WarpOps<T, D>;
+  static constexpr int kD = D;
+  static constexpr int kLd = D + 16 / static_cast<int>(sizeof(T));  // K/V row
+  static constexpr int kTile = kStageKeys * kLd;  // one of K, V in one stage
+  static constexpr int kStageBytes = 2 * kTile * static_cast<int>(sizeof(T));
+  const T* k;
+  const T* v;
+  long long stride;  // elements between cache rows
+
+  __device__ __forceinline__ DenseKV(const Args& a, int cell)
+      : k(static_cast<const T*>(a.k) + static_cast<long long>(cell) * D),
+        v(static_cast<const T*>(a.v) + static_cast<long long>(cell) * D),
+        stride(a.kv_stride) {}
+
+  // keys [base, base + kStageKeys) into `stage`, cp.async 16 bytes a
+  // thread; rows from key_end on are zero-filled, never copied
+  __device__ __forceinline__ void load(unsigned char* stage, int base,
+                                       int key_end, int tid) const {
+    T* ks = reinterpret_cast<T*>(stage);
+    T* vs = ks + kTile;
+    constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
+    constexpr int kPerRow = D / kChunk;
+    for (int idx = tid; idx < kStageKeys * kPerRow; idx += kThreads) {
+      const int kk = idx / kPerRow;
+      const int c = (idx % kPerRow) * kChunk;
+      const int key = base + kk;
+      const int bytes = key < key_end ? 16 : 0;
+      const long long off =
+          static_cast<long long>(min(key, key_end - 1)) * stride + c;
+      cp_async16(ks + kk * kLd + c, k + off, bytes);
+      cp_async16(vs + kk * kLd + c, v + off, bytes);
+    }
+  }
+
+  static __device__ __forceinline__ const T* k_step(const unsigned char* stage,
+                                                    int warp) {
+    return reinterpret_cast<const T*>(stage) + warp * kStep * kLd;
+  }
+  static __device__ __forceinline__ const T* v_step(const unsigned char* stage,
+                                                    int warp) {
+    return k_step(stage, warp) + kTile;
+  }
+  // the key (from the step's first) of score column 8 * nt + 2 * tq + e
+  static __device__ __forceinline__ int key_col(int nt, int tq, int e) {
+    return 8 * nt + 2 * tq + e;
+  }
+  // acc[nd][2h + e] is row gq + 8h, dim 8 * nd + 2 * tq + e
+  static __device__ __forceinline__ void store_acc(float* pa, int ld,
+                                                   const float (&acc)[D / 8][4],
+                                                   int gq, int tq) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd)
+        *reinterpret_cast<float2*>(pa + (gq + 8 * h) * ld + 8 * nd + 2 * tq) =
+            make_float2(acc[nd][2 * h], acc[nd][2 * h + 1]);
+  }
+};
+
+// The int8 serving store (#22): codes [T, b, nb, B] with fp32 block scales
+// [T, b, nb]. Cell (batch row bi, group gi) reads the d codes at lanes
+// gi * d of each row, which lie in one block (B % d == 0), and that
+// block's scale: the stage holds 64 rows of d code bytes for K and for V
+// (16-byte chunks swizzled within a row, so that the fragment loads below
+// hit distinct banks) and the rows' 64 + 64 scales. Codes (|c| <= 127)
+// are exact in bf16, so the products see no rounded dequantized value:
+// scores are (q . c) * ks in fp32 and P.V takes p * vs in fp32, split into
+// three bf16 terms, times the codes. kSwapScales plants a fault: each key
+// row's score takes its neighbour row's K scale.
+template <int D, bool kSwapScales>
+struct Int8KV {
+  using Query = __nv_bfloat16;
+  static constexpr int kD = D;
+  static constexpr int kCodes = kStageKeys * D;  // bytes of K (or V) codes
+  static constexpr int kChunks = D / 16;         // 16-byte chunks of a row
+  static constexpr int kStageBytes = 2 * kCodes + 2 * kStageKeys * 4;
+  struct Step {  // a warp's 16 rows of a landed stage
+    const uint8_t* codes;
+    const float* scales;
+  };
+  const int8_t* k;
+  const int8_t* v;
+  const float* ks;
+  const float* vs;
+  long long stride;        // bytes between cache rows
+  long long scale_stride;  // scales between cache rows
+
+  __device__ __forceinline__ Int8KV(const Args& a, int cell) {
+    const int bi = cell / a.groups;
+    const int gi = cell % a.groups;
+    const long long lane0 =
+        static_cast<long long>(bi) * a.nb * a.block + gi * D;
+    const long long s0 = static_cast<long long>(bi) * a.nb + gi * D / a.block;
+    k = static_cast<const int8_t*>(a.k) + lane0;
+    v = static_cast<const int8_t*>(a.v) + lane0;
+    ks = a.ks + s0;
+    vs = a.vs + s0;
+    stride = a.kv_stride;
+    scale_stride = a.scale_stride;
+  }
+
+  // the slot of 16-byte chunk c in stage row r: rows 8 apart share a
+  // bank pattern, and within 8 rows the reads below take distinct banks
+  static __device__ __forceinline__ int slot(int r, int c) {
+    return D == 64 ? c ^ ((r >> 1) & 2) : c ^ (r & 7);
+  }
+  // the step's row (0-15) whose key score column 8 * nt + j holds: the
+  // pairs (2m, 2m + 1) keep their rows, swapped where m is odd, so that
+  // a quad's fragment rows alternate between bank halves
+  static __device__ __forceinline__ int row_of(int j) {
+    return j ^ ((j >> 1) & 1);
+  }
+  static __device__ __forceinline__ int key_col(int nt, int tq, int e) {
+    return 8 * nt + row_of(2 * tq + e);
+  }
+
+  __device__ __forceinline__ void load(unsigned char* stage, int base,
+                                       int key_end, int tid) const {
+    int8_t* kc = reinterpret_cast<int8_t*>(stage);
+    int8_t* vc = kc + kCodes;
+    float* kss = reinterpret_cast<float*>(stage + 2 * kCodes);
+    float* vss = kss + kStageKeys;
+    for (int idx = tid; idx < kStageKeys * kChunks; idx += kThreads) {
+      const int kk = idx / kChunks;
+      const int c = idx % kChunks;
+      const int key = base + kk;
+      const int bytes = key < key_end ? 16 : 0;
+      const long long off =
+          static_cast<long long>(min(key, key_end - 1)) * stride + c * 16;
+      const int dst = kk * D + slot(kk, c) * 16;
+      cp_async16(kc + dst, k + off, bytes);
+      cp_async16(vc + dst, v + off, bytes);
+    }
+    for (int kk = tid; kk < kStageKeys; kk += kThreads) {
+      const int key = base + kk;
+      const int bytes = key < key_end ? 4 : 0;
+      const long long off =
+          static_cast<long long>(min(key, key_end - 1)) * scale_stride;
+      cp_async4(kss + kk, ks + off, bytes);
+      cp_async4(vss + kk, vs + off, bytes);
+    }
+  }
+
+  static __device__ __forceinline__ Step k_step(const unsigned char* stage,
+                                                int warp) {
+    return {stage + warp * kStep * D,
+            reinterpret_cast<const float*>(stage + 2 * kCodes) + warp * kStep};
+  }
+  static __device__ __forceinline__ Step v_step(const unsigned char* stage,
+                                                int warp) {
+    return {stage + kCodes + warp * kStep * D,
+            reinterpret_cast<const float*>(stage + 2 * kCodes) + kStageKeys +
+                warp * kStep};
+  }
+
+  // the scales of the rows behind columns 2 * tq and 2 * tq + 1 of the
+  // 8 at `sc` (rows row_of(2tq), row_of(2tq + 1): the pair, swapped for
+  // odd tq)
+  static __device__ __forceinline__ void pair_scales(const float* sc, int tq,
+                                                     float& lo, float& hi) {
+    const float2 x = *reinterpret_cast<const float2*>(sc + 2 * tq);
+    lo = (tq & 1) ? x.y : x.x;
+    hi = (tq & 1) ? x.x : x.y;
+  }
+
+  // acc[nd][2h + e] is row gq + 8h, dim (2 * tq + e) * D/8 + nd
+  static __device__ __forceinline__ void store_acc(float* pa, int ld,
+                                                   const float (&acc)[D / 8][4],
+                                                   int gq, int tq) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float* dst = pa + (gq + 8 * h) * ld + (2 * tq + e) * (D / 8);
+#pragma unroll
+        for (int m = 0; m < D / 32; ++m)
+          *reinterpret_cast<float4*>(dst + 4 * m) =
+              make_float4(acc[4 * m][2 * h + e], acc[4 * m + 1][2 * h + e],
+                          acc[4 * m + 2][2 * h + e], acc[4 * m + 3][2 * h + e]);
+      }
+  }
+
+  // The warp products. The reduction dims and keys of a tile may be taken
+  // in any order that A and B fragments share: lane (gq, tq) takes the
+  // dims [tq * D/4, (tq + 1) * D/4) of Q and of K, 4 a k-chunk (chunk kc:
+  // dims tq * D/4 + 4 kc + {0, 1} at k 2tq, 2tq + 1 and + {2, 3} at k 2tq +
+  // 8, 2tq + 9), so that a K row's share is one or two 16-byte reads; P.V's
+  // output columns are dims n * D/8 + nd of tile nd, so that a V row's
+  // share is D/8 contiguous bytes.
+  struct Ops {
+    uint32_t qf[D / 16][4];
+
+    __device__ __forceinline__ void load_q(const __nv_bfloat16* q_cell, int ra,
+                                           int rb, int row_end, const Args& a,
+                                           int tq) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = h ? rb : ra;
+        const __nv_bfloat16* p = q_cell + (row / a.rep) * a.pos_stride +
+                                 (row % a.rep) * D + tq * (D / 4);
+#pragma unroll
+        for (int kc = 0; kc < D / 16; ++kc) {
+          uint2 w = make_uint2(0u, 0u);
+          if (row < row_end) w = *reinterpret_cast<const uint2*>(p + 4 * kc);
+          qf[kc][h] = w.x;
+          qf[kc][2 + h] = w.y;
+        }
+      }
+    }
+
+    // s = (Q . C^T) * ks for the warp's 16 keys
+    __device__ __forceinline__ void scores(const Step& st, float (&s)[2][4],
+                                           int lane) const {
+      const int gq = lane >> 2;
+      const int tq = lane & 3;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int r = 8 * nt + row_of(gq);
+#pragma unroll
+        for (int ch = 0; ch < D / 64; ++ch) {
+          const uint4 w = *reinterpret_cast<const uint4*>(
+              st.codes + r * D + slot(r, tq * (D / 64) + ch) * 16);
+          const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            uint32_t b0, b1;
+            i8x4_to_bf16x2(ws[j], b0, b1);
+            mma_bf16(s[nt], qf[4 * ch + j], b0, b1);
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float lo, hi;
+        pair_scales(st.scales + 8 * nt, tq, lo, hi);
+        if (kSwapScales) {
+          const float t = lo;
+          lo = hi;
+          hi = t;
+        }
+        s[nt][0] *= lo;
+        s[nt][1] *= hi;
+        s[nt][2] *= lo;
+        s[nt][3] *= hi;
+      }
+    }
+
+    // acc += (P * vs) . C for the warp's 16 keys, P * vs as bf16 hi + mid
+    // + lo
+    __device__ __forceinline__ void pv(const Step& st, const float (&p)[2][4],
+                                       float (&acc)[D / 8][4], int lane) const {
+      const int gq = lane >> 2;
+      const int tq = lane & 3;
+      float pq[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float lo, hi;
+        pair_scales(st.scales + 8 * nt, tq, lo, hi);
+        pq[nt][0] = p[nt][0] * lo;
+        pq[nt][1] = p[nt][1] * hi;
+        pq[nt][2] = p[nt][2] * lo;
+        pq[nt][3] = p[nt][3] * hi;
+      }
+      uint32_t hi[4], mid[4], lo[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        split_bf16(pq[f >> 1][2 * (f & 1)], pq[f >> 1][2 * (f & 1) + 1], hi[f],
+                   mid[f], lo[f]);
+      // B fragments: the lane's D/8 dims gq * D/8 + nd of the rows behind
+      // k = 2tq, 2tq + 1 (b0) and 2tq + 8, 2tq + 9 (b1)
+      const int rows[4] = {row_of(2 * tq), row_of(2 * tq + 1),
+                           8 + row_of(2 * tq), 8 + row_of(2 * tq + 1)};
+      constexpr int W = D / 32;  // words of the lane's D/8 bytes a row
+      uint32_t w[4][W];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const uint8_t* row = st.codes + rows[r] * D;
+        if constexpr (D == 64) {
+          const uint2 x = *reinterpret_cast<const uint2*>(
+              row + slot(rows[r], gq >> 1) * 16 + (gq & 1) * 8);
+          w[r][0] = x.x;
+          w[r][1] = x.y;
+        } else {
+          const uint4 x =
+              *reinterpret_cast<const uint4*>(row + slot(rows[r], gq) * 16);
+          w[r][0] = x.x;
+          w[r][1] = x.y;
+          w[r][2] = x.z;
+          w[r][3] = x.w;
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < W; ++m) {
+        uint32_t b0[4], b1[4];  // tiles nd = 4m .. 4m + 3
+        i8x4_to_bf16x2(__byte_perm(w[0][m], w[1][m], 0x5140), b0[0], b0[1]);
+        i8x4_to_bf16x2(__byte_perm(w[0][m], w[1][m], 0x7362), b0[2], b0[3]);
+        i8x4_to_bf16x2(__byte_perm(w[2][m], w[3][m], 0x5140), b1[0], b1[1]);
+        i8x4_to_bf16x2(__byte_perm(w[2][m], w[3][m], 0x7362), b1[2], b1[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // smallest term first
+          mma_bf16(acc[4 * m + j], lo, b0[j], b1[j]);
+          mma_bf16(acc[4 * m + j], mid, b0[j], b1[j]);
+          mma_bf16(acc[4 * m + j], hi, b0[j], b1[j]);
+        }
+      }
+    }
+  };
+};
+
 // ----------------------------------------------------------------- kernel
 
-template <typename T, int D>
+template <typename Src, int kFault>
 __global__ void __launch_bounds__(kThreads) kv_attention_kernel(Args a) {
-  using L = Layout<T, D>;
+  using T = typename Src::Query;
+  constexpr int D = Src::kD;
+  using L = Layout<Src>;
   constexpr int C4 = D / 4;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last_block;
-  T* kv_s = reinterpret_cast<T*>(smem);  // [kStages][K, V][kStageKeys][kLd]
+  unsigned char* stages = smem;  // [kStages][Src::kStageBytes]
   float* part_acc = reinterpret_cast<float*>(smem);  // after the key loop
   float* part_m = part_acc + kWarps * kRows * L::kAccLd;
   float* part_l = part_m + kWarps * kRows;
@@ -421,7 +788,7 @@ __global__ void __launch_bounds__(kThreads) kv_attention_kernel(Args a) {
   const int rb = ra + 8;
 
   // Q before the offset read, so that its loads do not wait for it
-  WarpOps<T, D> ops;
+  typename Src::Ops ops;
   if constexpr (sizeof(T) == 2) {
     ops.load_q(q_cell, ra, rb, row_end, a, tq);
   } else {
@@ -456,27 +823,13 @@ __global__ void __launch_bounds__(kThreads) kv_attention_kernel(Args a) {
   const int n_stages = (j1 - j0 + kWarps - 1) / kWarps;
   const int qpos[2] = {start + ra / a.rep, start + rb / a.rep};
 
-  const T* k_cell = static_cast<const T*>(a.k) + static_cast<long long>(cell) * D;
-  const T* v_cell = static_cast<const T*>(a.v) + static_cast<long long>(cell) * D;
+  const Src src(a, cell);
   // the split's keys end before key_end; the stage's rows from there on
   // are zero-filled (finite zeros, weighed 0), never copied
   const int key_end = min(t_lo + kStep * j1, t_hi + 1);
   auto load_stage = [&](int st) {
-    T* ks = kv_s + (st % kStages) * 2 * L::kTile;
-    T* vs = ks + L::kTile;
-    const int base = t_lo + kStep * (j0 + st * kWarps);
-    constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
-    constexpr int kPerRow = D / kChunk;
-    for (int idx = tid; idx < kStageKeys * kPerRow; idx += kThreads) {
-      const int kk = idx / kPerRow;
-      const int c = (idx % kPerRow) * kChunk;
-      const int key = base + kk;
-      const int bytes = key < key_end ? 16 : 0;
-      const long long off =
-          static_cast<long long>(min(key, key_end - 1)) * a.kv_stride + c;
-      cp_async16(ks + kk * L::kLd + c, k_cell + off, bytes);
-      cp_async16(vs + kk * L::kLd + c, v_cell + off, bytes);
-    }
+    src.load(stages + (st % kStages) * Src::kStageBytes,
+             t_lo + kStep * (j0 + st * kWarps), key_end, tid);
   };
 
   // the first kStages - 1 stages in flight (a group each, empty past the
@@ -504,12 +857,10 @@ __global__ void __launch_bounds__(kThreads) kv_attention_kernel(Args a) {
     cp_async_commit();
     const int step = j0 + st * kWarps + warp;  // the warp's step
     if (step < j1) {
-      const T* ks =
-          kv_s + (st % kStages) * 2 * L::kTile + warp * kStep * L::kLd;
-      const T* vs = ks + L::kTile;
+      const unsigned char* stage = stages + (st % kStages) * Src::kStageBytes;
       const int key0 = t_lo + kStep * step;
       float s[2][4];
-      ops.scores(ks, s, lane);
+      ops.scores(Src::k_step(stage, warp), s, lane);
       // no mask where every key of the step is visible to every row
       const bool open = key0 + kStep <= key_end && key0 + kStep - 1 <= pos_lo &&
                         (a.window <= 0 || pos_hi - key0 < a.window);
@@ -524,7 +875,7 @@ __global__ void __launch_bounds__(kThreads) kv_attention_kernel(Args a) {
             float x = s[nt][i] * a.sm_scale;
             if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
             if (!open) {
-              const int key = key0 + 8 * nt + 2 * tq + e;
+              const int key = key0 + Src::key_col(nt, tq, e);
               bool mk = key > qpos[h] || key >= key_end;
               if (a.window > 0) mk = mk || (qpos[h] - key >= a.window);
               if (mk) x = -INFINITY;
@@ -553,7 +904,7 @@ __global__ void __launch_bounds__(kThreads) kv_attention_kernel(Args a) {
           acc[nd][2 * h + 1] *= alpha;
         }
       }
-      ops.pv(vs, s, acc, lane);
+      ops.pv(Src::v_step(stage, warp), s, acc, lane);
     }
   }
   cp_async_wait<0>();
@@ -568,13 +919,9 @@ __global__ void __launch_bounds__(kThreads) kv_attention_kernel(Args a) {
   // the warps' partials over the (now free) stages
   {
     float* pa = part_acc + warp * kRows * L::kAccLd;
+    Src::store_acc(pa, L::kAccLd, acc, gq, tq);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd)
-        *reinterpret_cast<float2*>(pa + (gq + 8 * h) * L::kAccLd + 8 * nd +
-                                   2 * tq) =
-            make_float2(acc[nd][2 * h], acc[nd][2 * h + 1]);
       if (tq == 0) {
         part_m[warp * kRows + gq + 8 * h] = m[h];
         part_l[warp * kRows + gq + 8 * h] = l[h];
@@ -671,18 +1018,19 @@ __global__ void __launch_bounds__(kThreads) kv_attention_kernel(Args a) {
   // (all kMaxSplits at once doubled the kernel's registers); L2 reads
   // (ld.cg), as the other blocks' partials are not in this SM's L1.
   constexpr int kMergeGroup = 8;
+  const int merged = kFault == kDropLastSplit ? S - 1 : S;
   for (int idx = tid; idx < n_real * C4; idx += kThreads) {
     const int r = idx / C4;
     const int c = (idx % C4) * 4;
     float mx = kNegInf;
     float sum = 0.f;
     float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int s0 = 0; s0 < S; s0 += kMergeGroup) {
+    for (int s0 = 0; s0 < merged; s0 += kMergeGroup) {
       float ms[kMergeGroup], ls[kMergeGroup];
       float4 x[kMergeGroup];
 #pragma unroll
       for (int u = 0; u < kMergeGroup; ++u) {
-        if (s0 + u < S) {
+        if (s0 + u < merged) {
           const long long row = (slot0 + s0 + u) * kRows + r;
           ms[u] = __ldcg(ml_scr + row * 2);
           ls[u] = __ldcg(ml_scr + row * 2 + 1);
@@ -691,7 +1039,7 @@ __global__ void __launch_bounds__(kThreads) kv_attention_kernel(Args a) {
       }
 #pragma unroll
       for (int u = 0; u < kMergeGroup; ++u) {
-        if (s0 + u < S) {
+        if (s0 + u < merged) {
           const float m_new = fmaxf(mx, ms[u]);
           const float keep = expf(mx - m_new);
           const float e = expf(ms[u] - m_new);
@@ -712,9 +1060,9 @@ __global__ void __launch_bounds__(kThreads) kv_attention_kernel(Args a) {
 
 // ----------------------------------------------------------------- launch
 
-template <typename T, int D>
+template <typename Src, int kFault>
 int launch(const Args& a, int cells, cudaStream_t stream) {
-  using L = Layout<T, D>;
+  using L = Layout<Src>;
   const int tiles = (a.n_rows + kRows - 1) / kRows;
   if (L::kBytes > 48 * 1024) {  // above the default: opt in, once a device
     static unsigned configured = 0;
@@ -722,14 +1070,14 @@ int launch(const Args& a, int cells, cudaStream_t stream) {
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (dev >= 32 || !((configured >> dev) & 1u)) {
-      e = cudaFuncSetAttribute(kv_attention_kernel<T, D>,
+      e = cudaFuncSetAttribute(kv_attention_kernel<Src, kFault>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                L::kBytes);
       if (e != cudaSuccess) return static_cast<int>(e);
       if (dev < 32) configured |= 1u << dev;
     }
   }
-  kv_attention_kernel<T, D>
+  kv_attention_kernel<Src, kFault>
       <<<dim3(cells, tiles, a.splits), kThreads, L::kBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -742,10 +1090,41 @@ inline int dispatch(const Args& a, int cells, int d, int dtype,
   if (cells <= 0 || a.n_rows <= 0) return 0;
   if (a.splits < 1 || a.splits > kMaxSplits) return -1;
   if (a.splits > 1 && (a.scratch == nullptr || a.counters == nullptr)) return -1;
-  if (dtype == 0 && d == 64) return launch<float, 64>(a, cells, stream);
-  if (dtype == 0 && d == 128) return launch<float, 128>(a, cells, stream);
-  if (dtype == 1 && d == 64) return launch<__nv_bfloat16, 64>(a, cells, stream);
-  if (dtype == 1 && d == 128) return launch<__nv_bfloat16, 128>(a, cells, stream);
+  if (dtype == 0 && d == 64) return launch<DenseKV<float, 64>, kNoFault>(a, cells, stream);
+  if (dtype == 0 && d == 128) return launch<DenseKV<float, 128>, kNoFault>(a, cells, stream);
+  if (dtype == 1 && d == 64) return launch<DenseKV<__nv_bfloat16, 64>, kNoFault>(a, cells, stream);
+  if (dtype == 1 && d == 128) return launch<DenseKV<__nv_bfloat16, 128>, kNoFault>(a, cells, stream);
+  return -1;
+}
+
+template <int D>
+int launch_int8(const Args& a, int cells, int path, cudaStream_t stream) {
+  if (path == 1) return launch<Int8KV<D, false>, kNoFault>(a, cells, stream);
+  if (path == 2) return launch<Int8KV<D, false>, kDropLastSplit>(a, cells, stream);
+  if (path == 3) return launch<Int8KV<D, true>, kNoFault>(a, cells, stream);
+  return -1;
+}
+
+// #22's body over the int8 store: bf16 q (16-byte aligned), head dims 64
+// and 128, B % d == 0 (a cell's lanes in one block), codes on 16-byte
+// boundaries with rows of a multiple of 16 bytes; splits as dispatch's;
+// path 1 the body, 2 and 3 its planted faults (the last live split left
+// out of the merge; each key's score on its neighbour row's scale).
+// Returns the launch's cudaError_t, or -1 for arguments it has no
+// instance for.
+inline int dispatch_int8(const Args& a, int cells, int d, int path,
+                         cudaStream_t stream) {
+  if (cells <= 0 || a.n_rows <= 0) return 0;
+  if (a.splits < 1 || a.splits > kMaxSplits) return -1;
+  if (a.splits > 1 && (a.scratch == nullptr || a.counters == nullptr)) return -1;
+  if (a.block <= 0 || a.block % d ||
+      (static_cast<long long>(a.nb) * a.block) % 16 ||
+      reinterpret_cast<uintptr_t>(a.q) % 16 ||
+      reinterpret_cast<uintptr_t>(a.k) % 16 ||
+      reinterpret_cast<uintptr_t>(a.v) % 16)
+    return -1;
+  if (d == 64) return launch_int8<64>(a, cells, path, stream);
+  if (d == 128) return launch_int8<128>(a, cells, path, stream);
   return -1;
 }
 

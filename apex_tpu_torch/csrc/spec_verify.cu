@@ -18,16 +18,35 @@
 // scales, ~0.5 MB per slot, and ~10 MFLOP: both bounds are well under a
 // microsecond, so the launch and the tile loop dominate.
 //
-// Design: the body the window kernel #21 had before its redesign
-// (flash_rows.cuh: a grid of (b*g cells, row tiles of 16), the cache
-// streamed through shared memory in tiles, online softmax in fp32) with
-// the Int8KV loader: each tile's
-// codes are widened and multiplied by their block's scale on the way
-// into shared memory, as the TPU kernel widens them in VMEM, so the
-// dequantized cache never exists in device memory (the alternative the
-// JAX engine takes is to dequantize every slot row with #15 first).
+// Two bodies; apex_spec_verify's path (kernels/fused_cc.py `verify_plan`
+// picks it) chooses:
+//  * path 1, the split tensor-core body of #21 and #25
+//    (kv_attention.cuh) with its int8 source, Int8KV: the grid (b*g
+//    cells, row tiles of 16, S splits of the live key range), the split
+//    rule and the in-launch merge are #21's; a stage lands the cell's d
+//    code bytes of 64 key rows by 16-byte cp.async and the rows' fp32
+//    scales by 4-byte ones. Codes are exact in bf16, so the m16n8k16
+//    fragments are built from the int8 words in registers (four codes
+//    widened by two byte permutes, four fp32 subtractions and two packs)
+//    and no dequantized value is ever rounded; the scales fold in fp32:
+//    the scores are (q . c) * ks * sm_scale, and P.V takes p * vs split
+//    into #21's three bf16 terms times the codes, the denominator staying
+//    the sum of p. It takes bf16 q at d 64 or 128 where a cell's lanes lie
+//    in one block (B % d == 0) and the codes on 16-byte boundaries (the
+//    serving store: B = 256). Paths 2 and 3 are planted faults (the last
+//    live split left out of the merge; each score on its neighbour key
+//    row's scale).
+//  * path 0, the first design (flash_rows.cuh: a grid of (b*g cells, row
+//    tiles of 16), each block walking its cell's live keys alone in fp32
+//    on the CUDA cores), each tile's codes widened and multiplied by
+//    their block's scale on the way into shared memory. It takes fp32 q
+//    and a cell's lanes across a block boundary.
+// Either way the dequantized cache never exists in device memory, as the
+// TPU kernel widens the codes in VMEM (the alternative the JAX engine
+// takes is to dequantize every slot row with #15 first).
 
 #include "flash_rows.cuh"
+#include "kv_attention.cuh"
 
 namespace {
 
@@ -65,12 +84,48 @@ int launch(const void* q, const int8_t* kq, const float* ks, const int8_t* vq,
 }  // namespace
 
 // dtype codes (of q): 0 = float32, 1 = bfloat16; head dims 64 and 128.
+// path 0: the first design (splits, scratch and counters unused); path 1:
+// the split body (bf16 q, B % d == 0, aligned codes; splits 1 ..
+// kMaxSplits, above 1 with scratch and counters), 2 and 3 its planted
+// faults. Returns the launch's cudaError_t, or -1 for arguments the path
+// has no instance for.
 extern "C" int apex_spec_verify(const void* q, const int8_t* kq,
                                 const float* ks, const int8_t* vq,
                                 const float* vs, float* out, int w, int b,
                                 int g, int rep, int d, int cache_len, int nb,
                                 int block, const int* starts, float sm_scale,
-                                int dtype, void* stream) {
+                                int dtype, int splits, float* scratch,
+                                int* counters, int path, void* stream) {
+  if (path < 0 || path > 3) return -1;
+  if (path != 0) {
+    if (dtype != 1) return -1;
+    apex_kv::Args k;
+    k.q = q;
+    k.k = kq;
+    k.v = vq;
+    k.out = out;
+    k.n_rows = w * rep;
+    k.rep = rep;
+    k.groups = g;
+    k.pos_stride = static_cast<long long>(b) * g * rep * d;
+    k.kv_stride = static_cast<long long>(b) * nb * block;
+    k.starts = starts;
+    k.start_bias = 0;
+    k.cache_len = cache_len;
+    k.window = 0;
+    k.sm_scale = sm_scale;
+    k.softcap = 0.f;
+    k.splits = splits;
+    k.scratch = scratch;
+    k.counters = counters;
+    k.ks = ks;
+    k.vs = vs;
+    k.scale_stride = static_cast<long long>(b) * nb;
+    k.nb = nb;
+    k.block = block;
+    return apex_kv::dispatch_int8(k, b * g, d, path,
+                                  static_cast<cudaStream_t>(stream));
+  }
   apex_flash::CellArgs a;
   a.n_rows = w * rep;
   a.rep = rep;

@@ -32,10 +32,11 @@
 // T, so the JAX package's einsum fallback for such T has no counterpart
 // here.
 //
-// First design (flash_rows.cuh, the body #22 keeps): a grid of (b*g
-// cells, row tiles of 16), each block walking its cell's K/V prefix in
-// fp32 on the CUDA cores, every K/V element widened from a 2-byte scalar
-// load: 74.71 us at the prefill shape (PERF.md section 6).
+// First design (flash_rows.cuh, which #22 keeps for fp32 queries and
+// blocks that split a cell): a grid of (b*g cells, row tiles of 16), each
+// block walking its cell's K/V prefix in fp32 on the CUDA cores, every
+// K/V element widened from a 2-byte scalar load: 74.71 us at the prefill
+// shape (PERF.md section 6).
 // Known limit: the output is fp32 in the JAX layout (8.4 MB of the 13.6 MB
 // at the prefill), and each of a cell's 64 row tiles reads the cell's K/V
 // prefix up to its own rows again (from L2 after the first).

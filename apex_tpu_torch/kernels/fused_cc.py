@@ -50,6 +50,10 @@ MM_MAX_SPLITS = 16
 TP_MATMUL = registry.register("tp_matmul")
 WINDOW_ATTENTION = registry.register("window_attention")
 SPEC_VERIFY = registry.register("spec_verify")
+# apex_spec_verify's paths: #22's first design and the split tensor-core
+# body (2 and 3 are planted faults of the body, passed only by the card
+# checks)
+VERIFY_FIRST_DESIGN, VERIFY_SPLIT = 0, 1
 
 
 # ------------------------------------------- family (a): GEMM + collective
@@ -405,7 +409,47 @@ def _verify_kernel():
     p, i, f = _checks.ptr, ctypes.c_int, ctypes.c_float
     return _build.function(
         "spec_verify", "apex_spec_verify",
-        [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, f, i, p])
+        [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, f, i, i, p, p, i, p])
+
+
+def verify_plan(q_itemsize: int, d: int, block: int, aligned: bool) -> int:
+    """#22's body for queries of ``q_itemsize`` bytes at head dim ``d``
+    over a store of ``block``-lane blocks: VERIFY_SPLIT, the split
+    tensor-core body of #21 with an int8 stage, where q is bf16, d is 64
+    or 128, each cell's d lanes lie in one block (block % d == 0: one
+    scale a key row) and q and the codes lie on 16-byte boundaries
+    (``aligned``; the rows, a multiple of d bytes, then stay aligned);
+    else VERIFY_FIRST_DESIGN."""
+    if q_itemsize == 2 and d in (64, 128) and block % d == 0 and aligned:
+        return VERIFY_SPLIT
+    return VERIFY_FIRST_DESIGN
+
+
+def _launch_verify(q5, kq4, ks4, vq4, vs4, starts, sm_scale, path,
+                   splits=None):
+    """#22 through its C function on ``path`` over batched operands (q5
+    [w, b, g, rep, d], the store [T, b, nb, *], starts an int32 [b] on
+    the device), unchecked and uncounted (:func:`spec_verify_attention`
+    checks and counts; the card checks force paths and splits here):
+    ctx [w, b, g, rep, d] fp32. The split body takes S from
+    ``kv_attention.plan`` unless ``splits`` is given."""
+    w, b, g, rep, d = q5.shape
+    T, _, nb, B = kq4.shape
+    out = torch.empty(q5.shape, dtype=torch.float32, device=q5.device)
+    with torch.cuda.device(q5.device):
+        if path == VERIFY_FIRST_DESIGN:
+            splits, scratch, counters = 1, None, None
+        else:
+            splits, scratch, counters = kv_attention.workspace(
+                q5.device, w * rep, b * g, d, splits)
+        rc = _verify_kernel()(
+            q5.data_ptr(), kq4.data_ptr(), ks4.data_ptr(), vq4.data_ptr(),
+            vs4.data_ptr(), out.data_ptr(), w, b, g, rep, d, T, nb, B,
+            starts.data_ptr(), float(sm_scale), _checks.DTYPE_CODES[q5.dtype],
+            splits, _checks.data_ptr(scratch), _checks.data_ptr(counters),
+            path, _checks.stream(q5))
+    _checks.status("spec_verify_attention", rc)
+    return out
 
 
 def spec_verify_attention(q, kq, ks, vq, vs, start, sm_scale: float):
@@ -422,7 +466,10 @@ def spec_verify_attention(q, kq, ks, vq, vs, start, sm_scale: float):
     start:  a host int, or an integer tensor [b] with each slot's offset.
     Returns ctx of q's shape, fp32; causal at each query's position. A
     CPU tensor takes :func:`spec_verify_reference`; a CUDA tensor
-    launches the kernel (head dim 64 or 128) or raises."""
+    launches the kernel (head dim 64 or 128) or raises: one launch, on
+    the body :func:`verify_plan` picks (the split tensor-core body for
+    bf16 q over the serving store, the live range split over the SMs as
+    :func:`window_attention`'s; else the first design)."""
     name = "spec_verify_attention"
     if not _checks.on_cuda(name, q, kq, ks, vq, vs):
         return spec_verify_reference(q, kq, ks, vq, vs, start, sm_scale)
@@ -453,14 +500,10 @@ def spec_verify_attention(q, kq, ks, vq, vs, start, sm_scale: float):
         raise ValueError(f"{name}: positions [{start}, {start + w}) do not "
                          f"fit the cache of {T}")
     _checks.contiguous(name, q=q, kq=kq, ks=ks, vq=vq, vs=vs)
-    code = _checks.dtype_code(name, q, "q")
+    _checks.dtype_code(name, q, "q")
     starts = _checks.row_offsets(name, start, b, q.device, "start")
-    out = torch.empty(q5.shape, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _verify_kernel()(
-            q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
-            vs.data_ptr(), out.data_ptr(), w, b, g, rep, d, T, nb, B,
-            starts.data_ptr(), float(sm_scale), code, _checks.stream(q))
-    _checks.status(name, rc)
+    path = verify_plan(q.element_size(), d, B,
+                       all(t.data_ptr() % 16 == 0 for t in (q, kq, vq)))
+    out = _launch_verify(q5, kq4, ks4, vq4, vs4, starts, sm_scale, path)
     registry.count(SPEC_VERIFY)
     return out[:, 0] if one else out

@@ -14,11 +14,12 @@ oracle agree bit for bit. The public
 functions with the JAX package's names are in
 :mod:`apex_tpu_torch.parallel.compression`.
 
-Dequantize has two bodies, and :func:`dequant_plan` picks one: the
-streaming body reads the codes as one flat array in 16-byte vectors
-wherever the output rows are contiguous in the codes' order (the serving
-cache's full-width rows, every one-row DDP bucket); the first design
-takes one element a thread (ragged rows, other blocks, unaligned views).
+Each direction has two bodies, picked by :func:`quant_plan` and
+:func:`dequant_plan`: the streaming bodies read x (quantize) or the codes
+(dequantize) as one flat array in 16-byte vectors wherever the rows are
+contiguous in the codes' order (the serving cache's full-width rows,
+every one-row DDP bucket); the first designs take one element a thread
+(ragged rows, other blocks, unaligned views).
 """
 
 import ctypes
@@ -33,10 +34,13 @@ QUANTIZE = registry.register("quantize_int8")
 DEQUANTIZE = registry.register("dequantize_int8")
 # code dtypes of apex_dequant8
 CODE_DTYPES = {torch.int8: 0, torch.int32: 1}
-# apex_dequant8's paths (2 and 3 are planted faults of the streaming body,
-# passed only by the card checks)
+# apex_quant8's and apex_dequant8's paths (2 and 3 are planted faults of
+# the streaming bodies, passed only by the card checks)
 SCALAR, VECTOR = 0, 1
-VECTOR_BYTES = 16  # the streaming body's code vector
+VECTOR_BYTES = 16  # the streaming bodies' vector
+# most 16-byte vectors of one block a lane of the streaming quantize holds
+# (its kMaxVPL): a block of up to 32 * 4 vectors, 1024 bf16 or 512 fp32
+QUANT_MAX_VECTORS_PER_LANE = 4
 
 
 def _blocks(n: int, block: int) -> int:
@@ -80,7 +84,7 @@ def dequantize_rows_plain(q, scales, n=None, out_dtype=torch.float32):
 def _quant_kernel():
     p, i = _checks.ptr, ctypes.c_int
     return _build.function("quant8", "apex_quant8",
-                           [p, p, p, ctypes.c_longlong, i, i, i, i, i, p])
+                           [p, p, p, ctypes.c_longlong, i, i, i, i, i, i, p])
 
 
 @functools.lru_cache(maxsize=1)
@@ -88,6 +92,23 @@ def _dequant_kernel():
     p, i = _checks.ptr, ctypes.c_int
     return _build.function("quant8", "apex_dequant8",
                            [p, p, p, ctypes.c_longlong, i, i, i, i, i, i, p])
+
+
+def quant_plan(rows: int, n: int, nb: int, block: int, in_itemsize: int,
+               aligned: bool) -> int:
+    """The quantize body for [rows, n] values of ``in_itemsize`` bytes
+    into [rows, nb, block] codes: VECTOR where the rows are contiguous in
+    the codes' order (n == nb * block, or one row with a ragged tail),
+    block is a power of two holding 1 to 32 * QUANT_MAX_VECTORS_PER_LANE
+    whole 16-byte vectors of x, and x, the codes and the scales lie on
+    16-byte boundaries (``aligned``); else SCALAR, the first design."""
+    per_vector = VECTOR_BYTES // in_itemsize
+    if (aligned and in_itemsize in (2, 4) and (n == nb * block or rows == 1)
+            and per_vector <= block
+            <= 32 * QUANT_MAX_VECTORS_PER_LANE * per_vector
+            and block & (block - 1) == 0):
+        return VECTOR
+    return SCALAR
 
 
 def dequant_plan(rows: int, n: int, nb: int, block: int, code_itemsize: int,
@@ -120,6 +141,21 @@ def _launch_dequant(q, scales, out, path):
     return out
 
 
+def _launch_quant(x2d, q, scales, given: bool, path: int):
+    """#14 through its C function on ``path``, unchecked and uncounted
+    (:func:`quantize_rows` checks and counts; the card checks force paths
+    here): codes into ``q``, scales computed into ``scales`` or read from
+    them (``given``)."""
+    rows, nb, block = q.shape
+    with torch.cuda.device(x2d.device):
+        rc = _quant_kernel()(x2d.data_ptr(), q.data_ptr(), scales.data_ptr(),
+                             rows, x2d.shape[1], nb, block,
+                             _checks.DTYPE_CODES[x2d.dtype], int(given),
+                             path, _checks.stream(x2d))
+    _checks.status("quantize_rows", rc)
+    return q, scales
+
+
 def quantize_rows(x2d, block: int, scales=None):
     """Blockwise int8 codes of each row of x2d [rows, n] (fp32 or bf16):
     (q [rows, nb, block] int8, scales [rows, nb, 1] fp32), the block
@@ -137,7 +173,7 @@ def quantize_rows(x2d, block: int, scales=None):
         raise ValueError(f"quantize_rows: block ({block}) must be >= 1")
     rows, n = x2d.shape
     nb = _blocks(n, block)
-    code = _checks.dtype_code("quantize_rows", x2d, "x2d")
+    _checks.dtype_code("quantize_rows", x2d, "x2d")
     _checks.contiguous("quantize_rows", x2d=x2d)
     q = torch.empty((rows, nb, block), dtype=torch.int8, device=x2d.device)
     if scales is None:
@@ -153,11 +189,10 @@ def quantize_rows(x2d, block: int, scales=None):
         out_scales = scales
     if rows == 0 or n == 0:
         return q.zero_(), out_scales
-    with torch.cuda.device(x2d.device):
-        rc = _quant_kernel()(
-            x2d.data_ptr(), q.data_ptr(), out_scales.data_ptr(), rows, n, nb,
-            block, code, int(scales is not None), _checks.stream(x2d))
-    _checks.status("quantize_rows", rc)
+    path = quant_plan(rows, n, nb, block, x2d.element_size(),
+                      all(t.data_ptr() % 16 == 0 for t in (x2d, q,
+                                                            out_scales)))
+    _launch_quant(x2d, q, out_scales, scales is not None, path)
     registry.count(QUANTIZE)
     return q, out_scales
 

@@ -2856,15 +2856,161 @@ def _dequant_turns(q, s, n, out_dtype):
     return times
 
 
+# planted #14 faults: (what, path code of apex_quant8, on given scales)
+QUANT_FAULTS = (("the absmax without the cell's last vector", 2, False),
+                ("the neighbouring cell's given scale", 3, True))
+
+
+def _quant_raw(x, block, path, scales=None):
+    """#14 through its C function on ``path`` (0 the first design, 1 the
+    streaming body, 2/3 QUANT_FAULTS), uncounted: (q, scales), the scales
+    computed into a new tensor unless ``scales`` are given."""
+    from apex_tpu_torch.kernels import quant
+    rows, n = x.shape
+    nb = -(-n // block)
+    q = torch.empty((rows, nb, block), dtype=torch.int8, device=x.device)
+    if scales is None:
+        out = torch.empty((rows, nb, 1), dtype=torch.float32,
+                          device=x.device)
+        return quant._launch_quant(x, q, out, False, path)
+    return quant._launch_quant(x, q, scales, True, path)
+
+
+def _same_codes(a, b):
+    """Two (codes, scales) pairs equal bit for bit, NaN scales (blocks
+    with a non-finite value) in the same places."""
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1].isnan(),
+                                                    b[1].isnan())
+            and torch.equal(a[1].nan_to_num(), b[1].nan_to_num()))
+
+
+def _hold_quant(got, want):
+    """(codes, scales) equal to the plain version's, bit for bit; a block
+    with a NaN scale has it on both sides, and its codes (the plain
+    version casts NaN quotients to int8) are not compared."""
+    (q, s), (qp, sp) = got, want
+    nan = sp.isnan()
+    assert torch.equal(s.isnan(), nan)
+    assert torch.equal(s[~nan], sp[~nan])
+    keep = ~nan.expand_as(qp)
+    assert torch.equal(q[keep], qp[keep])
+
+
+def _quant_case(gen, rows, n, block, dtype, given):
+    """x [rows, n] for the quantize checks: random, with an all-zero row,
+    a block at scale 1.0 holding ties at k + .5 (the streaming body's
+    division cases) and a NaN in row 2 where the rows allow; and the
+    given scales (the plain version's, times 1.5) or None."""
+    from apex_tpu_torch.kernels import quant
+    x = _randn(gen, rows, n, dtype=dtype, scale=2.0)
+    if rows > 2:
+        x[0] = 0
+        if n >= block:
+            x[1, :block] = (torch.arange(block, device="cuda") % 20 - 9.5
+                            ).to(dtype)
+            x[1, 0] = 127
+        x[2, min(5, n - 1)] = float("nan")
+    scales = quant.quantize_rows_plain(x, block)[1] * 1.5 if given else None
+    return x, scales
+
+
+def _check_quant_plan(gen):
+    """Every branch of ``quant_plan``, asserted, each held bit for bit to
+    the plain version (a NaN block's NaN scale included), and every
+    vector case also to the first design: computed and given scales, bf16
+    and fp32, the serving store's admission and decode rows, blocks of 4
+    to 1024 lanes (1 to 4 vectors a lane, 1 to 32 lanes a block), one-row
+    calls with a ragged tail (a vector past n), GPT-2's bucket; the first
+    design for ragged rows, blocks of 100, 2 and 2048 lanes and x at a
+    4-byte offset. Both planted faults, each at the vector cases of its
+    kind of scales where it should change 16 cells or more (the short
+    absmax changes a cell whose max lies in its last vector: V / block of
+    the cells, V = 8 bf16 or 4 fp32 values), must not be equal. Returns
+    how many cases took each branch and how many faults were
+    planted."""
+    from apex_tpu_torch.kernels import quant
+    taken = {quant.VECTOR: 0, quant.SCALAR: 0}
+    planted = {code: 0 for _, code, _ in QUANT_FAULTS}
+    cases = [(16384, 256, 256, torch.bfloat16, False),
+             (BATCH, 256, 256, torch.bfloat16, False),
+             (999, 512, 256, torch.float32, False),
+             (1, 1000, 256, torch.float32, False),
+             (1, 1001, 256, torch.bfloat16, False),
+             (1000, 96, 32, torch.bfloat16, False),
+             (100, 1024, 1024, torch.bfloat16, False),
+             (100, 1024, 512, torch.float32, False),
+             (300, 512, 128, torch.float32, False),
+             (300, 64, 4, torch.float32, False),
+             (1, GPT2_BUCKET_ROWS * 256, 256, torch.float32, True),
+             (MLP_BUCKET_ROWS, 256, 256, torch.float32, True),
+             (1, 1000, 256, torch.float32, True),
+             (64, 256, 64, torch.bfloat16, True),
+             (999, 300, 256, torch.float32, False),
+             (64, 1000, 100, torch.float32, False),
+             (40, 16, 2, torch.float32, False),
+             (10, 4096, 2048, torch.bfloat16, False),
+             (999, 300, 256, torch.float32, True)]
+    for rows, n, block, dtype, given in cases:
+        x, scales = _quant_case(gen, rows, n, block, dtype, given)
+        nb = -(-n // block)
+        path = quant.quant_plan(rows, n, nb, block, x.element_size(), True)
+        got = quant.quantize_rows(x, block, scales)
+        _hold_quant(got, quant.quantize_rows_plain(x, block, scales))
+        taken[path] += 1
+        if path != quant.VECTOR:
+            continue
+        assert _same_codes(_quant_raw(x, block, 0, scales), got), (rows, n)
+        per_vector = 16 // x.element_size()
+        for what, code, on_given in QUANT_FAULTS:
+            if on_given == given and rows * nb * per_vector >= 16 * block:
+                bad = _quant_raw(x, block, code, scales)
+                assert not _same_codes(bad, got), (what, rows, n, block)
+                planted[code] += 1
+    # the admission rows at a 4-byte offset: the first design
+    buf = _randn(gen, 16384 * 256 + 8, scale=2.0)
+    view = buf[2:2 + 16384 * 256].view(16384, 256)
+    assert quant.quant_plan(16384, 256, 1, 256, 2,
+                            view.data_ptr() % 16 == 0) == quant.SCALAR
+    _hold_quant(quant.quantize_rows(view, 256),
+                quant.quantize_rows_plain(view, 256))
+    taken[quant.SCALAR] += 1
+    assert all(taken.values()) and all(planted.values()), (taken, planted)
+    torch.cuda.synchronize()
+    return taken, planted
+
+
+def _quant_turns(x, block, scales=None):
+    """#14's first design and streaming body through the C function, in
+    turns (first, vector, vector, first): {path: [device ms, ...]}."""
+    times = {0: [], 1: []}
+    for path in (0, 1, 1, 0):
+        times[path].append(device_ms(
+            lambda: _quant_raw(x, block, path, scales)))
+    return times
+
+
+def _turns_text(times, second="vector"):
+    return "; ".join(f"{'first' if k == 0 else second} "
+                     f"{'/'.join(f'{t * 1e3:.2f}' for t in v)}"
+                     for k, v in times.items())
+
+
 def check_quant(gen):
     """#14 and #15 bit for bit against their plain versions: the serving
     path's [16384, 256] rows (8 slots x 2048 positions of one K or V
     leaf), one position per slot, ragged rows and blocks, fp32 and bf16,
-    all-zero rows, ties at .5; #15 on every branch of its plan, its
-    streaming body equal to its first design, two planted faults, and the
-    first design timed beside it."""
+    all-zero rows, ties at .5; each on every branch of its plan, its
+    streaming body equal to its first design, two planted faults each,
+    and the first designs timed beside them."""
     from apex_tpu_torch.kernels import quant
     from apex_tpu_torch.parallel import compression
+    qtaken, planted = _check_quant_plan(gen)
+    log(f"kernel quantize_int8: quant_plan's branches bit-identical to the "
+        f"plain version ({qtaken[quant.VECTOR]} vector cases, each also "
+        f"equal to the first design, {qtaken[quant.SCALAR]} first-design "
+        f"cases incl. x at +4 bytes); planted faults not equal ("
+        + "; ".join(f"{w}: {planted[c]} cases" for w, c, _ in QUANT_FAULTS)
+        + ")")
     taken = _check_dequant_plan(gen)
     log(f"kernel dequantize_int8: dequant_plan's branches bit-identical to "
         f"the plain version ({taken[quant.VECTOR]} vector cases, each also "
@@ -2910,6 +3056,8 @@ def check_quant(gen):
     q, s = quant.quantize_rows(x, 256)
     qp, sp = quant.quantize_rows_plain(x, 256)
     qbytes = _quant_bytes(rows, width, 256, 2)
+    assert quant.quant_plan(rows, width, 1, 256, 2, True) == quant.VECTOR
+    qturns = _quant_turns(x, 256)
     entries = [entry(
         "quantize_int8", f"x[{rows},{width}] bf16 -> int8 + fp32 scales "
         "(admission, one K or V leaf)", q, qp, "bit-identical",
@@ -2917,6 +3065,7 @@ def check_quant(gen):
         lambda: quant.quantize_rows_plain(x, 256), None,
         bound(qbytes, 4 * rows * width, FP32_OPS_PER_S))]
     assert entries[0]["max_abs_err"] == 0 and torch.equal(s, sp)
+    entries[0]["first_design_ms"] = statistics.median(qturns[0])
     got = quant.dequantize_rows(q, s, width, torch.bfloat16)
     want = quant.dequantize_rows_plain(q, s, width, torch.bfloat16)
     assert quant.dequant_plan(rows, width, 1, 256, 1, 2, True) == quant.VECTOR
@@ -2932,6 +3081,7 @@ def check_quant(gen):
     # off the entries: one position per slot, and the fp32 output
     xs = _randn(gen, BATCH, width, scale=2.0)
     small = device_ms(lambda: quant.quantize_rows(xs, 256))
+    small_turns = _quant_turns(xs, 256)
     fp32_ms = device_ms(lambda: quant.dequantize_rows(q, s, width))
     fp32_turns = _dequant_turns(q, s, width, torch.float32)
     small_bound = _quant_bytes(BATCH, width, 256, 2) / HBM_BYTES_PER_S
@@ -2942,13 +3092,11 @@ def check_quant(gen):
         f"[{rows},{width}]: {_us(fp32_ms)}, bound {fp32_bound * 1e6:.3f} us")
     log(f"kernel dequantize_int8 [{rows},1,256] int8 through the C function "
         f"in turns (us; first design, then the streaming body): to bf16 "
-        + "; ".join(f"{'first' if k == 0 else 'vector'} "
-                    f"{'/'.join(f'{t * 1e3:.2f}' for t in v)}"
-                    for k, v in turns.items())
-        + "; to fp32 "
-        + "; ".join(f"{'first' if k == 0 else 'vector'} "
-                    f"{'/'.join(f'{t * 1e3:.2f}' for t in v)}"
-                    for k, v in fp32_turns.items()))
+        + _turns_text(turns) + "; to fp32 " + _turns_text(fp32_turns))
+    log(f"kernel quantize_int8 through the C function in turns (us; first "
+        f"design, then the streaming body): [{rows},{width}] bf16 "
+        + _turns_text(qturns) + f"; [{BATCH},{width}] bf16 "
+        + _turns_text(small_turns))
     return entries
 
 
@@ -3029,6 +3177,8 @@ def check_quant4(gen):
     totals = q8.int() * 3 - 100  # a sum over ranks: beyond int8's range
     got = quant.dequantize_rows(totals, shared)
     assert torch.equal(got, quant.dequantize_rows_plain(totals, shared))
+    assert quant.quant_plan(1, nb * 256, nb, 256, 4, True) == quant.VECTOR
+    given_turns = _quant_turns(x, 256, shared)
     given_ms = device_ms(lambda: quant.quantize_rows(x, 256, shared))
     given_plain = device_ms(lambda: quant.quantize_rows_plain(x, 256, shared),
                             iters=5)
@@ -3047,7 +3197,9 @@ def check_quant4(gen):
         f"bit-identical at [{nb},256]")
     log(f"kernel quantize_int8 given scales [{nb},256] fp32: "
         f"{_us(given_ms)} on the device, plain {_us(given_plain)}, bound "
-        f"{(n * 5 + nb * 4) / HBM_BYTES_PER_S * 1e6:.3f} us; dequantize_int8"
+        f"{(n * 5 + nb * 4) / HBM_BYTES_PER_S * 1e6:.3f} us; through the C "
+        f"function in turns (us): " + _turns_text(given_turns)
+        + "; dequantize_int8"
         f" int32 totals: {_us(i32_ms)}, plain {_us(i32_plain)}, bound "
         f"{(n * 8 + nb * 4) / HBM_BYTES_PER_S * 1e6:.3f} us; through the C "
         f"function in turns (us): first design "
@@ -3262,47 +3414,137 @@ def _verify_inputs(gen, b, g, rep, d, T, block, w):
     return _randn(gen, w, b, g, rep, d), kq, ks, vq, vs
 
 
+# planted #22 faults of the split body: (what, path code of
+# apex_spec_verify)
+VERIFY_FAULTS = (("the last live split left out of the merge", 2),
+                 ("each score on its neighbour key row's scale", 3))
+
+
+def _verify_raw(q, kq, ks, vq, vs, starts, path, splits=None):
+    """#22 through its C function on ``path`` (0 the first design, 1 the
+    split body, 2/3 VERIFY_FAULTS) over batched operands, uncounted; S
+    forced to ``splits`` where given."""
+    from apex_tpu_torch.kernels import fused_cc
+    return fused_cc._launch_verify(q, kq, ks, vq, vs, starts,
+                                   q.shape[-1] ** -0.5, path, splits)
+
+
+def _at_plus4_int8(t):
+    """A contiguous copy of the int8 ``t`` whose data starts 4 bytes past
+    a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 16, dtype=torch.int8, device=t.device)
+    view = buf[4:4 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
 def check_spec_verify(gen):
     """#22 against its plain version (dequantize, then the window
-    attention): the TinyLlama verify window over a full-length int8
-    store, each slot at its own start; g * d < nb * B (padding lanes);
-    head dim 128; fp32 queries; the JAX one-slot signature."""
-    from apex_tpu_torch.kernels import fused_cc
+    attention) on every branch of ``verify_plan``: the split tensor-core
+    body for bf16 q where a cell's lanes lie in one block (blocks of 256,
+    128 and 64 = d lanes, head dims 64 and 128, padding lanes past g * d),
+    each twice and bit-identical, also at forced splits 1 and 16; the
+    first design for a block of 96 whose cells cross blocks, fp32
+    queries and codes at a 4-byte offset; the JAX one-slot signature.
+    Then the TinyLlama verify window over a full-length int8 store, each
+    slot at its own start: the split body twice bit-identical, at S 1,
+    the planned S and 16, both planted faults past ATTN_TOL, and the
+    first design timed beside it in turns."""
+    from apex_tpu_torch.kernels import fused_cc, kv_attention, registry
     n, g = MODEL["num_attention_heads"], MODEL["num_query_groups"]
     d, rep, T = MODEL["hidden_size"] // n, n // g, MODEL[
         "max_position_embeddings"]
     w = SPEC_K + 1
-    for gg, rr, dd, block, dtype in ((2, 4, 64, 96, torch.bfloat16),
-                                     (2, 2, 128, 256, torch.bfloat16),
-                                     (4, 8, 64, 256, torch.float32)):
+    taken = {fused_cc.VERIFY_SPLIT: 0, fused_cc.VERIFY_FIRST_DESIGN: 0}
+    before = registry.launches()["spec_verify"]
+    calls = before  # the count once every wrapper call below has run
+    for gg, rr, dd, block, dtype, offset in (
+            (2, 4, 64, 96, torch.bfloat16, False),
+            (2, 2, 128, 256, torch.bfloat16, False),
+            (4, 8, 64, 256, torch.float32, False),
+            (2, 4, 64, 128, torch.bfloat16, False),
+            (4, 8, 64, 64, torch.bfloat16, False),
+            (3, 2, 64, 256, torch.bfloat16, False),
+            (4, 8, 64, 256, torch.bfloat16, True)):
         starts = _mixed_offsets(3, 1000 - w, gen)
         q, kq, ks, vq, vs = _verify_inputs(gen, 3, gg, rr, dd, 1000, block,
                                            w)
         q = q.to(dtype)
+        if offset:
+            kq, vq = _at_plus4_int8(kq), _at_plus4_int8(vq)
+        path = fused_cc.verify_plan(q.element_size(), dd, block,
+                                    not offset)
+        taken[path] += 1
         got = fused_cc.spec_verify_attention(q, kq, ks, vq, vs, starts,
                                              dd ** -0.5)
+        calls += 1
         want = fused_cc.spec_verify_reference(q, kq, ks, vq, vs, starts,
                                               dd ** -0.5)
         torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+        if path == fused_cc.VERIFY_SPLIT:
+            assert torch.equal(fused_cc.spec_verify_attention(
+                q, kq, ks, vq, vs, starts, dd ** -0.5), got), (gg, dd)
+            calls += 1
+            for splits in (1, kv_attention.MAX_SPLITS):
+                torch.testing.assert_close(
+                    _verify_raw(q, kq, ks, vq, vs, starts, path, splits),
+                    want, rtol=ATTN_TOL, atol=ATTN_TOL)
+        if offset:
+            continue
         one = fused_cc.spec_verify_attention(
             q[:, 1].contiguous(), kq[:, 1].contiguous(),
             ks[:, 1].contiguous(), vq[:, 1].contiguous(),
             vs[:, 1].contiguous(), int(starts[1]), dd ** -0.5)
         torch.testing.assert_close(one, want[:, 1], rtol=ATTN_TOL,
                                    atol=ATTN_TOL)
+        calls += 1
+    assert all(taken.values()), taken
     torch.cuda.synchronize()
     starts = torch.tensor([0, 100, 300, 700, 1100, 1500, 1900, T - w],
                           dtype=torch.int32, device="cuda")
     q, kq, ks, vq, vs = _verify_inputs(gen, BATCH, g, rep, d, T, 256, w)
     sm = d ** -0.5
+    assert fused_cc.verify_plan(2, d, 256, True) == fused_cc.VERIFY_SPLIT
     got = fused_cc.spec_verify_attention(q, kq, ks, vq, vs, starts, sm)
     want = fused_cc.spec_verify_reference(q, kq, ks, vq, vs, starts, sm)
     torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+    assert torch.equal(
+        fused_cc.spec_verify_attention(q, kq, ks, vq, vs, starts, sm), got)
+    calls += 2
+    planned = kv_attention.plan(w * rep, BATCH * g,
+                                kv_attention.sm_count(0))[1]
+    forced = {}
+    for splits in sorted({1, planned, kv_attention.MAX_SPLITS}):
+        out = _verify_raw(q, kq, ks, vq, vs, starts, fused_cc.VERIFY_SPLIT,
+                          splits)
+        torch.testing.assert_close(out, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+        forced[splits] = max_abs(out, want)
+    faults = {what: max_abs(_verify_raw(q, kq, ks, vq, vs, starts, code),
+                            want) for what, code in VERIFY_FAULTS}
+    assert all(e > ATTN_TOL for e in faults.values()), faults
+    turns = {0: [], 1: []}
+    for path in (0, 1, 1, 0):
+        turns[path].append(device_ms(
+            lambda: _verify_raw(q, kq, ks, vq, vs, starts, path)))
+    # the wrapper counts its calls alone, not the raw launches
+    assert registry.launches()["spec_verify"] == calls, (calls, before)
+    log(f"kernel spec_verify: verify_plan's branches within {ATTN_TOL} of "
+        f"the plain version ({taken[fused_cc.VERIFY_SPLIT]} split cases, "
+        f"each twice bit-identical and at S 1 and 16; "
+        f"{taken[fused_cc.VERIFY_FIRST_DESIGN]} first-design cases incl. "
+        f"codes at +4 bytes); at the verify window: two runs bit-identical, "
+        f"S " + ", ".join(f"{k} {v:.3e}" for k, v in forced.items())
+        + f" (planned {planned}); planted faults "
+        + "; ".join(f"{k}: max abs err {v:.3e} ({v / ATTN_TOL:.1f}x "
+                    f"ATTN_TOL)" for k, v in faults.items())
+        + "; through the C function in turns (us): "
+        + _turns_text(turns, "split"))
     live = int((starts + w).sum())  # cache rows each slot reads
     keys = sum(int(st) * w + w * (w + 1) // 2 for st in starts.tolist())
     nbytes = (q.numel() * 2 + 2 * live * (256 + 4)  # codes + scales, K and V
               + got.numel() * 4)
-    return [entry(
+    result = entry(
         "spec_verify", f"q[{w},{BATCH},{g},{rep},{d}] bf16, int8 store "
         f"[{T},{BATCH},1,256], starts {starts.tolist()}", got, want,
         f"rtol {ATTN_TOL} atol {ATTN_TOL}",
@@ -3310,7 +3552,9 @@ def check_spec_verify(gen):
                                                sm),
         lambda: fused_cc.spec_verify_reference(q, kq, ks, vq, vs, starts,
                                                sm), None,
-        bound(nbytes, 4 * d * g * rep * keys, BF16_TENSOR_OPS_PER_S))]
+        bound(nbytes, 4 * d * g * rep * keys, BF16_TENSOR_OPS_PER_S))
+    result["first_design_ms"] = statistics.median(turns[0])
+    return [result]
 
 
 def _latent_cache(gen, T, b, L, filled, dtype=torch.bfloat16):
@@ -4516,7 +4760,16 @@ def _profile_decode(label, engine, vocab):
     prompts = [r.prompt for r in _serve_trace(vocab, n=SERVE_SLOTS, seed=2)]
     first = engine.prefill(list(range(SERVE_SLOTS)), prompts)
     profile_window(label, lambda: engine.decode(list(range(SERVE_SLOTS)),
-                                                first))
+                                                first), watch=PROFILE_WATCH)
+
+
+def _profile_prefill(label, engine, vocab):
+    """A profile of one engine prefill of a full bucket of slots (the
+    same prompts each time: the slots are written anew)."""
+    prompts = [r.prompt for r in _serve_trace(vocab, n=SERVE_SLOTS, seed=2)]
+    profile_window(label, lambda: engine.prefill(list(range(SERVE_SLOTS)),
+                                                 prompts),
+                   watch=PROFILE_WATCH)
 
 
 def phase_serve_bf16():
@@ -4613,6 +4866,7 @@ def phase_serve_int8():
         log(f"serve_int8: {agree} of {len(streams)} streams identical to the "
             f"bf16 cache's (not a check: int8 rounding moves the logits)")
     _int8_bound_check(model)
+    _profile_prefill("serve_int8 prefill (bucket 8)", engine, vocab)
     _profile_decode("serve_int8 decode step (bucket 8)", engine, vocab)
     return {"serve_int8": launches}
 
@@ -5781,7 +6035,8 @@ PROFILE_WATCH = ("ln_fwd_kernel", "warp_ln_fwd", "ln_bwd_dx",
                  "::fwd_kernel<", "::mma_fwd_kernel<", "::bf16_fwd_kernel<",
                  "::mma_dq_kernel<",
                  "::mma_dkv_kernel<", "::dq_kernel<", "::dkv_kernel<",
-                 "rms_", "mma_mla_decode", "dequant_vec_kernel")
+                 "rms_", "mma_mla_decode", "dequant_vec_kernel",
+                 "::quant_vec_kernel<", "::quant_kernel<", "Int8KV<")
 PHASES = ("kernels", "serving", "serve_bf16", "serve_int8", "serve_spec",
           "training", "flash_training", "gpt2_training", "bert_training",
           "mha", "mla_decode", "deepseek_v2_lite", "ddp_gpt2",

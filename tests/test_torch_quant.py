@@ -267,3 +267,246 @@ def test_dequant_path_codes_match_the_kernel_source():
                      r"kReadAhead>", src)
     assert "constexpr int V = 16 / sizeof(C);" in src
     assert quant.VECTOR_BYTES == 16 and (quant.SCALAR, quant.VECTOR) == (0, 1)
+
+
+# ----------------------------------------------------------------------
+# The streaming quantize (csrc/quant8.cu `quant_vec_kernel`): its plan, a
+# model of its cell and lane index math, packing and division, and its
+# path codes.
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_quant_plan_streams_whole_rows(itemsize):
+    """bf16 and fp32 rows whose blocks are contiguous in the codes: the
+    serving store's admission and decode rows, blocks of 32 and 256, a
+    one-row DDP bucket with or without a ragged tail, and the largest
+    block a lane group holds (32 * 4 vectors)."""
+    per = 16 // itemsize
+    for rows, n, nb, block in [(16384, 256, 1, 256), (8, 256, 1, 256),
+                               (999, 512, 2, 256), (1000, 96, 3, 32),
+                               (1, 1000, 4, 256), (1, 1001, 4, 256),
+                               (1, 51_511_296, 201_216, 256),
+                               (3, 128 * per, 1, 128 * per),
+                               (3, 4 * per, 4, per)]:
+        assert quant.quant_plan(rows, n, nb, block, itemsize, True) == \
+            quant.VECTOR, (rows, n, block)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_quant_plan_keeps_the_first_design_elsewhere(itemsize):
+    """Ragged rows (n < nb * block with rows > 1), a block of 100 (not a
+    power of two), a block holding less than one 16-byte vector or more
+    than 4 a lane, other itemsizes, and operands off a 16-byte boundary
+    (a view at +4 bytes) take the first design."""
+    per = 16 // itemsize
+    assert quant.quant_plan(999, 300, 2, 256, itemsize, True) == \
+        quant.SCALAR
+    assert quant.quant_plan(64, 1000, 10, 100, itemsize, True) == \
+        quant.SCALAR
+    assert quant.quant_plan(8, per, 2, per // 2, itemsize, True) == \
+        quant.SCALAR
+    assert quant.quant_plan(8, 256 * per, 1, 256 * per, itemsize,
+                            True) == quant.SCALAR
+    assert quant.quant_plan(8, 256, 1, 256, 8, True) == quant.SCALAR
+    dtype = torch.bfloat16 if itemsize == 2 else torch.float32
+    buf = torch.zeros(16 * 256 + 8, dtype=dtype)
+    view = buf[4 // itemsize:4 // itemsize + 16 * 256].view(16, 256)
+    assert buf.data_ptr() % 16 == 0 and view.data_ptr() % 16 == 4
+    assert quant.quant_plan(16, 256, 1, 256, itemsize,
+                            view.data_ptr() % 16 == 0) == quant.SCALAR
+    # the wrapper's CPU path on that view still gives the plain values
+    q, s = quant.quantize_rows(view, 256)
+    qp, sp = quant.quantize_rows_plain(view.contiguous(), 256)
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+
+
+_ROUND = 12582912.0  # 1.5 * 2^23: y + _ROUND rounds y to an integer
+
+
+def _vector_codes(vals, scale, clip):
+    """quant8.cu's vector_codes on fp32 vectors vals [..., V] with their
+    scales [..., 1]: y = vals * RN(1 / scale) (clipped to +-127 for given
+    scales), rounded by adding 1.5 * 2^23, whose low byte is the code,
+    where the reciprocal is a normal float and no y of the vector lies
+    within 2^-14 of a half-integer; else code() for the whole vector:
+    clip(rint(vals / scale)) (IEEE division, round half to even). NaN
+    clips to -127, as fminf / fmaxf do."""
+    lo, hi = torch.tensor(-quant.QMAX), torch.tensor(quant.QMAX)
+    inv = torch.ones_like(scale) / scale
+    fast = (inv >= torch.finfo(torch.float32).tiny) & \
+        (inv <= torch.finfo(torch.float32).max)
+    y = vals * inv
+    if clip:
+        y = torch.fmin(torch.fmax(y, lo), hi)
+    t = y + _ROUND
+    near = (y - (t - _ROUND)).abs().amax(-1, keepdim=True) >= 0.5 - 2.0 ** -14
+    quick = (t.view(torch.int32) & 0xFF).to(torch.uint8).view(torch.int8)
+    slow = torch.fmin(torch.fmax(torch.round(vals / scale), lo), hi)
+    return torch.where(fast & ~near, quick, slow.to(torch.int8))
+
+
+def _quant_vector_model(x2d, block, scales=None):
+    """quant_vec_kernel's index math and arithmetic on the CPU. x2d's
+    rows are contiguous in the codes' order: x is one flat array of
+    16-byte vectors (V values), vector i at element e = i * V read (zeros
+    past the ragged tail of a one-row call). A slab is 32 * kVPL vectors,
+    kVPL = max(1, block / (32 V)); lane l of a warp holds vectors slab *
+    32 kVPL + u * 32 + l (u < kVPL) and takes the cell of its vector u = 0;
+    the cell's group of min(32, block / V) lanes reduces the absmax of
+    its values (an integer max of their |x| bits). The scale is
+    max(absmax, 1e-12) / 127 (or the given one); each vector's V codes
+    (_vector_codes) are packed little-endian into 32-bit words and stored
+    at q + e. Returns (q [rows, nb, block], scales [rows, nb, 1])."""
+    rows, n = x2d.shape
+    per = 16 // x2d.element_size()
+    nb = -(-n // block)
+    stored = rows * nb * block
+    flat = torch.zeros(stored)
+    flat[:rows * n] = x2d.reshape(-1).float()  # the padded vectors read 0
+    vpl = max(1, block // (32 * per))
+    lanes = min(32, block // per)
+    nvec = stored // per
+    slab_vecs = 32 * vpl
+    shift = block.bit_length() - 1
+    vec = flat.reshape(nvec, per)
+    q = torch.zeros(stored, dtype=torch.int8)
+    out_scales = torch.zeros(stored >> shift)
+    for slab in range(-(-nvec // slab_vecs)):
+        i0 = slab * slab_vecs + torch.arange(32)  # each lane's u = 0
+        live = i0 < nvec
+        cells = (i0 * per) >> shift
+        idx = torch.stack([i0 + 32 * u for u in range(vpl)], 1)  # [32, vpl]
+        vals = vec[idx.clamp(max=nvec - 1)] * live[:, None, None]
+        if scales is None:  # an integer max of |x|'s bits
+            bits = (vals.view(torch.int32) & 0x7FFFFFFF).amax((1, 2))
+            bits = bits.reshape(32 // lanes, lanes).amax(1, keepdim=True)
+            amax = bits.expand(-1, lanes).reshape(32).view(torch.float32)
+            scale = torch.clamp_min(amax, 1e-12) / torch.full_like(
+                amax, quant.QMAX)
+            out_scales[cells[live]] = scale[live]
+        else:
+            scale = scales.reshape(-1)[cells.clamp(max=stored // block - 1)]
+        codes = _vector_codes(vals, scale[:, None, None].expand(
+            32, vpl, 1), scales is not None)
+        words = codes.to(torch.uint8).to(torch.int64).reshape(32, vpl, -1, 4)
+        words = (words << torch.tensor([0, 8, 16, 24])).sum(-1)
+        words = words.to(torch.uint32).to(torch.int32)  # little-endian
+        for lane in range(32):
+            for u in range(vpl):
+                i = int(idx[lane, u])
+                if i < nvec:
+                    q[i * per:(i + 1) * per] = words[lane, u].view(torch.int8)
+    got_scales = (scales.reshape(-1) if scales is not None else out_scales)
+    return q.reshape(rows, nb, block), got_scales.reshape(rows, nb, 1)
+
+
+def _near_halves(rs, n, scale):
+    """Values whose quotient by ``scale`` lies at k + 0.5 or one ulp of x
+    off it: the division cases of the streaming body."""
+    k = rs.randint(-120, 120, n).astype(np.float32) + np.float32(0.5)
+    x = k * np.float32(scale)
+    wiggle = rs.randint(-1, 2, n)  # one ulp down, none, one ulp up
+    off = np.nextafter(x, np.where(wiggle > 0, np.inf, -np.inf))
+    return np.where(wiggle == 0, x, off).astype(np.float32)
+
+
+@pytest.mark.parametrize("rows,n,block,dtype,given", [
+    (12, 256, 256, "bfloat16", False),   # the serving rows, 8 codes a vector
+    (6, 512, 256, "float32", False),     # 2 vectors a lane, 4 codes each
+    (40, 96, 32, "bfloat16", False),     # 4 lanes a cell, 8 cells a warp
+    (3, 1024, 1024, "bfloat16", False),  # 4 vectors a lane
+    (1, 1000, 256, "float32", False),    # one row, ragged tail
+    (1, 1001, 256, "bfloat16", False),   # the tail past a vector's end
+    (1, 1000, 256, "float32", True),     # given scales, ragged tail
+    (10, 256, 64, "bfloat16", True)])
+def test_quant_vector_model_matches_jax(rows, n, block, dtype, given):
+    """The model, on numpy-seeded values (an all-zero block, a block at
+    scale 1.0 with ties at k + .5, values within an ulp of k + .5 of
+    their scale), bit for bit against JAX's ``block_scales`` and
+    ``_quantize_jnp`` and against the plain version."""
+    rs = np.random.RandomState(rows * 7 + n + block)
+    x = (rs.randn(rows, n) * 3.0).astype(np.float32)
+    x.reshape(-1)[:block] = 0.0  # an all-zero block
+    if rows * n >= 3 * block:
+        x.reshape(-1)[block:2 * block] = _ties(block)
+        x.reshape(-1)[2 * block:3 * block] = _near_halves(rs, block, 0.0625)
+        x.reshape(-1)[2 * block] = 127 * 0.0625  # that block's scale
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    xt = torch.from_numpy(x).to(tdt)
+    xj = jnp.asarray(x, jdt).astype(jnp.float32)
+    nb = -(-n // block)
+    padded = jnp.pad(xj, ((0, 0), (0, nb * block - n))).reshape(-1, block)
+    scales_j = jax_comp.block_scales(padded)
+    given_t = None
+    if given:
+        scales_j = scales_j * 1.5
+        given_t = torch.from_numpy(np.array(scales_j)).reshape(rows, nb, 1)
+    q_j = jax_comp._quantize_jnp(padded, scales_j)
+    assert quant.quant_plan(rows, n, nb, block, xt.element_size(),
+                            True) == quant.VECTOR
+    q, s = _quant_vector_model(xt, block, given_t)
+    _same(q.reshape(-1, block), q_j)
+    _same(s.reshape(-1, 1), scales_j)
+    qp, sp = quant.quantize_rows_plain(xt, block, given_t)
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+
+
+@pytest.mark.parametrize("per", [4, 8])
+def test_quant_fast_division_is_exact_near_every_half(per):
+    """vector_codes on vectors of 4 and 8 values against the IEEE division
+    (JAX's ``_quantize_jnp``): quotients at k + .5 and one ulp of x off
+    it, k + .5 in [-119.5, 119.5], for scales across 40 binades, random
+    quotients and quotients past the clip, as given scales would have
+    them."""
+    rs = np.random.RandomState(per)
+    for scale in (2.0 ** rs.uniform(-30, 10, 64)).astype(np.float32):
+        x = np.concatenate([_near_halves(rs, 4096, scale),
+                            (rs.randn(4096) * 60 * scale).astype(np.float32),
+                            (rs.randn(256) * 200 * scale).astype(np.float32)])
+        s = np.full((x.size, 1), scale, np.float32)
+        want = jax_comp._quantize_jnp(jnp.asarray(x[:, None]),
+                                      jnp.asarray(s))
+        got = _vector_codes(torch.from_numpy(x.reshape(-1, per)),
+                            torch.from_numpy(s.reshape(-1, per)[:, :1]),
+                            clip=True)
+        _same(got.reshape(-1, 1), want)
+
+
+def test_rounding_the_product_alone_misses_near_halves():
+    """Why vector_codes falls back to the division near a half-integer:
+    rounding RN(x * RN(1 / scale)) alone (the 1.5 * 2^23 add, no
+    fallback) differs from JAX's codes on quotients at and one ulp off
+    k + .5."""
+    rs = np.random.RandomState(8)
+    missed = 0
+    for scale in (2.0 ** rs.uniform(-30, 10, 16)).astype(np.float32):
+        x = _near_halves(rs, 4096, scale)
+        s = np.full((x.size, 1), scale, np.float32)
+        want = np.asarray(jax_comp._quantize_jnp(jnp.asarray(x[:, None]),
+                                                 jnp.asarray(s)))
+        t = torch.from_numpy(x) * (1 / torch.from_numpy(s[:, 0])) + _ROUND
+        quick = (t.view(torch.int32) & 0xFF).to(torch.uint8).view(torch.int8)
+        missed += int((quick.numpy() != want[:, 0]).sum())
+    assert missed > 0
+
+
+def test_quant_path_codes_match_the_kernel_source():
+    """apex_quant8's paths: 0 the first design, 1 the streaming body, 2
+    its fault on computed scales (the absmax without the cell's last
+    vector), 3 on given ones (the neighbouring cell's scale); a lane holds
+    at most QUANT_MAX_VECTORS_PER_LANE vectors of a cell; the division's
+    shortcut's threshold is 2^-14 and its rounding constant 1.5 * 2^23."""
+    src = _CU.read_text()
+    assert "int dtype, int given, int path, void* stream) {" in src
+    assert "if (path < 0 || path > 3) return -1;" in src
+    assert re.search(r"if \(given && path == 1\)\s+return launch_quant_vec<"
+                     r"T, true, kVPL, kNoFault>", src)
+    assert re.search(r"if \(given && path == 3\)\s+return launch_quant_vec<"
+                     r"T, true, kVPL, kNeighbourGiven>", src)
+    assert re.search(r"if \(!given && path == 1\)\s+return "
+                     r"launch_quant_vec<T, false, kVPL, kNoFault>", src)
+    assert re.search(r"if \(!given && path == 2\)\s+return "
+                     r"launch_quant_vec<T, false, kVPL, kShortAbsmax>", src)
+    assert (f"constexpr int kMaxVPL = {quant.QUANT_MAX_VECTORS_PER_LANE};"
+            in src)
+    assert "near < 0.5f - 0x1p-14f" in src
+    assert "constexpr float kRound = 12582912.f;" in src

@@ -3,7 +3,8 @@
 and PyTorch models of the register paths' arithmetic (``csrc/softmax.cu``
 ``warp_softmax_fwd``, ``warp_causal_fwd``, ``warp_softmax_bwd``), on the
 CPU; and the ctypes signatures of the softmax, LayerNorm, optimizer, MLA
-decode and int8 block wrappers against their C definitions.
+decode, int8 block and int8-cache verify wrappers against their C
+definitions.
 
 The plan picks, from shapes and alignment alone, the register path with
 16-byte accesses, the register path with one key an access, or the block
@@ -41,7 +42,14 @@ import torch
 from apex_tpu.kernels import softmax as jax_softmax
 from apex_tpu.kernels.registry import get_kernel_registry
 from apex_tpu_torch.contrib import mla_decode
-from apex_tpu_torch.kernels import _build, norm, optim, quant, softmax
+from apex_tpu_torch.kernels import (
+    _build,
+    fused_cc,
+    norm,
+    optim,
+    quant,
+    softmax,
+)
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -545,15 +553,17 @@ def _c_argtypes(source, symbol):
     (softmax, "_fwd_kernel"), (softmax, "_masked_kernel"),
     (softmax, "_bwd_kernel"), (optim, "_kernel"), (optim, "_lamb_kernel"),
     (norm, "_ln_kernel"), (norm, "_ln_bwd_kernel"), (mla_decode, "_kernel"),
-    (quant, "_quant_kernel"), (quant, "_dequant_kernel")])
+    (quant, "_quant_kernel"), (quant, "_dequant_kernel"),
+    (fused_cc, "_verify_kernel")])
 def test_ctypes_signatures_match_the_c_functions(monkeypatch, module,
                                                  loader):
     """The argument types each wrapper's loader hands ``_build.function``
     (nothing is built) against the C definition in csrc/<library>.cu:
     the softmax entries (#10 and #11 with their paths), Adam's (with its
     heads and path), LAMB's, LayerNorm's (#4 and #5 with their paths),
-    the MLA decode's (#26 with its counters, split sizes and path) and
-    the int8 block kernels' (#15 with its path)."""
+    the MLA decode's (#26 with its counters, split sizes and path), the
+    int8 block kernels' (#14 and #15 with their paths) and the int8-cache
+    verify's (#22 with its splits, scratch, counters and path)."""
     monkeypatch.setattr(_build, "function", lambda lib, symbol, types: (
         lib, symbol, list(types)))
     lib, symbol, types = getattr(module, loader).__wrapped__()

@@ -22,7 +22,11 @@ continuous-batching serving engine (``serving.ServeEngine``,
 ``torch.distributed`` (``parallel``: ``DistributedDataParallel`` with
 bf16, int8 or int4 gradient sync and error feedback, the compressed
 collectives of ``parallel.compression``, ``SyncBatchNorm``, ``LARC``,
-``parallel.multiproc.initialize_distributed`` and its launcher).
+``parallel.multiproc.initialize_distributed`` and its launcher); tensor
+parallelism (``transformer.tensor_parallel``, ``parallel.mesh2d``); and
+ZeRO (``contrib.optimizers.DistributedFusedAdam``,
+``DistributedFusedLAMB``) with the overlapped backward/collective step
+(``parallel.OverlappedDataParallel``, ``parallel.overlapped_zero_step``).
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,6 @@
 """Contributed kernels and modules: GQA decode attention, flash
-attention (``fmha``) and the multi-head attention modules."""
+attention (``fmha``), the multi-head attention modules and the ZeRO
+optimizers (``contrib.optimizers``; import it by name)."""
 
 from apex_tpu_torch.contrib.fmha import FMHA, attention_reference, flash_attention
 from apex_tpu_torch.contrib.multihead_attn import (

@@ -26,6 +26,15 @@ ADAM = registry.register("adam")
 LAMB = registry.register("lamb")
 
 
+def _sqrt(x):
+    """The correctly rounded fp32 square root, as XLA's and CUDA's: torch's
+    CPU sqrt (SLEEF, within 0.5001 ulp) rounds some values the other way;
+    through float64 it is exact (a double rounding of sqrt is harmless)."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).to(x.dtype)
+    return torch.sqrt(x)
+
+
 def fused_adam_update_plain(g, p, m, v, *, lr, bc1, bc2, b1, b2, eps,
                             weight_decay, adam_w):
     """One Adam (``adam_w=False``: L2 decay folded into g) or AdamW update
@@ -37,7 +46,7 @@ def fused_adam_update_plain(g, p, m, v, *, lr, bc1, bc2, b1, b2, eps,
         g = g + weight_decay * p
     m_new = b1 * m + (1 - b1) * g
     v_new = b2 * v + (1 - b2) * torch.square(g)
-    update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    update = (m_new / bc1) / (_sqrt(v_new / bc2) + eps)
     if adam_w and weight_decay != 0:
         update = update + weight_decay * p
     return p - lr * update, m_new, v_new
@@ -175,7 +184,7 @@ def fused_lamb_mvu_plain(g, p, m, v, *, bc1, bc2, b1, b2, beta3, eps,
         g = g + weight_decay * p
     m_new = b1 * m + beta3 * g
     v_new = b2 * v + (1 - b2) * torch.square(g)
-    update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    update = (m_new / bc1) / (_sqrt(v_new / bc2) + eps)
     if adam_w and weight_decay != 0:
         update = update + weight_decay * p
     return m_new, v_new, update

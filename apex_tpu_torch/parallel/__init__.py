@@ -7,8 +7,11 @@ core and the bf16/int8/int4 compressed collectives with error feedback),
 gradient sync, ``Reducer``), :mod:`.sync_batchnorm`, :mod:`.LARC`,
 :mod:`.multiproc` (process-group bring-up and the launcher),
 :mod:`.groups` (mesh axis names -> process groups) and :mod:`.mesh2d`
-(the 2-D (data, model) mesh step; import it by name). ``overlap`` and
-``pipeline`` come with ROADMAP items 2(b) and 6.
+(the 2-D (data, model) mesh step; import it by name) and
+:mod:`.overlap` (``OverlappedDataParallel``, the backward with each
+bucket's collective issued as its segment finishes, and
+``overlapped_zero_step``, its ZeRO form). ``pipeline`` comes with
+ROADMAP item 6.
 """
 
 import copy
@@ -18,6 +21,7 @@ import torch.distributed as dist
 
 from apex_tpu_torch.parallel import compression  # noqa: F401
 from apex_tpu_torch.parallel import multiproc  # noqa: F401
+from apex_tpu_torch.parallel import overlap  # noqa: F401
 from apex_tpu_torch.parallel.compression import init_residual  # noqa: F401
 from apex_tpu_torch.parallel.distributed import (  # noqa: F401
     DistributedDataParallel,
@@ -31,6 +35,11 @@ from apex_tpu_torch.parallel.distributed import (  # noqa: F401
 )
 from apex_tpu_torch.parallel.groups import register_axis  # noqa: F401
 from apex_tpu_torch.parallel.LARC import LARC  # noqa: F401
+from apex_tpu_torch.parallel.overlap import (  # noqa: F401
+    OverlappedDataParallel,
+    overlapped_zero_step,
+    plan_overlap,
+)
 from apex_tpu_torch.parallel.sync_batchnorm import (  # noqa: F401
     SyncBatchNorm,
     sync_batch_norm,

@@ -4,7 +4,8 @@ data parallelism across.
 Counterpart of ``apex_tpu/parallel/mesh2d.py``: a GPT-2-shaped
 transformer written with column- and row-parallel shards over the
 ``model`` axis, trained with :class:`~apex_tpu_torch.parallel.
-DistributedDataParallel` over the ``data`` axis. The TP collectives move
+OverlappedDataParallel` (or ``DistributedDataParallel``) over the
+``data`` axis. The TP collectives move
 activations and stay fp32 (the ``copy_to`` backward all-reduce of dx,
 the ``reduce_from`` forward all-reduce of the row-parallel partials);
 the DP sync moves gradients and compresses them (int8 by default, with
@@ -24,10 +25,12 @@ With ``fused=True`` the row-parallel projections run through
 four column tiles on kernel #20, each tile all-reduced when it is done;
 the same wire elements and gradients as the unfused composition.
 
-Only ``mode="baseline"`` is here (JAX's default is ``"overlapped"``): the
-full backward, then the bucketed sync, then SGD. The overlapped step
-waits for ``parallel/overlap.py`` (ROADMAP queue A item 2(b)) and the
-guarded step for resilience (item 7).
+``mode="overlapped"`` (the default, as JAX's) runs the segmented backward
+of :class:`~apex_tpu_torch.parallel.overlap.OverlappedDataParallel` over
+:func:`gpt2_segments`, each bucket's DP sync issued as its layer's
+backward finishes, the int8 residual in the bucket domain;
+``mode="baseline"`` runs the full backward, then the bucketed sync, then
+SGD. The guarded step waits for resilience (ROADMAP item 7).
 """
 
 from dataclasses import dataclass
@@ -46,6 +49,7 @@ from apex_tpu_torch.parallel.distributed import (
     _rebuild,
 )
 from apex_tpu_torch.parallel.groups import register_axis
+from apex_tpu_torch.parallel.overlap import OverlappedDataParallel
 from apex_tpu_torch.transformer.tensor_parallel.mappings import (
     copy_to_tensor_model_parallel_region as _copy_to,
     reduce_from_tensor_model_parallel_region as _reduce_from,
@@ -323,34 +327,61 @@ def gpt2_loss(seg_params, tokens, labels, head_dim, *, fused=False):
 # the step
 # ---------------------------------------------------------------------------
 
-def build_train_step(mesh, seg_params, *, hidden, heads, mode="baseline",
-                     compress="int8", lr=0.05, message_size=10000000,
-                     fused=False):
-    """One 2-D train step on this rank's shards (``mode="baseline"``;
-    JAX's ``"overlapped"`` and ``"guarded"`` raise, naming the ROADMAP
-    items they wait for):
+def build_train_step(mesh, seg_params, *, hidden, heads, mode="overlapped",
+                     compress="int8", lr=0.05, fold_average=True,
+                     message_size=10000000, fused=False):
+    """One 2-D train step on this rank's shards:
     ``step(sp, res, tokens, labels) -> (sp, res, loss)``, where ``loss``
-    is this rank's (its data row's batch) and ``sp`` the new shards. The
-    loss and its backward, then ``DistributedDataParallel(axis_name=
-    "data", compress=compress).sync`` with its residual (``None`` where
-    ``compress`` keeps none), then SGD ``w - lr * g``. ``fused`` routes
-    the row-parallel projections through ``matmul_reduce_from``.
+    is this rank's (its data row's batch) and ``sp`` the new shards.
 
-    Returns ``(step, state)``, ``state`` the carry ``(shards,
-    residual)``, the shards on ``seg_params``' device."""
-    if mode in ("overlapped", "guarded"):
+    ``mode="overlapped"`` (default): the segmented backward of
+    ``OverlappedDataParallel(axis_name="data", compress=compress,
+    fold_average=fold_average)`` over :func:`gpt2_segments`, each bucket's
+    DP sync issued as its segment's backward finishes; ``res`` is the
+    bucket-domain residual. ``mode="baseline"``: the loss and its
+    backward, then ``DistributedDataParallel(axis_name="data",
+    compress=compress).sync``; ``res`` leaf-shaped. ``res`` is ``None``
+    where ``compress`` keeps no residual. Then SGD ``w - lr * g``.
+    ``mode="guarded"`` raises, naming ROADMAP item 7. ``fused`` routes the
+    row-parallel projections through ``matmul_reduce_from``.
+
+    Returns ``(step, state)``, ``state`` the carry ``(shards, residual)``,
+    the shards on ``seg_params``' device."""
+    if mode == "guarded":
         raise NotImplementedError(
-            f"mode={mode!r}: the overlapped step comes with "
-            f"parallel/overlap.py, ROADMAP queue A item 2(b)"
-            + ("; the guard with resilience, item 7" if mode == "guarded"
-               else ""))
-    if mode != "baseline":
+            "mode='guarded': the guard comes with resilience, ROADMAP "
+            "item 7")
+    if mode not in ("baseline", "overlapped"):
         raise ValueError(f"unknown mode {mode!r}")
     head_dim = hidden // heads
+    layers = len(seg_params)
     shards = shard_params(seg_params, mesh.model_rank, mesh.model)
+    stateful = compression.needs_residual(compress)
+
+    def sgd(leaves, grads):
+        with torch.no_grad():
+            return [w - lr * g for w, g in zip(leaves, grads)]
+
+    if mode == "overlapped":
+        odp = OverlappedDataParallel(axis_name=DATA_AXIS, compress=compress,
+                                     fold_average=fold_average,
+                                     message_size=message_size)
+        residual = odp.init_residual(shards) if stateful else None
+
+        def step(sp, res, tokens, labels):
+            segs = gpt2_segments(labels, layers, head_dim, fused=fused)
+            if stateful:
+                loss, synced, res = odp.value_and_sync(segs, list(sp), tokens,
+                                                       residual=res)
+            else:
+                loss, synced = odp.value_and_sync(segs, list(sp), tokens)
+            return (_rebuild(sp, sgd(_leaves(sp), _leaves(synced))), res,
+                    loss)
+
+        return step, (shards, residual)
+
     ddp = DistributedDataParallel(axis_name=DATA_AXIS, compress=compress,
                                   message_size=message_size)
-    stateful = compression.needs_residual(compress)
     residual = ddp.init_residual(shards) if stateful else None
 
     def step(sp, res, tokens, labels):
@@ -362,9 +393,7 @@ def build_train_step(mesh, seg_params, *, hidden, heads, mode="baseline",
             grads, res = ddp.sync(grads, res)
         else:
             grads = ddp.sync(grads)
-        with torch.no_grad():
-            new = [w - lr * g for w, g in zip(leaves, _leaves(grads))]
-        return _rebuild(sp, new), res, loss.detach()
+        return _rebuild(sp, sgd(leaves, _leaves(grads))), res, loss.detach()
 
     return step, (shards, residual)
 

@@ -194,22 +194,45 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 12. ddp_compressed: ``bench.py bench_ddp_compressed`` as it stands (a 4 x
    1024 tanh MLP, batch 64, RandomState(0), w - 0.05 g, one bucket) in
    int8 and int4: counted steps, 30 timed steps, steps/s, the loss falls.
-13. tp_dp: ``parallel.mesh2d``'s 2-D step as ``bench.py bench_tp_dp``
+13. zero_gpt2: GPT-2 345M as in phase 6 on a one-rank NCCL group with
+   ``contrib.optimizers.DistributedFusedAdam(lr=1e-4, compress=True)``
+   (behind ``_ZeroOpt``: the new params copied into the model): counted
+   steps (#12 once a step, on the flat vector), the step-1 hold against
+   the plain versions, timed steps, peak memory, a profile;
+   ``state_bytes`` at world 1 and 8; ``state_dict_full`` ->
+   ``load_state_dict_resharded`` bit-exact; step 1 against FusedAdam's
+   from the same gradients (bit-identical). Then
+   ``parallel.overlapped_zero_step`` over mesh2d's GPT-2 345M segments (24
+   layers, 8 x 1024 tokens, 1 x 1 mesh) with
+   ``DistributedFusedAdam(overlap=True, compress=True)``: counted steps
+   (#12 once a bucket), timed steps, the profiler ranges in emission
+   order (segment k's buckets before segment k - 1's backward), step 1
+   against the plain versions and against the monolithic ZeRO step on the
+   whole model's gradients (bit-identical).
+14. zero_bert: BERT-large as in phase 7 with
+   ``DistributedFusedLAMB(compress=True)`` and bench_bert's LAMB settings:
+   counted steps (#13 once a step), the step-1 hold, timed steps, peak
+   memory, a profile; step 1 against FusedLAMB's from the same gradients
+   within one ulp plus ZERO_VS_FUSED_LAMB_RTOL of each update.
+15. tp_dp: ``parallel.mesh2d``'s 2-D step as ``bench.py bench_tp_dp``
    builds it (hidden 256, 4 layers, 8 heads, vocab 256, 32 positions,
-   batch 4, int8 on "data", lr 0.05, mode="baseline") on a 1 x 1 mesh
-   over a one-rank NCCL group, fused off and on: counted steps (#20 32 a
-   step fused, 0 unfused; one #14 and #15 a bucket), 10 timed steps,
-   steps/s, the TP all-reduces and their host time, a profile, and the
-   two runs' losses held step by step; the same pair with an fp32 sync,
-   held at every step to step 1's limit, and the fused run with each of
-   two planted #20 faults, which must fail the int8 pair's hold.
-14. tp_gpt2: the same step at GPT-2 345M's widths (24 x 1024, 16 heads,
+   batch 4, int8 on "data", lr 0.05) on a 1 x 1 mesh over a one-rank NCCL
+   group, in mode "baseline" and "overlapped" (JAX's default), fused off
+   and on in each: counted steps (#20 32 a step fused, 0 unfused; one #14
+   and #15 a bucket), 10 timed steps, steps/s, the TP all-reduces and
+   their host time, a profile, and each mode's two runs' losses held step
+   by step, the overlapped runs' equal to the baseline's; the baseline
+   pair with an fp32 sync, held at every step to step 1's limit, and the
+   fused baseline run with each of two planted #20 faults, which must
+   fail the int8 pair's hold.
+16. tp_gpt2: the same step at GPT-2 345M's widths (24 x 1024, 16 heads,
    vocab 50304, 8 x 1024 tokens), fused: step 1's loss and six gradients
    held against the plain versions, counted steps (#20 192 a step), step
    ms, tokens/s, peak memory, a profile with #20's share of the busy
-   time; one unfused step's loss held against the fused step 1's, and
-   the unfused step timed as the fused ones, with the ratio of the two
-   medians.
+   time; the overlapped fused step counted (#14/#15 once a bucket),
+   timed, profiled, its losses equal to the baseline's; one unfused
+   step's loss held against the fused step 1's, and the unfused step
+   timed as the fused ones, with the ratio of the two medians.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -5678,6 +5701,374 @@ def phase_ddp_compressed():
     return launches
 
 
+# ------------------------------------------------------------------ ZeRO
+
+# the sharded LAMB against the unsharded FusedLAMB at step 1 from the same
+# gradients: each new parameter within one fp32 ulp plus this share of its
+# update (tests/test_torch_zero.py fixes it against JAX's pair: the same
+# elementwise math, the gradient norm and each tensor's ||p|| and
+# ||update|| summed in another order)
+ZERO_VS_FUSED_LAMB_RTOL = 1e-5
+
+
+class _ZeroOpt:
+    """A ZeRO optimizer behind the calls train_steps makes of a
+    torch.optim optimizer: ``step()`` hands each ``p.grad`` to
+    ``opt.step`` and copies the new params into the model's."""
+
+    def __init__(self, opt, params):
+        self.opt, self.params = opt, list(params)
+        self.state = opt.init([p.detach() for p in self.params])
+        self.param_groups = [{"step": 0}]
+
+    @torch.no_grad()
+    def step(self):
+        grads = [p.grad for p in self.params]
+        new, self.state = self.opt.step(grads, self.state, self.params)
+        torch._foreach_copy_(self.params, new)
+        self.param_groups[0]["step"] = int(self.state["step"])
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+
+def _step1_grads(model, loss_of):
+    """The model's gradients at its current weights (one backward)."""
+    loss = loss_of()
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return [g.detach() for g in grads]
+
+
+def _ulps_apart(got, want):
+    """The largest |got - want| over the tensors in units of want's fp32
+    ulp, and the share of entries that differ."""
+    worst, differ, n = 0.0, 0, 0
+    for g, w in zip(got, want):
+        worst = max(worst, _ulps(g.float(), w.float()))
+        differ += (g != w).sum().item()
+        n += w.numel()
+    return worst, differ / n
+
+
+def _lamb_excess(got, want, before):
+    """max over entries of (|got - want| - one fp32 ulp of want) / |want -
+    before| (tests/test_torch_zero.py ``excess_over_ulp``)."""
+    worst = 0.0
+    for g, w, b in zip(got, want, before):
+        w64 = w.double()
+        ulp = (torch.nextafter(w.abs(), torch.full_like(w, float("inf")))
+               - w.abs()).double()
+        upd = (w64 - b.double()).abs().clamp_min(1e-30)
+        ex = ((g.double() - w64).abs() - ulp).clamp_min(0) / upd
+        worst = max(worst, ex.max().item())
+    return worst
+
+
+def _zero_round_trip(label, opt, state, params):
+    """state_dict_full -> load_state_dict_resharded at world 1, every
+    tensor bit-exact."""
+    t0 = time.perf_counter()
+    full = opt.state_dict_full(state, params, world=1)
+    back = opt.load_state_dict_resharded(full, params, world=1,
+                                         device="cuda")
+    secs = time.perf_counter() - t0
+    keys = sorted(k for k in state if k != "step")
+    assert sorted(k for k in back if k != "step") == keys, (keys, back)
+    for k in keys:
+        got = back[k][0] if k == "grad_residual" else back[k]  # rank 0's row
+        assert torch.equal(got, state[k]), (label, k)
+    assert int(back["step"]) == int(state["step"])
+    log(f"{label}: state_dict_full -> load_state_dict_resharded at world 1: "
+        f"{keys} and step {int(state['step'])} bit-exact, {full['n_elements']}"
+        f" elements, {secs:.1f} s on the host")
+
+
+def _zero_gpt2_monolithic(model, loss_of, per_step):
+    """DistributedFusedAdam(lr=GPT2_LR, compress=True) through train_steps,
+    then step 1 against FusedAdam's from the same gradients, the state's
+    bytes and the elastic round trip."""
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.models import init_weights
+    from apex_tpu_torch.optimizers import FusedAdam
+    params = list(model.parameters())
+    holder = {}
+
+    def make_opt(ps):
+        holder["z"] = _ZeroOpt(DistributedFusedAdam(lr=GPT2_LR, compress=True),
+                               ps)
+        return holder["z"]
+
+    launches = train_steps(
+        "zero gpt2", model, loss_of, make_opt, per_step,
+        (GPT2_BATCH * GPT2_SEQ, "tokens"), record=(rec := {}),
+        watch=PROFILE_WATCH + ("direct_copy_kernel", "CatArrayBatched"))
+    z = holder["z"]
+    log(f"zero gpt2: step (forward, backward, DistributedFusedAdam) "
+        f"{rec['timed_ms']:.2f} ms = "
+        f"{GPT2_BATCH * GPT2_SEQ / rec['timed_ms'] * 1e3:.1f} tokens/s, peak "
+        f"{rec['peak_gib']:.2f} GiB (gpt2_training's FusedAdam step beside it "
+        f"in the same run)")
+    for world in (1, 8):
+        r = z.opt.state_bytes(params, world=world)
+        log(f"zero gpt2: state_bytes(world={world}): n {r['n_elements']}, "
+            f"padded {r['padded_elements']}, sharded "
+            f"{r['sharded_state_bytes']} B (residual {r['residual_bytes']}), "
+            f"unsharded {r['unsharded_state_bytes']} B, ratio "
+            f"{r['savings_ratio']:.4f}")
+    _zero_round_trip("zero gpt2", z.opt, z.state, params)
+    del z, holder
+    torch.cuda.empty_cache()
+
+    # step 1 from the same weights and gradients: ZeRO against FusedAdam
+    init_weights(model, SEED)
+    w0 = [p.detach().clone() for p in params]
+    g1 = _step1_grads(model, loss_of)
+    zopt = DistributedFusedAdam(lr=GPT2_LR, compress=True)
+    new_z, _ = zopt.step(g1, zopt.init(w0), w0)
+    fused = [torch.nn.Parameter(w.clone()) for w in w0]
+    for p, g in zip(fused, g1):
+        p.grad = g.clone()
+    FusedAdam(fused, lr=GPT2_LR).step()
+    ulps, share = _ulps_apart(new_z, [p.detach() for p in fused])
+    log(f"zero gpt2: step 1 from the same gradients, DistributedFusedAdam "
+        f"(one #12 launch on the flat vector) vs FusedAdam (one a table of "
+        f"64 tensors): {share:.3e} of the entries differ, largest "
+        f"{ulps:.3f} fp32 ulp (bit-identical expected: the same bias "
+        f"corrections, ops.multi_tensor.bias_corrections, and elementwise "
+        f"arithmetic)")
+    assert share == 0.0, (share, ulps)
+    del new_z, fused, g1, w0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _range_order(fn):
+    """The ``ddp_overlap_*`` profiler ranges of one call of ``fn``, in the
+    order they opened on the host."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.events() if e.name.startswith("ddp_overlap_")]
+    return [e.name for e in sorted(found, key=lambda e: e.time_range.start)]
+
+
+def _zero_gpt2_overlapped():
+    """overlapped_zero_step over mesh2d's GPT-2 345M segments on a 1 x 1
+    mesh, DistributedFusedAdam(overlap=True, compress=True): counted,
+    timed, profiled; step 1 against the plain versions and against the
+    monolithic ZeRO step; the ranges' order."""
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.kernels import registry
+    from apex_tpu_torch.parallel import mesh2d, overlapped_zero_step
+    from apex_tpu_torch.parallel.distributed import _leaves, _rebuild
+    m = TP_GPT2_MODEL
+    head_dim = m["hidden"] // m["heads"]
+    with tp_mesh() as mesh:
+        seg = mesh2d.gpt2_init(**m)
+        tokens, labels = mesh2d.make_batch(
+            mesh, batch_per_replica=TP_GPT2_BATCH, seq=m["max_seq"],
+            vocab=m["vocab"])
+        segments = mesh2d.gpt2_segments(labels, m["layers"], head_dim)
+        kw = dict(lr=GPT2_LR, compress=True)
+        opt = DistributedFusedAdam(overlap=True, **kw)
+        plan = opt.overlap_plan(list(seg))
+        B = sum(len(s) for s in plan)
+        n = sum(p.numel() for p in _leaves(seg))
+        log(f"zero gpt2 overlapped: mesh2d GPT-2 {m}, {n} fp32 parameters in "
+            f"{len(seg)} segments, B = {B} buckets of at most "
+            f"{opt.message_size} elements (a segment's buckets never span "
+            f"it); batch {TP_GPT2_BATCH} x {m['max_seq']}")
+
+        def run(sp, state):
+            return overlapped_zero_step(segments, sp, opt, state, tokens)
+
+        expected = {**dict.fromkeys(registry.launches(), 0), "adam": B}
+        sp, state = list(seg), opt.init(list(seg))
+        losses, totals, step_ms = [], dict.fromkeys(expected, 0), []
+        for k in range(COUNTED_STEPS):
+            registry.reset()
+            ms, (loss, new_sp, state) = _wall_ms(lambda: run(sp, state))
+            if k == 0:
+                sp1 = new_sp
+            sp = new_sp
+            got = registry.launches()
+            assert got == expected, (k, got, expected)
+            for name in totals:
+                totals[name] += got[name]
+            losses.append(loss.item())
+            step_ms.append(ms)
+        assert losses[-1] < losses[0], losses
+        torch.cuda.reset_peak_memory_stats()
+        timed = []
+        for _ in range(TIMED_STEPS):
+            ms, (loss, sp, state) = _wall_ms(lambda: run(sp, state))
+            timed.append(ms)
+        med = statistics.median(timed)
+        tokens_n = TP_GPT2_BATCH * m["max_seq"]
+        log(f"zero gpt2 overlapped: {COUNTED_STEPS} counted steps, launches "
+            f"per step { {k: v for k, v in expected.items() if v} } (every "
+            f"step: #12 once a bucket); losses {losses}; step ms {step_ms}; "
+            f"timed step {_spread(timed)} = {tokens_n / med * 1e3:.1f} "
+            f"tokens/s (host clock, synchronized); peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        order = _range_order(lambda: run(sp, state))
+        want, b_no = [], B
+        for k in reversed(range(len(seg))):
+            want.append(f"ddp_overlap_segment_{k}")
+            b_no -= len(plan[k])
+            want += [f"ddp_overlap_bucket_{b_no + i}"
+                     for i in range(len(plan[k]))]
+        log(f"zero gpt2 overlapped: profiler ranges in host order "
+            f"{order[:6]} ... {order[-4:]} ({len(order)}); each segment's "
+            f"buckets open before the next earlier segment's backward")
+        assert order == want, (order, want)
+        profile_window("zero gpt2 overlapped step", lambda: run(sp, state),
+                       top=8, watch=("adam_vec_kernel", "gemm", "softmax"),
+                       ranges=("ddp_overlap_segment_23",
+                               "ddp_overlap_bucket_0"))
+        del sp, state
+        torch.cuda.empty_cache()
+
+        # step 1 again: through the plain versions, and as the monolithic
+        # ZeRO step on the same model and batch (one backward)
+        registry.reset()
+        with plain_versions():
+            _, sp_plain, _ = overlapped_zero_step(
+                segments, list(seg), opt, opt.init(list(seg)), tokens)
+        assert not any(registry.launches().values()), registry.launches()
+        worst = max(max_rel(a, b) for a, b in zip(_leaves(sp1),
+                                                  _leaves(sp_plain)))
+        del sp_plain
+        leaves = [p.detach().requires_grad_() for p in _leaves(seg)]
+        tree = _rebuild(seg, leaves)
+        loss = mesh2d.gpt2_loss(tree, tokens, labels, head_dim)
+        grads = _rebuild(seg, torch.autograd.grad(loss, leaves))
+        mono = DistributedFusedAdam(**kw)
+        sp_mono, _ = mono.step(list(grads), mono.init(list(seg)), list(seg))
+        ulps, share = _ulps_apart(_leaves(sp1), _leaves(sp_mono))
+        log(f"zero gpt2 overlapped: step 1 vs the plain versions: largest "
+            f"relative difference {worst:.3e} (tolerance {ADAM_RTOL}); vs "
+            f"the monolithic DistributedFusedAdam step on the whole "
+            f"model's gradients: loss {loss.item():.6f} vs {losses[0]:.6f}, "
+            f"{share:.3e} of the params differ, largest {ulps:.3f} ulp "
+            f"(bit-identical expected: the segmented backward runs the "
+            f"same ops, Adam is elementwise)")
+        assert worst <= ADAM_RTOL, worst
+        assert loss.item() == losses[0] and share == 0.0, (share, ulps)
+        del sp1, sp_mono, grads, leaves, tree, seg
+        torch.cuda.empty_cache()
+    return totals
+
+
+def phase_zero_gpt2():
+    """GPT-2 345M as phase_gpt2_training runs it (8 x 1024, flash on, lr
+    1e-4) on a one-rank NCCL group with DistributedFusedAdam(compress=True)
+    (#12 once a step), then overlapped_zero_step over mesh2d's GPT-2 345M
+    segments (#12 once a bucket)."""
+    import numpy as np
+
+    from apex_tpu_torch.models import GPTModel, TransformerConfig, gpt_loss_fn
+    cfg = TransformerConfig(**GPT2, compute_dtype=torch.bfloat16,
+                            use_flash_attention=True)
+    with one_rank_group():
+        model = _new_model("zero gpt2", lambda: GPTModel(cfg))
+        rng = np.random.RandomState(SEED)  # bench_gpt2's batch
+        shape = (GPT2_BATCH, GPT2_SEQ)
+        tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
+        labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
+        L = cfg.num_layers
+        per_step = {"layer_norm": 2 * L + 1, "ln_bwd": 2 * L + 1,
+                    "flash_fwd": L, "flash_dq": L, "flash_dkv": L, "adam": 1}
+        launches = {"zero_gpt2": _zero_gpt2_monolithic(
+            model, lambda: gpt_loss_fn(model(tokens), labels), per_step)}
+        del model
+        torch.cuda.empty_cache()
+    launches["zero_gpt2_overlapped"] = _zero_gpt2_overlapped()
+    return launches
+
+
+def phase_zero_bert():
+    """BERT-large as phase_bert_training runs it (64 x 128) on a one-rank
+    NCCL group with DistributedFusedLAMB(compress=True) (#13 once a step),
+    then step 1 against FusedLAMB's from the same gradients."""
+    import math
+
+    import numpy as np
+
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedLAMB
+    from apex_tpu_torch.models import (
+        BertModel,
+        TransformerConfig,
+        bert_loss_fn,
+        init_weights,
+    )
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    cfg = TransformerConfig(**BERT, compute_dtype=torch.bfloat16,
+                            use_flash_attention=False,
+                            attn_mask_type=AttnMaskType.padding)
+    kw = dict(lr=BERT_LR, weight_decay=BERT_WD, eps=BERT_EPS,
+              max_grad_norm=BERT_MAX_GRAD_NORM)
+    with one_rank_group():
+        model = _new_model("zero bert", lambda: BertModel(cfg))
+        b, s = BERT_BATCH, BERT_SEQ
+        rng = np.random.RandomState(SEED)  # bench_bert's inputs, in its order
+        tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).cuda()
+        padding_mask = torch.ones(b, s, dtype=torch.int32, device="cuda")
+        tokentype = torch.zeros(b, s, dtype=torch.long, device="cuda")
+        labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).cuda()
+        loss_mask = torch.from_numpy(
+            (rng.rand(b, s) < 0.15).astype(np.float32)).cuda()
+        nsp_labels = torch.from_numpy(rng.randint(0, 2, (b,))).cuda()
+
+        def loss_of():
+            mlm, nsp = model(tokens, padding_mask, tokentype)
+            return bert_loss_fn(mlm, nsp, labels, loss_mask, nsp_labels)
+
+        def linear_below(g1):  # as phase_bert_training's
+            norm = math.sqrt(sum(g.cuda().double().square().sum().item()
+                                 for g in g1.values()))
+            return BERT_EPS * max(norm / BERT_MAX_GRAD_NORM, 1.0)
+
+        L = cfg.num_layers
+        per_step = {"layer_norm": 2 * L + 2, "ln_bwd": 2 * L + 2,
+                    "masked_softmax": L, "softmax_bwd": L, "lamb": 1}
+        launches = train_steps(
+            "zero bert", model, loss_of,
+            lambda ps: _ZeroOpt(DistributedFusedLAMB(compress=True, **kw), ps),
+            per_step, (b, "samples"),
+            update_rtol=(LAMB_UPDATE_RTOL, LAMB_TENSOR_UPDATE_RTOL),
+            falls_from=1, linear_below=linear_below, record=(rec := {}),
+            watch=PROFILE_WATCH + ("direct_copy_kernel", "foreach"))
+        log(f"zero bert: step (forward, backward, DistributedFusedLAMB) "
+            f"{rec['timed_ms']:.2f} ms = {b / rec['timed_ms'] * 1e3:.1f} "
+            f"samples/s, peak {rec['peak_gib']:.2f} GiB")
+
+        params = list(model.parameters())
+        init_weights(model, SEED)
+        w0 = [p.detach().clone() for p in params]
+        g1 = _step1_grads(model, loss_of)
+        zopt = DistributedFusedLAMB(compress=True, **kw)
+        new_z, _ = zopt.step(g1, zopt.init(w0), w0)
+        fused = [torch.nn.Parameter(w.clone()) for w in w0]
+        for p, g in zip(fused, g1):
+            p.grad = g.clone()
+        FusedLAMB(fused, **kw).step()
+        excess = _lamb_excess(new_z, [p.detach() for p in fused], w0)
+        ulps, share = _ulps_apart(new_z, [p.detach() for p in fused])
+        log(f"zero bert: step 1 from the same gradients, DistributedFusedLAMB "
+            f"(one #13 launch on the flat vector) vs FusedLAMB: {share:.3e} "
+            f"of the entries differ, largest {ulps:.3f} fp32 ulp; past one "
+            f"ulp by at most {excess:.3e} of the update (limit "
+            f"{ZERO_VS_FUSED_LAMB_RTOL}, tests/test_torch_zero.py)")
+        assert excess <= ZERO_VS_FUSED_LAMB_RTOL, excess
+        del model, params, w0, g1, new_z, fused
+        torch.cuda.empty_cache()
+    return {"zero_bert": launches}
+
+
 # ------------------------------------------------- tensor parallelism
 
 # bench.py bench_tp_dp (bench.py:1897; its CLI batch 4): mesh2d's GPT-2
@@ -5810,12 +6201,12 @@ def _tp_steps(label, step, state, batch, expected, timed):
 
 
 def _tp_dp_losses(mesh, seg, batch, fused, compress="int8"):
-    """The losses of COUNTED_STEPS + TP_DP_STEPS tp_dp steps, uncounted:
-    the runs the honest ones are compared with."""
+    """The losses of COUNTED_STEPS + TP_DP_STEPS tp_dp steps (baseline
+    mode), uncounted: the runs the honest ones are compared with."""
     from apex_tpu_torch.parallel import mesh2d
     step, (sp, res) = mesh2d.build_train_step(
         mesh, seg, hidden=TP_DP_MODEL["hidden"], heads=TP_DP_MODEL["heads"],
-        fused=fused, compress=compress)
+        mode="baseline", fused=fused, compress=compress)
     losses = []
     for _ in range(COUNTED_STEPS + TP_DP_STEPS):
         sp, res, loss = step(sp, res, *batch)
@@ -5827,35 +6218,50 @@ def _rel_diffs(a, b):
     return [abs(x - y) / abs(y) for x, y in zip(a, b)]
 
 
+def _tp_buckets(seg, mode):
+    """The DP sync's buckets a step: the bucketed sync's over every leaf
+    (baseline), or the overlapped step's, a segment's never spanning it."""
+    from apex_tpu_torch.parallel import plan_buckets, plan_overlap
+    from apex_tpu_torch.parallel.distributed import _leaves
+    if mode == "baseline":
+        return len(plan_buckets(_leaves(seg), DDP_MESSAGE_SIZE))
+    return sum(len(s) for s in plan_overlap(list(seg),
+                                            message_size=DDP_MESSAGE_SIZE))
+
+
 def phase_tp_dp():
     """bench.py bench_tp_dp's 2-D step on a 1 x 1 mesh (one-rank NCCL
-    group): mode="baseline", int8 on "data", fused off and on, 3 counted
-    and 10 timed steps each; the two runs' losses held step by step. Then
-    the same pair with an fp32 sync, held to the step-1 limit at every
-    step, and the fused run with each of TP_DP_FAULTS planted, which must
-    fail the int8 pair's hold."""
+    group): int8 on "data", mode "baseline" and "overlapped" (JAX's
+    default: each layer's buckets synced as its backward ends), fused off
+    and on in each, 3 counted and 10 timed steps each; each mode's two
+    runs' losses held step by step, and the overlapped runs' equal to the
+    baseline's at every step. Then the baseline pair with an fp32 sync, held to the
+    step-1 limit at every step, and the fused baseline run with each of
+    TP_DP_FAULTS planted, which must fail the int8 pair's hold."""
     from apex_tpu_torch.kernels import fused_cc
-    from apex_tpu_torch.parallel import mesh2d, plan_buckets
-    from apex_tpu_torch.parallel.distributed import _leaves
+    from apex_tpu_torch.parallel import mesh2d
     m = TP_DP_MODEL
     launches, runs, faults = {}, {}, {}
     with tp_mesh() as mesh:
         seg = mesh2d.gpt2_init(**m)
         batch = mesh2d.make_batch(mesh, batch_per_replica=TP_DP_BATCH,
                                   seq=m["max_seq"], vocab=m["vocab"])
-        buckets = len(plan_buckets(_leaves(seg), DDP_MESSAGE_SIZE))
-        for fused in (False, True):
-            name = "fused" if fused else "unfused"
+        for mode, fused in (("baseline", False), ("baseline", True),
+                            ("overlapped", False), ("overlapped", True)):
+            buckets = _tp_buckets(seg, mode)
+            name = ("fused" if fused else "unfused") + (
+                "" if mode == "baseline" else "_overlapped")
             step, state = mesh2d.build_train_step(
                 mesh, seg, hidden=m["hidden"], heads=m["heads"],
-                mode="baseline", fused=fused)
+                mode=mode, fused=fused)
             expected = _tp_expected(m["layers"], fused, buckets)
             losses, totals, ms, (sp, res), tp_calls, tp_ms = _tp_steps(
                 f"tp_dp {name}", step, state, batch, expected, TP_DP_STEPS)
             runs[name] = losses
             launches[f"tp_dp_{name}"] = totals
             log(f"tp_dp {name}: {m}, batch {TP_DP_BATCH} x {m['max_seq']}, "
-                f"int8 sync ({buckets} bucket): launches per step "
+                f"mode {mode!r}, int8 sync ({buckets} buckets): launches per "
+                f"step "
                 f"{ {k: v for k, v in expected.items() if v} } (every "
                 f"counted step); TP all-reduces a step {tp_calls} "
                 f"({tp_ms:.2f} ms of host time, median of the counted "
@@ -5885,6 +6291,19 @@ def phase_tp_dp():
         f"step: {fmt(diffs)} (limits {TP_FIRST_LOSS_RTOL} at step 1, "
         f"{TP_LOSS_RTOL} after); with an fp32 sync: {fmt(fp32_sync)} "
         f"(limit {TP_FIRST_LOSS_RTOL} at every step)")
+    ovl = _rel_diffs(runs["fused_overlapped"], runs["unfused_overlapped"])
+    vs_base = {f: _rel_diffs(runs[f"{f}_overlapped"], runs[f])
+               for f in ("fused", "unfused")}
+    log(f"tp_dp overlapped: fused vs unfused losses {fmt(ovl)} (the same "
+        f"limits); overlapped vs baseline, fused {fmt(vs_base['fused'])}, "
+        f"unfused {fmt(vs_base['unfused'])} (equal expected at every step: "
+        f"every leaf is a multiple of 256 elements, so the layers' buckets "
+        f"cut the baseline's bucket on its int8 block grid, and the folded "
+        f"average multiplies the scales by 1.0 at world 1)")
+    assert ovl[0] <= TP_FIRST_LOSS_RTOL and max(ovl) <= TP_LOSS_RTOL, ovl
+    assert all(max(d) == 0.0 for d in vs_base.values()), vs_base
+    for f in ("fused_overlapped", "unfused_overlapped"):
+        assert runs[f][-1] < runs[f][0], runs[f]
     for name, d in faults.items():
         log(f"tp_dp: planted fault ({name}): fused vs unfused losses "
             f"{fmt(d)}")
@@ -6002,6 +6421,41 @@ def phase_tp_gpt2():
         del step, state, sp, res
         torch.cuda.empty_cache()
 
+        # the overlapped step (JAX's default mode), fused, from the same
+        # parameters: each layer's buckets synced as its backward ends
+        ob = _tp_buckets(seg, "overlapped")
+        step, state = mesh2d.build_train_step(
+            mesh, seg, hidden=m["hidden"], heads=m["heads"],
+            mode="overlapped", fused=True)
+        expected_o = _tp_expected(m["layers"], True, ob)
+        torch.cuda.reset_peak_memory_stats()
+        losses_o, totals_o, ms_o, state, tp_calls_o, _ = _tp_steps(
+            "tp_gpt2 overlapped", step, state, batch, expected_o, TIMED_STEPS)
+        peak_o = torch.cuda.max_memory_allocated() / 2**30
+        med_o = statistics.median(ms_o)
+        diff_o = abs(losses_o[0] - losses[0]) / abs(losses[0])
+        log(f"tp_gpt2 overlapped: launches per step "
+            f"{ {k: v for k, v in expected_o.items() if v} } (every counted "
+            f"step; {ob} buckets, a layer's never spanning it); TP "
+            f"all-reduces a step {tp_calls_o}; step {_spread(ms_o)} = "
+            f"{tokens / med_o * 1e3:.1f} tokens/s (host clock, "
+            f"synchronized); overlapped median {med_o:.2f} ms / baseline "
+            f"median {med:.2f} ms = {med_o / med:.4f}; peak memory "
+            f"{peak_o:.2f} GiB; losses {losses_o}, the baseline's at every "
+            f"step expected (every leaf a multiple of 256 elements: the same "
+            f"int8 grid; the folded average a product by 1.0 at world 1); "
+            f"step 1 {diff_o:.3e} apart")
+        assert losses_o == losses, (losses_o, losses)
+        assert losses_o[COUNTED_STEPS - 1] < losses_o[0], losses_o
+        sp, res = state
+        profile_window(
+            "tp_gpt2 overlapped step", lambda: step(sp, res, *batch), top=6,
+            watch=("matmul_kernel<", "quant"),
+            ranges=(f"ddp_overlap_segment_{m['layers'] - 1}",
+                    "ddp_overlap_bucket_0"))
+        del step, state, sp, res
+        torch.cuda.empty_cache()
+
         # one unfused step from the same parameters
         step, state = mesh2d.build_train_step(
             mesh, seg, hidden=m["hidden"], heads=m["heads"],
@@ -6023,7 +6477,7 @@ def phase_tp_gpt2():
         assert diff <= TP_FIRST_LOSS_RTOL, diff
         del step, state, seg
         torch.cuda.empty_cache()
-    return {"tp_gpt2": totals}
+    return {"tp_gpt2": totals, "tp_gpt2_overlapped": totals_o}
 
 
 
@@ -6040,7 +6494,7 @@ PROFILE_WATCH = ("ln_fwd_kernel", "warp_ln_fwd", "ln_bwd_dx",
 PHASES = ("kernels", "serving", "serve_bf16", "serve_int8", "serve_spec",
           "training", "flash_training", "gpt2_training", "bert_training",
           "mha", "mla_decode", "deepseek_v2_lite", "ddp_gpt2",
-          "ddp_compressed", "tp_dp", "tp_gpt2")
+          "ddp_compressed", "zero_gpt2", "zero_bert", "tp_dp", "tp_gpt2")
 # kernels that no path of this script launches: held against their plain
 # versions in the kernel phase only (the JAX serving engine does not take
 # the fused int8 verify either: it dequantizes with #15, then verifies;
@@ -6176,6 +6630,7 @@ def main(argv):
             "deepseek_v2_lite": phase_deepseek_v2_lite,
             "ddp_gpt2": phase_ddp_gpt2,
             "ddp_compressed": phase_ddp_compressed,
+            "zero_gpt2": phase_zero_gpt2, "zero_bert": phase_zero_bert,
             "tp_dp": phase_tp_dp, "tp_gpt2": phase_tp_gpt2}
     for name in phases:  # in the order given, repeats included
         if name not in runs:

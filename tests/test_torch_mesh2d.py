@@ -8,9 +8,12 @@ CPU, on test_mesh2d.py's small model (hidden 64, 2 layers, 4 heads, vocab
   and a tile all-reduce each) and unfused, on a one-rank gloo group,
   against JAX's loss and ``jax.grad`` (unfused: the mesh axis unbound,
   its region ops the identity, as on one device).
-- Three baseline steps (the int8 DP sync with its residual, SGD) on a 1 x
-  1 mesh, fused on and off, against JAX's jitted ``build_train_step`` on
-  ``mesh_2d(1, 1)`` (the Pallas GEMM in interpret mode).
+- Three steps (the int8 or fp32 DP sync, SGD) on a 1 x 1 mesh in both
+  modes, ``"baseline"`` (the full backward, then the bucketed sync) and
+  ``"overlapped"`` (the segmented backward of ``OverlappedDataParallel``,
+  the residual in the bucket domain; the default, as JAX's), fused on and
+  off, against JAX's jitted ``build_train_step`` on ``mesh_2d(1, 1)``
+  (the Pallas GEMM in interpret mode).
 - Two steps on a 2 x 2 world of four gloo ranks from the port's
   launcher, against JAX's ``mesh_2d(2, 2)`` on four of the eight virtual
   devices: each rank's shards and its loss (its data row's batch).
@@ -181,21 +184,22 @@ def _int8_quantum(tokens, labels):
     return LR * max(t.abs().max().item() for t in g) / 127
 
 
+@pytest.mark.parametrize("mode", ["baseline", "overlapped"])
 @pytest.mark.parametrize("compress", ["int8", None])
 @pytest.mark.parametrize("fused", [False, True])
 def test_three_steps_on_a_1x1_mesh_match_jax(world1, interpret, fused,
-                                             compress):
+                                             compress, mode):
     hidden, heads = MODEL["hidden"], MODEL["heads"]
     mesh_j = jax_mesh2d.mesh_2d(1, 1)
     step_j, (sp_j, res_j) = jax_mesh2d.build_train_step(
         mesh_j, jax_mesh2d.gpt2_init(**MODEL), hidden=hidden, heads=heads,
-        mode="baseline", fused=fused, compress=compress)
+        mode=mode, fused=fused, compress=compress)
     tok_j, lab_j = jax_mesh2d.make_batch(mesh_j, batch_per_replica=BATCH,
                                          seq=SEQ, vocab=MODEL["vocab"])
     mesh = mesh2d.mesh_2d(1, 1)
     step, (sp, res) = mesh2d.build_train_step(
         mesh, mesh2d.gpt2_init(**MODEL, device="cpu"), hidden=hidden,
-        heads=heads, mode="baseline", fused=fused, compress=compress)
+        heads=heads, mode=mode, fused=fused, compress=compress)
     tok, lab = mesh2d.make_batch(mesh, batch_per_replica=BATCH, seq=SEQ,
                                  vocab=MODEL["vocab"], device="cpu")
     np.testing.assert_array_equal(tok.numpy(), np.asarray(tok_j))
@@ -209,16 +213,32 @@ def test_three_steps_on_a_1x1_mesh_match_jax(world1, interpret, fused,
                       f"step {k + 1}", PARAM_ATOL + (k + 1) * quantum)
     if compress:  # error feedback carries a residual
         assert all(r.abs().sum() > 0 for r in _leaves(res))
+        if mode == "overlapped":  # in the bucket domain, as JAX's
+            assert [[tuple(r.shape) for r in s] for s in res] == [
+                [r.shape for r in s] for s in res_j]
     else:
         assert res is None
+
+
+def test_default_mode_is_overlapped_as_jax(world1):
+    """mesh2d.build_train_step's default mode is JAX's, "overlapped": the
+    residual comes back in the bucket domain."""
+    import inspect
+
+    want = inspect.signature(jax_mesh2d.build_train_step).parameters
+    got = inspect.signature(mesh2d.build_train_step).parameters
+    assert got["mode"].default == want["mode"].default == "overlapped"
+    mesh = mesh2d.mesh_2d(1, 1)
+    _, (_, res) = mesh2d.build_train_step(
+        mesh, mesh2d.gpt2_init(**MODEL, device="cpu"), hidden=MODEL["hidden"],
+        heads=MODEL["heads"])
+    assert isinstance(res, tuple) and all(
+        r.dim() == 2 and r.shape[1] == 256 for s in res for r in s)
 
 
 def test_modes_waiting_for_later_items_raise(world1):
     mesh = mesh2d.mesh_2d(1, 1)
     full = mesh2d.gpt2_init(**MODEL, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 2\(b\)"):
-        mesh2d.build_train_step(mesh, full, hidden=64, heads=4,
-                                mode="overlapped")
     with pytest.raises(NotImplementedError, match="item 7"):
         mesh2d.build_train_step(mesh, full, hidden=64, heads=4,
                                 mode="guarded")

@@ -26,7 +26,12 @@ collectives of ``parallel.compression``, ``SyncBatchNorm``, ``LARC``,
 parallelism (``transformer.tensor_parallel``, ``parallel.mesh2d``); and
 ZeRO (``contrib.optimizers.DistributedFusedAdam``,
 ``DistributedFusedLAMB``) with the overlapped backward/collective step
-(``parallel.OverlappedDataParallel``, ``parallel.overlapped_zero_step``).
+(``parallel.OverlappedDataParallel``, ``parallel.overlapped_zero_step``);
+and amp (``amp.initialize`` O0-O3, the dynamic ``amp.LossScaler``,
+``amp.AmpOptimizer``, O1's dtype policy and ``amp.functional`` shim,
+``transformer.amp.GradScaler``) with the optimizers it drives
+(``optimizers.FusedSGD``, ``FusedMixedPrecisionLamb``,
+``FusedAdam(master_weights=True)``) and ``multi_tensor_apply``.
 """
 
 __version__ = "0.1.0"

@@ -6,6 +6,7 @@
 // JAX FusedAdam computes the same update with `ops/multi_tensor.py`
 // `multi_tensor_adam`, a jnp loop over the parameter tensors that XLA
 // fuses. Per element, in fp32 and in this order:
+//   g = g * inv_scale                 (only where an inv_scale is given)
 //   mode 0 (L2):   g = g + wd * p
 //   m = b1 * m + (1 - b1) * g;   v = b2 * v + (1 - b2) * g * g
 //   update = (m / bc1) / (sqrt(v / bc2) + eps)
@@ -14,69 +15,94 @@
 // with (1 - b1) and (1 - b2) rounded to fp32 from double by the caller,
 // as JAX rounds its weakly typed Python floats. The whole update is
 // skipped, leaving p, m and v untouched, when the device-side fp32
-// `noop` flag is non-zero (the JAX op's `_keep`, without a branch on the
+// `noop` flag is > 0 (the JAX op's `_keep`, without a branch on the
 // host).
 //
-// Bound on the H100: memory. 28 bytes per parameter (read g, p, m, v;
-// write p, m, v) and ~15 flops: 30.8 GB, >= 9.2 ms at 3.35 TB/s for
-// TinyLlama-1.1B's 1.10 B parameters.
+// What amp keeps on the device is read there, so a step that an overflow
+// skips costs the host no synchronisation (JAX's
+// `multi_tensor_adam_capturable` and `_capturable_master`, ops/
+// multi_tensor.py:197-225): the bias corrections come from the host's
+// values or from a device step count (int32, the count after this
+// update; multi_tensor.cuh `bias_correction`, which gives the host's
+// values), the unscale factor is a device fp32 scalar (JAX's
+// `g.astype(f32) * inv_scale`), g is bf16 or fp32 (widened in
+// registers), the updated tensor p is an fp32 master or the parameter
+// itself (fp32, or bf16 without a master: rounded back, as JAX's `_keep`
+// casts to p's dtype), and where an output list is given the parameter is
+// written from the new master in the same pass (`nm.astype(p.dtype)`).
+//
+// Bound on the H100: memory. 28 bytes per parameter in fp32 (read g, p,
+// m, v; write p, m, v) and ~15 flops: 30.8 GB, >= 9.2 ms at 3.35 TB/s for
+// TinyLlama-1.1B's 1.10 B parameters; 26 bytes with a bf16 gradient and an
+// fp32 master, plus 2 for the bf16 parameter written from it.
 //
 // Both designs take the reference's multi_tensor_apply: eager PyTorch
 // has no XLA to fuse a per-tensor loop, which for the model's 179 tensors
 // would be ~2,000 small launches a step, so one launch updates up to
-// kMaxTensors = 64 tensors: a table of their g, p, m, v pointers, sizes,
-// chunk counts and heads travels by value as the kernel's parameter
-// (3.6 KB, under the 4 KB parameter limit, and captured as it is by a
-// CUDA graph), and blocks walk the chunks grid-stride, finding a chunk's
-// tensor from the table's prefix count of chunks. Every operation is
-// written with a round-to-nearest intrinsic (adam_update), so nvcc does
-// not contract it into an FMA and no division becomes a reciprocal
-// product: both designs give the oracle's fp32 results bit for bit.
+// kMaxTensors = 64 tensors: a table of their g, p, m, v and output
+// pointers, sizes, chunk counts and heads travels by value as the
+// kernel's parameter (3.9 KB, under the 4 KB parameter limit, and
+// captured as it is by a CUDA graph), and blocks walk the chunks
+// grid-stride, finding a chunk's tensor from the table's prefix count of
+// chunks. Every operation is written with a round-to-nearest intrinsic
+// (adam_update), so nvcc does not contract it into an FMA and no division
+// becomes a reciprocal product: both designs give the oracle's fp32
+// results bit for bit.
 //
 // The streaming body (path 1, adam_vec_kernel): each tensor is a scalar
-// head up to the first element where g, p, m and v all lie on a 16-byte
-// boundary, a span of float4 vectors, and a scalar tail of size % 4
-// (kernels/optim.py `adam_plan` computes the heads; a tensor whose four
-// arrays are not equally aligned is all head). A chunk is kThreads *
-// kUnroll vectors of the span (16 KB of each array) and as many scalar
-// elements: a thread loads its kUnroll float4 of each of the four arrays
-// (16 independent 16-byte loads in flight) before any arithmetic, then
+// head up to the first element where g, p, m, v (and the output) all lie
+// on a boundary of 4 elements (16 bytes of fp32, 8 of bf16), a span of
+// 4-element vectors, and a scalar tail of size % 4 (kernels/optim.py
+// `adam_plan` computes the heads; a tensor whose arrays are not equally
+// aligned is all head). A chunk is kThreads * kUnroll vectors of the
+// span and as many scalar elements: a thread loads its kUnroll vectors of
+// each array (16 independent loads in flight) before any arithmetic, then
 // updates and stores them; every access carries a streaming hint
 // (ld/st.global.cs: each byte is touched once). The grid is what the
 // card holds resident (occupancy times SMs), and the chunks are small, so
 // the launch's last wave is short. The first design (path 0,
-// adam_kernel) stays: chunks of 65,536 elements, one 4-byte access a
-// thread per array, a store of p, m, v before the next element's loads.
+// adam_kernel, fp32 with the host's bias corrections only) stays: chunks
+// of 65,536 elements, one 4-byte access a thread per array, a store of p,
+// m, v before the next element's loads.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "multi_tensor.cuh"
+
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kMaxTensors = 64;
 constexpr long long kChunk = 65536;  // path 0: elements a chunk
 constexpr int kMaxBlocks = 132 * 8;  // path 0: the grid
-constexpr int kUnroll = 4;           // path 1: float4 an array a thread loads
-constexpr long long kVecChunk = kThreads * kUnroll;  // path 1: float4 a chunk
+constexpr int kUnroll = 4;           // path 1: vectors an array a thread loads
+constexpr long long kVecChunk = kThreads * kUnroll;  // path 1: vectors a chunk
 constexpr int kMaxDevices = 64;
 
-// Planted faults of the streaming body (launch paths 2 and 3; no caller
+// Planted faults of the streaming body (launch paths 2 to 5; no caller
 // passes them): m * (1 / bc1) for m / bc1 (at most an ulp off), the
-// scalar tail of each tensor left unwritten.
+// scalar tail of each tensor left unwritten (fp32 only); the bias
+// corrections of the step before, the output list left unwritten (bf16
+// gradients, fp32 masters, bf16 outputs).
 constexpr int kNoFault = 0;
 constexpr int kReciprocal = 1;
 constexpr int kTailUnwritten = 2;
+constexpr int kStepBefore = 3;
+constexpr int kOutUnwritten = 4;
 
 struct Table {
-  float* g[kMaxTensors];
-  float* p[kMaxTensors];
+  const void* g[kMaxTensors];
+  void* p[kMaxTensors];    // the fp32 master, or the parameter itself
   float* m[kMaxTensors];
   float* v[kMaxTensors];
+  void* out[kMaxTensors];  // the parameter written from the master, or null
   long long size[kMaxTensors];
   long long first_chunk[kMaxTensors + 1];  // prefix count of chunks
-  long long head[kMaxTensors];  // path 1: scalar elements before the span
+  int head[kMaxTensors];  // path 1: scalar elements before the span, -1: all
   int n;
 };
 
@@ -102,15 +128,15 @@ __device__ __forceinline__ void adam_update(const Hyper& hp, float g,
 __global__ void __launch_bounds__(kThreads)
 adam_kernel(const __grid_constant__ Table t, const __grid_constant__ Hyper hp,
             const float* __restrict__ noop) {
-  if (*noop != 0.f) return;
+  if (mt::raised(noop)) return;
   const long long chunks = t.first_chunk[t.n];
   for (long long c = blockIdx.x; c < chunks; c += gridDim.x) {
     int k = 0;
     while (t.first_chunk[k + 1] <= c) ++k;
     const long long start = (c - t.first_chunk[k]) * kChunk;
     const long long end = min(start + kChunk, t.size[k]);
-    float* __restrict__ g = t.g[k];
-    float* __restrict__ p = t.p[k];
+    const float* __restrict__ g = static_cast<const float*>(t.g[k]);
+    float* __restrict__ p = static_cast<float*>(t.p[k]);
     float* __restrict__ m = t.m[k];
     float* __restrict__ v = t.v[k];
 #pragma unroll 4
@@ -124,58 +150,119 @@ adam_kernel(const __grid_constant__ Table t, const __grid_constant__ Hyper hp,
   }
 }
 
+// Streaming loads and stores of one element and of 4-element vectors
+// (16 bytes of fp32, 8 of bf16), widened to or rounded from fp32.
+__device__ __forceinline__ float ld1(const float* a, long long i) {
+  return __ldcs(a + i);
+}
+__device__ __forceinline__ float ld1(const bf16* a, long long i) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldcs(reinterpret_cast<const unsigned short*>(a) + i)));
+}
+__device__ __forceinline__ void st1(float* a, long long i, float x) {
+  __stcs(a + i, x);
+}
+__device__ __forceinline__ void st1(bf16* a, long long i, float x) {
+  __stcs(reinterpret_cast<unsigned short*>(a) + i,
+         __bfloat16_as_ushort(__float2bfloat16_rn(x)));
+}
+__device__ __forceinline__ void st1(mt::None*, long long, float) {}
+
+__device__ __forceinline__ float4 ld4(const float* a, long long i) {
+  return __ldcs(reinterpret_cast<const float4*>(a) + i);
+}
+__device__ __forceinline__ float4 ld4(const bf16* a, long long i) {
+  const uint2 r = __ldcs(reinterpret_cast<const uint2*>(a) + i);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void st4(float* a, long long i, const float4& x) {
+  __stcs(reinterpret_cast<float4*>(a) + i, x);
+}
+__device__ __forceinline__ void st4(bf16* a, long long i, const float4& x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 r;
+  r.x = *reinterpret_cast<const unsigned*>(&lo);
+  r.y = *reinterpret_cast<const unsigned*>(&hi);
+  __stcs(reinterpret_cast<uint2*>(a) + i, r);
+}
+__device__ __forceinline__ void st4(mt::None*, long long, const float4&) {}
+
 template <int kFault>
-__device__ __forceinline__ void adam_update4(const Hyper& hp, const float4& g,
+__device__ __forceinline__ void adam_update4(const Hyper& hp, float4 g,
+                                             float inv, bool unscale,
                                              float4& p, float4& m, float4& v) {
+  if (unscale) {
+    g.x = __fmul_rn(g.x, inv);
+    g.y = __fmul_rn(g.y, inv);
+    g.z = __fmul_rn(g.z, inv);
+    g.w = __fmul_rn(g.w, inv);
+  }
   adam_update<kFault>(hp, g.x, p.x, m.x, v.x);
   adam_update<kFault>(hp, g.y, p.y, m.y, v.y);
   adam_update<kFault>(hp, g.z, p.z, m.z, v.z);
   adam_update<kFault>(hp, g.w, p.w, m.w, v.w);
 }
 
-template <int kFault>
+template <typename TG, typename TP, typename TO, int kFault>
 __global__ void __launch_bounds__(kThreads)
 adam_vec_kernel(const __grid_constant__ Table t,
                 const __grid_constant__ Hyper hp,
-                const float* __restrict__ noop) {
-  if (*noop != 0.f) return;
+                const float* __restrict__ noop, const int* __restrict__ step,
+                const float* __restrict__ inv_scale) {
+  if (mt::raised(noop)) return;
+  Hyper h = hp;
+  if (step != nullptr) {  // the bias corrections of the device step
+    __shared__ float bc[2];
+    if (threadIdx.x == 0) {
+      const int s = kFault == kStepBefore ? *step - 1 : *step;
+      bc[0] = mt::bias_correction(hp.b1, s);
+      bc[1] = mt::bias_correction(hp.b2, s);
+    }
+    __syncthreads();
+    h.bc1 = bc[0];
+    h.bc2 = bc[1];
+  }
+  const bool unscale = inv_scale != nullptr;
+  const float inv = unscale ? *inv_scale : 1.f;
+  constexpr bool kWriteOut = kFault != kOutUnwritten;
   const long long chunks = t.first_chunk[t.n];
   int k = 0;
   for (long long c = blockIdx.x; c < chunks; c += gridDim.x) {
     while (t.first_chunk[k + 1] <= c) ++k;  // c only grows, and so does k
     const long long local = c - t.first_chunk[k];
     const long long size = t.size[k];
-    const long long head = t.head[k];
+    const long long head = t.head[k] < 0 ? size : t.head[k];
     const long long vecs = (size - head) / 4;
-    float* const g = t.g[k];
-    float* const p = t.p[k];
-    float* const m = t.m[k];
-    float* const v = t.v[k];
-    // the vector span: float4 i of each array starts at element head + 4 i
-    const float4* const g4 = reinterpret_cast<const float4*>(g + head);
-    float4* const p4 = reinterpret_cast<float4*>(p + head);
-    float4* const m4 = reinterpret_cast<float4*>(m + head);
-    float4* const v4 = reinterpret_cast<float4*>(v + head);
+    // the vector span: vector i of each array starts at element head + 4 i
+    const TG* const g = static_cast<const TG*>(t.g[k]) + head;
+    TP* const p = static_cast<TP*>(t.p[k]) + head;
+    float* const m = t.m[k] + head;
+    float* const v = t.v[k] + head;
+    TO* const out = static_cast<TO*>(t.out[k]) + head;
     const long long base = local * kVecChunk + threadIdx.x;
     float4 gv[kUnroll], pv[kUnroll], mv[kUnroll], vv[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const long long i = base + u * kThreads;
       if (i < vecs) {
-        gv[u] = __ldcs(g4 + i);
-        pv[u] = __ldcs(p4 + i);
-        mv[u] = __ldcs(m4 + i);
-        vv[u] = __ldcs(v4 + i);
+        gv[u] = ld4(g, i);
+        pv[u] = ld4(p, i);
+        mv[u] = ld4(m, i);
+        vv[u] = ld4(v, i);
       }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const long long i = base + u * kThreads;
       if (i < vecs) {
-        adam_update4<kFault>(hp, gv[u], pv[u], mv[u], vv[u]);
-        __stcs(p4 + i, pv[u]);
-        __stcs(m4 + i, mv[u]);
-        __stcs(v4 + i, vv[u]);
+        adam_update4<kFault>(h, gv[u], inv, unscale, pv[u], mv[u], vv[u]);
+        st4(p, i, pv[u]);
+        st4(m, i, mv[u]);
+        st4(v, i, vv[u]);
+        if (kWriteOut) st4(out, i, pv[u]);
       }
     }
     // the scalar head and tail: scalar q is element q < head ? q : q + 4 vecs
@@ -184,19 +271,22 @@ adam_vec_kernel(const __grid_constant__ Table t,
     for (long long q = local * 4 * kVecChunk + threadIdx.x; q < q_end;
          q += kThreads) {
       if (kFault == kTailUnwritten && q >= head) break;
-      const long long e = q < head ? q : q + 4 * vecs;
-      float pe = __ldcs(p + e), me = __ldcs(m + e), ve = __ldcs(v + e);
-      adam_update<kFault>(hp, __ldcs(g + e), pe, me, ve);
-      __stcs(p + e, pe);
-      __stcs(m + e, me);
-      __stcs(v + e, ve);
+      const long long e = (q < head ? q : q + 4 * vecs) - head;
+      float ge = ld1(g, e);
+      if (unscale) ge = __fmul_rn(ge, inv);
+      float pe = ld1(p, e), me = ld1(m, e), ve = ld1(v, e);
+      adam_update<kFault>(h, ge, pe, me, ve);
+      st1(p, e, pe);
+      st1(m, e, me);
+      st1(v, e, ve);
+      if (kWriteOut) st1(out, e, pe);
     }
   }
 }
 
-// Blocks of adam_vec_kernel<kFault> the current device holds resident at
+// Blocks of adam_vec_kernel<...> the current device holds resident at
 // once (occupancy times SMs; read once a device); -1 on an error.
-template <int kFault>
+template <typename TG, typename TP, typename TO, int kFault>
 int resident_blocks() {
   static int cached[kMaxDevices] = {};
   int dev = 0;
@@ -207,7 +297,8 @@ int resident_blocks() {
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
             cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, adam_vec_kernel<kFault>, kThreads, 0) != cudaSuccess ||
+            &per_sm, adam_vec_kernel<TG, TP, TO, kFault>, kThreads, 0) !=
+            cudaSuccess ||
         sms * per_sm < 1)
       return -1;
     cached[dev] = sms * per_sm;
@@ -215,67 +306,124 @@ int resident_blocks() {
   return cached[dev];
 }
 
-template <int kFault>
-int launch_vec(const Table& t, const Hyper& hp, const float* noop,
-               cudaStream_t stream) {
-  const int resident = resident_blocks<kFault>();
+struct Launch {
+  const Table& t;
+  const Hyper& hp;
+  const float* noop;
+  const int* step;
+  const float* inv_scale;
+  cudaStream_t stream;
+};
+
+template <typename TG, typename TP, typename TO, int kFault>
+int launch_vec(const Launch& l) {
+  const int resident = resident_blocks<TG, TP, TO, kFault>();
   if (resident < 1) return -1;
-  const long long chunks = t.first_chunk[t.n];
+  const long long chunks = l.t.first_chunk[l.t.n];
   const int blocks = static_cast<int>(chunks < resident ? chunks : resident);
-  adam_vec_kernel<kFault><<<blocks, kThreads, 0, stream>>>(t, hp, noop);
+  adam_vec_kernel<TG, TP, TO, kFault><<<blocks, kThreads, 0, l.stream>>>(
+      l.t, l.hp, l.noop, l.step, l.inv_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const float* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+// The streaming body for a gradient dtype: the parameter and output
+// dtypes it takes (an fp32 master with no, fp32 or bf16 output; a bf16
+// parameter without a master).
+template <typename TG>
+int launch_by_p(int p_dtype, int out_dtype, const Launch& l) {
+  if (p_dtype == mt::kFloat32 && out_dtype == mt::kNone)
+    return launch_vec<TG, float, mt::None, kNoFault>(l);
+  if (p_dtype == mt::kFloat32 && out_dtype == mt::kFloat32)
+    return launch_vec<TG, float, float, kNoFault>(l);
+  if (p_dtype == mt::kFloat32 && out_dtype == mt::kBFloat16)
+    return launch_vec<TG, float, bf16, kNoFault>(l);
+  if (p_dtype == mt::kBFloat16 && out_dtype == mt::kNone)
+    return launch_vec<TG, bf16, mt::None, kNoFault>(l);
+  return -1;
+}
+
+int itemsize(int dtype) { return dtype == mt::kBFloat16 ? 2 : 4; }
+
+// Whether element `head` of an array of `dtype` lies on a vector boundary
+// (4 elements: 16 bytes of fp32, 8 of bf16).
+bool vector_aligned(const void* a, long long head, int dtype) {
+  const int size = itemsize(dtype);
+  return (reinterpret_cast<uintptr_t>(a) + head * size) % (4 * size) == 0;
 }
 
 }  // namespace
 
-// Updates the n (1..64) fp32 tensors g[k], p[k], m[k], v[k] of sizes[k]
-// elements in place. path: 0 = the first design (adam_kernel; heads not
-// read, may be null), 1 = the streaming body (adam_vec_kernel) with
-// heads[k] scalar elements before tensor k's vector span (0..3 with g, p,
-// m, v + heads[k] on 16-byte boundaries, or sizes[k]: no vector span;
-// kernels/optim.py `adam_plan`), 2 and 3 = path 1 with a planted fault
-// (m * (1 / bc1); the scalar tails unwritten). Returns the CUDA error of
-// the launch (0 on success); -1 for a tensor count, size, head or path
-// the kernel does not take.
+// Updates the n (1..64) tensors g[k], p[k], m[k], v[k] of sizes[k]
+// elements in place: g[k] (g_dtype: 0 fp32, 1 bf16) times *inv_scale
+// (null: no product), the Adam update of p[k] (p_dtype: an fp32 master
+// or parameter, or a bf16 parameter without a master), m[k] and v[k]
+// (fp32), then out[k] (out_dtype 0 or 1, or -1: no output list, out may
+// be null) written from the new p[k]. The bias corrections are bc1 and
+// bc2, or, where step is not null, those of *step (int32, the count after
+// this update). Nothing is written when *noop > 0. path: 0 = the first
+// design (adam_kernel: fp32 g and p, no output, step or inv_scale; heads
+// not read, may be null), 1 = the streaming body (adam_vec_kernel) with
+// heads[k] scalar elements before tensor k's vector span (0..3 with
+// every array + heads[k] on a 4-element boundary, or sizes[k]: no
+// vector span; kernels/optim.py `adam_plan`), 2 to 5 = path 1 with a
+// planted fault (2 m * (1 / bc1) and 3 the scalar tails unwritten, for
+// fp32 g and p without an output; 4 the bias corrections of *step - 1
+// and 5 the outputs unwritten, for bf16 g, fp32 p and bf16 outputs).
+// Returns the CUDA error of the launch (0 on success); -1 for a tensor
+// count, size, head, dtype combination or path the kernel does not take.
 extern "C" int apex_adam(void* const* g, void* const* p, void* const* m,
-                         void* const* v, const long long* sizes,
-                         const long long* heads, int n, const float* noop,
-                         float lr,
-                         float bc1, float bc2, float b1, float one_minus_b1,
-                         float b2, float one_minus_b2, float eps, float wd,
-                         int adam_w, int path, void* stream) {
-  if (n < 1 || n > kMaxTensors || path < 0 || path > 3) return -1;
+                         void* const* v, void* const* out,
+                         const long long* sizes, const long long* heads, int n,
+                         int g_dtype, int p_dtype, int out_dtype,
+                         const float* noop, const int* step,
+                         const float* inv_scale, float lr, float bc1,
+                         float bc2, float b1, float one_minus_b1, float b2,
+                         float one_minus_b2, float eps, float wd, int adam_w,
+                         int path, void* stream) {
+  if (n < 1 || n > kMaxTensors || path < 0 || path > 5 || noop == nullptr)
+    return -1;
   if (path != 0 && heads == nullptr) return -1;
+  if (g_dtype != mt::kFloat32 && g_dtype != mt::kBFloat16) return -1;
+  if (p_dtype != mt::kFloat32 && p_dtype != mt::kBFloat16) return -1;
+  const bool plain32 = g_dtype == mt::kFloat32 && p_dtype == mt::kFloat32 &&
+                       out_dtype == mt::kNone;
+  if ((path == 0 && !(plain32 && step == nullptr && inv_scale == nullptr)) ||
+      ((path == 2 || path == 3) && !plain32) ||
+      ((path == 4 || path == 5) &&
+       !(g_dtype == mt::kBFloat16 && p_dtype == mt::kFloat32 &&
+         out_dtype == mt::kBFloat16)) ||
+      (path == 4 && step == nullptr))
+    return -1;
   Table t;
   t.n = n;
   t.first_chunk[0] = 0;
   for (int k = 0; k < n; ++k) {
     const long long size = sizes[k];
     if (size < 0) return -1;
-    t.g[k] = static_cast<float*>(g[k]);
-    t.p[k] = static_cast<float*>(p[k]);
+    t.g[k] = g[k];
+    t.p[k] = p[k];
     t.m[k] = static_cast<float*>(m[k]);
     t.v[k] = static_cast<float*>(v[k]);
+    t.out[k] = out_dtype == mt::kNone ? nullptr : out[k];
     t.size[k] = size;
     long long chunks = (size + kChunk - 1) / kChunk;
     t.head[k] = 0;
     if (path != 0) {
       const long long head = heads[k];
-      if (head < 0 || head > size) return -1;
+      if (head < 0 || head > size || (head > 3 && head != size)) return -1;
       const long long vecs = (size - head) / 4;
       if (vecs > 0 &&
-          !(aligned16(t.g[k] + head) && aligned16(t.p[k] + head) &&
-            aligned16(t.m[k] + head) && aligned16(t.v[k] + head)))
+          !(vector_aligned(t.g[k], head, g_dtype) &&
+            vector_aligned(t.p[k], head, p_dtype) &&
+            vector_aligned(t.m[k], head, mt::kFloat32) &&
+            vector_aligned(t.v[k], head, mt::kFloat32) &&
+            (t.out[k] == nullptr || vector_aligned(t.out[k], head, out_dtype))))
         return -1;
       const long long scalars = size - 4 * vecs;
       const long long by_vecs = (vecs + kVecChunk - 1) / kVecChunk;
       const long long by_scalars = (scalars + 4 * kVecChunk - 1) / (4 * kVecChunk);
       chunks = by_vecs > by_scalars ? by_vecs : by_scalars;
-      t.head[k] = head;
+      t.head[k] = head > 3 ? -1 : static_cast<int>(head);
     }
     t.first_chunk[k + 1] = t.first_chunk[k] + chunks;
   }
@@ -284,9 +432,16 @@ extern "C" int apex_adam(void* const* g, void* const* p, void* const* m,
   const Hyper hp{lr, bc1, bc2, b1, one_minus_b1, b2, one_minus_b2, eps, wd,
                  adam_w};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (path == 1) return launch_vec<kNoFault>(t, hp, noop, s);
-  if (path == 2) return launch_vec<kReciprocal>(t, hp, noop, s);
-  if (path == 3) return launch_vec<kTailUnwritten>(t, hp, noop, s);
+  const Launch l{t, hp, noop, step, inv_scale, s};
+  switch (path) {
+    case 1:
+      return g_dtype == mt::kFloat32 ? launch_by_p<float>(p_dtype, out_dtype, l)
+                                     : launch_by_p<bf16>(p_dtype, out_dtype, l);
+    case 2: return launch_vec<float, float, mt::None, kReciprocal>(l);
+    case 3: return launch_vec<float, float, mt::None, kTailUnwritten>(l);
+    case 4: return launch_vec<bf16, float, bf16, kStepBefore>(l);
+    case 5: return launch_vec<bf16, float, bf16, kOutUnwritten>(l);
+  }
   const int blocks = static_cast<int>(chunks < kMaxBlocks ? chunks : kMaxBlocks);
   adam_kernel<<<blocks, kThreads, 0, s>>>(t, hp, noop);
   return static_cast<int>(cudaGetLastError());

@@ -1,13 +1,27 @@
-"""Multi-tensor Adam/AdamW update and LAMB stage 1: the CUDA kernels
-(csrc/adam.cu, csrc/lamb.cu) and their plain PyTorch versions.
+"""Multi-tensor Adam/AdamW update, LAMB's two stages and SGD: the CUDA
+kernels (csrc/adam.cu, csrc/lamb.cu, csrc/sgd.cu) and their plain
+PyTorch versions.
 
 Counterparts of ``apex_tpu/kernels/optim.py`` ``fused_adam_update`` and
 ``fused_lamb_mvu``, which update one flat fp32 buffer per call. Here one
-launch updates a list of up to :data:`MAX_TENSORS` fp32 tensors in
-place, as the reference's ``multi_tensor_apply`` does, and :func:`adam`
-and :func:`lamb` make as many launches as the list needs. The entry
-points are :func:`apex_tpu_torch.ops.multi_tensor.multi_tensor_adam` and
-``multi_tensor_lamb``.
+launch updates a list of up to :data:`MAX_TENSORS` tensors in place, as
+the reference's ``multi_tensor_apply`` does, and :func:`adam`,
+:func:`lamb`, :func:`lamb_stage2` and :func:`sgd` make as many launches
+as the list needs: one per :data:`MAX_TENSORS` tensors of one dtype
+combination. The entry points are the ops of
+:mod:`apex_tpu_torch.ops.multi_tensor`.
+
+One body serves every step of each optimizer. The gradients are fp32 or
+bf16 (widened in registers), optionally times a device ``inv_scale``;
+the step skips where a device flag is > 0; the bias corrections are the
+host's values or those of a device step count (the kernels compute them
+from it as :func:`apex_tpu_torch.ops.multi_tensor.bias_corrections`
+does), so amp's overflow-skipped step needs no host synchronisation.
+Adam updates fp32 masters (or the parameters themselves) and writes the
+low-precision parameters from them in the same pass; LAMB's stage 1
+writes the raw update into the fp32 gradient or a buffer of its own, and
+stage 2 (``p - lr * ratio * u``) writes the parameters; :func:`sgd` is
+JAX's ``multi_tensor_sgd`` (no Pallas counterpart).
 """
 
 import ctypes
@@ -20,10 +34,16 @@ from apex_tpu_torch.kernels import _build, _checks, registry
 
 MAX_TENSORS = 64  # tensors in one launch's table (kMaxTensors in the .cu)
 # path codes of apex_adam (csrc/adam.cu): the first design, the streaming
-# body that the wrapper launches
+# body that the wrapper launches, and its planted faults (m * (1 / bc1),
+# the scalar tails unwritten, the bias corrections of the step before,
+# the outputs unwritten)
 ADAM_FIRST, ADAM_STREAM = 0, 1
+ADAM_RECIPROCAL, ADAM_TAIL_UNWRITTEN = 2, 3
+ADAM_STEP_BEFORE, ADAM_OUT_UNWRITTEN = 4, 5
 ADAM = registry.register("adam")
 LAMB = registry.register("lamb")
+LAMB_STAGE2 = registry.register("lamb_stage2")
+SGD = registry.register("sgd")
 
 
 def _sqrt(x):
@@ -52,25 +72,68 @@ def fused_adam_update_plain(g, p, m, v, *, lr, bc1, bc2, b1, b2, eps,
     return p - lr * update, m_new, v_new
 
 
-def adam_plain(noop, gs, ps, ms, vs, *, lr, bc1, bc2, b1, b2, eps,
-               weight_decay, adam_w):
-    """:func:`fused_adam_update_plain` over the lists, tensor by tensor,
-    written into ps, ms and vs in place; where ``noop`` (a one-element
-    fp32 tensor) is non-zero every tensor keeps its old value."""
+def _unscaled(g, inv_scale):
+    """g in fp32, times ``inv_scale`` (a one-element fp32 tensor, or
+    None) as JAX's ``g.astype(f32) * inv_scale``."""
+    g = g.float()
+    return g if inv_scale is None else g * inv_scale.reshape(())
+
+
+def _write(skip, old, new):
+    old.copy_(torch.where(skip, old, new.to(old.dtype)))
+
+
+def _corrections(device, bc1, bc2, step, b1, b2):
+    """The bias corrections a step divides by, as fp32 0-d tensors on
+    ``device``: those of the device ``step`` where one is given, else
+    ``bc1`` and ``bc2`` (filled on the device: no host copy, so a CUDA
+    graph can capture it)."""
+    if step is not None:
+        return device_bias_corrections(b1, b2, step)
+    if bc1 is None or bc2 is None:
+        raise ValueError("give the bias corrections bc1 and bc2, or a "
+                         "device step")
+    return tuple(torch.full((), bc, dtype=torch.float32, device=device)
+                 for bc in (bc1, bc2))
+
+
+def device_bias_corrections(b1, b2, step):
+    """``(1 - b1**step, 1 - b2**step)`` for a device step count (an int32
+    tensor of one element), as fp32 0-d tensors on its device with no
+    host synchronisation: the values of :func:`apex_tpu_torch.ops.
+    multi_tensor.bias_corrections` (the power of the fp32 beta in double,
+    rounded to fp32, subtracted from 1 in fp32), which the device-step
+    kernels compute the same way (csrc/multi_tensor.cuh)."""
+    out = []
+    for beta in (b1, b2):
+        b = torch.tensor(beta, dtype=torch.float32).item()
+        base = torch.full((), b, dtype=torch.float64, device=step.device)
+        power = torch.pow(base, step.reshape(()).double())
+        out.append(1.0 - power.float())
+    return tuple(out)
+
+
+def adam_plain(noop, gs, ps, ms, vs, outs=None, *, lr, b1, b2, eps,
+               weight_decay, adam_w, bc1=None, bc2=None, step=None,
+               inv_scale=None):
+    """:func:`fused_adam_update_plain` over the lists, tensor by tensor:
+    each g times ``inv_scale``, p (fp32 masters, or the parameters), m
+    and v written in place, then each out (None: none) from the new p;
+    where ``noop`` (a one-element fp32 tensor) is > 0 every tensor keeps
+    its old value."""
     if not ps:
         return
-    device = ps[0].device
-    # filled on the device (no host copy, so a CUDA graph can capture it)
-    bc1 = torch.full((), bc1, dtype=torch.float32, device=device)
-    bc2 = torch.full((), bc2, dtype=torch.float32, device=device)
+    bc1, bc2 = _corrections(noop.device, bc1, bc2, step, b1, b2)
     skip = noop.reshape(()) > 0
-    for g, p, m, v in zip(gs, ps, ms, vs):
+    for g, p, m, v, out in zip(gs, ps, ms, vs, _none_list(outs, len(ps))):
         new = fused_adam_update_plain(
-            g.float(), p.float(), m.float(), v.float(), lr=lr, bc1=bc1,
-            bc2=bc2, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-            adam_w=adam_w)
+            _unscaled(g, inv_scale), p.float(), m.float(), v.float(), lr=lr,
+            bc1=bc1, bc2=bc2, b1=b1, b2=b2, eps=eps,
+            weight_decay=weight_decay, adam_w=adam_w)
         for old, val in zip((p, m, v), new):
-            old.copy_(torch.where(skip, old, val.to(old.dtype)))
+            _write(skip, old, val)
+        if out is not None:
+            _write(skip, out, p)
 
 
 class AdamSpan(NamedTuple):
@@ -97,79 +160,95 @@ def adam_plan(size: int, offsets) -> AdamSpan:
     return AdamSpan(head, vectors, size - head - 4 * vectors)
 
 
+
+
+def _phase(t):
+    """How far ``t`` starts past a 4-element boundary, in bytes of fp32
+    elements (:func:`adam_plan`'s unit): ``data_ptr() % 16`` for fp32,
+    twice ``data_ptr() % 8`` for bf16."""
+    size = t.element_size()
+    return t.data_ptr() % (4 * size) * (4 // size)
+
+
+def _heads(run):
+    """Each tensor's scalar head (:func:`adam_plan`) for a run of g, p,
+    m, v (and output) lists, as apex_adam reads them; absent outputs
+    (None) are left out."""
+    return (ctypes.c_longlong * len(run[1]))(*[
+        adam_plan(ts[1].numel(), [_phase(t) for t in ts if t is not None]).head
+        for ts in zip(*run)])
+
+
 @functools.lru_cache(maxsize=1)
 def _kernel():
     p, f, i = _checks.ptr, ctypes.c_float, ctypes.c_int
     return _build.function(
         "adam", "apex_adam",
-        [p, p, p, p, p, p, i, p, f, f, f, f, f, f, f, f, f, i, i, p])
+        [p, p, p, p, p, p, p, i, i, i, i, p, p, p, f, f, f, f, f, f, f, f, f,
+         i, i, p])
 
 
-def _check(name, noop, gs, ps, ms, vs):
-    if not len(gs) == len(ps) == len(ms) == len(vs):
-        raise ValueError(f"{name}: lists of {len(gs)} grads, {len(ps)} "
-                         f"params, {len(ms)} exp_avgs and {len(vs)} "
-                         f"exp_avg_sqs")
-    if noop.dtype != torch.float32 or noop.numel() != 1:
-        raise ValueError(f"{name}: noop must be a one-element float32 "
-                         f"tensor")
-    for k, ts in enumerate(zip(gs, ps, ms, vs)):
-        if any(t.dtype != torch.float32 for t in ts):
-            raise TypeError(f"{name}: tensor {k}: grad, param, exp_avg and "
-                            f"exp_avg_sq must be float32, got "
-                            f"{[str(t.dtype) for t in ts]}")
-        if any(t.shape != ts[1].shape for t in ts):
-            raise ValueError(f"{name}: tensor {k}: shapes differ: "
-                             f"{[tuple(t.shape) for t in ts]}")
-        if not all(t.is_contiguous() for t in ts):
-            raise ValueError(f"{name}: tensor {k} must be contiguous")
-
-
-def _tables(lists):
-    """For each run of at most :data:`MAX_TENSORS` tensors that holds an
-    element: the run (each list's slice), the pointer table of each list,
-    the sizes and the count."""
-    for a in range(0, len(lists[1]), MAX_TENSORS):
-        run = [ts[a:a + MAX_TENSORS] for ts in lists]
-        n = len(run[1])
-        if not any(t.numel() for t in run[1]):
-            continue  # nothing to update: no launch
-        tables = [(ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])
-                  for ts in run]
-        sizes = (ctypes.c_longlong * n)(*[t.numel() for t in run[1]])
-        yield run, tables, sizes, n
-
-
-def _heads(run):
-    """Each tensor's scalar head (:func:`adam_plan`) for a run of g, p,
-    m and v lists, as apex_adam reads them."""
-    return (ctypes.c_longlong * len(run[1]))(*[
-        adam_plan(ts[1].numel(), [t.data_ptr() % 16 for t in ts]).head
-        for ts in zip(*run)])
-
-
-def adam(noop, gs, ps, ms, vs, *, lr, bc1, bc2, b1, b2, eps, weight_decay,
-         adam_w):
-    """Adam/AdamW over lists of fp32 grads, params, exp_avgs and
-    exp_avg_sqs, updating ps, ms and vs in place unless ``noop`` (a
-    one-element fp32 tensor on their device) is non-zero. ``lr``,
-    ``bc1`` and ``bc2`` are the step's values (rounded to fp32). CPU
-    tensors take :func:`adam_plain`; CUDA tensors launch the streaming
-    kernel (:func:`adam_plan` per tensor), once per :data:`MAX_TENSORS`
-    tensors, or raise."""
-    kw = dict(lr=lr, bc1=bc1, bc2=bc2, b1=b1, b2=b2, eps=eps,
-              weight_decay=weight_decay, adam_w=adam_w)
-    if not _checks.on_cuda("adam", noop, *gs, *ps, *ms, *vs):
-        return adam_plain(noop, gs, ps, ms, vs, **kw)
-    _check("adam", noop, gs, ps, ms, vs)
+def launch_adam(noop, gs, ps, ms, vs, outs, *, lr, b1, b2, eps,
+                weight_decay, adam_w, bc1=None, bc2=None, step=None,
+                inv_scale=None, path=ADAM_STREAM):
+    """The Adam kernel over the lists through its C function (``path``:
+    :data:`ADAM_STREAM`, the first design or a planted fault's code);
+    returns the launches made. :func:`adam` checks and counts; this does
+    neither."""
     fn = _kernel()
-    for run, tables, sizes, n in _tables((gs, ps, ms, vs)):
+    names = ("g", "p", "m", "v", "out")
+    lists = dict(zip(names, (gs, ps, ms, vs, _none_list(outs, len(ps)))))
+    bc1, bc2 = (1.0, 1.0) if step is not None else (bc1, bc2)
+    launches = 0
+    for (gd, pd, od), index, t, sizes, n in _runs(lists, ("g", "p", "out")):
+        run = [[lists[name][k] for k in index] for name in names]
         with torch.cuda.device(noop.device):
-            rc = fn(*tables, sizes, _heads(run), n, noop.data_ptr(),
-                    float(lr), float(bc1), float(bc2), float(b1), 1.0 - b1,
-                    float(b2), 1.0 - b2, float(eps), float(weight_decay),
-                    int(bool(adam_w)), ADAM_STREAM, _checks.stream(noop))
+            rc = fn(*(t[name] for name in names), sizes, _heads(run), n, gd,
+                    pd, od, noop.data_ptr(), _checks.data_ptr(step),
+                    _checks.data_ptr(inv_scale), float(lr), float(bc1),
+                    float(bc2), float(b1), 1.0 - b1, float(b2), 1.0 - b2,
+                    float(eps), float(weight_decay), int(bool(adam_w)), path,
+                    _checks.stream(noop))
         _checks.status("adam", rc)
+        launches += 1
+    return launches
+
+
+def adam(noop, gs, ps, ms, vs, outs=None, *, lr, b1, b2, eps, weight_decay,
+         adam_w, bc1=None, bc2=None, step=None, inv_scale=None):
+    """Adam/AdamW over lists of grads (fp32 or bf16), the tensors they
+    move (fp32 masters or parameters, or bf16 parameters without a
+    master), exp_avgs and exp_avg_sqs (fp32): each g times ``inv_scale``
+    (a one-element fp32 tensor, or None), ps, ms and vs updated in place,
+    then each of ``outs`` (None, or a list whose entries are a parameter
+    to write from its new master, or None) written in the same pass.
+    Nothing changes where ``noop`` (a one-element fp32 tensor on their
+    device) is > 0. The bias corrections are ``bc1`` and ``bc2`` (the
+    step's values, rounded to fp32) or, where ``step`` is given, those of
+    that one-element int32 tensor (the count after this update, read on
+    the device: no host synchronisation). CPU tensors take
+    :func:`adam_plain`; CUDA tensors launch the streaming kernel
+    (:func:`adam_plan` per tensor), once per :data:`MAX_TENSORS` tensors
+    of one dtype combination, or raise."""
+    outs = _none_list(outs, len(ps))
+    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+              adam_w=adam_w, bc1=bc1, bc2=bc2, step=step, inv_scale=inv_scale)
+    extra = [t for t in (step, inv_scale, *outs) if t is not None]
+    if not _checks.on_cuda("adam", noop, *extra, *gs, *ps, *ms, *vs):
+        return adam_plain(noop, gs, ps, ms, vs, outs, **kw)
+    _scalar("adam", noop, torch.float32, "noop")
+    _scalar("adam", step, torch.int32, "step")
+    _scalar("adam", inv_scale, torch.float32, "inv_scale")
+    if step is None and (bc1 is None or bc2 is None):
+        raise ValueError("adam: give the bias corrections bc1 and bc2, or a "
+                         "device step")
+    _check_lists("adam", dict(g=gs, p=ps, m=ms, v=vs, out=outs),
+                 fp32=("m", "v"))
+    for k, (p, out) in enumerate(zip(ps, outs)):
+        if p.dtype != torch.float32 and out is not None:
+            raise TypeError(f"adam: tensor {k}: a parameter written from a "
+                            f"master needs an fp32 master, got {p.dtype}")
+    for _ in range(launch_adam(noop, gs, ps, ms, vs, outs, **kw)):
         registry.count(ADAM)
 
 
@@ -190,64 +269,317 @@ def fused_lamb_mvu_plain(g, p, m, v, *, bc1, bc2, b1, b2, beta3, eps,
     return m_new, v_new, update
 
 
-def lamb_plain(noop, gs, ps, ms, vs, *, clip, bc1, bc2, b1, b2, beta3, eps,
-               weight_decay, adam_w):
-    """LAMB stage 1 over the lists, tensor by tensor: each g divided by
-    ``clip`` (a one-element fp32 tensor, or None), then
-    :func:`fused_lamb_mvu_plain`; m and v are written in place and the
-    update over g. Where ``noop`` is non-zero nothing changes."""
+def lamb_plain(noop, gs, ps, ms, vs, us=None, *, found_inf=None, clip, b1,
+               b2, beta3, eps, weight_decay, adam_w, bc1=None, bc2=None,
+               step=None, inv_scale=None):
+    """LAMB stage 1 over the lists, tensor by tensor: each g (bf16 or
+    fp32) times ``inv_scale``, divided by ``clip`` (one-element fp32
+    tensors, or None), then :func:`fused_lamb_mvu_plain` against the fp32
+    p; m and v written in place and the update into u (None: over g).
+    Where ``noop`` or ``found_inf`` (None: 0) is > 0 nothing is
+    written."""
     if not ps:
         return
-    device = ps[0].device
-    bc1 = torch.full((), bc1, dtype=torch.float32, device=device)
-    bc2 = torch.full((), bc2, dtype=torch.float32, device=device)
-    skip = noop.reshape(()) > 0
-    for g, p, m, v in zip(gs, ps, ms, vs):
-        gc = g.float() if clip is None else g.float() / clip.reshape(())
+    bc1, bc2 = _corrections(noop.device, bc1, bc2, step, b1, b2)
+    skip = _skip(noop, found_inf)
+    for g, p, m, v, u in zip(gs, ps, ms, vs, gs if us is None else us):
+        g32 = _unscaled(g, inv_scale)
+        if clip is not None:
+            g32 = g32 / clip.reshape(())
         new = fused_lamb_mvu_plain(
-            gc, p.float(), m.float(), v.float(), bc1=bc1, bc2=bc2, b1=b1,
+            g32, p.float(), m.float(), v.float(), bc1=bc1, bc2=bc2, b1=b1,
             b2=b2, beta3=beta3, eps=eps, weight_decay=weight_decay,
             adam_w=adam_w)
-        for old, val in zip((m, v, g), new):
-            old.copy_(torch.where(skip, old, val.to(old.dtype)))
+        for old, val in zip((m, v, u), new):
+            _write(skip, old, val)
 
 
 @functools.lru_cache(maxsize=1)
 def _lamb_kernel():
-    p, f = _checks.ptr, ctypes.c_float
+    p, f, i = _checks.ptr, ctypes.c_float, ctypes.c_int
     return _build.function(
         "lamb", "apex_lamb_stage1",
-        [p, p, p, p, p, ctypes.c_int, p, p, f, f, f, f, f, f, f, f,
-         ctypes.c_int, p])
+        [p, p, p, p, p, p, i, i, p, p, p, p, p, f, f, f, f, f, f, f, f, i, i,
+         p])
 
 
-def lamb(noop, gs, ps, ms, vs, *, clip, bc1, bc2, b1, b2, beta3, eps,
-         weight_decay, adam_w):
-    """LAMB stage 1 over lists of fp32 grads, params, exp_avgs and
-    exp_avg_sqs: exp_avgs and exp_avg_sqs updated in place and each
-    grad overwritten by its tensor's raw update (the reference's stage 1
-    stores the update in the gradient), unless ``noop`` (a one-element
-    fp32 tensor on their device) is non-zero. ``clip`` is the global
-    gradient-clip factor as a one-element fp32 tensor on that device (no
-    host synchronisation), or None. CPU tensors take :func:`lamb_plain`;
-    CUDA tensors launch the kernel, once per :data:`MAX_TENSORS` tensors,
-    or raise."""
-    kw = dict(clip=clip, bc1=bc1, bc2=bc2, b1=b1, b2=b2, beta3=beta3,
-              eps=eps, weight_decay=weight_decay, adam_w=adam_w)
-    extra = () if clip is None else (clip,)
-    if not _checks.on_cuda("lamb", noop, *extra, *gs, *ps, *ms, *vs):
-        return lamb_plain(noop, gs, ps, ms, vs, **kw)
-    _check("lamb", noop, gs, ps, ms, vs)
-    if clip is not None and (clip.dtype != torch.float32
-                             or clip.numel() != 1):
-        raise ValueError("lamb: clip must be a one-element float32 tensor")
+def launch_lamb(noop, gs, ps, ms, vs, us, *, found_inf=None, clip, b1, b2,
+                beta3, eps, weight_decay, adam_w, bc1=None, bc2=None,
+                step=None, inv_scale=None, fault=0):
+    """LAMB's stage 1 over the lists through its C function (``us``: None
+    writes the updates over the gradients; ``fault``: 0, or a planted
+    fault's code); returns the launches made. :func:`lamb` checks and
+    counts; this does neither."""
     fn = _lamb_kernel()
-    for _, tables, sizes, n in _tables((gs, ps, ms, vs)):
+    lists = dict(g=gs, p=ps, m=ms, v=vs, u=gs if us is None else us)
+    bc1, bc2 = (1.0, 1.0) if step is not None else (bc1, bc2)
+    launches = 0
+    for (gd,), _, t, sizes, n in _runs(lists, ("g",)):
         with torch.cuda.device(noop.device):
-            rc = fn(*tables, sizes, n, noop.data_ptr(),
-                    None if clip is None else clip.data_ptr(), float(bc1),
-                    float(bc2), float(b1), float(beta3), float(b2), 1.0 - b2,
-                    float(eps), float(weight_decay), int(bool(adam_w)),
+            rc = fn(t["g"], t["p"], t["m"], t["v"], t["u"], sizes, n, gd,
+                    noop.data_ptr(), _checks.data_ptr(found_inf),
+                    _checks.data_ptr(clip), _checks.data_ptr(step),
+                    _checks.data_ptr(inv_scale), float(bc1), float(bc2),
+                    float(b1), float(beta3), float(b2), 1.0 - b2, float(eps),
+                    float(weight_decay), int(bool(adam_w)), fault,
                     _checks.stream(noop))
         _checks.status("lamb", rc)
+        launches += 1
+    return launches
+
+
+def lamb(noop, gs, ps, ms, vs, us=None, *, found_inf=None, clip, b1, b2,
+         beta3, eps, weight_decay, adam_w, bc1=None, bc2=None, step=None,
+         inv_scale=None):
+    """LAMB stage 1 over lists of grads (fp32 or bf16), params or fp32
+    masters, exp_avgs and exp_avg_sqs (fp32): each g times ``inv_scale``
+    and divided by ``clip`` (the global gradient-clip factor; one-element
+    fp32 tensors on their device, or None), exp_avgs and exp_avg_sqs
+    updated in place and each tensor's raw update written into ``us``
+    (fp32), or, where ``us`` is None, over the fp32 grads (the
+    reference's stage 1 stores the update in the gradient). The bias
+    corrections are ``bc1`` and ``bc2`` or those of the device ``step``
+    (as :func:`adam`). Nothing is written where ``noop`` or ``found_inf``
+    (None: 0) is > 0. No host synchronisation. CPU tensors take
+    :func:`lamb_plain`; CUDA tensors launch the kernel, once per
+    :data:`MAX_TENSORS` tensors of one gradient dtype, or raise."""
+    kw = dict(found_inf=found_inf, clip=clip, b1=b1, b2=b2, beta3=beta3,
+              eps=eps, weight_decay=weight_decay, adam_w=adam_w, bc1=bc1,
+              bc2=bc2, step=step, inv_scale=inv_scale)
+    extra = [t for t in (found_inf, clip, step, inv_scale, *(us or ()))
+             if t is not None]
+    if not _checks.on_cuda("lamb", noop, *extra, *gs, *ps, *ms, *vs):
+        return lamb_plain(noop, gs, ps, ms, vs, us, **kw)
+    for what, t, dtype in (("noop", noop, torch.float32),
+                           ("found_inf", found_inf, torch.float32),
+                           ("clip", clip, torch.float32),
+                           ("step", step, torch.int32),
+                           ("inv_scale", inv_scale, torch.float32)):
+        _scalar("lamb", t, dtype, what)
+    if step is None and (bc1 is None or bc2 is None):
+        raise ValueError("lamb: give the bias corrections bc1 and bc2, or a "
+                         "device step")
+    lists = dict(g=gs, p=ps, m=ms, v=vs, u=gs if us is None else us)
+    _check_lists("lamb", lists, fp32=("p", "m", "v", "u"))
+    for _ in range(launch_lamb(noop, gs, ps, ms, vs, us, **kw)):
         registry.count(LAMB)
+
+
+def sgd_plain(noop, gs, ps, moms, outs=None, *, step, inv_scale=None, wd=0.0,
+              momentum=0.0, dampening=0.0, lr, nesterov=False,
+              wd_after_momentum=False):
+    """JAX's ``multi_tensor_sgd`` in its fp32 order over the lists: p and
+    the momentum buffers written in place, then each out (None: none)
+    from the new p; ``first_run`` where the device ``step`` (the count
+    before this update) is 0. Where ``noop`` is > 0 nothing changes."""
+    if not ps:
+        return
+    skip = noop.reshape(()) > 0
+    first_run = step.reshape(()) == 0
+    device = noop.device
+    f32 = functools.partial(torch.full, (), dtype=torch.float32,
+                            device=device)
+    wd_, mu, damp, lr_ = f32(wd), f32(momentum), f32(1.0 - dampening), f32(lr)
+    for g, p, mom, out in zip(gs, ps, moms, _none_list(outs, len(ps))):
+        g32 = _unscaled(g, inv_scale)
+        if wd != 0 and not wd_after_momentum:
+            g32 = g32 + wd_ * p
+        if momentum != 0:
+            m32 = torch.where(first_run, g32, mu * mom + damp * g32)
+            d = g32 + mu * m32 if nesterov else m32
+            _write(skip, mom, m32)
+        else:
+            d = g32
+        if wd != 0 and wd_after_momentum:
+            d = d + wd_ * p
+        _write(skip, p, p - lr_ * d)
+        if out is not None:
+            _write(skip, out, p)
+
+
+def lamb_stage2_plain(noop, found_inf, ps, us, outs, factors):
+    """``p - factors[k] * u`` (the product rounded, then the difference)
+    into each fp32 p, then each out (None: none) from the new p; where
+    ``noop`` or ``found_inf`` is > 0 nothing changes. ``factors``: an fp32
+    tensor [len(ps)] on their device."""
+    if not ps:
+        return
+    skip = _skip(noop, found_inf)
+    outs = _none_list(outs, len(ps))
+    for p, u, out, f in zip(ps, us, outs, factors.unbind(0)):
+        _write(skip, p, p - f * u)
+        if out is not None:
+            _write(skip, out, p)
+
+
+def _skip(noop, found_inf):
+    skip = noop.reshape(()) > 0
+    return skip if found_inf is None else skip | (found_inf.reshape(()) > 0)
+
+
+def _scalar(name, t, dtype, what):
+    if t is not None and (t.dtype != dtype or t.numel() != 1):
+        raise ValueError(f"{name}: {what} must be a one-element {dtype} "
+                         f"tensor")
+
+
+def _check_lists(name, lists, fp32):
+    """Equal lengths; each tensor fp32 or bf16 (the lists named in
+    ``fp32``: fp32 only), one shape, contiguous; None entries skipped."""
+    if len({len(ts) for ts in lists.values()}) != 1:
+        raise ValueError(f"{name}: lists of "
+                         f"{ {k: len(ts) for k, ts in lists.items()} } tensors")
+    for k, ts in enumerate(zip(*lists.values())):
+        shape = None
+        for what, t in zip(lists, ts):
+            if t is None:
+                continue
+            if what in fp32 and t.dtype != torch.float32:
+                raise TypeError(f"{name}: tensor {k}: {what} must be float32, "
+                                f"got {t.dtype}")
+            _checks.dtype_code(name, t, f"tensor {k}'s {what}")
+            if shape is not None and t.shape != shape:
+                raise ValueError(f"{name}: tensor {k}: shapes differ")
+            shape = t.shape
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: tensor {k} must be contiguous")
+
+
+def _code(t):
+    return -1 if t is None else _checks.DTYPE_CODES[t.dtype]
+
+
+def _runs(lists, keyed):
+    """Launch tables over ``lists`` (a dict of equal-length lists whose
+    entries may be None): the tensors grouped by the dtype codes of the
+    lists named in ``keyed``, each group cut into runs of at most
+    :data:`MAX_TENSORS` that hold an element. Yields (dtype codes, the
+    run's indices, {name: pointer table}, sizes, n)."""
+    names = list(lists)
+    count = len(lists[names[0]])
+    groups = {}
+    for k in range(count):
+        key = tuple(_code(lists[name][k]) for name in keyed)
+        groups.setdefault(key, []).append(k)
+    for key, index in groups.items():
+        for at in range(0, len(index), MAX_TENSORS):
+            run = index[at:at + MAX_TENSORS]
+            sizes = [next(t for t in (lists[name][k] for name in names)
+                          if t is not None).numel() for k in run]
+            if not any(sizes):
+                continue  # nothing to update: no launch
+            n = len(run)
+            tables = {name: (ctypes.c_void_p * n)(*[
+                None if lists[name][k] is None else lists[name][k].data_ptr()
+                for k in run]) for name in names}
+            yield key, run, tables, (ctypes.c_longlong * n)(*sizes), n
+
+
+def _none_list(ts, n):
+    return [None] * n if ts is None else list(ts)
+
+
+@functools.lru_cache(maxsize=1)
+def _sgd_kernel():
+    p, f, i = _checks.ptr, ctypes.c_float, ctypes.c_int
+    return _build.function(
+        "sgd", "apex_sgd",
+        [p, p, p, p, p, i, i, i, p, p, p, f, f, f, f, i, i, i, p])
+
+
+def launch_sgd(noop, gs, ps, moms, outs, *, step, inv_scale, wd, momentum,
+               dampening, lr, nesterov, wd_after_momentum, fault=0):
+    """The SGD kernel over the lists through its C function (``fault``:
+    0, or a planted fault's code); returns the launches made. :func:`sgd`
+    checks and counts; this does neither."""
+    fn = _sgd_kernel()
+    lists = dict(g=gs, p=ps, mom=moms, out=outs)
+    launches = 0
+    for (gd, od), _, t, sizes, n in _runs(lists, ("g", "out")):
+        with torch.cuda.device(noop.device):
+            rc = fn(t["g"], t["p"], t["mom"], t["out"], sizes, n, gd, od,
+                    noop.data_ptr(), step.data_ptr(),
+                    _checks.data_ptr(inv_scale), float(wd), float(momentum),
+                    1.0 - dampening, float(lr), int(bool(nesterov)),
+                    int(bool(wd_after_momentum)), fault, _checks.stream(noop))
+        _checks.status("sgd", rc)
+        launches += 1
+    return launches
+
+
+def sgd(noop, gs, ps, moms, outs=None, *, step, inv_scale=None, wd=0.0,
+        momentum=0.0, dampening=0.0, lr, nesterov=False,
+        wd_after_momentum=False):
+    """SGD with momentum (JAX's ``multi_tensor_sgd``): each g (fp32 or
+    bf16) times ``inv_scale`` (a one-element fp32 tensor, or None), the
+    fp32 p and momentum buffers updated in place, then each of ``outs``
+    (None, or entries a parameter to write from the new p, or None).
+    ``first_run`` where ``step`` (a one-element int32 tensor, the count
+    before this update) is 0. Nothing changes where ``noop`` is > 0. No
+    host synchronisation. CPU tensors take :func:`sgd_plain`; CUDA tensors
+    launch the kernel, once per :data:`MAX_TENSORS` tensors of one dtype
+    pair, or raise."""
+    outs = _none_list(outs, len(ps))
+    kw = dict(step=step, inv_scale=inv_scale, wd=wd, momentum=momentum,
+              dampening=dampening, lr=lr, nesterov=nesterov,
+              wd_after_momentum=wd_after_momentum)
+    extra = [t for t in (step, inv_scale, *outs) if t is not None]
+    if not _checks.on_cuda("sgd", noop, *extra, *gs, *ps, *moms):
+        return sgd_plain(noop, gs, ps, moms, outs, **kw)
+    _scalar("sgd", noop, torch.float32, "noop")
+    _scalar("sgd", step, torch.int32, "step")
+    _scalar("sgd", inv_scale, torch.float32, "inv_scale")
+    _check_lists("sgd", dict(g=gs, p=ps, mom=moms, out=outs),
+                 fp32=("p", "mom"))
+    for _ in range(launch_sgd(noop, gs, ps, moms, outs, **kw)):
+        registry.count(SGD)
+
+
+@functools.lru_cache(maxsize=1)
+def _lamb_stage2_kernel():
+    p, i = _checks.ptr, ctypes.c_int
+    return _build.function("lamb", "apex_lamb_stage2",
+                           [p, p, p, p, p, i, i, p, p, i, p])
+
+
+def launch_lamb_stage2(noop, found_inf, ps, us, outs, factors, fault=0):
+    """LAMB's stage 2 over the lists through its C function (``fault``: 0,
+    or a planted fault's code); returns the launches made.
+    :func:`lamb_stage2` checks and counts; this does neither."""
+    fn = _lamb_stage2_kernel()
+    lists = dict(p=ps, u=us, out=outs)
+    base, item = factors.data_ptr(), factors.element_size()
+    launches = 0
+    for (od,), run, t, sizes, n in _runs(lists, ("out",)):
+        f = (ctypes.c_void_p * n)(*[base + item * k for k in run])
+        with torch.cuda.device(noop.device):
+            rc = fn(t["p"], t["u"], t["out"], f, sizes, n, od,
+                    noop.data_ptr(), _checks.data_ptr(found_inf), fault,
+                    _checks.stream(noop))
+        _checks.status("lamb_stage2", rc)
+        launches += 1
+    return launches
+
+
+def lamb_stage2(noop, found_inf, ps, us, outs, factors):
+    """LAMB's parameter step: each fp32 p becomes ``p - factors[k] * u``
+    (the product rounded, then the difference; ``factors`` an fp32 tensor
+    [len(ps)], lr times each tensor's trust ratio), then each of ``outs``
+    (None, or entries a parameter to write from the new p, or None).
+    Nothing changes where ``noop`` or ``found_inf`` (None: 0) is > 0. No
+    host synchronisation. CPU tensors take :func:`lamb_stage2_plain`;
+    CUDA tensors launch the kernel, once per :data:`MAX_TENSORS` tensors
+    of one output dtype, or raise."""
+    outs = _none_list(outs, len(ps))
+    extra = [t for t in (found_inf, *outs) if t is not None]
+    if not _checks.on_cuda("lamb_stage2", noop, factors, *extra, *ps, *us):
+        return lamb_stage2_plain(noop, found_inf, ps, us, outs, factors)
+    _scalar("lamb_stage2", noop, torch.float32, "noop")
+    _scalar("lamb_stage2", found_inf, torch.float32, "found_inf")
+    if (factors.dtype != torch.float32 or factors.shape != (len(ps),)
+            or not factors.is_contiguous()):
+        raise ValueError(f"lamb_stage2: factors must be a contiguous float32 "
+                         f"tensor [{len(ps)}]")
+    _check_lists("lamb_stage2", dict(p=ps, u=us, out=outs), fp32=("p", "u"))
+    for _ in range(launch_lamb_stage2(noop, found_inf, ps, us, outs, factors)):
+        registry.count(LAMB_STAGE2)

@@ -1,21 +1,32 @@
-"""Multi-tensor fused optimizer ops (the Adam, LAMB and L2-norm part of
-Apex's ``amp_C``).
+"""Multi-tensor fused optimizer ops (Apex's ``amp_C``: scale, axpby,
+the L2 norms, SGD, Adam and LAMB).
 
-Counterpart of ``apex_tpu/ops/multi_tensor.py`` ``multi_tensor_adam``,
-``multi_tensor_lamb`` and ``multi_tensor_l2norm``. The JAX ops are
+Counterpart of ``apex_tpu/ops/multi_tensor.py``. The JAX ops are
 functional loops over the tensors that XLA fuses; eager PyTorch has no
 such fusion, so here the elementwise updates run in the multi-tensor
-CUDA kernels of :mod:`apex_tpu_torch.kernels.optim` (a launch per 64
-tensors) and update the tensors **in place**, as the reference's ops
-do. CPU tensors take the kernels' plain versions. The norms and LAMB's
-trust ratio have no TPU kernel and stay PyTorch (``torch._foreach_norm``).
-The other ops of the JAX module (scale, axpby, SGD, ...) come with the
-slices that use them.
+CUDA kernels of :mod:`apex_tpu_torch.kernels.optim` and
+:mod:`apex_tpu_torch.kernels.scale` (a launch per 64 tensors of one
+dtype combination) and update the tensors **in place**, as the
+reference's ops do; each returns nothing but the norms. CPU tensors take
+the kernels' plain versions. The norms and LAMB's trust ratio have no
+TPU kernel and stay PyTorch (``torch._foreach_norm``).
+
+The ops read what amp keeps on the device, so an overflow-skipped step
+needs no host synchronisation: the noop flag and ``found_inf``
+(one-element fp32 tensors; a step is skipped where one is > 0, JAX's
+``noop > 0``), the step count (a Python int, whose bias corrections are
+taken on the host, or a one-element int32 tensor, read on the device)
+and the (inverse) loss scale (a Python number or a one-element fp32
+tensor). Pass these as tensors on
+the parameters' device: a CPU tensor is copied there, which waits for
+the device. The NovoGrad, Adagrad and two-stage LAMB ops of the JAX
+module come with their optimizers.
 """
 
 import torch
 
 from apex_tpu_torch.kernels import optim as _kernels
+from apex_tpu_torch.kernels import scale as _scale
 
 
 def bias_corrections(beta1, beta2, step):
@@ -34,25 +45,129 @@ def bias_corrections(beta1, beta2, step):
     return tuple(out)
 
 
+def device_scalar(value, device, dtype=torch.float32):
+    """``value`` (a Python number or a tensor of one element) as a
+    one-element ``dtype`` tensor on ``device``: a number is filled there
+    (no copy); a tensor already there is viewed, not copied."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=dtype).reshape(1)
+    return torch.full((1,), value, dtype=dtype, device=device)
+
+
+def _multiplier(value, device):
+    """A gradient multiplier for the kernels: None where it is None or
+    the number 1 (a product by 1 is exact), else a device scalar."""
+    if value is None or (not isinstance(value, torch.Tensor) and value == 1.0):
+        return None
+    return device_scalar(value, device)
+
+
+def multi_tensor_scale(noop_flag, tensor_lists, scale):
+    """``out = x * scale`` over ``tensor_lists = [xs, outs]`` of fp32 or
+    bf16 tensors, each product in fp32 and written into out in its own
+    dtype (outs may be xs: amp unscales gradients in place); ``noop_flag``
+    (a one-element fp32 tensor) is set to 1 where some fp32 product is
+    inf or NaN, and never cleared. ``scale``: a number or a one-element
+    tensor (amp passes 1 / loss scale, on the device)."""
+    xs, outs = tensor_lists
+    _scale.scale(noop_flag, xs, outs,
+                 device_scalar(scale, noop_flag.device))
+
+
+def multi_tensor_axpby(noop_flag, tensor_lists, a, b, arg_to_check=-1):
+    """``out = a * x + b * y`` over ``tensor_lists = [xs, ys, outs]`` of
+    fp32 or bf16 tensors (two fp32 products, then the sum, written in
+    out's dtype), flagged as :func:`multi_tensor_scale` flags it: the
+    result is checked whatever ``arg_to_check`` says, as in JAX."""
+    xs, ys, outs = tensor_lists
+    _scale.axpby(noop_flag, xs, ys, outs, a, b)
+
+
+def multi_tensor_sgd(noop_flag, tensor_lists, wd, momentum, dampening, lr,
+                     nesterov, first_run, wd_after_momentum, scale=1.0):
+    """Fused SGD with momentum over ``tensor_lists = [grads, params,
+    momentum_buffers]`` (fp32 params and buffers, fp32 or bf16 grads),
+    updating params and buffers in place: each gradient times ``scale``
+    (the multiplier, as JAX's: amp passes 1 / loss scale), L2 decay
+    before or after the momentum, ``first_run`` (a bool, or a tensor of
+    one element, true where non-zero) taking the gradient as the buffer.
+    Nothing changes where ``noop_flag`` is > 0."""
+    grads, params, moms = tensor_lists
+    device = noop_flag.device
+    if isinstance(first_run, torch.Tensor):
+        step = first_run.reshape(1).to(device).eq(0).to(torch.int32)
+    else:
+        step = torch.full((1,), 0 if first_run else 1, dtype=torch.int32,
+                          device=device)
+    _kernels.sgd(noop_flag, grads, params, moms, step=step,
+                 inv_scale=_multiplier(scale, device), wd=wd,
+                 momentum=momentum, dampening=dampening, lr=lr,
+                 nesterov=nesterov, wd_after_momentum=wd_after_momentum)
+
+
+def _step_args(beta1, beta2, step, bias_correction, device):
+    """The kernels' bias-correction arguments: none (1) without bias
+    correction; for a tensor ``step``, that count on ``device`` (the
+    kernels compute the corrections from it there); for an int, the
+    host's :func:`bias_corrections`."""
+    if not bias_correction:
+        return dict(bc1=1.0, bc2=1.0, step=None)
+    if isinstance(step, torch.Tensor):
+        return dict(step=device_scalar(step, device, torch.int32))
+    bc1, bc2 = bias_corrections(beta1, beta2, step)
+    return dict(bc1=bc1, bc2=bc2, step=None)
+
+
+def _adam(noop_flag, grads, params, ms, vs, outs, lr, beta1, beta2, eps, step,
+          mode, bias_correction, weight_decay, inv_scale):
+    if mode not in (0, 1):
+        raise ValueError(f"multi_tensor_adam: mode must be 0 or 1, got {mode}")
+    device = noop_flag.device
+    # L2 decay of 0 adds nothing: the JAX op skips it, the kernel adds 0*p
+    _kernels.adam(noop_flag, grads, params, ms, vs, outs, lr=lr, b1=beta1,
+                  b2=beta2, eps=eps, weight_decay=weight_decay,
+                  adam_w=(mode == 1), inv_scale=_multiplier(inv_scale, device),
+                  **_step_args(beta1, beta2, step, bias_correction, device))
+
+
 def multi_tensor_adam(noop_flag, tensor_lists, lr, beta1, beta2, eps, step,
                       mode, bias_correction, weight_decay):
     """Fused Adam (``mode`` 0: L2 regularisation) or AdamW (``mode`` 1:
     decoupled weight decay) over ``tensor_lists = [grads, params,
     exp_avgs, exp_avg_sqs]``, updating params, exp_avgs and exp_avg_sqs
     in place. Nothing changes where ``noop_flag`` (a one-element fp32
-    tensor on the tensors' device) is non-zero. ``step`` is the step
-    count after this update (1 on the first)."""
+    tensor on the tensors' device) is > 0. ``step`` is the step count
+    after this update (1 on the first): an int (the bias corrections
+    taken on the host) or an int32 tensor (read on the device)."""
     grads, params, exp_avgs, exp_avg_sqs = tensor_lists
-    if mode not in (0, 1):
-        raise ValueError(f"multi_tensor_adam: mode must be 0 or 1, got {mode}")
-    if bias_correction:
-        bc1, bc2 = bias_corrections(beta1, beta2, step)
-    else:
-        bc1 = bc2 = 1.0
-    # L2 decay of 0 adds nothing: the JAX op skips it, the kernel adds 0*p
-    _kernels.adam(noop_flag, grads, params, exp_avgs, exp_avg_sqs, lr=lr,
-                  bc1=bc1, bc2=bc2, b1=beta1, b2=beta2, eps=eps,
-                  weight_decay=weight_decay, adam_w=(mode == 1))
+    _adam(noop_flag, grads, params, exp_avgs, exp_avg_sqs, None, lr, beta1,
+          beta2, eps, step, mode, bias_correction, weight_decay, None)
+
+
+def multi_tensor_adam_capturable(noop_flag, tensor_lists, lr, beta1, beta2,
+                                 eps, step, mode, bias_correction,
+                                 weight_decay, inv_scale=1.0):
+    """:func:`multi_tensor_adam` on what amp keeps on the device: the
+    gradients (fp32 or bf16) times ``inv_scale`` inside the update, the
+    step count (the count after this update; an int32 tensor is read on
+    the device with its bias corrections). The params are fp32, or bf16
+    (each update computed in fp32 and rounded back)."""
+    grads, params, ms, vs = tensor_lists
+    _adam(noop_flag, grads, params, ms, vs, None, lr, beta1, beta2, eps, step,
+          mode, bias_correction, weight_decay, inv_scale)
+
+
+def multi_tensor_adam_capturable_master(noop_flag, tensor_lists, lr, beta1,
+                                        beta2, eps, step, mode,
+                                        bias_correction, weight_decay,
+                                        inv_scale=1.0):
+    """:func:`multi_tensor_adam_capturable` on fp32 master weights:
+    ``tensor_lists = [grads, params, exp_avgs, exp_avg_sqs, masters]``;
+    masters, exp_avgs and exp_avg_sqs are updated in place and each
+    (low-precision) param written from its new master in the same pass."""
+    grads, params, ms, vs, masters = tensor_lists
+    _adam(noop_flag, grads, masters, ms, vs, params, lr, beta1, beta2, eps,
+          step, mode, bias_correction, weight_decay, inv_scale)
 
 
 def multi_tensor_l2norm(noop_flag, tensor_lists, per_tensor=False):
@@ -68,51 +183,125 @@ def multi_tensor_l2norm(noop_flag, tensor_lists, per_tensor=False):
     return total, (per if per_tensor else None)
 
 
+def multi_tensor_l2norm_mp(noop_flag, tensor_lists, per_tensor=False):
+    """:func:`multi_tensor_l2norm`: the tensors are widened to fp32 before
+    the sums either way."""
+    return multi_tensor_l2norm(noop_flag, tensor_lists, per_tensor)
+
+
+def multi_tensor_l2norm_scale(noop_flag, tensor_lists, scale,
+                              per_tensor=False):
+    """:func:`multi_tensor_l2norm` of each ``x * scale`` (fp32), the norm
+    of gradients before they are unscaled."""
+    (xs,) = tensor_lists
+    if isinstance(scale, torch.Tensor) or scale != 1.0:
+        xs = [x.float() * scale for x in xs]
+    return multi_tensor_l2norm(noop_flag, [xs], per_tensor)
+
+
+def _lamb_clip(global_grad_norm, max_grad_norm, device):
+    """The global gradient-clip factor ``max(norm / max_grad_norm, 1)`` as
+    a one-element fp32 tensor on ``device``, or None (no clipping)."""
+    if max_grad_norm is None or max_grad_norm <= 0:
+        return None
+    gnorm = torch.as_tensor(global_grad_norm, dtype=torch.float32,
+                            device=device)
+    return torch.clamp(gnorm / max_grad_norm, min=1.0).reshape(1)
+
+
+def _trust_factors(lr, params, updates, apply_trust):
+    """``lr * ratio`` per tensor as an fp32 tensor [len(params)]: the trust
+    ratio ||p|| / ||update|| where both are > 0, else 1, and 1 throughout
+    unless ``apply_trust``."""
+    if not apply_trust:
+        return torch.full((len(params),), lr, dtype=torch.float32,
+                          device=params[0].device)
+    w_norm = torch.stack(torch._foreach_norm(params))
+    u_norm = torch.stack(torch._foreach_norm(updates))
+    return lr * torch.where((w_norm > 0) & (u_norm > 0), w_norm / u_norm, 1.0)
+
+
+def _lamb(noop_flag, found_inf, grads, params, exp_avgs, exp_avg_sqs, updates,
+          outs, lr, beta1, beta2, eps, step, bias_correction, weight_decay,
+          grad_averaging, mode, global_grad_norm, max_grad_norm, use_nvlamb,
+          inv_scale):
+    """Stage 1 into ``updates`` (None: over the grads), the trust factors,
+    then stage 2 on ``params`` (writing ``outs`` from them, where given)."""
+    if mode not in (0, 1):
+        raise ValueError(f"multi_tensor_lamb: mode must be 0 or 1, got {mode}")
+    if not params:
+        return
+    device = noop_flag.device
+    _kernels.lamb(
+        noop_flag, grads, params, exp_avgs, exp_avg_sqs, updates,
+        found_inf=found_inf,
+        clip=_lamb_clip(global_grad_norm, max_grad_norm, device),
+        inv_scale=_multiplier(inv_scale, device), b1=beta1, b2=beta2,
+        beta3=(1 - beta1) if grad_averaging else 1.0, eps=eps,
+        weight_decay=weight_decay, adam_w=(mode == 1),
+        **_step_args(beta1, beta2, step, bias_correction, device))
+    updates = grads if updates is None else updates
+    factors = _trust_factors(lr, params, updates,
+                             weight_decay != 0 or use_nvlamb)
+    _kernels.lamb_stage2(noop_flag, found_inf, params, updates, outs, factors)
+
+
 def multi_tensor_lamb(noop_flag, tensor_lists, lr, beta1, beta2, eps, step,
                       bias_correction, weight_decay, grad_averaging, mode,
-                      global_grad_norm, max_grad_norm, use_nvlamb=False):
+                      global_grad_norm, max_grad_norm, use_nvlamb=False, *,
+                      outs=None):
     """Fused LAMB over ``tensor_lists = [grads, params, exp_avgs,
     exp_avg_sqs]`` of fp32 tensors, updating params, exp_avgs and
     exp_avg_sqs in place; each grad is left holding its tensor's raw
     update (the reference's stage 1 stores it there). Nothing changes
     in params, exp_avgs, exp_avg_sqs or grads where ``noop_flag`` (a
-    one-element fp32 tensor on the tensors' device) is non-zero.
+    one-element fp32 tensor on the tensors' device) is > 0.
 
     The gradients are divided by ``max(global_grad_norm / max_grad_norm,
     1)`` (when ``max_grad_norm`` > 0); ``mode`` 0 adds L2 decay to them,
-    ``mode`` 1 adds decoupled decay to the update; the kernel writes the
-    moments and the update. Then, as in JAX, each parameter moves by
-    ``lr * ratio * update``, where the trust ratio is ||p|| / ||update||
-    when both are > 0 (else 1) and applies when ``weight_decay`` != 0 or
-    ``use_nvlamb``. ``step`` is the step count after this update."""
+    ``mode`` 1 adds decoupled decay to the update; the stage-1 kernel
+    writes the moments and the update. Then, as in JAX, each parameter
+    moves by ``lr * ratio * update`` (the stage-2 kernel), where the trust
+    ratio is ||p|| / ||update|| when both are > 0 (else 1) and applies
+    when ``weight_decay`` != 0 or ``use_nvlamb``. ``step`` is the step
+    count after this update: an int (the bias corrections taken on the
+    host) or an int32 tensor (read on the device). ``outs`` (the port's
+    optimizers: params are fp32 masters): a list whose entries are a
+    parameter to write from its new master, or None."""
     grads, params, exp_avgs, exp_avg_sqs = tensor_lists
-    if mode not in (0, 1):
-        raise ValueError(f"multi_tensor_lamb: mode must be 0 or 1, got {mode}")
-    if not params:
+    _lamb(noop_flag, None, grads, params, exp_avgs, exp_avg_sqs, None, outs,
+          lr, beta1, beta2, eps, step, bias_correction, weight_decay,
+          grad_averaging, mode, global_grad_norm, max_grad_norm, use_nvlamb,
+          None)
+
+
+def multi_tensor_lamb_mp(noop_flag, tensor_lists, lr, beta1, beta2, eps,
+                         step, bias_correction, weight_decay, grad_averaging,
+                         mode, global_grad_norm, max_grad_norm, use_nvlamb,
+                         found_inf, inv_scale):
+    """Mixed-precision LAMB over ``tensor_lists = [grads, params,
+    exp_avgs, exp_avg_sqs, masters]``: the update is computed on the fp32
+    masters from the gradients (fp32 or bf16) times ``inv_scale``, as
+    :func:`multi_tensor_lamb` computes it; masters and moments are
+    updated in place and each param (bf16 or fp32; none where it is its
+    own master) written from its new master in the same pass. Nothing
+    changes where ``noop_flag`` or ``found_inf`` (None: 0) is > 0 (JAX's
+    ``max(noop_flag, found_inf)``). The grads are left as they were: the
+    raw updates go to an fp32 buffer of the masters' size, freed after
+    the call."""
+    grads, params, exp_avgs, exp_avg_sqs, masters = tensor_lists
+    if not masters:
         return
-    if bias_correction:
-        bc1, bc2 = bias_corrections(beta1, beta2, step)
-    else:
-        bc1 = bc2 = 1.0
-    clip = None
-    if max_grad_norm is not None and max_grad_norm > 0:
-        gnorm = torch.as_tensor(global_grad_norm, dtype=torch.float32,
-                                device=noop_flag.device)
-        clip = torch.clamp(gnorm / max_grad_norm, min=1.0).reshape(1)
-    _kernels.lamb(noop_flag, grads, params, exp_avgs, exp_avg_sqs, clip=clip,
-                  bc1=bc1, bc2=bc2, b1=beta1, b2=beta2,
-                  beta3=(1 - beta1) if grad_averaging else 1.0, eps=eps,
-                  weight_decay=weight_decay, adam_w=(mode == 1))
-    updates = grads
-    if weight_decay != 0 or use_nvlamb:
-        w_norm = torch.stack(torch._foreach_norm(params))
-        u_norm = torch.stack(torch._foreach_norm(updates))
-        ratio = torch.where((w_norm > 0) & (u_norm > 0), w_norm / u_norm, 1.0)
-        factors = (lr * ratio).unbind(0)
-    else:
-        factors = [lr] * len(params)
-    skip = noop_flag.reshape(()) > 0
-    with torch.no_grad():
-        for p, u, f in zip(params, updates, factors):
-            # where, not a factor of 0: a skipped step's g may hold inf
-            p.sub_(torch.where(skip, 0.0, f * u))
+    device = noop_flag.device
+    found = None if found_inf is None else device_scalar(found_inf, device)
+    flat = torch.empty(sum(m.numel() for m in masters), dtype=torch.float32,
+                       device=device)
+    updates, at = [], 0
+    for m in masters:
+        updates.append(flat[at:at + m.numel()].view(m.shape))
+        at += m.numel()
+    outs = [None if p is mw else p for p, mw in zip(params, masters)]
+    _lamb(noop_flag, found, grads, masters, exp_avgs, exp_avg_sqs, updates,
+          outs, lr, beta1, beta2, eps, step, bias_correction, weight_decay,
+          grad_averaging, mode, global_grad_norm, max_grad_norm, use_nvlamb,
+          inv_scale)

@@ -8,15 +8,20 @@ idiom: ``step()`` takes the global L2 norm of every parameter's
 :func:`apex_tpu_torch.ops.multi_tensor.multi_tensor_lamb` on each group
 (the LAMB kernel for tensors on the card), which clips the gradients by
 that norm, updates ``exp_avg`` / ``exp_avg_sq`` and the parameters in
-place, and leaves each ``.grad`` holding its tensor's raw update until
-``zero_grad``. The group's ``step`` counts the updates made; the first
-is step 1.
+place (LAMB's two kernels), and leaves each fp32 ``.grad`` holding its
+tensor's raw update until ``zero_grad``. The group's ``step`` counts the
+updates made (the first is step 1): a one-element int32 tensor on the
+parameters' device, from which the kernel takes the bias corrections.
 
     opt = FusedLAMB(model.parameters(), lr=1e-3, weight_decay=0.01)
     loss.backward(); opt.step(); opt.zero_grad()
 
-The amp arguments of ``step`` (``found_inf``, ``scale``) belong to the
-amp slice and raise.
+``step(found_inf=, scale=)`` (amp) takes the gradients as JAX's
+FusedLAMB does, ``g.astype(f32) / scale`` (fp32 copies that then hold
+the updates, the ``.grad`` left as it was), and skips the update where
+``found_inf`` is > 0, the step count advancing only on clean steps, on
+the device: no step waits for the host. On masters that amp keeps, the
+parameters are written from them in the same pass.
 """
 
 import torch
@@ -25,7 +30,7 @@ from apex_tpu_torch.ops.multi_tensor import (
     multi_tensor_l2norm,
     multi_tensor_lamb,
 )
-from apex_tpu_torch.optimizers._base import FusedOptimizerBase, refuse_amp
+from apex_tpu_torch.optimizers._base import FusedOptimizerBase
 
 
 class FusedLAMB(FusedOptimizerBase):
@@ -58,30 +63,36 @@ class FusedLAMB(FusedOptimizerBase):
         super().zero_grad(self.set_grad_none if set_to_none is None
                           else set_to_none)
 
-    @torch.no_grad()
-    def step(self, closure=None, *, found_inf=None, scale=1.0):
-        """One update of every parameter that has a gradient. Returns the
-        closure's loss, if a closure is given."""
-        refuse_amp(found_inf, scale)
-        loss = None
-        if closure is not None:
-            with torch.enable_grad():
-                loss = closure()
-        gathered = [(group, self._gather(group)) for group in self.param_groups]
-        grads = [g for _, (gs, _, _) in gathered for g in gs]
+    def _update(self, found_inf, scale, master_key=None):
+        key = self._master_key(master_key)
+        gathered = [(group, self._gather(group, key))
+                    for group in self.param_groups]
+        grads = [g for _, (gs, _, _, _) in gathered for g in gs]
         if not grads:
-            return loss
-        noop = self._noop(grads[0].device)
-        global_norm, _ = multi_tensor_l2norm(noop, [grads])
-        for group, (gs, params, (exp_avgs, exp_avg_sqs)) in gathered:
-            if not params:
+            return
+        device = grads[0].device
+        flag = self._flag(found_inf, device)
+        unscale = isinstance(scale, torch.Tensor) or scale != 1.0
+
+        def fp32(gs):  # JAX's g.astype(f32) / scale; they hold the updates
+            if unscale:
+                return [g.float() / scale for g in gs]
+            return [g if g.dtype == torch.float32 else g.float() for g in gs]
+
+        gathered = [(group, (fp32(gs), *rest)) for group, (gs, *rest)
+                    in gathered]
+        global_norm, _ = multi_tensor_l2norm(
+            flag, [[g for _, (gs, _, _, _) in gathered for g in gs]])
+        mode = 1 if self.adam_w_mode else 0
+        for group, (gs, targets, outs, (exp_avgs, exp_avg_sqs)) in gathered:
+            if not targets:
                 continue
-            group["step"] += 1
+            step = self._step_count(group, device)
+            self._advance(step, flag)
             beta1, beta2 = group["betas"]
             multi_tensor_lamb(
-                noop, [gs, params, exp_avgs, exp_avg_sqs], group["lr"],
-                beta1, beta2, group["eps"], group["step"],
-                group["bias_correction"], group["weight_decay"],
-                group["grad_averaging"], 1 if self.adam_w_mode else 0,
-                global_norm, group["max_grad_norm"], self.use_nvlamb)
-        return loss
+                flag, [gs, targets, exp_avgs, exp_avg_sqs], group["lr"],
+                beta1, beta2, group["eps"], step, group["bias_correction"],
+                group["weight_decay"], group["grad_averaging"], mode,
+                global_norm, group["max_grad_norm"], self.use_nvlamb,
+                outs=outs)

@@ -11,11 +11,12 @@ gradient is scaled by ``min(adaptive_lr / lr, 1)``, else by
 
     opt = LARC(FusedAdam(model.parameters(), lr=1e-3))
     loss.backward(); opt.step(); opt.zero_grad()
+
+amp's ``found_inf`` and ``scale`` pass through to the wrapped
+optimizer's ``step``, as JAX's LARC passes them.
 """
 
 import torch
-
-from apex_tpu_torch.optimizers._base import refuse_amp
 
 
 class LARC:
@@ -58,8 +59,8 @@ class LARC:
 
     @torch.no_grad()
     def step(self, closure=None, *, found_inf=None, scale=1.0):
-        """Rescale every ``p.grad``, then step the wrapped optimizer."""
-        refuse_amp(found_inf, scale)
+        """Rescale every ``p.grad``, then step the wrapped optimizer
+        with ``found_inf`` and ``scale``."""
         loss = None
         if closure is not None:
             with torch.enable_grad():
@@ -68,5 +69,5 @@ class LARC:
             for p in group["params"]:
                 if p.grad is not None:
                     p.grad.copy_(self._rescale(p.grad, p, group["lr"]))
-        self.optim.step()
+        self.optim.step(found_inf=found_inf, scale=scale)
         return loss

@@ -233,6 +233,44 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    timed, profiled, its losses equal to the baseline's; one unfused
    step's loss held against the fused step 1's, and the unfused step
    timed as the fused ones, with the ratio of the two medians.
+17. amp_gpt2: GPT-2 345M as in phase 6 under amp O2 as bench.py's
+   bench_resnet drives amp: ``amp.initialize(model, FusedAdam(lr=1e-4),
+   opt_level="O2")`` (bf16 parameters but the norms', fp32 masters owned
+   by amp, the dynamic scale), the scaled loss's backward: first a bf16
+   GEMM at the MLP's shape held, under the setting amp.initialize leaves,
+   to the once-rounded fp32 sum (JAX's ``preferred_element_type=f32``
+   then bf16), the check shown to catch a planted double rounding; then a
+   fresh optimizer's two steps with an inf planted into one gradient at
+   the second, which must leave the parameters, masters, moments and
+   step counts bit-identical and halve the scale (2^16 to 2^15), then the
+   counted (multi_tensor_scale and adam once per 64 tensors of a dtype
+   a step), timed and profiled steps and the step-1 hold against the plain
+   versions (each tensor's update over the entries whose gradients in the
+   two runs share a sign), every ``opt.step()`` with host waits forbidden
+   (``torch.cuda.set_sync_debug_mode("error")``); the step's ms, tokens/s,
+   peak memory and busy share beside phase 6's.
+18. amp_o1_sgd: the same model under amp O1 (fp32 parameters) with
+   ``FusedSGD(lr=AMP_SGD_LR, momentum=0.9)``, BASELINE.json's "amp O1 +
+   FusedSGD": the same checks (multi_tensor_scale and sgd a step).
+19. amp_bert: BERT-large as in phase 7 under amp O2 with
+   ``FusedMixedPrecisionLamb(lr=1e-3, weight_decay=0.01)`` (its own fp32
+   masters): the same checks (multi_tensor_scale, lamb and lamb_stage2
+   a step), the loss falling from step 2 as phase 7's.
+
+The kernel phase also holds amp's kernels against their plain versions:
+multi_tensor_scale (in place over GPT-2 345M's and BERT-large's O2
+gradients, a planted inf, the other dtype out, axpby), adam on amp's
+device step (GPT-2's O2 step with masters; off the path inv_scale, L2
+decay without bias correction, bf16 parameters without masters, views
+off the vector boundary, noop; the device step's bias corrections held
+through the kernel's outputs at AMP_BC_STEPS), sgd (GPT-2's fp32 step,
+the first run and the next; off the path nesterov, dampening, decay
+before and after the momentum, bf16 gradients and outputs), lamb and
+lamb_stage2 on masters (BERT-large's O2 step; off the path inv_scale, L2
+decay, no clip, no outputs, found_inf), each with two planted faults
+through its own launch, timed beside its bound and, where one exists,
+its PyTorch call. A kernel's row in the JSON line is its first shape;
+the others follow under ``other_shapes``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -562,6 +600,7 @@ def plain_versions():
         optim,
         quant,
         quant4,
+        scale,
         softmax,
     )
     swaps = [(norm, "rms_fwd", norm.rms_fwd_plain),
@@ -592,6 +631,10 @@ def plain_versions():
               softmax.causal_softmax_fwd_plain),
              (softmax, "softmax_bwd", softmax.softmax_bwd_plain),
              (optim, "adam", optim.adam_plain),
+             (optim, "sgd", optim.sgd_plain),
+             (optim, "lamb_stage2", optim.lamb_stage2_plain),
+             (scale, "scale", scale.scale_plain),
+             (scale, "axpby", scale.axpby_plain),
              (fmha, "flash_fwd", fmha.flash_fwd_plain),
              (fmha, "flash_bwd", fmha.flash_bwd_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -1829,14 +1872,10 @@ def _adam_raw(path, noop, g, p, m, v, *, lr, bc1, bc2, b1, b2, eps,
     """Kernel #12 over the lists, launched through its C function on
     ``path`` (0 the first design, 1 the streaming body, 2/3 planted
     faults) as the wrapper launches it, uncounted."""
-    from apex_tpu_torch.kernels import _checks, optim
-    fn = optim._kernel()
-    for run, tables, sizes, n in optim._tables((g, p, m, v)):
-        rc = fn(*tables, sizes, optim._heads(run), n, noop.data_ptr(),
-                float(lr), float(bc1), float(bc2), float(b1), 1.0 - b1,
-                float(b2), 1.0 - b2, float(eps), float(weight_decay),
-                int(bool(adam_w)), path, _checks.stream(noop))
-        _checks.status("adam", rc)
+    from apex_tpu_torch.kernels import optim
+    optim.launch_adam(noop, g, p, m, v, None, lr=lr, bc1=bc1, bc2=bc2, b1=b1,
+                      b2=b2, eps=eps, weight_decay=weight_decay,
+                      adam_w=adam_w, path=path)
 
 
 # planted #12 faults: (what, path code of apex_adam)
@@ -2675,6 +2714,628 @@ def check_lamb(gen):
     del g, p, m, v, ker, pln
     torch.cuda.empty_cache()
     return [result]
+
+
+# ------------------------------------------------- phase 2: amp's kernels
+
+# amp's multi-tensor kernels (K1 scale, K2 the device-step Adam, K3 SGD,
+# K4 LAMB's mixed-precision stages) against their plain versions on the
+# same inputs: elementwise, the same fp32 operations in the same order
+# (bias corrections from the same double power on the device), so each is
+# expected to equal its plain version bit for bit; held within 2 fp32
+# ulps of the largest value, as Adam (ADAM_RTOL), which a bf16 output
+# meets only by being equal.
+AMP_RTOL = ADAM_RTOL
+AMP_LOSS_SCALE = 2.0 ** 16  # amp's initial dynamic scale
+# device steps at which #12's output is held to its plain version on the
+# host's bias corrections: every step to 2000, then a stride to 100000
+AMP_BC_STEPS = (*range(1, 2001), *range(2001, 100001, 97), 100000)
+
+
+def _o2_shapes(build):
+    """(shape, dtype) of each parameter of ``build()`` (a model on the
+    meta device) as amp O2 casts it: bf16, the norm layers' fp32."""
+    from apex_tpu_torch.amp.frontend import is_norm_name
+    return [(tuple(p.shape),
+             torch.float32 if is_norm_name(n) else torch.bfloat16)
+            for n, p in build().named_parameters()]
+
+
+def _gpt2_meta():
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    return GPTModel(TransformerConfig(**GPT2, use_flash_attention=True),
+                    device="meta")
+
+
+def _bert_meta():
+    from apex_tpu_torch.models import BertModel, TransformerConfig
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    return BertModel(TransformerConfig(
+        **BERT, use_flash_attention=False,
+        attn_mask_type=AttnMaskType.padding), device="meta")
+
+
+def _like(gen, shapes, scale=1.0, fill=torch.randn, dtype=None):
+    return [(fill(s, generator=gen, device="cuda") * scale).to(dtype or dt)
+            for s, dt in shapes]
+
+
+def _clones(*lists):
+    return [[None if t is None else t.clone() for t in ts] for ts in lists]
+
+
+def _hold_lists(what, got, want):
+    """(max abs err, max rel err) of lists held within AMP_RTOL; whether
+    they are bit-identical."""
+    err, rel = _max_errs(got, want)
+    assert rel <= AMP_RTOL, (what, err, rel)
+    return err, rel, _equal_lists(got, want)
+
+
+def _fault_log(kernel, what, caught, err):
+    log(f"kernel {kernel}: planted fault {what}: "
+        f"{'caught' if caught else 'NOT caught'} (max abs err against the "
+        f"clean run {err:.3e})")
+    assert caught, (kernel, what)
+
+
+def _amp_entry(name, shape, errs, kernel, plain, library, library_name,
+               bound_ms_by, tolerance):
+    err, rel, same = errs
+    library_ms = None
+    if library is not None:
+        try:
+            library_ms = device_ms(library, iters=5, replays=2)
+            library_name += ", CUDA graph"
+        except RuntimeError as exc:  # a graph that does not capture it
+            log(f"kernel {name}: the library call not captured in a CUDA "
+                f"graph ({exc}); timed eagerly")
+            library_ms = call_ms(library, 5, 1)
+            library_name += ", eager call"
+    return dict(name=name, shape=shape, max_abs_err=err, max_rel_err=rel,
+                tolerance=f"{tolerance} (bit-identical: {same})",
+                ms=device_ms(kernel, iters=5, replays=2),
+                call_ms=call_ms(kernel, 5, 1), plain_ms=call_ms(plain, 2, 1),
+                library_ms=library_ms, library=library_name,
+                bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1])
+
+
+def _check_scale(gen, shapes):
+    """K1 at GPT-2 345M's O2 gradients, in place and out of place,
+    against its plain version; a planted inf; axpby and dtype pairs off
+    the path; two planted faults; timed beside
+    torch._amp_foreach_non_finite_check_and_unscale_."""
+    from apex_tpu_torch.kernels import registry
+    from apex_tpu_torch.kernels import scale as ks
+    n = sum(math.prod(s) for s, _ in shapes)
+    xs = _like(gen, shapes, AMP_LOSS_SCALE)
+    inv = torch.full((1,), 1.0 / AMP_LOSS_SCALE, device="cuda")
+
+    def both(xs, outs_of, flag0=0.0):
+        """Kernel (counted) and plain version on copies: (outs, flag)."""
+        res = []
+        for fn in (ks.scale, ks.scale_plain):
+            x = [t.clone() for t in xs]
+            outs = x if outs_of is None else [t.clone() for t in outs_of]
+            flag = torch.full((1,), flag0, device="cuda")
+            fn(flag, x, outs, inv)
+            res.append((outs, flag))
+        torch.cuda.synchronize()
+        return res
+
+    before = registry.launches()["multi_tensor_scale"]
+    (k_out, k_flag), (p_out, p_flag) = both(xs, None)
+    launched = registry.launches()["multi_tensor_scale"] - before
+    groups = {}
+    for _, dt in shapes:
+        groups[dt] = groups.get(dt, 0) + 1
+    assert launched == sum(math.ceil(c / ks.MAX_TENSORS)
+                           for c in groups.values()), launched
+    errs = _hold_lists("scale", k_out, p_out)
+    assert k_flag.item() == p_flag.item() == 0.0
+    # a planted inf: both flag it, everything else as before
+    kept = xs[7].view(-1)[123].item()
+    xs[7].view(-1)[123] = float("inf")
+    (i_out, i_flag), (j_out, j_flag) = both(xs, None)
+    assert i_flag.item() == j_flag.item() == 1.0, (i_flag, j_flag)
+    assert _equal_lists(i_out, j_out)
+    # out of place into the other dtype, axpby, a raised flag kept
+    small = [((n_,), dt) for n_ in (0, 1, 5, 4099, 70001)
+             for dt in (torch.float32, torch.bfloat16)] * 8
+    sx = _like(gen, small, 1e3)
+    other = [torch.empty(s, device="cuda", dtype=torch.bfloat16
+                         if dt == torch.float32 else torch.float32)
+             for s, dt in small]
+    (a_out, a_flag), (b_out, b_flag) = both(sx, other, flag0=1.0)
+    _hold_lists("scale into the other dtype", a_out, b_out)
+    assert a_flag.item() == b_flag.item() == 1.0
+    sy = _like(gen, small, 1.0, dtype=torch.float32)
+    res = []
+    for fn in (ks.axpby, ks.axpby_plain):
+        outs = [t.clone() for t in other]
+        flag = torch.zeros(1, device="cuda")
+        fn(flag, sx, sy, outs, 0.3, -1.7)
+        res.append((outs, flag))
+    torch.cuda.synchronize()
+    _hold_lists("axpby", res[0][0], res[1][0])
+    assert res[0][1].item() == res[1][1].item() == 0.0
+    log(f"kernels: multi_tensor_scale over GPT-2 345M's {len(shapes)} O2 "
+        f"gradients ({launched} launches) bit-identical to its plain "
+        f"version: {errs[2]}; a planted inf flagged by both; "
+        f"{len(small)} tensors off the path (into the other dtype, axpby "
+        f"a=0.3 b=-1.7, a raised flag kept) match")
+    # planted faults through the kernel's own launch, uncounted
+    before = registry.launches()
+    for what, fault in (("the flag never written (the inf planted)", 1),
+                        ("each tensor's last element left", 2)):
+        xs[7].view(-1)[123] = float("inf") if fault == 1 else kept
+        x = [t.clone() for t in xs]
+        flag = torch.zeros(1, device="cuda")
+        ks.launch(ks.SCALE, flag, x, x, x, inv.data_ptr(), 0.0, 0.0, fault)
+        torch.cuda.synchronize()
+        if fault == 1:
+            caught, err = flag.item() != 1.0, 1.0 - flag.item()
+        else:
+            err, rel = _max_errs(x, k_out)
+            caught = rel > AMP_RTOL
+        _fault_log("multi_tensor_scale", what, caught, err)
+    assert registry.launches() == before
+    flag = torch.zeros(1, device="cuda")
+    entries = []
+    # timed out of place (the same bytes as in place, the inputs kept):
+    # O1's fp32 gradients first, where the yardstick applies, then O2's
+    for label, dtype in (("O1 fp32", torch.float32), ("O2", None)):
+        xt = (xs if dtype is None else
+              _like(gen, [(s, dtype) for s, _ in shapes], AMP_LOSS_SCALE))
+        outs = [torch.empty_like(t) for t in xt]
+        held = errs
+        if dtype is not None:  # this case's own hold
+            po = [torch.empty_like(t) for t in xt]
+            ks.scale(flag, xt, outs, inv)
+            ks.scale_plain(torch.zeros(1, device="cuda"), xt, po, inv)
+            torch.cuda.synchronize()
+            held = _hold_lists(f"scale {label}", outs, po)
+            del po
+        one = torch.ones(1, device="cuda")
+        lib_x = [t.clone() for t in xt]
+        nbytes = sum(t.numel() * 2 * t.element_size() for t in xt)
+        kind = ("fp32" if dtype is not None
+                else "bf16 but the norms'")
+        entries.append(_amp_entry(
+            "multi_tensor_scale", f"GPT-2 345M {label} gradients, "
+            f"{len(shapes)} tensors, {n} elements ({kind})", held,
+            lambda: ks.scale(flag, xt, outs, inv),
+            lambda: ks.scale_plain(flag, xt, outs, inv),
+            None if dtype is None else
+            lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+                lib_x, flag, one),
+            "none: torch._amp_foreach_non_finite_check_and_unscale_ has no "
+            "bf16 kernel" if dtype is None else
+            "torch._amp_foreach_non_finite_check_and_unscale_ (in place, "
+            "scale 1)",
+            bound(nbytes, n, FP32_OPS_PER_S), f"rel {AMP_RTOL}"))
+        del xt, outs, lib_x
+    del xs, k_out, p_out, i_out, j_out
+    return entries
+
+
+def _check_scale_held(gen, shapes, label):
+    """K1 unscaling ``label``'s O2 gradients in place (as AmpOptimizer
+    does) against its plain version, bit for bit, clean and with an inf
+    planted in one gradient: the same outputs and the same flag."""
+    from apex_tpu_torch.kernels import registry
+    from apex_tpu_torch.kernels import scale as ks
+    xs = _like(gen, shapes, AMP_LOSS_SCALE)
+    inv = torch.full((1,), 1.0 / AMP_LOSS_SCALE, device="cuda")
+    groups = {}
+    for _, dt in shapes:
+        groups[dt] = groups.get(dt, 0) + 1
+    at = len(xs) // 2
+    for planted in (False, True):
+        if planted:
+            xs[at].view(-1)[xs[at].numel() // 3] = float("inf")
+        res = []
+        before = registry.launches()["multi_tensor_scale"]
+        for fn in (ks.scale, ks.scale_plain):
+            x = [t.clone() for t in xs]
+            flag = torch.zeros(1, device="cuda")
+            fn(flag, x, x, inv)
+            res.append((x, flag))
+        launched = registry.launches()["multi_tensor_scale"] - before
+        torch.cuda.synchronize()
+        assert launched == sum(math.ceil(c / ks.MAX_TENSORS)
+                               for c in groups.values()), launched
+        (k_out, k_flag), (p_out, p_flag) = res
+        assert _equal_lists(k_out, p_out), (label, planted)
+        assert k_flag.item() == p_flag.item() == float(planted), (
+            label, planted, k_flag, p_flag)
+        del res, k_out, p_out
+    log(f"kernels: multi_tensor_scale over {label}'s {len(shapes)} O2 "
+        f"gradients in place ({launched} launches) bit-identical to its "
+        f"plain version, clean and with a planted inf (flagged by both)")
+    del xs
+
+
+def _adam_master_case(gen, shapes, masters, step_at, **over):
+    """g, masters, m, v, outs lists and the adam arguments for ``shapes``
+    on the device step ``step_at`` (out lists in each shape's dtype;
+    ``masters`` False: the parameters are stepped themselves, in their
+    dtype)."""
+    gs = _like(gen, shapes)
+    ps = _like(gen, shapes, 0.03, dtype=torch.float32 if masters else None)
+    ms = _like(gen, shapes, 0.1, dtype=torch.float32)
+    vs = _like(gen, shapes, 0.01, fill=torch.rand, dtype=torch.float32)
+    outs = ([p.to(dt) for p, (_, dt) in zip(ps, shapes)] if masters
+            else [None] * len(ps))
+    kw = dict(step=torch.full((1,), step_at, dtype=torch.int32,
+                              device="cuda"),
+              inv_scale=None, lr=GPT2_LR, b1=0.9, b2=0.999, eps=1e-8,
+              weight_decay=0.0, adam_w=True)
+    kw.update(over)
+    return (gs, ps, ms, vs, outs), kw
+
+
+def _adam_both(noop, lists, kw):
+    from apex_tpu_torch.kernels import optim
+    gs, *rest = lists
+    ker, pln = _clones(*rest), _clones(*rest)
+    optim.adam(noop, gs, *ker, **kw)
+    optim.adam_plain(noop, gs, *pln, **kw)
+    torch.cuda.synchronize()
+    return ker, pln
+
+
+def _flat(lists):
+    return [t for ts in lists for t in ts if t is not None]
+
+
+def _check_adam_steps(gen, noop0):
+    """#12 on the device step against its plain version on the host's
+    bias corrections (ops.multi_tensor.bias_corrections) at each of
+    AMP_BC_STEPS, on one tensor of random moments: a correction an ulp
+    off moves most of its 4099 updates. Launched uncounted."""
+    from apex_tpu_torch.kernels import optim
+    from apex_tpu_torch.ops.multi_tensor import bias_corrections
+    (gs, ps, ms, vs, _), kw = _adam_master_case(
+        gen, [((4099,), torch.float32)], False, 1)
+    kw = {k: v for k, v in kw.items() if k != "step"}
+    step = torch.zeros(1, dtype=torch.int32, device="cuda")
+    differ = []
+    for k in AMP_BC_STEPS:
+        step.fill_(k)
+        ker, pln = _clones(ps, ms, vs), _clones(ps, ms, vs)
+        optim.launch_adam(noop0, gs, *ker, None, step=step, **kw)
+        bc1, bc2 = bias_corrections(0.9, 0.999, k)
+        optim.adam_plain(noop0, gs, *pln, bc1=bc1, bc2=bc2, **kw)
+        if not _equal_lists(_flat(ker), _flat(pln)):
+            differ.append(k)
+    log(f"kernels: adam on the device step against its plain version on "
+        f"the host's bias corrections at {len(AMP_BC_STEPS)} steps from 1 "
+        f"to {AMP_BC_STEPS[-1]}: {len(differ)} differ {differ[:5]}")
+    assert not differ, differ
+
+
+def _check_adam_master(gen, shapes):
+    """K2, #12 with amp's device step, unscale and masters, at GPT-2
+    345M's O2 step (bf16 gradients and parameters, fp32 masters of
+    everything, the norms' fp32 parameters written from theirs) and off
+    it; its bias corrections against the host's at AMP_BC_STEPS; two
+    planted faults."""
+    from apex_tpu_torch.kernels import optim, registry
+    noop0 = torch.zeros(1, device="cuda")
+    _check_adam_steps(gen, noop0)
+    # off the path, small tensors, more than one launch's table each group;
+    # 16-byte-aligned views, views a bf16 element off, views of mixed
+    # offsets (scalar heads, vector spans, tails; all scalar)
+    small = [((n_,), dt) for n_ in (0, 1, 3, 4099, 70001)
+             for dt in (torch.float32, torch.bfloat16)] * 14
+    for masters, over in ((True, dict(inv_scale=torch.full(
+                              (1,), 2.0 ** -16, device="cuda"))),
+                          (True, dict(adam_w=False, weight_decay=0.01,
+                                      step=None, bc1=1.0, bc2=1.0)),
+                          (False, dict(weight_decay=0.01)),
+                          (False, dict())):
+        lists, kw = _adam_master_case(gen, small, masters, 5, **over)
+        if "inv_scale" in over:  # gradients as a scaled loss leaves them
+            lists[0][:] = [g * AMP_LOSS_SCALE for g in lists[0]]
+        ker, pln = _adam_both(noop0, lists, kw)
+        _hold_lists(f"adam off the path {sorted(over)}", _flat(ker),
+                    _flat(pln))
+    ker, _ = _adam_both(torch.ones(1, device="cuda"), lists, kw)
+    assert _equal_lists(_flat(ker), _flat(lists[1:])), "noop moved"
+    lists, kw = _adam_master_case(gen, small, True, 5)
+    for shift in (1, 2, 3):  # every array `shift` elements past a boundary
+
+        def view(t, by):
+            return torch.cat([t.new_zeros(by), t])[by:]
+
+        ker = [[view(t, shift) for t in ts] for ts in lists[1:]]
+        ker[3] = [view(t, shift + (k % 3 == 0)) for k, t in
+                  enumerate(lists[4])]  # some outputs off the others: scalar
+        pln = _clones(*lists[1:])
+        gv = [view(g, shift) for g in lists[0]]
+        optim.adam(noop0, gv, *ker, **kw)
+        optim.adam_plain(noop0, gv, *pln, **kw)
+        torch.cuda.synchronize()
+        _hold_lists(f"adam off the path, views {shift} elements on",
+                    _flat(ker), _flat(pln))
+    # the path
+    lists, kw = _adam_master_case(gen, shapes, True, 1)
+    before = registry.launches()["adam"]
+    ker, pln = _adam_both(noop0, lists, kw)
+    launched = registry.launches()["adam"] - before
+    errs = _hold_lists("adam", _flat(ker), _flat(pln))
+    log(f"kernels: adam at GPT-2 345M's O2 step ({len(shapes)} tensors, "
+        f"{launched} launches) bit-identical to its plain version: "
+        f"{errs[2]}; off the path (inv_scale, L2 decay without bias "
+        f"correction, bf16 parameters without masters, views off the "
+        f"vector boundary) match; noop = 1 leaves everything bit-identical")
+    # planted faults at step 5 on the bf16 tensors, uncounted
+    lists5, kw5 = _adam_master_case(
+        gen, [sd for sd in shapes if sd[1] == torch.bfloat16], True, 5)
+    clean = _clones(*lists5[1:])
+    before = registry.launches()
+    optim.launch_adam(noop0, lists5[0], *clean, **kw5)
+    for what, path in (("the bias corrections of the step before",
+                        optim.ADAM_STEP_BEFORE),
+                       ("the parameters left unwritten",
+                        optim.ADAM_OUT_UNWRITTEN)):
+        bad = _clones(*lists5[1:])
+        optim.launch_adam(noop0, lists5[0], *bad, **kw5, path=path)
+        torch.cuda.synchronize()
+        err, rel = _max_errs(_flat(bad), _flat(clean))
+        _fault_log("adam", what, rel > AMP_RTOL, err)
+    assert registry.launches() == before
+    del lists5, clean, bad, pln
+    gs, ps, ms, vs, outs = lists
+    n = sum(math.prod(s) for s, _ in shapes)
+    nbytes = sum(math.prod(s) * (2 * (2 if dt == torch.bfloat16 else 4)
+                                 + 24) for s, dt in shapes)
+    ker_lists = ker
+    entry = _amp_entry(
+        "adam", f"GPT-2 345M O2 step, {len(shapes)} tensors, {n} params "
+        f"(bf16 gradients and parameters but the norms', fp32 masters, the "
+        f"device step)",
+        errs, lambda: optim.adam(noop0, gs, *ker_lists, **kw),
+        lambda: optim.adam_plain(noop0, gs, *ker_lists, **kw), None,
+        "none: no one PyTorch call steps fp32 masters from bf16 gradients "
+        "and writes the bf16 parameters",
+        bound(nbytes, 15 * n, FP32_OPS_PER_S), f"rel {AMP_RTOL}")
+    del gs, ps, ms, vs, outs, ker, ker_lists, lists
+    return entry
+
+
+def _check_sgd(gen, shapes):
+    """K3 at GPT-2 345M's fp32 O1 step (momentum 0.9, the first run and
+    the next) and off it; two planted faults; timed beside
+    torch._fused_sgd_."""
+    from apex_tpu_torch.kernels import optim, registry
+    noop0 = torch.zeros(1, device="cuda")
+
+    def case(shapes, **over):
+        gs = _like(gen, shapes)
+        ps = _like(gen, shapes, 0.03, dtype=torch.float32)
+        moms = _like(gen, shapes, 0.1, dtype=torch.float32)
+        kw = dict(step=torch.zeros(1, dtype=torch.int32, device="cuda"),
+                  inv_scale=None, wd=0.0, momentum=0.9, dampening=0.0,
+                  lr=AMP_SGD_LR, nesterov=False, wd_after_momentum=False)
+        kw.update(over)
+        outs = ([p.to(dt) for p, (_, dt) in zip(ps, shapes)]
+                if kw.pop("outs", False) else [None] * len(ps))
+        return (gs, ps, moms, outs), kw
+
+    def both(noop, lists, kw):
+        gs, *rest = lists
+        ker, pln = _clones(*rest), _clones(*rest)
+        optim.sgd(noop, gs, *ker, **kw)
+        optim.sgd_plain(noop, gs, *pln, **kw)
+        torch.cuda.synchronize()
+        return ker, pln
+
+    small = [((n_,), dt) for n_ in (0, 1, 3, 4099, 70001)
+             for dt in (torch.float32, torch.bfloat16)] * 14
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    for over in (dict(inv_scale=torch.full((1,), 0.25, device="cuda")),
+                 dict(step=one, nesterov=True, wd=0.01, outs=True),
+                 dict(step=one, dampening=0.1, wd=0.01,
+                      wd_after_momentum=True),
+                 dict(momentum=0.0, wd=0.01)):
+        lists, kw = case(small, **over)
+        ker, pln = both(noop0, lists, kw)
+        _hold_lists(f"sgd off the path {sorted(over)}", _flat(ker),
+                    _flat(pln))
+    ker, _ = both(torch.ones(1, device="cuda"), lists, kw)
+    assert _equal_lists(_flat(ker), _flat(lists[1:])), "noop moved"
+    fp32 = [(s, torch.float32) for s, _ in shapes]
+    lists, kw = case(fp32)
+    before = registry.launches()["sgd"]
+    ker, pln = both(noop0, lists, kw)  # the first run
+    launched = registry.launches()["sgd"] - before
+    errs0 = _hold_lists("sgd first run", _flat(ker), _flat(pln))
+    kw1 = dict(kw, step=one)
+    ker1, pln1 = both(noop0, [lists[0], *ker], kw1)
+    errs = _hold_lists("sgd", _flat(ker1), _flat(pln1))
+    log(f"kernels: sgd at GPT-2 345M's fp32 O1 step ({len(shapes)} "
+        f"tensors, {launched} launches, momentum 0.9): the first run and "
+        f"the next bit-identical to the plain version: {errs0[2]}, "
+        f"{errs[2]}; off the path (inv_scale, nesterov, dampening, decay "
+        f"before and after the momentum, bf16 gradients, bf16 outputs, no "
+        f"momentum) match; noop = 1 leaves everything bit-identical")
+    before = registry.launches()
+    gs, ps, moms, outs = lists
+    for what, fault, fkw in (
+            ("first_run never taken", 1, kw),
+            ("the gradients not unscaled", 2,
+             dict(kw, inv_scale=torch.full((1,), 0.5, device="cuda")))):
+        clean, bad = _clones(ps, moms), _clones(ps, moms)
+        optim.launch_sgd(noop0, gs, *clean, outs, **fkw)
+        optim.launch_sgd(noop0, gs, *bad, outs, **fkw, fault=fault)
+        torch.cuda.synchronize()
+        err, rel = _max_errs(_flat(bad), _flat(clean))
+        _fault_log("sgd", what, rel > AMP_RTOL, err)
+    assert registry.launches() == before
+    n = sum(math.prod(s) for s, _ in shapes)
+    kp, km = ker1[0], ker1[1]
+    lib_p, lib_m = [t.clone() for t in kp], [t.clone() for t in km]
+    entry = _amp_entry(
+        "sgd", f"GPT-2 345M fp32 O1 step, {len(shapes)} tensors, {n} params, "
+        f"momentum 0.9", errs,
+        lambda: optim.sgd(noop0, gs, kp, km, **kw1),
+        lambda: optim.sgd_plain(noop0, gs, kp, km, **kw1),
+        lambda: torch._fused_sgd_(
+            lib_p, gs, lib_m, weight_decay=0.0, momentum=0.9, lr=AMP_SGD_LR,
+            dampening=0.0, nesterov=False, maximize=False,
+            is_first_step=False),
+        "torch._fused_sgd_", bound(20 * n, 5 * n, FP32_OPS_PER_S),
+        f"rel {AMP_RTOL}")
+    del lists, ker, pln, ker1, pln1, gs, ps, moms, kp, km, lib_p, lib_m
+    return entry
+
+
+def _check_lamb_mp(gen, shapes):
+    """K4, #13's two stages on amp's mixed precision, at BERT-large's O2
+    step (stage 1: bf16 gradients but the norms', fp32 masters, the clip
+    factor, the device step; stage 2: the factors lr * trust ratio, the
+    parameters written in their dtype) and off it; two planted faults in
+    each stage."""
+    from apex_tpu_torch.kernels import optim, registry
+    noop0 = torch.zeros(1, device="cuda")
+    clip = torch.full((1,), 3.7, device="cuda")
+
+    def case(shapes, **over):
+        gs = _like(gen, shapes)
+        ps = _like(gen, shapes, 0.03, dtype=torch.float32)
+        ms = _like(gen, shapes, 0.1, dtype=torch.float32)
+        vs = _like(gen, shapes, 0.01, fill=torch.rand, dtype=torch.float32)
+        us = [torch.zeros_like(p) for p in ps]
+        kw = dict(clip=clip, step=torch.ones(1, dtype=torch.int32,
+                                             device="cuda"),
+                  inv_scale=None, b1=0.9, b2=0.999, beta3=0.1, eps=BERT_EPS,
+                  weight_decay=BERT_WD, adam_w=True)
+        kw.update(over)
+        return (gs, ps, ms, vs, us), kw
+
+    def stage1(noop, found, lists, kw):
+        gs, ps, *rest = lists
+        ker, pln = _clones(*rest), _clones(*rest)
+        optim.lamb(noop, gs, ps, *ker, found_inf=found, **kw)
+        optim.lamb_plain(noop, gs, ps, *pln, found_inf=found, **kw)
+        torch.cuda.synchronize()
+        return ker, pln
+
+    def stage2(noop, found, ps, us, outs, factors):
+        ker, pln = _clones(ps, outs), _clones(ps, outs)
+        optim.lamb_stage2(noop, found, ker[0], us, ker[1], factors)
+        optim.lamb_stage2_plain(noop, found, pln[0], us, pln[1], factors)
+        torch.cuda.synchronize()
+        return ker, pln
+
+    small = [((n_,), dt) for n_ in (0, 1, 3, 4099, 70001)
+             for dt in (torch.float32, torch.bfloat16)] * 14
+    for over in (dict(inv_scale=torch.full((1,), 2.0 ** -16,
+                                           device="cuda")),
+                 dict(adam_w=False, step=None, bc1=1.0, bc2=1.0, clip=None),
+                 dict(weight_decay=0.0, beta3=1.0)):
+        lists, kw = case(small, **over)
+        if "inv_scale" in over:
+            lists[0][:] = [g * AMP_LOSS_SCALE for g in lists[0]]
+        ker, pln = stage1(noop0, None, lists, kw)
+        _hold_lists(f"lamb off the path {sorted(over)}", _flat(ker),
+                    _flat(pln))
+    found = torch.ones(1, device="cuda")
+    ker, _ = stage1(noop0, found, lists, kw)
+    assert _equal_lists(_flat(ker), _flat(lists[2:])), "found_inf moved"
+    factors = torch.rand(len(small), generator=gen, device="cuda") * 1e-3
+    outs = [p.to(dt) for p, (_, dt) in zip(lists[1], small)]
+    for o in (outs, [None] * len(outs)):
+        ker, pln = stage2(noop0, None, lists[1], lists[4], o, factors)
+        _hold_lists("lamb_stage2 off the path", _flat(ker), _flat(pln))
+    ker, _ = stage2(noop0, found, lists[1], lists[4], outs, factors)
+    assert _equal_lists(_flat(ker), _flat([lists[1], outs])), "moved"
+    # the path
+    lists, kw = case(shapes)
+    gs, ps, ms, vs, us = lists
+    before = registry.launches()
+    ker, pln = stage1(noop0, None, lists, kw)
+    errs1 = _hold_lists("lamb", _flat(ker), _flat(pln))
+    factors = torch.rand(len(shapes), generator=gen, device="cuda") * 1e-3
+    outs = [p.to(dt) for p, (_, dt) in zip(ps, shapes)]
+    upd = ker[2]
+    ker2, pln2 = stage2(noop0, None, ps, upd, outs, factors)
+    errs2 = _hold_lists("lamb_stage2", _flat(ker2), _flat(pln2))
+    launched = {k: registry.launches()[k] - before[k]
+                for k in ("lamb", "lamb_stage2")}
+    log(f"kernels: lamb and lamb_stage2 at BERT-large's O2 step "
+        f"({len(shapes)} tensors, launches {launched}) bit-identical to "
+        f"their plain versions: {errs1[2]}, {errs2[2]}; off the path "
+        f"(inv_scale, L2 decay, no clip, no bias correction, no decay, "
+        f"no outputs) match; found_inf = 1 leaves everything bit-identical")
+    before = registry.launches()
+    kinv = dict(kw, inv_scale=torch.full((1,), 0.5, device="cuda"))
+    for what, fault, fkw in (("stage 1: the gradients not unscaled", 1,
+                              kinv),
+                             ("stage 1: the clip factor not applied", 2,
+                              kw)):
+        clean, bad = _clones(ms, vs, us), _clones(ms, vs, us)
+        optim.launch_lamb(noop0, gs, ps, *clean, **fkw)
+        optim.launch_lamb(noop0, gs, ps, *bad, **fkw, fault=fault)
+        torch.cuda.synchronize()
+        err, rel = _max_errs(_flat(bad), _flat(clean))
+        _fault_log("lamb", what, rel > AMP_RTOL, err)
+    for what, fault in (("stage 2: tensor k moved by tensor k + 1's factor",
+                         1), ("stage 2: the parameters left unwritten", 2)):
+        clean, bad = _clones(ps, outs), _clones(ps, outs)
+        optim.launch_lamb_stage2(noop0, None, clean[0], upd, clean[1],
+                                 factors)
+        optim.launch_lamb_stage2(noop0, None, bad[0], upd, bad[1], factors,
+                                 fault=fault)
+        torch.cuda.synchronize()
+        err, rel = _max_errs(_flat(bad), _flat(clean))
+        _fault_log("lamb_stage2", what, rel > AMP_RTOL, err)
+    assert registry.launches() == before
+    n = sum(math.prod(s) for s, _ in shapes)
+    g_bytes = sum(math.prod(s) * (2 if dt == torch.bfloat16 else 4)
+                  for s, dt in shapes)
+    km, kv, ku = ker
+    kp, ko = ker2
+    shape = (f"BERT-large O2 step, {len(shapes)} tensors, {n} params (bf16 "
+             f"gradients and parameters but the norms', fp32 masters)")
+    e1 = _amp_entry(
+        "lamb", shape, errs1,
+        lambda: optim.lamb(noop0, gs, ps, km, kv, ku, **kw),
+        lambda: optim.lamb_plain(noop0, gs, ps, km, kv, ku, **kw),
+        None, "none: no one PyTorch call computes LAMB's stage 1",
+        bound(g_bytes + 24 * n, 16 * n, FP32_OPS_PER_S), f"rel {AMP_RTOL}")
+    e2 = _amp_entry(
+        "lamb_stage2", shape, errs2,
+        lambda: optim.lamb_stage2(noop0, None, kp, upd, ko, factors),
+        lambda: optim.lamb_stage2_plain(noop0, None, kp, upd, ko, factors),
+        None, "none: no one PyTorch call moves fp32 masters by per-tensor "
+        "factors and writes the bf16 parameters",
+        bound(12 * n + g_bytes, 2 * n, FP32_OPS_PER_S), f"rel {AMP_RTOL}")
+    del lists, ker, pln, ker2, pln2, gs, ps, ms, vs, us, km, kv, ku, kp, ko
+    del upd, outs
+    return [e1, e2]
+
+
+def check_amp_kernels(gen):
+    """amp's four kernels: K1 (multi_tensor_scale) at GPT-2 345M's and
+    BERT-large's O2 tensors, K2 (#12 on the device step with masters) at
+    GPT-2's, K3 (sgd) at its fp32 ones, K4 (#13's two stages on masters)
+    at BERT-large's O2 tensors, each against its plain version, off the
+    path, with two planted faults, and timed."""
+    gpt2, bert = _o2_shapes(_gpt2_meta), _o2_shapes(_bert_meta)
+    entries = _check_scale(gen, gpt2)
+    torch.cuda.empty_cache()
+    _check_scale_held(gen, bert, "BERT-large")
+    torch.cuda.empty_cache()
+    entries.append(_check_adam_master(gen, gpt2))
+    torch.cuda.empty_cache()
+    entries.append(_check_sgd(gen, gpt2))
+    torch.cuda.empty_cache()
+    entries += _check_lamb_mp(gen, bert)
+    torch.cuda.empty_cache()
+    return entries
 
 
 # ------------------------------------------- phase 2: int8 serving kernels
@@ -3859,8 +4520,8 @@ def check_refusals():
     kw = dict(lr=1e-3, bc1=0.1, bc2=0.001, b1=0.9, b2=0.999, eps=1e-8,
               weight_decay=0.0, adam_w=True)
     noop = torch.zeros(1, device="cuda")
-    refused(TypeError, lambda: optim.adam(noop, [t[0].bfloat16()], t, t, t,
-                                          **kw))
+    refused(TypeError, lambda: optim.adam(noop, t, t, [t[0].bfloat16()], t,
+                                          **kw))  # a bf16 exp_avg
     refused(ValueError, lambda: optim.adam(
         noop, t, t, t, [torch.zeros(4, device="cuda")], **kw))
     refused(ValueError, lambda: optim.adam(noop, t * 2, t, t, t, **kw))
@@ -4049,12 +4710,40 @@ def check_refusals():
     refused(ValueError, lambda: fused_cc._matmul(  # x's columns apart
         torch.zeros(16, 128, device="cuda")[:, ::2], tw))
     refused(ValueError, lambda: fused_cc._matmul(tx, tw.cpu()))
+    # amp's kernels
+    from apex_tpu_torch.kernels import scale as ks
+    flag, one = torch.zeros(1, device="cuda"), torch.ones(1, device="cuda")
+    step = torch.ones(1, dtype=torch.int32, device="cuda")
+    g = [torch.zeros(5, device="cuda")]
+    refused(TypeError, lambda: ks.scale(flag, [g[0].half()], g, one))
+    refused(ValueError, lambda: ks.scale(flag, g, [g[0][:3]], one))
+    refused(ValueError, lambda: ks.scale(flag.double(), g, g, one))
+    refused(ValueError, lambda: ks.axpby(flag, g, g * 2, g, 1.0, 1.0))
+    adam_kw = dict(step=step, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                   weight_decay=0.0, adam_w=True)
+    refused(TypeError, lambda: optim.adam(  # a bf16 master
+        flag, g, [g[0].bfloat16()], g, g, [g[0].bfloat16()], **adam_kw))
+    refused(ValueError, lambda: optim.adam(  # an fp32 step
+        flag, g, g, g, g, **dict(adam_kw, step=step.float())))
+    refused(ValueError, lambda: optim.adam(  # neither corrections nor step
+        flag, g, g, g, g, **dict(adam_kw, step=None)))
+    refused(TypeError, lambda: optim.sgd(  # bf16 params
+        flag, g, [g[0].bfloat16()], g, step=step, lr=0.1))
+    refused(ValueError, lambda: optim.lamb(  # a flag of two elements
+        flag, g, g, g, g, g, found_inf=torch.zeros(2, device="cuda"),
+        clip=None, step=step, b1=0.9, b2=0.999, beta3=0.1, eps=1e-6,
+        weight_decay=0.0, adam_w=True))
+    refused(TypeError, lambda: optim.lamb(  # the update over a bf16 grad
+        flag, [g[0].bfloat16()], g, g, g, clip=None, step=step, b1=0.9,
+        b2=0.999, beta3=0.1, eps=1e-6, weight_decay=0.0, adam_w=True))
+    refused(ValueError, lambda: optim.lamb_stage2(  # factors of 2 tensors
+        flag, None, g, g, None, torch.zeros(2, device="cuda")))
     assert registry.launches() == before, "a refused call was counted"
     log("kernels: malformed CUDA inputs are refused (dtype, layout, range, "
         "head dim, shapes, list lengths, window, slopes, lse/delta, "
         "weight/bias, masks that do not broadcast, clip, block, scales, "
         "codes, lanes, per-row offsets, latent widths, alignment, GEMM "
-        "operands)")
+        "operands, amp's flags, steps, masters and factors)")
 
 
 # ------------------------------------------------------------- phases 3, 4
@@ -4250,7 +4939,8 @@ def _rel_fro(got, want):
 def train_steps(label, model, loss_of, make_opt, per_step, work,
                 update_rtol=(TRAIN_UPDATE_RTOL, TRAIN_TENSOR_UPDATE_RTOL),
                 falls_from=0, linear_below=None, sync=None, hold_plain=True,
-                record=None, watch=None, ranges=()):
+                record=None, watch=None, ranges=(), backward=None, held=None,
+                step_guard=contextlib.nullcontext, same_sign_tensors=False):
     """Three counted steps of ``loss_of()`` (the forward and loss),
     backward, ``opt.step()`` and ``zero_grad`` with every launch count
     set to 0 before each step and checked against ``per_step`` after it
@@ -4266,8 +4956,14 @@ def train_steps(label, model, loss_of, make_opt, per_step, work,
     optimizer's step (k: the counted step, or None for a later one).
     ``hold_plain=False`` leaves out the step-1 hold against the plain
     versions. ``record``, a dict, receives the counted steps' losses
-    ("losses") and the profile's stats ("profile"). Returns the launches
-    of the counted steps."""
+    ("losses") and the profile's stats ("profile"). ``backward(loss,
+    opt)`` replaces ``loss.backward()`` (amp: the scaled loss's);
+    ``held(opt)`` gives {name: tensor} whose step-1 change is held (amp
+    O2: the fp32 masters; the parameters by default); every
+    ``opt.step()`` runs inside ``step_guard()``. ``same_sign_tensors``:
+    each tensor's step-1 update is held over the entries whose gradients
+    in the two runs share a sign (the whole-model figure keeps them all).
+    Returns the launches of the counted steps."""
     import math
 
     from apex_tpu_torch.kernels import registry
@@ -4275,13 +4971,20 @@ def train_steps(label, model, loss_of, make_opt, per_step, work,
     w0 = {n: p.detach().to("cpu", copy=True) for n, p in params.items()}
     n_params = sum(p.numel() for p in params.values())
     expected = {**dict.fromkeys(registry.launches(), 0), **per_step}
+    if backward is None:
+        def backward(loss, opt):
+            loss.backward()
+    if held is None:
+        def held(opt):
+            return params
 
     def step(opt):
         loss = loss_of()
-        loss.backward()
+        backward(loss, opt)
         if sync is not None:
             sync(None)
-        opt.step()
+        with step_guard():
+            opt.step()
         opt.zero_grad()
         return loss
 
@@ -4293,13 +4996,14 @@ def train_steps(label, model, loss_of, make_opt, per_step, work,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = loss_of()
-        loss.backward()
+        backward(loss, opt)
         if k == 0 and hold_plain:
             g1 = {n: p.grad.detach().to("cpu", copy=True)
                   for n, p in params.items()}
         if sync is not None:
             sync(k)
-        opt.step()
+        with step_guard():
+            opt.step()
         opt.zero_grad()
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -4311,8 +5015,9 @@ def train_steps(label, model, loss_of, make_opt, per_step, work,
         losses.append(loss.item())
         if k == 0:
             p1 = {n: p.detach().to("cpu", copy=True)
-                  for n, p in params.items()}
-            moved = sum(not torch.equal(p1[n], w0[n]) for n in params)
+                  for n, p in held(opt).items()}
+            moved = sum(not torch.equal(p1[n], w0[n].to(p1[n].dtype))
+                        for n in params)
             assert moved == len(params), (moved, len(params))
     assert opt.param_groups[0]["step"] == COUNTED_STEPS
     log(f"{label}: {COUNTED_STEPS} steps: losses {losses}; launches per step "
@@ -4353,20 +5058,25 @@ def train_steps(label, model, loss_of, make_opt, per_step, work,
     registry.reset()
     with plain_versions():
         loss = loss_of()
-        loss.backward()
+        backward(loss, opt)
         grad_err = {n: _rel_fro(g1[n].cuda(), p.grad)
                     for n, p in params.items()}
+        agree = ({n: torch.sign(g1[n].cuda()) == torch.sign(p.grad)
+                  for n, p in params.items()} if same_sign_tensors else {})
         opt.step()
         opt.zero_grad()
+    moved_to = held(opt)
     assert not any(registry.launches().values()), registry.launches()
     loss_err = abs(losses[0] - loss.item()) / abs(loss.item())
     num = den = num1 = den1 = flipped = flipped_linear = 0.0
     below = None if linear_below is None else linear_below(g1)
     update_err = {}
-    for n, p in params.items():
-        want = p.detach() - w0[n].cuda()
-        got = p1[n].cuda() - w0[n].cuda()
-        update_err[n] = _rel_fro(got, want)
+    for n in params:
+        want = moved_to[n].detach() - w0[n].cuda().to(moved_to[n].dtype)
+        got = p1[n].cuda() - w0[n].cuda().to(p1[n].dtype)
+        mask = agree.get(n)
+        update_err[n] = (_rel_fro(got, want) if mask is None
+                         else _rel_fro(got[mask], want[mask]))
         num += (got - want).float().norm().item() ** 2
         den += want.float().norm().item() ** 2
         flip = torch.sign(got) != torch.sign(want)
@@ -4384,7 +5094,8 @@ def train_steps(label, model, loss_of, make_opt, per_step, work,
         f" ({worst_g}; tolerance {TRAIN_GRAD_RTOL}); update rel err "
         f"{total_err:.3e} over all parameters (tolerance "
         f"{update_rtol[0]}), largest {update_err[worst_u]:.3e} "
-        f"({worst_u}; tolerance {update_rtol[1]}); updates of opposite "
+        f"({worst_u}{', over its entries whose gradients share a sign' if agree else ''}; "
+        f"tolerance {update_rtol[1]}); updates of opposite "
         f"sign: {flipped / n_params:.3e} of the entries (2*sqrt "
         f"{2 * math.sqrt(flipped / n_params):.3e}); update rel err over the "
         f"entries of one sign {math.sqrt(num1 / den1):.3e}"
@@ -4475,10 +5186,11 @@ def phase_gpt2_training():
     per_step = {"layer_norm": 2 * L + 1, "ln_bwd": 2 * L + 1,
                 "flash_fwd": L, "flash_dq": L, "flash_dkv": L,
                 "adam": math.ceil(n_tensors / optim.MAX_TENSORS)}
+    record = _TRAIN_RECORDS.setdefault("gpt2", {})
     return {"gpt2_training": train_steps(
         "gpt2 training", model, lambda: gpt_loss_fn(model(tokens), labels),
         lambda ps: FusedAdam(ps, lr=GPT2_LR), per_step,
-        (GPT2_BATCH * GPT2_SEQ, "tokens"))}
+        (GPT2_BATCH * GPT2_SEQ, "tokens"), record=record)}
 
 
 def phase_bert_training():
@@ -4517,7 +5229,8 @@ def phase_bert_training():
     n_tensors = len(list(model.parameters()))
     per_step = {"layer_norm": 2 * L + 2, "ln_bwd": 2 * L + 2,
                 "masked_softmax": L, "softmax_bwd": L,
-                "lamb": math.ceil(n_tensors / optim.MAX_TENSORS)}
+                "lamb": math.ceil(n_tensors / optim.MAX_TENSORS),
+                "lamb_stage2": math.ceil(n_tensors / optim.MAX_TENSORS)}
 
     def lamb_linear_below(g1):
         """|g| < eps * clip is |h| < eps for h = g / clip, the clipped
@@ -4535,7 +5248,8 @@ def phase_bert_training():
                              eps=BERT_EPS, max_grad_norm=BERT_MAX_GRAD_NORM),
         per_step, (b, "samples"),
         update_rtol=(LAMB_UPDATE_RTOL, LAMB_TENSOR_UPDATE_RTOL), falls_from=1,
-        linear_below=lamb_linear_below)
+        linear_below=lamb_linear_below,
+        record=_TRAIN_RECORDS.setdefault("bert", {}))
 
     # a path of its own, counted from its own reset: no padding mask, so
     # the padding mask type takes the scaled softmax kernel (#8) in place
@@ -4560,6 +5274,337 @@ def phase_bert_training():
     assert abs(loss_none.item() - loss_ones.item()) <= 1e-6 * abs(
         loss_ones.item()), (loss_none, loss_ones)
     return {"bert_training": totals, "bert_no_mask": launches}
+
+
+# ------------------------------------------------------- the amp phases
+
+# amp O1 + FusedSGD (BASELINE.json's "amp O1 + FusedSGD") on GPT-2 345M:
+# momentum 0.9 and a learning rate under which a 2-layer GPT-2-width
+# model's loss falls steadily on a fixed batch (0.1 falls faster there)
+AMP_SGD_LR = 0.03
+# the step at which each amp phase plants an inf in one gradient
+AMP_OVERFLOW_STEP = 2
+# The amp phases hold each tensor's step-1 update (TRAIN_TENSOR_UPDATE_RTOL,
+# LAMB's for BERT) over the entries whose gradients in the kernel and plain
+# runs share a sign (train_steps' same_sign_tensors; the whole-model figure
+# keeps every entry): under O2 the key third of a QKV bias has an exact
+# zero gradient, which bf16 roundings turn into noise of either sign, and
+# Adam's sign-like first step moves those entries by +-lr in each run on
+# its own (0.537 over the whole of layer 0's QKV bias on an H100). A
+# missing or wrong update still reads 1 or more over the agreeing entries.
+# the fp32 phases' records, for the amp phases to print beside theirs
+_TRAIN_RECORDS = {}
+
+
+@contextlib.contextmanager
+def _no_host_sync():
+    """The host may not wait for the device inside the block: any
+    synchronising call raises (torch.cuda.set_sync_debug_mode)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _amp_groups(model, *names):
+    """Launches a step of each kernel named, for a model whose parameters
+    group by dtype (one launch per MAX_TENSORS tensors of a dtype)."""
+    from apex_tpu_torch.kernels import optim
+    counts = {}
+    for p in model.parameters():
+        counts[p.dtype] = counts.get(p.dtype, 0) + 1
+    per = sum(math.ceil(c / optim.MAX_TENSORS) for c in counts.values())
+    return dict.fromkeys(names, per)
+
+
+def _masters(key):
+    """held(opt) for train_steps: the fp32 masters under state ``key``."""
+    def held(opt):
+        inner = opt.inner
+        return {n: inner.state[p][key] for n, p in _NAMED.items()}
+    return held
+
+
+_NAMED = {}  # the amp phase's model's named parameters
+
+
+def _amp_snapshot(opt, params):
+    """Copies of everything a skipped step must leave: the parameters,
+    every state tensor (moments, masters, momentum), the step counts."""
+    out = [p.detach().clone() for p in params]
+    for p in params:
+        out += [v.clone() for _, v in sorted(opt.state[p].items())
+                if isinstance(v, torch.Tensor)]
+    out += [g["step"].clone() for g in opt.param_groups]
+    return out
+
+
+def _amp_overflow_check(label, model, loss_of, make_opt):
+    """A fresh optimizer takes AMP_OVERFLOW_STEP steps; at the last an inf
+    is written into one gradient after backward. That step must leave the
+    parameters, masters, moments and step counts bit-identical and halve
+    the scale (2^16 to 2^15); every opt.step() runs with host waits
+    forbidden."""
+    params = list(model.parameters())
+    kept = [p.detach().clone() for p in params]  # restored after the check
+    opt = make_opt(params)
+    victim = params[len(params) // 2]
+    for k in range(1, AMP_OVERFLOW_STEP + 1):
+        loss = loss_of()
+        opt.scale_loss(loss).backward()
+        if k == AMP_OVERFLOW_STEP:
+            before = _amp_snapshot(opt, params)
+            scale = opt.scaler._state.loss_scale.item()
+            victim.grad.view(-1)[victim.numel() // 3] = float("inf")
+        with _no_host_sync():
+            opt.step()
+        opt.zero_grad()
+    after = _amp_snapshot(opt, params)
+    same = _equal_lists(after, before)
+    new_scale = opt.scaler._state.loss_scale.item()
+    found = opt.last_found_inf.item()
+    steps = [int(g["step"].reshape(-1)[0]) for g in opt.param_groups]
+    log(f"{label}: an inf planted in one gradient at step "
+        f"{AMP_OVERFLOW_STEP}: found_inf {found}; parameters, masters, "
+        f"moments and step counts ({steps}) bit-identical after the step: "
+        f"{same} ({len(before)} tensors); loss scale {scale} -> {new_scale}; "
+        f"opt.step() ran with host waits forbidden")
+    assert found == 1.0 and same, (found, same)
+    assert steps == [AMP_OVERFLOW_STEP - 1] * len(steps), steps
+    assert scale == 2.0 ** 16 and new_scale == 2.0 ** 15, (scale, new_scale)
+    with torch.no_grad():  # the counted steps start from the initial weights
+        for p, w in zip(params, kept):
+            p.copy_(w)
+    del opt, before, after, kept
+    _amp_release()
+
+
+def _amp_release():
+    """Drop what amp.initialize keeps (its optimizers and their state)."""
+    from apex_tpu_torch import amp
+    amp._amp_state.reset()
+    torch.cuda.empty_cache()
+
+
+def _amp_beside(label, record, fp32_key, unit):
+    """The amp step's numbers beside the fp32 phase's of the same run."""
+    fp32 = _TRAIN_RECORDS.get(fp32_key)
+    prof = record.get("profile") or {}
+    busy = (prof["busy_us"] / prof["span_us"]) if prof else None
+    text = (f"{label}: step median {record['timed_ms']:.2f} ms, peak "
+            f"{record['peak_gib']:.2f} GiB, busy "
+            f"{'not measured' if busy is None else f'{busy:.3f}'}")
+    if fp32 is not None:
+        text += (f"; the fp32-parameter {fp32_key} step of this run "
+                 f"{fp32['timed_ms']:.2f} ms, peak {fp32['peak_gib']:.2f} "
+                 f"GiB: {fp32['timed_ms'] / record['timed_ms']:.3f}x the "
+                 f"{unit}/s")
+    log(text)
+
+
+def _bf16_gemm_case(gen, m, k, n):
+    """Operands of a bf16 GEMM, its fp32 sum rounded once to bf16 (JAX's
+    ``matmul(preferred_element_type=f32).astype(bf16)``) and the limit:
+    one bf16 ulp of that plus 2 (k - 1) * 2^-24 * (|x| @ |w|), what two
+    fp32 sums of the k (exact) products in different orders can differ
+    by."""
+    x = _randn(gen, m, k)
+    w = _randn(gen, k, n, scale=k ** -0.5)
+    want = (x.float() @ w.float()).bfloat16().float()
+    _, exp = torch.frexp(want)
+    limit = (torch.ldexp(torch.ones_like(want), exp - 8)  # a bf16 ulp
+             + 2 * (k - 1) * 2.0 ** -24
+             * (x.float().abs() @ w.float().abs()))
+    return x, w, want, limit
+
+
+def _gemm_reading(got, want, limit):
+    """(largest |got - want| / limit, share of entries that differ)."""
+    got = got.float()
+    return ((got - want).abs() / limit).max().item(), (
+        (got != want).float().mean().item())
+
+
+def _bf16_gemm_rounding(label, m=GPT2_BATCH * GPT2_SEQ, k=1024, n=4096):
+    """amp's linears multiply bf16 by bf16 into bf16, which JAX rounds
+    once from an fp32 sum; amp.initialize turns off cuBLAS's bf16
+    reduced-precision reduction for it. Held, after amp.initialize:
+    torch.matmul's bf16 result within _bf16_gemm_case's limit, at GPT-2
+    345M's dense_h_to_4h shape (8 x 1024 tokens). The check must catch a
+    double rounding: the same product as 4 split-K partial sums, each
+    rounded to bf16 and then summed (what a reduced-precision split-K
+    does), must read past the limit. The readings with the reduction
+    allowed, at this shape and at a split-K shape (few rows, a long k),
+    are printed beside them (cuBLAS's choice, not held)."""
+    cuda_matmul = torch.backends.cuda.matmul
+    assert not cuda_matmul.allow_bf16_reduced_precision_reduction, (
+        "amp.initialize leaves bf16 reduced-precision reduction on")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x, w, want, limit = _bf16_gemm_case(gen, m, k, n)
+    held, share = _gemm_reading(torch.matmul(x, w), want, limit)
+    parts = sum(torch.matmul(x[:, c], w[c]).float()
+                for c in torch.arange(k, device="cuda").chunk(4))
+    planted, _ = _gemm_reading(parts.bfloat16(), want, limit)
+    readings = []
+    for shape in ((m, k, n), (64, 16384, 64)):
+        xs, ws, wants, limits = (x, w, want, limit) if shape == (m, k, n) \
+            else _bf16_gemm_case(gen, *shape)
+        row = []
+        for allowed in (False, True):
+            cuda_matmul.allow_bf16_reduced_precision_reduction = allowed
+            try:
+                row.append(_gemm_reading(torch.matmul(xs, ws), wants, limits))
+            finally:
+                cuda_matmul.allow_bf16_reduced_precision_reduction = False
+        readings.append((shape, row))
+    log(f"{label}: bf16 GEMM [{m}, {k}] x [{k}, {n}] against the fp32 sum "
+        f"rounded once: {held:.4f} of the limit (one bf16 ulp + the fp32 "
+        f"order bound), {share:.3e} of the entries differ; the planted "
+        f"double rounding (4 split-K partial sums rounded to bf16) "
+        f"{planted:.4f}: {'caught' if planted > 1.0 else 'NOT caught'}; "
+        + "; ".join(f"{list(sh)} off/on {a[0]:.4f}/{b[0]:.4f}"
+                    for sh, (a, b) in readings)
+        + " (reduced-precision reduction off/allowed: cuBLAS's choice)")
+    assert held <= 1.0, held
+    assert planted > 1.0, planted
+
+
+def _gpt2_batch(cfg):
+    import numpy as np
+    rng = np.random.RandomState(SEED)  # bench_gpt2's batch
+    shape = (GPT2_BATCH, GPT2_SEQ)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
+    return tokens, labels
+
+
+def _amp_gpt2_run(label, opt_level, make_inner, kernels, held):
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import GPTModel, TransformerConfig, gpt_loss_fn
+    cfg = TransformerConfig(**GPT2, compute_dtype=torch.bfloat16,
+                            use_flash_attention=True)
+    model = _new_model(label, lambda: GPTModel(cfg))
+    amp.initialize(model, None, opt_level=opt_level, verbosity=0)
+    if opt_level == "O2":
+        _bf16_gemm_rounding(label)
+    _NAMED.clear()
+    _NAMED.update(model.named_parameters())
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    log(f"{label}: amp {opt_level}: parameter dtypes {dtypes}, "
+        f"{sum(p.dtype == torch.float32 for p in model.parameters())} "
+        f"fp32 tensors (the norms' under O2)")
+    tokens, labels = _gpt2_batch(cfg)
+
+    def loss_of():
+        return gpt_loss_fn(model(tokens), labels)
+
+    def make_opt(ps):
+        return amp.initialize(model, make_inner(ps), opt_level=opt_level,
+                              verbosity=0)[1]
+
+    _amp_overflow_check(label, model, loss_of, make_opt)
+    L = cfg.num_layers
+    per_step = {"layer_norm": 2 * L + 1, "ln_bwd": 2 * L + 1,
+                "flash_fwd": L, "flash_dq": L, "flash_dkv": L,
+                **_amp_groups(model, "multi_tensor_scale", *kernels)}
+    record = {}
+    totals = train_steps(
+        label, model, loss_of, make_opt, per_step,
+        (GPT2_BATCH * GPT2_SEQ, "tokens"),
+        backward=lambda loss, opt: opt.scale_loss(loss).backward(),
+        held=held, step_guard=_no_host_sync, record=record,
+        same_sign_tensors=True)
+    _amp_beside(label, record, "gpt2", "tokens")
+    amp.initialize(model, None, enabled=False)  # the O1 policy off again
+    _NAMED.clear()
+    _amp_release()
+    return totals
+
+
+def phase_amp_gpt2():
+    """GPT-2 345M as bench_gpt2 trains it, under amp O2 as bench.py's
+    bench_resnet drives amp (bench.py:1242): amp.initialize(model,
+    FusedAdam(lr=1e-4), opt_level="O2"), fp32 masters owned by amp, the
+    dynamic scale."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    return {"amp_gpt2": _amp_gpt2_run(
+        "amp gpt2", "O2", lambda ps: FusedAdam(ps, lr=GPT2_LR), ("adam",),
+        _masters("amp_master"))}
+
+
+def phase_amp_o1_sgd():
+    """The same model under amp O1 with FusedSGD(lr, momentum=0.9):
+    BASELINE.json's "amp O1 + FusedSGD" (parameters fp32, the dtype policy
+    on, which the port's models do not consult, as JAX's do not)."""
+    from apex_tpu_torch.optimizers import FusedSGD
+    return {"amp_o1_sgd": _amp_gpt2_run(
+        "amp o1 sgd", "O1",
+        lambda ps: FusedSGD(ps, lr=AMP_SGD_LR, momentum=0.9), ("sgd",),
+        None)}
+
+
+def phase_amp_bert():
+    """BERT-large as bench_bert trains it (phase 7's inputs), under amp O2
+    with FusedMixedPrecisionLamb(lr=1e-3, weight_decay=0.01) and
+    bench_bert's eps and clip, its own fp32 masters."""
+    import numpy as np
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import BertModel, TransformerConfig, bert_loss_fn
+    from apex_tpu_torch.optimizers import FusedMixedPrecisionLamb
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    label = "amp bert"
+    cfg = TransformerConfig(**BERT, compute_dtype=torch.bfloat16,
+                            use_flash_attention=False,
+                            attn_mask_type=AttnMaskType.padding)
+    model = _new_model(label, lambda: BertModel(cfg))
+    amp.initialize(model, None, opt_level="O2", verbosity=0)
+    _NAMED.clear()
+    _NAMED.update(model.named_parameters())
+    log(f"{label}: amp O2: "
+        f"{sum(p.dtype == torch.float32 for p in model.parameters())} fp32 "
+        f"tensors (the norms'), "
+        f"{sum(p.dtype == torch.bfloat16 for p in model.parameters())} bf16")
+    b, s = BERT_BATCH, BERT_SEQ
+    rng = np.random.RandomState(SEED)  # bench_bert's inputs, in its order
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).cuda()
+    padding_mask = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    tokentype = torch.zeros(b, s, dtype=torch.long, device="cuda")
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).cuda()
+    loss_mask = torch.from_numpy(
+        (rng.rand(b, s) < 0.15).astype(np.float32)).cuda()
+    nsp_labels = torch.from_numpy(rng.randint(0, 2, (b,))).cuda()
+
+    def loss_of():
+        mlm, nsp = model(tokens, padding_mask, tokentype)
+        return bert_loss_fn(mlm, nsp, labels, loss_mask, nsp_labels)
+
+    def make_opt(ps):
+        return amp.initialize(model, FusedMixedPrecisionLamb(
+            ps, lr=BERT_LR, weight_decay=BERT_WD, eps=BERT_EPS,
+            max_grad_norm=BERT_MAX_GRAD_NORM), opt_level="O2",
+            verbosity=0)[1]
+
+    _amp_overflow_check(label, model, loss_of, make_opt)
+    L = cfg.num_layers
+    per_step = {"layer_norm": 2 * L + 2, "ln_bwd": 2 * L + 2,
+                "masked_softmax": L, "softmax_bwd": L,
+                **_amp_groups(model, "multi_tensor_scale", "lamb",
+                              "lamb_stage2")}
+    record = {}
+    # bench_bert's LAMB overshoots at step 2 (phase 7): the loss must fall
+    # from step 2 on
+    totals = train_steps(
+        label, model, loss_of, make_opt, per_step, (b, "samples"),
+        update_rtol=(LAMB_UPDATE_RTOL, LAMB_TENSOR_UPDATE_RTOL), falls_from=1,
+        backward=lambda loss, opt: opt.scale_loss(loss).backward(),
+        held=_masters("master"), step_guard=_no_host_sync, record=record,
+        same_sign_tensors=True)
+    _amp_beside(label, record, "bert", "samples")
+    _NAMED.clear()
+    _amp_release()
+    return {"amp_bert": totals}
 
 
 def phase_mha():
@@ -6490,11 +7535,13 @@ PROFILE_WATCH = ("ln_fwd_kernel", "warp_ln_fwd", "ln_bwd_dx",
                  "::mma_dq_kernel<",
                  "::mma_dkv_kernel<", "::dq_kernel<", "::dkv_kernel<",
                  "rms_", "mma_mla_decode", "dequant_vec_kernel",
-                 "::quant_vec_kernel<", "::quant_kernel<", "Int8KV<")
+                 "::quant_vec_kernel<", "::quant_kernel<", "Int8KV<",
+                 "scale_kernel<", "sgd_kernel<", "lamb_stage2_kernel<")
 PHASES = ("kernels", "serving", "serve_bf16", "serve_int8", "serve_spec",
           "training", "flash_training", "gpt2_training", "bert_training",
           "mha", "mla_decode", "deepseek_v2_lite", "ddp_gpt2",
-          "ddp_compressed", "zero_gpt2", "zero_bert", "tp_dp", "tp_gpt2")
+          "ddp_compressed", "zero_gpt2", "zero_bert", "tp_dp", "tp_gpt2",
+          "amp_gpt2", "amp_o1_sgd", "amp_bert")
 # kernels that no path of this script launches: held against their plain
 # versions in the kernel phase only (the JAX serving engine does not take
 # the fused int8 verify either: it dequantizes with #15, then verifies;
@@ -6554,6 +7601,14 @@ SOURCES = {  # kernel -> (its source, the TPU kernel it replaces)
                                "apex_tpu/kernels/fused_cc.py:606"),
     "tp_matmul": ("apex_tpu_torch/csrc/fused_cc_matmul.cu",
                   "apex_tpu/kernels/fused_cc.py:89"),
+    # amp's kernels: K1 and K3 have no Pallas counterpart (the jnp ops they
+    # replace), K2 and K4's stage 1 are #12's and #13's own rows, K4's stage
+    # 2 replaces the parameter step of JAX's multi_tensor_lamb{,_mp}
+    "multi_tensor_scale": ("apex_tpu_torch/csrc/multi_tensor_scale.cu",
+                           "apex_tpu/ops/multi_tensor.py:46"),
+    "sgd": ("apex_tpu_torch/csrc/sgd.cu", "apex_tpu/ops/multi_tensor.py:113"),
+    "lamb_stage2": ("apex_tpu_torch/csrc/lamb.cu",
+                    "apex_tpu/ops/multi_tensor.py:395"),
 }
 
 
@@ -6592,7 +7647,7 @@ def main(argv):
                    + check_masked_softmax(gen) + check_lamb(gen)
                    + check_quant(gen) + check_spec_verify(gen)
                    + check_mla_decode(gen) + check_quant4(gen)
-                   + check_tp_matmul(gen))
+                   + check_tp_matmul(gen) + check_amp_kernels(gen))
         check_per_row_attention(gen)
         check_kv_splits(gen)
         check_refusals()
@@ -6631,7 +7686,9 @@ def main(argv):
             "ddp_gpt2": phase_ddp_gpt2,
             "ddp_compressed": phase_ddp_compressed,
             "zero_gpt2": phase_zero_gpt2, "zero_bert": phase_zero_bert,
-            "tp_dp": phase_tp_dp, "tp_gpt2": phase_tp_gpt2}
+            "tp_dp": phase_tp_dp, "tp_gpt2": phase_tp_gpt2,
+            "amp_gpt2": phase_amp_gpt2, "amp_o1_sgd": phase_amp_o1_sgd,
+            "amp_bert": phase_amp_bert}
     for name in phases:  # in the order given, repeats included
         if name not in runs:
             continue  # kernels and serving ran above
@@ -6650,6 +7707,11 @@ def main(argv):
         if e["name"] in seen:
             continue
         seen.add(e["name"])
+        others = [dict(shape=o["shape"], ms=o["ms"], plain_ms=o["plain_ms"],
+                       bound_ms=o["bound_ms"], bound_by=o["bound_by"],
+                       library_ms=o["library_ms"],
+                       max_abs_err=o["max_abs_err"])
+                  for o in entries if o["name"] == e["name"] and o is not e]
         src, replaces = SOURCES[e["name"]]
         paths = {path: counts[e["name"]] for path, counts in by_path.items()
                  if counts.get(e["name"])}
@@ -6660,6 +7722,7 @@ def main(argv):
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=e["library_ms"],
             call_ms=e["call_ms"], shape=e["shape"],
+            **({"other_shapes": others} if others else {}),
             **{k: e[k] for k in ("library", "lse_max_abs_err",
                                  "earlier_bound_ms", "design_bound_ms",
                                  "first_design_ms", "register_path_ms")

@@ -212,18 +212,55 @@ def test_load_jax_adam_state_rejects_other_names():
 
 
 def test_fused_adam_refuses_what_it_does_not_have():
+    """AMSGrad raises, as in JAX; amp's master weights, found_inf and
+    scale are honoured (tests/test_torch_amp_optim.py holds them to JAX):
+    a found_inf step changes nothing, its step count included."""
     p = [torch.nn.Parameter(torch.zeros(3))]
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedAdam(p, amsgrad=True)
-    with pytest.raises(NotImplementedError, match="amp slice"):
-        FusedAdam(p, master_weights=True)
+    FusedAdam(p, master_weights=True)
     opt = FusedAdam(p)
     p[0].grad = torch.ones(3)
-    with pytest.raises(NotImplementedError, match="amp slice"):
-        opt.step(found_inf=torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="amp slice"):
-        opt.step(scale=128.0)
-    assert opt.param_groups[0]["step"] == 0
+    opt.step(found_inf=torch.ones(1))
+    assert torch.equal(p[0].detach(), torch.zeros(3))
+    assert int(opt.param_groups[0]["step"]) == 0
+    opt.step(scale=128.0)
+    assert int(opt.param_groups[0]["step"]) == 1
+    assert not torch.equal(p[0].detach(), torch.zeros(3))
+
+
+@pytest.mark.parametrize("opt_cls", [FusedAdam, FusedLAMB])
+def test_step_count_is_one_device_tensor_and_matches_the_host_op(opt_cls):
+    """Every step reads the group's count as a one-element int32 tensor on
+    the parameters' device, converted once from a number set on the group
+    (as a loaded state sets it); the step it takes, with the kernels' bias
+    corrections from that tensor, equals the op on the host's corrections
+    for the int count, bit for bit."""
+    g, p, m, v = (_torch(t) for t in _arrays(41))
+    params = [torch.nn.Parameter(t.clone()) for t in p]
+    opt = opt_cls(params, lr=1e-2, weight_decay=0.01)
+    opt.param_groups[0]["step"] = 6
+    for prm, gr, mm, vv in zip(params, g, m, v):
+        prm.grad = gr.clone()
+        opt.state[prm].update(exp_avg=mm.clone(), exp_avg_sq=vv.clone())
+    opt.step()
+    step = opt.param_groups[0]["step"]
+    assert (step.dtype, step.shape, int(step)) == (torch.int32, (1,), 7)
+    want = [t.clone() for t in p]
+    ms, vs = [t.clone() for t in m], [t.clone() for t in v]
+    gs = [t.clone() for t in g]
+    if opt_cls is FusedAdam:
+        multi_tensor_adam(torch.zeros(1), [gs, want, ms, vs], 1e-2, 0.9,
+                          0.999, 1e-8, 7, 1, True, 0.01)
+    else:
+        norm, _ = multi_tensor_l2norm(torch.zeros(1), [gs])
+        multi_tensor_lamb(torch.zeros(1), [gs, want, ms, vs], 1e-2, 0.9,
+                          0.999, 1e-6, 7, True, 0.01, True, 1, norm, 1.0)
+    for prm, w, mm, vv in zip(params, want, ms, vs):
+        state = opt.state[prm]
+        assert torch.equal(prm.detach(), w)
+        assert torch.equal(state["exp_avg"], mm)
+        assert torch.equal(state["exp_avg_sq"], vv)
 
 
 def test_fused_adam_skips_parameters_without_grad():
@@ -337,28 +374,41 @@ def test_adam_plan_heads_from_views():
 
 
 def test_adam_runs_match_the_kernel_table():
-    """One launch takes at most kMaxTensors tensors: 179 make three runs
-    of 64, 64 and 51 (empty runs launch nothing)."""
+    """One launch takes at most kMaxTensors tensors of one dtype
+    combination: 179 make three runs of 64, 64 and 51 (empty runs launch
+    nothing)."""
     src = _ADAM_SOURCE.read_text()
     assert int(re.search(r"constexpr int kMaxTensors = (\d+);", src).group(1)
                ) == port_kernels.MAX_TENSORS
-    ts = [torch.zeros(3) for _ in range(179)]
-    runs = list(port_kernels._tables((ts, ts, ts, ts)))
-    assert [n for *_, n in runs] == [64, 64, 51]
-    empty = [torch.zeros(0) for _ in range(70)]
-    assert [n for *_, n in port_kernels._tables((empty,) * 4)] == []
+
+    def runs(ts):
+        lists = dict(g=ts, p=ts, m=ts, v=ts, out=[None] * len(ts))
+        return [n for *_, n in port_kernels._runs(lists, ("g", "p", "out"))]
+
+    assert runs([torch.zeros(3) for _ in range(179)]) == [64, 64, 51]
+    assert runs([torch.zeros(0) for _ in range(70)]) == []
 
 
 def test_adam_path_codes_match_the_kernel_source():
     """apex_adam's path argument: 0 the first design, 1 the streaming
-    body (the wrapper's), 2 and 3 its planted faults."""
+    body (the wrapper's), 2 to 5 its planted faults."""
     src = _ADAM_SOURCE.read_text()
     assert (port_kernels.ADAM_FIRST, port_kernels.ADAM_STREAM) == (0, 1)
-    assert "if (path == 1) return launch_vec<kNoFault>" in src
-    assert "if (path == 2) return launch_vec<kReciprocal>" in src
-    assert "if (path == 3) return launch_vec<kTailUnwritten>" in src
+    assert (port_kernels.ADAM_RECIPROCAL, port_kernels.ADAM_TAIL_UNWRITTEN,
+            port_kernels.ADAM_STEP_BEFORE,
+            port_kernels.ADAM_OUT_UNWRITTEN) == (2, 3, 4, 5)
+    assert "return g_dtype == mt::kFloat32 ? launch_by_p<float>(" in src
+    assert re.search(r"case 2: return launch_vec<float, float, mt::None, "
+                     r"kReciprocal>", src)
+    assert re.search(r"case 3: return launch_vec<float, float, mt::None, "
+                     r"kTailUnwritten>", src)
+    assert re.search(r"case 4: return launch_vec<bf16, float, bf16, "
+                     r"kStepBefore>", src)
+    assert re.search(r"case 5: return launch_vec<bf16, float, bf16, "
+                     r"kOutUnwritten>", src)
     assert "adam_kernel<<<" in src
-    assert re.search(r"path < 0 \|\| path > 3\) return -1", src)
+    assert re.search(r"path < 0 \|\| path > 5 \|\| noop == nullptr\)\s+"
+                     r"return -1", src)
 
 
 # -------------------------------------------------------------------- LAMB
@@ -553,11 +603,11 @@ def test_fused_lamb_refuses_what_it_does_not_have():
         FusedLAMB(p, amsgrad=True)
     opt = FusedLAMB(p)
     p[0].grad = torch.ones(3)
-    with pytest.raises(NotImplementedError, match="amp slice"):
-        opt.step(found_inf=torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="amp slice"):
-        opt.step(scale=128.0)
-    assert opt.param_groups[0]["step"] == 0
+    opt.step(found_inf=torch.ones(1))  # honoured: nothing changes
+    assert torch.equal(p[0].detach(), torch.zeros(3))
+    assert int(opt.param_groups[0]["step"]) == 0
+    opt.step(scale=128.0)
+    assert int(opt.param_groups[0]["step"]) == 1
     with pytest.raises(ValueError, match="mode"):
         multi_tensor_lamb(torch.zeros(1), [[], [], [], []], 1e-3, 0.9, 0.999,
                           1e-6, 1, True, 0.0, True, 2, 1.0, 1.0)

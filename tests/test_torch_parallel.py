@@ -191,8 +191,13 @@ def test_larc_fused_adam_step_matches_jax():
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(new_j[k]),
                                    rtol=1e-6, err_msg=k)
     assert opt.lr == 1e-3 and opt.param_groups[0]["step"] == 1
-    with pytest.raises(NotImplementedError, match="amp"):
-        opt.step(found_inf=torch.zeros(1))
+    # found_inf passes through to the wrapped optimizer, as JAX's LARC
+    # passes it: the step is skipped, its count kept
+    after = {k: p.detach().clone() for k, p in ps.items()}
+    opt.step(found_inf=torch.ones(1))
+    for k, p in ps.items():
+        assert torch.equal(p.detach(), after[k]), k
+    assert int(opt.param_groups[0]["step"]) == 1
 
 
 # ---------------------------------------------------- convert_syncbn_model

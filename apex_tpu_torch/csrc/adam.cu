@@ -67,8 +67,6 @@
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
-
 #include "multi_tensor.cuh"
 
 namespace {
@@ -81,7 +79,6 @@ constexpr long long kChunk = 65536;  // path 0: elements a chunk
 constexpr int kMaxBlocks = 132 * 8;  // path 0: the grid
 constexpr int kUnroll = 4;           // path 1: vectors an array a thread loads
 constexpr long long kVecChunk = kThreads * kUnroll;  // path 1: vectors a chunk
-constexpr int kMaxDevices = 64;
 
 // Planted faults of the streaming body (launch paths 2 to 5; no caller
 // passes them): m * (1 / bc1) for m / bc1 (at most an ulp off), the
@@ -150,45 +147,12 @@ adam_kernel(const __grid_constant__ Table t, const __grid_constant__ Hyper hp,
   }
 }
 
-// Streaming loads and stores of one element and of 4-element vectors
-// (16 bytes of fp32, 8 of bf16), widened to or rounded from fp32.
-__device__ __forceinline__ float ld1(const float* a, long long i) {
-  return __ldcs(a + i);
-}
-__device__ __forceinline__ float ld1(const bf16* a, long long i) {
-  return __bfloat162float(__ushort_as_bfloat16(
-      __ldcs(reinterpret_cast<const unsigned short*>(a) + i)));
-}
-__device__ __forceinline__ void st1(float* a, long long i, float x) {
-  __stcs(a + i, x);
-}
-__device__ __forceinline__ void st1(bf16* a, long long i, float x) {
-  __stcs(reinterpret_cast<unsigned short*>(a) + i,
-         __bfloat16_as_ushort(__float2bfloat16_rn(x)));
-}
-__device__ __forceinline__ void st1(mt::None*, long long, float) {}
-
-__device__ __forceinline__ float4 ld4(const float* a, long long i) {
-  return __ldcs(reinterpret_cast<const float4*>(a) + i);
-}
-__device__ __forceinline__ float4 ld4(const bf16* a, long long i) {
-  const uint2 r = __ldcs(reinterpret_cast<const uint2*>(a) + i);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-__device__ __forceinline__ void st4(float* a, long long i, const float4& x) {
-  __stcs(reinterpret_cast<float4*>(a) + i, x);
-}
-__device__ __forceinline__ void st4(bf16* a, long long i, const float4& x) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-  uint2 r;
-  r.x = *reinterpret_cast<const unsigned*>(&lo);
-  r.y = *reinterpret_cast<const unsigned*>(&hi);
-  __stcs(reinterpret_cast<uint2*>(a) + i, r);
-}
-__device__ __forceinline__ void st4(mt::None*, long long, const float4&) {}
+// Streaming loads and stores (multi_tensor.cuh, shared with the
+// multi-tensor scale and SGD kernels).
+using mt::ld1;
+using mt::ld4;
+using mt::st1;
+using mt::st4;
 
 template <int kFault>
 __device__ __forceinline__ void adam_update4(const Hyper& hp, float4 g,
@@ -285,25 +249,13 @@ adam_vec_kernel(const __grid_constant__ Table t,
 }
 
 // Blocks of adam_vec_kernel<...> the current device holds resident at
-// once (occupancy times SMs; read once a device); -1 on an error.
+// once (mt::resident_blocks, cached here); -1 on an error.
 template <typename TG, typename TP, typename TO, int kFault>
 int resident_blocks() {
-  static int cached[kMaxDevices] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
-    return -1;
-  if (cached[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, adam_vec_kernel<TG, TP, TO, kFault>, kThreads, 0) !=
-            cudaSuccess ||
-        sms * per_sm < 1)
-      return -1;
-    cached[dev] = sms * per_sm;
-  }
-  return cached[dev];
+  static int cached[mt::kMaxDevices] = {};
+  return mt::resident_blocks(
+      reinterpret_cast<const void*>(adam_vec_kernel<TG, TP, TO, kFault>),
+      kThreads, cached);
 }
 
 struct Launch {
@@ -340,15 +292,6 @@ int launch_by_p(int p_dtype, int out_dtype, const Launch& l) {
   if (p_dtype == mt::kBFloat16 && out_dtype == mt::kNone)
     return launch_vec<TG, bf16, mt::None, kNoFault>(l);
   return -1;
-}
-
-int itemsize(int dtype) { return dtype == mt::kBFloat16 ? 2 : 4; }
-
-// Whether element `head` of an array of `dtype` lies on a vector boundary
-// (4 elements: 16 bytes of fp32, 8 of bf16).
-bool vector_aligned(const void* a, long long head, int dtype) {
-  const int size = itemsize(dtype);
-  return (reinterpret_cast<uintptr_t>(a) + head * size) % (4 * size) == 0;
 }
 
 }  // namespace
@@ -406,25 +349,17 @@ extern "C" int apex_adam(void* const* g, void* const* p, void* const* m,
     t.v[k] = static_cast<float*>(v[k]);
     t.out[k] = out_dtype == mt::kNone ? nullptr : out[k];
     t.size[k] = size;
-    long long chunks = (size + kChunk - 1) / kChunk;
     t.head[k] = 0;
-    if (path != 0) {
-      const long long head = heads[k];
-      if (head < 0 || head > size || (head > 3 && head != size)) return -1;
-      const long long vecs = (size - head) / 4;
-      if (vecs > 0 &&
-          !(vector_aligned(t.g[k], head, g_dtype) &&
-            vector_aligned(t.p[k], head, p_dtype) &&
-            vector_aligned(t.m[k], head, mt::kFloat32) &&
-            vector_aligned(t.v[k], head, mt::kFloat32) &&
-            (t.out[k] == nullptr || vector_aligned(t.out[k], head, out_dtype))))
-        return -1;
-      const long long scalars = size - 4 * vecs;
-      const long long by_vecs = (vecs + kVecChunk - 1) / kVecChunk;
-      const long long by_scalars = (scalars + 4 * kVecChunk - 1) / (4 * kVecChunk);
-      chunks = by_vecs > by_scalars ? by_vecs : by_scalars;
-      t.head[k] = head > 3 ? -1 : static_cast<int>(head);
-    }
+    const long long chunks =
+        path == 0 ? (size + kChunk - 1) / kChunk
+                  : mt::stream_chunks(size, heads[k], 4, kVecChunk,
+                                      {{t.g[k], g_dtype},
+                                       {t.p[k], p_dtype},
+                                       {t.m[k], mt::kFloat32},
+                                       {t.v[k], mt::kFloat32},
+                                       {t.out[k], out_dtype}},
+                                      &t.head[k]);
+    if (chunks < 0) return -1;
     t.first_chunk[k + 1] = t.first_chunk[k] + chunks;
   }
   const long long chunks = t.first_chunk[n];

@@ -40,6 +40,9 @@ MAX_TENSORS = 64  # tensors in one launch's table (kMaxTensors in the .cu)
 ADAM_FIRST, ADAM_STREAM = 0, 1
 ADAM_RECIPROCAL, ADAM_TAIL_UNWRITTEN = 2, 3
 ADAM_STEP_BEFORE, ADAM_OUT_UNWRITTEN = 4, 5
+# path codes of apex_sgd (csrc/sgd.cu): the first design and the streaming
+# body that the wrapper launches
+SGD_FIRST, SGD_STREAM = 0, 1
 ADAM = registry.register("adam")
 LAMB = registry.register("lamb")
 LAMB_STAGE2 = registry.register("lamb_stage2")
@@ -137,46 +140,57 @@ def adam_plain(noop, gs, ps, ms, vs, outs=None, *, lr, b1, b2, eps,
 
 
 class AdamSpan(NamedTuple):
-    """How the streaming body covers one tensor: ``head`` elements one
-    at a time, then ``vectors`` float4 of each of g, p, m and v (16-byte
-    accesses), then ``tail`` elements one at a time."""
+    """How a streaming body covers one tensor: ``head`` elements one at
+    a time, then ``vectors`` vectors of each list (float4 of fp32 for
+    Adam: 16-byte accesses), then ``tail`` elements one at a time."""
     head: int
     vectors: int
     tail: int
 
 
-def adam_plan(size: int, offsets) -> AdamSpan:
-    """The streaming body's cover of a tensor of ``size`` fp32 elements
-    whose g, p, m and v start ``offsets`` (each ``data_ptr() % 16``)
-    bytes past a 16-byte boundary: where the four offsets agree, the
-    scalar head runs up to the first element on the boundary and the
-    vectors to the last whole float4, the tail takes the rest (size % 4
-    past the head); otherwise every element is head (no 16-byte access
-    can serve all four arrays at once)."""
-    if len(set(offsets)) != 1 or offsets[0] % 4:
+def adam_plan(size: int, offsets, width: int = 4) -> AdamSpan:
+    """A streaming body's cover of a tensor of ``size`` elements in
+    vectors of ``width`` (4 or 8) elements, whose lists start
+    ``offsets`` bytes past a 16-byte boundary, counted in elements of
+    ``16 // width`` bytes (:func:`_phase`; for Adam's fp32 g, p, m and v
+    each ``data_ptr() % 16``): where the offsets agree, the scalar head
+    runs up to the first element on the boundary and the vectors to the
+    last whole vector, the tail takes the rest (size % width past the
+    head); otherwise every element is head (no vector access can serve
+    every list at once). The multi-tensor scale and SGD bodies
+    (csrc/multi_tensor_scale.cu, csrc/sgd.cu) take the same cover."""
+    unit = 16 // width
+    if len(set(offsets)) != 1 or offsets[0] % unit:
         return AdamSpan(size, 0, 0)
-    head = min(size, (16 - offsets[0]) % 16 // 4)
-    vectors = (size - head) // 4
-    return AdamSpan(head, vectors, size - head - 4 * vectors)
+    head = min(size, (16 - offsets[0]) % 16 // unit)
+    vectors = (size - head) // width
+    return AdamSpan(head, vectors, size - head - width * vectors)
 
 
-
-
-def _phase(t):
-    """How far ``t`` starts past a 4-element boundary, in bytes of fp32
-    elements (:func:`adam_plan`'s unit): ``data_ptr() % 16`` for fp32,
-    twice ``data_ptr() % 8`` for bf16."""
+def _phase(t, width=4):
+    """How far ``t`` starts past a boundary of ``width`` elements, in the
+    unit of :func:`adam_plan` (elements of ``16 // width`` bytes): at
+    width 4 ``data_ptr() % 16`` for fp32, twice ``data_ptr() % 8`` for
+    bf16; at width 8 (bf16) ``data_ptr() % 16``."""
     size = t.element_size()
-    return t.data_ptr() % (4 * size) * (4 // size)
+    return t.data_ptr() % (width * size) // size * (16 // width)
 
 
-def _heads(run):
-    """Each tensor's scalar head (:func:`adam_plan`) for a run of g, p,
-    m, v (and output) lists, as apex_adam reads them; absent outputs
-    (None) are left out."""
-    return (ctypes.c_longlong * len(run[1]))(*[
-        adam_plan(ts[1].numel(), [_phase(t) for t in ts if t is not None]).head
-        for ts in zip(*run)])
+@functools.lru_cache(maxsize=256)
+def _plan_heads(ptrs, items, sizes, width=4):
+    """Each tensor's scalar head for a launch, :func:`adam_plan`'s at
+    ``width`` on :func:`_phase`'s offsets, from integers alone: ``ptrs``
+    the data pointers of each list that the launch holds (a tuple a
+    list), ``items`` each list's element size in bytes, ``sizes`` the
+    tensors' elements. Where the lists' element phases agree, at e, the
+    head runs to the boundary (-e % width elements); otherwise the tensor
+    is all head. Cached on the pointers: a training loop's launches find
+    the same tensors at the same addresses step after step."""
+    phases = [[a % (width * i) // i for a in col]
+              for col, i in zip(ptrs, items)]
+    heads = [min(size, -es[0] % width) if es.count(es[0]) == len(es)
+             else size for size, *es in zip(sizes, *phases)]
+    return (ctypes.c_longlong * len(heads))(*heads)
 
 
 @functools.lru_cache(maxsize=1)
@@ -200,10 +214,10 @@ def launch_adam(noop, gs, ps, ms, vs, outs, *, lr, b1, b2, eps,
     lists = dict(zip(names, (gs, ps, ms, vs, _none_list(outs, len(ps)))))
     bc1, bc2 = (1.0, 1.0) if step is not None else (bc1, bc2)
     launches = 0
-    for (gd, pd, od), index, t, sizes, n in _runs(lists, ("g", "p", "out")):
-        run = [[lists[name][k] for k in index] for name in names]
+    for (gd, pd, od), _, t, sizes, heads, n in _runs(lists,
+                                                     ("g", "p", "out")):
         with torch.cuda.device(noop.device):
-            rc = fn(*(t[name] for name in names), sizes, _heads(run), n, gd,
+            rc = fn(*(t[name] for name in names), sizes, heads(), n, gd,
                     pd, od, noop.data_ptr(), _checks.data_ptr(step),
                     _checks.data_ptr(inv_scale), float(lr), float(bc1),
                     float(bc2), float(b1), 1.0 - b1, float(b2), 1.0 - b2,
@@ -314,7 +328,7 @@ def launch_lamb(noop, gs, ps, ms, vs, us, *, found_inf=None, clip, b1, b2,
     lists = dict(g=gs, p=ps, m=ms, v=vs, u=gs if us is None else us)
     bc1, bc2 = (1.0, 1.0) if step is not None else (bc1, bc2)
     launches = 0
-    for (gd,), _, t, sizes, n in _runs(lists, ("g",)):
+    for (gd,), _, t, sizes, _, n in _runs(lists, ("g",)):
         with torch.cuda.device(noop.device):
             rc = fn(t["g"], t["p"], t["m"], t["v"], t["u"], sizes, n, gd,
                     noop.data_ptr(), _checks.data_ptr(found_inf),
@@ -445,34 +459,45 @@ def _check_lists(name, lists, fp32):
                 raise ValueError(f"{name}: tensor {k} must be contiguous")
 
 
-def _code(t):
-    return -1 if t is None else _checks.DTYPE_CODES[t.dtype]
-
-
 def _runs(lists, keyed):
     """Launch tables over ``lists`` (a dict of equal-length lists whose
     entries may be None): the tensors grouped by the dtype codes of the
     lists named in ``keyed``, each group cut into runs of at most
-    :data:`MAX_TENSORS` that hold an element. Yields (dtype codes, the
-    run's indices, {name: pointer table}, sizes, n)."""
+    :data:`MAX_TENSORS` that hold an element. The first list has every
+    entry; in a run, each other list is all tensors of one dtype (keyed,
+    or checked by the caller) or all None. Yields (dtype codes, the run's
+    indices, {name: pointer table}, sizes, heads, n): ``heads(width=4)``
+    the run's scalar heads for a streaming body (:func:`_plan_heads` on
+    the pointers the tables hold)."""
     names = list(lists)
-    count = len(lists[names[0]])
     groups = {}
-    for k in range(count):
-        key = tuple(_code(lists[name][k]) for name in keyed)
-        groups.setdefault(key, []).append(k)
-    for key, index in groups.items():
+    for k, dtypes in enumerate(zip(*[
+            [None if t is None else t.dtype for t in lists[name]]
+            for name in keyed])):
+        groups.setdefault(dtypes, []).append(k)
+    for dtypes, index in groups.items():
+        key = tuple(-1 if d is None else _checks.DTYPE_CODES[d]
+                    for d in dtypes)
         for at in range(0, len(index), MAX_TENSORS):
             run = index[at:at + MAX_TENSORS]
-            sizes = [next(t for t in (lists[name][k] for name in names)
-                          if t is not None).numel() for k in run]
+            first = lists[names[0]]
+            sizes = tuple([first[k].numel() for k in run])
             if not any(sizes):
                 continue  # nothing to update: no launch
             n = len(run)
-            tables = {name: (ctypes.c_void_p * n)(*[
-                None if lists[name][k] is None else lists[name][k].data_ptr()
-                for k in run]) for name in names}
-            yield key, run, tables, (ctypes.c_longlong * n)(*sizes), n
+            tables, ptrs, items = {}, [], []
+            for name in names:
+                col = lists[name]
+                if col[run[0]] is None:
+                    tables[name] = (ctypes.c_void_p * n)()
+                    continue
+                ptr = tuple([col[k].data_ptr() for k in run])
+                tables[name] = (ctypes.c_void_p * n)(*ptr)
+                ptrs.append(ptr)
+                items.append(col[run[0]].element_size())
+            yield (key, run, tables, (ctypes.c_longlong * n)(*sizes),
+                   functools.partial(_plan_heads, tuple(ptrs), tuple(items),
+                                     sizes), n)
 
 
 def _none_list(ts, n):
@@ -484,24 +509,28 @@ def _sgd_kernel():
     p, f, i = _checks.ptr, ctypes.c_float, ctypes.c_int
     return _build.function(
         "sgd", "apex_sgd",
-        [p, p, p, p, p, i, i, i, p, p, p, f, f, f, f, i, i, i, p])
+        [p, p, p, p, p, p, i, i, i, p, p, p, f, f, f, f, i, i, i, i, p])
 
 
 def launch_sgd(noop, gs, ps, moms, outs, *, step, inv_scale, wd, momentum,
-               dampening, lr, nesterov, wd_after_momentum, fault=0):
-    """The SGD kernel over the lists through its C function (``fault``:
-    0, or a planted fault's code); returns the launches made. :func:`sgd`
-    checks and counts; this does neither."""
+               dampening, lr, nesterov, wd_after_momentum, fault=0,
+               path=SGD_STREAM):
+    """The SGD kernel over the lists through its C function (``path``:
+    :data:`SGD_STREAM` or the first design; ``fault``: 0, or a planted
+    fault's code); returns the launches made. :func:`sgd` checks and
+    counts; this does neither."""
     fn = _sgd_kernel()
-    lists = dict(g=gs, p=ps, mom=moms, out=outs)
+    names = ("g", "p", "mom", "out")
+    lists = dict(zip(names, (gs, ps, moms, _none_list(outs, len(ps)))))
     launches = 0
-    for (gd, od), _, t, sizes, n in _runs(lists, ("g", "out")):
+    for (gd, od), _, t, sizes, heads, n in _runs(lists, ("g", "out")):
         with torch.cuda.device(noop.device):
-            rc = fn(t["g"], t["p"], t["mom"], t["out"], sizes, n, gd, od,
-                    noop.data_ptr(), step.data_ptr(),
+            rc = fn(t["g"], t["p"], t["mom"], t["out"], sizes, heads(), n,
+                    gd, od, noop.data_ptr(), step.data_ptr(),
                     _checks.data_ptr(inv_scale), float(wd), float(momentum),
                     1.0 - dampening, float(lr), int(bool(nesterov)),
-                    int(bool(wd_after_momentum)), fault, _checks.stream(noop))
+                    int(bool(wd_after_momentum)), fault, path,
+                    _checks.stream(noop))
         _checks.status("sgd", rc)
         launches += 1
     return launches
@@ -517,8 +546,8 @@ def sgd(noop, gs, ps, moms, outs=None, *, step, inv_scale=None, wd=0.0,
     ``first_run`` where ``step`` (a one-element int32 tensor, the count
     before this update) is 0. Nothing changes where ``noop`` is > 0. No
     host synchronisation. CPU tensors take :func:`sgd_plain`; CUDA tensors
-    launch the kernel, once per :data:`MAX_TENSORS` tensors of one dtype
-    pair, or raise."""
+    launch the streaming kernel (:func:`adam_plan` per tensor), once per
+    :data:`MAX_TENSORS` tensors of one dtype pair, or raise."""
     outs = _none_list(outs, len(ps))
     kw = dict(step=step, inv_scale=inv_scale, wd=wd, momentum=momentum,
               dampening=dampening, lr=lr, nesterov=nesterov,
@@ -550,7 +579,7 @@ def launch_lamb_stage2(noop, found_inf, ps, us, outs, factors, fault=0):
     lists = dict(p=ps, u=us, out=outs)
     base, item = factors.data_ptr(), factors.element_size()
     launches = 0
-    for (od,), run, t, sizes, n in _runs(lists, ("out",)):
+    for (od,), run, t, sizes, _, n in _runs(lists, ("out",)):
         f = (ctypes.c_void_p * n)(*[base + item * k for k in run])
         with torch.cuda.device(noop.device):
             rc = fn(t["p"], t["u"], t["out"], f, sizes, n, od,

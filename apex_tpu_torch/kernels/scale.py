@@ -9,6 +9,10 @@ tensors of one dtype combination; :func:`scale` and :func:`axpby` make as
 many launches as the lists need. The entry points are
 :func:`apex_tpu_torch.ops.multi_tensor.multi_tensor_scale` and
 ``multi_tensor_axpby``.
+
+On the card the wrappers launch the streaming body (:data:`STREAM`): each
+tensor a scalar head, vectors of :func:`vector_width` elements and a
+scalar tail, as ``kernels/optim.py`` ``adam_plan`` covers it.
 """
 
 import ctypes
@@ -16,10 +20,13 @@ import functools
 
 import torch
 
-from apex_tpu_torch.kernels import _build, _checks, registry
+from apex_tpu_torch.kernels import _build, _checks, optim, registry
 
 MAX_TENSORS = 64  # tensors in one launch's table (kMaxTensors in the .cu)
 SCALE, AXPBY = 0, 1  # mode codes of apex_multi_tensor_scale
+# path codes of apex_multi_tensor_scale: the first design and the
+# streaming body that the wrappers launch
+FIRST, STREAM = 0, 1
 SCALE_KERNEL = registry.register("multi_tensor_scale")
 
 
@@ -55,11 +62,19 @@ def axpby_plain(flag, xs, ys, outs, a, b):
         out.copy_(r)
 
 
+def vector_width(dtypes):
+    """Elements in one vector of the streaming body for lists of
+    ``dtypes`` (x's, y's in axpby, out's): 8 where all are bf16 (one
+    16-byte access), else 4 (16 bytes of fp32, 8 of bf16)."""
+    return 8 if all(d == torch.bfloat16 for d in dtypes) else 4
+
+
 @functools.lru_cache(maxsize=1)
 def _kernel():
     p, i, f = _checks.ptr, ctypes.c_int, ctypes.c_float
     return _build.function("multi_tensor_scale", "apex_multi_tensor_scale",
-                           [p, p, p, p, i, i, i, i, i, p, f, f, p, i, p])
+                           [p, p, p, p, p, i, i, i, i, i, p, f, f, p, i, i,
+                            p])
 
 
 def _check(name, flag, scalar, lists):
@@ -83,35 +98,26 @@ def _check(name, flag, scalar, lists):
             raise ValueError(f"{name}: tensor {k} must be contiguous")
 
 
-def launch(mode, flag, xs, ys, outs, scale_ptr, a, b, fault=0):
-    """Kernel runs over the lists through the C function (``fault``: 0,
-    or a planted fault's code); returns the launches made. The wrappers
-    below check and count; this does neither."""
+def launch(mode, flag, xs, ys, outs, scale_ptr, a, b, fault=0,
+           path=STREAM):
+    """Kernel runs over the lists through the C function (``path``:
+    :data:`STREAM` or the first design; ``fault``: 0, or a planted
+    fault's code); returns the launches made. The wrappers below check
+    and count; this does neither."""
     fn = _kernel()
+    lists = dict(x=xs, y=ys if mode == AXPBY else [None] * len(xs), out=outs)
     launches = 0
-    groups = {}
-    for k in range(len(outs)):
-        key = (xs[k].dtype, ys[k].dtype if mode == AXPBY else torch.float32,
-               outs[k].dtype)
-        groups.setdefault(key, []).append(k)
-    for (xd, yd, od), index in groups.items():
-        for at in range(0, len(index), MAX_TENSORS):
-            run = index[at:at + MAX_TENSORS]
-            if not any(outs[k].numel() for k in run):
-                continue  # nothing to write: no launch
-            n = len(run)
-            x = (ctypes.c_void_p * n)(*[xs[k].data_ptr() for k in run])
-            y = (ctypes.c_void_p * n)(*[
-                ys[k].data_ptr() if mode == AXPBY else None for k in run])
-            out = (ctypes.c_void_p * n)(*[outs[k].data_ptr() for k in run])
-            sizes = (ctypes.c_longlong * n)(*[outs[k].numel() for k in run])
-            with torch.cuda.device(flag.device):
-                rc = fn(x, y, out, sizes, n, _checks.DTYPE_CODES[xd],
-                        _checks.DTYPE_CODES[yd], _checks.DTYPE_CODES[od],
-                        mode, scale_ptr, float(a), float(b), flag.data_ptr(),
-                        fault, _checks.stream(flag))
-            _checks.status("multi_tensor_scale", rc)
-            launches += 1
+    for (xd, yd, od), index, t, sizes, heads, n in optim._runs(
+            lists, ("x", "y", "out")):
+        width = vector_width([ts[index[0]].dtype for ts in lists.values()
+                              if ts[index[0]] is not None])
+        with torch.cuda.device(flag.device):
+            rc = fn(t["x"], t["y"], t["out"], sizes,
+                    None if path == FIRST else heads(width), n, xd,
+                    max(yd, 0), od, mode, scale_ptr, float(a), float(b),
+                    flag.data_ptr(), fault, path, _checks.stream(flag))
+        _checks.status("multi_tensor_scale", rc)
+        launches += 1
     return launches
 
 
@@ -120,8 +126,8 @@ def scale(flag, xs, outs, scale):
     x), ``flag`` set to 1 where some fp32 product is not finite. ``flag``
     and ``scale`` are one-element fp32 tensors on the tensors' device
     (no host synchronisation). CPU tensors take :func:`scale_plain`;
-    CUDA tensors launch the kernel, once per :data:`MAX_TENSORS` tensors
-    of one dtype pair, or raise."""
+    CUDA tensors launch the streaming kernel, once per
+    :data:`MAX_TENSORS` tensors of one dtype pair, or raise."""
     if not _checks.on_cuda("multi_tensor_scale", flag, scale, *xs, *outs):
         return scale_plain(flag, xs, outs, scale)
     _check("multi_tensor_scale", flag, scale, (xs, outs))

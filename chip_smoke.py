@@ -13,8 +13,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build: compile every ``apex_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
    (one nvcc per source, all started together) and print the build time,
-   ptxas's register and shared-memory report, and the card's name and
-   power limit.
+   ptxas's register and shared-memory report (failing where a kernel of
+   NO_SPILL spills), and the card's name and power limit.
 2. kernels: call each kernel's wrapper on tensors on the card at the
    shapes the serving path gives it (TinyLlama-1.1B: batch 8, prompt
    128, 32 query heads in 4 KV groups, head dim 64, hidden 2048, a
@@ -259,13 +259,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 The kernel phase also holds amp's kernels against their plain versions:
 multi_tensor_scale (in place over GPT-2 345M's and BERT-large's O2
-gradients, a planted inf, the other dtype out, axpby), adam on amp's
+gradients, a planted inf, the other dtype out, axpby over every dtype
+triple, views 1-7 elements past a 16-byte boundary; its streaming body
+also bit for bit against its first design, path 0, and timed beside it
+through the C function in turns), adam on amp's
 device step (GPT-2's O2 step with masters; off the path inv_scale, L2
 decay without bias correction, bf16 parameters without masters, views
 off the vector boundary, noop; the device step's bias corrections held
 through the kernel's outputs at AMP_BC_STEPS), sgd (GPT-2's fp32 step,
 the first run and the next; off the path nesterov, dampening, decay
-before and after the momentum, bf16 gradients and outputs), lamb and
+before and after the momentum, bf16 gradients and outputs, views 1-3
+elements past a 16-byte boundary; its streaming body also bit for bit
+against its first design and timed beside it in turns), lamb and
 lamb_stage2 on masters (BERT-large's O2 step; off the path inv_scale, L2
 decay, no clip, no outputs, found_inf), each with two planted faults
 through its own launch, timed beside its bound and, where one exists,
@@ -676,6 +681,10 @@ def _ptxas_by_kernel(report):
     return out
 
 
+# kernels whose every instance must build without spills
+NO_SPILL = ("scale_vec_kernel", "sgd_vec_kernel")
+
+
 def phase_build():
     from apex_tpu_torch.kernels import _build
     t0 = time.perf_counter()
@@ -685,9 +694,12 @@ def phase_build():
         if line.startswith("== ") or "registers" in line:
             log("  " + line.strip())
     if report:
+        by_kernel = _ptxas_by_kernel(report)
         log("ptxas by kernel (registers, instances, bytes spilled): "
             + "; ".join(f"{k} {lo}-{hi}, {n}, {sp}" for k, (lo, hi, n, sp)
-                        in sorted(_ptxas_by_kernel(report).items())))
+                        in sorted(by_kernel.items())))
+        for name in NO_SPILL:  # the streaming bodies spill nothing
+            assert by_kernel[name][3] == 0, (name, by_kernel[name])
     log(f"build: {len(_build.sources())} sources in {secs:.1f} s "
         f"({'built' if report else 'cached'}) into {_build.BUILD_DIR}")
 
@@ -2800,10 +2812,53 @@ def _amp_entry(name, shape, errs, kernel, plain, library, library_name,
                 bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1])
 
 
+def _views(gen, sizes, elems, dtype, scale=1.0, fill=torch.randn):
+    """``dtype`` tensors of ``sizes`` as views into one flat buffer,
+    tensor k starting ``elems[k]`` elements past a 16-byte boundary (the
+    streaming bodies' scalar heads)."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    starts, at = [], 0
+    for n, e in zip(sizes, elems):
+        at = -(-at // per) * per + e % per
+        starts.append(at)
+        at += n
+    flat = (fill(at + per, generator=gen, device="cuda") * scale).to(dtype)
+    return [flat[st:st + n] for st, n in zip(starts, sizes)]
+
+
+def _copies(ts):
+    """Copies of a list (views into one buffer keep their offsets)."""
+    if ts and all(t is not None and t._base is not None
+                  and t._base is ts[0]._base for t in ts):
+        return _clone_views(ts)
+    return [None if t is None else t.clone() for t in ts]
+
+
+def _cover(lists, width_of, covered):
+    """Adds each tensor's head, vectors * width and tail elements (the
+    plan the wrappers give the streaming body) to ``covered``."""
+    from apex_tpu_torch.kernels import optim
+    for ts in zip(*lists):
+        ts = [t for t in ts if t is not None]
+        width = width_of([t.dtype for t in ts])
+        span = optim.adam_plan(ts[0].numel(),
+                               [optim._phase(t, width) for t in ts], width)
+        for part, count in zip(("head", "vectors", "tail"),
+                               (span.head, span.vectors * width, span.tail)):
+            covered[part] = covered.get(part, 0) + count
+
+
+def _turn_times(times):
+    return "/".join(f"{t * 1e3:.2f}" for t in times)
+
+
 def _check_scale(gen, shapes):
-    """K1 at GPT-2 345M's O2 gradients, in place and out of place,
-    against its plain version; a planted inf; axpby and dtype pairs off
-    the path; two planted faults; timed beside
+    """K1's streaming body (the wrappers' path 1) at GPT-2 345M's O2
+    gradients, in place and out of place, against its plain version and
+    its first design (path 0), bit for bit; a planted inf; every dtype
+    triple of scale and axpby and views at 2- to 14-byte offsets off the
+    path; two planted faults through the streaming body; timed through
+    the C function beside its first design, and beside
     torch._amp_foreach_non_finite_check_and_unscale_."""
     from apex_tpu_torch.kernels import registry
     from apex_tpu_torch.kernels import scale as ks
@@ -2811,63 +2866,103 @@ def _check_scale(gen, shapes):
     xs = _like(gen, shapes, AMP_LOSS_SCALE)
     inv = torch.full((1,), 1.0 / AMP_LOSS_SCALE, device="cuda")
 
-    def both(xs, outs_of, flag0=0.0):
-        """Kernel (counted) and plain version on copies: (outs, flag)."""
+    def three(what, xs, outs_of, flag0=0.0, ys=None, ab=None):
+        """The wrapper (counted), the plain version and the first design
+        (uncounted) on copies, in that order: [(outs, flag)]; the wrapper
+        held to both bit for bit, outputs and flag."""
         res = []
-        for fn in (ks.scale, ks.scale_plain):
-            x = [t.clone() for t in xs]
-            outs = x if outs_of is None else [t.clone() for t in outs_of]
+        for which in ("kernel", "plain", "first"):
+            x = _copies(xs)
+            outs = x if outs_of is None else _copies(outs_of)
             flag = torch.full((1,), flag0, device="cuda")
-            fn(flag, x, outs, inv)
+            if which == "first":
+                ks.launch(ks.SCALE if ab is None else ks.AXPBY, flag, x,
+                          x if ys is None else ys, outs,
+                          inv.data_ptr() if ab is None else None,
+                          *(ab or (0.0, 0.0)), path=ks.FIRST)
+            elif ab is None:
+                (ks.scale if which == "kernel" else ks.scale_plain)(
+                    flag, x, outs, inv)
+            else:
+                (ks.axpby if which == "kernel" else ks.axpby_plain)(
+                    flag, x, ys, outs, *ab)
             res.append((outs, flag))
         torch.cuda.synchronize()
-        return res
+        (k_out, k_flag), (p_out, p_flag), (f_out, f_flag) = res
+        errs = _hold_lists(what, k_out, p_out)
+        assert errs[2], (what, "not bit-identical to the plain version")
+        assert _equal_lists(k_out, f_out), (what, "differs from path 0")
+        assert k_flag.item() == p_flag.item() == f_flag.item(), (
+            what, k_flag, p_flag, f_flag)
+        return res, errs
 
     before = registry.launches()["multi_tensor_scale"]
-    (k_out, k_flag), (p_out, p_flag) = both(xs, None)
+    res, errs = three("scale", xs, None)
     launched = registry.launches()["multi_tensor_scale"] - before
+    (k_out, k_flag), _, _ = res
     groups = {}
     for _, dt in shapes:
         groups[dt] = groups.get(dt, 0) + 1
     assert launched == sum(math.ceil(c / ks.MAX_TENSORS)
                            for c in groups.values()), launched
-    errs = _hold_lists("scale", k_out, p_out)
-    assert k_flag.item() == p_flag.item() == 0.0
-    # a planted inf: both flag it, everything else as before
+    assert k_flag.item() == 0.0
+    # a planted inf: all three flag it, everything else as before
     kept = xs[7].view(-1)[123].item()
     xs[7].view(-1)[123] = float("inf")
-    (i_out, i_flag), (j_out, j_flag) = both(xs, None)
-    assert i_flag.item() == j_flag.item() == 1.0, (i_flag, j_flag)
-    assert _equal_lists(i_out, j_out)
-    # out of place into the other dtype, axpby, a raised flag kept
+    res, _ = three("scale, a planted inf", xs, None)
+    assert res[0][1].item() == 1.0, res[0][1]
+    xs[7].view(-1)[123] = kept
+    del res
+    # every dtype triple off the path: into the other dtype with a raised
+    # flag kept, axpby over each (y, out) dtype pair
+    f32, b16 = torch.float32, torch.bfloat16
     small = [((n_,), dt) for n_ in (0, 1, 5, 4099, 70001)
-             for dt in (torch.float32, torch.bfloat16)] * 8
+             for dt in (f32, b16)] * 8
     sx = _like(gen, small, 1e3)
-    other = [torch.empty(s, device="cuda", dtype=torch.bfloat16
-                         if dt == torch.float32 else torch.float32)
+    other = [torch.empty(s, device="cuda", dtype=b16 if dt == f32 else f32)
              for s, dt in small]
-    (a_out, a_flag), (b_out, b_flag) = both(sx, other, flag0=1.0)
-    _hold_lists("scale into the other dtype", a_out, b_out)
-    assert a_flag.item() == b_flag.item() == 1.0
-    sy = _like(gen, small, 1.0, dtype=torch.float32)
-    res = []
-    for fn in (ks.axpby, ks.axpby_plain):
-        outs = [t.clone() for t in other]
-        flag = torch.zeros(1, device="cuda")
-        fn(flag, sx, sy, outs, 0.3, -1.7)
-        res.append((outs, flag))
-    torch.cuda.synchronize()
-    _hold_lists("axpby", res[0][0], res[1][0])
-    assert res[0][1].item() == res[1][1].item() == 0.0
+    res, _ = three("scale into the other dtype", sx, other, flag0=1.0)
+    assert res[0][1].item() == 1.0
+    for dy in (f32, b16):
+        sy = _like(gen, small, 1.0, dtype=dy)
+        for dout in (f32, b16):
+            outs = [torch.empty(s, device="cuda", dtype=dout)
+                    for s, _ in small]
+            res, _ = three(f"axpby, y {dy}, out {dout}", sx, outs, ys=sy,
+                           ab=(0.3, -1.7))
+            assert res[0][1].item() == 0.0
+    # views at 2- to 14-byte offsets: scalar heads, vectors and tails at
+    # each width; outputs off the inputs' boundary: all head
+    vsizes = [n_ for n_ in (0, 1, 3, 5, 9, 17, 4099, 70001) for _ in range(7)]
+    elems = [1, 2, 3, 4, 5, 6, 7] * 8
+    covered = {}
+    view_lists = []
+    for dx, dout in ((f32, f32), (b16, b16), (f32, b16), (b16, f32)):
+        vx = _views(gen, vsizes, elems, dx, AMP_LOSS_SCALE)
+        vo = _views(gen, vsizes, elems, dout)
+        off = _views(gen, vsizes, [e + 1 for e in elems], dout)
+        view_lists.append(vx)
+        three(f"scale, views {dx} in place", vx, None)
+        three(f"scale, views {dx} to {dout}", vx, vo)
+        three(f"scale, views {dx} to {dout} one element off", vx, off)
+        vy = _views(gen, vsizes, elems, dx)
+        three(f"axpby, views {dx}, out {dout}", vx, vo, ys=vy, ab=(0.3, -1.7))
+        for lists in ((vx, vx), (vx, vo), (vx, off), (vx, vy, vo)):
+            _cover(lists, ks.vector_width, covered)
+    assert all(covered.get(k) for k in ("head", "vectors", "tail")), covered
     log(f"kernels: multi_tensor_scale over GPT-2 345M's {len(shapes)} O2 "
         f"gradients ({launched} launches) bit-identical to its plain "
-        f"version: {errs[2]}; a planted inf flagged by both; "
-        f"{len(small)} tensors off the path (into the other dtype, axpby "
-        f"a=0.3 b=-1.7, a raised flag kept) match")
-    # planted faults through the kernel's own launch, uncounted
+        f"version and its first design: {errs[2]}; a planted inf flagged "
+        f"by all three; {len(small)} tensors off the path (into the other "
+        f"dtype with a raised flag kept; axpby a=0.3 b=-1.7 over every "
+        f"dtype triple) and {len(vsizes)} views a list at 1-7 elements "
+        f"past a 16-byte boundary (elements as head/vectors/tail "
+        f"{covered['head']}/{covered['vectors']}/{covered['tail']}) "
+        f"bit-identical to both")
+    # planted faults through the streaming body's own launch, uncounted
     before = registry.launches()
     for what, fault in (("the flag never written (the inf planted)", 1),
-                        ("each tensor's last element left", 2)):
+                        ("each tensor's last element or vector left", 2)):
         xs[7].view(-1)[123] = float("inf") if fault == 1 else kept
         x = [t.clone() for t in xs]
         flag = torch.zeros(1, device="cuda")
@@ -2879,8 +2974,19 @@ def _check_scale(gen, shapes):
             err, rel = _max_errs(x, k_out)
             caught = rel > AMP_RTOL
         _fault_log("multi_tensor_scale", what, caught, err)
-    assert registry.launches() == before
+    xs[7].view(-1)[123] = kept
+    # the tail's last element, on the views (tails where sizes are ragged)
+    vx = view_lists[1]
+    clean, bad = _copies(vx), _copies(vx)
     flag = torch.zeros(1, device="cuda")
+    for x, fault in ((clean, 0), (bad, 2)):
+        ks.launch(ks.SCALE, flag, x, x, x, inv.data_ptr(), 0.0, 0.0, fault)
+    torch.cuda.synchronize()
+    err, rel = _max_errs(bad, clean)
+    _fault_log("multi_tensor_scale", "each bf16 view's last element left "
+               "(its tail's, or its last vector)", rel > AMP_RTOL, err)
+    assert registry.launches() == before
+    del view_lists, vx, clean, bad
     entries = []
     # timed out of place (the same bytes as in place, the inputs kept):
     # O1's fp32 gradients first, where the yardstick applies, then O2's
@@ -2890,18 +2996,22 @@ def _check_scale(gen, shapes):
         outs = [torch.empty_like(t) for t in xt]
         held = errs
         if dtype is not None:  # this case's own hold
-            po = [torch.empty_like(t) for t in xt]
-            ks.scale(flag, xt, outs, inv)
-            ks.scale_plain(torch.zeros(1, device="cuda"), xt, po, inv)
-            torch.cuda.synchronize()
-            held = _hold_lists(f"scale {label}", outs, po)
-            del po
+            res, held = three(f"scale {label}", xt, outs)
+            del res
         one = torch.ones(1, device="cuda")
         lib_x = [t.clone() for t in xt]
         nbytes = sum(t.numel() * 2 * t.element_size() for t in xt)
         kind = ("fp32" if dtype is not None
                 else "bf16 but the norms'")
-        entries.append(_amp_entry(
+        design = {}
+        before = registry.launches()
+        for path in (ks.FIRST, ks.STREAM, ks.STREAM, ks.FIRST):
+            design.setdefault(path, []).append(device_ms(
+                lambda: ks.launch(ks.SCALE, flag, xt, xt, outs,
+                                  inv.data_ptr(), 0.0, 0.0, path=path),
+                iters=5, replays=2))
+        assert registry.launches() == before
+        entry = _amp_entry(
             "multi_tensor_scale", f"GPT-2 345M {label} gradients, "
             f"{len(shapes)} tensors, {n} elements ({kind})", held,
             lambda: ks.scale(flag, xt, outs, inv),
@@ -2913,9 +3023,17 @@ def _check_scale(gen, shapes):
             "bf16 kernel" if dtype is None else
             "torch._amp_foreach_non_finite_check_and_unscale_ (in place, "
             "scale 1)",
-            bound(nbytes, n, FP32_OPS_PER_S), f"rel {AMP_RTOL}"))
+            bound(nbytes, n, FP32_OPS_PER_S), f"rel {AMP_RTOL}")
+        entry["first_design_ms"] = statistics.median(design[ks.FIRST])
+        log(f"kernel multi_tensor_scale at GPT-2 345M's {label} gradients "
+            f"through the C function in turns (us): first design "
+            f"{_turn_times(design[ks.FIRST])}; streaming body "
+            f"{_turn_times(design[ks.STREAM])}; first design / streaming body "
+            f"{entry['first_design_ms'] / statistics.median(design[ks.STREAM]):.4f}"
+            f"; bound {entry['bound_ms'] * 1e3:.3f} us")
+        entries.append(entry)
         del xt, outs, lib_x
-    del xs, k_out, p_out, i_out, j_out
+    del xs, k_out
     return entries
 
 
@@ -3106,16 +3224,28 @@ def _check_adam_master(gen, shapes):
 
 
 def _check_sgd(gen, shapes):
-    """K3 at GPT-2 345M's fp32 O1 step (momentum 0.9, the first run and
-    the next) and off it; two planted faults; timed beside
+    """K3's streaming body (the wrapper's path 1) at GPT-2 345M's fp32 O1
+    step (momentum 0.9, the first run and the next) and off it (every
+    option, bf16 gradients and outputs, views at 4-, 8- and 12-byte
+    offsets), against its plain version and its first design (path 0),
+    bit for bit; two planted faults through the streaming body; timed
+    through the C function beside its first design, and beside
     torch._fused_sgd_."""
     from apex_tpu_torch.kernels import optim, registry
     noop0 = torch.zeros(1, device="cuda")
 
-    def case(shapes, **over):
-        gs = _like(gen, shapes)
-        ps = _like(gen, shapes, 0.03, dtype=torch.float32)
-        moms = _like(gen, shapes, 0.1, dtype=torch.float32)
+    def case(shapes, views=None, **over):
+        if views is None:
+            gs = _like(gen, shapes)
+            ps = _like(gen, shapes, 0.03, dtype=torch.float32)
+            moms = _like(gen, shapes, 0.1, dtype=torch.float32)
+        else:  # views at element offsets: (g's, the others')
+            sizes = [math.prod(s) for s, _ in shapes]
+            by_dtype = {dt: _views(gen, sizes, views[0], dt)
+                        for dt in {dt for _, dt in shapes}}
+            gs = [by_dtype[dt][k] for k, (_, dt) in enumerate(shapes)]
+            ps = _views(gen, sizes, views[1], torch.float32, 0.03)
+            moms = _views(gen, sizes, views[1], torch.float32, 0.1)
         kw = dict(step=torch.zeros(1, dtype=torch.int32, device="cuda"),
                   inv_scale=None, wd=0.0, momentum=0.9, dampening=0.0,
                   lr=AMP_SGD_LR, nesterov=False, wd_after_momentum=False)
@@ -3124,43 +3254,70 @@ def _check_sgd(gen, shapes):
                 if kw.pop("outs", False) else [None] * len(ps))
         return (gs, ps, moms, outs), kw
 
-    def both(noop, lists, kw):
+    def three(what, noop, lists, kw):
+        """The wrapper (counted), the plain version and the first design
+        (uncounted) on copies of the state; the wrapper held to both bit
+        for bit. Returns the wrapper's and the plain version's state."""
         gs, *rest = lists
-        ker, pln = _clones(*rest), _clones(*rest)
+        ker, pln, fst = ([_copies(ts) for ts in rest] for _ in range(3))
         optim.sgd(noop, gs, *ker, **kw)
         optim.sgd_plain(noop, gs, *pln, **kw)
+        optim.launch_sgd(noop, gs, *fst, **kw, path=optim.SGD_FIRST)
         torch.cuda.synchronize()
-        return ker, pln
+        errs = _hold_lists(what, _flat(ker), _flat(pln))
+        assert errs[2], (what, "not bit-identical to the plain version")
+        assert _equal_lists(_flat(ker), _flat(fst)), (what, "differs from "
+                                                      "path 0")
+        return ker, pln, errs
 
     small = [((n_,), dt) for n_ in (0, 1, 3, 4099, 70001)
              for dt in (torch.float32, torch.bfloat16)] * 14
     one = torch.ones(1, dtype=torch.int32, device="cuda")
-    for over in (dict(inv_scale=torch.full((1,), 0.25, device="cuda")),
-                 dict(step=one, nesterov=True, wd=0.01, outs=True),
-                 dict(step=one, dampening=0.1, wd=0.01,
-                      wd_after_momentum=True),
-                 dict(momentum=0.0, wd=0.01)):
+    options = (dict(inv_scale=torch.full((1,), 0.25, device="cuda")),
+               dict(step=one, nesterov=True, wd=0.01, outs=True),
+               dict(step=one, dampening=0.1, wd=0.01,
+                    wd_after_momentum=True),
+               dict(momentum=0.0, wd=0.01))
+    for over in options:
         lists, kw = case(small, **over)
-        ker, pln = both(noop0, lists, kw)
-        _hold_lists(f"sgd off the path {sorted(over)}", _flat(ker),
-                    _flat(pln))
-    ker, _ = both(torch.ones(1, device="cuda"), lists, kw)
+        three(f"sgd off the path {sorted(over)}", noop0, lists, kw)
+    ker, _, _ = three("sgd, noop raised", torch.ones(1, device="cuda"),
+                      lists, kw)
     assert _equal_lists(_flat(ker), _flat(lists[1:])), "noop moved"
+    # views 1-3 elements past a 16-byte boundary (4-, 8-, 12-byte offsets
+    # of the fp32 state): heads, vectors and tails; g's views one element
+    # further on: all head
+    vsmall = [((n_,), dt) for n_ in (0, 1, 3, 5, 9, 4099, 70001)
+              for dt in (torch.float32, torch.bfloat16) for _ in range(3)]
+    elems = [1, 2, 3] * (len(vsmall) // 3)
+    covered = {}
+    for g_off in (0, 1):
+        for over in options[:3]:
+            lists, kw = case(vsmall, views=([e + g_off for e in elems],
+                                            elems), **over)
+            three(f"sgd, views, g {g_off} element(s) off, {sorted(over)}",
+                  noop0, lists, kw)
+            _cover([ts for ts in lists if ts[0] is not None],
+                   lambda dts: 4, covered)
+    assert all(covered.get(k) for k in ("head", "vectors", "tail")), covered
     fp32 = [(s, torch.float32) for s, _ in shapes]
     lists, kw = case(fp32)
     before = registry.launches()["sgd"]
-    ker, pln = both(noop0, lists, kw)  # the first run
+    ker, pln, errs0 = three("sgd first run", noop0, lists, kw)
     launched = registry.launches()["sgd"] - before
-    errs0 = _hold_lists("sgd first run", _flat(ker), _flat(pln))
     kw1 = dict(kw, step=one)
-    ker1, pln1 = both(noop0, [lists[0], *ker], kw1)
-    errs = _hold_lists("sgd", _flat(ker1), _flat(pln1))
+    ker1, pln1, errs = three("sgd", noop0, [lists[0], *ker], kw1)
     log(f"kernels: sgd at GPT-2 345M's fp32 O1 step ({len(shapes)} "
         f"tensors, {launched} launches, momentum 0.9): the first run and "
-        f"the next bit-identical to the plain version: {errs0[2]}, "
-        f"{errs[2]}; off the path (inv_scale, nesterov, dampening, decay "
-        f"before and after the momentum, bf16 gradients, bf16 outputs, no "
-        f"momentum) match; noop = 1 leaves everything bit-identical")
+        f"the next bit-identical to the plain version and the first "
+        f"design: {errs0[2]}, {errs[2]}; off the path (inv_scale, "
+        f"nesterov, dampening, decay before and after the momentum, bf16 "
+        f"gradients, bf16 outputs, no momentum; {len(vsmall)} views a "
+        f"list 1-3 elements past a 16-byte boundary, elements as "
+        f"head/vectors/tail {covered['head']}/{covered['vectors']}/"
+        f"{covered['tail']}) bit-identical to both; noop = 1 leaves "
+        f"everything bit-identical")
+    # planted faults through the streaming body's own launch, uncounted
     before = registry.launches()
     gs, ps, moms, outs = lists
     for what, fault, fkw in (
@@ -3173,9 +3330,15 @@ def _check_sgd(gen, shapes):
         torch.cuda.synchronize()
         err, rel = _max_errs(_flat(bad), _flat(clean))
         _fault_log("sgd", what, rel > AMP_RTOL, err)
-    assert registry.launches() == before
     n = sum(math.prod(s) for s, _ in shapes)
     kp, km = ker1[0], ker1[1]
+    design = {}
+    for path in (optim.SGD_FIRST, optim.SGD_STREAM, optim.SGD_STREAM,
+                 optim.SGD_FIRST):
+        design.setdefault(path, []).append(device_ms(
+            lambda: optim.launch_sgd(noop0, gs, kp, km, None, **kw1,
+                                     path=path), iters=5, replays=2))
+    assert registry.launches() == before
     lib_p, lib_m = [t.clone() for t in kp], [t.clone() for t in km]
     entry = _amp_entry(
         "sgd", f"GPT-2 345M fp32 O1 step, {len(shapes)} tensors, {n} params, "
@@ -3188,6 +3351,13 @@ def _check_sgd(gen, shapes):
             is_first_step=False),
         "torch._fused_sgd_", bound(20 * n, 5 * n, FP32_OPS_PER_S),
         f"rel {AMP_RTOL}")
+    entry["first_design_ms"] = statistics.median(design[optim.SGD_FIRST])
+    log(f"kernel sgd at GPT-2 345M's fp32 step through the C function in "
+        f"turns (us): first design {_turn_times(design[optim.SGD_FIRST])}"
+        f"; streaming body {_turn_times(design[optim.SGD_STREAM])}; first "
+        f"design / streaming body "
+        f"{entry['first_design_ms'] / statistics.median(design[optim.SGD_STREAM]):.4f}"
+        f"; bound {entry['bound_ms'] * 1e3:.3f} us")
     del lists, ker, pln, ker1, pln1, gs, ps, moms, kp, km, lib_p, lib_m
     return entry
 
@@ -7536,7 +7706,8 @@ PROFILE_WATCH = ("ln_fwd_kernel", "warp_ln_fwd", "ln_bwd_dx",
                  "::mma_dkv_kernel<", "::dq_kernel<", "::dkv_kernel<",
                  "rms_", "mma_mla_decode", "dequant_vec_kernel",
                  "::quant_vec_kernel<", "::quant_kernel<", "Int8KV<",
-                 "scale_kernel<", "sgd_kernel<", "lamb_stage2_kernel<")
+                 "scale_kernel<", "sgd_kernel<", "lamb_stage2_kernel<",
+                 "scale_vec_kernel<", "sgd_vec_kernel<")
 PHASES = ("kernels", "serving", "serve_bf16", "serve_int8", "serve_spec",
           "training", "flash_training", "gpt2_training", "bert_training",
           "mha", "mla_decode", "deepseek_v2_lite", "ddp_gpt2",

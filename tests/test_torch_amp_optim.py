@@ -58,6 +58,7 @@ from apex_tpu_torch.optimizers import (
 )
 from apex_tpu_torch.optimizers._base import master_copy_tree
 from apex_tpu_torch.transformer.amp import GradScaler
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIZES = [(7, 5), (1,), (300,)]
 LAMB_RTOL, LAMB_ATOL = 1e-6, 1e-7

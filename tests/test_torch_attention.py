@@ -37,6 +37,7 @@ from apex_tpu_torch.models import (
     from_jax_params,
 )
 from apex_tpu_torch.models.transformer_lm import ParallelTransformerLayer
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -57,6 +57,7 @@ from apex_tpu_torch.models import (
 )
 from apex_tpu_torch.optimizers import FusedLAMB
 from apex_tpu_torch.transformer.enums import AttnMaskType
+from torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(hidden_size=64, num_layers=2, num_attention_heads=4,
           vocab_size=256, max_position_embeddings=64,

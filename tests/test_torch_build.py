@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from apex_tpu_torch.kernels import _build, registry
+from torch_threads import one_torch_thread  # noqa: F401
 
 _FAKE_NVCC = """#!/bin/sh
 out=""

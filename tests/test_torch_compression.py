@@ -25,6 +25,7 @@ from jax.sharding import PartitionSpec as P
 from apex_tpu.parallel import compression as jax_comp
 from apex_tpu.testing import shard_map
 from apex_tpu_torch.parallel import compression, groups, register_axis
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

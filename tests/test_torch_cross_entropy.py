@@ -27,6 +27,7 @@ from apex_tpu_torch.transformer.tensor_parallel import (
     VocabParallelEmbedding,
     vocab_parallel_cross_entropy,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB = 16
 LABELS = [

@@ -38,6 +38,7 @@ from apex_tpu_torch.parallel import (
     plan_buckets,
     unflatten,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = {"w0": (16, 32), "b0": (32,), "w1": (32, 8), "b1": (8,),
           "emb": (300, 7), "a": (5, 5), "z": (1000,)}

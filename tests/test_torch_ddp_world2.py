@@ -37,6 +37,7 @@ from jax.sharding import PartitionSpec as P
 from apex_tpu.parallel import compression as jax_comp
 from apex_tpu.parallel import distributed as jax_ddp
 from apex_tpu.testing import shard_map
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD = 2
 N = 1000           # ragged: 4 blocks of 256, the last 232 lanes

@@ -34,6 +34,7 @@ import torch
 import apex_tpu.contrib.fmha as jax_fmha
 from apex_tpu_torch.contrib import FMHA, fmha
 from apex_tpu_torch.kernels import registry
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -41,6 +41,7 @@ import torch
 
 import apex_tpu.contrib.fmha as jax_fmha
 from apex_tpu_torch.contrib import fmha
+from torch_threads import one_torch_thread  # noqa: F401
 
 _SOURCE = (Path(fmha.__file__).resolve().parent.parent / "csrc"
            / "flash_attention.cu")

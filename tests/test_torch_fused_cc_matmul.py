@@ -35,6 +35,7 @@ from apex_tpu_torch.parallel import register_axis
 from apex_tpu_torch.transformer.tensor_parallel import (
     copy_to_tensor_model_parallel_region,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 AX = "model"
 RTOL, ATOL = 1e-5, 1e-6

@@ -30,6 +30,7 @@ import torch
 from apex_tpu.kernels import fused_cc as jax_fused_cc
 from apex_tpu.kernels.registry import get_kernel_registry
 from apex_tpu_torch.kernels import _checks, fused_cc, kv_attention
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMS = 132  # an H100 SXM
 TOL = 1e-6

@@ -41,6 +41,7 @@ from apex_tpu_torch.models import (
     prefill,
     sample_logits,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(hidden_size=64, num_layers=2, num_attention_heads=4,
           num_query_groups=2, ffn_hidden_size=128, vocab_size=256,

@@ -49,6 +49,7 @@ from apex_tpu.parallel import mesh2d as jax_mesh2d
 from apex_tpu_torch.models import from_jax_segments
 from apex_tpu_torch.parallel import groups, mesh2d
 from apex_tpu_torch.parallel.distributed import _leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 MODEL = dict(hidden=64, layers=2, heads=4, vocab=64, max_seq=16)
 BATCH, SEQ, STEPS = 2, 16, 3

@@ -40,6 +40,7 @@ from apex_tpu_torch.models import (
     mla_cached_generate,
     mla_greedy_generate,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
             q_lora_rank=None, kv_lora_rank=16, qk_nope_head_dim=8,

@@ -22,6 +22,7 @@ from apex_tpu.contrib import mla_decode as jax_md
 from apex_tpu.kernels.registry import choose_block as jax_choose_block
 from apex_tpu_torch.contrib import mla_decode
 from apex_tpu_torch.kernels import registry
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

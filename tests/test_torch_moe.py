@@ -30,6 +30,7 @@ from apex_tpu_torch.transformer.moe import (
     compute_routing_sorted,
     expert_capacity,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 E, H, F = 8, 32, 48
 

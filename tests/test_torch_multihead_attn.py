@@ -34,6 +34,7 @@ from apex_tpu.contrib.multihead_attn import SelfMultiheadAttn as JaxSelf
 from apex_tpu_torch.contrib import EncdecMultiheadAttn, SelfMultiheadAttn
 from apex_tpu_torch.contrib.multihead_attn import _core
 from apex_tpu_torch.models import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, HEADS, BATCH = 128, 2, 2
 _TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 2.0 ** -8)}

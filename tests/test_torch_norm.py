@@ -44,6 +44,7 @@ from apex_tpu_torch.normalization import (
     fused_layer_norm_affine,
 )
 from apex_tpu_torch.ops.layer_norm import layer_norm, rms_norm
+from torch_threads import one_torch_thread  # noqa: F401
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

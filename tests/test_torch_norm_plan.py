@@ -34,6 +34,7 @@ import torch
 
 from apex_tpu.kernels import norm as jax_norm
 from apex_tpu_torch.kernels import norm
+from torch_threads import one_torch_thread  # noqa: F401
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

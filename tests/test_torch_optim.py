@@ -52,6 +52,7 @@ from apex_tpu_torch.ops.multi_tensor import (
     multi_tensor_lamb,
 )
 from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(4, 5), (7,), (3, 2, 6), (1,)]
 
@@ -365,12 +366,14 @@ def test_adam_walk_visits_every_element_once(threads, unroll, grid):
 
 def test_adam_plan_heads_from_views():
     """The wrapper's heads for views at 4-, 8- and 12-byte offsets into
-    flat buffers, as the kernel reads them (``_heads``)."""
+    flat buffers, as the kernel reads them (``_runs``' ``heads``)."""
     flats = [torch.zeros(64) for _ in range(4)]
     run = [[f[k:k + 9] for k in (0, 1, 2, 3)] for f in flats]
     run[0][3] = flats[0][4:13]  # g's view 4 bytes further on than p's
     assert [f.data_ptr() % 16 for f in flats] == [0] * 4
-    assert list(port_kernels._heads(run)) == [0, 3, 2, 9]
+    lists = dict(zip("gpmv", run), out=[None] * 4)
+    (*_, heads, _), = port_kernels._runs(lists, ("g", "p", "out"))
+    assert list(heads()) == [0, 3, 2, 9]
 
 
 def test_adam_runs_match_the_kernel_table():

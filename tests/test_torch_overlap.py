@@ -60,6 +60,7 @@ from apex_tpu_torch.parallel import (
     overlapped_zero_step,
     plan_overlap,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 DEPTH, HIDDEN, BATCH = 3, 40, 4
 MESSAGE_SIZE = 1000

@@ -36,6 +36,7 @@ from apex_tpu_torch.parallel import (
     create_syncbn_process_group,
     multiproc,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 BN_TOL = dict(rtol=1e-6, atol=1e-6)
 

@@ -26,6 +26,7 @@ import torch
 from apex_tpu.parallel import compression as jax_comp
 from apex_tpu_torch.kernels import quant, registry
 from apex_tpu_torch.parallel import compression
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(params=["oracle", "interpret"])

@@ -26,6 +26,7 @@ from apex_tpu.kernels import quant4 as jax_q4
 from apex_tpu.parallel import compression as jax_comp
 from apex_tpu_torch.kernels import quant, quant4, registry
 from apex_tpu_torch.parallel import compression
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(params=["oracle", "interpret"])

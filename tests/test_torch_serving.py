@@ -55,6 +55,7 @@ from apex_tpu_torch.serving import (
     store_lengths,
     synthetic_trace,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(hidden_size=128, num_layers=2, num_attention_heads=4,
           vocab_size=512, max_position_embeddings=128)

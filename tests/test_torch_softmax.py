@@ -39,6 +39,7 @@ from apex_tpu_torch.transformer.functional import (
     scaled_softmax,
     scaled_upper_triang_masked_softmax,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -50,6 +50,7 @@ from apex_tpu_torch.kernels import (
     quant,
     softmax,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

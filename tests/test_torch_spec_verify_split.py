@@ -37,6 +37,7 @@ from apex_tpu.kernels import fused_cc as jax_fused_cc
 from apex_tpu.kernels.registry import get_kernel_registry
 from apex_tpu_torch.kernels import fused_cc
 from apex_tpu_torch.kernels import kv_attention as kv
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATTN_TOL = 1e-4
 H100_SMS = 132

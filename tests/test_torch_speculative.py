@@ -52,6 +52,7 @@ from apex_tpu_torch.serving import (
     ServeEngine,
     synthetic_trace,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 VOCAB = 256

@@ -41,6 +41,7 @@ from apex_tpu_torch.models.tp_split import split_params_for_tp
 from apex_tpu_torch.parallel import groups
 from apex_tpu_torch.transformer import parallel_state as ps
 from apex_tpu_torch.transformer import tensor_parallel as tp
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture
@@ -143,6 +144,9 @@ emb = tp.VocabParallelEmbedding(64, 8, device="cpu")
 assert tuple(col.weight.shape) == (8, 8)
 assert tuple(row.weight.shape) == (8, 8)
 assert tuple(emb.weight.shape) == (32, 8)
+# gloo's connectFullMesh can return on one rank before the other has read
+# the handshake: no rank leaves (closing its sockets) before both are here
+dist.barrier()
 ps.destroy_model_parallel()
 dist.destroy_process_group()
 print(f"RANK{rank}_OK")

@@ -48,6 +48,7 @@ from apex_tpu.kernels.registry import get_kernel_registry
 from apex_tpu.testing import shard_map
 from apex_tpu.transformer import parallel_state as jax_ps
 from apex_tpu.transformer import tensor_parallel as jax_tp
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD = 2
 RTOL, ATOL = 2e-6, 1e-6

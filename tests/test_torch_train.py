@@ -76,6 +76,7 @@ from apex_tpu_torch.transformer.enums import AttnMaskType
 from apex_tpu_torch.transformer.tensor_parallel import (
     vocab_parallel_cross_entropy,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(hidden_size=64, num_layers=2, num_attention_heads=4,
           num_query_groups=2, ffn_hidden_size=128, vocab_size=256,

@@ -62,6 +62,7 @@ from apex_tpu_torch.contrib.optimizers import (
 )
 from apex_tpu_torch.contrib.optimizers import distributed_fused_adam as dfa
 from apex_tpu_torch.parallel import mesh2d
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = {"w": (24, 20), "b": (20,), "e": (37, 13), "s": (5,)}
 MESSAGE_SIZE = 500  # buckets [b], [e, s], [w] in sorted-key order

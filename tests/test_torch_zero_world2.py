@@ -51,6 +51,7 @@ from apex_tpu.contrib.optimizers import (
     DistributedFusedLAMB as JaxLAMB,
 )
 from apex_tpu.parallel import OverlappedDataParallel as JaxODP
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD = 2
 SHAPES = {"w": (24, 20), "b": (20,), "e": (37, 13), "s": (5,)}

@@ -31,7 +31,11 @@ and amp (``amp.initialize`` O0-O3, the dynamic ``amp.LossScaler``,
 ``amp.AmpOptimizer``, O1's dtype policy and ``amp.functional`` shim,
 ``transformer.amp.GradScaler``) with the optimizers it drives
 (``optimizers.FusedSGD``, ``FusedMixedPrecisionLamb``,
-``FusedAdam(master_weights=True)``) and ``multi_tensor_apply``.
+``FusedAdam(master_weights=True)``) and ``multi_tensor_apply``; the
+rest of the optimizers (``optimizers.FusedNovoGrad``, ``FusedAdagrad``,
+the two public LAMB stages of ``ops``), ``fp16_utils``
+(``FP16_Optimizer``, its conversions and loss scalers) and the
+deprecated ``contrib.optimizers`` set.
 """
 
 __version__ = "0.1.0"

@@ -1,14 +1,15 @@
-"""Multi-tensor Adam/AdamW update, LAMB's two stages and SGD: the CUDA
-kernels (csrc/adam.cu, csrc/lamb.cu, csrc/sgd.cu) and their plain
-PyTorch versions.
+"""Multi-tensor Adam/AdamW update, LAMB's two stages, SGD, Adagrad and
+NovoGrad: the CUDA kernels (csrc/adam.cu, csrc/lamb.cu, csrc/sgd.cu,
+csrc/adagrad.cu, csrc/novograd.cu) and their plain PyTorch versions.
 
 Counterparts of ``apex_tpu/kernels/optim.py`` ``fused_adam_update`` and
 ``fused_lamb_mvu``, which update one flat fp32 buffer per call. Here one
 launch updates a list of up to :data:`MAX_TENSORS` tensors in place, as
 the reference's ``multi_tensor_apply`` does, and :func:`adam`,
-:func:`lamb`, :func:`lamb_stage2` and :func:`sgd` make as many launches
-as the list needs: one per :data:`MAX_TENSORS` tensors of one dtype
-combination. The entry points are the ops of
+:func:`lamb`, :func:`lamb_stage2`, :func:`sgd`, :func:`adagrad` and
+:func:`novograd` make as many launches as the list needs: one per
+:data:`MAX_TENSORS` tensors of one dtype combination (and, for
+:func:`lamb`, of one weight decay). The entry points are the ops of
 :mod:`apex_tpu_torch.ops.multi_tensor`.
 
 One body serves every step of each optimizer. The gradients are fp32 or
@@ -20,8 +21,10 @@ does), so amp's overflow-skipped step needs no host synchronisation.
 Adam updates fp32 masters (or the parameters themselves) and writes the
 low-precision parameters from them in the same pass; LAMB's stage 1
 writes the raw update into the fp32 gradient or a buffer of its own, and
-stage 2 (``p - lr * ratio * u``) writes the parameters; :func:`sgd` is
-JAX's ``multi_tensor_sgd`` (no Pallas counterpart).
+stage 2 (``p - lr * ratio * u``) writes the parameters; :func:`sgd`,
+:func:`adagrad` and :func:`novograd` are JAX's ``multi_tensor_sgd``,
+``multi_tensor_adagrad`` and ``multi_tensor_novograd`` (no Pallas
+counterpart).
 """
 
 import ctypes
@@ -47,6 +50,11 @@ ADAM = registry.register("adam")
 LAMB = registry.register("lamb")
 LAMB_STAGE2 = registry.register("lamb_stage2")
 SGD = registry.register("sgd")
+ADAGRAD = registry.register("adagrad")
+NOVOGRAD = registry.register("novograd")
+# elements of one chunk of the streaming bodies (kThreads * kUnroll
+# 4-element vectors): novograd.cu's scratch holds a partial a chunk
+STREAM_CHUNK = 256 * 4 * 4
 
 
 def _sqrt(x):
@@ -291,19 +299,19 @@ def lamb_plain(noop, gs, ps, ms, vs, us=None, *, found_inf=None, clip, b1,
     tensors, or None), then :func:`fused_lamb_mvu_plain` against the fp32
     p; m and v written in place and the update into u (None: over g).
     Where ``noop`` or ``found_inf`` (None: 0) is > 0 nothing is
-    written."""
+    written. ``weight_decay``: one number, or one a tensor."""
     if not ps:
         return
     bc1, bc2 = _corrections(noop.device, bc1, bc2, step, b1, b2)
     skip = _skip(noop, found_inf)
-    for g, p, m, v, u in zip(gs, ps, ms, vs, gs if us is None else us):
+    for g, p, m, v, u, wd in zip(gs, ps, ms, vs, gs if us is None else us,
+                                 _decays(weight_decay, len(ps))):
         g32 = _unscaled(g, inv_scale)
         if clip is not None:
             g32 = g32 / clip.reshape(())
         new = fused_lamb_mvu_plain(
             g32, p.float(), m.float(), v.float(), bc1=bc1, bc2=bc2, b1=b1,
-            b2=b2, beta3=beta3, eps=eps, weight_decay=weight_decay,
-            adam_w=adam_w)
+            b2=b2, beta3=beta3, eps=eps, weight_decay=wd, adam_w=adam_w)
         for old, val in zip((m, v, u), new):
             _write(skip, old, val)
 
@@ -321,25 +329,42 @@ def launch_lamb(noop, gs, ps, ms, vs, us, *, found_inf=None, clip, b1, b2,
                 beta3, eps, weight_decay, adam_w, bc1=None, bc2=None,
                 step=None, inv_scale=None, fault=0):
     """LAMB's stage 1 over the lists through its C function (``us``: None
-    writes the updates over the gradients; ``fault``: 0, or a planted
-    fault's code); returns the launches made. :func:`lamb` checks and
-    counts; this does neither."""
+    writes the updates over the gradients; ``weight_decay``: one number,
+    or one a tensor, each distinct value its own runs; ``fault``: 0, or a
+    planted fault's code); returns the launches made. :func:`lamb` checks
+    and counts; this does neither."""
     fn = _lamb_kernel()
     lists = dict(g=gs, p=ps, m=ms, v=vs, u=gs if us is None else us)
     bc1, bc2 = (1.0, 1.0) if step is not None else (bc1, bc2)
+    wds = _decays(weight_decay, len(gs))
     launches = 0
-    for (gd,), _, t, sizes, _, n in _runs(lists, ("g",)):
-        with torch.cuda.device(noop.device):
-            rc = fn(t["g"], t["p"], t["m"], t["v"], t["u"], sizes, n, gd,
-                    noop.data_ptr(), _checks.data_ptr(found_inf),
-                    _checks.data_ptr(clip), _checks.data_ptr(step),
-                    _checks.data_ptr(inv_scale), float(bc1), float(bc2),
-                    float(b1), float(beta3), float(b2), 1.0 - b2, float(eps),
-                    float(weight_decay), int(bool(adam_w)), fault,
-                    _checks.stream(noop))
-        _checks.status("lamb", rc)
-        launches += 1
+    for wd in dict.fromkeys(wds):  # the distinct decays, in order
+        index = [k for k, w in enumerate(wds) if w == wd]
+        sub = {name: [col[k] for k in index] for name, col in lists.items()}
+        for (gd,), _, t, sizes, _, n in _runs(sub, ("g",)):
+            with torch.cuda.device(noop.device):
+                rc = fn(t["g"], t["p"], t["m"], t["v"], t["u"], sizes, n, gd,
+                        noop.data_ptr(), _checks.data_ptr(found_inf),
+                        _checks.data_ptr(clip), _checks.data_ptr(step),
+                        _checks.data_ptr(inv_scale), float(bc1), float(bc2),
+                        float(b1), float(beta3), float(b2), 1.0 - b2,
+                        float(eps), wd, int(bool(adam_w)), fault,
+                        _checks.stream(noop))
+            _checks.status("lamb", rc)
+            launches += 1
     return launches
+
+
+def _decays(weight_decay, n):
+    """Each of ``n`` tensors' weight decay as a float: ``weight_decay`` a
+    number for them all, or a sequence of one a tensor (JAX's
+    ``per_tensor_decay``)."""
+    if isinstance(weight_decay, (int, float)):
+        return [float(weight_decay)] * n
+    wds = [float(w) for w in weight_decay]
+    if len(wds) != n:
+        raise ValueError(f"{len(wds)} weight decays for {n} tensors")
+    return wds
 
 
 def lamb(noop, gs, ps, ms, vs, us=None, *, found_inf=None, clip, b1, b2,
@@ -353,10 +378,13 @@ def lamb(noop, gs, ps, ms, vs, us=None, *, found_inf=None, clip, b1, b2,
     (fp32), or, where ``us`` is None, over the fp32 grads (the
     reference's stage 1 stores the update in the gradient). The bias
     corrections are ``bc1`` and ``bc2`` or those of the device ``step``
-    (as :func:`adam`). Nothing is written where ``noop`` or ``found_inf``
-    (None: 0) is > 0. No host synchronisation. CPU tensors take
-    :func:`lamb_plain`; CUDA tensors launch the kernel, once per
-    :data:`MAX_TENSORS` tensors of one gradient dtype, or raise."""
+    (as :func:`adam`). ``weight_decay`` is one number, or one a tensor
+    (JAX's ``per_tensor_decay``: the tensors of each distinct value go to
+    launches of their own, the kernel taking one decay a launch). Nothing
+    is written where ``noop`` or ``found_inf`` (None: 0) is > 0. No host
+    synchronisation. CPU tensors take :func:`lamb_plain`; CUDA tensors
+    launch the kernel, once per :data:`MAX_TENSORS` tensors of one
+    gradient dtype and one decay, or raise."""
     kw = dict(found_inf=found_inf, clip=clip, b1=b1, b2=b2, beta3=beta3,
               eps=eps, weight_decay=weight_decay, adam_w=adam_w, bc1=bc1,
               bc2=bc2, step=step, inv_scale=inv_scale)
@@ -612,3 +640,248 @@ def lamb_stage2(noop, found_inf, ps, us, outs, factors):
     _check_lists("lamb_stage2", dict(p=ps, u=us, out=outs), fp32=("p", "u"))
     for _ in range(launch_lamb_stage2(noop, found_inf, ps, us, outs, factors)):
         registry.count(LAMB_STAGE2)
+
+
+def _divided(g, scale):
+    """g in fp32, divided by ``scale`` (a one-element fp32 tensor, or
+    None) as JAX's ``g.astype(f32) / scale``."""
+    g = g.float()
+    return g if scale is None else g / scale.reshape(())
+
+
+def adagrad_plain(noop, gs, ps, hs, outs=None, *, lr, eps, weight_decay,
+                  mode, scale=None):
+    """JAX's ``multi_tensor_adagrad`` in its fp32 order over the lists:
+    each g divided by ``scale``, p and h written in place, then each out
+    (None: none) from the new p. Where ``noop`` is > 0 nothing changes."""
+    if not ps:
+        return
+    skip = noop.reshape(()) > 0
+    f32 = functools.partial(torch.full, (), dtype=torch.float32,
+                            device=noop.device)
+    wd, lr_, eps_ = f32(weight_decay), f32(lr), f32(eps)
+    for g, p, h, out in zip(gs, ps, hs, _none_list(outs, len(ps))):
+        g32 = _divided(g, scale)
+        if mode == 0 and weight_decay != 0:
+            g32 = g32 + wd * p
+        h32 = h + torch.square(g32)
+        update = g32 / (_sqrt(h32) + eps_)
+        if mode == 1 and weight_decay != 0:
+            update = update + wd * p
+        _write(skip, h, h32)
+        _write(skip, p, p - lr_ * update)
+        if out is not None:
+            _write(skip, out, p)
+
+
+@functools.lru_cache(maxsize=1)
+def _adagrad_kernel():
+    p, f, i = _checks.ptr, ctypes.c_float, ctypes.c_int
+    return _build.function(
+        "adagrad", "apex_adagrad",
+        [p, p, p, p, p, p, i, i, i, p, p, f, f, f, i, i, p])
+
+
+def launch_adagrad(noop, gs, ps, hs, outs, *, lr, eps, weight_decay, mode,
+                   scale=None, fault=0):
+    """The Adagrad kernel over the lists through its C function
+    (``fault``: 0, or a planted fault's code); returns the launches made.
+    :func:`adagrad` checks and counts; this does neither."""
+    fn = _adagrad_kernel()
+    names = ("g", "p", "h", "out")
+    lists = dict(zip(names, (gs, ps, hs, _none_list(outs, len(ps)))))
+    launches = 0
+    for (gd, od), _, t, sizes, heads, n in _runs(lists, ("g", "out")):
+        with torch.cuda.device(noop.device):
+            rc = fn(t["g"], t["p"], t["h"], t["out"], sizes, heads(), n, gd,
+                    od, noop.data_ptr(), _checks.data_ptr(scale), float(lr),
+                    float(eps), float(weight_decay), int(mode), fault,
+                    _checks.stream(noop))
+        _checks.status("adagrad", rc)
+        launches += 1
+    return launches
+
+
+def adagrad(noop, gs, ps, hs, outs=None, *, lr, eps, weight_decay, mode,
+            scale=None):
+    """Adagrad (JAX's ``multi_tensor_adagrad``; ``mode`` 0: L2 decay into
+    the gradient, 1: decoupled, ``adagrad_w_mode``): each g (fp32 or
+    bf16) divided by ``scale`` (a one-element fp32 tensor, or None: no
+    division), the fp32 p and sums h updated in place, then each of
+    ``outs`` (None, or entries a parameter to write from the new p, or
+    None). Nothing changes where ``noop`` is > 0. No host
+    synchronisation. CPU tensors take :func:`adagrad_plain`; CUDA tensors
+    launch the streaming kernel (:func:`adam_plan` per tensor), once per
+    :data:`MAX_TENSORS` tensors of one dtype pair, or raise."""
+    if mode not in (0, 1):
+        raise ValueError(f"adagrad: mode must be 0 or 1, got {mode}")
+    outs = _none_list(outs, len(ps))
+    kw = dict(lr=lr, eps=eps, weight_decay=weight_decay, mode=mode,
+              scale=scale)
+    extra = [t for t in (scale, *outs) if t is not None]
+    if not _checks.on_cuda("adagrad", noop, *extra, *gs, *ps, *hs):
+        return adagrad_plain(noop, gs, ps, hs, outs, **kw)
+    _scalar("adagrad", noop, torch.float32, "noop")
+    _scalar("adagrad", scale, torch.float32, "scale")
+    _check_lists("adagrad", dict(g=gs, p=ps, h=hs, out=outs),
+                 fp32=("p", "h"))
+    for _ in range(launch_adagrad(noop, gs, ps, hs, outs, **kw)):
+        registry.count(ADAGRAD)
+
+
+def novograd_norms_plain(gs, *, norm_type, scale=None):
+    """Each tensor's squared gradient norm as NovoGrad takes it (JAX's
+    ``gnorm_sq``): ``sum(g * g)`` for ``norm_type`` 2, ``max(|g|)^2``
+    otherwise, of g divided by ``scale``; an fp32 tensor [len(gs)]. The
+    sums are torch's, in another order than the kernel's or XLA's."""
+    out = []
+    for g in gs:
+        g32 = _divided(g, scale)
+        if norm_type == 2:
+            out.append(torch.square(g32).sum())
+        elif g32.numel():
+            out.append(torch.square(g32.abs().amax()))
+        else:
+            out.append(g32.new_zeros(()))
+    return torch.stack(out) if out else torch.zeros(0)
+
+
+def novograd_plain(noop, gs, ps, ms, v, outs=None, *, slots=None, step, lr,
+                   b1, b2, beta3, eps, weight_decay, moment_mode, norm_type,
+                   init_zero, bias_correction, scale=None, v_given=None):
+    """JAX's ``multi_tensor_novograd`` in its fp32 order over the lists:
+    each g divided by ``scale``; tensor k's second moment ``v[slots[k]]``
+    (``slots`` None: k) from its norm (:func:`novograd_norms_plain`), its
+    first value where the device ``step`` (the count after this update)
+    is 1; then p and m in place and each out (None: none) from the new p.
+    ``v_given`` (an fp32 tensor [len(gs)], or None) takes the place of the
+    new second moments, to hold the elementwise pass alone against a
+    kernel's. Where ``noop`` is > 0 nothing changes, v included."""
+    if not ps:
+        return
+    slots = list(range(len(ps))) if slots is None else list(slots)
+    device = noop.device
+    skip = noop.reshape(()) > 0
+    step = step.reshape(())
+    f32 = functools.partial(torch.full, (), dtype=torch.float32,
+                            device=device)
+    b1_, b2_, omb2, beta3_ = f32(b1), f32(b2), f32(1.0 - b2), f32(beta3)
+    wd, lr_, eps_ = f32(weight_decay), f32(lr), f32(eps)
+    bc1 = (device_bias_corrections(b1, b2, step)[0] if bias_correction
+           else f32(1.0))
+    if v_given is None:
+        norms = novograd_norms_plain(gs, norm_type=norm_type, scale=scale)
+        norms = norms.to(device)
+        v_prev = v[slots]
+        first = omb2 * norms if init_zero else norms
+        v_new = torch.where(step == 1, first, b2_ * v_prev + omb2 * norms)
+    else:
+        v_new = v_given.to(device)
+    for k, (g, p, m, out) in enumerate(zip(gs, ps, ms,
+                                           _none_list(outs, len(ps)))):
+        g32 = _divided(g, scale)
+        gn = g32 / (_sqrt(v_new[k]) + eps_)
+        if moment_mode == 0 and weight_decay != 0:
+            gn = gn + wd * p
+        m32 = b1_ * m + beta3_ * gn
+        update = m32 / bc1
+        if moment_mode == 1 and weight_decay != 0:
+            update = update + wd * p
+        _write(skip, m, m32)
+        _write(skip, p, p - lr_ * update)
+        if out is not None:
+            _write(skip, out, p)
+    for k, slot in enumerate(slots):
+        _write(skip, v[slot], v_new[k])
+
+
+@functools.lru_cache(maxsize=1)
+def _novograd_kernel():
+    p, f, i = _checks.ptr, ctypes.c_float, ctypes.c_int
+    return _build.function(
+        "novograd", "apex_novograd",
+        [p, p, p, p, p, p, p, i, i, i, p, p, p, p, ctypes.c_longlong, f, f,
+         f, f, f, f, f, i, i, i, i, i, p])
+
+
+def novograd_scratch(sizes):
+    """Floats of novograd.cu's scratch for a launch over tensors of
+    ``sizes`` elements: a partial for each chunk (at most
+    ceil(size / :data:`STREAM_CHUNK`) a tensor, whatever its head) and
+    the blocks' count."""
+    return sum(-(-n // STREAM_CHUNK) for n in sizes) + 1
+
+
+def launch_novograd(noop, gs, ps, ms, v, outs, *, slots=None, step, lr, b1,
+                    b2, beta3, eps, weight_decay, moment_mode, norm_type,
+                    init_zero, bias_correction, scale=None, fault=0):
+    """The NovoGrad kernel over the lists through its C function (its two
+    CUDA kernels, the norms and the update; ``fault``: 0, or a planted
+    fault's code); returns the launches made. :func:`novograd` checks and
+    counts; this does neither."""
+    fn = _novograd_kernel()
+    slots = list(range(len(ps))) if slots is None else list(slots)
+    names = ("g", "p", "m", "out")
+    lists = dict(zip(names, (gs, ps, ms, _none_list(outs, len(ps)))))
+    base, item = v.data_ptr(), v.element_size()
+    launches = 0
+    for (gd, od), run, t, sizes, heads, n in _runs(lists, ("g", "out")):
+        vs = (ctypes.c_void_p * n)(*[base + item * slots[k] for k in run])
+        scratch = torch.zeros(novograd_scratch(sizes), dtype=torch.float32,
+                              device=noop.device)
+        with torch.cuda.device(noop.device):
+            rc = fn(t["g"], t["p"], t["m"], t["out"], vs, sizes, heads(), n,
+                    gd, od, noop.data_ptr(), step.data_ptr(),
+                    _checks.data_ptr(scale), scratch.data_ptr(),
+                    scratch.numel(), float(lr), float(b1), float(beta3),
+                    float(b2), 1.0 - b2, float(eps), float(weight_decay),
+                    int(moment_mode), 2 if norm_type == 2 else 0,
+                    int(bool(init_zero)), int(bool(bias_correction)), fault,
+                    _checks.stream(noop))
+        _checks.status("novograd", rc)
+        launches += 1
+    return launches
+
+
+def novograd(noop, gs, ps, ms, v, outs=None, *, slots=None, step, lr, b1, b2,
+             beta3, eps, weight_decay, moment_mode, norm_type, init_zero,
+             bias_correction, scale=None):
+    """NovoGrad (JAX's ``multi_tensor_novograd``): each g (fp32 or bf16)
+    divided by ``scale`` (a one-element fp32 tensor, or None); tensor k's
+    second moment ``v[slots[k]]`` (``v`` an fp32 tensor of one value a
+    tensor, ``slots`` None: k) from its squared gradient norm (L2 for
+    ``norm_type`` 2, else the max norm), taking its first value
+    (``init_zero``: ``(1 - b2) * norm``, else the norm) where ``step`` (a
+    one-element int32 tensor, the count after this update) is 1; then
+    the fp32 p and exp_avgs m updated in place (``moment_mode`` 0: L2
+    decay into the normalised gradient, 1: decoupled; bc1 from ``step``
+    with ``bias_correction``) and each of ``outs`` (None, or entries a
+    parameter to write from the new p, or None). Nothing changes where
+    ``noop`` is > 0, v included. No host synchronisation. CPU tensors
+    take :func:`novograd_plain`; CUDA tensors launch the kernel (two
+    CUDA kernels: the norms, summed in a fixed order, and the update),
+    once per :data:`MAX_TENSORS` tensors of one dtype pair, or raise."""
+    if moment_mode not in (0, 1):
+        raise ValueError(f"novograd: moment_mode must be 0 or 1, got "
+                         f"{moment_mode}")
+    outs = _none_list(outs, len(ps))
+    slots = list(range(len(ps))) if slots is None else list(slots)
+    kw = dict(slots=slots, step=step, lr=lr, b1=b1, b2=b2, beta3=beta3,
+              eps=eps, weight_decay=weight_decay, moment_mode=moment_mode,
+              norm_type=norm_type, init_zero=init_zero,
+              bias_correction=bias_correction, scale=scale)
+    extra = [t for t in (scale, *outs) if t is not None]
+    if not _checks.on_cuda("novograd", noop, step, v, *extra, *gs, *ps, *ms):
+        return novograd_plain(noop, gs, ps, ms, v, outs, **kw)
+    _scalar("novograd", noop, torch.float32, "noop")
+    _scalar("novograd", step, torch.int32, "step")
+    _scalar("novograd", scale, torch.float32, "scale")
+    if v.dtype != torch.float32 or v.dim() != 1 or not v.is_contiguous():
+        raise ValueError("novograd: v must be a contiguous float32 vector")
+    if len(slots) != len(ps) or any(not 0 <= s < v.numel() for s in slots):
+        raise ValueError(f"novograd: slots {slots} do not index v's "
+                         f"{v.numel()} values, one a tensor")
+    _check_lists("novograd", dict(g=gs, p=ps, m=ms, out=outs),
+                 fp32=("p", "m"))
+    for _ in range(launch_novograd(noop, gs, ps, ms, v, outs, **kw)):
+        registry.count(NOVOGRAD)

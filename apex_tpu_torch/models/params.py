@@ -2,7 +2,7 @@
 :class:`~apex_tpu_torch.models.BertModel` and
 :class:`~apex_tpu_torch.models.DeepseekModel`: carried over from the JAX
 package's flax tree, or drawn from a seed; and the state of the JAX
-``FusedAdam`` or ``FusedLAMB`` carried into the port's optimizer.
+fused optimizers (and of ``FP16_Optimizer``) carried into the port's.
 
 The port keeps the JAX package's parameter names and layouts, so the
 flax tree of ``apex_tpu.models.GPTModel`` (Llama- or GPT-2-shaped),
@@ -31,6 +31,12 @@ def _flatten(tree, prefix=""):
             yield name, value
 
 
+def from_jax_name(name):
+    """The port's name of a JAX parameter path (dotted): the flax layer
+    scope ``layer_<i>`` becomes ``layers.<i>``."""
+    return _LAYER.sub(r"\1layers.\2.", name)
+
+
 def from_jax_params(tree, config=None):
     """The port's ``state_dict`` from a flax ``params`` tree whose leaves
     are numpy arrays (``jax.tree.map(np.asarray, params)``): of a
@@ -38,8 +44,8 @@ def from_jax_params(tree, config=None):
     or of a ``DeepseekModel`` (``layer_<i>``). ``config`` (the port's
     :class:`TransformerConfig` or :class:`MLAConfig`) checks that the
     tree's depth matches it."""
-    state = {_LAYER.sub(r"\1layers.\2.", name):
-             torch.from_numpy(np.array(value, copy=True))
+    state = {from_jax_name(name): torch.from_numpy(np.array(value,
+                                                           copy=True))
              for name, value in _flatten(tree)}
     if config is not None:
         layers = {int(m.group(2)) for name in state
@@ -64,37 +70,93 @@ def from_jax_segments(segments):
     return tuple(carry(seg) for seg in segments)
 
 
+def _leaf_names(tree, prefix=""):
+    """The dotted names of ``tree``'s leaves in JAX's ``tree_flatten``
+    order (each dict's keys sorted), JAX's layer scopes kept."""
+    for key in sorted(tree):
+        value = tree[key]
+        name = f"{prefix}{key}"
+        if isinstance(value, dict) or hasattr(value, "items"):
+            yield from _leaf_names(value, name + ".")
+        else:
+            yield name
+
+
+def _carry_tree(fn, what, tree, targets):
+    """``{target tensor: tensor}`` for a JAX per-parameter tree (numpy
+    leaves) whose names must be ``targets``' ({port name: tensor}), each
+    value of its target's shape."""
+    values = from_jax_params(tree)
+    if values.keys() != targets.keys():
+        raise ValueError(f"{fn}: {what} names "
+                         f"{sorted(values.keys() ^ targets.keys())} do not "
+                         f"match the model's parameters")
+    out = {}
+    for key, value in values.items():
+        t = targets[key]
+        if value.shape != t.shape:
+            raise ValueError(f"{fn}: {what} of {key} has shape "
+                             f"{tuple(value.shape)}, the parameter "
+                             f"{tuple(t.shape)}")
+        out[key] = value.to(device=t.device, dtype=torch.float32)
+    return out
+
+
 @torch.no_grad()
 def load_jax_optimizer_state(optimizer, model, state):
-    """Carry the JAX ``FusedAdam`` or ``FusedLAMB`` state of ``model``'s
-    parameters into the port's ``optimizer`` (a
-    :class:`apex_tpu_torch.optimizers.FusedAdam` or ``FusedLAMB`` over
-    ``model.parameters()``, in one group). ``state`` is the JAX
-    optimizer's ``{"step", "exp_avg", "exp_avg_sq"}`` (both optimizers
-    keep these) with numpy leaves (``jax.tree.map(np.asarray,
-    opt_state)``): each buffer goes to the parameter of the same name,
-    and the group's step count becomes ``step``."""
+    """Carry the JAX optimizer state of ``model``'s parameters into the
+    port's ``optimizer`` (over ``model.parameters()``, in one group).
+    ``state`` has numpy leaves (``jax.tree.map(np.asarray, opt_state)``)
+    and is that of
+
+    - ``FusedAdam`` or ``FusedLAMB``: ``{"step", "exp_avg",
+      "exp_avg_sq"}``;
+    - ``FusedAdagrad``: ``{"step", "sum"}``;
+    - ``FusedNovoGrad``: ``{"step", "exp_avg", "exp_avg_sq"}``, its
+      ``exp_avg_sq`` one value a parameter in JAX's ``tree_flatten`` leaf
+      order (each dict's keys sorted), which goes to the group's vector in
+      the port's parameter order, matched by leaf path;
+    - ``FP16_Optimizer`` over any of these (its ``optimizer`` here): the
+      inner state plus ``"fp32_master"``, copied into the wrapper's fp32
+      masters, which the inner state then belongs to.
+
+    Each per-parameter tree goes to the parameter (or master) of the same
+    name, and the group's step count becomes ``step``."""
     fn = "load_jax_optimizer_state"
-    if len(optimizer.param_groups) != 1:
+    inner = getattr(optimizer, "inner", optimizer)
+    if len(inner.param_groups) != 1:
         raise ValueError(f"{fn}: the optimizer must hold one parameter "
                          f"group")
-    params = dict(model.named_parameters())
-    for name in ("exp_avg", "exp_avg_sq"):
-        tree = from_jax_params(state[name])
-        if tree.keys() != params.keys():
-            raise ValueError(f"{fn}: {name} names "
-                             f"{sorted(tree.keys() ^ params.keys())} do not "
-                             f"match the model's parameters")
-        for key, value in tree.items():
-            p = params[key]
-            if value.shape != p.shape:
-                raise ValueError(f"{fn}: {name} of {key} has shape "
-                                 f"{tuple(value.shape)}, the parameter "
-                                 f"{tuple(p.shape)}")
-            optimizer.state[p][name] = value.to(device=p.device,
-                                                dtype=torch.float32)
-    optimizer.param_groups[0]["step"] = int(state["step"])
-
+    named = dict(model.named_parameters())
+    if "fp32_master" in state:
+        master_of = {id(p): m for p, m in zip(optimizer.model_params,
+                                              optimizer.masters)}
+        targets = {name: master_of[id(p)] for name, p in named.items()}
+        for key, value in _carry_tree(fn, "fp32_master",
+                                      state["fp32_master"], targets).items():
+            targets[key].copy_(value)
+    else:
+        targets = named
+    group = inner.param_groups[0]
+    for name, tree in state.items():
+        if name in ("step", "fp32_master"):
+            continue
+        if isinstance(tree, dict) or hasattr(tree, "items"):
+            for key, value in _carry_tree(fn, name, tree, targets).items():
+                inner.state[targets[key]][name] = value
+            continue
+        # one value a parameter, in JAX's leaf order (NovoGrad's
+        # exp_avg_sq): matched by the leaf paths of the per-parameter tree
+        order = [from_jax_name(n) for n in _leaf_names(state["exp_avg"])]
+        at = {n: k for k, n in enumerate(order)}
+        name_of = {id(t): n for n, t in targets.items()}
+        values = torch.from_numpy(np.array(tree, dtype=np.float32))
+        if set(at) != set(targets) or values.shape != (len(order),):
+            raise ValueError(f"{fn}: {name} holds {tuple(values.shape)} "
+                             f"values for {len(targets)} parameters")
+        group[name] = values[[at[name_of[id(t)]] for t in group["params"]]
+                             ].to(group["params"][0].device)
+    group["step"] = int(state["step"])
 
 
 # drawn ~ N(0, 0.02), as the JAX package's initialisers draw them

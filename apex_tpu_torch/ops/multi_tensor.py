@@ -1,5 +1,6 @@
 """Multi-tensor fused optimizer ops (Apex's ``amp_C``: scale, axpby,
-the L2 norms, SGD, Adam and LAMB).
+the L2 norms, SGD, Adam, Adagrad, NovoGrad and LAMB, fused and in its
+two public stages).
 
 Counterpart of ``apex_tpu/ops/multi_tensor.py``. The JAX ops are
 functional loops over the tensors that XLA fuses; eager PyTorch has no
@@ -19,8 +20,7 @@ taken on the host, or a one-element int32 tensor, read on the device)
 and the (inverse) loss scale (a Python number or a one-element fp32
 tensor). Pass these as tensors on
 the parameters' device: a CPU tensor is copied there, which waits for
-the device. The NovoGrad, Adagrad and two-stage LAMB ops of the JAX
-module come with their optimizers.
+the device.
 """
 
 import torch
@@ -305,3 +305,112 @@ def multi_tensor_lamb_mp(noop_flag, tensor_lists, lr, beta1, beta2, eps,
           outs, lr, beta1, beta2, eps, step, bias_correction, weight_decay,
           grad_averaging, mode, global_grad_norm, max_grad_norm, use_nvlamb,
           inv_scale)
+
+
+def multi_tensor_adagrad(noop_flag, tensor_lists, lr, eps, mode,
+                         weight_decay):
+    """Fused Adagrad over ``tensor_lists = [grads, params, sums]`` (fp32
+    params and sums, fp32 or bf16 grads), updating params and sums in
+    place (``mode`` 0: L2 decay added to the gradient, 1: decoupled, to
+    the update). Nothing changes where ``noop_flag`` is > 0."""
+    grads, params, hs = tensor_lists
+    _kernels.adagrad(noop_flag, grads, params, hs, lr=lr, eps=eps,
+                     weight_decay=weight_decay, mode=mode)
+
+
+def multi_tensor_novograd(noop_flag, tensor_lists, lr, beta1, beta2, eps,
+                          step, bias_correction, weight_decay,
+                          grad_averaging, moment_mode, norm_type,
+                          init_zero=False):
+    """Fused NovoGrad over ``tensor_lists = [grads, params, exp_avgs,
+    v]``: fp32 params and exp_avgs, fp32 or bf16 grads, and ``v`` the
+    per-tensor second moments, one fp32 vector [len(params)] (JAX's
+    stacked ``exp_avg_sq``). Each tensor's v takes the squared norm of its
+    gradient (``norm_type`` 2: L2, else the max norm), its first value
+    (``init_zero``: ``(1 - beta2) * norm``, else the norm) where ``step``
+    is 1; then params and exp_avgs move as JAX's op moves them
+    (``moment_mode`` 0: L2 decay into the normalised gradient, 1:
+    decoupled; ``grad_averaging``: beta3 = 1 - beta1). Params, exp_avgs
+    and v are updated in place; nothing changes where ``noop_flag`` is
+    > 0. ``step`` is the count after this update: an int or an int32
+    tensor, read on the device (bc1 = 1 - beta1**step as JAX's traced
+    power gives it)."""
+    grads, params, exp_avgs, v = tensor_lists
+    device = noop_flag.device
+    _kernels.novograd(
+        noop_flag, grads, params, exp_avgs, v,
+        step=device_scalar(step, device, torch.int32), lr=lr, b1=beta1,
+        b2=beta2, beta3=(1 - beta1) if grad_averaging else 1.0, eps=eps,
+        weight_decay=weight_decay, moment_mode=moment_mode,
+        norm_type=norm_type, init_zero=init_zero,
+        bias_correction=bias_correction)
+
+
+def _fp32_params(name, params):
+    """Refuse parameters other than fp32: the LAMB kernels move fp32
+    parameters (or masters) only."""
+    for k, p in enumerate(params):
+        if p.dtype != torch.float32:
+            raise TypeError(f"{name}: parameter {k} is {p.dtype}; the two "
+                            f"LAMB stages take float32 parameters (keep "
+                            f"fp32 masters of low-precision ones)")
+
+
+def multi_tensor_lamb_stage1(noop_flag, tensor_lists, per_tensor_decay,
+                             step, beta1, beta2, beta3, bias_correction,
+                             eps, grad_averaging, mode, global_grad_norm,
+                             max_global_grad_norm):
+    """LAMB's first public stage over ``tensor_lists = [grads, params,
+    exp_avgs, exp_avg_sqs, updates]``: each grad (fp32 or bf16) divided
+    by the clip factor ``max(global_grad_norm / max_global_grad_norm,
+    1)`` (when that maximum is > 0), exp_avgs and exp_avg_sqs updated in
+    place and each tensor's raw update ``m_hat / (sqrt(v_hat) + eps)``
+    (plus its decay, ``mode`` 0: L2 into the gradient, 1: decoupled)
+    written into ``updates`` (fp32). ``per_tensor_decay`` gives each
+    tensor's decay (the tensors of each distinct value take launches of
+    their own); ``beta3`` the gradient's weight in m (None: ``1 - beta1``
+    with ``grad_averaging``, else 1). ``step`` is the count after this
+    update, an int or an int32 tensor. Params are fp32 (bf16 ones are
+    refused). Nothing is written where ``noop_flag`` is > 0, the updates
+    included (JAX's op returns them computed, and its stage 2 discards
+    them under the same flag)."""
+    grads, params, exp_avgs, exp_avg_sqs, updates = tensor_lists
+    if mode not in (0, 1):
+        raise ValueError(f"multi_tensor_lamb_stage1: mode must be 0 or 1, "
+                         f"got {mode}")
+    _fp32_params("multi_tensor_lamb_stage1", params)
+    if not params:
+        return
+    if beta3 is None:
+        beta3 = (1.0 - beta1) if grad_averaging else 1.0
+    device = noop_flag.device
+    _kernels.lamb(
+        noop_flag, grads, params, exp_avgs, exp_avg_sqs, updates,
+        clip=_lamb_clip(global_grad_norm, max_global_grad_norm, device),
+        b1=beta1, b2=beta2, beta3=beta3, eps=eps,
+        weight_decay=list(per_tensor_decay), adam_w=(mode == 1),
+        **_step_args(beta1, beta2, step, bias_correction, device))
+
+
+def multi_tensor_lamb_stage2(noop_flag, tensor_lists, per_tensor_decay, lr,
+                             use_nvlamb=False):
+    """LAMB's second public stage over ``tensor_lists = [params,
+    updates]`` (fp32): each param moves by ``lr * ratio * update``, with
+    the trust ratio ||p|| / ||update|| (1 where either is 0) where
+    ``use_nvlamb`` or that tensor's decay is not 0, else 1 (JAX's gate,
+    tensor by tensor). Params are updated in place; nothing changes where
+    ``noop_flag`` is > 0."""
+    params, updates = tensor_lists
+    _fp32_params("multi_tensor_lamb_stage2", params)
+    if not params:
+        return
+    applied = torch.tensor([bool(use_nvlamb or wd != 0)
+                            for wd in per_tensor_decay])
+    if len(applied) != len(params):
+        raise ValueError(f"multi_tensor_lamb_stage2: {len(applied)} decays "
+                         f"for {len(params)} tensors")
+    factors = _trust_factors(lr, params, updates, bool(applied.any()))
+    if not applied.all():
+        factors = torch.where(applied.to(factors.device), factors,
+                              torch.full_like(factors, lr))
+    _kernels.lamb_stage2(noop_flag, None, params, updates, None, factors)

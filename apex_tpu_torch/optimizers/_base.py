@@ -38,6 +38,15 @@ def inverse_scale(scale, device):
     return torch.full((1,), 1.0 / scale, dtype=torch.float32, device=device)
 
 
+def divisor(scale, device):
+    """``scale`` as the Adagrad and NovoGrad kernels divide by it (JAX's
+    ``g.astype(f32) / scale``): None (no division) for the number 1, else
+    a one-element fp32 tensor on ``device``."""
+    if not isinstance(scale, torch.Tensor) and scale == 1.0:
+        return None
+    return device_scalar(scale, device)
+
+
 def master_copy(p, dtype=torch.float32):
     """An fp32 master of ``p``: always a tensor of its own, never ``p``
     itself, even where ``p`` is already fp32 (a norm parameter under amp
@@ -70,6 +79,10 @@ class FusedOptimizerBase(torch.optim.Optimizer):
     def __init__(self, params, defaults):
         super().__init__(params, defaults)
         self._noops = {}
+        # id(target) -> the tensor to write from it in the same pass: the
+        # low-precision parameters of masters that a wrapper holds in the
+        # groups (fp16_utils.FP16_Optimizer)
+        self.written_from = {}
 
     @torch.no_grad()
     def step(self, closure=None, *, found_inf=None, scale=1.0):
@@ -115,8 +128,8 @@ class FusedOptimizerBase(torch.optim.Optimizer):
         group's parameters that have a gradient: a target is the tensor
         the update moves (the parameter, or its fp32 master under
         ``master_key``, created at its first step), an out the parameter
-        written from its master (None where the target is the
-        parameter)."""
+        written from its master (None where the target is the parameter,
+        unless :attr:`written_from` names one for it)."""
         grads, targets, outs = [], [], []
         buffers = [[] for _ in self.state_names]
         for p in group["params"]:
@@ -133,7 +146,7 @@ class FusedOptimizerBase(torch.optim.Optimizer):
             grads.append(p.grad)
             if master_key is None:
                 targets.append(p)
-                outs.append(None)
+                outs.append(self.written_from.get(id(p)))
             else:
                 if master_key not in state:
                     state[master_key] = master_copy(p)

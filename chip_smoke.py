@@ -256,6 +256,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``FusedMixedPrecisionLamb(lr=1e-3, weight_decay=0.01)`` (its own fp32
    masters): the same checks (multi_tensor_scale, lamb and lamb_stage2
    a step), the loss falling from step 2 as phase 7's.
+20. novograd_gpt2: GPT-2 345M as in phase 6 with
+   ``FusedNovoGrad(lr=NOVOGRAD_LR, betas=NOVOGRAD_BETAS,
+   weight_decay=NOVOGRAD_WD)``: the counted steps (novograd once per 64
+   tensors a step: two CUDA kernels each, the norms and the update), the
+   loss falling, the step-1 hold against the plain versions, every
+   ``opt.step()`` with host waits forbidden; ms, tokens/s, peak memory
+   and busy share beside phase 6's.
+21. adagrad_gpt2: the same with ``FusedAdagrad(lr=ADAGRAD_LR)`` (adagrad
+   once per 64 tensors a step).
+22. fp16_gpt2: GPT-2 345M in bf16 from ``fp16_utils.network_to_half``
+   (the norms' fp32) with ``FP16_Optimizer(FusedAdam(lr=1e-4),
+   dynamic_loss_scale=True)``: first a fresh optimizer's two steps with an
+   inf planted into one gradient at the second, which
+   ``update_master_grads`` reads (halving the scale, 2^32 to 2^31) and the
+   step after must skip bit for bit; then the checks of phase 17
+   (multi_tensor_scale and adam once per 64 tensors of a dtype a step, the
+   scaled loss's backward, the masters' step-1 update held).
 
 The kernel phase also holds amp's kernels against their plain versions:
 multi_tensor_scale (in place over GPT-2 345M's and BERT-large's O2
@@ -274,7 +291,18 @@ against its first design and timed beside it in turns), lamb and
 lamb_stage2 on masters (BERT-large's O2 step; off the path inv_scale, L2
 decay, no clip, no outputs, found_inf), each with two planted faults
 through its own launch, timed beside its bound and, where one exists,
-its PyTorch call. A kernel's row in the JSON line is its first shape;
+its PyTorch call; and the rest of the optimizers' kernels at GPT-2's 293
+fp32 tensors: adagrad (both modes, decay, the scale's division, bf16
+gradients and outputs, noop, views 1-3 elements past a 16-byte boundary;
+bit for bit; beside torch._fused_adagrad_ where that runs on CUDA
+tensors), novograd (the first step and later ones to NOVOGRAD_BC_STEPS,
+the max norm, init_zero, each moment mode, v out of order; p and m bit
+for bit against the plain version's pass on the kernel's v, v within
+NOVOGRAD_V_RTOL of the plain version's and of float64 sums, two runs
+bit-identical) and lamb's stage 1 with a decay a tensor (the public
+two-stage op's route, a launch a distinct decay; kernel phase only),
+each with two planted faults through its own launch, timed beside its
+bound. A kernel's row in the JSON line is its first shape;
 the others follow under ``other_shapes``.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -637,6 +665,8 @@ def plain_versions():
              (softmax, "softmax_bwd", softmax.softmax_bwd_plain),
              (optim, "adam", optim.adam_plain),
              (optim, "sgd", optim.sgd_plain),
+             (optim, "adagrad", optim.adagrad_plain),
+             (optim, "novograd", optim.novograd_plain),
              (optim, "lamb_stage2", optim.lamb_stage2_plain),
              (scale, "scale", scale.scale_plain),
              (scale, "axpby", scale.axpby_plain),
@@ -682,7 +712,8 @@ def _ptxas_by_kernel(report):
 
 
 # kernels whose every instance must build without spills
-NO_SPILL = ("scale_vec_kernel", "sgd_vec_kernel")
+NO_SPILL = ("scale_vec_kernel", "sgd_vec_kernel", "adagrad_vec_kernel",
+            "novograd_norm_kernel", "novograd_update_kernel")
 
 
 def phase_build():
@@ -3508,6 +3539,440 @@ def check_amp_kernels(gen):
     return entries
 
 
+# --------------------------------- phase 2: the rest of the optimizers
+
+# K5 (Adagrad) and K6 (NovoGrad) against their plain versions on the same
+# inputs. K5 is elementwise, the same fp32 operations in the same order:
+# held bit for bit (within AMP_RTOL, which only equality meets). K6's
+# elementwise pass is too, given the second moments: its parameters and
+# exp_avgs are held bit for bit against the plain version's pass on the
+# kernel's v. Its v is a sum of squares in another order than torch's: held
+# within NOVOGRAD_V_RTOL of the plain version's and of a float64 sum. The
+# kernel's sum is a chain of at most ~100 fp32 additions for GPT-2's
+# largest tensor (16-32 elements a thread, a 5-step butterfly, 8 warps;
+# 12.6 k partials over 256 threads, 50 each, then the block again), each
+# rounding within 2^-24 of the running sum: ~6e-6 relative; torch's
+# pairwise sum is within that too. With the max norm v is exact: held bit
+# for bit.
+NOVOGRAD_V_RTOL = 1e-5
+# the learning rates of the optimizer phases: Adagrad's first step is
+# sign-like (g / |g|), as Adam's, so it takes bench_gpt2's Adam rate;
+# NovoGrad's step is lr * g / ||g|| a tensor, and 0.01 is NovoGrad's
+# usual rate (Jasper's recipe, with decay 0.001 and betas 0.95, 0.98)
+ADAGRAD_LR = GPT2_LR
+NOVOGRAD_LR = 0.01
+NOVOGRAD_BETAS, NOVOGRAD_WD = (0.95, 0.98), 0.001
+# device steps at which K6's bias correction is held (the update given
+# the kernel's v, bit for bit against the plain version's)
+NOVOGRAD_BC_STEPS = (1, 2, 3, 10, 977, 100000)
+
+
+def _optim_views(gen, shapes, views):
+    """Gradients of ``shapes`` (each its dtype) as views ``views[0]``
+    elements past a 16-byte boundary, as _check_sgd lays them out; and
+    the sizes."""
+    sizes = [math.prod(s) for s, _ in shapes]
+    by_dtype = {dt: _views(gen, sizes, views[0], dt)
+                for dt in {dt for _, dt in shapes}}
+    return [by_dtype[dt][k] for k, (_, dt) in enumerate(shapes)], sizes
+
+
+def _check_adagrad(gen, shapes):
+    """K5 at GPT-2 345M's fp32 tensors (FusedAdagrad's step in the
+    adagrad_gpt2 phase: mode 0, no decay, no scale) and off the path
+    (decay in each mode, the scale's division, bf16 gradients, bf16
+    outputs, noop, views 1-3 elements past a 16-byte boundary) against its
+    plain version, bit for bit; two planted faults through its own launch;
+    timed beside torch._fused_adagrad_ where that runs on CUDA tensors."""
+    from apex_tpu_torch.kernels import optim, registry
+    noop0 = torch.zeros(1, device="cuda")
+    four = torch.full((1,), 4.0, device="cuda")
+
+    def case(shapes, views=None, **over):
+        if views is None:
+            gs = _like(gen, shapes)
+            ps = _like(gen, shapes, 0.03, dtype=torch.float32)
+            hs = _like(gen, shapes, 0.01, fill=torch.rand,
+                       dtype=torch.float32)
+        else:
+            gs, sizes = _optim_views(gen, shapes, views)
+            ps = _views(gen, sizes, views[1], torch.float32, 0.03)
+            hs = _views(gen, sizes, views[1], torch.float32, 0.01,
+                        fill=torch.rand)
+        kw = dict(lr=ADAGRAD_LR, eps=1e-10, weight_decay=0.0, mode=0,
+                  scale=None)
+        kw.update(over)
+        outs = ([p.to(dt) for p, (_, dt) in zip(ps, shapes)]
+                if kw.pop("outs", False) else [None] * len(ps))
+        return (gs, ps, hs, outs), kw
+
+    def both(what, noop, lists, kw):
+        gs, *rest = lists
+        ker, pln = ([_copies(ts) for ts in rest] for _ in range(2))
+        optim.adagrad(noop, gs, *ker, **kw)
+        optim.adagrad_plain(noop, gs, *pln, **kw)
+        torch.cuda.synchronize()
+        errs = _hold_lists(what, _flat(ker), _flat(pln))
+        assert errs[2], (what, "not bit-identical to the plain version")
+        return ker, errs
+
+    small = [((n_,), dt) for n_ in (0, 1, 3, 4099, 70001)
+             for dt in (torch.float32, torch.bfloat16)] * 14
+    options = (dict(mode=1, weight_decay=0.01),
+               dict(mode=0, weight_decay=0.01, scale=four),
+               dict(mode=1, weight_decay=0.01, scale=four, outs=True),
+               dict(mode=0, outs=True))
+    for over in options:
+        lists, kw = case(small, **over)
+        both(f"adagrad off the path {sorted(over)}", noop0, lists, kw)
+    ker, _ = both("adagrad, noop raised", torch.ones(1, device="cuda"),
+                  lists, kw)
+    assert _equal_lists(_flat(ker), _flat(lists[1:])), "noop moved"
+    vsmall = [((n_,), dt) for n_ in (0, 1, 3, 5, 9, 4099, 70001)
+              for dt in (torch.float32, torch.bfloat16) for _ in range(3)]
+    elems = [1, 2, 3] * (len(vsmall) // 3)
+    covered = {}
+    for g_off in (0, 1):
+        for over in options[:3]:
+            lists, kw = case(vsmall, views=([e + g_off for e in elems],
+                                            elems), **over)
+            both(f"adagrad, views, g {g_off} element(s) off, "
+                 f"{sorted(over)}", noop0, lists, kw)
+            _cover([ts for ts in lists if ts[0] is not None],
+                   lambda dts: 4, covered)
+    assert all(covered.get(k) for k in ("head", "vectors", "tail")), covered
+    fp32 = [(s, torch.float32) for s, _ in shapes]
+    lists, kw = case(fp32)
+    before = registry.launches()["adagrad"]
+    ker, errs = both("adagrad at GPT-2 345M's step", noop0, lists, kw)
+    launched = registry.launches()["adagrad"] - before
+    assert launched == math.ceil(len(shapes) / optim.MAX_TENSORS), launched
+    log(f"kernels: adagrad at GPT-2 345M's fp32 step ({len(shapes)} "
+        f"tensors, {launched} launches) bit-identical to its plain "
+        f"version: {errs[2]}; off the path (decay in each mode, the "
+        f"scale's division, bf16 gradients, bf16 outputs; {len(vsmall)} "
+        f"views a list 1-3 elements past a 16-byte boundary, elements as "
+        f"head/vectors/tail {covered['head']}/{covered['vectors']}/"
+        f"{covered['tail']}) bit-identical; noop = 1 leaves everything "
+        f"bit-identical")
+    before = registry.launches()
+    gs, ps, hs, outs = lists
+    for what, fault, fkw in (("the denominator from the old sum", 1, kw),
+                             ("the gradients not divided by the scale", 2,
+                              dict(kw, scale=four))):
+        clean, bad = _clones(ps, hs), _clones(ps, hs)
+        optim.launch_adagrad(noop0, gs, *clean, outs, **fkw)
+        optim.launch_adagrad(noop0, gs, *bad, outs, **fkw, fault=fault)
+        torch.cuda.synchronize()
+        err, rel = _max_errs(_flat(bad), _flat(clean))
+        _fault_log("adagrad", what, rel > AMP_RTOL, err)
+    assert registry.launches() == before
+    n = sum(math.prod(s) for s, _ in shapes)
+    kp, kh = ker[0], ker[1]
+    lib_p, lib_h = [t.clone() for t in kp], [t.clone() for t in kh]
+    lib_steps = [torch.ones((), device="cuda") for _ in kp]
+
+    def library():
+        torch._fused_adagrad_(lib_p, gs, lib_h, lib_steps, lr=ADAGRAD_LR,
+                              lr_decay=0.0, weight_decay=0.0, eps=1e-10,
+                              maximize=False)
+
+    library_name = "torch._fused_adagrad_"
+    try:
+        library()
+        torch.cuda.synchronize()
+    except Exception as exc:  # noqa: BLE001 - logged; the library is none
+        log(f"kernel adagrad: torch._fused_adagrad_ on CUDA tensors: "
+            f"{type(exc).__name__}: {str(exc)[:200]}")
+        library, library_name = None, ("none: torch._fused_adagrad_ "
+                                       "refuses CUDA tensors")
+    entry = _amp_entry(
+        "adagrad", f"GPT-2 345M fp32 step, {len(shapes)} tensors, {n} "
+        f"params", errs,
+        lambda: optim.adagrad(noop0, gs, kp, kh, **kw),
+        lambda: optim.adagrad_plain(noop0, gs, kp, kh, **kw), library,
+        library_name, bound(20 * n, 7 * n, FP32_OPS_PER_S), f"rel {AMP_RTOL}")
+    del lists, ker, gs, ps, hs, kp, kh, lib_p, lib_h
+    return entry
+
+
+def _v64(gs, v_prev, slots, kw):
+    """K6's new second moments from float64 sums of the fp32 gradients
+    (divided by the scale in fp32), for the tensors' slots."""
+    norms = []
+    for g in gs:
+        g32 = g.float() if kw["scale"] is None else (
+            g.float() / kw["scale"].reshape(()))
+        if kw["norm_type"] == 2:
+            norms.append((g32.double() ** 2).sum())
+        elif g32.numel():
+            norms.append(g32.double().abs().amax() ** 2)
+        else:
+            norms.append(torch.zeros((), dtype=torch.float64,
+                                     device=g.device))
+    norms = torch.stack(norms)
+    b2 = kw["b2"]
+    if int(kw["step"].item()) == 1:
+        return (1 - b2) * norms if kw["init_zero"] else norms
+    return b2 * v_prev[slots].double() + (1 - b2) * norms
+
+
+def _check_novograd(gen, shapes):
+    """K6 at GPT-2 345M's fp32 tensors (FusedNovoGrad's step in the
+    novograd_gpt2 phase: decoupled decay, L2 norms, the first step and
+    later ones) and off the path (the max norm, init_zero, decay into the
+    moment, no averaging or bias correction, the scale's division, bf16
+    gradients and outputs, v's entries out of order, noop, views 1-3
+    elements past a 16-byte boundary): p and m bit for bit against the
+    plain version's pass on the kernel's v, v within NOVOGRAD_V_RTOL of the
+    plain version's and of float64 sums (bit for bit with the max norm),
+    two runs bit-identical; the bias correction at several steps; two
+    planted faults through its own launch; timed."""
+    from apex_tpu_torch.kernels import optim, registry
+    noop0 = torch.zeros(1, device="cuda")
+    two = torch.full((1,), 2.0, device="cuda")
+
+    def steps(k):
+        return torch.full((1,), k, dtype=torch.int32, device="cuda")
+
+    def case(shapes, views=None, **over):
+        if views is None:
+            gs = _like(gen, shapes)
+            ps = _like(gen, shapes, 0.03, dtype=torch.float32)
+            ms = _like(gen, shapes, 0.01, dtype=torch.float32)
+        else:
+            gs, sizes = _optim_views(gen, shapes, views)
+            ps = _views(gen, sizes, views[1], torch.float32, 0.03)
+            ms = _views(gen, sizes, views[1], torch.float32, 0.01)
+        kw = dict(slots=None, step=steps(2), lr=NOVOGRAD_LR,
+                  b1=NOVOGRAD_BETAS[0], b2=NOVOGRAD_BETAS[1],
+                  beta3=1 - NOVOGRAD_BETAS[0], eps=1e-8,
+                  weight_decay=NOVOGRAD_WD, moment_mode=1, norm_type=2,
+                  init_zero=False, bias_correction=True, scale=None)
+        kw.update(over)
+        outs = ([p.to(dt) for p, (_, dt) in zip(ps, shapes)]
+                if kw.pop("outs", False) else [None] * len(ps))
+        n = len(ps)
+        if kw.pop("shuffled", False):  # v holds more entries, out of order
+            kw["slots"] = torch.randperm(n + 5, generator=gen,
+                                         device="cuda")[:n].tolist()
+        v = torch.rand(n + 5, generator=gen, device="cuda") * 100.0
+        return (gs, ps, ms, outs), v, kw
+
+    def run(noop, lists, v, kw, fault=None):
+        gs, *rest = lists
+        state, vk = [_copies(ts) for ts in rest], v.clone()
+        if fault is None:
+            optim.novograd(noop, gs, state[0], state[1], vk, state[2], **kw)
+        else:
+            optim.launch_novograd(noop, gs, state[0], state[1], vk,
+                                  state[2], **kw, fault=fault)
+        return state, vk
+
+    def both(what, noop, lists, v, kw):
+        """The kernel (counted) twice, the plain version's pass on the
+        kernel's v and the plain version whole; returns the kernel's state
+        and v, and v's largest absolute and relative errors against the
+        plain version's and its relative error against float64."""
+        gs = lists[0]
+        slots = kw["slots"] or list(range(len(gs)))
+        ker, vk = run(noop, lists, v, kw)
+        again, vk2 = run(noop, lists, v, kw, fault=0)  # uncounted
+        given = [_copies(ts) for ts in lists[1:]]
+        vg = v.clone()
+        optim.novograd_plain(noop, gs, given[0], given[1], vg, given[2],
+                             **kw, v_given=vk[slots])
+        pln = [_copies(ts) for ts in lists[1:]]
+        vp = v.clone()
+        optim.novograd_plain(noop, gs, pln[0], pln[1], vp, pln[2], **kw)
+        torch.cuda.synchronize()
+        assert _equal_lists(_flat(ker) + [vk], _flat(again) + [vk2]), (
+            what, "two runs differ")
+        assert _equal_lists(_flat(ker) + [vk], _flat(given) + [vg]), (
+            what, "the pass on the kernel's v is not the plain version's")
+        if noop.item() > 0:
+            assert torch.equal(vk, v) and _equal_lists(
+                _flat(ker), _flat(lists[1:])), (what, "noop moved")
+            return ker, vk, (0.0, 0.0, 0.0)
+        want64 = _v64(gs, v, slots, kw)
+        got = vk[slots]
+        err = (got - vp[slots]).abs()
+        rel_plain = (err / vp[slots].abs().clamp_min(1e-30)).max().item()
+        rel64 = ((got.double() - want64).abs()
+                 / want64.abs().clamp_min(1e-30)).max().item()
+        if kw["norm_type"] == 2:
+            assert max(rel_plain, rel64) <= NOVOGRAD_V_RTOL, (
+                what, rel_plain, rel64)
+        else:
+            assert torch.equal(vk, vp), (what, "max-norm v differs")
+        untouched = [k for k in range(v.numel()) if k not in slots]
+        assert torch.equal(vk[untouched], v[untouched]), (what, "other v")
+        return ker, vk, (err.max().item(), rel_plain, rel64)
+
+    def worse(a, b):
+        return tuple(max(x, y) for x, y in zip(a, b))
+
+    small = [((n_,), dt) for n_ in (0, 1, 3, 4099, 70001, 300007)
+             for dt in (torch.float32, torch.bfloat16)] * 12
+    options = (dict(norm_type=0, init_zero=True, step=steps(1)),
+               dict(moment_mode=0, beta3=1.0, bias_correction=False),
+               dict(scale=two, outs=True, shuffled=True),
+               dict(init_zero=True, step=steps(1), scale=two),
+               dict(norm_type=0, moment_mode=0, outs=True, step=steps(7)))
+    worst = (0.0, 0.0, 0.0)
+    for over in options:
+        lists, v, kw = case(small, **over)
+        worst = worse(worst, both(f"novograd off the path {sorted(over)}",
+                                  noop0, lists, v, kw)[2])
+    both("novograd, noop raised", torch.ones(1, device="cuda"), lists, v, kw)
+    vsmall = [((n_,), dt) for n_ in (0, 1, 3, 5, 9, 4099, 70001)
+              for dt in (torch.float32, torch.bfloat16) for _ in range(3)]
+    elems = [1, 2, 3] * (len(vsmall) // 3)
+    covered = {}
+    for g_off in (0, 1):
+        for over in options[:3]:
+            lists, v, kw = case(vsmall, views=([e + g_off for e in elems],
+                                               elems), **over)
+            both(f"novograd, views, g {g_off} element(s) off, "
+                 f"{sorted(over)}", noop0, lists, v, kw)
+            _cover([ts for ts in lists if ts[0] is not None],
+                   lambda dts: 4, covered)
+    assert all(covered.get(k) for k in ("head", "vectors", "tail")), covered
+    fp32 = [(s, torch.float32) for s, _ in shapes]
+    lists, v, kw = case(fp32, step=steps(1))
+    before = registry.launches()["novograd"]
+    ker, vk, errs = both("novograd at GPT-2 345M's first step", noop0, lists,
+                         v, kw)
+    launched = registry.launches()["novograd"] - before
+    assert launched == math.ceil(len(shapes) / optim.MAX_TENSORS), launched
+    path = errs
+    for k in NOVOGRAD_BC_STEPS:
+        path = worse(path, both(f"novograd at GPT-2 345M's step {k}", noop0,
+                                [lists[0], *ker], vk,
+                                dict(kw, step=steps(k)))[2])
+    worst = worse(worst, path)
+    log(f"kernels: novograd at GPT-2 345M's fp32 step ({len(shapes)} "
+        f"tensors, {launched} launches, L2 norms, decoupled decay) and at "
+        f"steps {NOVOGRAD_BC_STEPS}: p and m bit-identical to the plain "
+        f"version's pass on the kernel's v, two runs bit-identical; v's "
+        f"largest relative error on the path {path[1]:.3e} against the "
+        f"plain version's, {path[2]:.3e} against float64 sums (off it "
+        f"{worst[1]:.3e}, {worst[2]:.3e}; tolerance {NOVOGRAD_V_RTOL}); off "
+        f"the path (the max norm, bit-identical v; init_zero, decay into "
+        f"the moment, no averaging or bias correction, the scale's "
+        f"division, bf16 gradients and outputs, v out of order; "
+        f"{len(vsmall)} views a list 1-3 elements past a 16-byte boundary, "
+        f"elements as head/vectors/tail {covered['head']}/"
+        f"{covered['vectors']}/{covered['tail']}); noop = 1 leaves "
+        f"everything, v included, bit-identical")
+    before = registry.launches()
+    first = dict(kw, step=steps(1))
+    for what, fault in (("each tensor's last chunk out of its norm", 1),
+                        ("the first step's v never taken", 2)):
+        clean, vc = run(noop0, lists, v, first, fault=0)
+        bad, vb = run(noop0, lists, v, first, fault=fault)
+        torch.cuda.synchronize()
+        err, rel = _max_errs(_flat(bad) + [vb], _flat(clean) + [vc])
+        _fault_log("novograd", what, rel > NOVOGRAD_V_RTOL, err)
+    assert registry.launches() == before
+    n = sum(math.prod(s) for s, _ in shapes)
+    gs = lists[0]
+    kp, km = ker[0], ker[1]
+    kw2 = dict(kw, step=steps(2))
+    entry = _amp_entry(
+        "novograd", f"GPT-2 345M fp32 step, {len(shapes)} tensors, {n} "
+        f"params, L2 norms", (path[0], path[1], True),
+        lambda: optim.novograd(noop0, gs, kp, km, vk, **kw2),
+        lambda: optim.novograd_plain(noop0, gs, kp, km, vk, **kw2), None,
+        "none: no one PyTorch call computes NovoGrad",
+        bound(24 * n, 10 * n, FP32_OPS_PER_S),
+        f"p, m bit-identical given v; v rel {NOVOGRAD_V_RTOL}")
+    del lists, ker, gs, kp, km, vk
+    return entry
+
+
+def _check_lamb_decay(gen, shapes):
+    """K4's stage 1 by the route of the public multi_tensor_lamb_stage1: a
+    decay a tensor (0 for GPT-2 345M's biases and norms, 0.01 for the
+    rest), a launch a distinct value, beta3 given, the clip factor, the
+    device step, in each decay mode, against its plain version bit for
+    bit; a raised flag; two planted faults through its launch; timed. No
+    path of this script takes the route (JAX's FusedLAMB takes one
+    decay)."""
+    from apex_tpu_torch.kernels import optim, registry
+    noop0 = torch.zeros(1, device="cuda")
+    fp32 = [(s, torch.float32) for s, _ in shapes]
+    decays = [0.0 if len(s) == 1 else 0.01 for s, _ in shapes]
+    gs = _like(gen, fp32)
+    ps = _like(gen, fp32, 0.03)
+    ms = _like(gen, fp32, 0.01)
+    vs = _like(gen, fp32, 1e-4, fill=torch.rand)
+    us = [torch.zeros_like(p) for p in ps]
+    kw = dict(clip=torch.full((1,), 1.5, device="cuda"), b1=0.9, b2=0.999,
+              beta3=0.2, eps=1e-6, weight_decay=decays, adam_w=True,
+              step=torch.full((1,), 3, dtype=torch.int32, device="cuda"))
+
+    def both(what, noop, kw):
+        ker, pln = (_clones(ms, vs, us) for _ in range(2))
+        optim.lamb(noop, gs, ps, *ker, **kw)
+        optim.lamb_plain(noop, gs, ps, *pln, **kw)
+        torch.cuda.synchronize()
+        errs = _hold_lists(what, _flat(ker), _flat(pln))
+        assert errs[2], (what, "not bit-identical to the plain version")
+        return ker, errs
+
+    groups = sum(math.ceil(decays.count(d) / optim.MAX_TENSORS)
+                 for d in set(decays))
+    before = registry.launches()["lamb"]
+    ker, errs = both("lamb stage 1, a decay a tensor", noop0, kw)
+    launched = registry.launches()["lamb"] - before
+    assert launched == groups, (launched, groups)
+    both("lamb stage 1, a decay a tensor, L2", noop0, dict(kw, adam_w=False))
+    kept, _ = both("lamb stage 1, noop raised", torch.ones(1, device="cuda"),
+                   kw)
+    assert _equal_lists(_flat(kept), ms + vs + us), "noop moved"
+    log(f"kernels: lamb stage 1 with a decay a tensor (GPT-2 345M's "
+        f"{len(shapes)} fp32 tensors: {decays.count(0.0)} at 0, "
+        f"{decays.count(0.01)} at 0.01; {launched} launches) bit-identical "
+        f"to its plain version in each decay mode; noop = 1 leaves m, v and "
+        f"the updates")
+    before = registry.launches()
+    for what, fault, fkw in (
+            ("the gradients not unscaled", 1,
+             dict(kw, inv_scale=torch.full((1,), 0.5, device="cuda"))),
+            ("the update written unclipped", 2, kw)):
+        clean, bad = _clones(ms, vs, us), _clones(ms, vs, us)
+        optim.launch_lamb(noop0, gs, ps, *clean, **fkw)
+        optim.launch_lamb(noop0, gs, ps, *bad, **fkw, fault=fault)
+        torch.cuda.synchronize()
+        err, rel = _max_errs(_flat(bad), _flat(clean))
+        _fault_log("lamb_stage1_decay", what, rel > AMP_RTOL, err)
+    assert registry.launches() == before
+    n = sum(math.prod(s) for s, _ in shapes)
+    km, kv, ku = ker
+    entry = _amp_entry(
+        "lamb_stage1_decay", f"GPT-2 345M fp32 tensors, {n} params, two "
+        f"decays", errs,
+        lambda: optim.lamb(noop0, gs, ps, km, kv, ku, **kw),
+        lambda: optim.lamb_plain(noop0, gs, ps, km, kv, ku, **kw), None,
+        "none: no one PyTorch call computes LAMB's stage 1",
+        bound(28 * n, 16 * n, FP32_OPS_PER_S), f"rel {AMP_RTOL}")
+    del gs, ps, ms, vs, us, ker, km, kv, ku
+    return entry
+
+
+def check_optimizer_kernels(gen):
+    """K5 and K6 at GPT-2 345M's fp32 tensors, and K4's stage 1 by the
+    public op's per-tensor-decay route, each against its plain version,
+    off the path, with two planted faults, and timed."""
+    gpt2 = _o2_shapes(_gpt2_meta)
+    entries = []
+    for check in (_check_adagrad, _check_novograd, _check_lamb_decay):
+        entries.append(check(gen, gpt2))
+        torch.cuda.empty_cache()
+    return entries
+
+
 # ------------------------------------------- phase 2: int8 serving kernels
 
 def _mixed_offsets(b, hi, gen):
@@ -5777,6 +6242,153 @@ def phase_amp_bert():
     return {"amp_bert": totals}
 
 
+# ------------------------------------- the rest of the optimizers' phases
+
+def _gpt2_optimizer_run(label, make_opt, kernels, half=False, held=None,
+                        backward=None, before=None, same_sign=None):
+    """GPT-2 345M at full width and depth as phase_gpt2_training trains it
+    (8 x 1024 tokens, flash on) with ``make_opt``'s optimizer; its kernels'
+    launches a step from the model's parameter groups (``kernels``:
+    names); every opt.step() with host waits forbidden; the model bf16
+    from fp16util.network_to_half where ``half``; ``before(model,
+    loss_of, make_opt)`` runs first (the overflow check); ``same_sign``
+    (default: ``half``) holds each tensor's step-1 update over the entries
+    whose gradients share a sign (train_steps' same_sign_tensors)."""
+    from apex_tpu_torch import fp16_utils
+    from apex_tpu_torch.models import GPTModel, TransformerConfig, gpt_loss_fn
+    cfg = TransformerConfig(**GPT2, compute_dtype=torch.bfloat16,
+                            use_flash_attention=True)
+    model = _new_model(label, lambda: GPTModel(cfg))
+    if half:
+        fp16_utils.network_to_half(model)
+        log(f"{label}: network_to_half: "
+            f"{sum(p.dtype == torch.float32 for p in model.parameters())} "
+            f"fp32 tensors (the norms'), "
+            f"{sum(p.dtype == torch.bfloat16 for p in model.parameters())} "
+            f"bf16")
+    _NAMED.clear()
+    _NAMED.update(model.named_parameters())
+    tokens, labels = _gpt2_batch(cfg)
+
+    def loss_of():
+        return gpt_loss_fn(model(tokens), labels)
+
+    if before is not None:
+        before(label, model, loss_of, make_opt)
+    L = cfg.num_layers
+    per_step = {"layer_norm": 2 * L + 1, "ln_bwd": 2 * L + 1,
+                "flash_fwd": L, "flash_dq": L, "flash_dkv": L,
+                **_amp_groups(model, *kernels)}
+    record = {}
+    totals = train_steps(
+        label, model, loss_of, make_opt, per_step,
+        (GPT2_BATCH * GPT2_SEQ, "tokens"), backward=backward, held=held,
+        step_guard=_no_host_sync, record=record,
+        same_sign_tensors=half if same_sign is None else same_sign)
+    _amp_beside(label, record, "gpt2", "tokens")
+    _NAMED.clear()
+    del model
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_novograd_gpt2():
+    """GPT-2 345M with FusedNovoGrad (NOVOGRAD_LR, NOVOGRAD_BETAS,
+    NOVOGRAD_WD, L2 norms, decoupled decay): K6, two CUDA kernels a table,
+    the second moments on the device."""
+    from apex_tpu_torch.optimizers import FusedNovoGrad
+    return {"novograd_gpt2": _gpt2_optimizer_run(
+        "novograd gpt2", lambda ps: FusedNovoGrad(
+            ps, lr=NOVOGRAD_LR, betas=NOVOGRAD_BETAS,
+            weight_decay=NOVOGRAD_WD), ("novograd",))}
+
+
+def phase_adagrad_gpt2():
+    """GPT-2 345M with FusedAdagrad(lr=ADAGRAD_LR): K5. Its first step is
+    sign-like, g / (|g| + eps) with eps 1e-10, as amp's Adam steps are, so
+    each tensor's step-1 update is held over the entries whose gradients
+    in the two runs share a sign (the QKV bias's key third, an exact zero
+    gradient in fp32 that bf16 roundings turn into noise of either sign,
+    read 0.456 of the limit over every entry on an H100); the whole-model
+    figure keeps every entry."""
+    from apex_tpu_torch.optimizers import FusedAdagrad
+    return {"adagrad_gpt2": _gpt2_optimizer_run(
+        "adagrad gpt2", lambda ps: FusedAdagrad(ps, lr=ADAGRAD_LR),
+        ("adagrad",), same_sign=True)}
+
+
+def _fp16_masters(opt):
+    """held(opt) for train_steps: FP16_Optimizer's fp32 masters, by the
+    names of their model parameters."""
+    master_of = dict(zip(map(id, opt.model_params), opt.masters))
+    return {n: master_of[id(p)] for n, p in _NAMED.items()}
+
+
+def _fp16_snapshot(opt):
+    """Copies of what a skipped FP16_Optimizer step must leave: the
+    parameters, the masters, the inner state and the step counts."""
+    out = [t.detach().clone() for t in opt.model_params + opt.masters]
+    for m in opt.masters:
+        out += [v.clone() for _, v in sorted(opt.state[m].items())
+                if isinstance(v, torch.Tensor)]
+    return out + [g["step"].clone() for g in opt.param_groups]
+
+
+def _fp16_overflow_check(label, model, loss_of, make_opt):
+    """A fresh FP16_Optimizer takes AMP_OVERFLOW_STEP steps; at the last an
+    inf is written into one model gradient after backward, and
+    update_master_grads (its one host read) sees the overflow and halves
+    the scale; the step after it must leave the parameters, masters,
+    moments and step counts bit-identical, with host waits forbidden."""
+    params = list(model.parameters())
+    kept = [p.detach().clone() for p in params]  # restored after the check
+    opt = make_opt(params)
+    victim = params[len(params) // 2]
+    for k in range(1, AMP_OVERFLOW_STEP + 1):
+        opt.backward(loss_of())
+        if k == AMP_OVERFLOW_STEP:
+            before = _fp16_snapshot(opt)
+            scale = opt.loss_scale
+            victim.grad.view(-1)[victim.numel() // 3] = float("inf")
+            opt.update_master_grads()
+        with _no_host_sync():
+            opt.step()
+        opt.zero_grad()
+    after = _fp16_snapshot(opt)
+    same = _equal_lists(after, before)
+    steps = [int(g["step"].reshape(-1)[0]) for g in opt.param_groups]
+    log(f"{label}: an inf planted in one gradient at step "
+        f"{AMP_OVERFLOW_STEP}: update_master_grads' overflow "
+        f"{opt.overflow}; parameters, masters, moments and step counts "
+        f"({steps}) bit-identical after the step: {same} ({len(before)} "
+        f"tensors); loss scale {scale} -> {opt.loss_scale}; opt.step() ran "
+        f"with host waits forbidden")
+    assert opt.overflow and same, (opt.overflow, same)
+    assert steps == [AMP_OVERFLOW_STEP - 1] * len(steps), steps
+    assert opt.loss_scale == scale / 2, (scale, opt.loss_scale)
+    with torch.no_grad():  # the counted steps start from the initial weights
+        for p, w in zip(params, kept):
+            p.copy_(w)
+    del opt, before, after, kept
+    torch.cuda.empty_cache()
+
+
+def phase_fp16_gpt2():
+    """GPT-2 345M in bf16 from fp16util.network_to_half (the norms' fp32)
+    with FP16_Optimizer(FusedAdam(lr=GPT2_LR), dynamic_loss_scale=True):
+    the loss scaled by 2^32, K1 unscaling the bf16 gradients into the fp32
+    masters' with the overflow flag, #12 stepping the masters and writing
+    the parameters from them in the same pass."""
+    from apex_tpu_torch.fp16_utils import FP16_Optimizer
+    from apex_tpu_torch.optimizers import FusedAdam
+    return {"fp16_gpt2": _gpt2_optimizer_run(
+        "fp16 gpt2", lambda ps: FP16_Optimizer(
+            FusedAdam(ps, lr=GPT2_LR), dynamic_loss_scale=True),
+        ("multi_tensor_scale", "adam"), half=True, held=_fp16_masters,
+        backward=lambda loss, opt: opt.backward(loss),
+        before=_fp16_overflow_check)}
+
+
 def phase_mha():
     """SelfMultiheadAttn at BERT-large width, forward and backward, bf16
     weights and activations, no dropout: the non-causal flash path;
@@ -7707,20 +8319,25 @@ PROFILE_WATCH = ("ln_fwd_kernel", "warp_ln_fwd", "ln_bwd_dx",
                  "rms_", "mma_mla_decode", "dequant_vec_kernel",
                  "::quant_vec_kernel<", "::quant_kernel<", "Int8KV<",
                  "scale_kernel<", "sgd_kernel<", "lamb_stage2_kernel<",
-                 "scale_vec_kernel<", "sgd_vec_kernel<")
+                 "scale_vec_kernel<", "sgd_vec_kernel<",
+                 "adagrad_vec_kernel<", "novograd_norm_kernel<",
+                 "novograd_update_kernel<")
 PHASES = ("kernels", "serving", "serve_bf16", "serve_int8", "serve_spec",
           "training", "flash_training", "gpt2_training", "bert_training",
           "mha", "mla_decode", "deepseek_v2_lite", "ddp_gpt2",
           "ddp_compressed", "zero_gpt2", "zero_bert", "tp_dp", "tp_gpt2",
-          "amp_gpt2", "amp_o1_sgd", "amp_bert")
+          "amp_gpt2", "amp_o1_sgd", "amp_bert", "novograd_gpt2",
+          "adagrad_gpt2", "fp16_gpt2")
 # kernels that no path of this script launches: held against their plain
 # versions in the kernel phase only (the JAX serving engine does not take
 # the fused int8 verify either: it dequantizes with #15, then verifies;
 # no JAX library path dequantizes int4 codes with #17: the int4 sum is
 # int32 and goes through #15; the int4 gather takes the fused #23/#24 by
-# default, and #18/#19 (with #16 and #15) only with its fused_cc gate off)
+# default, and #18/#19 (with #16 and #15) only with its fused_cc gate off;
+# LAMB's stage 1 with a decay a tensor is the public two-stage op's route,
+# which no JAX library path takes)
 KERNEL_PHASE_ONLY = ("spec_verify", "dequantize_int4", "pack_int4",
-                     "unpack_int4")
+                     "unpack_int4", "lamb_stage1_decay")
 SOURCES = {  # kernel -> (its source, the TPU kernel it replaces)
     "rms_norm": ("apex_tpu_torch/csrc/rms_norm.cu",
                  "apex_tpu/kernels/norm.py:85"),
@@ -7780,6 +8397,14 @@ SOURCES = {  # kernel -> (its source, the TPU kernel it replaces)
     "sgd": ("apex_tpu_torch/csrc/sgd.cu", "apex_tpu/ops/multi_tensor.py:113"),
     "lamb_stage2": ("apex_tpu_torch/csrc/lamb.cu",
                     "apex_tpu/ops/multi_tensor.py:395"),
+    # the rest of the optimizers: K5, K6 and K4's stage 1 by the public
+    # op's per-tensor-decay route replace jnp ops (no Pallas counterpart)
+    "adagrad": ("apex_tpu_torch/csrc/adagrad.cu",
+                "apex_tpu/ops/multi_tensor.py:228"),
+    "novograd": ("apex_tpu_torch/csrc/novograd.cu",
+                 "apex_tpu/ops/multi_tensor.py:248"),
+    "lamb_stage1_decay": ("apex_tpu_torch/csrc/lamb.cu",
+                          "apex_tpu/ops/multi_tensor.py:431"),
 }
 
 
@@ -7818,7 +8443,8 @@ def main(argv):
                    + check_masked_softmax(gen) + check_lamb(gen)
                    + check_quant(gen) + check_spec_verify(gen)
                    + check_mla_decode(gen) + check_quant4(gen)
-                   + check_tp_matmul(gen) + check_amp_kernels(gen))
+                   + check_tp_matmul(gen) + check_amp_kernels(gen)
+                   + check_optimizer_kernels(gen))
         check_per_row_attention(gen)
         check_kv_splits(gen)
         check_refusals()
@@ -7859,7 +8485,9 @@ def main(argv):
             "zero_gpt2": phase_zero_gpt2, "zero_bert": phase_zero_bert,
             "tp_dp": phase_tp_dp, "tp_gpt2": phase_tp_gpt2,
             "amp_gpt2": phase_amp_gpt2, "amp_o1_sgd": phase_amp_o1_sgd,
-            "amp_bert": phase_amp_bert}
+            "amp_bert": phase_amp_bert,
+            "novograd_gpt2": phase_novograd_gpt2,
+            "adagrad_gpt2": phase_adagrad_gpt2, "fp16_gpt2": phase_fp16_gpt2}
     for name in phases:  # in the order given, repeats included
         if name not in runs:
             continue  # kernels and serving ran above

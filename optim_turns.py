@@ -1,6 +1,7 @@
-"""Hashes of FusedAdam's, FusedLAMB's and FusedSGD's state after plain
-steps, and of amp's unscale, on the card, for holding two checkouts'
-optimizer paths to each other bit for bit.
+"""Hashes of FusedAdam's, FusedLAMB's, FusedSGD's, FusedNovoGrad's and
+FusedAdagrad's state after plain steps, and of amp's unscale, on the
+card, for holding two checkouts' optimizer paths to each other bit for
+bit.
 
 From the root of a checkout (its ``apex_tpu_torch`` is the one
 imported), on one NVIDIA GPU:
@@ -18,9 +19,14 @@ O2's dtypes (bf16, the norm layers' fp32), in place with a scale of
 take them, on seeded random weights and gradients (no forward):
 BERT-large under O2 with ``FusedMixedPrecisionLamb(lr=1e-3,
 weight_decay=0.01)`` and GPT-2 345M under O1 with ``FusedSGD(lr=0.03,
-momentum=0.9)``. Prints one line a case: the SHA-256 of every parameter
-and its optimizer state after the steps (of every gradient and the flag
-for the unscale; of the parameters for amp's steps), the step count,
+momentum=0.9)``; then four plain ``FusedNovoGrad(lr=0.01,
+weight_decay=0.001)`` and ``FusedAdagrad(lr=1e-4)`` steps over GPT-2's
+shapes (skipped, with a line saying so, in a checkout that has not
+these optimizers). Prints one line a case: the SHA-256 of every
+parameter and its optimizer state after the steps (NovoGrad's per-tensor
+second moments, its group's ``exp_avg_sq``, included; of every gradient
+and the flag for the unscale; of the parameters for amp's steps), the
+step count,
 and the medians over CALLS further calls (default 7) of ``opt.step()``
 (of the unscale): its device time (CUDA events around each call,
 gradients unchanged) and its host time (the wall time of the call
@@ -91,7 +97,8 @@ def _digest(tensors):
 
 
 def run(label, shapes, make_opt, seed, state_names=("exp_avg",
-                                                    "exp_avg_sq")):
+                                                    "exp_avg_sq"),
+        group_names=()):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = [torch.nn.Parameter(
         0.02 * torch.randn(s, generator=gen, device="cuda")) for s in shapes]
@@ -101,8 +108,9 @@ def run(label, shapes, make_opt, seed, state_names=("exp_avg",
             p.grad = torch.randn(p.shape, generator=gen, device="cuda")
         opt.step()
     torch.cuda.synchronize()
-    digest = _digest(t for p in params for t in (
-        p.detach(), *(opt.state[p][name] for name in state_names)))
+    digest = _digest([*(t for p in params for t in (
+        p.detach(), *(opt.state[p][name] for name in state_names))),
+        *(g[name] for g in opt.param_groups for name in group_names)])
     step = int(torch.as_tensor(opt.param_groups[0]["step"]).reshape(-1)[0])
     device, host = _times(opt.step)
     print(f"{label}: {len(shapes)} tensors, {sum(p.numel() for p in params)} "
@@ -192,6 +200,17 @@ def main():
     amp_steps("amp O1 FusedSGD, GPT-2 345M",
               GPTModel(TransformerConfig(**GPT2), device="cuda"), "O1",
               lambda ps: FusedSGD(ps, lr=0.03, momentum=0.9), 5)
+    try:
+        from apex_tpu_torch.optimizers import FusedAdagrad, FusedNovoGrad
+    except ImportError:
+        print("FusedNovoGrad, FusedAdagrad: skipped (not in this "
+              "checkout)", flush=True)
+        return 0
+    run("FusedNovoGrad, GPT-2 345M", gpt2,
+        lambda ps: FusedNovoGrad(ps, lr=0.01, weight_decay=0.001), 6,
+        ("exp_avg",), ("exp_avg_sq",))
+    run("FusedAdagrad, GPT-2 345M", gpt2,
+        lambda ps: FusedAdagrad(ps, lr=1e-4), 7, ("sum",))
     return 0
 
 

@@ -3,11 +3,13 @@ latent-cache generation and the training step's models and losses."""
 
 from apex_tpu_torch.models.bert import BertModel, bert_loss_fn
 from apex_tpu_torch.models.generation import (
+    beam_search,
     decode_step,
     filter_logits,
     generate,
     init_cache,
     prefill,
+    prefill_prefix,
     sample_logits,
     speculative_generate,
     verify_step,
@@ -31,10 +33,10 @@ from apex_tpu_torch.models.transformer_lm import RopeScaling, TransformerConfig
 
 __all__ = [
     "BertModel", "DeepseekModel", "GPTModel", "KVCache", "MLACache",
-    "MLAConfig", "RopeScaling", "TransformerConfig", "bert_loss_fn",
-    "decode_step", "filter_logits", "from_jax_params", "from_jax_segments",
-    "generate", "gpt_loss_fn", "init_cache", "init_weights",
-    "load_jax_optimizer_state", "mla_cached_generate",
-    "mla_greedy_generate", "prefill", "sample_logits",
+    "MLAConfig", "RopeScaling", "TransformerConfig", "beam_search",
+    "bert_loss_fn", "decode_step", "filter_logits", "from_jax_params",
+    "from_jax_segments", "generate", "gpt_loss_fn", "init_cache",
+    "init_weights", "load_jax_optimizer_state", "mla_cached_generate",
+    "mla_greedy_generate", "prefill", "prefill_prefix", "sample_logits",
     "speculative_generate", "verify_step",
 ]

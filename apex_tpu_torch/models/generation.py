@@ -13,8 +13,11 @@ decoding and the filtered logits (:func:`filter_logits`) are the same.
 
 :func:`speculative_generate` is greedy speculative decoding over a
 draft model, on the same :func:`verify_step` body the serving engine's
-speculative round runs. Beam search, shared prefixes and tensor
-parallelism come in later slices.
+speculative round runs. :func:`beam_search` keeps ``num_beams`` beams a
+row over a cache tiled per beam. :func:`prefill_prefix` prefills a shared
+prompt prefix once, and ``generate(prefix_state=...)`` then prefills only
+each request's suffix over a copy of it. Tensor parallelism comes in a
+later slice (ROADMAP queue A item 5(b)).
 """
 
 from typing import Optional
@@ -90,6 +93,9 @@ def decode_step(model, cache, tokens, positions):
 
 def _validate_decode(fn_name, model, prompt_tokens, max_new_tokens,
                      extra=0, extra_label="draft window"):
+    """Shared validation of the decode entry points: the prompt, the new
+    tokens and ``extra`` (the speculative window, or the shared prefix's
+    length, named by ``extra_label``) must fit the position budget."""
     plen = prompt_tokens.shape[1]
     limit = model.config.max_position_embeddings
     if plen + max_new_tokens + extra > limit:
@@ -102,10 +108,30 @@ def _validate_decode(fn_name, model, prompt_tokens, max_new_tokens,
 
 
 @torch.no_grad()
+def prefill_prefix(model, prefix_tokens):
+    """Prefill a shared prompt prefix once: returns ``(cache, prefix_len)``
+    for ``generate(prefix_state=...)``. Any number of ``generate`` calls
+    may reuse it (each prefills its suffix into a copy), and a batch-1
+    prefix broadcasts to any batch of suffixes."""
+    prefix_tokens = torch.as_tensor(prefix_tokens, device=model.device,
+                                    dtype=torch.long)
+    b, plen = prefix_tokens.shape
+    limit = model.config.max_position_embeddings
+    if plen >= limit:
+        raise ValueError(f"prefix ({plen}) leaves no room under "
+                         f"max_position_embeddings ({limit})")
+    cache = init_cache(model, b)
+    prefill(model, cache, prefix_tokens,
+            torch.arange(plen, device=model.device)[None, :])
+    return cache, plen
+
+
+@torch.no_grad()
 def generate(model, prompt_tokens, max_new_tokens: int, *, generator=None,
              temperature: float = 1.0, top_k: Optional[int] = None,
              top_p: Optional[float] = None,
-             eos_token_id: Optional[int] = None, pad_token_id: int = 0):
+             eos_token_id: Optional[int] = None, pad_token_id: int = 0,
+             prefix_state=None):
     """Prefill + token-by-token decode on the model's device. Returns
     [batch, prompt + max_new_tokens] int64 tokens; generated positions
     after an eos are ``pad_token_id``.
@@ -113,15 +139,28 @@ def generate(model, prompt_tokens, max_new_tokens: int, *, generator=None,
     Greedy when ``generator`` is None or ``temperature == 0``. Prompts
     must be unpadded (batch them by length). The last sampled token needs
     no forward, so ``max_new_tokens`` tokens take one prefill and
-    ``max_new_tokens - 1`` decode steps."""
+    ``max_new_tokens - 1`` decode steps.
+
+    ``prefix_state`` (from :func:`prefill_prefix`): a shared prefilled
+    prefix. ``prompt_tokens`` is then each request's suffix, prefilled at
+    positions after the prefix into a copy of its cache, and the result
+    is [batch, suffix + max_new_tokens]: token for token what a prefill
+    of the concatenated prompt gives."""
     prompt_tokens = torch.as_tensor(prompt_tokens, device=model.device,
                                     dtype=torch.long)
-    _validate_decode("generate", model, prompt_tokens, max_new_tokens)
+    prefix_cache, prefix_len = None, 0
+    if prefix_state is not None:
+        prefix_cache, prefix_len = prefix_state
+    _validate_decode("generate", model, prompt_tokens, max_new_tokens,
+                     extra=prefix_len, extra_label="prefix")
     if generator is None:
         temperature = 0.0
     b, plen = prompt_tokens.shape
-    cache = init_cache(model, b)
-    positions = torch.arange(plen, device=model.device)[None, :]
+    # the suffix prefill writes in place: into a copy of the prefix (a
+    # batch-1 prefix broadcast to b rows), which stays as it was
+    cache = (init_cache(model, b) if prefix_cache is None
+             else prefix_cache.broadcast_rows(b))
+    positions = prefix_len + torch.arange(plen, device=model.device)[None, :]
     cache, logits = prefill(model, cache, prompt_tokens, positions)
     done = torch.zeros(b, dtype=torch.bool, device=model.device)
     out = []
@@ -132,9 +171,78 @@ def generate(model, prompt_tokens, max_new_tokens: int, *, generator=None,
             done = done | (nxt == eos_token_id)
         out.append(nxt)
         if i + 1 < max_new_tokens:
-            pos = torch.full((b, 1), plen + i, device=model.device)
+            pos = torch.full((b, 1), prefix_len + plen + i,
+                             device=model.device)
             cache, logits = decode_step(model, cache, nxt[:, None], pos)
     return torch.cat([prompt_tokens, torch.stack(out, dim=1)], dim=1)
+
+
+def _top_k(x, k: int):
+    """(values, indices) of the k largest entries of each row, ties
+    broken toward the lower index, as ``lax.top_k`` does."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+@torch.no_grad()
+def beam_search(model, prompt_tokens, max_new_tokens: int,
+                num_beams: int = 4, *, length_penalty: float = 1.0,
+                eos_token_id: Optional[int] = None, pad_token_id: int = 0):
+    """Beam-search decoding with a KV cache per beam. Returns ([batch,
+    prompt + max_new_tokens] int64 tokens, [batch] fp32 scores): each
+    row's best beam, its score the sum of its tokens' log-probabilities
+    over ``length ** length_penalty`` (the length counts tokens up to and
+    including an eos).
+
+    The beams share the prompt's prefill; the cache is then repeated to
+    batch * num_beams rows and reordered as each step reselects the
+    beams (the top ``num_beams`` of the row's ``num_beams * vocab``
+    candidates, fp32 log-softmax, ties to the lower index). A finished
+    beam extends with ``pad_token_id`` at no cost."""
+    prompt_tokens = torch.as_tensor(prompt_tokens, device=model.device,
+                                    dtype=torch.long)
+    _validate_decode("beam_search", model, prompt_tokens, max_new_tokens)
+    k = int(num_beams)
+    device = model.device
+    b, plen = prompt_tokens.shape
+    cache = init_cache(model, b)
+    cache, logits = prefill(model, cache, prompt_tokens,
+                            torch.arange(plen, device=device)[None, :])
+    logp0 = torch.log_softmax(logits.float(), dim=-1)      # [b, v]
+    vocab = logp0.shape[-1]
+    cache = cache.repeat_rows(k)
+    scores, tok0 = _top_k(logp0, k)                        # [b, k]
+    done = (torch.zeros((b, k), dtype=torch.bool, device=device)
+            if eos_token_id is None else tok0 == eos_token_id)
+    lengths = torch.ones((b, k), dtype=torch.int32, device=device)
+    seqs = torch.zeros((b * k, max_new_tokens), dtype=torch.long,
+                       device=device)
+    seqs[:, 0] = tok0.reshape(b * k)
+    frozen = torch.full((vocab,), float("-inf"), device=device)
+    frozen[pad_token_id] = 0.0
+    rows = torch.arange(b, device=device)[:, None] * k
+    for i in range(1, max_new_tokens):
+        pos = torch.full((b * k, 1), plen + i - 1, device=device)
+        cache, logits = decode_step(model, cache, seqs[:, i - 1:i], pos)
+        logp = torch.log_softmax(logits.float(), dim=-1).reshape(b, k, vocab)
+        logp = torch.where(done[:, :, None], frozen, logp)
+        total = scores[:, :, None] + logp                  # [b, k, v]
+        scores, flat = _top_k(total.reshape(b, k * vocab), k)
+        beam_idx = flat // vocab                           # [b, k]
+        tok = flat % vocab
+        gather = (rows + beam_idx).reshape(b * k)
+        cache = cache.reorder(gather)
+        done = done.gather(1, beam_idx)
+        lengths = lengths.gather(1, beam_idx) + (~done).int()
+        seqs = seqs.index_select(0, gather)
+        seqs[:, i] = tok.reshape(b * k)
+        if eos_token_id is not None:
+            done = done | (tok == eos_token_id)
+    adjusted = scores / lengths.float() ** length_penalty
+    best = torch.argmax(adjusted, dim=-1)                  # [b]
+    best_seqs = seqs.index_select(0, rows[:, 0] + best)
+    return (torch.cat([prompt_tokens, best_seqs], dim=1),
+            adjusted.gather(1, best[:, None])[:, 0])
 
 
 @torch.no_grad()

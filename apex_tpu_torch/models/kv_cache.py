@@ -20,6 +20,13 @@ refused before it runs; after :meth:`KVCache.set_lengths` with a device
 tensor it is None and the caller bounds the levels (the serving
 engine's admission does). Writes past ``max_len`` are clamped as JAX's
 ``dynamic_update_slice`` clamps them.
+
+Beam search and shared prefixes move whole rows along the batch axis:
+:meth:`KVCache.reorder` (the rows a beam step keeps),
+:meth:`KVCache.repeat_rows` (each row ``k`` times, as ``jnp.repeat(x, k,
+axis=1)``) and :meth:`KVCache.broadcast_rows` (a batch-1 cache copied to
+batch ``b``) each return a new cache over new buffers, never a view, so
+that a later write in place touches only that cache.
 """
 
 import torch
@@ -104,3 +111,36 @@ class KVCache:
             self.lengths.fill_(int(lengths))
             self.index = int(lengths)
         self._chunk = None
+
+    def _with_rows(self, fn):
+        """A new cache whose buffers and levels are ``fn`` of this one's
+        (along the batch axis), with this cache's host level."""
+        cache = KVCache.from_buffers([fn(k, 1) for k in self.keys],
+                                     [fn(v, 1) for v in self.values],
+                                     fn(self.lengths, 0))
+        cache.index = self.index
+        return cache
+
+    def reorder(self, index):
+        """A new cache holding row ``index[i]`` of this one at row i
+        (``index`` int64 [b'] on the cache's device)."""
+        return self._with_rows(lambda t, ax: t.index_select(ax, index))
+
+    def repeat_rows(self, k: int):
+        """A new cache with each row repeated ``k`` times in place:
+        rows 0, 0, .., 1, 1, .. (batch b * k)."""
+        return self._with_rows(
+            lambda t, ax: t.repeat_interleave(int(k), dim=ax))
+
+    def broadcast_rows(self, b: int):
+        """A new cache of batch ``b`` over a real copy of this one's rows:
+        a batch-1 cache broadcast to every row (a batch-b cache copied),
+        JAX's ``_broadcast_prefix_cache`` for ``generate(prefix_state=)``.
+        Raises ``ValueError`` for any other batch."""
+        if self.batch not in (1, b):
+            raise ValueError(f"prefix cache batch ({self.batch}) != prompt "
+                             f"batch ({b}); only batch-1 prefixes "
+                             f"broadcast")
+        return self._with_rows(lambda t, ax: t.expand(
+            *t.shape[:ax], b, *t.shape[ax + 1:]).clone(
+                memory_format=torch.contiguous_format))

@@ -201,8 +201,10 @@ def _rope_core(x, base, positions, freq_dim, interleaved=False,
         positions = torch.arange(s, device=x.device)
     exponents = torch.arange(0, freq_dim, 2, dtype=torch.float32,
                              device=x.device) / freq_dim
-    inv = 1.0 / torch.pow(torch.tensor(base, dtype=torch.float32,
-                                       device=x.device), exponents)
+    # the base filled on the device: no copy from the host, so that the
+    # serving engine's CUDA graphs can capture the forward
+    inv = 1.0 / torch.pow(torch.full((), float(base), dtype=torch.float32,
+                                     device=x.device), exponents)
     if scaling is not None:
         inv = _scale_rope_freqs(inv, scaling)
     freqs = positions[..., None].float() * inv  # [s(, b), d/2]

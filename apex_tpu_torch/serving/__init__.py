@@ -9,7 +9,14 @@ requests through it: admission into free slots, eviction on finish,
 per-request TTFT and per-token latency, admission control, deadlines,
 per-slot NaN quarantine, decode retries and drain
 (:mod:`~apex_tpu_torch.serving.robust`). ``ServeConfig(draft_model=...)``
-makes each decode call one speculative round.
+makes each decode call one speculative round, and
+``ServeConfig(prefix_cache=True)`` seeds a prompt's rows from a
+host-side :class:`~apex_tpu_torch.serving.prefix_cache.PrefixStore` of
+prompts prefilled before, so only its suffix is prefilled. On the card
+the engine captures one CUDA graph per bucket and replays it.
+``ServeEngine.extract_kv_state`` and :func:`kv_payload_crc` are the donor
+half of KV migration: a second engine inserts a checksummed payload into
+its prefix store and resumes the request with a one-token suffix.
 
     from apex_tpu_torch.serving import (ServeConfig, ServeEngine,
                                         synthetic_trace)
@@ -18,16 +25,21 @@ makes each decode call one speculative round.
         num_slots=8, cache_mode="int8"))
     completed, stats = engine.serve(synthetic_trace(16, seed=1))
 
-The prefix cache, the fleet router, KV migration, tensor-parallel
-serving and the telemetry hooks are still to be ported (ROADMAP).
+Tensor-parallel serving (ROADMAP queue A item 5(b)), the fleet router
+(item 5(c)) and the telemetry hooks (item 7) are still to be ported.
 """
 
-from apex_tpu_torch.serving.engine import ServeConfig, ServeEngine
+from apex_tpu_torch.serving.engine import (
+    ServeConfig,
+    ServeEngine,
+    kv_payload_crc,
+)
 from apex_tpu_torch.serving.kv_cache import (
     KVCacheSpec,
     payload_checksum,
     store_lengths,
 )
+from apex_tpu_torch.serving.prefix_cache import PrefixEntry, PrefixStore
 from apex_tpu_torch.serving.robust import (
     DecodeFailedError,
     DrainReport,
@@ -45,7 +57,8 @@ from apex_tpu_torch.serving.scheduler import (
 
 __all__ = [
     "CompletedRequest", "DecodeFailedError", "DrainReport", "KVCacheSpec",
-    "NonFiniteError", "RejectedRequest", "Request", "RobustConfig",
-    "Scheduler", "ServeConfig", "ServeEngine", "ServeHealth",
-    "payload_checksum", "store_lengths", "synthetic_trace",
+    "NonFiniteError", "PrefixEntry", "PrefixStore", "RejectedRequest",
+    "Request", "RobustConfig", "Scheduler", "ServeConfig", "ServeEngine",
+    "ServeHealth", "kv_payload_crc", "payload_checksum", "store_lengths",
+    "synthetic_trace",
 ]

@@ -1,14 +1,22 @@
 """ServeEngine: bucketed, continuous-batching decode over a slotted KV
-cache.
+cache, one CUDA graph per bucket.
 
 Counterpart of ``apex_tpu/serving/engine.py``. Every call runs at a
 bucket's shape: active sequences pad up to the smallest batch bucket
 that fits (with distinct free slots) and prompts right-pad up to a
-prefill bucket. The JAX engine compiles one executable per bucket ahead
-of time; PyTorch runs eagerly, so the port compiles nothing and has no
-``compile_count`` (its counterpart, one CUDA graph captured per bucket,
-is later work: the fill levels and finite flags already stay on the
-device for it).
+prefill bucket. Where the JAX engine compiles one executable per bucket
+ahead of time, the port captures one CUDA graph per bucket when it is
+built on the card: one for each (batch bucket, prefill bucket) prefill
+and one for each batch bucket's decode call, so ``compile_count`` is
+``len(batch_buckets) * len(prefill_buckets) + len(batch_buckets)`` and
+stays flat under any traffic. The prefix cache and the draft model swap
+a graph's body; they never add one. Every later call copies its host
+inputs into the graph's static input buffer (one copy from pinned
+memory), replays the graph and reads its one output. The graphs share
+one memory pool, as only one replays at a time. A graph that fails to
+capture or replay raises: nothing falls back to eager calls. On the CPU
+nothing is captured (``compile_count`` 0) and the same step bodies run
+eagerly.
 
 The steps reuse the model's own KV-cache semantics, each slot at its own
 fill level:
@@ -19,6 +27,16 @@ fill level:
   masked), the first token comes from each row's true last position,
   and the rows are quantized (int8 mode) and scattered into their
   slots.
+- With ``ServeConfig(prefix_cache=True)`` each prompt first consults
+  the host-side :class:`~apex_tpu_torch.serving.prefix_cache.PrefixStore`:
+  a hit seeds its row from the cached entry (the first ``cut`` positions
+  copied into the bucket's seed buffer, a static input of the graph; a
+  miss starts at level 0), the suffix alone picks the prefill bucket and
+  runs at positions ``cut + arange(S)``, each row's level rolls to
+  ``cut + n``, and every newly seen prompt's merged raw rows are copied
+  to pinned host memory and cached. A seed carries only positions
+  ``[0, cut)``: the rest are masked, so the port's entries differ from
+  the JAX engine's only at masked positions.
 - :meth:`ServeEngine.decode` gathers the bucket's rows, dequantizes
   them (int8), runs one decode step (each row at its own level through
   the per-row decode kernel), requantizes only the appended position,
@@ -32,11 +50,15 @@ fill level:
   start), each slot emits its longest matching prefix plus one target
   token, and both caches roll back to ``n + accepted + 1``. Greedy
   only, token-identical to the plain engine.
+- :meth:`ServeEngine.extract_kv_state` is the donor half of KV
+  migration: one slot's rows as raw rows (int8 dequantized) in a host
+  payload with a crc32 (:func:`kv_payload_crc`); a second engine
+  inserts them into its prefix store and resumes with a one-token
+  suffix.
 
-Not ported yet (they raise ``NotImplementedError`` naming the slice, see
+Not ported yet (they raise ``NotImplementedError`` naming the item, see
 ROADMAP): a device ``mesh`` or tensor-parallel ``model_axis``, the
-prefix cache, ``extract_kv_state`` (KV migration), the memory preflight
-and OOM guard, and a preemption ``guard``.
+memory preflight and OOM guard, and a preemption ``guard``.
 
     engine = ServeEngine(model, ServeConfig(cache_mode="int8"))
     completed, stats = engine.serve(synthetic_trace(32, seed=0))
@@ -49,11 +71,12 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from apex_tpu_torch.kernels import registry
 from apex_tpu_torch.models import generation
 from apex_tpu_torch.parallel import compression
 from apex_tpu_torch.serving import kv_cache as kvc
 from apex_tpu_torch.serving import robust
-
+from apex_tpu_torch.serving.prefix_cache import PrefixStore
 
 
 def _not_ported(what, slice_, item):
@@ -65,7 +88,7 @@ def _not_ported(what, slice_, item):
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Serving knobs: the bucket ladders, the slot count, the cache mode,
-    sampling, and the speculative draft model.
+    sampling, the speculative draft model and the prefix cache.
 
     ``batch_buckets`` is the decode ladder (active sequences pad up to
     the smallest bucket that fits); ``prefill_buckets`` the prompt-length
@@ -74,8 +97,11 @@ class ServeConfig:
     (a port ``GPTModel`` holding its weights, sharing the target's
     vocabulary) turns every decode call into one speculative round of
     ``num_draft_tokens`` proposals; greedy only (``temperature`` 0).
-    ``model_axis``, ``preflight`` and ``prefix_cache`` name features of
-    the JAX engine that are not ported yet: setting them raises."""
+    ``prefix_cache`` keeps a host-side prefix store of up to
+    ``prefix_max_entries`` prompts keyed by their first
+    ``prefix_min_len`` tokens. ``model_axis`` and ``preflight`` name
+    features of the JAX engine that are not ported yet: setting them
+    raises."""
 
     batch_buckets: Tuple[int, ...] = (1, 2, 4, 8)
     prefill_buckets: Tuple[int, ...] = (16, 32, 64)
@@ -93,6 +119,29 @@ class ServeConfig:
     model_axis: Optional[str] = None
     preflight: bool = False
     prefix_cache: bool = False
+    prefix_min_len: int = 4
+    prefix_max_entries: int = 8
+
+
+def kv_payload_crc(payload):
+    """A migration payload's checksum recomputed from its contents (the
+    check of :meth:`ServeEngine.extract_kv_state`'s ``"crc"``): the
+    target rows, the draft rows when present and the fill length folded
+    into one crc32, so a flipped byte anywhere, or a changed length,
+    changes it."""
+    crc = kvc.payload_checksum(payload["rows"])
+    if payload.get("draft_rows") is not None:
+        crc = kvc.payload_checksum(payload["draft_rows"], crc)
+    return kvc.payload_checksum(
+        [np.asarray(int(payload["length"]), np.int64)], crc)
+
+
+class _Graph:
+    """One captured step: the graph, its static int64 input buffer (the
+    step's host inputs packed, :meth:`ServeEngine._layout`), its views by
+    name, its static output and the kernel launches of one replay."""
+
+    __slots__ = ("graph", "buffer", "views", "out", "launches")
 
 
 class ServeEngine:
@@ -102,16 +151,20 @@ class ServeEngine:
     eviction and latency live in
     :class:`~apex_tpu_torch.serving.scheduler.Scheduler`, which
     :meth:`serve` builds). Slot ids are host ints; a bucket is padded
-    with caller-provided free slots (distinct ids)."""
+    with caller-provided free slots (distinct ids). ``name`` scopes this
+    engine's counters on a shared prefix store."""
 
-    def __init__(self, model, config: ServeConfig = None, *, mesh=None):
+    # a CUDA engine captures its ladder; the card's reference runs build
+    # a subclass that sets this False to time the same bodies eagerly
+    _capture = True
+
+    def __init__(self, model, config: ServeConfig = None, *, mesh=None,
+                 name=None):
         config = config or ServeConfig()
         if mesh is not None or config.model_axis is not None:
             raise _not_ported("serving over a device mesh or a "
                               "tensor-parallel model_axis",
-                              "tensor-parallel serving", 5)
-        if config.prefix_cache:
-            raise _not_ported("prefix_cache", "prefix-cache serving", 5)
+                              "tensor-parallel serving", "5(b)")
         if config.preflight:
             raise _not_ported("the memory preflight and OOM guard",
                               "telemetry", 7)
@@ -156,6 +209,13 @@ class ServeEngine:
         self.device = model.device
         self.config = dataclasses.replace(config, batch_buckets=bb,
                                           prefill_buckets=sb)
+        self.name = name
+        self._scope = name or "engine"
+        self._prefix = bool(config.prefix_cache)
+        self.prefix_store = PrefixStore(
+            max_entries=config.prefix_max_entries,
+            min_len=config.prefix_min_len) if self._prefix else None
+        self.last_prefill_hits = []
         self.max_len = limit
         self.spec = kvc.KVCacheSpec(model, config.num_slots,
                                     mode=config.cache_mode,
@@ -167,6 +227,20 @@ class ServeEngine:
                 config.draft_model, config.num_slots, mode=config.cache_mode,
                 block_size=config.block_size)
             self._draft_store = self.draft_spec.allocate()
+        # the seeded prefill's buffers, one per batch bucket and model:
+        # static inputs of its graphs, shared by the bucket's seq buckets
+        self._seeds = {}
+        self._staging = None
+        if self._prefix:
+            for b in bb:
+                self._seeds[b] = tuple(
+                    s.seed_buffer(b) if s is not None else None
+                    for s in (self.spec, self.draft_spec))
+            # one row of each seed buffer: where a hit's positions land
+            # on the card before their strided copy into the bucket
+            self._staging = tuple(
+                s.seed_buffer(1)[:, :, :, 0] if s is not None else None
+                for s in (self.spec, self.draft_spec))
         self._generator = None
         if config.temperature:  # seeded 0, as JAX's engine keys from 0
             self._generator = torch.Generator(device=self.device)
@@ -174,6 +248,12 @@ class ServeEngine:
         self._decode_calls = 0
         self.decode_retries_total = 0
         self._poison = None
+        self._graphs = {}
+        self.graph_seconds = 0.0
+        self.graph_pool = None
+        self.graph_pool_bytes = 0
+        if self.device.type == "cuda" and self._capture:
+            self._capture_ladder()
 
     # -- properties --------------------------------------------------------
 
@@ -191,6 +271,49 @@ class ServeEngine:
         headroom`` inside the position budget."""
         return self.config.num_draft_tokens if self._spec_decode else 0
 
+    @property
+    def compile_count(self):
+        """CUDA graphs captured at construction: the ladder's size on the
+        card (flat under any traffic), 0 on the CPU."""
+        return len(self._graphs)
+
+    def ladder(self):
+        """The bucket ladder's keys: ``{"decode": (b, ...), "prefill":
+        ((b, s), ...)}``, one graph each on the card (the JAX engine's
+        ``_decode_exec`` and ``_prefill_exec`` keys)."""
+        cfg = self.config
+        return {"decode": cfg.batch_buckets,
+                "prefill": tuple((b, s) for b in cfg.batch_buckets
+                                 for s in cfg.prefill_buckets)}
+
+    @property
+    def prefix_hits(self):
+        """This engine's hits (its scope's, on a possibly shared
+        store)."""
+        return self.prefix_store.scope_stats(self._scope)["hits"] \
+            if self._prefix else 0
+
+    @property
+    def prefix_lookups(self):
+        return self.prefix_store.scope_stats(self._scope)["lookups"] \
+            if self._prefix else 0
+
+    @property
+    def prefix_hit_tokens(self):
+        return self.prefix_store.scope_stats(self._scope)["hit_tokens"] \
+            if self._prefix else 0
+
+    def adopt_prefix_store(self, store):
+        """Swap in a shared :class:`PrefixStore` (host only: the graphs do
+        not change); this engine's counters stay apart on it under its
+        ``name``. Returns the store."""
+        if not self._prefix:
+            raise ValueError(
+                "engine was built without prefix_cache=True: there is no "
+                "seeded prefill to serve a shared store")
+        self.prefix_store = store
+        return store
+
     def kv_cache_bytes(self):
         return self.spec.total_bytes()
 
@@ -201,9 +324,44 @@ class ServeEngine:
         """Host copy of the per-slot fill levels (one small fetch)."""
         return kvc.store_lengths(self._store).cpu().numpy()
 
+    def seed_row_template(self, which="target"):
+        """The raw host row layout this engine seeds slots from (the
+        layout a migration payload's rows must have), or None for the
+        draft of a plain engine."""
+        spec = self.spec if which == "target" else self.draft_spec
+        return spec.host_zero_row() if spec is not None else None
+
+    @torch.no_grad()
     def extract_kv_state(self, slot_ids):
-        raise _not_ported("extract_kv_state (KV migration)",
-                          "serving fleet", 5)
+        """Each slot's KV state as a checksummed host payload, the donor
+        half of KV migration: the slot's store rows gathered on the
+        device, made raw (int8 blocks dequantized, #15 on the card,
+        :meth:`KVCacheSpec.consolidate_host_rows`), copied to the host,
+        the draft's the same way on a speculative engine, and the rows
+        and fill length folded into a crc32 (:func:`kv_payload_crc`).
+
+        Returns ``{slot: {"slot", "length", "tp", "cache_mode", "rows",
+        "draft_rows", "crc"}}``. Call after
+        ``Scheduler.extract_unfinished`` (releasing a slot only forgets
+        its id: the rows stay) and before anything prefills into the
+        freed slots."""
+        lengths = self.slot_lengths()
+        out = {}
+        for slot in slot_ids:
+            slot = int(slot)
+            idx = torch.tensor([slot], dtype=torch.long, device=self.device)
+            rows = [_to_host(spec.consolidate_host_rows(
+                        spec.gather_rows(store, idx)), spec.num_layers)
+                    if spec is not None else None
+                    for spec, store in ((self.spec, self._store),
+                                        (self.draft_spec,
+                                         self._draft_store))]
+            payload = {"slot": slot, "length": int(lengths[slot]), "tp": 1,
+                       "cache_mode": self.config.cache_mode,
+                       "rows": rows[0], "draft_rows": rows[1]}
+            payload["crc"] = kv_payload_crc(payload)
+            out[slot] = payload
+        return out
 
     def poison_slot(self, slot, at_call=None):
         """Fault injection: make slot ``slot``'s logits NaN in decode call
@@ -247,16 +405,7 @@ class ServeEngine:
         if min(ids) < 0 or max(ids) >= self.config.num_slots:
             raise ValueError(f"slot ids {ids} outside [0, "
                              f"{self.config.num_slots})")
-        return self._put(np.asarray(ids, np.int64))
-
-    def _put(self, array):
-        """A host array on the engine's device. On the card it goes
-        through pinned memory without blocking, so the step's only wait
-        for the device stays the read of its sampled tokens."""
-        t = torch.from_numpy(array)
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return np.asarray(ids, np.int64)
 
     def _sample(self, logits):
         cfg = self.config
@@ -264,22 +413,154 @@ class ServeEngine:
                                         cfg.temperature, cfg.top_k,
                                         cfg.top_p)
 
+    # -- the ladder --------------------------------------------------------
+
+    def _layout(self, key):
+        """(name, shape) of a step's int64 inputs, in their order in the
+        packed input buffer."""
+        b = key[1]
+        if key[0] == "decode":
+            return (("ids", (b,)), ("tokens", (b,)), ("poison", (1,)))
+        return (("ids", (b,)), ("tokens", (b, key[2])), ("lens", (b,)),
+                ("starts", (b,)))
+
+    def _body(self, key):
+        return self._decode_body if key[0] == "decode" else \
+            lambda **v: self._prefill_body(key[1], **v)
+
+    def _views(self, key, buf):
+        out, at = {}, 0
+        for name, shape in self._layout(key):
+            n = int(np.prod(shape))
+            out[name] = buf[at:at + n].view(shape)
+            at += n
+        return out
+
+    def _pack(self, key, host):
+        return np.concatenate([np.asarray(host[name], np.int64).reshape(-1)
+                               for name, _ in self._layout(key)])
+
+    def _capture_ladder(self):
+        """Capture one CUDA graph for each ladder entry, into one shared
+        memory pool: each body runs once eagerly on a side stream first
+        (the kernels' builds, cuBLAS's handles, the split counters), then
+        is captured with its launch counts recorded. The warm-up calls
+        write the store, so the stores and seed buffers are zeroed
+        after."""
+        self.graph_pool = torch.cuda.graph_pool_handle()
+        t0 = time.perf_counter()
+        keys = [("decode", b) for b in self.config.batch_buckets] + [
+            ("prefill", b, s) for b, s in self.ladder()["prefill"]]
+        with torch.no_grad():
+            for key in keys:
+                self._graphs[key] = self._capture_one(key)
+        self.graph_pool_bytes = sum(
+            seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg["segment_pool_id"]) == tuple(
+                self.graph_pool))
+        for store in (self._store, self._draft_store):
+            for leaf in kvc._leaves(store or {}):
+                leaf.zero_()
+        for bufs in self._seeds.values():
+            for buf in bufs:
+                if buf is not None:
+                    buf.zero_()
+        if self._generator is not None:
+            self._generator.manual_seed(0)
+        torch.cuda.synchronize(self.device)
+        self.graph_seconds = time.perf_counter() - t0
+
+    def _capture_one(self, key):
+        b = key[1]
+        warm = {"ids": np.arange(b), "tokens": np.zeros(0), "poison": [-1],
+                "lens": np.ones(b), "starts": np.zeros(b)}
+        g = _Graph()
+        sizes = sum(int(np.prod(shape)) for _, shape in self._layout(key))
+        g.buffer = torch.zeros(sizes, dtype=torch.long, device=self.device)
+        g.views = self._views(key, g.buffer)
+        for name, _ in self._layout(key):
+            if name != "tokens":
+                g.views[name].copy_(torch.as_tensor(
+                    np.asarray(warm[name], np.int64)))
+        body = self._body(key)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            body(**g.views)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        g.graph = torch.cuda.CUDAGraph()
+        if self._generator is not None:
+            if not hasattr(g.graph, "register_generator_state"):
+                raise RuntimeError(
+                    "sampling inside a CUDA graph needs "
+                    "CUDAGraph.register_generator_state, which this torch "
+                    "does not have")
+            g.graph.register_generator_state(self._generator)
+        before = registry.launches()
+        try:
+            with torch.cuda.graph(g.graph, pool=self.graph_pool):
+                g.out = body(**g.views)
+        finally:
+            after = registry.launches()
+            registry.restore(before)
+        g.launches = {k: n - before.get(k, 0) for k, n in after.items()
+                      if n != before.get(k, 0)}
+        return g
+
+    def _run(self, key, host):
+        """One step: replay its graph with ``host`` (name -> host ints)
+        as the inputs, or on an engine without graphs run its body on
+        freshly placed inputs. Returns the step's output on the device
+        (a graph's static output: read it before the next call)."""
+        packed = torch.from_numpy(self._pack(key, host))
+        if not self._graphs:
+            if self.device.type == "cuda":
+                packed = packed.pin_memory().to(self.device,
+                                                non_blocking=True)
+            return self._body(key)(**self._views(key, packed))
+        g = self._graphs[key]
+        g.buffer.copy_(packed.pin_memory(), non_blocking=True)
+        g.graph.replay()
+        registry.replayed(g.launches)
+        return g.out
+
     # -- the steps ---------------------------------------------------------
 
-    def _prefill_one_model(self, model, spec, store, ids, tokens, true_len):
+    def _prefill_one_model(self, model, spec, store, seed, ids, tokens,
+                           lens, starts):
         """Prefill a bucket of prompts into ``ids`` of ``store`` for one
-        model (target or draft): the rows from zero at the padded length,
-        each row's level rolled back to its true length. Returns the
-        logits at each row's true last position [b, vocab]."""
-        b = tokens.shape[0]
-        cache = generation.init_cache(model, b)
-        pos = torch.arange(tokens.shape[1], device=self.device)[None, :]
+        model (target or draft) and return the logits at each row's true
+        last position [b, vocab]. Without a seed buffer the rows start
+        from zeros at positions ``arange(S)``; with one (the prefix
+        cache) each row starts at its level ``starts`` over the seeded
+        rows, the suffix at ``starts + arange(S)``, written in place into
+        the buffer. Each row's level then rolls to ``starts + lens``."""
+        b, s = tokens.shape
+        steps = torch.arange(s, device=tokens.device)[None, :]
+        if seed is None:
+            cache = generation.init_cache(model, b)
+            pos, end = steps, lens
+        else:
+            cache = spec.seed_cache(seed, starts.to(torch.int32))
+            pos, end = starts[:, None] + steps, starts + lens
         cache, logits = generation.prefill(model, cache, tokens, pos,
                                            full_logits=True)
-        last = logits[torch.arange(b, device=self.device), true_len - 1]
-        generation._set_cache_index(cache, true_len)
+        last = logits[torch.arange(b, device=tokens.device), lens - 1]
+        generation._set_cache_index(cache, end)
         spec.scatter_rows(store, ids, spec.quantize_rows(cache))
         return last
+
+    def _prefill_body(self, b, ids, tokens, lens, starts=None):
+        seeds = self._seeds.get(b, (None, None))
+        last = self._prefill_one_model(self.model, self.spec, self._store,
+                                       seeds[0], ids, tokens, lens, starts)
+        first = self._sample(last)
+        if self._spec_decode:
+            self._prefill_one_model(self.config.draft_model,
+                                    self.draft_spec, self._draft_store,
+                                    seeds[1], ids, tokens, lens, starts)
+        return first
 
     @torch.no_grad()
     def prefill(self, slot_ids, prompts, *, pad_slot_ids=None):
@@ -287,7 +568,13 @@ class ServeEngine:
         ``slot_ids[i]`` and return the first generated token of each,
         ``np.ndarray [len(prompts)]``. Pads the call up to the smallest
         (batch, seq) bucket pair; with a draft model its cache is
-        prefilled with the same tokens."""
+        prefilled with the same tokens.
+
+        With the prefix cache each prompt is looked up first: a hit
+        seeds its row from the cached entry and only the suffix picks
+        the seq bucket; every newly seen prompt's merged rows are
+        cached. ``last_prefill_hits`` holds each prompt's cut (0 = a
+        miss) for the scheduler's accounting."""
         if len(slot_ids) != len(prompts):
             raise ValueError("slot_ids and prompts disagree")
         n = len(prompts)
@@ -297,30 +584,80 @@ class ServeEngine:
         bbucket = self._pick_bucket(self.config.batch_buckets, n,
                                     "prefill batch")
         ids = self._padded_ids(slot_ids, pad_slot_ids, bbucket)
-        sbucket = self._pick_bucket(self.config.prefill_buckets,
-                                    max(plens), "prompt length")
+        cuts, lookups = [0] * n, [(0, None)] * n
+        if self._prefix:
+            lookups = [self.prefix_store.lookup(p, scope=self._scope)
+                       for p in prompts]
+            cuts = [c for c, _ in lookups]
+        sbucket = self._pick_bucket(
+            self.config.prefill_buckets,
+            max(p - c for p, c in zip(plens, cuts)),
+            "prompt suffix length" if self._prefix else "prompt length")
         toks = np.full((bbucket, sbucket), self.config.pad_token_id,
                        np.int64)
         lens = np.ones((bbucket,), np.int64)
+        starts = np.zeros((bbucket,), np.int64)
         for i, p in enumerate(prompts):
-            toks[i, :plens[i]] = np.asarray(p, np.int64)
-            lens[i] = plens[i]
-        toks, lens = self._put(toks), self._put(lens)
-        last = self._prefill_one_model(self.model, self.spec, self._store,
-                                       ids, toks, lens)
-        first = self._sample(last)
-        if self._spec_decode:
-            self._prefill_one_model(self.config.draft_model,
-                                    self.draft_spec, self._draft_store, ids,
-                                    toks, lens)
-        return first.cpu().numpy()[:n]
+            suffix = np.asarray(p, np.int64)[cuts[i]:]
+            toks[i, :suffix.shape[0]] = suffix
+            lens[i], starts[i] = suffix.shape[0], cuts[i]
+        host = {"ids": ids, "tokens": toks, "lens": lens, "starts": starts}
+        if self._prefix:
+            self._seed_hits(bbucket, lookups)
+        first = self._run(("prefill", bbucket, sbucket), host)
+        first = first.cpu().numpy()[:n]
+        self.last_prefill_hits = cuts
+        if self._prefix:
+            self._record_prefix(bbucket, prompts, plens)
+        return first
+
+    def _seed_hits(self, b, lookups):
+        """Copy each hit's first ``cut`` positions into the bucket's seed
+        buffers (a miss needs nothing: its level 0 masks every position).
+        Returns the bytes copied."""
+        hits = [(i, c, e) for i, (c, e) in enumerate(lookups) if c]
+        copied = 0
+        for spec, buf, staging, attr in (
+                (self.spec, self._seeds[b][0], self._staging[0], "rows"),
+                (self.draft_spec, self._seeds[b][1], self._staging[1],
+                 "draft_rows")):
+            if buf is None:
+                continue
+            for i, cut, entry in hits:
+                copied += spec.seed_rows(buf, i, getattr(entry, attr), cut,
+                                         staging)
+        return copied
+
+    def _record_prefix(self, b, prompts, plens):
+        """Cache every prompt of the call the store does not cover yet:
+        host copies of its raw merged rows (the full ``max_len`` positions,
+        full precision) taken from the seed buffers without blocking.
+        Returns the bytes copied."""
+        store = self.prefix_store
+        inserts = [i for i, p in enumerate(prompts)
+                   if plens[i] > store.min_len and not store.covers(p)]
+        if not inserts:
+            return 0
+        levels = [plens[i] for i in inserts]
+        target, draft = self._seeds[b]
+        rows = self.spec.host_raw_rows(target, inserts, levels)
+        drows = self.draft_spec.host_raw_rows(draft, inserts, levels) \
+            if draft is not None else [None] * len(inserts)
+        for i, r, d in zip(inserts, rows, drows):
+            store.insert(prompts[i], r, d, scope=self._scope)
+        return sum(kvc.tree_bytes(r) + (kvc.tree_bytes(d) if d else 0)
+                   for r, d in zip(rows, drows))
+
+    def _decode_body(self, ids, tokens, poison):
+        return self._spec_decode_fn(ids, tokens, poison) \
+            if self._spec_decode else self._decode_fn(ids, tokens, poison)
 
     def _decode_fn(self, ids, tokens, poison):
         """One decode step over a slot bucket: gather the rows,
         dequantize on read, one forward with each row at its own level,
         requantize only the appended position, quarantine non-finite
-        rows, scatter back, sample. Returns (tokens, finite) on the
-        device."""
+        rows, scatter back, sample. Returns [2, b] int64 on the device:
+        the tokens and the finite flags."""
         spec = self.spec
         rows = spec.gather_rows(self._store, ids)
         cache = spec.materialize_rows(rows)
@@ -339,7 +676,7 @@ class ServeEngine:
         rows = spec.keep_rows(spec.update_rows_at(rows, cache, lengths),
                               finite)
         spec.scatter_rows(self._store, ids, rows)
-        return nxt, finite
+        return torch.stack([nxt, finite.long()])
 
     def _spec_decode_fn(self, ids, tokens, poison):
         """One speculative round over a slot bucket, each slot at its own
@@ -349,8 +686,9 @@ class ServeEngine:
         (no batch minimum), both caches rolled back to ``n + accepted +
         1``; int8 stores requantize exactly the ``k + 1``-position window.
         Non-finite verification logits (or the poisoned slot) zero the
-        slot's rows in both stores and emit one pad token. Returns
-        (emitted [b, k+1], counts [b], finite [b]) on the device."""
+        slot's rows in both stores and emit one pad token. Returns [b,
+        k + 3] int64 on the device: the emitted tokens [b, k+1], the
+        counts and the finite flags."""
         k = int(self.config.num_draft_tokens)
         rows = self.spec.gather_rows(self._store, ids)
         drows = self.draft_spec.gather_rows(self._draft_store, ids)
@@ -378,7 +716,8 @@ class ServeEngine:
             r = spec.keep_rows(spec.update_rows_span(r, cache, n, k + 1),
                                finite)
             spec.scatter_rows(store, ids, r)
-        return emit, counts, finite
+        return torch.cat([emit, counts[:, None], finite[:, None].long()],
+                         dim=1)
 
     @torch.no_grad()
     def decode(self, slot_ids, tokens, *, pad_slot_ids=None, retries=0,
@@ -400,14 +739,14 @@ class ServeEngine:
         ids = self._padded_ids(slot_ids, pad_slot_ids, bbucket)
         toks = np.zeros((bbucket,), np.int64)
         toks[:n] = np.asarray(tokens, np.int64)
-        toks = self._put(toks)
         step_idx = self._decode_calls
         self._decode_calls += 1
-        poison = self._poison_for(step_idx)
-        step = self._spec_decode_fn if self._spec_decode else self._decode_fn
+        host = {"ids": ids, "tokens": toks,
+                "poison": [self._poison_for(step_idx)]}
         for attempt in range(int(retries) + 1):
             try:
-                out = step(ids, toks, poison)
+                # one device-to-host copy a step: tokens and flags together
+                out = self._run(("decode", bbucket), host).cpu().numpy()
                 break
             except Exception as e:  # noqa: BLE001 (classified below)
                 if not robust.is_retryable_decode_error(e):
@@ -421,15 +760,10 @@ class ServeEngine:
                 self.decode_retries_total += 1
                 time.sleep(robust.retry_backoff_s(attempt, backoff_s,
                                                   backoff_cap_s))
-        # one device-to-host copy a step: tokens and flags together
         if self._spec_decode:
-            emit, counts, finite = out
-            host = torch.cat([emit, counts[:, None], finite[:, None]],
-                             dim=1).cpu().numpy()[:n]
+            host = out[:n]
             return host[:, :-2], host[:, -2], host[:, -1].astype(bool)
-        nxt, finite = out
-        host = torch.stack([nxt, finite.long()]).cpu().numpy()[:, :n]
-        return host[0], host[1].astype(bool)
+        return out[0, :n], out[1, :n].astype(bool)
 
     def serve(self, requests, *, robust=None, guard=None, **kw):
         """Run a request list to completion through a fresh
@@ -443,3 +777,11 @@ class ServeEngine:
         sched = Scheduler(self, robust=robust, guard=guard)
         completed = sched.run(requests, **kw)
         return completed, sched.stats()
+
+
+def _to_host(rows, num_layers):
+    """Raw rows on the card copied to the host: the K/V leaves stacked on
+    the card and fetched in one copy, each leaf a view of it."""
+    kv = torch.stack(rows["keys"] + rows["values"]).cpu()
+    return {"keys": list(kv[:num_layers]), "values": list(kv[num_layers:]),
+            "lengths": rows["lengths"].cpu()}

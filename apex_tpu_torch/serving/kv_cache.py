@@ -29,7 +29,15 @@ bit. Reads dequantize the gathered rows (:meth:`KVCacheSpec.
 materialize_rows`), with a per-lane error of at most half a grid step,
 ``absmax_block / 254``.
 
-The TP pspecs and ``consolidate_host_rows`` (KV migration) come with
+Raw rows. The prefix cache and KV migration move one slot's rows in the
+model's own layout at full precision, whatever the store's mode
+(:meth:`KVCacheSpec.host_zero_row`): per layer K/V ``[max_len, 1, g, d]``
+in the compute dtype and the fill level ``lengths`` int32 [1]. A
+seeded prefill starts from a bucket of such rows, a seed buffer
+``[2, L, max_len, b, g, d]`` (:meth:`KVCacheSpec.seed_buffer`, K then V,
+each layer's ``[max_len, b, g, d]`` a contiguous view), and
+:meth:`KVCacheSpec.consolidate_host_rows` turns one slot's store rows
+back into raw rows (int8 blocks dequantized). The TP pspecs come with
 tensor-parallel serving.
 """
 
@@ -59,10 +67,12 @@ def _leaves(tree):
 
 
 def _bytes(leaf):
+    """A leaf's bytes as a contiguous buffer (not copied where the leaf
+    already is one)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous().reshape(-1)
-        return t.view(torch.uint8).numpy().tobytes()
-    return np.ascontiguousarray(np.asarray(leaf)).tobytes()
+        return t.view(torch.uint8).numpy()
+    return np.ascontiguousarray(np.asarray(leaf)).reshape(-1).view(np.uint8)
 
 
 def payload_checksum(tree, crc=0):
@@ -72,6 +82,13 @@ def payload_checksum(tree, crc=0):
     for leaf in _leaves(tree):
         crc = zlib.crc32(_bytes(leaf), crc)
     return int(crc)
+
+
+def tree_bytes(tree):
+    """Bytes of every leaf of a tree of tensors or arrays."""
+    return int(sum(leaf.numel() * leaf.element_size()
+                   if isinstance(leaf, torch.Tensor)
+                   else np.asarray(leaf).nbytes for leaf in _leaves(tree)))
 
 
 def store_lengths(store):
@@ -155,6 +172,101 @@ class KVCacheSpec:
                           for _ in range(self.num_layers)]
                    for name in KV_LEAVES},
                 "lengths": torch.zeros(1, dtype=torch.int32)}
+
+    def seed_buffer(self, b):
+        """Zeroed seed buffer of a ``b``-row bucket on the model's device:
+        ``[2, L, max_len, b, g, d]`` in the compute dtype, K at index 0
+        and V at 1. A seeded prefill runs in place over it, so after the
+        call it holds the bucket's raw merged rows."""
+        return torch.zeros(2, self.num_layers, self.max_len, b, self.groups,
+                           self.head_dim, dtype=self.dtype,
+                           device=self.device)
+
+    @staticmethod
+    def seed_cache(buf, lengths):
+        """A model-ready :class:`KVCache` over a seed buffer's K/V views,
+        each row at its level ``lengths`` (int32 [b], taken as is: the
+        forward advances it in place)."""
+        return KVCache.from_buffers(list(buf[0]), list(buf[1]), lengths)
+
+    def seed_rows(self, buf, i, rows, cut, staging):
+        """Copy the first ``cut`` positions of the raw rows ``rows`` (a
+        host row tree, :meth:`host_zero_row`'s layout) into row ``i`` of
+        the seed buffer ``buf``, through ``staging`` (a contiguous device
+        tensor of ``buf[:, :, :, 0]``'s shape): one copy a K/V leaf to
+        the card without blocking, then one strided copy on the card.
+        The host never reads the rows, so a row still being copied from
+        the card into pinned memory is read after that copy in stream
+        order. The positions from ``cut`` on are not written: the row's
+        level is ``cut``, so they stay masked. Returns the bytes
+        copied."""
+        nbytes = 0
+        for k, name in enumerate(KV_LEAVES):
+            for layer, x in enumerate(rows[name]):
+                src = x[:cut, 0]
+                staging[k, layer, :cut].copy_(src, non_blocking=True)
+                nbytes += src.numel() * src.element_size()
+        buf[:, :, :cut, i].copy_(staging[:, :, :cut])
+        return nbytes
+
+    def host_raw_rows(self, buf, rows, lengths):
+        """Host copies of rows ``rows`` (host ints) of the seed buffer
+        ``buf`` after a seeded prefill, each a raw row tree of the full
+        ``max_len`` positions with fill level ``lengths[j]``: one gather on
+        the card and one copy into pinned memory, without blocking (the
+        stream orders any later read of it on the card; a host read must
+        synchronize first)."""
+        idx = torch.as_tensor(rows, dtype=torch.long, device=buf.device)
+        packed = buf.index_select(3, idx).permute(3, 0, 1, 2, 4, 5)
+        host = torch.empty(packed.shape, dtype=packed.dtype,
+                           pin_memory=buf.device.type == "cuda")
+        host.copy_(packed, non_blocking=True)
+        return [{"keys": [host[j, 0, l][:, None]
+                          for l in range(self.num_layers)],
+                 "values": [host[j, 1, l][:, None]
+                            for l in range(self.num_layers)],
+                 "lengths": torch.tensor([int(n)], dtype=torch.int32)}
+                for j, n in enumerate(lengths)]
+
+    def consolidate_host_rows(self, rows, tp=1):
+        """One slot's store rows (``gather_rows`` of one slot: per layer
+        K/V ``[max_len, 1, ...]`` in the store's mode, and ``lengths``
+        [1]) -> raw rows in :meth:`host_zero_row`'s layout, on the rows'
+        device: int8 blocks dequantized against their own scales (#15 on
+        the card), bf16 rows copied. The migration payload's layout.
+        Raises ``ValueError`` when a leaf does not match this spec's
+        layout, and ``NotImplementedError`` at ``tp > 1``."""
+        if int(tp) != 1:
+            raise NotImplementedError(
+                f"consolidate_host_rows at tp={tp}: tensor-parallel "
+                f"serving is not ported yet (ROADMAP queue A item 5(b))")
+        shape = (self.max_len, 1, self.groups, self.head_dim)
+
+        def fix(name, leaf):
+            if self.mode == "int8":
+                if not (isinstance(leaf, dict) and "q" in leaf):
+                    raise ValueError(f"kv rows {name}: expected the int8 "
+                                     f"layout's q/scale pair")
+                q, s = leaf["q"], leaf["scale"]
+                want = (self.max_len, 1, self.blocks, self.block)
+                if tuple(q.shape) != want or q.dtype != torch.int8:
+                    raise ValueError(f"kv rows {name}: int8 blocks "
+                                     f"{tuple(q.shape)}/{q.dtype} do not "
+                                     f"match the layout {want}")
+                out = compression.dequantize_rows_blockwise(
+                    q, s, n=self.width, out_dtype=self.dtype)
+                return out.reshape(shape)
+            if tuple(leaf.shape) != shape or leaf.dtype != self.dtype:
+                raise ValueError(f"kv rows {name}: {tuple(leaf.shape)}/"
+                                 f"{leaf.dtype} does not match the layout "
+                                 f"{shape}/{self.dtype}")
+            return leaf.clone()
+
+        out = {name: [fix(f"{name}[{l}]", x)
+                      for l, x in enumerate(rows[name])]
+               for name in KV_LEAVES}
+        out["lengths"] = rows["lengths"].to(torch.int32).reshape(1).clone()
+        return out
 
     # -- bytes accounting --------------------------------------------------
 

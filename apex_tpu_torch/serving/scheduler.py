@@ -11,7 +11,9 @@ deterministic: the same seed yields the same admission schedule and the
 same bucket sequence on every run, whatever the host's speed.
 *Latencies* and *deadlines* are wall-clock: TTFT runs from the moment a
 request became eligible (arrival tick reached) to its first sampled
-token landing on the host, so queueing for a slot counts.
+token landing on the host, so queueing for a slot counts; with the
+engine's prefix cache it is also split into hits and misses
+(``engine.last_prefill_hits``).
 
 Fault tolerance (:mod:`apex_tpu_torch.serving.robust` holds the policy):
 a bounded pending queue with reject-newest or shed-oldest shedding; TTFT
@@ -22,7 +24,8 @@ device), escalating to
 :class:`~apex_tpu_torch.serving.robust.NonFiniteError` when every slot
 of a batch goes non-finite at once; decode retries inside the engine,
 past which only the implicated requests fail (status ``failed``); and a
-graceful :meth:`Scheduler.drain`.
+graceful :meth:`Scheduler.drain`. :meth:`Scheduler.extract_unfinished`
+takes unfinished requests out for migration to another engine.
 
 :meth:`Scheduler.stats` keeps its own latency samples (TTFT and
 per-token latency percentiles, tokens/s, decode steps, prefill calls).
@@ -156,6 +159,8 @@ class Scheduler:
         self._known_rids = set()
         self._eligible_wall = {}
         self._ttft_ms = []
+        self._ttft_hit_ms = []                # prefix-cache hits
+        self._ttft_miss_ms = []
         self._tok_latency_ms = []
         # speculative-decode acceptance accounting
         self.spec_proposed = 0
@@ -303,9 +308,12 @@ class Scheduler:
                 slots, [r.prompt for r in group], pad_slot_ids=self.free)
             t1 = self._clock()
             self.prefill_calls += 1
-            for slot, r, tok in zip(slots, group, first):
+            cuts = list(self.engine.last_prefill_hits or [0] * len(group))
+            for slot, r, tok, cut in zip(slots, group, first, cuts):
                 ttft = t1 - self._eligible_wall[r.rid]
                 self._ttft_ms.append(ttft * 1e3)
+                (self._ttft_hit_ms if cut
+                 else self._ttft_miss_ms).append(ttft * 1e3)
                 self.tokens_generated += 1
                 st = _Active(r, tok, ttft)
                 if self._finished(st):
@@ -423,6 +431,45 @@ class Scheduler:
         reason = "eos" if (eos is not None and st.last == eos) else "length"
         self._terminal(st.req, reason, tokens=st.tokens, ttft_s=st.ttft_s,
                        latencies=st.latencies)
+
+    # -- migration ---------------------------------------------------------
+
+    def extract_unfinished(self, reason="migrated", which="all"):
+        """Take in-flight and/or queued requests out of this scheduler
+        without a terminal status, for migration to another engine.
+        Returns one record per request, ``{"request", "tokens" (emitted
+        so far), "ttft_s", "latencies", "where", "slot"}``: the
+        continuation is the prompt plus the emitted tokens (greedy decode
+        resumes it token for token). ``"slot"`` is the store slot the
+        request held (None for a pending one): releasing it only returns
+        the id to the free pool, so ``engine.extract_kv_state`` can still
+        read its rows after this sweep, as long as nothing prefills in
+        between. ``which`` is ``"all"``, ``"active"`` or ``"pending"``.
+        ``reason`` names the sweep (the JAX package records it in its
+        telemetry events, which are not ported)."""
+        if which not in ("all", "active", "pending"):
+            raise ValueError(f"which ({which!r}) not in "
+                             f"('all', 'active', 'pending')")
+        out = []
+        if which in ("all", "active"):
+            for slot in sorted(self.active):
+                st = self.active.pop(slot)
+                self._release(slot)
+                out.append({"request": st.req, "tokens": list(st.tokens),
+                            "ttft_s": st.ttft_s,
+                            "latencies": list(st.latencies),
+                            "where": "active", "slot": slot})
+        if which in ("all", "pending"):
+            for r in list(self.pending):
+                self.pending.remove(r)
+                out.append({"request": r, "tokens": [],
+                            "ttft_s": float("nan"), "latencies": [],
+                            "where": "pending", "slot": None})
+        for rec in out:
+            rid = rec["request"].rid
+            self._known_rids.discard(rid)
+            self._eligible_wall.pop(rid, None)
+        return out
 
     # -- drain -------------------------------------------------------------
 
@@ -562,6 +609,19 @@ class Scheduler:
                 # accepted-tokens rate is the engine's tokens/s
                 "accepted_tokens_per_sec": (self.tokens_generated / wall)
                 if wall > 0 else None,
+            })
+        store = getattr(self.engine, "prefix_store", None)
+        if store is not None:
+            ps = store.stats()
+            extra.update({
+                "prefix_lookups": ps["lookups"],
+                "prefix_hits": ps["hits"],
+                "prefix_hit_rate": round(ps["hit_rate"], 4),
+                "prefix_hit_tokens": ps["hit_tokens"],
+                "prefix_store_bytes": ps["bytes"],
+                "prefix_store_entries": ps["entries"],
+                "ttft_p50_prefix_hit_ms": self._pct(self._ttft_hit_ms, 50),
+                "ttft_p50_prefix_miss_ms": self._pct(self._ttft_miss_ms, 50),
             })
         return {
             **extra,

@@ -176,10 +176,10 @@ def get_tensor_model_parallel_src_rank() -> int:
 def refuse_tensor_parallel(what: str) -> None:
     """Raise where a tp grid of more than one rank is bound: ``what`` (a
     model that lays its weights out unsharded) comes at tp > 1 with
-    ROADMAP queue A item 5."""
+    ROADMAP queue A item 5(b)."""
     if get_tensor_model_parallel_world_size() > 1:
         raise NotImplementedError(
             f"{what} at tensor-parallel size "
             f"{get_tensor_model_parallel_world_size()} comes with ROADMAP "
-            f"queue A item 5; at tp > 1 the port runs the tensor_parallel "
+            f"queue A item 5(b); at tp > 1 the port runs the tensor_parallel "
             f"layers and parallel.mesh2d")

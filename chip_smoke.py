@@ -372,6 +372,20 @@ SERVE_PREFILL_BUCKETS = (32, 64, 128)
 SERVE_REQUESTS, SERVE_SEED = 16, 1
 SERVE_PROMPT_LENS, SERVE_MAX_NEW = (8, 24, 48, 96), (16, 32, 64)
 SPEC_K = 4
+# the prefix-cached speculative engine as bench.py bench_serve_spec drives
+# it at full size (bench.py:2999-3127): batch buckets (2, 4, 8), prefill
+# buckets (64, 128), 8 slots, 4 draft tokens, prefix_min_len 6, 16
+# entries; 16 requests of synthetic_trace (Poisson arrivals 0.1 tick
+# apart, a 40-token system prompt opening 80 % of them before an 8/16/24-
+# token tail, 32 or 48 new tokens), a warm-up trace (seed 0) before the
+# measured one (seed 1); the migration drill's donor takes MIGRATE_TICKS
+# scheduler steps before its unfinished requests move
+PREFIX_BUCKETS = (64, 128)
+PREFIX_SHARED, PREFIX_TAILS, PREFIX_MAX_NEW = 40, (8, 16, 24), (32, 48)
+PREFIX_MIN_LEN, PREFIX_ENTRIES, MIGRATE_TICKS = 6, 16, 6
+# the serving phase's beam search (4 beams a row of the 8 x 128 prompt)
+# and shared-prefix generate (a 512-token prefix, 8 suffixes of 64)
+BEAMS, SHARED_PREFIX, SUFFIX = 4, 512, 64
 # DeepSeek MLA, dense, at bench.py bench_mla_decode's shapes (bench.py:
 # 1031-1039): 4 x 1024, 16 heads, kv latent 512 + rope 64, fp32 params,
 # bf16 compute; batch 8, a 4096-token prompt, one warm step, 64 timed
@@ -5563,7 +5577,162 @@ def phase_serving():
     profile_window("prefill", run_prefill)
     cache, _ = run_prefill()
     profile_window("decode step", lambda: step(0))
-    return {"serving": launches}
+    return {"serving": launches, "beam_search": _beam_path(model, prompt,
+                                                          tokens),
+            "prefix_generate": _prefix_generate_path(model)}
+
+
+def _rows_check(label, model, prompts, got, want):
+    """Row i of ``got`` against row i of ``want`` (generated tokens), each
+    row's context ``prompts[i]``: where a row differs, both tokens at the
+    first difference must lie within LOGIT_TOL of the top logit of the
+    context (the prompt and ``want``'s tokens before it) prefilled
+    through the kernels: a tie among the leading tokens that a
+    last-place difference may break either way, not a wrong token. The
+    serve phases' top-2 rule (:func:`_margin_check`) reads a three-way
+    tie as a failure: one within 0.0062 occurred on this path on an H100
+    80GB HBM3."""
+    from apex_tpu_torch.models import init_cache, prefill
+    same = 0
+    for i, (a, b) in enumerate(zip(got.tolist(), want.tolist())):
+        if a == b:
+            same += 1
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+        ctx = torch.cat([prompts[i].cpu(), torch.as_tensor(b[:j])]).to(
+            model.device)[None]
+        _, logits = prefill(model, init_cache(model, 1), ctx, torch.arange(
+            ctx.shape[1], device=model.device)[None])
+        logits = logits[0].float()
+        top = logits.max().item()
+        gaps = [top - logits[t].item() for t in (a[j], b[j])]
+        log(f"{label}: row {i} first differs at generated token {j} "
+            f"({a[j]} vs {b[j]}); their logits {gaps[0]:.4f} and "
+            f"{gaps[1]:.4f} below the top (tolerance {LOGIT_TOL})")
+        assert max(gaps) < LOGIT_TOL, (label, i, j, gaps)
+    log(f"{label}: {same} of {len(got)} rows identical")
+
+
+def _beam_path(model, prompt, greedy):
+    """beam_search over the serving phase's 8 x 128 prompt, BEAMS beams a
+    row, NEW_TOKENS tokens, counted; one beam against greedy generate
+    (``greedy``); the kernels held against their plain versions on the
+    beam path's prefill and first beam step."""
+    from apex_tpu_torch.kernels import registry
+    from apex_tpu_torch.models import (
+        beam_search,
+        decode_step,
+        init_cache,
+        prefill,
+    )
+    L = model.num_layers
+    beam_search(model, prompt, 2, BEAMS)  # warm
+    registry.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seqs, scores = beam_search(model, prompt, NEW_TOKENS, BEAMS)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    launches = registry.launches()
+    _expect("beam_search", launches, {
+        "rms_norm": (2 * L + 1) * NEW_TOKENS, "window_attention": L,
+        "gqa_decode": L * (NEW_TOKENS - 1)})
+    assert seqs.shape == (BATCH, PROMPT + NEW_TOKENS), seqs.shape
+    assert torch.equal(seqs[:, :PROMPT].cpu(), prompt)
+    assert torch.isfinite(scores).all() and (scores <= 0).all(), scores
+    log(f"beam_search: {BATCH} x {PROMPT} prompt, {BEAMS} beams, "
+        f"{NEW_TOKENS} new tokens in {beam_s * 1e3:.1f} ms ("
+        f"{BATCH * NEW_TOKENS / beam_s:.1f} best-beam tokens/s); scores "
+        f"{[round(x, 4) for x in scores.tolist()]}")
+    one, _ = beam_search(model, prompt, NEW_TOKENS, 1)
+    _rows_check("beam_search with one beam vs greedy generate", model,
+                prompt, one[:, PROMPT:], greedy[:, PROMPT:])
+
+    def first_step(plain):
+        ctx = plain_versions() if plain else contextlib.nullcontext()
+        with ctx:
+            cache = init_cache(model, BATCH)
+            pos = torch.arange(PROMPT, device=model.device)[None, :]
+            cache, logits0 = prefill(model, cache, prompt.cuda(), pos)
+            cache = cache.repeat_rows(BEAMS)
+            nxt = seqs[:, PROMPT].repeat_interleave(BEAMS)[:, None]
+            _, logits1 = decode_step(
+                model, cache, nxt,
+                torch.full((BATCH * BEAMS, 1), PROMPT, device=model.device))
+        return logits0, logits1
+
+    k0, k1 = first_step(plain=False)
+    p0, p1 = first_step(plain=True)
+    _hold_logits("beam_search: prefill", k0, p0)
+    _hold_logits("beam_search: first beam step (32 rows)", k1, p1)
+    with plain_versions():
+        pseqs, pscores = beam_search(model, prompt, NEW_TOKENS, BEAMS)
+    same = (pseqs == seqs).all(dim=1).sum().item()
+    log(f"beam_search: {same} of {BATCH} best beams identical to the plain "
+        f"versions' (not a check: a near tie may pick another beam); "
+        f"largest score difference "
+        f"{(pscores - scores).abs().max().item():.3e}")
+    return launches
+
+
+def _prefix_generate_path(model):
+    """prefill_prefix of a SHARED_PREFIX-token batch-1 prefix, then
+    generate(prefix_state=) of 8 SUFFIX-token suffixes, counted, against
+    generate over the concatenated prompts; both prefills timed."""
+    from apex_tpu_torch.kernels import registry
+    from apex_tpu_torch.models import (
+        generate,
+        init_cache,
+        prefill,
+        prefill_prefix,
+    )
+    L, vocab = model.num_layers, model.config.vocab_size
+    gen = torch.Generator().manual_seed(SEED + 1)
+    shared = torch.randint(0, vocab, (1, SHARED_PREFIX), generator=gen)
+    suffix = torch.randint(0, vocab, (BATCH, SUFFIX), generator=gen)
+    full = torch.cat([shared.expand(BATCH, -1), suffix], dim=1).cuda()
+    generate(model, suffix, 2, prefix_state=prefill_prefix(model, shared))
+    registry.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = prefill_prefix(model, shared)
+    torch.cuda.synchronize()
+    prefix_s = time.perf_counter() - t0
+    out = generate(model, suffix, NEW_TOKENS, prefix_state=state)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0 - prefix_s
+    launches = registry.launches()
+    _expect("prefix_generate", launches, {
+        "rms_norm": (2 * L + 1) * (NEW_TOKENS + 1),
+        "window_attention": 2 * L, "gqa_decode": L * (NEW_TOKENS - 1)})
+    assert out.shape == (BATCH, SUFFIX + NEW_TOKENS), out.shape
+    want = generate(model, full, NEW_TOKENS)
+    _rows_check("prefix_generate vs generate over the full prompt", model,
+                full, out[:, SUFFIX:], want[:, SHARED_PREFIX + SUFFIX:])
+    pos = SHARED_PREFIX + torch.arange(SUFFIX, device=model.device)[None, :]
+    _, seeded_logits = prefill(model, state[0].broadcast_rows(BATCH),
+                               suffix.cuda(), pos, full_logits=True)
+    _, full_logits = prefill(model, init_cache(model, BATCH), full,
+                             torch.arange(full.shape[1],
+                                          device=model.device)[None, :],
+                             full_logits=True)
+    _hold_logits("prefix_generate: the suffix prefill over the prefix vs "
+                 "the full prompt's prefill, at the suffix positions,",
+                 seeded_logits, full_logits[:, SHARED_PREFIX:])
+    seeded = [_wall_ms(lambda: prefill(
+        model, state[0].broadcast_rows(BATCH), suffix.cuda(), pos))[0]
+        for _ in range(7)]
+    cold = [_wall_ms(lambda: prefill(
+        model, init_cache(model, BATCH), full, torch.arange(
+            full.shape[1], device=model.device)[None, :]))[0]
+        for _ in range(7)]
+    log(f"prefix_generate: prefill_prefix ({SHARED_PREFIX} tokens, batch 1) "
+        f"{prefix_s * 1e3:.1f} ms once; generate of {BATCH} x {SUFFIX} "
+        f"suffixes + {NEW_TOKENS} new tokens {gen_s * 1e3:.1f} ms; the "
+        f"suffix prefill over the prefix (the broadcast copy included) "
+        f"{_spread(seeded)} against a prefill of the full {BATCH} x "
+        f"{full.shape[1]} prompts {_spread(cold)}")
+    return launches
 
 
 def _rel_fro(got, want):
@@ -6491,13 +6660,15 @@ def _margin_check(label, model, trace, got, want):
     log(f"{label}: {same} of {len(trace)} streams identical")
 
 
-def _serve_counted(label, engine, vocab):
-    """Warm the engine on a short trace, then drive the serving trace
-    through ``engine.serve`` with every launch count set to 0 just
-    before and read just after. Returns (streams, stats, launches)."""
+def _serve_counted(label, engine, vocab, trace=None, warm=None):
+    """Warm the engine on a short trace (``warm``), then drive the serving
+    trace (``trace``) through ``engine.serve`` with every launch count set
+    to 0 just before and read just after. Returns (streams, stats,
+    launches)."""
     from apex_tpu_torch.kernels import registry
-    engine.serve(_serve_trace(vocab, n=4, seed=0))  # warm: cuBLAS, allocator
-    trace = _serve_trace(vocab)
+    # warm: cuBLAS, the allocator
+    engine.serve(warm or _serve_trace(vocab, n=4, seed=0))
+    trace = trace or _serve_trace(vocab)
     # host clock of each engine call (a call ends with its one read of
     # the sampled tokens, so it spans the device's work too); instance
     # attributes shadow the methods for this run only
@@ -6567,6 +6738,59 @@ def _serve_counted(label, engine, vocab):
     return _streams(done), stats, launches
 
 
+def _eager_engine(model, config):
+    """The same engine without its CUDA graphs: its step bodies run
+    eagerly on the card, the yardstick the ladder's replays are timed
+    against."""
+    from apex_tpu_torch.serving import ServeEngine
+
+    class EagerEngine(ServeEngine):
+        _capture = False
+
+    return EagerEngine(model, config)
+
+
+def _ladder_report(label, engine):
+    """The engine's ladder: one CUDA graph a bucket, their capture time
+    and the shared pool's bytes."""
+    ladder = engine.ladder()
+    size = len(ladder["decode"]) + len(ladder["prefill"])
+    log(f"{label}: {engine.compile_count} CUDA graphs captured (the "
+        f"ladder: {len(ladder['decode'])} decode + {len(ladder['prefill'])} "
+        f"prefill buckets) in {engine.graph_seconds:.2f} s, warm-ups "
+        f"included; the shared pool {engine.graph_pool_bytes / 2**20:.1f} "
+        f"MiB")
+    assert engine.compile_count == size, (engine.compile_count, size)
+    return size
+
+
+def _beside_eager(label, model, config, vocab, graphed, trace=None,
+                  warm=None):
+    """The same trace through the same engine run eagerly: its tokens/s
+    and a profiled decode call beside the graphs', streams and launch
+    counts identical to the graph replays'."""
+    streams, stats, launches = graphed
+    eager = _eager_engine(model, config)
+    e_streams, e_stats, e_launches = _serve_counted(
+        f"{label} eager", eager, vocab, trace, warm)
+    log(f"{label}: CUDA graphs {stats['tokens_per_sec']:.1f} tokens/s "
+        f"against eager calls {e_stats['tokens_per_sec']:.1f} on the same "
+        f"trace ({stats['tokens_per_sec'] / e_stats['tokens_per_sec']:.3f}"
+        f"x); TTFT p50 {stats['ttft_p50_ms']:.2f} against "
+        f"{e_stats['ttft_p50_ms']:.2f} ms; per-token p50 "
+        f"{stats['tok_latency_p50_ms']:.2f} against "
+        f"{e_stats['tok_latency_p50_ms']:.2f} ms")
+    assert e_streams == streams, f"{label}: graph and eager streams differ"
+    nonzero = [{k: n for k, n in d.items() if n} for d in (e_launches,
+                                                           launches)]
+    assert nonzero[0] == nonzero[1], nonzero
+    log(f"{label}: all {len(streams)} streams and every launch count "
+        f"identical to the eager run's")
+    _profile_decode(f"{label} eager decode call (bucket 8)", eager, vocab)
+    del eager
+    torch.cuda.empty_cache()
+
+
 def _expect(label, launches, expected):
     expected = {**dict.fromkeys(launches, 0), **expected}
     log(f"{label}: launches {launches}, expected {expected}")
@@ -6630,7 +6854,9 @@ def phase_serve_bf16():
     log(f"serve_bf16: kv_cache_bytes {engine.kv_cache_bytes()} "
         f"({engine.spec.cache_dtype_name()}, {SERVE_SLOTS} slots x "
         f"{engine.max_len} positions)")
+    size = _ladder_report("serve_bf16", engine)
     streams, stats, launches = _serve_counted("serve_bf16", engine, vocab)
+    assert engine.compile_count == size
     steps, calls = stats["decode_steps"], stats["prefill_calls"]
     _expect("serve_bf16", launches, {
         "rms_norm": (2 * L + 1) * (steps + calls),
@@ -6645,8 +6871,39 @@ def phase_serve_bf16():
     _margin_check("serve_bf16 kernels vs plain versions", model,
                   _serve_trace(vocab), streams, _streams(plain))
     _profile_decode("serve_bf16 decode step (bucket 8)", engine, vocab)
+    _beside_eager("serve_bf16", model, _serve_config(cache_mode="bf16"),
+                  vocab, (streams, stats, launches))
+    _sampled_graphs_check()
     _SERVE_STREAMS["bf16"] = streams
     return {"serve_bf16": launches}
+
+
+def _sampled_graphs_check():
+    """An engine that samples (temperature 0.8, top-k 40) on its CUDA
+    graphs, its generator's state registered with every graph: two
+    engines from the same seed give the same streams, every token in the
+    vocabulary; the same engine run eagerly is printed beside them. A
+    2-layer model at TinyLlama's width keeps the ladders' capture short."""
+    import dataclasses
+
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    from apex_tpu_torch.serving import ServeEngine
+    cfg = TransformerConfig(**MODEL, compute_dtype=torch.bfloat16)
+    model = _new_model("sampled", lambda: GPTModel(
+        dataclasses.replace(cfg, num_layers=2)))
+    vocab = cfg.vocab_size
+    config = _serve_config(cache_mode="bf16", temperature=0.8, top_k=40)
+    runs = []
+    for make in (ServeEngine, ServeEngine, _eager_engine):
+        done, _ = make(model, config).serve(_serve_trace(vocab, n=6, seed=4))
+        runs.append(_streams(done))
+    assert runs[0] == runs[1], "two sampling engines from one seed differ"
+    assert all(0 <= t < vocab for s in runs[0].values() for t in s)
+    same = sum(runs[0][k] == runs[2][k] for k in runs[0])
+    log(f"serve_bf16 sampling on CUDA graphs (temperature 0.8, top-k 40, "
+        f"a 2-layer model): two engines from seed 0 gave identical streams; "
+        f"{same} of {len(runs[0])} streams identical to the eager engine's "
+        f"(not a check)")
 
 
 def _int8_bound_check(model):
@@ -6694,7 +6951,9 @@ def phase_serve_int8():
         f"{bf16_bytes} bf16: {bf16_bytes / int8_bytes:.3f}x smaller; "
         f"{fp32_bytes / int8_bytes:.3f}x against fp32 ({fp32_bytes})")
     assert int8_bytes < bf16_bytes
+    size = _ladder_report("serve_int8", engine)
     streams, stats, launches = _serve_counted("serve_int8", engine, vocab)
+    assert engine.compile_count == size
     steps, calls = stats["decode_steps"], stats["prefill_calls"]
     _expect("serve_int8", launches, {
         "rms_norm": (2 * L + 1) * (steps + calls),
@@ -6718,6 +6977,8 @@ def phase_serve_int8():
     _int8_bound_check(model)
     _profile_prefill("serve_int8 prefill (bucket 8)", engine, vocab)
     _profile_decode("serve_int8 decode step (bucket 8)", engine, vocab)
+    _beside_eager("serve_int8", model, _serve_config(cache_mode="int8"),
+                  vocab, (streams, stats, launches))
     return {"serve_int8": launches}
 
 
@@ -6757,7 +7018,9 @@ def phase_serve_spec():
         cache_mode="bf16", draft_model=draft, num_draft_tokens=SPEC_K))
     log(f"serve_spec: target kv_cache_bytes {engine.kv_cache_bytes()}, "
         f"draft {engine.draft_kv_cache_bytes()}")
+    size = _ladder_report("serve_spec", engine)
     streams, stats, launches = _serve_counted("serve_spec", engine, vocab)
+    assert engine.compile_count == size
     rounds, calls = stats["decode_steps"], stats["prefill_calls"]
     feeds = SPEC_K + 1  # draft decode steps a round
     _expect("serve_spec", launches, {
@@ -6778,7 +7041,267 @@ def phase_serve_spec():
     _margin_check("serve_spec kernels vs plain versions", target,
                   _serve_trace(vocab), streams, _streams(plain_spec))
     _profile_decode("serve_spec round (bucket 8)", engine, vocab)
+    _beside_eager("serve_spec", target, _serve_config(
+        cache_mode="bf16", draft_model=draft, num_draft_tokens=SPEC_K),
+        vocab, (streams, stats, launches))
     return {"serve_spec": launches}
+
+
+# ------------------------------------------------------------ serve_prefix
+
+def _prefix_trace(vocab, seed, n=SERVE_REQUESTS):
+    from apex_tpu_torch.serving import synthetic_trace
+    return synthetic_trace(n, seed=seed, mean_interarrival=0.1,
+                           prompt_lens=PREFIX_TAILS, max_new=PREFIX_MAX_NEW,
+                           vocab_size=vocab,
+                           shared_prefix_len=PREFIX_SHARED, shared_frac=0.8)
+
+
+def _prefix_config(**kw):
+    from apex_tpu_torch.serving import ServeConfig
+    return ServeConfig(batch_buckets=SERVE_BATCH_BUCKETS,
+                       prefill_buckets=PREFIX_BUCKETS, num_slots=SERVE_SLOTS,
+                       **kw)
+
+
+def _prefix_kw(draft):
+    return dict(draft_model=draft, num_draft_tokens=SPEC_K,
+                prefix_cache=True, prefix_min_len=PREFIX_MIN_LEN,
+                prefix_max_entries=PREFIX_ENTRIES)
+
+
+def _copy_timer(engine):
+    """CUDA events and host time around the prefix store's seed and
+    insert copies of each prefill call (instance attributes shadow the
+    methods). Returns the list the calls append to: (kind, bytes, host
+    s, start event, end event)."""
+    out = []
+
+    def wrap(kind, fn):
+        def run(*args, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            nbytes = fn(*args, **kw)
+            e1.record()
+            out.append((kind, nbytes, time.perf_counter() - t0, e0, e1))
+            return nbytes
+        return run
+
+    engine._seed_hits = wrap("seed", engine._seed_hits)
+    engine._record_prefix = wrap("insert", engine._record_prefix)
+    return out
+
+
+def _copy_report(label, copies):
+    torch.cuda.synchronize()
+    for kind in ("seed", "insert"):
+        rows = [(b, h, e0.elapsed_time(e1)) for k, b, h, e0, e1 in copies
+                if k == kind]
+        log(f"{label}: {kind} copies of each prefill call (bytes, host ms, "
+            f"device ms between events): " + "; ".join(
+                f"{b} {h * 1e3:.3f} {d:.3f}" for b, h, d in rows))
+
+
+def _prefix_hits_by_call(engine):
+    """Each prefill call's prefix cuts (instance attribute)."""
+    out = []
+    prefill = engine.prefill
+
+    def run(slot_ids, prompts, **kw):
+        t0 = time.perf_counter()
+        first = prefill(slot_ids, prompts, **kw)
+        out.append((list(engine.last_prefill_hits),
+                    [tuple(int(t) for t in p) for p in prompts],
+                    time.perf_counter() - t0))
+        return first
+
+    engine.prefill = run
+    return out
+
+
+def phase_serve_prefix():
+    from apex_tpu_torch.serving import ServeEngine
+    _SERVE_MODEL.clear()
+    torch.cuda.empty_cache()
+    target, draft = _spec_models()
+    L, vocab = target.num_layers, target.config.vocab_size
+    warm, trace = _prefix_trace(vocab, 0), _prefix_trace(vocab, 1)
+    plain_engine = ServeEngine(target, _prefix_config(cache_mode="bf16"))
+    _ladder_report("serve_prefix plain engine", plain_engine)
+    plain, plain_stats, _ = _serve_counted(
+        "serve_prefix plain engine", plain_engine, vocab, trace, warm)
+    del plain_engine
+    config = _prefix_config(cache_mode="bf16", **_prefix_kw(draft))
+    engine = ServeEngine(target, config)
+    size = _ladder_report("serve_prefix", engine)
+    before = engine.compile_count
+    engine.serve(warm)
+    assert engine.compile_count == before == size
+    copies = _copy_timer(engine)
+    streams, stats, launches = _serve_counted(
+        "serve_prefix", engine, vocab, trace, _prefix_trace(vocab, 0, n=2))
+    log(f"serve_prefix: compile_count {before} before the warm trace, "
+        f"{engine.compile_count} after it and the measured trace (the "
+        f"ladder: {size})")
+    assert engine.compile_count == size
+    rounds, calls = stats["decode_steps"], stats["prefill_calls"]
+    feeds = SPEC_K + 1
+    _expect("serve_prefix", launches, {
+        "rms_norm": (2 * L + 1 + 3 * feeds) * rounds + (2 * L + 1 + 3) * calls,
+        "gqa_decode": feeds * rounds,
+        "window_attention": L * rounds + (L + 1) * calls})
+    log(f"serve_prefix: {stats['tokens_per_sec']:.1f} tokens/s against the "
+        f"plain engine's {plain_stats['tokens_per_sec']:.1f} on the same "
+        f"trace ({stats['tokens_per_sec'] / plain_stats['tokens_per_sec']:.3f}"
+        f"x); acceptance {stats['acceptance_rate']} of "
+        f"{stats['spec_proposed']} proposals; prefix hits "
+        f"{stats['prefix_hits']} of {stats['prefix_lookups']} lookups "
+        f"(hit rate {stats['prefix_hit_rate']}, {stats['prefix_hit_tokens']} "
+        f"tokens); TTFT p50 on a hit {stats['ttft_p50_prefix_hit_ms']} ms, "
+        f"on a miss {stats['ttft_p50_prefix_miss_ms']} ms (the plain "
+        f"engine's p50 {plain_stats['ttft_p50_ms']:.2f} ms); prefix store "
+        f"{stats['prefix_store_entries']} entries, "
+        f"{stats['prefix_store_bytes']} bytes")
+    assert stats["prefix_hits"] > 0, stats
+    _copy_report("serve_prefix", copies)
+    _margin_check("serve_prefix vs the plain engine", target, trace,
+                  streams, plain)
+    with plain_versions():
+        peng = ServeEngine(target, config)
+        peng.serve(warm)
+        plain_spec, _ = peng.serve(trace)
+        del peng
+    _margin_check("serve_prefix kernels vs plain versions", target, trace,
+                  streams, _streams(plain_spec))
+    _profile_decode("serve_prefix round (bucket 8)", engine, vocab)
+    del engine
+    torch.cuda.empty_cache()
+    _migration_drill(target, vocab, trace)
+    return {"serve_prefix": launches}
+
+
+def _migration_drill(model, vocab, trace):
+    """KV-state migration between two int8 prefix-cached engines: the
+    donor's unfinished requests after MIGRATE_TICKS scheduler steps leave
+    as checksummed payloads (``extract_kv_state``), a flipped byte fails
+    the check, each continuation (prompt + emitted tokens) goes into the
+    survivor's prefix store under its first ``length`` tokens (as the JAX
+    fleet's ``_seed_prefix_from_payload`` does) and resumes with a
+    one-token suffix; the completed streams are held to an unkilled run,
+    and the handoff's time stands beside a token re-prefill of the same
+    continuations."""
+    import numpy as np
+
+    from apex_tpu_torch.serving import (
+        PrefixStore,
+        Request,
+        Scheduler,
+        ServeEngine,
+        kv_payload_crc,
+    )
+    config = _prefix_config(cache_mode="int8", prefix_cache=True,
+                            prefix_min_len=PREFIX_MIN_LEN,
+                            prefix_max_entries=PREFIX_ENTRIES)
+
+    def fresh_store():
+        return PrefixStore(max_entries=PREFIX_ENTRIES,
+                           min_len=PREFIX_MIN_LEN)
+
+    donor = ServeEngine(model, config)
+    donor.serve(_prefix_trace(vocab, 0, n=2))  # warm
+    donor.adopt_prefix_store(fresh_store())
+    want, _ = donor.serve(trace)                 # the unkilled run
+    want = _streams(want)
+    donor.adopt_prefix_store(fresh_store())
+    sched = Scheduler(donor)
+    for r in trace:
+        sched.submit(r)
+    for _ in range(MIGRATE_TICKS):
+        sched.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recs = sched.extract_unfinished("migrated")
+    slots = [r["slot"] for r in recs if r["slot"] is not None]
+    payloads = donor.extract_kv_state(slots)
+    extract_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for p in payloads.values()
+                 for name in ("keys", "values") for t in p["rows"][name])
+    assert slots and all(kv_payload_crc(p) == p["crc"]
+                         for p in payloads.values())
+    bad = payloads[slots[0]]
+    tampered = {**bad, "rows": {**bad["rows"],
+                                "keys": list(bad["rows"]["keys"])}}
+    leaf = tampered["rows"]["keys"][3].clone()
+    leaf.view(-1).view(torch.uint8)[12345] ^= 1
+    tampered["rows"]["keys"][3] = leaf
+    assert kv_payload_crc(tampered) != bad["crc"]
+    log(f"serve_prefix migration: after {MIGRATE_TICKS} scheduler steps "
+        f"{len(sched.completed)} requests done, {len(slots)} active and "
+        f"{len(recs) - len(slots)} pending extracted; {len(slots)} payloads "
+        f"({nbytes} bytes of raw K/V, int8 dequantized by #15) in "
+        f"{extract_s * 1e3:.2f} ms; every crc verified, and one flipped "
+        f"byte changed it")
+    survivor = ServeEngine(model, config)
+    survivor.serve(_prefix_trace(vocab, 0, n=2))  # warm
+    survivor.adopt_prefix_store(fresh_store())
+    conts, carried = [], {}
+    t0 = time.perf_counter()
+    for r in recs:
+        carry = np.concatenate([r["request"].prompt,
+                                np.asarray(r["tokens"], np.int32)])
+        if r["slot"] is not None:
+            pay = payloads[r["slot"]]
+            assert kv_payload_crc(pay) == pay["crc"]
+            cut = min(pay["length"], len(carry) - 1)
+            survivor.prefix_store.insert(carry[:cut], pay["rows"],
+                                         pay["draft_rows"], scope="handoff")
+            carried[r["request"].rid] = cut
+        conts.append(Request(rid=r["request"].rid, prompt=carry,
+                             max_new_tokens=r["request"].max_new_tokens
+                             - len(r["tokens"])))
+    insert_s = time.perf_counter() - t0
+    calls = _prefix_hits_by_call(survivor)
+    survivor_copies = _copy_timer(survivor)
+    done, stats = survivor.serve(conts)
+    got = {c.rid: c.tokens.tolist() for c in sched.completed}
+    emitted = {r["request"].rid: list(r["tokens"]) for r in recs}
+    got.update({c.rid: emitted[c.rid] + c.tokens.tolist() for c in done})
+    assert len(got) == len(trace) and stats["requests_ok"] == len(conts)
+    hit = {p: c for cuts, prompts, _ in calls for c, p in zip(cuts, prompts)}
+    for c in conts:
+        if c.rid in carried:
+            assert hit[tuple(int(t) for t in c.prompt)] == carried[c.rid] \
+                == len(c.prompt) - 1
+    first_call = calls[0][2]
+    # the same continuations re-prefilled from their tokens alone
+    donor.adopt_prefix_store(fresh_store())
+    active = [c for c in conts if c.rid in carried]
+    donor_copies = _copy_timer(donor)
+    t0 = time.perf_counter()
+    donor.prefill(list(range(len(active))), [c.prompt for c in active],
+                  pad_slot_ids=list(range(len(active), SERVE_SLOTS)))
+    reprefill_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # each prefill call's own insert copies into pinned memory (new
+    # prompts cached on the host) apart from its prefill
+    inserts = [next(e0.elapsed_time(e1) for k, _, _, e0, e1 in copies
+                    if k == "insert")
+               for copies in (survivor_copies, donor_copies)]
+    log(f"serve_prefix migration: the survivor's first prefill call ("
+        f"{len(calls[0][0])} continuations, {sum(1 for c in calls[0][0] if c)}"
+        f" seeded with a one-token suffix) {first_call * 1e3:.2f} ms, "
+        f"{inserts[0]:.2f} of it caching the new prompts' rows on the host; "
+        f"the payloads' extraction {extract_s * 1e3:.2f} ms and insertion "
+        f"{insert_s * 1e3:.2f} ms (crc checks included); against a token "
+        f"re-prefill of the {len(active)} carried continuations "
+        f"({max(len(c.prompt) for c in active)} tokens at most) "
+        f"{reprefill_s * 1e3:.2f} ms, {inserts[1]:.2f} of it caching")
+    _margin_check("serve_prefix migration vs the unkilled run", model, trace,
+                  got, want)
+    del donor, survivor
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------- phases 9, 10
@@ -8323,8 +8846,8 @@ PROFILE_WATCH = ("ln_fwd_kernel", "warp_ln_fwd", "ln_bwd_dx",
                  "adagrad_vec_kernel<", "novograd_norm_kernel<",
                  "novograd_update_kernel<")
 PHASES = ("kernels", "serving", "serve_bf16", "serve_int8", "serve_spec",
-          "training", "flash_training", "gpt2_training", "bert_training",
-          "mha", "mla_decode", "deepseek_v2_lite", "ddp_gpt2",
+          "serve_prefix", "training", "flash_training", "gpt2_training",
+          "bert_training", "mha", "mla_decode", "deepseek_v2_lite", "ddp_gpt2",
           "ddp_compressed", "zero_gpt2", "zero_bert", "tp_dp", "tp_gpt2",
           "amp_gpt2", "amp_o1_sgd", "amp_bert", "novograd_gpt2",
           "adagrad_gpt2", "fp16_gpt2")
@@ -8474,7 +8997,8 @@ def main(argv):
         by_path.update(phase_serving())
         torch.cuda.empty_cache()
     runs = {"serve_bf16": phase_serve_bf16, "serve_int8": phase_serve_int8,
-            "serve_spec": phase_serve_spec, "training": phase_training,
+            "serve_spec": phase_serve_spec,
+            "serve_prefix": phase_serve_prefix, "training": phase_training,
             "flash_training": phase_flash_training,
             "gpt2_training": phase_gpt2_training,
             "bert_training": phase_bert_training, "mha": phase_mha,

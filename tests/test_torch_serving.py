@@ -500,18 +500,14 @@ def test_admission_shedding_deadlines_and_drain():
 
 def test_not_ported_features_raise():
     model = _models()[2]
-    for kw in (dict(model_axis="tp"), dict(prefix_cache=True),
-               dict(preflight=True)):
+    for kw in (dict(model_axis="tp"), dict(preflight=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             ServeEngine(model, ServeConfig(**SERVE, **kw))
     with pytest.raises(NotImplementedError, match="not ported"):
         ServeEngine(model, ServeConfig(**SERVE), mesh=object())
     eng = _engine()
     with pytest.raises(NotImplementedError, match="not ported"):
-        eng.extract_kv_state([0])
-    with pytest.raises(NotImplementedError, match="not ported"):
         eng.serve([], guard=object())
-    assert not hasattr(eng, "compile_count")
     with pytest.raises(ValueError, match="num_slots"):
         ServeEngine(model, ServeConfig(batch_buckets=(8,), num_slots=4))
     with pytest.raises(ValueError, match="pad slot"):

@@ -8,7 +8,10 @@ padding mask turned into a [b, 1, s, s] attention mask (True = masked);
 ``final_layernorm`` on fp32; the MLM head (``lm_dense``, tanh-form gelu
 in fp32, ``lm_layernorm`` on fp32, an untied ``lm_head`` [hidden, vocab]
 with bf16 x bf16 products accumulated in fp32); the NSP head
-(``pooler`` with tanh over the first token, ``binary_head``). A step is
+(``pooler`` with tanh over the first token, ``binary_head``). Under a tp
+grid the stack shards as the GPT model's and the MLM head keeps this
+rank's vocabulary columns, so the MLM logits are vocab-parallel
+(``bert_loss_fn`` takes them as they are), as JAX's. A step is
 
     mlm, nsp = model(tokens, padding_mask, tokentype_ids)
     loss = bert_loss_fn(mlm, nsp, labels, loss_mask, nsp_labels)
@@ -30,11 +33,15 @@ from apex_tpu_torch.models.transformer_lm import (
 )
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.transformer.enums import AttnMaskType
-from apex_tpu_torch.transformer.parallel_state import refuse_tensor_parallel
+from apex_tpu_torch.transformer.parallel_state import (
+    get_tensor_model_parallel_world_size,
+)
 from apex_tpu_torch.transformer.tensor_parallel import (
     VocabParallelEmbedding,
+    copy_to_tensor_model_parallel_region,
     vocab_parallel_cross_entropy,
 )
+from apex_tpu_torch.transformer.tensor_parallel.utils import divide
 
 
 class Dense(nn.Module):
@@ -58,12 +65,11 @@ class Dense(nn.Module):
 class BertModel(nn.Module):
     """Bidirectional encoder: ``forward(tokens [b, s], padding_mask [b, s]
     (1 = keep), tokentype_ids [b, s], position_ids)`` -> (MLM logits [b,
-    s, vocab] fp32, NSP logits [b, 2] fp32 or None)."""
+    s, vocab / tp] fp32, NSP logits [b, 2] fp32 or None)."""
 
     def __init__(self, config: TransformerConfig, num_tokentypes=2,
                  add_binary_head=True, device=None):
         super().__init__()
-        refuse_tensor_parallel("BertModel")
         if config.attn_mask_type != AttnMaskType.padding:
             raise ValueError(
                 "BERT is bidirectional: config.attn_mask_type must be "
@@ -86,7 +92,8 @@ class BertModel(nn.Module):
         self.lm_dense = Dense(h, h, pdt, device)
         self.lm_layernorm = FusedLayerNorm(h, eps=cfg.layernorm_epsilon,
                                            device=device)
-        self.lm_head = nn.Parameter(torch.empty(h, cfg.vocab_size, dtype=pdt,
+        vocab = divide(cfg.vocab_size, get_tensor_model_parallel_world_size())
+        self.lm_head = nn.Parameter(torch.empty(h, vocab, dtype=pdt,
                                                 device=device))
         if add_binary_head:
             self.pooler = Dense(h, h, pdt, device)
@@ -119,7 +126,8 @@ class BertModel(nn.Module):
 
         x = self.lm_dense(h.to(compute))
         x = F.gelu(x.float(), approximate="tanh").to(compute)
-        x = self.lm_layernorm(x.float()).to(compute)
+        x = copy_to_tensor_model_parallel_region(
+            self.lm_layernorm(x.float()).to(compute))
         # bf16 x bf16 products accumulated in fp32, as the JAX head's
         # einsum with preferred_element_type=float32
         mlm_logits = torch.matmul(x.float(), self.lm_head.to(compute).float())

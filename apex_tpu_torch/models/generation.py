@@ -16,15 +16,29 @@ draft model, on the same :func:`verify_step` body the serving engine's
 speculative round runs. :func:`beam_search` keeps ``num_beams`` beams a
 row over a cache tiled per beam. :func:`prefill_prefix` prefills a shared
 prompt prefix once, and ``generate(prefix_state=...)`` then prefills only
-each request's suffix over a copy of it. Tensor parallelism comes in a
-later slice (ROADMAP queue A item 5(b)).
+each request's suffix over a copy of it.
+
+Tensor parallelism: a model built under a tp grid returns vocab-parallel
+logits, and every sampling site here gathers them first
+(:func:`_full_vocab`, JAX's), so each rank sees the same full logits
+bit for bit and picks the same token. :func:`tensor_parallel_generate`
+and :func:`tensor_parallel_beam_search` run :func:`generate`'s and
+:func:`beam_search`'s loops on each rank's shard (every rank calls
+them, sampling with an identically seeded generator);
+:func:`init_params_tp` draws a tp = 1 model's weights and splits them
+per rank. ``generate``, ``beam_search``, ``prefill_prefix`` and
+``speculative_generate`` drive a tp = 1 model and refuse a tp grid.
 """
 
 from typing import Optional
 
 import torch
 
-from apex_tpu_torch.models.kv_cache import KVCache
+from apex_tpu_torch.models.kv_cache import KVCache, local_groups
+from apex_tpu_torch.transformer import parallel_state
+from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+    gather_from_tensor_model_parallel_region,
+)
 
 
 def filter_logits(logits, temperature: float = 1.0,
@@ -63,12 +77,24 @@ def sample_logits(logits, generator=None, temperature: float = 1.0,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+def _full_vocab(logits):
+    """Vocab-parallel logits gathered over the tp group (the logits
+    themselves at tp = 1), so that sampling sees the whole vocabulary."""
+    return gather_from_tensor_model_parallel_region(logits)
+
+
+def _refuse_tp(message):
+    if parallel_state.get_tensor_model_parallel_world_size() > 1:
+        raise NotImplementedError(message)
+
+
 def init_cache(model, batch_size: int) -> KVCache:
     """An empty KV cache for ``batch_size`` sequences of up to
-    ``max_position_embeddings`` tokens, on the model's device."""
+    ``max_position_embeddings`` tokens, on the model's device (this
+    rank's K/V groups under a tp grid)."""
     cfg = model.config
     return KVCache(model.num_layers, cfg.max_position_embeddings, batch_size,
-                   cfg.query_groups, cfg.kv_channels, cfg.compute_dtype,
+                   local_groups(cfg), cfg.kv_channels, cfg.compute_dtype,
                    model.device)
 
 
@@ -76,19 +102,19 @@ def init_cache(model, batch_size: int) -> KVCache:
 def prefill(model, cache, tokens, positions, *, full_logits=False):
     """Run one prompt chunk through the KV cache. ``positions`` [b, s] (or
     [1, s]) are the tokens' absolute positions. Returns ``(cache, logits)``
-    with the logits at the last position [b, vocab], or at every position
-    [b, s, vocab] with ``full_logits=True``."""
+    with the full-vocabulary logits at the last position [b, vocab], or
+    at every position [b, s, vocab] with ``full_logits=True``."""
     logits = model(tokens, positions, cache)
-    return cache, (logits if full_logits else logits[:, -1])
+    return cache, _full_vocab(logits if full_logits else logits[:, -1])
 
 
 @torch.no_grad()
 def decode_step(model, cache, tokens, positions):
     """One incremental forward over the KV cache (``tokens`` [b, s], s = 1
-    in the decode loop). Returns ``(cache, logits)`` at the last position
-    [b, vocab]."""
+    in the decode loop). Returns ``(cache, logits)``, the full-vocabulary
+    logits at the last position [b, vocab]."""
     logits = model(tokens, positions, cache)
-    return cache, logits[:, -1]
+    return cache, _full_vocab(logits[:, -1])
 
 
 def _validate_decode(fn_name, model, prompt_tokens, max_new_tokens,
@@ -113,6 +139,8 @@ def prefill_prefix(model, prefix_tokens):
     for ``generate(prefix_state=...)``. Any number of ``generate`` calls
     may reuse it (each prefills its suffix into a copy), and a batch-1
     prefix broadcasts to any batch of suffixes."""
+    _refuse_tp("prefill_prefix() drives a tp=1 model (at tp > 1 serve "
+               "shared prefixes through ServeEngine(prefix_cache=True))")
     prefix_tokens = torch.as_tensor(prefix_tokens, device=model.device,
                                     dtype=torch.long)
     b, plen = prefix_tokens.shape
@@ -146,12 +174,23 @@ def generate(model, prompt_tokens, max_new_tokens: int, *, generator=None,
     positions after the prefix into a copy of its cache, and the result
     is [batch, suffix + max_new_tokens]: token for token what a prefill
     of the concatenated prompt gives."""
+    _refuse_tp("generate() drives a tp=1 model; use "
+               "tensor_parallel_generate() (the same prefill and decode "
+               "loop on each rank's shard)")
+    return _generate("generate", model, prompt_tokens, max_new_tokens,
+                     generator, temperature, top_k, top_p, eos_token_id,
+                     pad_token_id, prefix_state)
+
+
+def _generate(fn_name, model, prompt_tokens, max_new_tokens, generator,
+              temperature, top_k, top_p, eos_token_id, pad_token_id,
+              prefix_state=None):
     prompt_tokens = torch.as_tensor(prompt_tokens, device=model.device,
                                     dtype=torch.long)
     prefix_cache, prefix_len = None, 0
     if prefix_state is not None:
         prefix_cache, prefix_len = prefix_state
-    _validate_decode("generate", model, prompt_tokens, max_new_tokens,
+    _validate_decode(fn_name, model, prompt_tokens, max_new_tokens,
                      extra=prefix_len, extra_label="prefix")
     if generator is None:
         temperature = 0.0
@@ -199,9 +238,18 @@ def beam_search(model, prompt_tokens, max_new_tokens: int,
     beams (the top ``num_beams`` of the row's ``num_beams * vocab``
     candidates, fp32 log-softmax, ties to the lower index). A finished
     beam extends with ``pad_token_id`` at no cost."""
+    _refuse_tp("beam_search() drives a tp=1 model; use "
+               "tensor_parallel_beam_search()")
+    return _beam_search("beam_search", model, prompt_tokens, max_new_tokens,
+                        num_beams, length_penalty, eos_token_id,
+                        pad_token_id)
+
+
+def _beam_search(fn_name, model, prompt_tokens, max_new_tokens, num_beams,
+                 length_penalty, eos_token_id, pad_token_id):
     prompt_tokens = torch.as_tensor(prompt_tokens, device=model.device,
                                     dtype=torch.long)
-    _validate_decode("beam_search", model, prompt_tokens, max_new_tokens)
+    _validate_decode(fn_name, model, prompt_tokens, max_new_tokens)
     k = int(num_beams)
     device = model.device
     b, plen = prompt_tokens.shape
@@ -255,7 +303,7 @@ def verify_step(model, cache, chunk, positions):
     verdicts ``v`` [b, k+1] int64, ``v[:, i]`` the target's argmax for
     the position after ``chunk[:, i]``, and the logits [b, k+1, vocab]
     fp32."""
-    logits = model(chunk, positions, cache)
+    logits = _full_vocab(model(chunk, positions, cache))
     return cache, torch.argmax(logits.float(), dim=-1), logits
 
 
@@ -314,6 +362,7 @@ def speculative_generate(target_model, draft_model, prompt_tokens,
     prompt + max_new_tokens] int64, positions after an eos set to
     ``pad_token_id``. Both models hold their weights on one device and
     share a vocabulary."""
+    _refuse_tp("speculative_generate() drives tp=1 models")
     k = int(num_draft_tokens)
     if k < 1:
         raise ValueError(f"num_draft_tokens ({num_draft_tokens}) must be "
@@ -360,3 +409,84 @@ def speculative_generate(target_model, draft_model, prompt_tokens,
         after = (torch.cumsum(is_eos, dim=1) - is_eos) > 0
         out = out.masked_fill(after, pad_token_id)
     return torch.cat([prompt_tokens, out], dim=1)
+
+
+def _load_rank(model, stacked_params):
+    """Load this rank's slice of ``stacked_params`` into ``model`` (None:
+    the model already holds its shard)."""
+    if stacked_params is not None:
+        from apex_tpu_torch.models.params import rank_state_dict
+        model.load_state_dict(rank_state_dict(
+            stacked_params, parallel_state.get_tensor_model_parallel_rank()))
+
+
+@torch.no_grad()
+def init_params_tp(model, seed: int):
+    """The stacked ``[tp, ...]`` ``state_dict`` for ``model`` (a
+    ``GPTModel`` or dense ``DeepseekModel`` built under the tp grid,
+    ``tp`` ranks): the weights of its tp = 1 twin drawn from ``seed`` on
+    the CPU (:func:`~apex_tpu_torch.models.params.init_weights`), split
+    per rank by :func:`~apex_tpu_torch.models.tp_split.split_params_for_tp`
+    or ``split_mla_params_for_tp``. Rank r's shard is index r: a tp = m
+    model loaded from it holds the weights a tp = 1 model drawn on the
+    CPU from the same seed holds. Built on the host, so every rank may
+    call it and move only its own shard to the card
+    (:func:`tensor_parallel_generate`)."""
+    from apex_tpu_torch.models import tp_split
+    from apex_tpu_torch.models.gpt import GPTModel
+    from apex_tpu_torch.models.mla import DeepseekModel
+    from apex_tpu_torch.models.params import init_weights
+
+    cfg = model.config
+    tp = parallel_state.get_tensor_model_parallel_world_size()
+    with parallel_state.unsharded():
+        if isinstance(model, DeepseekModel):
+            twin = DeepseekModel(cfg, device="cpu")
+            split = tp_split.split_mla_params_for_tp
+        elif isinstance(model, GPTModel):
+            twin = GPTModel(cfg, model.num_layers, device="cpu")
+            split = tp_split.split_params_for_tp
+        else:
+            raise TypeError(f"init_params_tp: {type(model).__name__} is "
+                            f"not a GPTModel or DeepseekModel")
+    init_weights(twin, seed)
+    return split(cfg, twin.state_dict(), tp)
+
+
+@torch.no_grad()
+def tensor_parallel_generate(model, stacked_params, prompt_tokens,
+                             max_new_tokens: int, *, generator=None,
+                             temperature: float = 1.0,
+                             top_k: Optional[int] = None,
+                             top_p: Optional[float] = None,
+                             eos_token_id: Optional[int] = None,
+                             pad_token_id: int = 0):
+    """:func:`generate`'s prefill and decode loop on this rank's shard,
+    every rank of the tp grid calling it with the same prompts: this
+    rank's slice of ``stacked_params`` (:func:`init_params_tp`, or
+    ``split_params_for_tp``; None when ``model`` already holds its
+    shard) is loaded into ``model``, each step's vocab-parallel logits
+    are gathered, and every rank samples the same token from the same
+    full logits (greedy, or with ``generator`` seeded alike on every
+    rank). Returns [batch, prompt + max_new_tokens] int64."""
+    _load_rank(model, stacked_params)
+    return _generate("tensor_parallel_generate", model, prompt_tokens,
+                     max_new_tokens, generator, temperature, top_k, top_p,
+                     eos_token_id, pad_token_id)
+
+
+@torch.no_grad()
+def tensor_parallel_beam_search(model, stacked_params, prompt_tokens,
+                                max_new_tokens: int, num_beams: int = 4, *,
+                                length_penalty: float = 1.0,
+                                eos_token_id: Optional[int] = None,
+                                pad_token_id: int = 0):
+    """:func:`beam_search` on this rank's shard (``stacked_params`` as
+    :func:`tensor_parallel_generate` takes it). Every rank computes the
+    same log-probabilities from the gathered logits, so each reorders its
+    own cache (this rank's groups, the beams along the batch axis) the
+    same way. Returns (tokens, scores) as :func:`beam_search`."""
+    _load_rank(model, stacked_params)
+    return _beam_search("tensor_parallel_beam_search", model, prompt_tokens,
+                        max_new_tokens, num_beams, length_penalty,
+                        eos_token_id, pad_token_id)

@@ -5,9 +5,13 @@ embedding (plus learned ``position_embeddings`` [max_positions, hidden]
 where the model has them, added in ``params_dtype`` before the cast to
 ``compute_dtype``), the layer stack over the Megatron [s, b, h] layout,
 the final norm and the LM head (untied ``lm_head`` [hidden, vocab], or
-the embedding table when tied), logits in fp32. With a KV cache the model
-runs as JAX's ``decode=True`` model; without one it runs the training
-forward, and a step is
+the embedding table when tied), logits in fp32. Under a tp grid of ``tp``
+ranks the logits are vocab-parallel, this rank's ``vocab / tp`` columns
+(the head's local columns, or the tied table's local rows), as JAX's;
+:func:`~apex_tpu_torch.models.generation.prefill` and the other sampling
+sites gather them. With a KV cache the model runs as JAX's
+``decode=True`` model; without one it runs the training forward, and a
+step is
 
     loss = gpt_loss_fn(model(tokens), labels)
     loss.backward(); opt.step(); opt.zero_grad()
@@ -22,16 +26,20 @@ from apex_tpu_torch.models.transformer_lm import (
     TransformerConfig,
     _make_norm,
 )
-from apex_tpu_torch.transformer.parallel_state import refuse_tensor_parallel
+from apex_tpu_torch.transformer.parallel_state import (
+    get_tensor_model_parallel_world_size,
+)
 from apex_tpu_torch.transformer.tensor_parallel import (
     VocabParallelEmbedding,
+    copy_to_tensor_model_parallel_region,
     vocab_parallel_cross_entropy,
 )
+from apex_tpu_torch.transformer.tensor_parallel.utils import divide
 
 
 class GPTModel(nn.Module):
     """Causal LM: tokens [b, s] and their absolute positions [b, s] (or
-    [1, s]) -> logits [b, s, vocab] in fp32. With ``cache`` the chunk's
+    [1, s]) -> logits [b, s, vocab / tp] in fp32. With ``cache`` the chunk's
     K/V are appended to it at each row's own fill level (updated in
     place, every level advanced by s) and positions default to each
     row's level onward (JAX's learned-position model defaults to 0..s-1
@@ -44,7 +52,6 @@ class GPTModel(nn.Module):
     def __init__(self, config: TransformerConfig, num_layers=None,
                  device=None):
         super().__init__()
-        refuse_tensor_parallel("GPTModel")
         device = resolve_device(device)
         cfg = config
         self.config = cfg
@@ -58,9 +65,10 @@ class GPTModel(nn.Module):
             if cfg.position_embedding_type == "learned" else None)
         self.transformer = ParallelTransformer(cfg, self.num_layers, device)
         self.final_layernorm = _make_norm(cfg, device)
+        vocab = divide(cfg.vocab_size, get_tensor_model_parallel_world_size())
         self.lm_head = (None if cfg.tie_word_embeddings else nn.Parameter(
-            torch.empty(cfg.hidden_size, cfg.vocab_size,
-                        dtype=cfg.params_dtype, device=device)))
+            torch.empty(cfg.hidden_size, vocab, dtype=cfg.params_dtype,
+                        device=device)))
 
     @property
     def device(self) -> torch.device:
@@ -88,7 +96,8 @@ class GPTModel(nn.Module):
         h = self.transformer(h, positions, cache, attention_mask)
         if cache is not None:
             cache.advance(s)
-        h = self.final_layernorm(h, out_dtype=cfg.compute_dtype)
+        h = copy_to_tensor_model_parallel_region(
+            self.final_layernorm(h, out_dtype=cfg.compute_dtype))
         if cfg.tie_word_embeddings:
             logits = self.word_embeddings.attend(h)
         else:
@@ -96,7 +105,7 @@ class GPTModel(nn.Module):
             # einsum with preferred_element_type=float32
             head = self.lm_head.to(cfg.compute_dtype).float()
             logits = torch.matmul(h.float(), head)
-        return logits.transpose(0, 1)  # [b, s, vocab]
+        return logits.transpose(0, 1)  # [b, s, vocab / tp]
 
 
 def gpt_loss_fn(logits, labels, loss_mask=None):

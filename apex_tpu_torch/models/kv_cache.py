@@ -27,9 +27,23 @@ Beam search and shared prefixes move whole rows along the batch axis:
 axis=1)``) and :meth:`KVCache.broadcast_rows` (a batch-1 cache copied to
 batch ``b``) each return a new cache over new buffers, never a view, so
 that a later write in place touches only that cache.
+
+Under a tp grid each rank's cache holds its own ``groups / tp`` groups
+(:func:`local_groups`), the heads its attention computes.
 """
 
 import torch
+
+from apex_tpu_torch.transformer.parallel_state import (
+    get_tensor_model_parallel_world_size,
+)
+from apex_tpu_torch.transformer.tensor_parallel.utils import divide
+
+
+def local_groups(config) -> int:
+    """The K/V groups one rank of the tp grid holds: ``query_groups /
+    tp`` of a :class:`~apex_tpu_torch.models.TransformerConfig`."""
+    return divide(config.query_groups, get_tensor_model_parallel_world_size())
 
 
 class KVCache:

@@ -32,7 +32,14 @@ Dtypes follow JAX: parameters in ``params_dtype``, activations and the
 cache in ``compute_dtype``, norm statistics, RoPE, scores, softmax and
 the SwiGLU activation in fp32, products of ``compute_dtype`` operands
 summed in fp32 where JAX asks ``preferred_element_type=float32``.
-Tensor parallelism is not ported (world size 1).
+
+Tensor parallelism as JAX's for dense configurations: each rank of a tp
+grid holds ``num_heads / tp`` heads of ``q_b`` and ``kv_b`` (columns)
+and of ``o`` (rows), its halves of each SwiGLU, and its vocabulary
+columns of the head, so the logits are vocab-parallel and the generate
+loops gather them; the latent projections, their norms and the latent
+cache replicate. A routed mixture-of-experts layer refuses tp > 1
+(expert parallelism, ROADMAP queue A item 6).
 """
 
 import dataclasses
@@ -44,15 +51,20 @@ from torch import nn
 
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.contrib import mla_decode
+from apex_tpu_torch.models.generation import _full_vocab
 from apex_tpu_torch.models.transformer_lm import _rope_core
 from apex_tpu_torch.normalization import FusedRMSNorm
 from apex_tpu_torch.transformer.moe import SwitchMLP
-from apex_tpu_torch.transformer.parallel_state import refuse_tensor_parallel
+from apex_tpu_torch.transformer.parallel_state import (
+    get_tensor_model_parallel_world_size,
+)
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
+    copy_to_tensor_model_parallel_region,
 )
+from apex_tpu_torch.transformer.tensor_parallel.utils import divide
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,6 +158,8 @@ class MLAAttention(nn.Module):
         cfg = config
         self.config = cfg
         self.layer_idx = layer_idx
+        self.n_local = divide(cfg.num_heads,
+                              get_tensor_model_parallel_world_size())
         n, lat, rope = (cfg.num_heads, cfg.kv_lora_rank,
                         cfg.qk_rope_head_dim)
         pd = cfg.params_dtype
@@ -156,19 +170,21 @@ class MLAAttention(nn.Module):
         else:
             q_in = cfg.hidden_size
         self.q_b = ColumnParallelLinear(q_in, n * cfg.qk_head_dim, bias=False,
+                                        gather_output=False,
                                         params_dtype=pd, device=device)
         self.kv_a = _Dense(cfg.hidden_size, lat + rope, cfg, device)
         self.kv_a_norm = _norm(cfg, lat, device)
         self.kv_b = ColumnParallelLinear(
             lat, n * (cfg.qk_nope_head_dim + cfg.v_head_dim), bias=False,
-            params_dtype=pd, device=device)
+            gather_output=False, params_dtype=pd, device=device)
         self.o = RowParallelLinear(n * cfg.v_head_dim, cfg.hidden_size,
-                                   bias=False, params_dtype=pd, device=device)
+                                   bias=False, input_is_parallel=True,
+                                   params_dtype=pd, device=device)
 
     def forward(self, x, position_ids=None, mode="train", cache=None):
         cfg = self.config
         cd = cfg.compute_dtype
-        n, nope, rope = (cfg.num_heads, cfg.qk_nope_head_dim,
+        n, nope, rope = (self.n_local, cfg.qk_nope_head_dim,
                          cfg.qk_rope_head_dim)
         lat, vd = cfg.kv_lora_rank, cfg.v_head_dim
         s, b, _ = x.shape
@@ -212,7 +228,7 @@ class MLAAttention(nn.Module):
         latent space, attend over the cache, expand through W_v."""
         cfg = self.config
         cd = cfg.compute_dtype
-        n, nope, rope = (cfg.num_heads, cfg.qk_nope_head_dim,
+        n, nope, rope = (self.n_local, cfg.qk_nope_head_dim,
                          cfg.qk_rope_head_dim)
         lat, vd = cfg.kv_lora_rank, cfg.v_head_dim
         s, b = ckv.shape[:2]
@@ -276,9 +292,10 @@ class _SwiGLU(nn.Module):
         self.config = cfg
         ffn = ffn or cfg.ffn_hidden_size
         self.gate_up = ColumnParallelLinear(
-            cfg.hidden_size, 2 * ffn, bias=False,
+            cfg.hidden_size, 2 * ffn, bias=False, gather_output=False,
             params_dtype=cfg.params_dtype, device=device)
         self.down = RowParallelLinear(ffn, cfg.hidden_size, bias=False,
+                                      input_is_parallel=True,
                                       params_dtype=cfg.params_dtype,
                                       device=device)
 
@@ -340,13 +357,12 @@ class DeepseekBlock(nn.Module):
 
 class DeepseekModel(nn.Module):
     """DeepSeek-V2-style causal LM on MLA: tokens [b, s] -> logits [b, s,
-    vocab] fp32. ``forward(tokens)`` is the training forward (positions
+    vocab / tp] fp32. ``forward(tokens)`` is the training forward (positions
     0..s-1 unless given); :meth:`decode_prefill` and :meth:`decode_step`
     run the latent-cache decode and return ``(logits, cache)``."""
 
     def __init__(self, config: MLAConfig, device=None):
         super().__init__()
-        refuse_tensor_parallel("DeepseekModel")
         device = resolve_device(device)
         cfg = config
         self.config = cfg
@@ -356,8 +372,9 @@ class DeepseekModel(nn.Module):
             DeepseekBlock(cfg, i, device) for i in range(cfg.num_layers))
         self.final_norm = _norm(cfg, cfg.hidden_size, device)
         self.lm_head = nn.Parameter(torch.empty(
-            cfg.hidden_size, cfg.vocab_size, dtype=cfg.params_dtype,
-            device=device))
+            cfg.hidden_size,
+            divide(cfg.vocab_size, get_tensor_model_parallel_world_size()),
+            dtype=cfg.params_dtype, device=device))
 
     @property
     def device(self) -> torch.device:
@@ -374,7 +391,8 @@ class DeepseekModel(nn.Module):
             else None
         for layer in self.layers:
             h = layer(h, pos, mode, cache)
-        h = self.final_norm(h.float(), out_dtype=cd)
+        h = copy_to_tensor_model_parallel_region(
+            self.final_norm(h.float(), out_dtype=cd))
         # compute_dtype operands, fp32 products and sums, as JAX's head
         logits = torch.matmul(h.float(), self.lm_head.to(cd).float())
         return logits.transpose(0, 1)
@@ -406,7 +424,7 @@ def mla_greedy_generate(model, prompt_tokens, max_new_tokens):
     sequence for each token (the oracle path)."""
     toks = torch.as_tensor(prompt_tokens, device=model.device)
     for _ in range(max_new_tokens):
-        nxt = torch.argmax(model(toks)[:, -1, :], dim=-1)
+        nxt = torch.argmax(_full_vocab(model(toks)[:, -1]), dim=-1)
         toks = torch.cat([toks, nxt[:, None]], dim=1)
     return toks
 
@@ -426,8 +444,8 @@ def mla_cached_generate(model, prompt_tokens, max_new_tokens):
     if max_new_tokens == 0:
         return toks
     logits, cache = model.decode_prefill(toks)
-    out = [torch.argmax(logits[:, -1, :], dim=-1)]
+    out = [torch.argmax(_full_vocab(logits[:, -1]), dim=-1)]
     for _ in range(max_new_tokens - 1):
         logits, cache = model.decode_step(out[-1][:, None], cache)
-        out.append(torch.argmax(logits[:, -1, :], dim=-1))
+        out.append(torch.argmax(_full_vocab(logits[:, -1]), dim=-1))
     return torch.cat([toks, torch.stack(out, dim=1)], dim=1)

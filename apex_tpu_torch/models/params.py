@@ -56,6 +56,27 @@ def from_jax_params(tree, config=None):
     return state
 
 
+def rank_state_dict(stacked, rank: int):
+    """Rank ``rank``'s ``state_dict`` from a stacked ``[tp, ...]`` tree,
+    each leaf's index ``rank`` along its first axis: the port's
+    (:func:`~apex_tpu_torch.models.tp_split.split_params_for_tp`,
+    :func:`~apex_tpu_torch.models.generation.init_params_tp`, ``{name:
+    tensor}``) or the JAX package's (its ``split_params_for_tp`` or
+    ``init_params_tp`` tree with numpy leaves, named as
+    :func:`from_jax_params` names it). Each value is a copy."""
+    if any(isinstance(v, dict) or hasattr(v, "items")
+           for v in stacked.values()):
+        stacked = from_jax_params(stacked)
+    out = {}
+    for name, value in stacked.items():
+        value = torch.as_tensor(value)
+        if not 0 <= int(rank) < value.shape[0]:
+            raise ValueError(f"rank_state_dict: {name} stacks "
+                             f"{value.shape[0]} ranks, not rank {rank}")
+        out[name] = value[int(rank)].clone()
+    return out
+
+
 def from_jax_segments(segments):
     """The port's mesh2d segment tuple
     (:func:`apex_tpu_torch.parallel.mesh2d.gpt2_init`'s layout) from

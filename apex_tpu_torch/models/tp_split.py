@@ -1,8 +1,8 @@
-"""Split a tp = 1 ``GPTModel`` ``state_dict`` into the per-rank tensor-
-parallel layout.
+"""Split a tp = 1 ``GPTModel``, ``BertModel`` or ``DeepseekModel``
+``state_dict`` into the per-rank tensor-parallel layout.
 
-Counterpart of ``apex_tpu/models/tp_split.py`` ``split_params_for_tp``,
-on the port's ``state_dict`` (the JAX tree's names joined with ".", as
+Counterpart of ``apex_tpu/models/tp_split.py`` ``split_params_for_tp``
+and ``split_mla_params_for_tp``, on the port's ``state_dict`` (the JAX tree's names joined with ".", as
 :func:`~apex_tpu_torch.models.params.from_jax_params` carries it). Each
 entry becomes a stacked [tp, ...] tensor, rank r's shard at index r, by
 the rules of the JAX function:
@@ -17,8 +17,14 @@ the rules of the JAX function:
   the input dim (second to last) of the weight; their biases replicate
   (added once after the all-reduce).
 - ``word_embeddings``: vocabulary rows; ``lm_head``: vocabulary columns.
-- everything else (layer norms, position embeddings) replicates; any
-  other matrix raises rather than being replicated silently.
+- everything else (layer norms, position embeddings, BERT's token-type
+  table and its MLM, pooler and binary heads, which touch only the
+  replicated hidden width) replicates; any other matrix raises rather
+  than being replicated silently.
+
+:func:`split_mla_params_for_tp` splits a dense ``DeepseekModel`` by
+JAX's MLA rules (module doc there); its routed experts raise, as MoE at
+tp > 1 is expert parallelism's (ROADMAP queue A item 6).
 """
 
 import torch
@@ -27,6 +33,9 @@ import torch
 _REPLICATED_MODULES = frozenset({
     "position_embeddings", "input_layernorm", "post_attention_layernorm",
     "final_layernorm", "patch_embed", "cls_token", "classifier",
+    # BertModel: the heads below the vocabulary projection
+    "tokentype_embeddings", "lm_dense", "lm_layernorm", "pooler",
+    "binary_head",
 })
 
 
@@ -102,4 +111,64 @@ def split_params_for_tp(cfg, state_dict, tp: int):
     if tp == 1:
         return {k: v[None].clone() for k, v in state_dict.items()}
     rule = _dense_tp_rule(cfg, tp)
+    return {k: rule(k, v) for k, v in state_dict.items()}
+
+
+# -- MLA / DeepSeek family ---------------------------------------------------
+
+_MLA_COLUMN = frozenset({"q_b", "kv_b"})  # per-head expansions
+_MLA_ROW = frozenset({"o", "down"})
+_MLA_REPLICATED = frozenset({
+    "q_a", "kv_a",            # the shared latent projections
+    "q_a_norm", "kv_a_norm", "input_norm", "post_attn_norm", "final_norm",
+})
+
+
+def split_mla_params_for_tp(cfg, state_dict, tp: int):
+    """``{name: [tp, ...]}`` for a tp = 1 dense ``DeepseekModel``
+    ``state_dict`` and its :class:`~apex_tpu_torch.models.MLAConfig`, by
+    JAX's rules: ``q_b`` and ``kv_b`` split their columns (whole heads),
+    ``o`` and ``down`` their rows, ``gate_up`` two regions at its
+    midpoint, ``embed_tokens`` its vocabulary rows and ``lm_head`` its
+    vocabulary columns; the latent projections and the norms replicate.
+    Raises where heads, ffn or vocabulary do not divide by ``tp``, on a
+    matrix it has no rule for, and on routed-expert leaves (the router
+    and experts of a MoE layer: ROADMAP queue A item 6)."""
+    for name, n in (("num_heads", cfg.num_heads),
+                    ("ffn_hidden_size", cfg.ffn_hidden_size),
+                    ("vocab_size", cfg.vocab_size)):
+        if n % tp:
+            raise ValueError(f"{name} ({n}) is not divisible by tp ({tp})")
+    if tp == 1:
+        return {k: v[None].clone() for k, v in state_dict.items()}
+
+    def rule(key, leaf):
+        names = set(key.split("."))
+        if names & {"experts", "router", "gate_weight"}:
+            raise NotImplementedError(
+                f"split_mla_params_for_tp: {key} belongs to a routed "
+                f"mixture-of-experts layer; MoE at tp > 1 is expert "
+                f"parallelism's (ROADMAP queue A item 6)")
+        if "gate_up" in names:
+            half = leaf.shape[-1] // 2
+            if leaf.shape[-1] % 2 or half % tp:
+                raise ValueError(
+                    f"split_mla_params_for_tp: packed [gate | up] leaf at "
+                    f"{key} (shape {tuple(leaf.shape)}) has half-width "
+                    f"{half}, not divisible by tp ({tp})")
+            return _split_two_region(leaf, tp, half, -1)
+        if names & _MLA_COLUMN:
+            return _split_contiguous(leaf, tp, -1)
+        if names & _MLA_ROW:
+            return _split_contiguous(leaf, tp, -2)
+        if "embed_tokens" in names:
+            return _split_contiguous(leaf, tp, -2)
+        if "lm_head" in names:
+            return _split_contiguous(leaf, tp, -1)
+        if leaf.dim() >= 2 and not (names & _MLA_REPLICATED):
+            raise ValueError(
+                f"split_mla_params_for_tp: unrecognized weight matrix at "
+                f"{key} (shape {tuple(leaf.shape)})")
+        return _replicate(leaf, tp)
+
     return {k: rule(k, v) for k, v in state_dict.items()}

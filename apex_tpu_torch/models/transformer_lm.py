@@ -31,6 +31,13 @@ or RoPE (applied here).
   :mod:`apex_tpu_torch.transformer.functional`; the context product in
   fp32.
 
+Tensor parallelism as in JAX: under a tp grid of ``tp`` ranks each rank
+holds ``heads / tp`` query heads and ``groups / tp`` K/V groups (the QKV
+projection's columns ``[local q heads | local groups]``, as
+:func:`~apex_tpu_torch.models.tp_split.split_params_for_tp` cuts them),
+the MLP's ``ffn / tp`` columns (its own ``[gate | up]`` halves), and
+the output projections reduce their partial products over the ranks.
+
 Norms go through the LayerNorm or RMSNorm kernels (forward, and
 backward-dx under autograd). Dtypes follow the JAX modules: parameters
 in ``params_dtype`` (fp32), activations and the cache in
@@ -57,10 +64,14 @@ from apex_tpu_torch.transformer.functional import (
     scaled_masked_softmax,
     scaled_upper_triang_masked_softmax,
 )
+from apex_tpu_torch.transformer.parallel_state import (
+    get_tensor_model_parallel_world_size,
+)
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
 )
+from apex_tpu_torch.transformer.tensor_parallel.utils import divide
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,7 +251,8 @@ def _rotate(cfg, x, positions):
 class ParallelAttention(nn.Module):
     """Self-attention: fused QKV projection (columns ``[q heads |
     per-group (k_g | v_g)]`` under GQA, per-head ``[q_i | k_i | v_i]``
-    blocks under MHA), RoPE, attention, and the output projection. With
+    blocks under MHA; this rank's heads and groups only), RoPE,
+    attention, and the row-parallel output projection. With
     a KV cache, the chunk's K/V are written at each row's fill level and
     the window kernel (s > 1) or the decode kernel (s == 1) attends over
     each row's filled prefix; without one, the training forward attends over the
@@ -252,17 +264,21 @@ class ParallelAttention(nn.Module):
         cfg = config
         self.config = cfg
         self.layer_number = layer_number
+        tp = get_tensor_model_parallel_world_size()
+        self.np_local = divide(cfg.num_attention_heads, tp)
+        self.g_local = divide(cfg.query_groups, tp)
         kv = cfg.kv_channels
         if cfg.query_groups == cfg.num_attention_heads:
             width = 3 * cfg.num_attention_heads * kv
         else:
             width = (cfg.num_attention_heads + 2 * cfg.query_groups) * kv
         self.query_key_value = ColumnParallelLinear(
-            cfg.hidden_size, width, bias=True, params_dtype=cfg.params_dtype,
-            device=device)
+            cfg.hidden_size, width, bias=True, gather_output=False,
+            params_dtype=cfg.params_dtype, device=device)
         self.dense = RowParallelLinear(
             cfg.num_attention_heads * kv, cfg.hidden_size, bias=True,
-            params_dtype=cfg.params_dtype, device=device)
+            input_is_parallel=True, params_dtype=cfg.params_dtype,
+            device=device)
 
     def _layer_window(self):
         """This layer's sliding window, or None (every
@@ -278,14 +294,14 @@ class ParallelAttention(nn.Module):
     def forward(self, hidden_states, position_ids=None, cache=None,
                 attention_mask=None):
         cfg = self.config
-        n = cfg.num_attention_heads
+        n = self.np_local
         kv = cfg.kv_channels
         s, b = hidden_states.shape[:2]
         proj = self.query_key_value(hidden_states.to(cfg.compute_dtype))
-        if cfg.query_groups == n:
+        if cfg.query_groups == cfg.num_attention_heads:
             q, k, v = proj.reshape(s, b, n, 3 * kv).split(kv, dim=-1)
         else:
-            g = cfg.query_groups
+            g = self.g_local
             q = proj[..., :n * kv].reshape(s, b, n, kv)
             k, v = proj[..., n * kv:].reshape(s, b, g, 2 * kv).split(kv,
                                                                     dim=-1)
@@ -400,9 +416,10 @@ def _flash_available(seq, head_dim):
 
 
 class ParallelMLP(nn.Module):
-    """h -> ffn (column) -> activation -> ffn -> h (row). The gated forms
-    (swiglu, geglu) use one fused ``[gate | up]`` projection and no
-    biases; the others have biases."""
+    """h -> ffn (column) -> activation -> ffn -> h (row), this rank's
+    ``ffn / tp`` columns between the two. The gated forms (swiglu, geglu)
+    use one fused ``[gate | up]`` projection (each rank its own halves)
+    and no biases; the others have biases."""
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
@@ -411,10 +428,12 @@ class ParallelMLP(nn.Module):
         gated = cfg.activation in ("swiglu", "geglu")
         self.dense_h_to_4h = ColumnParallelLinear(
             cfg.hidden_size, (2 if gated else 1) * cfg.ffn_size,
-            bias=not gated, params_dtype=cfg.params_dtype, device=device)
+            bias=not gated, gather_output=False,
+            params_dtype=cfg.params_dtype, device=device)
         self.dense_4h_to_h = RowParallelLinear(
             cfg.ffn_size, cfg.hidden_size, bias=not gated,
-            params_dtype=cfg.params_dtype, device=device)
+            input_is_parallel=True, params_dtype=cfg.params_dtype,
+            device=device)
 
     def forward(self, hidden_states):
         cfg = self.config

@@ -61,6 +61,17 @@ def axis_rank(axis_name) -> int:
     return dist.get_rank(axis_group(axis_name))
 
 
+def broadcast_object(obj, axis_name):
+    """``obj`` (picklable) as rank 0 of ``axis_name``'s group holds it,
+    on every rank of the group: how the ranks of one tensor-parallel
+    replica agree on what one rank's clock or host state decided."""
+    group = axis_group(axis_name)
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                               group=group)
+    return box[0]
+
+
 def axis_group(axis_name):
     """The process group of ``axis_name``. Raises when no default group
     is initialized or the name was never registered."""

@@ -7,7 +7,9 @@ collective always needs a process group, so with no coordinator
 :func:`initialize_distributed` makes a one-process group on this machine
 (a ``TCPStore`` on 127.0.0.1), which gives collectives at world size 1 a
 group to run on. The backend is NCCL when the device is the card (the
-default) and gloo when the caller asks for the CPU.
+default) and gloo when the caller asks for the CPU, unless the caller
+names one: ranks that share one card must ask for gloo, since NCCL
+refuses two ranks on one device.
 
 Launcher, one invocation per process (e.g. from your scheduler)::
 
@@ -30,12 +32,13 @@ from apex_tpu_torch._device import resolve_device
 
 
 def initialize_distributed(coordinator=None, num_processes=None,
-                           process_id=None, *, device=None):
+                           process_id=None, *, device=None, backend=None):
     """Initialize the default ``torch.distributed`` process group from the
     arguments or the env this launcher sets (``coordinator`` is
     ``host:port`` of rank 0's store). ``device``: where this process's
-    collectives run, the card unless the caller asks for the CPU. Returns
-    the backend's name."""
+    collectives run, the card unless the caller asks for the CPU.
+    ``backend``: PyTorch's backend name; None takes NCCL on the card and
+    gloo on the CPU. Returns the backend's name."""
     if coordinator is None:
         coordinator = os.environ.get("APEX_TPU_COORDINATOR")
     if num_processes is None:
@@ -43,7 +46,8 @@ def initialize_distributed(coordinator=None, num_processes=None,
     if process_id is None:  # explicit 0 (rank 0) must win over the env
         process_id = os.environ.get("APEX_TPU_PROCESS_ID")
     device = resolve_device(device)
-    backend = "nccl" if device.type == "cuda" else "gloo"
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
     if device.type == "cuda" and device.index is not None:
         torch.cuda.set_device(device)
     if coordinator is None:  # this process alone

@@ -25,13 +25,18 @@ its prefix store and resumes the request with a one-token suffix.
         num_slots=8, cache_mode="int8"))
     completed, stats = engine.serve(synthetic_trace(16, seed=1))
 
-Tensor-parallel serving (ROADMAP queue A item 5(b)), the fleet router
-(item 5(c)) and the telemetry hooks (item 7) are still to be ported.
+Tensor-parallel serving: under a tp grid every rank builds its engine
+over its shard with ``mesh=ServeMesh.from_grid()`` (JAX's ``(data=1,
+tp)`` mesh) and runs the same scheduler; the store holds each rank's
+heads, and tp rank 0 decides what a rank's clock would. The fleet router
+(ROADMAP queue A item 5(c)), CUDA graphs at tp > 1 (item 5(d)) and the
+telemetry hooks (item 7) are still to be ported.
 """
 
 from apex_tpu_torch.serving.engine import (
     ServeConfig,
     ServeEngine,
+    ServeMesh,
     kv_payload_crc,
 )
 from apex_tpu_torch.serving.kv_cache import (
@@ -59,6 +64,6 @@ __all__ = [
     "CompletedRequest", "DecodeFailedError", "DrainReport", "KVCacheSpec",
     "NonFiniteError", "PrefixEntry", "PrefixStore", "RejectedRequest",
     "Request", "RobustConfig", "Scheduler", "ServeConfig", "ServeEngine",
-    "ServeHealth", "kv_payload_crc", "payload_checksum", "store_lengths",
+    "ServeHealth", "ServeMesh", "kv_payload_crc", "payload_checksum", "store_lengths",
     "synthetic_trace",
 ]

@@ -56,9 +56,24 @@ fill level:
   inserts them into its prefix store and resumes with a one-token
   suffix.
 
+Tensor-parallel serving: under a tp grid of ``tp`` ranks
+(:func:`~apex_tpu_torch.transformer.parallel_state.initialize_model_parallel`)
+every rank builds its own engine over its shard of the model, with a
+:class:`ServeMesh` ``(data=1, tp)`` that names the grid, and runs the
+same scheduler: one replica, JAX's ``(data=1, tp=m)`` mesh. The store
+holds each rank's heads (:class:`~apex_tpu_torch.serving.kv_cache.
+KVCacheSpec`), the step bodies are the tp = 1 bodies (the model reduces
+its partial products and gathers its vocab-parallel logits, so every
+rank samples the same tokens), seed rows arrive canonical and are cut
+per rank, and :meth:`ServeEngine.extract_kv_state` gathers a slot's
+rows over the ranks into canonical raw rows. A gloo collective runs on
+the host, and no CUDA graph can capture it: at tp > 1 on the card the
+capture raises (graphs at tp > 1 over NCCL, ROADMAP queue A item 5(d)),
+so such an engine runs its bodies eagerly (``_capture = False``).
+
 Not ported yet (they raise ``NotImplementedError`` naming the item, see
-ROADMAP): a device ``mesh`` or tensor-parallel ``model_axis``, the
-memory preflight and OOM guard, and a preemption ``guard``.
+ROADMAP): a slot-sharded data axis (one replica a process: the fleet),
+the memory preflight and OOM guard, and a preemption ``guard``.
 
     engine = ServeEngine(model, ServeConfig(cache_mode="int8"))
     completed, stats = engine.serve(synthetic_trace(32, seed=0))
@@ -73,16 +88,40 @@ import torch
 
 from apex_tpu_torch.kernels import registry
 from apex_tpu_torch.models import generation
+from apex_tpu_torch.models.params import rank_state_dict
+from apex_tpu_torch.models.tp_split import split_params_for_tp
 from apex_tpu_torch.parallel import compression
 from apex_tpu_torch.serving import kv_cache as kvc
 from apex_tpu_torch.serving import robust
 from apex_tpu_torch.serving.prefix_cache import PrefixStore
+from apex_tpu_torch.transformer import parallel_state
 
 
 def _not_ported(what, slice_, item):
     return NotImplementedError(
         f"{what} is not ported yet; it comes with the {slice_} slice "
         f"(ROADMAP queue A item {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeMesh:
+    """The port's counterpart of JAX's serving mesh: axis names and
+    sizes over the ranks of :mod:`~apex_tpu_torch.transformer.
+    parallel_state`'s grid, which place nothing themselves (each rank
+    owns its card and its shard). :meth:`from_grid` gives the
+    ``(data=1, tp)`` mesh of the bound grid."""
+
+    axis_names: Tuple[str, ...] = ("data", "tp")
+    shape: Tuple[int, ...] = (1, 1)
+
+    @classmethod
+    def from_grid(cls, data_axis="data", model_axis="tp"):
+        return cls((data_axis, model_axis),
+                   (1, parallel_state.get_tensor_model_parallel_world_size()))
+
+    @property
+    def size(self):
+        return int(np.prod(self.shape))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,8 +138,12 @@ class ServeConfig:
     ``num_draft_tokens`` proposals; greedy only (``temperature`` 0).
     ``prefix_cache`` keeps a host-side prefix store of up to
     ``prefix_max_entries`` prompts keyed by their first
-    ``prefix_min_len`` tokens. ``model_axis`` and ``preflight`` name
-    features of the JAX engine that are not ported yet: setting them
+    ``prefix_min_len`` tokens. ``data_axis`` and ``model_axis`` are the
+    names of a tensor-parallel engine's :class:`ServeMesh` axes; the
+    model axis must be ``"tp"``, as JAX's. ``draft_params`` (a tp = 1
+    ``state_dict``) loads the draft through ``split_params_for_tp``, as
+    the engine's ``params`` loads the target. ``preflight`` names a
+    feature of the JAX engine that is not ported yet: setting it
     raises."""
 
     batch_buckets: Tuple[int, ...] = (1, 2, 4, 8)
@@ -115,8 +158,11 @@ class ServeConfig:
     pad_token_id: int = 0
     draft_model: Any = dataclasses.field(default=None, repr=False,
                                          compare=False)
+    draft_params: Any = dataclasses.field(default=None, repr=False,
+                                          compare=False)
     num_draft_tokens: int = 4
-    model_axis: Optional[str] = None
+    data_axis: str = "data"
+    model_axis: str = "tp"
     preflight: bool = False
     prefix_cache: bool = False
     prefix_min_len: int = 4
@@ -152,19 +198,29 @@ class ServeEngine:
     :class:`~apex_tpu_torch.serving.scheduler.Scheduler`, which
     :meth:`serve` builds). Slot ids are host ints; a bucket is padded
     with caller-provided free slots (distinct ids). ``name`` scopes this
-    engine's counters on a shared prefix store."""
+    engine's counters on a shared prefix store. ``params`` (a tp = 1
+    ``state_dict``) is split by ``split_params_for_tp`` and this rank's
+    shard loaded into ``model``; without it the model serves the weights
+    it holds. At tp > 1 ``mesh`` is the grid's :class:`ServeMesh`."""
 
     # a CUDA engine captures its ladder; the card's reference runs build
     # a subclass that sets this False to time the same bodies eagerly
     _capture = True
 
     def __init__(self, model, config: ServeConfig = None, *, mesh=None,
-                 name=None):
+                 name=None, params=None):
         config = config or ServeConfig()
-        if mesh is not None or config.model_axis is not None:
-            raise _not_ported("serving over a device mesh or a "
-                              "tensor-parallel model_axis",
-                              "tensor-parallel serving", "5(b)")
+        tp = parallel_state.get_tensor_model_parallel_world_size()
+        self.tp = tp
+        self.mesh = mesh
+        _check_mesh(mesh, config, tp)
+        if tp > 1 and model.device.type == "cuda" and self._capture:
+            raise NotImplementedError(
+                f"CUDA graphs at tp={tp}: a gloo collective runs on the "
+                f"host and no graph can capture it; graphs at tp > 1 over "
+                f"NCCL come with ROADMAP queue A item 5(d), which needs a "
+                f"machine with two cards to check. Build the engine with "
+                f"_capture = False to run its bodies eagerly")
         if config.preflight:
             raise _not_ported("the memory preflight and OOM guard",
                               "telemetry", 7)
@@ -205,6 +261,12 @@ class ServeEngine:
                 raise ValueError(
                     f"largest prefill bucket ({sb[-1]}) exceeds the draft "
                     f"model's position budget ({limit})")
+        for m, p in ((model, params), (config.draft_model,
+                                       config.draft_params)):
+            if p is not None:
+                m.load_state_dict(rank_state_dict(
+                    split_params_for_tp(m.config, p, tp),
+                    parallel_state.get_tensor_model_parallel_rank()))
         self.model = model
         self.device = model.device
         self.config = dataclasses.replace(config, batch_buckets=bb,
@@ -325,9 +387,9 @@ class ServeEngine:
         return kvc.store_lengths(self._store).cpu().numpy()
 
     def seed_row_template(self, which="target"):
-        """The raw host row layout this engine seeds slots from (the
-        layout a migration payload's rows must have), or None for the
-        draft of a plain engine."""
+        """The canonical raw host row layout this engine seeds slots from
+        (the layout a migration payload's rows must have, the same at any
+        tp), or None for the draft of a plain engine."""
         spec = self.spec if which == "target" else self.draft_spec
         return spec.host_zero_row() if spec is not None else None
 
@@ -335,7 +397,9 @@ class ServeEngine:
     def extract_kv_state(self, slot_ids):
         """Each slot's KV state as a checksummed host payload, the donor
         half of KV migration: the slot's store rows gathered on the
-        device, made raw (int8 blocks dequantized, #15 on the card,
+        device (at tp > 1 also over the ranks, into JAX's global view:
+        every rank calls this with the same slots), made canonical and
+        raw (int8 blocks dequantized, #15 on the card,
         :meth:`KVCacheSpec.consolidate_host_rows`), copied to the host,
         the draft's the same way on a speculative engine, and the rows
         and fill length folded into a crc32 (:func:`kv_payload_crc`).
@@ -351,12 +415,14 @@ class ServeEngine:
             slot = int(slot)
             idx = torch.tensor([slot], dtype=torch.long, device=self.device)
             rows = [_to_host(spec.consolidate_host_rows(
-                        spec.gather_rows(store, idx)), spec.num_layers)
+                        spec.global_rows(spec.gather_rows(store, idx)),
+                        tp=self.tp), spec.num_layers)
                     if spec is not None else None
                     for spec, store in ((self.spec, self._store),
                                         (self.draft_spec,
                                          self._draft_store))]
-            payload = {"slot": slot, "length": int(lengths[slot]), "tp": 1,
+            payload = {"slot": slot, "length": int(lengths[slot]),
+                       "tp": self.tp,
                        "cache_mode": self.config.cache_mode,
                        "rows": rows[0], "draft_rows": rows[1]}
             payload["crc"] = kv_payload_crc(payload)
@@ -544,9 +610,10 @@ class ServeEngine:
         else:
             cache = spec.seed_cache(seed, starts.to(torch.int32))
             pos, end = starts[:, None] + steps, starts + lens
-        cache, logits = generation.prefill(model, cache, tokens, pos,
-                                           full_logits=True)
-        last = logits[torch.arange(b, device=tokens.device), lens - 1]
+        # the true last positions picked before the vocab gather
+        logits = model(tokens, pos, cache)
+        last = generation._full_vocab(
+            logits[torch.arange(b, device=tokens.device), lens - 1])
         generation._set_cache_index(cache, end)
         spec.scatter_rows(store, ids, spec.quantize_rows(cache))
         return last
@@ -777,6 +844,44 @@ class ServeEngine:
         sched = Scheduler(self, robust=robust, guard=guard)
         completed = sched.run(requests, **kw)
         return completed, sched.stats()
+
+
+def _check_mesh(mesh, config, tp):
+    """JAX's validation of the serving mesh (``engine.py:167-200``, the
+    same messages), for the port's :class:`ServeMesh`."""
+    if mesh is not None and not isinstance(mesh, ServeMesh):
+        raise TypeError(f"mesh must be a ServeMesh (axis names and sizes "
+                        f"over the tp grid), got {type(mesh).__name__}")
+    if tp > 1:
+        if mesh is None:
+            raise ValueError(
+                f"tensor parallel serving (tp={tp}) needs a (data, model) "
+                f"mesh — pass mesh=ServeMesh(('{config.data_axis}', "
+                f"'{config.model_axis}'), (1, {tp}))")
+        if config.model_axis != "tp":
+            raise ValueError(
+                f"model_axis ({config.model_axis!r}) must be 'tp': the "
+                f"model's collectives are hardwired to that axis name, and "
+                f"an unbound axis would silently skip every psum (axis "
+                f"size 1) instead of failing")
+        sizes = dict(zip(mesh.axis_names, mesh.shape))
+        if sizes.get(config.model_axis) != tp:
+            raise ValueError(
+                f"mesh axis {config.model_axis!r} has size "
+                f"{sizes.get(config.model_axis)} but parallel_state says "
+                f"tp={tp} — the mesh must match the process-group layout "
+                f"the model was built under")
+        if sizes.get(config.data_axis, 1) != 1:
+            raise ValueError(
+                f"a TP-sharded engine serves one replica: the "
+                f"{config.data_axis!r} axis must have size 1 (got "
+                f"{sizes.get(config.data_axis)}) — scale out with fleet "
+                f"replicas, not a wide data axis")
+    elif mesh is not None and mesh.size > 1:
+        raise _not_ported(
+            f"serving one replica over a {mesh.size}-device slot-sharded "
+            f"data axis (in PyTorch, one replica a process: the fleet)",
+            "fleet", "5(c)")
 
 
 def _to_host(rows, num_layers):

@@ -37,8 +37,20 @@ seeded prefill starts from a bucket of such rows, a seed buffer
 ``[2, L, max_len, b, g, d]`` (:meth:`KVCacheSpec.seed_buffer`, K then V,
 each layer's ``[max_len, b, g, d]`` a contiguous view), and
 :meth:`KVCacheSpec.consolidate_host_rows` turns one slot's store rows
-back into raw rows (int8 blocks dequantized). The TP pspecs come with
-tensor-parallel serving.
+back into raw rows (int8 blocks dequantized).
+
+Tensor parallelism (a spec built under a tp grid of ``tp`` ranks, or
+given ``tp``): each rank's store holds its own ``g / tp`` groups, in
+int8 mode its own blocks of its ``g / tp * d`` lanes with its own
+scales (JAX's ``store_pspecs``: the groups or blocks axis sharded over
+the model axis), and the fill levels replicate. Raw rows stay in the
+canonical, tp-independent layout (all ``g`` groups): a seed row is cut
+to this rank's groups on its way to the card (:meth:`KVCacheSpec.
+rank_slice`, JAX's ``row_pspecs`` in-specs), a new prompt's raw rows are
+gathered over the ranks before they go to the prefix store, and
+:meth:`KVCacheSpec.consolidate_host_rows` takes JAX's global view of a
+slot's store rows (the ranks' shards concatenated on that axis in rank
+order), so that engines of any tp seed from the same entries.
 """
 
 import zlib
@@ -48,6 +60,11 @@ import torch
 
 from apex_tpu_torch.models.kv_cache import KVCache
 from apex_tpu_torch.parallel import compression
+from apex_tpu_torch.transformer import parallel_state
+from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+    gather_from_tensor_model_parallel_region,
+)
+from apex_tpu_torch.transformer.tensor_parallel.utils import divide
 
 CACHE_MODES = ("bf16", "int8")
 KV_LEAVES = ("keys", "values")
@@ -108,14 +125,24 @@ def _map_kv(fn, rows):
             "lengths": rows["lengths"]}
 
 
+def _gather_groups(x):
+    """The tp ranks' ``x [..., n, w]`` (their groups, or their int8
+    blocks and scales) concatenated on ``n`` in rank order: the ranks'
+    ``n * w`` lanes gathered as the tp region's last dim."""
+    return gather_from_tensor_model_parallel_region(
+        x.flatten(-2)).unflatten(-1, (-1, x.shape[-1]))
+
+
 class KVCacheSpec:
     """Layout of a slotted store for ``model`` (a port ``GPTModel``) and
     the conversions between the store and model-ready cache rows. The
     spec owns no device memory: :meth:`allocate` makes the store the
-    engine owns."""
+    engine owns. ``tp`` and ``rank`` (default the grid's tensor-parallel
+    size and this process's rank in it) size this rank's share of the
+    heads and place it."""
 
     def __init__(self, model, num_slots, *, mode="bf16",
-                 block_size=compression.BLOCK_SIZE):
+                 block_size=compression.BLOCK_SIZE, tp=None, rank=None):
         if mode not in CACHE_MODES:
             raise ValueError(f"cache mode {mode!r} not in {CACHE_MODES}")
         if num_slots < 1:
@@ -127,7 +154,14 @@ class KVCacheSpec:
         self.block_size = int(block_size)
         self.num_layers = model.num_layers
         self.max_len = cfg.max_position_embeddings
-        self.groups = cfg.query_groups
+        self.tp = int(tp or
+                      parallel_state.get_tensor_model_parallel_world_size())
+        self.rank = int(parallel_state.get_tensor_model_parallel_rank()
+                        if rank is None else rank)
+        # this rank's groups; raw rows hold all of them (the canonical
+        # layout)
+        self.groups = divide(cfg.query_groups, self.tp)
+        self.canonical_groups = cfg.query_groups
         self.head_dim = cfg.kv_channels
         self.dtype = cfg.compute_dtype
         self.device = model.device
@@ -164,10 +198,11 @@ class KVCacheSpec:
                                        device=self.device)}
 
     def host_zero_row(self):
-        """One slot's zeroed rows in model layout on the host: K/V
-        ``[max_len, 1, g, d]`` at full precision in either mode (a level
-        of 0 masks every position, so the content is never read)."""
-        shape = (self.max_len, 1, self.groups, self.head_dim)
+        """One slot's zeroed rows in the canonical model layout on the
+        host, whatever this spec's tp: K/V ``[max_len, 1, g, d]`` (every
+        group) at full precision in either mode (a level of 0 masks every
+        position, so the content is never read)."""
+        shape = (self.max_len, 1, self.canonical_groups, self.head_dim)
         return {**{name: [torch.zeros(shape, dtype=self.dtype)
                           for _ in range(self.num_layers)]
                    for name in KV_LEAVES},
@@ -189,9 +224,17 @@ class KVCacheSpec:
         forward advances it in place)."""
         return KVCache.from_buffers(list(buf[0]), list(buf[1]), lengths)
 
+    def rank_slice(self, x):
+        """This rank's groups of canonical raw K/V ``[..., g, d]``: the
+        reshard half of migration (JAX's ``row_pspecs`` in-specs). A
+        view."""
+        return x[..., self.rank * self.groups:(self.rank + 1) * self.groups,
+                 :]
+
     def seed_rows(self, buf, i, rows, cut, staging):
         """Copy the first ``cut`` positions of the raw rows ``rows`` (a
-        host row tree, :meth:`host_zero_row`'s layout) into row ``i`` of
+        host row tree, :meth:`host_zero_row`'s canonical layout, cut to
+        this rank's groups) into row ``i`` of
         the seed buffer ``buf``, through ``staging`` (a contiguous device
         tensor of ``buf[:, :, :, 0]``'s shape): one copy a K/V leaf to
         the card without blocking, then one strided copy on the card.
@@ -203,7 +246,7 @@ class KVCacheSpec:
         nbytes = 0
         for k, name in enumerate(KV_LEAVES):
             for layer, x in enumerate(rows[name]):
-                src = x[:cut, 0]
+                src = self.rank_slice(x[:cut, 0])
                 staging[k, layer, :cut].copy_(src, non_blocking=True)
                 nbytes += src.numel() * src.element_size()
         buf[:, :, :cut, i].copy_(staging[:, :, :cut])
@@ -211,13 +254,16 @@ class KVCacheSpec:
 
     def host_raw_rows(self, buf, rows, lengths):
         """Host copies of rows ``rows`` (host ints) of the seed buffer
-        ``buf`` after a seeded prefill, each a raw row tree of the full
-        ``max_len`` positions with fill level ``lengths[j]``: one gather on
-        the card and one copy into pinned memory, without blocking (the
+        ``buf`` after a seeded prefill, each a canonical raw row tree of
+        the full ``max_len`` positions with fill level ``lengths[j]``: one
+        gather on the card (at tp > 1 then one gather of the groups over
+        the ranks) and one copy into pinned memory, without blocking (the
         stream orders any later read of it on the card; a host read must
         synchronize first)."""
         idx = torch.as_tensor(rows, dtype=torch.long, device=buf.device)
         packed = buf.index_select(3, idx).permute(3, 0, 1, 2, 4, 5)
+        if self.tp > 1:
+            packed = _gather_groups(packed)
         host = torch.empty(packed.shape, dtype=packed.dtype,
                            pin_memory=buf.device.type == "cuda")
         host.copy_(packed, non_blocking=True)
@@ -229,37 +275,44 @@ class KVCacheSpec:
                 for j, n in enumerate(lengths)]
 
     def consolidate_host_rows(self, rows, tp=1):
-        """One slot's store rows (``gather_rows`` of one slot: per layer
-        K/V ``[max_len, 1, ...]`` in the store's mode, and ``lengths``
-        [1]) -> raw rows in :meth:`host_zero_row`'s layout, on the rows'
-        device: int8 blocks dequantized against their own scales (#15 on
-        the card), bf16 rows copied. The migration payload's layout.
-        Raises ``ValueError`` when a leaf does not match this spec's
-        layout, and ``NotImplementedError`` at ``tp > 1``."""
-        if int(tp) != 1:
-            raise NotImplementedError(
-                f"consolidate_host_rows at tp={tp}: tensor-parallel "
-                f"serving is not ported yet (ROADMAP queue A item 5(b))")
-        shape = (self.max_len, 1, self.groups, self.head_dim)
+        """One slot's store rows in JAX's global view for a ``tp``-rank
+        engine (per layer K/V ``[max_len, 1, tp * n, ...]``: the ranks'
+        ``n`` groups, or in int8 mode their ``n`` blocks and scales,
+        concatenated in rank order; and ``lengths`` [1]) -> canonical raw
+        rows in :meth:`host_zero_row`'s layout, on the rows' device:
+        each rank's int8 blocks dequantized against its own scales (#15
+        on the card) and trimmed of its own pad, the ranks' groups
+        concatenated in rank order; bf16 rows copied. The migration
+        payload's layout. The per-rank layout is this spec's, so a spec
+        built at tp = 1 reads ``tp`` shards of its full width, as JAX's.
+        Raises ``ValueError`` when a leaf does not match it."""
+        tp = int(tp)
+        shape = (self.max_len, 1, tp * self.groups, self.head_dim)
 
         def fix(name, leaf):
             if self.mode == "int8":
                 if not (isinstance(leaf, dict) and "q" in leaf):
-                    raise ValueError(f"kv rows {name}: expected the int8 "
-                                     f"layout's q/scale pair")
+                    raise ValueError(
+                        f"kv payload leaf {name!r}: expected the int8 "
+                        f"layout's q/scale subtree, got "
+                        f"{type(leaf).__name__}")
                 q, s = leaf["q"], leaf["scale"]
-                want = (self.max_len, 1, self.blocks, self.block)
+                want = (self.max_len, 1, tp * self.blocks, self.block)
                 if tuple(q.shape) != want or q.dtype != torch.int8:
-                    raise ValueError(f"kv rows {name}: int8 blocks "
-                                     f"{tuple(q.shape)}/{q.dtype} do not "
-                                     f"match the layout {want}")
+                    raise ValueError(
+                        f"kv payload leaf {name!r}: int8 blocks "
+                        f"{tuple(q.shape)}/{q.dtype} do not match the "
+                        f"tp={tp} layout {want}")
                 out = compression.dequantize_rows_blockwise(
-                    q, s, n=self.width, out_dtype=self.dtype)
+                    q.reshape(self.max_len, tp, self.blocks, self.block),
+                    s.reshape(self.max_len, tp, self.blocks, 1),
+                    n=self.width, out_dtype=self.dtype)
                 return out.reshape(shape)
             if tuple(leaf.shape) != shape or leaf.dtype != self.dtype:
-                raise ValueError(f"kv rows {name}: {tuple(leaf.shape)}/"
-                                 f"{leaf.dtype} does not match the layout "
-                                 f"{shape}/{self.dtype}")
+                raise ValueError(
+                    f"kv payload leaf {name!r}: {tuple(leaf.shape)}/"
+                    f"{leaf.dtype} does not match the tp={tp} canonical "
+                    f"layout {shape}/{self.dtype}")
             return leaf.clone()
 
         out = {name: [fix(f"{name}[{l}]", x)
@@ -267,6 +320,29 @@ class KVCacheSpec:
                for name in KV_LEAVES}
         out["lengths"] = rows["lengths"].to(torch.int32).reshape(1).clone()
         return out
+
+    def global_rows(self, rows):
+        """JAX's global view of gathered store rows: every rank's
+        shards of each K/V leaf concatenated on the groups (bf16) or
+        blocks (int8) axis in rank order, one gather over the tp group a
+        kind of leaf; ``rows`` as they are at tp = 1."""
+        if self.tp == 1:
+            return rows
+        L = self.num_layers
+
+        def gathered(leaves):
+            out = _gather_groups(torch.stack(leaves))
+            return list(out[:L]), list(out[L:])
+
+        both = rows["keys"] + rows["values"]
+        if self.mode == "int8":
+            qk, qv = gathered([x["q"] for x in both])
+            sk, sv = gathered([x["scale"] for x in both])
+            keys = [{"q": q, "scale": s} for q, s in zip(qk, sk)]
+            values = [{"q": q, "scale": s} for q, s in zip(qv, sv)]
+        else:
+            keys, values = gathered(both)
+        return {"keys": keys, "values": values, "lengths": rows["lengths"]}
 
     # -- bytes accounting --------------------------------------------------
 

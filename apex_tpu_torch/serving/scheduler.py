@@ -27,6 +27,16 @@ past which only the implicated requests fail (status ``failed``); and a
 graceful :meth:`Scheduler.drain`. :meth:`Scheduler.extract_unfinished`
 takes unfinished requests out for migration to another engine.
 
+Tensor-parallel serving runs the same scheduler on every rank of the
+tp group, each over its own rank's engine. Admission is by ticks, so
+the ranks agree on it; what a rank's own clock decides (expiry, the
+drain and its deadline) is decided on tp rank 0 and broadcast over the
+tp group once a step, since a rank that expired a request another kept
+would hang the next collective; at the end of :meth:`Scheduler.run`
+the clock's samples are rank 0's on every rank, so that
+:meth:`Scheduler.stats` reads the same everywhere without a
+collective.
+
 :meth:`Scheduler.stats` keeps its own latency samples (TTFT and
 per-token latency percentiles, tokens/s, decode steps, prefill calls).
 The JAX package's ``serve/*`` registry metrics and trace spans, and the
@@ -41,7 +51,9 @@ from typing import List, Optional
 
 import numpy as np
 
+from apex_tpu_torch.parallel import groups
 from apex_tpu_torch.serving import robust as robust_mod
+from apex_tpu_torch.transformer.parallel_state import TENSOR_PARALLEL_AXIS
 
 
 @dataclasses.dataclass
@@ -137,6 +149,7 @@ class Scheduler:
                 "a preemption guard is not ported yet; it comes with the "
                 "resilience slice (ROADMAP queue A item 7): call drain()")
         self.engine = engine
+        self._tp = int(getattr(engine, "tp", 1))
         self._clock = clock
         self.robust = robust or robust_mod.RobustConfig()
         self.num_slots = engine.config.num_slots
@@ -255,31 +268,61 @@ class Scheduler:
         return (req.total_deadline_s if req.total_deadline_s is not None
                 else self.robust.total_deadline_s)
 
-    def _expire_deadlines(self):
-        """Evict every request past its budget (queued ones past their
-        TTFT deadline, active ones past their total-latency deadline)
-        with the ``deadline_exceeded`` terminal status."""
+    def _agree(self, value):
+        """``value`` as tp rank 0 decided it, on every rank of a
+        tensor-parallel engine's group; ``value`` itself at tp = 1."""
+        if self._tp == 1:
+            return value
+        return groups.broadcast_object(value, TENSOR_PARALLEL_AXIS)
+
+    def _decide(self):
+        """What the clock decides before a step, read as :meth:`run` and
+        :meth:`step` always read it: whether a draining run stops now (no
+        work left, or the drain deadline passed), the pending requests
+        past their TTFT deadline and the active slots past their
+        total-latency deadline. Returns (stop, late rids, late slots,
+        the reading). At tp > 1 tp rank 0's decisions hold on every
+        rank, over one broadcast a step, and a drain on rank 0 starts
+        every rank's."""
+        stop = self.draining and (not self.active
+                                  or self._drain_deadline_passed())
+        if self._t_start is None:
+            self._t_start = self._clock()
         now = self._clock()
+
+        def late(req, limit):
+            t0 = self._eligible_wall.get(req.rid)
+            return limit is not None and t0 is not None and now - t0 > limit
+
+        late_rids = [r.rid for r in self.pending
+                     if late(r, self._ttft_deadline(r))]
+        late_slots = [slot for slot in sorted(self.active)
+                      if late(self.active[slot].req,
+                              self._total_deadline(self.active[slot].req))]
+        drain, stop, late_rids, late_slots = self._agree(
+            (self._drain_reason if self.draining else None, stop,
+             late_rids, late_slots))
+        if drain is not None:
+            self.drain(drain)
+        return stop, late_rids, late_slots, now
+
+    def _expire_deadlines(self, late_rids, late_slots, now):
+        """Evict the requests :meth:`_decide` found past their budget
+        (queued ones past their TTFT deadline, active ones past their
+        total-latency deadline) with the ``deadline_exceeded`` terminal
+        status."""
         # eligibility is stamped here (not only at admission) so a
         # request stuck in the queue accrues wait time toward its TTFT
         # deadline from the moment it became eligible
         for r in self.pending:
             if r.arrival <= self.tick:
                 self._eligible_wall.setdefault(r.rid, now)
-        for r in list(self.pending):
-            limit = self._ttft_deadline(r)
-            t0 = self._eligible_wall.get(r.rid)
-            if limit is None or t0 is None or now - t0 <= limit:
-                continue
+        for r in [r for r in self.pending if r.rid in set(late_rids)]:
             self.pending.remove(r)
             self.health.expired += 1
             self._terminal(r, "deadline_exceeded")
-        for slot in sorted(self.active):
+        for slot in late_slots:
             st = self.active[slot]
-            limit = self._total_deadline(st.req)
-            t0 = self._eligible_wall.get(st.req.rid)
-            if limit is None or t0 is None or now - t0 <= limit:
-                continue
             del self.active[slot]
             self._release(slot)
             self.health.expired += 1
@@ -475,7 +518,8 @@ class Scheduler:
 
     def drain(self, reason="requested"):
         """Stop admissions now; :meth:`run` finishes in-flight work up to
-        ``robust.drain_deadline_s`` and records the drain report."""
+        ``robust.drain_deadline_s`` and records the drain report. At tp >
+        1 a drain on tp rank 0 drains every rank from its next step."""
         if not self.draining:
             self.draining = True
             self._drain_reason = reason
@@ -521,9 +565,11 @@ class Scheduler:
         """One scheduler iteration: expire deadline-blown requests, admit
         (unless draining), decode once, advance the virtual clock one
         tick."""
-        if self._t_start is None:
-            self._t_start = self._clock()
-        self._expire_deadlines()
+        self._step(*self._decide()[1:])
+
+    def _step(self, late_rids, late_slots, now):
+        """:meth:`step` on :meth:`_decide`'s decisions."""
+        self._expire_deadlines(late_rids, late_slots, now)
         if not self.draining:
             self._admit()
         self._decode_once()
@@ -537,14 +583,16 @@ class Scheduler:
             self.submit(r)
         steps = 0
         while self.pending or self.active:
-            if self.draining and (not self.active
-                                  or self._drain_deadline_passed()):
+            stop, *decided = self._decide()
+            if stop:
                 break
             if not self.active and self.pending and \
                     min(r.arrival for r in self.pending) > self.tick:
                 # idle gap: fast-forward virtual time to the next arrival
+                # (no request turns late by it: lateness needs a stamp,
+                # and stamps are taken in the step)
                 self.tick = min(r.arrival for r in self.pending)
-            self.step()
+            self._step(*decided)
             steps += 1
             if steps > max_steps:
                 self._exhaust_max_steps(max_steps)
@@ -552,6 +600,13 @@ class Scheduler:
         if self.draining:
             self._finish_drain()
         self._t_end = self._clock()
+        # at tp > 1 the clock's samples of tp rank 0, so that stats()
+        # reads the same on every rank
+        (self._t_start, self._t_end, self._ttft_ms, self._ttft_hit_ms,
+         self._ttft_miss_ms, self._tok_latency_ms,
+         self.drain_report) = self._agree((
+             self._t_start, self._t_end, self._ttft_ms, self._ttft_hit_ms,
+             self._ttft_miss_ms, self._tok_latency_ms, self.drain_report))
         return self.completed
 
     def _exhaust_max_steps(self, max_steps):
@@ -582,11 +637,13 @@ class Scheduler:
         return float(np.percentile(samples, q)) if samples else None
 
     def stats(self):
-        """Summary of the run, from the scheduler's own samples. Goodput
-        counts only requests that finished ``length``/``eos``; every
-        failure mode has its own count next to the shed rate."""
-        wall = ((self._t_end or self._clock())
-                - (self._t_start or self._clock()))
+        """Summary of the run, from the scheduler's own samples (after
+        :meth:`run` at tp > 1, tp rank 0's clock's on every rank).
+        Goodput counts only requests that finished ``length``/``eos``;
+        every failure mode has its own count next to the shed rate."""
+        # a reading of 0.0 is a time like any other (a virtual clock's)
+        end = self._clock() if self._t_end is None else self._t_end
+        wall = end - (end if self._t_start is None else self._t_start)
         self.health.decode_retries = (self.engine.decode_retries_total
                                       - self._retries_before)
         by_reason = {}

@@ -32,6 +32,7 @@ from apex_tpu_torch.transformer.moe.router import (
     TopKRouter,
     expert_capacity,
 )
+from apex_tpu_torch.transformer.parallel_state import refuse_tensor_parallel
 
 
 def _grouped_matmul(x, w, sizes, compute_dtype):
@@ -137,6 +138,7 @@ class SwitchMLP(nn.Module):
                  sequence_parallel_enabled: bool = False,
                  dispatch_mode: str = "auto", device=None):
         super().__init__()
+        refuse_tensor_parallel("SwitchMLP (a mixture-of-experts layer)")
         if dispatch_mode == "einsum":
             raise NotImplementedError(
                 f"dispatch_mode 'einsum' is not ported yet: {_ITEM_6}")

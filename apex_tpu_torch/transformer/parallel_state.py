@@ -20,6 +20,7 @@ parallelism (pp > 1, virtual pipelines), context and expert parallelism
 come with ROADMAP item 6 and raise here.
 """
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -107,6 +108,21 @@ def initialize_model_parallel(
     return grid
 
 
+@contextlib.contextmanager
+def unsharded():
+    """Inside, the grid's world sizes and ranks read as a single rank's,
+    so that modules built there size their weights for tp = 1: the tp = 1
+    twin of a sharded model whose weights are drawn and then split per
+    rank (:func:`apex_tpu_torch.models.generation.init_params_tp`). The
+    process groups stay bound; nothing built inside is meant to run."""
+    global _GRID
+    saved, _GRID = _GRID, None
+    try:
+        yield
+    finally:
+        _GRID = saved
+
+
 def model_parallel_is_initialized() -> bool:
     return _GRID is not None
 
@@ -174,12 +190,13 @@ def get_tensor_model_parallel_src_rank() -> int:
 
 
 def refuse_tensor_parallel(what: str) -> None:
-    """Raise where a tp grid of more than one rank is bound: ``what`` (a
-    model that lays its weights out unsharded) comes at tp > 1 with
-    ROADMAP queue A item 5(b)."""
+    """Raise where a tp grid of more than one rank is bound: ``what``
+    still lays its weights out unsharded. Its one user is the
+    mixture-of-experts layer, whose expert split at tp > 1 is expert
+    parallelism's (ROADMAP queue A item 6)."""
     if get_tensor_model_parallel_world_size() > 1:
         raise NotImplementedError(
             f"{what} at tensor-parallel size "
-            f"{get_tensor_model_parallel_world_size()} comes with ROADMAP "
-            f"queue A item 5(b); at tp > 1 the port runs the tensor_parallel "
-            f"layers and parallel.mesh2d")
+            f"{get_tensor_model_parallel_world_size()} comes with expert "
+            f"parallelism, ROADMAP queue A item 6: its expert split is "
+            f"expert parallelism's, not a tp split")

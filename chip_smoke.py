@@ -273,6 +273,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    step after must skip bit for bit; then the checks of phase 17
    (multi_tensor_scale and adam once per 64 tensors of a dtype a step, the
    scaled loss's backward, the masters' step-1 update held).
+23. tp_serve: tensor-parallel serving at tp = 2 as two ranks sharing the
+   one card over a gloo group (NCCL refuses two ranks on one device; a
+   probe pair records its refusal): the parent runs tp = 1 references on
+   TinyLlama-1.1B and mla_decode's model with seed-0 weights drawn on
+   the host, then starts two ranks of this script (``--tp-worker DIR``)
+   through the port's launcher, killing both when one fails or runs out
+   of time. Each rank shards the same host-drawn weights
+   (``init_params_tp``) and runs ``tensor_parallel_generate`` 8 x 128 +
+   32 and ``tensor_parallel_beam_search`` (4 beams; one beam against
+   greedy), the bf16 and int8 engines on serve_bf16's trace (eager:
+   capture at tp 2 is refused), int8 held against its plain versions,
+   the speculative + prefix engine on serve_prefix's trace and then the
+   migration drill on its scaled target, as serve_prefix runs them, and
+   mla_decode's model (8 of its 16 heads), each rank's launch
+   counts exact and its prefill and first step held against the plain
+   versions. The parent holds the two ranks bit-identical and against
+   tp = 1 by the near-tie rules, and times #25, #21, #14, #15 and #26 at
+   a rank's shapes alone on the card. Times are labelled as two ranks
+   sharing one H100 over gloo: not a TP speed.
 
 The kernel phase also holds amp's kernels against their plain versions:
 multi_tensor_scale (in place over GPT-2 345M's and BERT-large's O2
@@ -6660,11 +6679,12 @@ def _margin_check(label, model, trace, got, want):
     log(f"{label}: {same} of {len(trace)} streams identical")
 
 
-def _serve_counted(label, engine, vocab, trace=None, warm=None):
+def _serve_counted(label, engine, vocab, trace=None, warm=None,
+                   before=None):
     """Warm the engine on a short trace (``warm``), then drive the serving
     trace (``trace``) through ``engine.serve`` with every launch count set
-    to 0 just before and read just after. Returns (streams, stats,
-    launches)."""
+    to 0 just before (and ``before()`` called, where given) and read just
+    after. Returns (streams, stats, launches)."""
     from apex_tpu_torch.kernels import registry
     # warm: cuBLAS, the allocator
     engine.serve(warm or _serve_trace(vocab, n=4, seed=0))
@@ -6695,6 +6715,8 @@ def _serve_counted(label, engine, vocab, trace=None, warm=None):
     registry.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    if before is not None:
+        before()
     t0 = time.perf_counter()
     done, stats = engine.serve(trace)
     torch.cuda.synchronize()
@@ -6738,16 +6760,17 @@ def _serve_counted(label, engine, vocab, trace=None, warm=None):
     return _streams(done), stats, launches
 
 
-def _eager_engine(model, config):
+def _eager_engine(model, config, **kw):
     """The same engine without its CUDA graphs: its step bodies run
     eagerly on the card, the yardstick the ladder's replays are timed
-    against."""
+    against (and at tp > 1, where no graph can capture a gloo collective,
+    the engine itself). ``kw`` goes to the engine (``mesh``)."""
     from apex_tpu_torch.serving import ServeEngine
 
     class EagerEngine(ServeEngine):
         _capture = False
 
-    return EagerEngine(model, config)
+    return EagerEngine(model, config, **kw)
 
 
 def _ladder_report(label, engine):
@@ -7121,6 +7144,46 @@ def _prefix_hits_by_call(engine):
     return out
 
 
+def _seeded_rows_witness(engine, donor_rows):
+    """After each prefill call of ``engine`` (instance attribute), every
+    row seeded from a migration payload held against the donor's store
+    rows it came from (``donor_rows``: {prompt tuple: this rank's rows,
+    ``gather_rows``'s copy taken at extraction}) at the positions below
+    its cut: the int8 codes and the scales of this rank's blocks, which
+    the round trip through the payload's bf16 rows keeps bit for bit (a
+    scale is a bf16 absmax over 127, and each code's dequantized value
+    rounds back to it). Returns the totals the calls add to."""
+    out = {"codes": 0, "codes_differ": 0, "code_max": 0, "scales": 0,
+           "scales_differ": 0, "scale_rel_max": 0.0, "rows": 0}
+    prefill = engine.prefill
+
+    def run(slot_ids, prompts, **kw):
+        first = prefill(slot_ids, prompts, **kw)
+        for slot, p, cut in zip(slot_ids, prompts, engine.last_prefill_hits):
+            want = donor_rows.get(tuple(int(t) for t in p))
+            if not cut or want is None:
+                continue
+            got = engine.spec.gather_rows(engine._store, torch.tensor(
+                [slot], dtype=torch.long, device=engine.device))
+            out["rows"] += 1
+            for name in ("keys", "values"):
+                for g, w in zip(got[name], want[name]):
+                    dq = (g["q"][:cut].int() - w["q"][:cut].int()).abs()
+                    gs, ws = g["scale"][:cut].float(), w["scale"][:cut].float()
+                    rel = (gs - ws).abs() / ws.abs().clamp_min(1e-30)
+                    out["codes"] += dq.numel()
+                    out["codes_differ"] += int((dq > 0).sum())
+                    out["code_max"] = max(out["code_max"], int(dq.max()))
+                    out["scales"] += ws.numel()
+                    out["scales_differ"] += int((gs != ws).sum())
+                    out["scale_rel_max"] = max(out["scale_rel_max"],
+                                               float(rel.max()))
+        return first
+
+    engine.prefill = run
+    return out
+
+
 def phase_serve_prefix():
     from apex_tpu_torch.serving import ServeEngine
     _SERVE_MODEL.clear()
@@ -7182,7 +7245,7 @@ def phase_serve_prefix():
     return {"serve_prefix": launches}
 
 
-def _migration_drill(model, vocab, trace):
+def _migration_drill(model, vocab, trace, build=None, label="serve_prefix"):
     """KV-state migration between two int8 prefix-cached engines: the
     donor's unfinished requests after MIGRATE_TICKS scheduler steps leave
     as checksummed payloads (``extract_kv_state``), a flipped byte fails
@@ -7191,7 +7254,8 @@ def _migration_drill(model, vocab, trace):
     fleet's ``_seed_prefix_from_payload`` does) and resumes with a
     one-token suffix; the completed streams are held to an unkilled run,
     and the handoff's time stands beside a token re-prefill of the same
-    continuations."""
+    continuations. ``build(config)`` makes each engine (default a
+    ``ServeEngine`` of ``model``)."""
     import numpy as np
 
     from apex_tpu_torch.serving import (
@@ -7209,7 +7273,8 @@ def _migration_drill(model, vocab, trace):
         return PrefixStore(max_entries=PREFIX_ENTRIES,
                            min_len=PREFIX_MIN_LEN)
 
-    donor = ServeEngine(model, config)
+    build = build or (lambda c: ServeEngine(model, c))
+    donor = build(config)
     donor.serve(_prefix_trace(vocab, 0, n=2))  # warm
     donor.adopt_prefix_store(fresh_store())
     want, _ = donor.serve(trace)                 # the unkilled run
@@ -7226,6 +7291,14 @@ def _migration_drill(model, vocab, trace):
     slots = [r["slot"] for r in recs if r["slot"] is not None]
     payloads = donor.extract_kv_state(slots)
     extract_s = time.perf_counter() - t0
+    assert donor.spec.mode == "int8", donor.spec.mode
+    donor_rows = {}  # this rank's store rows of each slot, as extracted
+    for r in recs:
+        if r["slot"] is not None:
+            donor_rows[tuple(int(t) for t in np.concatenate([
+                r["request"].prompt, np.asarray(r["tokens"], np.int32)]))] \
+                = donor.spec.gather_rows(donor._store, torch.tensor(
+                    [r["slot"]], dtype=torch.long, device=donor.device))
     nbytes = sum(t.numel() * t.element_size() for p in payloads.values()
                  for name in ("keys", "values") for t in p["rows"][name])
     assert slots and all(kv_payload_crc(p) == p["crc"]
@@ -7237,13 +7310,13 @@ def _migration_drill(model, vocab, trace):
     leaf.view(-1).view(torch.uint8)[12345] ^= 1
     tampered["rows"]["keys"][3] = leaf
     assert kv_payload_crc(tampered) != bad["crc"]
-    log(f"serve_prefix migration: after {MIGRATE_TICKS} scheduler steps "
+    log(f"{label} migration: after {MIGRATE_TICKS} scheduler steps "
         f"{len(sched.completed)} requests done, {len(slots)} active and "
         f"{len(recs) - len(slots)} pending extracted; {len(slots)} payloads "
         f"({nbytes} bytes of raw K/V, int8 dequantized by #15) in "
         f"{extract_s * 1e3:.2f} ms; every crc verified, and one flipped "
         f"byte changed it")
-    survivor = ServeEngine(model, config)
+    survivor = build(config)
     survivor.serve(_prefix_trace(vocab, 0, n=2))  # warm
     survivor.adopt_prefix_store(fresh_store())
     conts, carried = [], {}
@@ -7263,8 +7336,20 @@ def _migration_drill(model, vocab, trace):
                              - len(r["tokens"])))
     insert_s = time.perf_counter() - t0
     calls = _prefix_hits_by_call(survivor)
+    witness = _seeded_rows_witness(survivor, donor_rows)
     survivor_copies = _copy_timer(survivor)
     done, stats = survivor.serve(conts)
+    w = witness
+    log(f"{label} migration: the survivor's {w['rows']} seeded rows against "
+        f"the donor's store rows they came from, this rank's "
+        f"{survivor.spec.groups} groups in {survivor.spec.blocks} int8 "
+        f"block(s) of {survivor.spec.block} lanes, below each cut: codes "
+        f"{w['codes_differ']} of {w['codes']} differ (at most by "
+        f"{w['code_max']}), scales {w['scales_differ']} of {w['scales']} "
+        f"differ (at most {w['scale_rel_max']:.3e} relative), after the "
+        f"payload's bf16 and the seeded prefill's quantize")
+    assert w["rows"] == len(carried), (w["rows"], len(carried))
+    assert w["codes_differ"] == 0 and w["scales_differ"] == 0, w
     got = {c.rid: c.tokens.tolist() for c in sched.completed}
     emitted = {r["request"].rid: list(r["tokens"]) for r in recs}
     got.update({c.rid: emitted[c.rid] + c.tokens.tolist() for c in done})
@@ -7289,7 +7374,7 @@ def _migration_drill(model, vocab, trace):
     inserts = [next(e0.elapsed_time(e1) for k, _, _, e0, e1 in copies
                     if k == "insert")
                for copies in (survivor_copies, donor_copies)]
-    log(f"serve_prefix migration: the survivor's first prefill call ("
+    log(f"{label} migration: the survivor's first prefill call ("
         f"{len(calls[0][0])} continuations, {sum(1 for c in calls[0][0] if c)}"
         f" seeded with a one-token suffix) {first_call * 1e3:.2f} ms, "
         f"{inserts[0]:.2f} of it caching the new prompts' rows on the host; "
@@ -7298,7 +7383,7 @@ def _migration_drill(model, vocab, trace):
         f"re-prefill of the {len(active)} carried continuations "
         f"({max(len(c.prompt) for c in active)} tokens at most) "
         f"{reprefill_s * 1e3:.2f} ms, {inserts[1]:.2f} of it caching")
-    _margin_check("serve_prefix migration vs the unkilled run", model, trace,
+    _margin_check(f"{label} migration vs the unkilled run", model, trace,
                   got, want)
     del donor, survivor
     torch.cuda.empty_cache()
@@ -7334,11 +7419,14 @@ def _greedy_steps(model, cache, tok, steps):
     """``steps`` single-token decode steps from tokens ``tok`` [b]:
     (tokens [b, steps], the fp32 logits [steps, b, vocab] each was chosen
     from, host ms of each synchronized step)."""
+    from apex_tpu_torch.transformer import tensor_parallel
     out, scores, ms = [], [], []
     for _ in range(steps):
         t, (logits, cache) = _wall_ms(
             lambda: model.decode_step(tok[:, None], cache))
-        scores.append(logits[:, -1].float())
+        # the full vocabulary of a tp = 2 rank's logits (tp = 1: as they are)
+        scores.append(tensor_parallel.gather_from_tensor_model_parallel_region(
+            logits[:, -1].float()))
         tok = torch.argmax(scores[-1], dim=-1)
         out.append(tok)
         ms.append(t)
@@ -7349,8 +7437,10 @@ def _greedy(model, prompt, new):
     """Greedy decode of ``new`` tokens after ``prompt`` [b, s] through
     ``decode_prefill`` and ``decode_step``: (tokens [b, new], the fp32
     logits [new, b, vocab] each was chosen from)."""
+    from apex_tpu_torch.transformer import tensor_parallel
     logits, cache = model.decode_prefill(prompt)
-    first = logits[:, -1].float()
+    first = tensor_parallel.gather_from_tensor_model_parallel_region(
+        logits[:, -1].float())
     tok = torch.argmax(first, dim=-1)
     toks, scores, _ = _greedy_steps(model, cache, tok, new - 1)
     return (torch.cat([tok[:, None], toks], dim=1),
@@ -8832,6 +8922,629 @@ def phase_tp_gpt2():
 
 
 # kernel name parts whose summed device time a training profile prints
+# --------------------------------------------------------------- tp_serve
+
+# tensor-parallel serving at tp = 2 as two ranks sharing the one card over
+# a gloo group (NCCL refuses two ranks on one device): each rank is this
+# script in worker mode, started by the port's launcher, TinyLlama-1.1B at
+# full width and depth from the tp = 1 weights drawn from SEED on the host
+TP_WORLD, TP_WORKER_TIMEOUT_S, TP_PROBE_TIMEOUT_S = 2, 900, 120
+TP_LABEL = "two ranks sharing one H100 over gloo (not a TP figure)"
+
+
+def _host_drawn(build):
+    """``build(device)`` with its seed-SEED weights drawn on the host, as
+    ``init_params_tp`` draws the tp = 1 twin a tp = 2 rank shards, then
+    moved to the card."""
+    from apex_tpu_torch.models import init_weights
+    model = build("cpu")
+    init_weights(model, SEED)
+    return model.to("cuda")
+
+
+def _tp_prompt(vocab):
+    return torch.randint(0, vocab, (BATCH, PROMPT),
+                         generator=torch.Generator().manual_seed(SEED))
+
+
+def _mla_prompt(vocab):
+    return torch.randint(0, vocab, (MLA_BATCH, MLA_PREFIX),
+                         generator=torch.Generator().manual_seed(SEED)).cuda()
+
+
+def _tp_greedy(model, prompt, steps, feed=None, after_prefill=None):
+    """Greedy decode of ``steps`` tokens after ``prompt`` [b, s] through
+    ``prefill`` and ``decode_step`` (each step fed ``feed``'s token when
+    given; ``after_prefill()`` called between the two, where given):
+    (tokens [b, steps], the full-vocabulary fp32 logits [steps, b,
+    vocab] each came from, host ms of each synchronized decode step)."""
+    from apex_tpu_torch.models import decode_step, init_cache, prefill
+    prompt = prompt.cuda()
+    b, s = prompt.shape
+    cache = init_cache(model, b)
+    _, logits = prefill(model, cache, prompt,
+                        torch.arange(s, device="cuda")[None])
+    if after_prefill is not None:
+        after_prefill()
+    scores, out, ms = [logits.float()], [], []
+    for i in range(steps):
+        tok = (torch.argmax(scores[-1], dim=-1) if feed is None
+               else feed[:, i].cuda())
+        out.append(tok)
+        if i + 1 == steps:
+            break
+        t, (_, logits) = _wall_ms(lambda: decode_step(
+            model, cache, tok[:, None],
+            torch.full((b, 1), s + i, device="cuda")))
+        ms.append(t)
+        scores.append(logits.float())
+    return torch.stack(out, dim=1), torch.stack(scores), ms
+
+
+class _CollectiveClock:
+    """Host seconds and calls inside torch.distributed's collectives (each
+    gloo call until it returns: its copies between the card and the host,
+    which wait for the rank's kernels before it, and the exchange),
+    patched in for a worker's lifetime."""
+
+    NAMES = ("all_reduce", "all_gather", "broadcast_object_list")
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.seconds, self.calls = 0.0, 0
+        for name in self.NAMES:
+            setattr(dist, name, self._timed(getattr(dist, name)))
+
+    def _timed(self, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+        return run
+
+    def reset(self):
+        self.seconds, self.calls = 0.0, 0
+
+
+def _gloo_on_cuda_probe(rank):
+    """gloo's collectives of tensors on the card, as the tp path runs
+    them (the region ops' bf16 all_reduce and all_gather, handed to gloo
+    as they are), each held bit for bit against the same collective on
+    host copies of the same tensors; -0.0 among the values, so a sign
+    lost on the way shows."""
+    import torch.distributed as dist
+    from apex_tpu_torch.transformer.tensor_parallel import mappings
+    gen = torch.Generator().manual_seed(SEED + rank)
+    x = torch.randn(4096, generator=gen).to(torch.bfloat16)
+    x[::7] = -0.0
+    world = dist.group.WORLD
+    for name, run in (("all_reduce bf16", lambda t: mappings._reduce(t, world)),
+                      ("all_gather", lambda t: mappings._gather(t, 0, world))):
+        got = run(x.cuda())
+        torch.cuda.synchronize()
+        assert got.device.type == "cuda", got.device
+        want = run(x)
+        same = torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+        log(f"tp_serve rank {rank}: gloo {name} on CUDA tensors: accepted; "
+            f"bit for bit the same collective on host copies: {same}")
+        assert same, name
+
+
+def _tp_serve_engines(model, vocab, rank, mesh, clock, res):
+    """The bf16 and int8 engines at tp = 2 (eager: a gloo collective
+    cannot be captured) over the serve_bf16 trace, counted; int8 held
+    against its plain versions on this rank."""
+    from apex_tpu_torch.serving import ServeEngine
+    L = model.num_layers
+    try:
+        ServeEngine(model, _serve_config(cache_mode="bf16"), mesh=mesh)
+    except NotImplementedError as e:
+        assert "5(d)" in str(e), e
+        log(f"tp_serve rank {rank}: CUDA graph capture at tp 2 refused: {e}")
+    else:
+        raise AssertionError("a tp = 2 engine captured CUDA graphs")
+    for mode in ("bf16", "int8"):
+        label = f"tp_serve rank {rank} {mode}"
+        engine = _eager_engine(model, _serve_config(cache_mode=mode),
+                               mesh=mesh)
+        assert engine.tp == TP_WORLD and engine.compile_count == 0
+        log(f"{label}: kv_cache_bytes {engine.kv_cache_bytes()} on this rank "
+            f"({engine.spec.groups} groups, {engine.spec.blocks} blocks of "
+            f"{engine.spec.block} lanes in int8)")
+        streams, stats, launches = _serve_counted(label, engine, vocab,
+                                                  before=clock.reset)
+        steps, calls = stats["decode_steps"], stats["prefill_calls"]
+        expected = {"rms_norm": (2 * L + 1) * (steps + calls),
+                    "gqa_decode": L * steps, "window_attention": L * calls}
+        if mode == "int8":
+            expected.update(quantize_int8=2 * L * (steps + calls),
+                            dequantize_int8=2 * L * steps)
+        _expect(label, launches, expected)
+        log(f"{label}: {stats['tokens_per_sec']:.1f} tokens/s, per-token "
+            f"latency p50 {stats['tok_latency_p50_ms']:.2f} ms; gloo "
+            f"collectives {clock.calls} calls, {clock.seconds * 1e3:.1f} ms "
+            f"({clock.seconds / stats['wall_s']:.3f} of the counted run's "
+            f"{stats['wall_s'] * 1e3:.1f} ms host time, the warm trace "
+            f"excluded: {TP_LABEL})")
+        res[f"serve_{mode}"] = streams
+        res["launches"][f"serve_{mode}"] = launches
+        if mode == "int8":
+            from apex_tpu_torch.kernels import quant
+            sp = engine.spec
+            plans = (quant.quant_plan(BATCH, sp.width, sp.blocks, sp.block,
+                                      2, True),
+                     quant.dequant_plan(BATCH, sp.width, sp.blocks, sp.block,
+                                        1, 2, True))
+            log(f"{label}: the rank's {sp.width}-lane rows in {sp.blocks} "
+                f"block(s) of {sp.block}: quant_plan {plans[0]}, "
+                f"dequant_plan {plans[1]} (vector body {quant.VECTOR})")
+            assert plans == (quant.VECTOR, quant.VECTOR), plans
+            with plain_versions():
+                plain, _ = _eager_engine(model, _serve_config(
+                    cache_mode=mode), mesh=mesh).serve(_serve_trace(vocab))
+            _margin_check(f"{label} kernels vs plain versions", model,
+                          _serve_trace(vocab), streams, _streams(plain))
+        del engine
+        torch.cuda.empty_cache()
+
+
+def _tp_spec_prefix(model, vocab, rank, mesh, res):
+    """The speculative + prefix engine at tp = 2 over serve_prefix's
+    trace (the target's layers past the first scaled by 0.25, in place,
+    and a 1-layer draft sharing its shards, as serve_prefix builds them),
+    counted, held to the plain tp = 2 engine on the same target."""
+    import dataclasses
+
+    from apex_tpu_torch.models import GPTModel
+    L = model.num_layers
+    with torch.no_grad():
+        for i, layer in enumerate(model.transformer.layers):
+            if i:
+                for p in layer.parameters():
+                    p.mul_(0.25)
+    draft = GPTModel(dataclasses.replace(model.config, num_layers=1))
+    draft.load_state_dict({k: v for k, v in model.state_dict().items()
+                           if not k.startswith("transformer.layers.")
+                           or k.startswith("transformer.layers.0.")})
+    trace = _prefix_trace(vocab, 1)
+    label = f"tp_serve rank {rank} spec+prefix"
+    engine = _eager_engine(model, _prefix_config(
+        cache_mode="bf16", **_prefix_kw(draft)), mesh=mesh)
+    streams, stats, launches = _serve_counted(
+        label, engine, vocab, trace, _prefix_trace(vocab, 0, n=2))
+    rounds, calls = stats["decode_steps"], stats["prefill_calls"]
+    feeds = SPEC_K + 1
+    _expect(label, launches, {
+        "rms_norm": (2 * L + 1 + 3 * feeds) * rounds + (2 * L + 1 + 3) * calls,
+        "gqa_decode": feeds * rounds,
+        "window_attention": L * rounds + (L + 1) * calls})
+    assert stats["prefix_hits"] > 0, stats
+    log(f"{label}: acceptance {stats['acceptance_rate']}, prefix hits "
+        f"{stats['prefix_hits']} of {stats['prefix_lookups']}")
+    del engine
+    plain, _ = _eager_engine(model, _prefix_config(cache_mode="bf16"),
+                             mesh=mesh).serve(trace)
+    _margin_check(f"{label} vs the plain tp 2 engine", model, trace, streams,
+                  _streams(plain))
+    res["serve_spec_prefix"] = streams
+    res["launches"]["serve_spec_prefix"] = launches
+
+
+def _tp_mla(rank, res):
+    """mla_decode's model at tp = 2 (8 of its 16 heads a rank): an 8 x
+    4096 prefill and MLA_STEPS + 1 greedy steps, counted, timed, the
+    kernel's plan printed."""
+    from apex_tpu_torch.contrib import mla_decode
+    from apex_tpu_torch.kernels import registry
+    from apex_tpu_torch.models import (
+        DeepseekModel,
+        MLAConfig,
+        init_params_tp,
+        rank_state_dict,
+    )
+    cfg = MLAConfig(**MLA_DECODE_CFG, params_dtype=torch.float32,
+                    compute_dtype=torch.bfloat16)
+    model = DeepseekModel(cfg)
+    model.load_state_dict(rank_state_dict(init_params_tp(model, SEED), rank))
+    n_local = model.layers[0].self_attn.n_local
+    prompt = _mla_prompt(cfg.vocab_size)
+    registry.reset()
+    torch.cuda.synchronize()
+    toks, logits = _greedy(model, prompt, MLA_STEPS + 2)
+    launches = registry.launches()
+    norms = _mla_norms(cfg)
+    _expect(f"tp_serve rank {rank} mla_decode", launches, {
+        "rms_norm": norms * (MLA_STEPS + 2),
+        "mla_decode": cfg.num_layers * (MLA_STEPS + 1)})
+    _, cache = model.decode_prefill(prompt)
+    lat = cfg.kv_lora_rank
+    q = torch.empty(MLA_BATCH, n_local, lat + cfg.qk_rope_head_dim,
+                    dtype=torch.bfloat16, device="cuda")
+    log(f"tp_serve rank {rank} mla_decode: {n_local} heads a rank, the "
+        f"kernel's plan {mla_decode.plan_for(q, cache.latent[0], lat)}")
+    _, _, ms = _greedy_steps(model, cache, toks[:, 0], MLA_STEPS)
+    log(f"tp_serve rank {rank} mla_decode: decode step {_spread(ms)}, "
+        f"{MLA_BATCH * 1e3 / statistics.median(ms):.1f} tokens/s ({TP_LABEL})")
+    res["mla"], res["mla_logits"] = toks.cpu(), logits.cpu()
+    res["launches"]["mla_decode"] = launches
+
+
+def _laps(label):
+    """``lap(what)`` logs the seconds since the last lap (or this call)."""
+    last = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        log(f"{label}: {what} in {now - last[0]:.1f} s")
+        last[0] = now
+    return lap
+
+
+def tp_worker(out_dir):
+    """One rank of tp_serve, started by the launcher: binds cuda:0 on a
+    gloo group, initialize_model_parallel(2), runs the tp = 2 paths,
+    holds what one rank can hold (launch counts, its kernels against
+    their plain versions, near ties against its own model), and writes
+    its results for the parent, which holds the two ranks together and
+    against tp = 1."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.kernels import registry
+    from apex_tpu_torch.models import (
+        GPTModel,
+        TransformerConfig,
+        init_params_tp,
+        tensor_parallel_beam_search,
+        tensor_parallel_generate,
+    )
+    from apex_tpu_torch.parallel import multiproc
+    from apex_tpu_torch.serving import ServeMesh
+    from apex_tpu_torch.transformer import parallel_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = multiproc.initialize_distributed(device="cuda:0",
+                                               backend="gloo")
+    rank = dist.get_rank()
+    parallel_state.initialize_model_parallel(TP_WORLD)
+    t_worker = time.perf_counter()
+    lap = _laps(f"tp_serve rank {rank}")
+    log(f"tp_serve rank {rank}: {backend} group of {dist.get_world_size()} "
+        f"on {torch.cuda.get_device_name(0)}, tp "
+        f"{parallel_state.get_tensor_model_parallel_world_size()}")
+    _gloo_on_cuda_probe(rank)
+    clock = _CollectiveClock()
+    res = {"launches": {}}
+    cfg = TransformerConfig(**MODEL, compute_dtype=torch.bfloat16)
+    model = GPTModel(cfg)  # this rank's shard, on the card
+    L, vocab = cfg.num_layers, cfg.vocab_size
+    t0 = time.perf_counter()
+    stacked = init_params_tp(model, SEED)
+    log(f"tp_serve rank {rank}: init_params_tp (the tp 1 weights drawn on "
+        f"the host, split) in {time.perf_counter() - t0:.1f} s; "
+        f"{sum(p.numel() for p in model.parameters())} parameters a rank")
+    prompt = _tp_prompt(vocab)
+    tensor_parallel_generate(model, stacked, prompt, 2)  # loads the shard
+    del stacked
+
+    # the main path, counted
+    registry.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = tensor_parallel_generate(model, None, prompt, NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = registry.launches()
+    _expect(f"tp_serve rank {rank} tensor_parallel_generate", launches, {
+        "rms_norm": (2 * L + 1) * NEW_TOKENS, "window_attention": L,
+        "gqa_decode": L * (NEW_TOKENS - 1)})
+    res["launches"]["generate"] = launches
+    assert tokens.shape == (BATCH, PROMPT + NEW_TOKENS)
+    assert torch.equal(tokens[:, :PROMPT].cpu(), prompt)
+    in_prefill = []
+
+    def prefill_done():  # the prefill's collectives apart from the steps'
+        in_prefill.append((clock.calls, clock.seconds))
+        clock.reset()
+
+    clock.reset()
+    toks, logits, ms = _tp_greedy(model, prompt, NEW_TOKENS,
+                                  after_prefill=prefill_done)
+    assert torch.equal(toks.cpu(), tokens[:, PROMPT:].cpu())
+    med = statistics.median(ms)
+    (p_calls, p_s), = in_prefill
+    log(f"tp_serve rank {rank}: tensor_parallel_generate ({BATCH}x{PROMPT} "
+        f"+ {NEW_TOKENS}) {gen_s * 1e3:.1f} ms; decode step {_spread(ms)} "
+        f"= {BATCH / med * 1e3:.1f} tokens/s; gloo collectives: the "
+        f"prefill {p_calls} calls, {p_s * 1e3:.1f} ms; the {len(ms)} steps "
+        f"{clock.calls} calls, {clock.seconds * 1e3:.1f} ms, "
+        f"{clock.seconds * 1e3 / sum(ms):.3f} of the steps' "
+        f"{sum(ms):.1f} ms host time ({TP_LABEL})")
+    with plain_versions():
+        _, plain, _ = _tp_greedy(model, prompt, 2, feed=toks)
+    _hold_logits(f"tp_serve rank {rank}: prefill", logits[0], plain[0])
+    _hold_logits(f"tp_serve rank {rank}: step 1", logits[1], plain[1])
+    res["generate"], res["generate_logits"] = tokens.cpu(), logits.cpu()
+    del logits, plain
+
+    tensor_parallel_beam_search(model, None, prompt, 2, BEAMS)  # warm
+    registry.reset()
+    seqs, scores = tensor_parallel_beam_search(model, None, prompt,
+                                               NEW_TOKENS, BEAMS)
+    launches = registry.launches()
+    _expect(f"tp_serve rank {rank} tensor_parallel_beam_search", launches, {
+        "rms_norm": (2 * L + 1) * NEW_TOKENS, "window_attention": L,
+        "gqa_decode": L * (NEW_TOKENS - 1)})
+    res["launches"]["beam_search"] = launches
+    assert torch.isfinite(scores).all() and (scores <= 0).all(), scores
+    one, _ = tensor_parallel_beam_search(model, None, prompt, NEW_TOKENS, 1)
+    _rows_check(f"tp_serve rank {rank}: one beam vs greedy", model, prompt,
+                one[:, PROMPT:], tokens[:, PROMPT:])
+    res["beam"], res["beam_scores"] = seqs.cpu(), scores.cpu()
+
+    mesh = ServeMesh.from_grid()
+    lap("generate and beam search")
+    _tp_serve_engines(model, vocab, rank, mesh, clock, res)
+    lap("the bf16 and int8 engines")
+    _tp_spec_prefix(model, vocab, rank, mesh, res)
+    lap("the speculative + prefix engine")
+    # on serve_prefix's scaled target, as serve_prefix's own drill
+    _migration_drill(model, vocab, _prefix_trace(vocab, 1),
+                     build=lambda c: _eager_engine(model, c, mesh=mesh),
+                     label=f"tp_serve rank {rank}")
+    lap("the migration drill")
+    del model
+    torch.cuda.empty_cache()
+    _tp_mla(rank, res)
+    lap("mla_decode")
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    log(f"tp_serve rank {rank}: done in {time.perf_counter() - t_worker:.1f} s")
+    return 0
+
+
+def nccl_probe(out_dir):
+    """Two ranks on one card asking for NCCL, as tp_serve would on a
+    machine with two cards: each records what NCCL does (run 1 of the
+    slice: a duplicate-GPU refusal)."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import multiproc
+    try:
+        multiproc.initialize_distributed(device="cuda:0")
+        dist.all_reduce(torch.ones(1, device="cuda"))
+        torch.cuda.synchronize()
+        outcome = "accepted"
+    except Exception as e:  # noqa: BLE001 (recorded: the probe's result)
+        outcome = f"refused: {type(e).__name__}: {str(e)[:600]}"
+    log(f"nccl probe: {outcome}")
+    return 0
+
+
+def _launch_ranks(mode, out_dir, timeout):
+    """Start TP_WORLD ranks of this script in ``mode`` through the port's
+    launcher on 127.0.0.1, each logging to a file; wait for all, killing
+    every one when one fails or the time runs out. Returns (return
+    codes, logs); a timeout returns None for the codes."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs, files = [], []
+    for r in range(TP_WORLD):
+        f = open(os.path.join(out_dir, f"{mode}{r}.log"), "w")
+        files.append(f)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "apex_tpu_torch.parallel.multiproc",
+             "--nnodes", str(TP_WORLD), "--node_rank", str(r),
+             "--coordinator", f"127.0.0.1:{port}",
+             os.path.abspath(__file__), f"--{mode}", out_dir],
+            cwd=here, env=env, stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    codes = [None] * TP_WORLD
+    try:
+        while None in codes and time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in files:
+            f.close()
+    logs = [open(os.path.join(out_dir, f"{mode}{r}.log")).read()
+            for r in range(TP_WORLD)]
+    return (codes if None not in codes else None), logs
+
+
+def _tp_kernel_entries(gen):
+    """The kernels of the tp = 2 path at one rank's shapes, timed in the
+    parent alone on the card: #25 and #21 at 16 heads in 2 groups, #14
+    and #15 at the int8 store's 128-lane rows, #26 at 8 heads (#6 sees
+    the full hidden, replicated: its main-path row stands)."""
+    from apex_tpu_torch.contrib import gqa_decode
+    from apex_tpu_torch.kernels import fused_cc, quant
+    n, g = (MODEL["num_attention_heads"] // TP_WORLD,
+            MODEL["num_query_groups"] // TP_WORLD)
+    d, rep, T = MODEL["hidden_size"] // MODEL["num_attention_heads"], \
+        MODEL["num_attention_heads"] // MODEL["num_query_groups"], \
+        MODEL["max_position_embeddings"]
+    sm, at = d ** -0.5, f"tp 2 rank ({TP_LABEL})"
+    entries = []
+    q = _randn(gen, BATCH, g, rep, d)
+    k, v = _cache(gen, T, BATCH, g, d, DECODE_LENGTH)
+    lengths = _rows(BATCH, DECODE_LENGTH)
+    got = gqa_decode.gqa_flash_decode(q, k, v, lengths, sm)
+    want = gqa_decode.gqa_decode_plain(q, k, v, DECODE_LENGTH, sm)
+    torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+    q_l, k_l, v_l = (q.reshape(BATCH, n, 1, d),
+                     k[:DECODE_LENGTH].permute(1, 2, 0, 3),
+                     v[:DECODE_LENGTH].permute(1, 2, 0, 3))
+    entries.append(entry(
+        "gqa_decode", f"{at}: q[{BATCH},{g},{rep},{d}] bf16, cache[{T},"
+        f"{BATCH},{g},{d}] bf16, length {DECODE_LENGTH}", got, want,
+        f"rtol {ATTN_TOL} atol {ATTN_TOL}",
+        lambda: gqa_decode.gqa_flash_decode(q, k, v, lengths, sm),
+        lambda: gqa_decode.gqa_decode_plain(q, k, v, lengths, sm),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q_l, k_l, v_l, scale=sm, enable_gqa=True),
+        _attention_bound(BATCH, g, rep, d, 1, DECODE_LENGTH - 1, None)))
+    qw = _randn(gen, PROMPT, BATCH, g, rep, d)
+    kw, vw = _cache(gen, T, BATCH, g, d, PROMPT)
+    start = torch.zeros(BATCH, dtype=torch.int32, device="cuda")
+    got = fused_cc.window_attention(qw, kw, vw, start, sm)
+    want = fused_cc.window_attention_plain(qw, kw, vw, 0, sm)
+    torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+    qw_l = qw.reshape(PROMPT, BATCH, n, d).permute(1, 2, 0, 3)
+    kw_l, vw_l = (kw[:PROMPT].permute(1, 2, 0, 3),
+                  vw[:PROMPT].permute(1, 2, 0, 3))
+    entries.append(entry(
+        "window_attention", f"{at}: qg[{PROMPT},{BATCH},{g},{rep},{d}] bf16, "
+        f"cache[{T},{BATCH},{g},{d}] bf16, start 0", got, want,
+        f"rtol {ATTN_TOL} atol {ATTN_TOL}",
+        lambda: fused_cc.window_attention(qw, kw, vw, start, sm),
+        lambda: fused_cc.window_attention_plain(qw, kw, vw, start, sm),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qw_l, kw_l, vw_l, is_causal=True, scale=sm, enable_gqa=True),
+        _attention_bound(BATCH, g, rep, d, PROMPT, 0, None)))
+    del q, k, v, qw, kw, vw, q_l, k_l, v_l, qw_l, kw_l, vw_l
+    # the int8 store's rows of one rank: a prefill bucket's T x b rows of
+    # g * d = 128 lanes, one block each
+    width, rows = g * d, T * BATCH
+    x = _randn(gen, rows, width)
+    qc, sc = quant.quantize_rows(x, width)
+    qp, sp = quant.quantize_rows_plain(x, width)
+    assert torch.equal(qc, qp) and torch.equal(sc, sp)
+    qbytes = _quant_bytes(rows, width, width, 2)
+    entries.append(entry(
+        "quantize_int8", f"{at}: x[{rows},{width}] bf16, block {width}",
+        qc.float(), qp.float(), "bit for bit",
+        lambda: quant.quantize_rows(x, width),
+        lambda: quant.quantize_rows_plain(x, width), None,
+        bound(qbytes, 4 * rows * width, FP32_OPS_PER_S)))
+    got = quant.dequantize_rows(qc, sc, width, torch.bfloat16)
+    want = quant.dequantize_rows_plain(qc, sc, width, torch.bfloat16)
+    assert torch.equal(got, want)
+    entries.append(entry(
+        "dequantize_int8", f"{at}: q[{rows},1,{width}] int8 -> bf16",
+        got, want, "bit for bit",
+        lambda: quant.dequantize_rows(qc, sc, width, torch.bfloat16),
+        lambda: quant.dequantize_rows_plain(qc, sc, width, torch.bfloat16),
+        None, bound(qbytes, rows * width, FP32_OPS_PER_S)))
+    del x, qc, sc, qp, sp, got, want
+    lat = MLA_DECODE_CFG["kv_lora_rank"]
+    Lm = lat + MLA_DECODE_CFG["qk_rope_head_dim"]
+    heads = MLA_DECODE_CFG["num_heads"] // TP_WORLD
+    qm = _randn(gen, MLA_BATCH, heads, Lm)
+    cache = _latent_cache(gen, MLA_DECODE_CFG["max_decode_length"],
+                          MLA_BATCH, Lm, MLA_DECODE_LENGTH)
+    scale = (MLA_DECODE_CFG["qk_nope_head_dim"]
+             + MLA_DECODE_CFG["qk_rope_head_dim"]) ** -0.5
+    entries.append(_mla_entry(at, qm, cache, MLA_DECODE_LENGTH, lat, scale))
+    return entries
+
+
+_TP_ENTRIES = []  # the tp_serve phase's kernel rows, for the JSON line
+
+
+def phase_tp_serve():
+    import tempfile
+
+    from apex_tpu_torch.models import (
+        DeepseekModel,
+        GPTModel,
+        MLAConfig,
+        TransformerConfig,
+    )
+    cfg = TransformerConfig(**MODEL, compute_dtype=torch.bfloat16)
+    vocab = cfg.vocab_size
+    # tp = 1 on the same host-drawn weights: the references
+    t0 = time.perf_counter()
+    model = _host_drawn(lambda dev: GPTModel(cfg, device=dev))
+    log(f"tp_serve: tp 1 reference model drawn on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompt = _tp_prompt(vocab)
+    ref, ref_logits, ref_ms = _tp_greedy(model, prompt, NEW_TOKENS)
+    log(f"tp_serve: tp 1 decode step {_spread(ref_ms)} = "
+        f"{BATCH / statistics.median(ref_ms) * 1e3:.1f} tokens/s")
+    ref_engine, _ = _eager_engine(model, _serve_config(
+        cache_mode="bf16")).serve(_serve_trace(vocab))
+    ref_streams = _streams(ref_engine)
+    mcfg = MLAConfig(**MLA_DECODE_CFG, params_dtype=torch.float32,
+                     compute_dtype=torch.bfloat16)
+    mla = _host_drawn(lambda dev: DeepseekModel(mcfg, device=dev))
+    mla_ref, mla_ref_logits = _greedy(mla, _mla_prompt(mcfg.vocab_size),
+                                      MLA_STEPS + 2)
+    _, cache = mla.decode_prefill(_mla_prompt(mcfg.vocab_size))
+    _, _, mla_ms = _greedy_steps(mla, cache, mla_ref[:, 0], MLA_STEPS)
+    log(f"tp_serve: tp 1 mla_decode step {_spread(mla_ms)}")
+    del mla, cache
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as out:
+        codes, logs = _launch_ranks("nccl-probe", out, TP_PROBE_TIMEOUT_S)
+        for r, text in enumerate(logs):
+            lines = [x for x in text.splitlines() if "nccl probe" in x]
+            log(f"tp_serve: NCCL with two ranks on one card, rank {r} "
+                f"(exit {None if codes is None else codes[r]}): "
+                f"{lines or text[-600:]}")
+        t0 = time.perf_counter()
+        codes, logs = _launch_ranks("tp-worker", out, TP_WORKER_TIMEOUT_S)
+        for r, text in enumerate(logs):
+            for line in text.splitlines():
+                log(f"[rank {r}] {line}")
+        assert codes == [0] * TP_WORLD, (
+            f"tp_serve workers failed or timed out: exit codes {codes}")
+        log(f"tp_serve: both ranks done in {time.perf_counter() - t0:.1f} s")
+        res = [torch.load(os.path.join(out, f"rank{r}.pt"))
+               for r in range(TP_WORLD)]
+    a, b = res
+    for key in ("generate", "beam", "mla"):
+        assert torch.equal(a[key], b[key]), f"tp_serve: ranks differ: {key}"
+    for key in ("serve_bf16", "serve_int8", "serve_spec_prefix"):
+        assert a[key] == b[key], f"tp_serve: ranks' {key} streams differ"
+    assert a["launches"] == b["launches"]
+    log("tp_serve: both ranks' tokens, beams, streams and launch counts "
+        "identical")
+    _hold_logits("tp_serve prefill, tp 2 vs tp 1", a["generate_logits"][0],
+                 ref_logits[0].cpu())
+    _hold_logits("tp_serve step 1, tp 2 vs tp 1", a["generate_logits"][1],
+                 ref_logits[1].cpu())
+    _near_tie_check("tp_serve generate, tp 2 vs tp 1",
+                    a["generate"][:, PROMPT:], a["generate_logits"],
+                    ref.cpu(), ref_logits.cpu(), LOGIT_TOL)
+    _margin_check("tp_serve bf16 engine, tp 2 vs tp 1", model,
+                  _serve_trace(vocab), a["serve_bf16"], ref_streams)
+    _near_tie_check("tp_serve mla_decode, tp 2 vs tp 1", a["mla"],
+                    a["mla_logits"], mla_ref.cpu(), mla_ref_logits.cpu(),
+                    LOGIT_TOL)
+    del model, ref_logits, mla_ref_logits
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    _TP_ENTRIES.extend(_tp_kernel_entries(gen))
+    for e in _TP_ENTRIES:
+        log(f"tp_serve kernel {e['name']} [{e['shape']}]: max abs err "
+            f"{e['max_abs_err']:.3e}; {_us(e['ms'])} on the device, plain "
+            f"{_us(e['plain_ms'])}, library {_us(e['library_ms'])}, bound "
+            f"{e['bound_ms'] * 1e3:.3f} us by {e['bound_by']}")
+    total = {}
+    for r in res:
+        for counts in r["launches"].values():
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+    log(f"tp_serve: launches of both ranks over every counted run {total}")
+    return {"tp_serve": total}
+
+
 PROFILE_WATCH = ("ln_fwd_kernel", "warp_ln_fwd", "ln_bwd_dx",
                  "warp_softmax_fwd", "warp_causal_fwd", "causal_fwd_kernel",
                  "::bwd_kernel<", "warp_softmax_bwd",
@@ -8850,7 +9563,7 @@ PHASES = ("kernels", "serving", "serve_bf16", "serve_int8", "serve_spec",
           "bert_training", "mha", "mla_decode", "deepseek_v2_lite", "ddp_gpt2",
           "ddp_compressed", "zero_gpt2", "zero_bert", "tp_dp", "tp_gpt2",
           "amp_gpt2", "amp_o1_sgd", "amp_bert", "novograd_gpt2",
-          "adagrad_gpt2", "fp16_gpt2")
+          "adagrad_gpt2", "fp16_gpt2", "tp_serve")
 # kernels that no path of this script launches: held against their plain
 # versions in the kernel phase only (the JAX serving engine does not take
 # the fused int8 verify either: it dequantizes with #15, then verifies;
@@ -8936,6 +9649,13 @@ def _us(ms):
 
 
 def main(argv):
+    if len(argv) == 3 and argv[1] in ("--tp-worker", "--nccl-probe"):
+        # one rank of tp_serve, started by the launcher
+        if not torch.cuda.is_available():
+            print("chip_smoke: a tp_serve rank needs a GPU", file=sys.stderr)
+            return 1
+        return (tp_worker if argv[1] == "--tp-worker" else nccl_probe)(
+            argv[2])
     phases = argv[1:] or list(PHASES)
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
@@ -9011,7 +9731,8 @@ def main(argv):
             "amp_gpt2": phase_amp_gpt2, "amp_o1_sgd": phase_amp_o1_sgd,
             "amp_bert": phase_amp_bert,
             "novograd_gpt2": phase_novograd_gpt2,
-            "adagrad_gpt2": phase_adagrad_gpt2, "fp16_gpt2": phase_fp16_gpt2}
+            "adagrad_gpt2": phase_adagrad_gpt2, "fp16_gpt2": phase_fp16_gpt2,
+            "tp_serve": phase_tp_serve}
     for name in phases:  # in the order given, repeats included
         if name not in runs:
             continue  # kernels and serving ran above
@@ -9025,6 +9746,7 @@ def main(argv):
         log("chip_smoke: a partial run prints no result")
         return 0
 
+    entries += _TP_ENTRIES  # tp_serve's rank shapes, after the main path's
     kernels, seen = [], set()
     for e in entries:  # the first (main-path) shape of each kernel
         if e["name"] in seen:

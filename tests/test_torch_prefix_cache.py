@@ -339,9 +339,9 @@ def test_migration_payloads_match_jax(mode):
     flat[5] ^= 1
     assert kv_payload_crc(pp) == pp["crc"]
     assert kv_payload_crc({**pp, "length": pp["length"] + 1}) != pp["crc"]
-    # the layout is checked, and tp > 1 waits for tensor-parallel serving
-    with pytest.raises(NotImplementedError, match="5\\(b\\)"):
-        peng.spec.consolidate_host_rows({}, tp=2)
+    # the layout is checked: tp = 1 rows are not a tp = 2 engine's
+    with pytest.raises(ValueError, match="tp=2|q/scale"):
+        peng.spec.consolidate_host_rows(ppay[slots[0]]["rows"], tp=2)
     with pytest.raises(ValueError, match="layout"):
         peng.spec.consolidate_host_rows(
             {"keys": [torch.zeros(3)], "values": [],

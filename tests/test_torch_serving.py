@@ -500,10 +500,12 @@ def test_admission_shedding_deadlines_and_drain():
 
 def test_not_ported_features_raise():
     model = _models()[2]
-    for kw in (dict(model_axis="tp"), dict(preflight=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ServeEngine(model, ServeConfig(**SERVE, **kw))
     with pytest.raises(NotImplementedError, match="not ported"):
+        ServeEngine(model, ServeConfig(**SERVE, preflight=True))
+    # model_axis "tp" is JAX's default, accepted; a mesh must be the
+    # port's ServeMesh
+    assert ServeEngine(model, ServeConfig(**SERVE, model_axis="tp")).tp == 1
+    with pytest.raises(TypeError, match="ServeMesh"):
         ServeEngine(model, ServeConfig(**SERVE), mesh=object())
     eng = _engine()
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -120,7 +120,13 @@ import sys
 import pytest
 import torch.distributed as dist
 
-from apex_tpu_torch.models import BertModel, GPTModel, TransformerConfig
+from apex_tpu_torch.models import (
+    BertModel,
+    DeepseekModel,
+    GPTModel,
+    MLAConfig,
+    TransformerConfig,
+)
 from apex_tpu_torch.transformer import parallel_state as ps
 from apex_tpu_torch.transformer import tensor_parallel as tp
 from apex_tpu_torch.transformer.enums import AttnMaskType
@@ -132,11 +138,20 @@ ps.initialize_model_parallel(2)
 assert ps.get_tensor_model_parallel_world_size() == 2
 cfg = dict(hidden_size=32, num_layers=1, num_attention_heads=4,
            vocab_size=64, max_position_embeddings=16)
-with pytest.raises(NotImplementedError, match="item 5"):
-    GPTModel(TransformerConfig(**cfg), device="cpu")
-with pytest.raises(NotImplementedError, match="item 5"):
-    BertModel(TransformerConfig(**cfg, attn_mask_type=AttnMaskType.padding),
-              device="cpu")
+# the decoder models and BERT shard at tp = 2 (their vocabulary too);
+# a mixture-of-experts layer still lays its experts out unsharded
+gpt = GPTModel(TransformerConfig(**cfg), device="cpu")
+assert tuple(gpt.lm_head.shape) == (32, 32)
+bert = BertModel(TransformerConfig(**cfg, attn_mask_type=AttnMaskType.padding),
+                 device="cpu")
+assert tuple(bert.lm_head.shape) == (32, 32)
+moe = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+           kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=4,
+           v_head_dim=8, ffn_hidden_size=48, max_decode_length=32,
+           n_routed_experts=4, moe_intermediate_size=8,
+           first_k_dense_replace=1)
+with pytest.raises(NotImplementedError, match="item 6"):
+    DeepseekModel(MLAConfig(**moe), device="cpu")
 # the layers take their local shapes from the grid, as JAX's do
 col = tp.ColumnParallelLinear(8, 16, device="cpu")
 row = tp.RowParallelLinear(16, 8, device="cpu")

@@ -74,6 +74,21 @@ class AmpOptimizer:
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        found_inf = self.unscale()[1]
+        self.apply(found_inf)
+        self.scaler._state = self.scaler.update(self.scaler._state,
+                                                found_inf)
+        self.last_found_inf = found_inf
+        return loss
+
+    @torch.no_grad()
+    def unscale(self):
+        """Step 1 alone: every ``p.grad`` unscaled in place by 1 / the live
+        loss scale (K1). Returns ``(grads, found_inf)``, ``found_inf`` a
+        one-element fp32 device flag. ``unscale``, ``apply`` and the
+        scaler's ``update`` are what :meth:`step` runs; a guarded step
+        (``resilience.guarded_update``) runs them apart, with its global
+        flag in between."""
         grads = [p.grad for group in self.inner.param_groups
                  for p in group["params"] if p.grad is not None]
         state = self.scaler._state
@@ -82,18 +97,22 @@ class AmpOptimizer:
         if grads:
             multi_tensor_scale(found_inf, [grads, grads],
                                torch.reciprocal(state.loss_scale))
+        return grads, found_inf
+
+    @torch.no_grad()
+    def apply(self, flag):
+        """Step 2 alone: the wrapped optimizer's update, every write
+        skipped on the device where ``flag`` (one fp32 element) is > 0;
+        the scaler is not touched."""
         if hasattr(self.inner, "_update"):
-            self.inner._update(found_inf, 1.0,
+            self.inner._update(flag, 1.0,
                                "amp_master" if self.owns_masters else None)
         elif self.owns_masters:
             raise TypeError(f"amp's master weights need one of the port's "
                             f"fused optimizers, got "
                             f"{type(self.inner).__name__}")
-        else:  # a wrapper such as LARC: found_inf passes through its step
-            self.inner.step(found_inf=found_inf)
-        self.scaler._state = self.scaler.update(state, found_inf)
-        self.last_found_inf = found_inf
-        return loss
+        else:  # a wrapper such as LARC: the flag passes through its step
+            self.inner.step(found_inf=flag)
 
     def scale_loss(self, loss):
         """``loss`` in fp32 times the live loss scale."""

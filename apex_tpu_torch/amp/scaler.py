@@ -72,7 +72,9 @@ class LossScaler:
     def update(self, state: ScalerState, found_inf) -> ScalerState:
         """The next state after a step whose overflow flag is
         ``found_inf`` (JAX's ``update``, as device arithmetic; the state
-        passed in is left as it is). A static scaler returns ``state``."""
+        passed in is left as it is). A static scaler returns ``state``.
+        Telemetry: :meth:`record_update` (nothing read from the card
+        unless the registry is enabled)."""
         if not self.dynamic:
             return state
         overflow = found_inf.reshape(()) > 0
@@ -87,17 +89,39 @@ class LossScaler:
                         state.loss_scale))
         new_unskipped = torch.where(overflow | grow, 0,
                                     state.unskipped + 1).to(torch.int32)
-        return ScalerState(new_scale, new_unskipped)
+        new_state = ScalerState(new_scale, new_unskipped)
+        self.record_update(state, new_state, found_inf)
+        return new_state
 
     def record_update(self, state, new_state, found_inf, registry=None):
         """Host-side telemetry of one update (JAX's ``amp/loss_scale``
         gauge, ``amp/overflow`` and ``amp/scale_window_growth`` counters
-        and ``amp`` event). The port's telemetry comes with ROADMAP queue
-        A item 7; until then this raises, and :meth:`update` records
-        nothing."""
-        raise NotImplementedError(
-            "amp telemetry (record_update) comes with the telemetry plane, "
-            "ROADMAP queue A item 7")
+        and ``amp`` event). With the registry disabled (the default) it
+        reads nothing from the card; enabled, it costs one host read of
+        three scalars (the old and new scale and the flag, one copy) a
+        call — :meth:`update` calls it every step."""
+        from apex_tpu_torch.telemetry.registry import get_registry
+
+        reg = registry or get_registry()
+        if not reg.enabled:
+            return
+        prev, scale, flag, unskipped = torch.stack([
+            torch.as_tensor(state.loss_scale, dtype=torch.float32).reshape(()),
+            torch.as_tensor(new_state.loss_scale,
+                            dtype=torch.float32).reshape(()),
+            torch.as_tensor(found_inf, dtype=torch.float32).reshape(-1)[0]
+            .to(torch.as_tensor(state.loss_scale).device),
+            torch.as_tensor(new_state.unskipped).to(torch.float32).reshape(()),
+        ]).cpu().tolist()
+        overflow = flag > 0
+        grew = scale > prev
+        reg.gauge("amp/loss_scale").set(scale)
+        if overflow:
+            reg.counter("amp/overflow").inc()
+        if grew:
+            reg.counter("amp/scale_window_growth").inc()
+        reg.event("amp", "loss_scale", scale=scale, overflow=overflow,
+                  grew=grew, unskipped=int(unskipped))
 
     # -- eager API (reference parity; these wait for the device) -----------
     def loss_scale(self):

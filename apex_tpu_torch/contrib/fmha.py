@@ -282,6 +282,21 @@ def _common(q, scale, causal, window, slopes, code, path):
                                              else slopes.data_ptr())
 
 
+def _pairs(q, causal, window):
+    """Query-key pairs a launch attends over every head, times the head
+    dim: the unit of the kernels' FLOPs (the forward's two products a
+    pair, qk and pv, are 4 FLOPs a unit; the dq kernel's three with the
+    recomputed scores 6; the dk/dv kernel's four 8)."""
+    b, n, s, d = q.shape
+    w = s if window is None else min(int(window), s)
+    if causal:
+        pairs = s * (s + 1) // 2 if w >= s else \
+            w * (w + 1) // 2 + (s - w) * w
+    else:
+        pairs = s * w
+    return float(b * n * pairs * d)
+
+
 def flash_fwd(q, k, v, scale, causal, window=None, alibi_slopes=None):
     """Forward: q, k, v [b, n, s, d] -> (o [b, n, s, d] in q's dtype, lse
     [b, n, s] fp32). A CPU tensor takes :func:`flash_fwd_plain`; a CUDA
@@ -300,7 +315,8 @@ def flash_fwd(q, k, v, scale, causal, window=None, alibi_slopes=None):
                                        v.data_ptr(), slopes_ptr, o.data_ptr(),
                                        lse.data_ptr(), *tail)
     _checks.status("flash_fwd", rc)
-    registry.count(FLASH_FWD)
+    registry.count(FLASH_FWD, flops=4.0 * _pairs(q, causal, window),
+                   bytes=registry.nbytes(q, k, v, o, lse))
     return o, lse
 
 
@@ -351,7 +367,8 @@ def flash_dq(q, k, v, do, lse, delta, scale, causal, window=None,
             lse.data_ptr(), delta.data_ptr(), slopes_ptr, dq.data_ptr(),
             *tail)
     _checks.status("flash_dq", rc)
-    registry.count(FLASH_DQ)
+    registry.count(FLASH_DQ, flops=6.0 * _pairs(q, causal, window),
+                   bytes=registry.nbytes(q, k, v, do, lse, delta, dq))
     return dq
 
 
@@ -375,7 +392,8 @@ def flash_dkv(q, k, v, do, lse, delta, scale, causal, window=None,
             lse.data_ptr(), delta.data_ptr(), slopes_ptr, dk.data_ptr(),
             dv.data_ptr(), *tail)
     _checks.status("flash_dkv", rc)
-    registry.count(FLASH_DKV)
+    registry.count(FLASH_DKV, flops=8.0 * _pairs(q, causal, window),
+                   bytes=registry.nbytes(q, k, v, do, lse, delta, dk, dv))
     return dk, dv
 
 

@@ -100,5 +100,6 @@ def gqa_flash_decode(q, k, v, length, sm_scale: float, window=None,
                        code, splits, _checks.data_ptr(scratch),
                        _checks.data_ptr(counters), _checks.stream(q))
     _checks.status("gqa_flash_decode", rc)
-    registry.count(GQA_DECODE)
+    registry.count(GQA_DECODE, flops=4.0 * b * g * rep * d * T,
+                   bytes=registry.nbytes(q, k, v, out))
     return out

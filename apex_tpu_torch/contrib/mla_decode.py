@@ -259,5 +259,7 @@ def mla_flash_decode(q_full, cache, length, lat, scale):
     lengths = _checks.row_offsets(name, length, b, q_full.device, "length")
     plan = plan_for(q_full, cache, lat)
     out = _launch(q_full, cache, lengths, lat, scale, plan, plan.path)
-    registry.count(MLA_DECODE)
+    registry.count(MLA_DECODE, flops=4.0 * q_full.shape[0] * q_full.shape[1]
+                   * cache.shape[0] * q_full.shape[-1],
+                   bytes=registry.nbytes(q_full, cache, out))
     return out

@@ -65,8 +65,11 @@ The elastic state (``state_dict_full`` / ``load_state_dict_resharded``,
 bucketed and 2-D forms) is JAX's host math on numpy arrays: the same
 format-1/2 dicts, so a state written by either package loads into the
 other. The 3-D (pipe-axis) forms wait for pipeline parallelism (ROADMAP
-item 6); ``numerics=`` and the telemetry ``registry=`` of
-:func:`zero_state_bytes` wait for item 7; each raises, naming its item.
+item 6) and raise, naming it. ``numerics=`` (True or a grouping depth)
+appends the ``grads/*`` statistics of the local gradients
+(:mod:`apex_tpu_torch.telemetry.numerics`) to what ``step`` returns;
+:func:`zero_state_bytes` lands the ``memory/zero_state_*`` gauges and a
+``memory`` event in the telemetry registry.
 """
 
 import contextlib
@@ -83,10 +86,12 @@ from apex_tpu_torch.parallel import compression, groups
 from apex_tpu_torch.parallel.distributed import (
     _div,
     _leaves,
+    _numerics_depth,
     _rebuild,
-    _refuse_numerics,
     plan_buckets,
 )
+from apex_tpu_torch.telemetry import numerics as _numerics
+from apex_tpu_torch.telemetry.registry import get_registry
 
 _SHARDS = (("master_shard", "master"), ("exp_avg_shard", "exp_avg"),
            ("exp_avg_sq_shard", "exp_avg_sq"))
@@ -632,13 +637,11 @@ def zero_state_bytes(params, *, world, grad_compress=None,
     ZeRO sharding: ``unsharded_state_bytes`` is a replicated fp32
     Adam/LAMB's three buffers of the padded length, ``sharded_state_bytes``
     this optimizer's (the three at 1/world, plus the full-length residual
-    of int8/int4 gradients, which is not sharded). JAX's report dict.
-    ``record`` writes nothing (JAX's does only with telemetry on);
-    ``registry=`` raises, naming ROADMAP item 7."""
-    if registry is not None:
-        raise NotImplementedError(
-            "registry= (the telemetry gauges) comes with the telemetry "
-            "slice, ROADMAP item 7")
+    of int8/int4 gradients, which is not sharded). JAX's report dict;
+    with ``record`` and the registry (``registry``, else the process's)
+    enabled it also lands the ``memory/zero_state_sharded_bytes`` and
+    ``memory/zero_state_unsharded_bytes`` gauges and a ``memory``
+    event."""
     n = _flat_size(params)
     padded = _padded_size(n, world, grad_compress, param_compress,
                           block_size)
@@ -648,7 +651,7 @@ def zero_state_bytes(params, *, world, grad_compress=None,
     residual = padded * f32 if compression.needs_residual(grad_compress) else 0
     params_bytes = int(sum(leaf.numel() * leaf.element_size()
                            for leaf in _leaves(params)))
-    return {
+    report = {
         "optimizer": optimizer,
         "axis_name": str(axis_name),
         "world": int(world),
@@ -663,6 +666,14 @@ def zero_state_bytes(params, *, world, grad_compress=None,
         "grad_compress": grad_compress,
         "param_compress": param_compress,
     }
+    if record:
+        reg = registry or get_registry()
+        if reg.enabled:
+            reg.gauge("memory/zero_state_sharded_bytes").set(
+                report["sharded_state_bytes"])
+            reg.gauge("memory/zero_state_unsharded_bytes").set(unsharded)
+            reg.event("memory", "zero_state_bytes", **report)
+    return report
 
 
 class ZeroBucket(NamedTuple):
@@ -708,7 +719,6 @@ class _Zero:
 
     def _setup(self, axis_name, compress, grad_compress, param_compress,
                compress_block_size, numerics, overlap, message_size):
-        _refuse_numerics(numerics)
         self.axis_name = axis_name
         # compress=True: int8 gradients with error feedback (the residual
         # in the state) and a bf16 parameter gather; either overridable
@@ -829,15 +839,28 @@ class _Zero:
             flat_g, bstate.get("grad_residual"), world)
         return self._average(g_shard, world), residual
 
+    def _grad_stats(self, grads):
+        """The ``numerics=`` statistics of the local gradients (None when
+        the knob is off)."""
+        if not self.numerics:
+            return None
+        return _numerics.tree_stats(
+            grads, prefix_depth=_numerics_depth(self.numerics),
+            prefix="grads")
+
     def _step_overlapped(self, grads, state, params, *, lr, found_inf,
                          scale):
         g_segs, was_list = _as_segments(grads)
         p_segs, _ = _as_segments(params)
+        stats = None
+        if self.numerics:
+            stats = _numerics.merge(*[self._grad_stats(g) for g in g_segs])
         walk = _BucketStep(self, state, p_segs, lr=lr, found_inf=found_inf)
         for k, grads_k in enumerate(g_segs):
             walk.reduce(k, _leaves(grads_k), scale)
         new_params, new_state = walk.finish()
-        return (new_params if was_list else new_params[0]), new_state
+        out = (new_params if was_list else new_params[0]), new_state
+        return out if stats is None else out + (stats,)
 
     # -- accounting and the elastic state ---------------------------------
 
@@ -1040,11 +1063,13 @@ class DistributedFusedAdam(_Zero):
 
     def step(self, grads, state, params, *, lr: Optional[float] = None,
              found_inf=None, scale: float = 1.0):
-        """One update: ``(new_params, new_state)``; the state's shards are
+        """One update: ``(new_params, new_state)``, plus the statistics
+        of the local gradients with ``numerics=``; the state's shards are
         updated in place."""
         if self.overlap:
             return self._step_overlapped(grads, state, params, lr=lr,
                                          found_inf=found_inf, scale=scale)
+        stats = self._grad_stats(grads)
         leaves, g_leaves = _leaves(params), _leaves(grads)
         n, world = _flat_size(params), self._world()
         noop, skip = _noop(found_inf, state["master_shard"].device)
@@ -1057,4 +1082,5 @@ class DistributedFusedAdam(_Zero):
         flat_p = self._gather_params(state["master_shard"], world)
         new_state = self._finish(state, {**state, "step": _step_tensor(step)},
                                  residual, skip)
-        return _rebuild(params, _unflatten_like(flat_p[:n], leaves)), new_state
+        out = _rebuild(params, _unflatten_like(flat_p[:n], leaves)), new_state
+        return out if stats is None else out + (stats,)

@@ -177,11 +177,13 @@ class DistributedFusedLAMB(_Zero):
 
     def step(self, grads, state, params, *, lr: Optional[float] = None,
              found_inf=None, scale: float = 1.0):
-        """One update: ``(new_params, new_state)``; the state's shards are
+        """One update: ``(new_params, new_state)``, plus the statistics
+        of the local gradients with ``numerics=``; the state's shards are
         updated in place."""
         if self.overlap:
             return self._step_overlapped(grads, state, params, lr=lr,
                                          found_inf=found_inf, scale=scale)
+        stats = self._grad_stats(grads)
         leaves, g_leaves = _leaves(params), _leaves(grads)
         n, world = _flat_size(params), self._world()
         padded = self._padded(n, world)
@@ -198,7 +200,8 @@ class DistributedFusedLAMB(_Zero):
         flat_p = self._gather_params(state["master_shard"], world)
         new_state = self._finish(state, {**state, "step": _step_tensor(step)},
                                  residual, skip)
-        return _rebuild(params, _unflatten_like(flat_p[:n], leaves)), new_state
+        out = _rebuild(params, _unflatten_like(flat_p[:n], leaves)), new_state
+        return out if stats is None else out + (stats,)
 
     # reference-API hooks kept for drop-in use
     def set_global_scale(self, global_scale):

@@ -11,7 +11,9 @@ The hash covers every file under ``csrc/`` (the kernels share a header)
 and the flags, so an edited source is rebuilt and a stale library is
 never loaded. A library is built at first use; :func:`build_all` starts
 one nvcc per missing library, all at once, and waits for every one of
-them. A failed build raises with the compiler's output.
+them. A failed build raises with the compiler's output. Each build is
+counted by :mod:`apex_tpu_torch.telemetry.compile_watch` (``compile/
+count``, ``compile/seconds``).
 """
 
 import ctypes
@@ -21,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -83,8 +86,12 @@ def build_all(ptxas_verbose: bool = False) -> str:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         logs, failed = [], []
+        t0 = time.perf_counter()
         for src, out, tmp, proc in jobs:
             log, _ = proc.communicate()
+            # each build is a compile of the compile watch (wall seconds
+            # to this build's end: the builds run at once)
+            _note_build(src.name, time.perf_counter() - t0)
             logs.append(f"== {src.name}\n{log}")
             if proc.returncode:
                 failed.append(f"{src.name} (exit {proc.returncode}):\n{log}")
@@ -93,6 +100,12 @@ def build_all(ptxas_verbose: bool = False) -> str:
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         return "\n".join(logs)
+
+
+def _note_build(name, seconds):
+    from apex_tpu_torch.telemetry import compile_watch
+
+    compile_watch.note_compile("nvcc", name, seconds)
 
 
 def function(lib_name: str, symbol: str, argtypes):

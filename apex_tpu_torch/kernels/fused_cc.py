@@ -150,7 +150,8 @@ def _matmul(x, w):
                          f"contiguous")
     out = torch.empty(m, n, dtype=torch.result_type(x, w), device=x.device)
     mm_launch(x2, w, out, k)
-    registry.count(TP_MATMUL)
+    registry.count(TP_MATMUL, flops=2.0 * m * n * k,
+                   bytes=registry.nbytes(x2, w, out))
     return out.reshape(*lead, n)
 
 
@@ -372,7 +373,8 @@ def window_attention(qg, kt, vt, start, sm_scale: float, window=None,
                        code, splits, _checks.data_ptr(scratch),
                        _checks.data_ptr(counters), _checks.stream(qg))
     _checks.status("window_attention", rc)
-    registry.count(WINDOW_ATTENTION)
+    registry.count(WINDOW_ATTENTION, flops=4.0 * b * g * rep * w * d * T,
+                   bytes=registry.nbytes(qg, kt, vt, out))
     return out
 
 
@@ -505,5 +507,6 @@ def spec_verify_attention(q, kq, ks, vq, vs, start, sm_scale: float):
     path = verify_plan(q.element_size(), d, B,
                        all(t.data_ptr() % 16 == 0 for t in (q, kq, vq)))
     out = _launch_verify(q5, kq4, ks4, vq4, vs4, starts, sm_scale, path)
-    registry.count(SPEC_VERIFY)
+    registry.count(SPEC_VERIFY, flops=4.0 * q.numel() * T,
+                   bytes=registry.nbytes(q, kq, ks, vq, vs, out))
     return out[:, 0] if one else out

@@ -105,7 +105,8 @@ def ln_fwd(x2d, weight, bias, eps, out_dtype=None):
                           y.data_ptr(), n, h, float(eps), in_code, out_code,
                           path, _checks.stream(x2d))
     _checks.status("ln_fwd", rc)
-    registry.count(LAYER_NORM)
+    registry.count(LAYER_NORM, flops=8.0 * n * h,
+                   bytes=registry.nbytes(x2d, weight, bias, y))
     return y
 
 
@@ -194,7 +195,8 @@ def ln_bwd_dx(dy2d, x2d, weight, eps):
                               dx.data_ptr(), n, h, float(eps), dy_code,
                               x_code, path, _checks.stream(x2d))
     _checks.status("ln_bwd_dx", rc)
-    registry.count(LN_BWD)
+    registry.count(LN_BWD, flops=10.0 * n * h,
+                   bytes=registry.nbytes(dy2d, x2d, weight, dx))
     return dx
 
 
@@ -241,7 +243,8 @@ def rms_fwd(x2d, weight, eps, out_dtype=None):
         rc = _kernel()(x2d.data_ptr(), weight.data_ptr(), y.data_ptr(), n, h,
                        float(eps), in_code, out_code, _checks.stream(x2d))
     _checks.status("rms_fwd", rc)
-    registry.count(RMS_NORM)
+    registry.count(RMS_NORM, flops=5.0 * n * h,
+                   bytes=registry.nbytes(x2d, weight, y))
     return y
 
 
@@ -340,5 +343,6 @@ def rms_bwd_dx(dy2d, x2d, weight, eps):
                            dx.data_ptr(), n, h, float(eps), dy_code, x_code,
                            plan.path, plan.warps, _checks.stream(x2d))
     _checks.status("rms_bwd_dx", rc)
-    registry.count(RMS_BWD)
+    registry.count(RMS_BWD, flops=8.0 * n * h,
+                   bytes=registry.nbytes(dy2d, x2d, weight, dx))
     return dx

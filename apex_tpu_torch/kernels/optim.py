@@ -270,8 +270,10 @@ def adam(noop, gs, ps, ms, vs, outs=None, *, lr, b1, b2, eps, weight_decay,
         if p.dtype != torch.float32 and out is not None:
             raise TypeError(f"adam: tensor {k}: a parameter written from a "
                             f"master needs an fp32 master, got {p.dtype}")
-    for _ in range(launch_adam(noop, gs, ps, ms, vs, outs, **kw)):
-        registry.count(ADAM)
+    registry.count_all(
+        ADAM, launch_adam(noop, gs, ps, ms, vs, outs, **kw),
+        flops=15.0 * sum(p.numel() for p in ps),
+        bytes=registry.nbytes(gs, outs) + 2 * registry.nbytes(ps, ms, vs))
 
 
 def fused_lamb_mvu_plain(g, p, m, v, *, bc1, bc2, b1, b2, beta3, eps,
@@ -403,8 +405,10 @@ def lamb(noop, gs, ps, ms, vs, us=None, *, found_inf=None, clip, b1, b2,
                          "device step")
     lists = dict(g=gs, p=ps, m=ms, v=vs, u=gs if us is None else us)
     _check_lists("lamb", lists, fp32=("p", "m", "v", "u"))
-    for _ in range(launch_lamb(noop, gs, ps, ms, vs, us, **kw)):
-        registry.count(LAMB)
+    registry.count_all(
+        LAMB, launch_lamb(noop, gs, ps, ms, vs, us, **kw),
+        flops=15.0 * sum(p.numel() for p in ps),
+        bytes=registry.nbytes(gs, ps, us or gs) + 2 * registry.nbytes(ms, vs))
 
 
 def sgd_plain(noop, gs, ps, moms, outs=None, *, step, inv_scale=None, wd=0.0,
@@ -588,8 +592,10 @@ def sgd(noop, gs, ps, moms, outs=None, *, step, inv_scale=None, wd=0.0,
     _scalar("sgd", inv_scale, torch.float32, "inv_scale")
     _check_lists("sgd", dict(g=gs, p=ps, mom=moms, out=outs),
                  fp32=("p", "mom"))
-    for _ in range(launch_sgd(noop, gs, ps, moms, outs, **kw)):
-        registry.count(SGD)
+    registry.count_all(
+        SGD, launch_sgd(noop, gs, ps, moms, outs, **kw),
+        flops=4.0 * sum(p.numel() for p in ps),
+        bytes=registry.nbytes(gs, outs) + 2 * registry.nbytes(ps, moms))
 
 
 @functools.lru_cache(maxsize=1)
@@ -638,8 +644,11 @@ def lamb_stage2(noop, found_inf, ps, us, outs, factors):
         raise ValueError(f"lamb_stage2: factors must be a contiguous float32 "
                          f"tensor [{len(ps)}]")
     _check_lists("lamb_stage2", dict(p=ps, u=us, out=outs), fp32=("p", "u"))
-    for _ in range(launch_lamb_stage2(noop, found_inf, ps, us, outs, factors)):
-        registry.count(LAMB_STAGE2)
+    registry.count_all(
+        LAMB_STAGE2, launch_lamb_stage2(noop, found_inf, ps, us, outs,
+                                        factors),
+        flops=2.0 * sum(p.numel() for p in ps),
+        bytes=2 * registry.nbytes(ps) + registry.nbytes(us, outs))
 
 
 def _divided(g, scale):
@@ -725,8 +734,10 @@ def adagrad(noop, gs, ps, hs, outs=None, *, lr, eps, weight_decay, mode,
     _scalar("adagrad", scale, torch.float32, "scale")
     _check_lists("adagrad", dict(g=gs, p=ps, h=hs, out=outs),
                  fp32=("p", "h"))
-    for _ in range(launch_adagrad(noop, gs, ps, hs, outs, **kw)):
-        registry.count(ADAGRAD)
+    registry.count_all(
+        ADAGRAD, launch_adagrad(noop, gs, ps, hs, outs, **kw),
+        flops=6.0 * sum(p.numel() for p in ps),
+        bytes=registry.nbytes(gs, outs) + 2 * registry.nbytes(ps, hs))
 
 
 def novograd_norms_plain(gs, *, norm_type, scale=None):
@@ -883,5 +894,8 @@ def novograd(noop, gs, ps, ms, v, outs=None, *, slots=None, step, lr, b1, b2,
                          f"{v.numel()} values, one a tensor")
     _check_lists("novograd", dict(g=gs, p=ps, m=ms, out=outs),
                  fp32=("p", "m"))
-    for _ in range(launch_novograd(noop, gs, ps, ms, v, outs, **kw)):
-        registry.count(NOVOGRAD)
+    registry.count_all(
+        NOVOGRAD, launch_novograd(noop, gs, ps, ms, v, outs, **kw),
+        flops=10.0 * sum(p.numel() for p in ps),
+        bytes=2 * registry.nbytes(gs) + registry.nbytes(outs)
+        + 2 * registry.nbytes(ps, ms))

@@ -193,7 +193,8 @@ def quantize_rows(x2d, block: int, scales=None):
                       all(t.data_ptr() % 16 == 0 for t in (x2d, q,
                                                             out_scales)))
     _launch_quant(x2d, q, out_scales, scales is not None, path)
-    registry.count(QUANTIZE)
+    registry.count(QUANTIZE, flops=2.0 * x2d.numel(),
+                   bytes=registry.nbytes(x2d, q, out_scales))
     return q, out_scales
 
 
@@ -230,5 +231,6 @@ def dequantize_rows(q, scales, n=None, out_dtype=torch.float32):
                         out.element_size(),
                         q.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     _launch_dequant(q, scales, out, path)
-    registry.count(DEQUANTIZE)
+    registry.count(DEQUANTIZE, flops=float(out.numel()),
+                   bytes=registry.nbytes(q, scales, out))
     return out

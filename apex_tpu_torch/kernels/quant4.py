@@ -156,11 +156,12 @@ def _unpack_width(name, h, n):
     return n
 
 
-def _launch(name, counter, symbol, t, *args):
+def _launch(name, counter, symbol, t, *args, work=()):
     with torch.cuda.device(t.device):
         rc = _kernel(symbol)(*args, _checks.stream(t))
     _checks.status(name, rc)
-    registry.count(counter)
+    registry.count(counter, flops=2.0 * t.numel(),
+                   bytes=registry.nbytes(t, *work))
 
 
 def quantize_int4(x2d, scales):
@@ -175,7 +176,8 @@ def quantize_int4(x2d, scales):
     q = torch.empty((nb, b), dtype=torch.int8, device=x2d.device)
     if q.numel():
         _launch("quantize_int4", QUANTIZE, "apex_quant4", x2d,
-                x2d.data_ptr(), scales.data_ptr(), q.data_ptr(), nb, b)
+                x2d.data_ptr(), scales.data_ptr(), q.data_ptr(), nb, b,
+                work=(scales, q))
     return q
 
 
@@ -191,7 +193,8 @@ def dequantize_int4(q2d, scales):
     out = torch.empty((nb, b), dtype=torch.float32, device=q2d.device)
     if out.numel():
         _launch("dequantize_int4", DEQUANTIZE, "apex_dequant4", q2d,
-                q2d.data_ptr(), scales.data_ptr(), out.data_ptr(), nb, b)
+                q2d.data_ptr(), scales.data_ptr(), out.data_ptr(), nb, b,
+                work=(scales, out))
     return out
 
 
@@ -207,7 +210,7 @@ def pack_int4(q2d):
     p = torch.empty((nb, h), dtype=torch.uint8, device=q2d.device)
     if p.numel():
         _launch("pack_int4", PACK, "apex_pack4", q2d, q2d.data_ptr(),
-                p.data_ptr(), nb, b, h)
+                p.data_ptr(), nb, b, h, work=(p,))
     return p
 
 
@@ -223,7 +226,7 @@ def unpack_int4(p2d, n=None):
     out = torch.empty((nb, n), dtype=torch.int8, device=p2d.device)
     if out.numel():
         _launch("unpack_int4", UNPACK, "apex_unpack4", p2d, p2d.data_ptr(),
-                out.data_ptr(), nb, h, n)
+                out.data_ptr(), nb, h, n, work=(out,))
     return out
 
 
@@ -242,7 +245,8 @@ def quantize_pack_int4(x2d, scales):
     p = torch.empty((nb, h), dtype=torch.uint8, device=x2d.device)
     if p.numel():
         _launch("quantize_pack_int4", QUANTIZE_PACK, "apex_quant_pack4", x2d,
-                x2d.data_ptr(), scales.data_ptr(), p.data_ptr(), nb, b, h)
+                x2d.data_ptr(), scales.data_ptr(), p.data_ptr(), nb, b, h,
+                work=(scales, p))
     return p
 
 
@@ -261,5 +265,6 @@ def unpack_dequantize_int4(p2d, scales, n=None):
     if out.numel():
         _launch("unpack_dequantize_int4", UNPACK_DEQUANTIZE,
                 "apex_unpack_dequant4", p2d, p2d.data_ptr(),
-                scales.data_ptr(), out.data_ptr(), nb, h, n)
+                scales.data_ptr(), out.data_ptr(), nb, h, n,
+                work=(scales, out))
     return out

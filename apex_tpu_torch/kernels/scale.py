@@ -131,9 +131,11 @@ def scale(flag, xs, outs, scale):
     if not _checks.on_cuda("multi_tensor_scale", flag, scale, *xs, *outs):
         return scale_plain(flag, xs, outs, scale)
     _check("multi_tensor_scale", flag, scale, (xs, outs))
-    for _ in range(launch(SCALE, flag, xs, xs, outs, scale.data_ptr(), 0.0,
-                          0.0)):
-        registry.count(SCALE_KERNEL)
+    registry.count_all(
+        SCALE_KERNEL, launch(SCALE, flag, xs, xs, outs, scale.data_ptr(), 0.0,
+                             0.0),
+        flops=2.0 * sum(x.numel() for x in xs),
+        bytes=registry.nbytes(xs, outs))
 
 
 def axpby(flag, xs, ys, outs, a, b):
@@ -144,5 +146,7 @@ def axpby(flag, xs, ys, outs, a, b):
     if not _checks.on_cuda("multi_tensor_axpby", flag, *xs, *ys, *outs):
         return axpby_plain(flag, xs, ys, outs, a, b)
     _check("multi_tensor_axpby", flag, None, (xs, ys, outs))
-    for _ in range(launch(AXPBY, flag, xs, ys, outs, None, a, b)):
-        registry.count(SCALE_KERNEL)
+    registry.count_all(
+        SCALE_KERNEL, launch(AXPBY, flag, xs, ys, outs, None, a, b),
+        flops=4.0 * sum(x.numel() for x in xs),
+        bytes=registry.nbytes(xs, ys, outs))

@@ -176,7 +176,8 @@ def causal_softmax_fwd(x, scale):
         rc = _fwd_kernel()(x.data_ptr(), y.data_ptr(), rows, sq, sk,
                            float(scale), code, path, _checks.stream(x))
     _checks.status("causal_softmax_fwd", rc)
-    registry.count(CAUSAL_SOFTMAX)
+    registry.count(CAUSAL_SOFTMAX, flops=5.0 * x.numel() / 2,
+                   bytes=registry.nbytes(x, y))
     return y
 
 
@@ -218,7 +219,8 @@ def scaled_softmax_fwd(x, scale):
         return scaled_softmax_fwd_plain(x, scale)
     code, rows = _check_rows("scaled_softmax_fwd", x)
     y = _launch_masked("scaled_softmax_fwd", x, code, rows, None, scale)
-    registry.count(SCALED_SOFTMAX)
+    registry.count(SCALED_SOFTMAX, flops=5.0 * x.numel(),
+                   bytes=registry.nbytes(x, y))
     return y
 
 
@@ -262,7 +264,8 @@ def scaled_masked_softmax_fwd(x, mask, scale):
     shape = (1,) * (4 - x.dim()) + tuple(x.shape)
     y = _launch_masked(name, x, code, rows, _mask_view(name, mask, shape),
                        scale)
-    registry.count(MASKED_SOFTMAX)
+    registry.count(MASKED_SOFTMAX, flops=5.0 * x.numel(),
+                   bytes=registry.nbytes(x, y))
     return y
 
 
@@ -293,5 +296,6 @@ def softmax_bwd(y, dy, scale):
                            y.shape[-1], float(scale), code, path,
                            _checks.stream(y))
     _checks.status("softmax_bwd", rc)
-    registry.count(SOFTMAX_BWD)
+    registry.count(SOFTMAX_BWD, flops=4.0 * y.numel(),
+                   bytes=registry.nbytes(y, dy, dx))
     return dx

@@ -32,8 +32,9 @@ process group (:mod:`apex_tpu_torch.parallel.groups`), with
 ``all_reduce(MAX)``, ``psum_scatter(tiled)`` -> ``reduce_scatter_tensor``,
 ``all_gather(tiled)`` -> ``all_gather_into_tensor``. The int4 gather takes
 JAX's default, fused form: quantize+pack and unpack+dequantize in one
-kernel each. JAX's ``record_collective`` telemetry comes with ROADMAP
-item 7.
+kernel each. Each collective is accounted with
+:func:`apex_tpu_torch.telemetry.comm.record_collective` where JAX records
+it, at its semantic wire width.
 
     q, s = quantize_rows_blockwise(x)        # x [..., F]
     x_hat = dequantize_rows_blockwise(q, s, n=x.shape[-1])
@@ -49,6 +50,7 @@ import torch.distributed as dist
 from apex_tpu_torch.kernels import quant, quant4
 from apex_tpu_torch.kernels.quant import block_scales  # noqa: F401
 from apex_tpu_torch.parallel.groups import axis_group
+from apex_tpu_torch.telemetry import comm as _telemetry_comm
 
 # lanes per scale: 0.4 % scale overhead at 256
 BLOCK_SIZE = 256
@@ -168,10 +170,22 @@ def _all_gather(x, group):
     return out
 
 
+def _record(op, elements, dtype, group, mode, **kw):
+    """Account one collective of ``group`` (:mod:`apex_tpu_torch.
+    telemetry.comm`), at the places and widths the JAX package records
+    them."""
+    _telemetry_comm.record_collective(
+        op, elements=elements, dtype=dtype, axis_name="dp"
+        if group is dist.group.WORLD else group,
+        world=dist.get_world_size(group), mode=mode, **kw)
+
+
 def _shared_scales(x2d, group):
     """Per-replica block scales (absmax / 127) combined to the replica
     set's max: every replica quantizes on the same grid."""
-    return _all_reduce(block_scales(x2d), dist.ReduceOp.MAX, group)
+    scales = block_scales(x2d)
+    _record("pmax", scales.numel(), torch.float32, group, "int8")
+    return _all_reduce(scales, dist.ReduceOp.MAX, group)
 
 
 def _shared_int4_scales(x2d, group):
@@ -179,7 +193,9 @@ def _shared_int4_scales(x2d, group):
     then derive ``(sq, gmax)`` from the shared absmaxes on every replica
     (a deterministic function, so the grids agree and the int32 sum is
     exact). Returns the effective [nblocks, 1] fp32 scales."""
-    absmax = _all_reduce(quant4.block_absmax(x2d), dist.ReduceOp.MAX, group)
+    absmax = quant4.block_absmax(x2d)
+    _record("pmax", absmax.numel(), torch.float32, group, "int4")
+    absmax = _all_reduce(absmax, dist.ReduceOp.MAX, group)
     return quant4.two_level_scales(absmax)[0]
 
 
@@ -199,6 +215,8 @@ def _psum_int4(flat, group, *, residual, block_size=BLOCK_SIZE):
     x2d = _effective(flat, residual, block_size)
     scales = _shared_int4_scales(x2d, group)
     q = quant4.quantize_int4(x2d, scales)
+    _record("psum", q.numel(), torch.int8, group, "int4", bits=4,
+            emulated=True)
     total = _all_reduce(q.to(torch.int32), dist.ReduceOp.SUM, group)
     out = dequantize_blockwise(total, scales, n=n)
     return out, _error(x2d, q, scales).reshape(-1)[:n]
@@ -215,6 +233,7 @@ def psum_compressed(flat, axis_name, *, mode="int8", residual=None,
     and the residual passes through unchanged (None stays None)."""
     group = axis_group(axis_name)
     if mode == "bf16":
+        _record("psum", flat.numel(), torch.bfloat16, group, "bf16")
         out = _all_reduce(flat.to(torch.bfloat16, copy=True),
                           dist.ReduceOp.SUM, group)
         return out.to(flat.dtype), residual
@@ -227,6 +246,7 @@ def psum_compressed(flat, axis_name, *, mode="int8", residual=None,
     x2d = _effective(flat, residual, block_size)
     scales = _shared_scales(x2d, group)
     q, _ = quantize_blockwise(x2d.reshape(-1), block_size, scales)
+    _record("psum", q.numel(), torch.int8, group, "int8", emulated=True)
     total = _all_reduce(q.to(torch.int32), dist.ReduceOp.SUM, group)
     out = dequantize_blockwise(total, scales, n=n)
     return out, _error(x2d, q, scales).reshape(-1)[:n]
@@ -250,6 +270,7 @@ def psum_compressed_blocks(x2d, axis_name, *, scale_mult=None):
     group = axis_group(axis_name)
     scales = _shared_scales(x2d, group)
     q, _ = quantize_blockwise(x2d.reshape(-1), x2d.shape[1], scales)
+    _record("psum", q.numel(), torch.int8, group, "int8", emulated=True)
     total = _all_reduce(q.to(torch.int32), dist.ReduceOp.SUM, group)
     out_scales = scales if scale_mult is None else scales * torch.full(
         (), scale_mult, dtype=torch.float32, device=scales.device)
@@ -275,6 +296,7 @@ def psum_scatter_compressed(flat, axis_name, *, mode="int8", residual=None,
                              f"size {world}")
         shard = torch.empty(x.shape[0] // world, dtype=torch.bfloat16,
                             device=x.device)
+        _record("psum_scatter", x.numel(), torch.bfloat16, group, "bf16")
         return _reduce_scatter(shard, x, group).float(), residual
     if mode not in ("int8", "int4"):
         raise ValueError(f"unknown compression mode {mode!r}")
@@ -292,6 +314,8 @@ def psum_scatter_compressed(flat, axis_name, *, mode="int8", residual=None,
     per = nb // world
     total = torch.empty((per, block_size), dtype=torch.int32,
                         device=q.device)
+    _record("psum_scatter", q.numel(), torch.int8, group, mode,
+            bits=4 if mode == "int4" else None, emulated=True)
     _reduce_scatter(total, q.to(torch.int32), group)
     rank = dist.get_rank(group)
     shard = dequantize_blockwise(total, scales[rank * per:(rank + 1) * per])
@@ -306,12 +330,15 @@ def all_gather_compressed(shard, axis_name, *, mode="bf16",
     Returns the full fp32 flat vector."""
     group = axis_group(axis_name)
     if mode == "bf16":
+        _record("all_gather", shard.numel(), torch.bfloat16, group, "bf16")
         return _all_gather(shard.to(torch.bfloat16), group).float()
     if mode == "int4":
         return _all_gather_int4(shard, group, block_size=block_size)
     if mode != "int8":
         raise ValueError(f"unknown compression mode {mode!r}")
     q, scales = quantize_blockwise(shard, block_size)
+    _record("all_gather", q.numel(), torch.int8, group, "int8")
+    _record("all_gather", scales.numel(), torch.float32, group, "int8")
     return dequantize_blockwise(_all_gather(q, group),
                                 _all_gather(scales, group))
 
@@ -327,6 +354,8 @@ def _all_gather_int4(shard, group, *, block_size=BLOCK_SIZE):
     nb = x2d.shape[0]
     scales, sq, gmax = quant4.two_level_scales(quant4.block_absmax(x2d))
     packed = quant4.quantize_pack_int4(x2d, scales)
+    for t in (packed, sq, gmax.reshape(1)):
+        _record("all_gather", t.numel(), t.dtype, group, "int4")
     p_full = _all_gather(packed, group)
     sq_full = _all_gather(sq, group)
     gmax_full = _all_gather(gmax.reshape(1), group)

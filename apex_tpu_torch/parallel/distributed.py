@@ -24,9 +24,16 @@ input's structure.
     for p, g in zip(params, grads):
         p.grad.copy_(g)
 
-Not here yet: ``numerics=`` and ``memory_report`` (telemetry, ROADMAP
-item 7), ``expert_param_predicate`` and tuple axes (expert parallelism,
-item 6); each raises, naming its item.
+``numerics=`` (True or a grouping depth) appends per-module gradient
+statistics (:mod:`apex_tpu_torch.telemetry.numerics`, K7 on the card) to
+what ``sync`` returns: ``grads/<prefix>`` of the local pre-compression
+gradients and ``synced/<prefix>`` of the synced ones. ``sync`` runs under
+the ``ddp/sync`` span and every collective is accounted in
+:mod:`apex_tpu_torch.telemetry.comm`; ``memory_report`` measures a step
+(:func:`apex_tpu_torch.telemetry.memory.step_memory`).
+
+Not here yet: ``expert_param_predicate`` and tuple axes (expert
+parallelism, ROADMAP item 6); each raises, naming its item.
 """
 
 import functools
@@ -39,13 +46,32 @@ from torch.profiler import record_function
 from apex_tpu_torch.parallel import compression
 from apex_tpu_torch.parallel.compression import init_residual
 from apex_tpu_torch.parallel.groups import axis_group
+from apex_tpu_torch.telemetry import comm as _telemetry_comm
+from apex_tpu_torch.telemetry import numerics as _numerics
+from apex_tpu_torch.telemetry import trace as _telemetry_trace
 
 
-def _refuse_numerics(numerics):
-    if numerics:
-        raise NotImplementedError(
-            "numerics= (per-module gradient statistics) comes with the "
-            "telemetry slice, ROADMAP item 7")
+def _numerics_depth(numerics):
+    """Resolve the ``numerics=`` knob: True -> env/default grouping
+    depth, an int -> that depth."""
+    return (_numerics.default_prefix_depth() if numerics is True
+            else int(numerics))
+
+
+def _grad_sync_stats(local_grads, synced_grads, numerics):
+    """The two stat groups the DDP ``numerics=`` knob exposes:
+    ``grads/<prefix>`` from the LOCAL PRE-COMPRESSION gradients (an int8
+    sum can launder a replica's NaN into finite wire garbage, so only the
+    local view sees the true non-finite source) and ``synced/<prefix>``
+    from the synced (dequantized) gradients, so the quantization error
+    shows as the rms delta per module prefix. One dict, its table in
+    sorted key order."""
+    depth = _numerics_depth(numerics)
+    return _numerics.merge(
+        _numerics.tree_stats(local_grads, prefix_depth=depth,
+                             prefix="grads"),
+        _numerics.tree_stats(synced_grads, prefix_depth=depth,
+                             prefix="synced"))
 
 
 def _refuse_expert(expert_param_predicate):
@@ -170,7 +196,11 @@ def all_reduce_flag(flag, axis_name="dp"):
     if axis_name is None or _no_axes(axis_name):
         return flag
     flag = flag.clone()
-    dist.all_reduce(flag, group=axis_group(axis_name))
+    group = axis_group(axis_name)
+    _telemetry_comm.record_collective(
+        "psum", elements=flag.numel(), dtype=flag.dtype, axis_name=axis_name,
+        world=dist.get_world_size(group))
+    dist.all_reduce(flag, group=group)
     return flag
 
 
@@ -204,6 +234,9 @@ def _psum_with_policy(g, axis_name, allreduce_always_fp32, gradient_average,
     else:
         if g is orig:  # the sum is in place: never on the caller's tensor
             g = g.clone()
+        _telemetry_comm.record_collective(
+            "psum", elements=g.numel(), dtype=g.dtype, axis_name=axis_name,
+            world=dist.get_world_size(group))
         dist.all_reduce(g, group=group)
     if gradient_average:
         g = _div(g, dist.get_world_size(group) / gradient_predivide_factor)
@@ -220,9 +253,22 @@ def all_reduce_gradients(grads, axis_name="dp", *, allreduce_always_fp32=False,
     """All-reduce every gradient leaf on its own (the per-leaf DDP path).
     With ``compress="int8"`` or ``"int4"`` the return is ``(grads,
     residual)``: carry the residual to the next call (``None`` starts
-    from zeros)."""
-    _refuse_numerics(numerics)
+    from zeros). ``numerics=True`` (or a grouping depth) appends the
+    per-module statistics of :func:`_grad_sync_stats` as the last
+    return element."""
     _refuse_expert(expert_param_predicate)
+    if numerics:
+        out = all_reduce_gradients(
+            grads, axis_name, allreduce_always_fp32=allreduce_always_fp32,
+            gradient_average=gradient_average,
+            gradient_predivide_factor=gradient_predivide_factor,
+            compress=compress, compress_block_size=compress_block_size,
+            residual=residual)
+        if compression.needs_residual(compress):
+            synced, new_residual = out
+            return synced, new_residual, _grad_sync_stats(grads, synced,
+                                                          numerics)
+        return out, _grad_sync_stats(grads, out, numerics)
     policy = functools.partial(
         _psum_with_policy, axis_name=axis_name,
         allreduce_always_fp32=allreduce_always_fp32,
@@ -351,7 +397,6 @@ class DistributedDataParallel:
                  compress: Optional[str] = None,
                  compress_block_size: int = compression.BLOCK_SIZE,
                  numerics=None):
-        _refuse_numerics(numerics)
         _refuse_expert(expert_param_predicate)
         if module is not None and not isinstance(module, torch.nn.Module):
             raise TypeError(_NEEDS_MODULE)
@@ -368,6 +413,8 @@ class DistributedDataParallel:
         # the residual to the next step
         self.compress = compress
         self.compress_block_size = compress_block_size
+        # per-module statistics appended to what .sync returns
+        self.numerics = numerics
         self._hooks = []
         if module is not None:
             group = axis_group(axis_name)
@@ -381,17 +428,30 @@ class DistributedDataParallel:
         shaped like the gradients."""
         return init_residual(grads_or_params)
 
-    def memory_report(self, *args, **kwargs):
-        raise NotImplementedError(
-            "memory_report (the step's memory accounting) comes with the "
-            "telemetry slice, ROADMAP item 7")
+    def memory_report(self, step, *args, **kwargs):
+        """Memory accounting of the step this DDP instance syncs inside:
+        ``step(*args, **kwargs)`` runs once, measured
+        (:func:`apex_tpu_torch.telemetry.memory.step_memory`: the bytes
+        live before it, left after it, its peak, the ``memory/
+        hbm_headroom`` gauge), and the report is tagged with the sync
+        config. Returns None without a card."""
+        from apex_tpu_torch.telemetry import memory as _memory
+
+        report = _memory.step_memory(step, *args, **kwargs)
+        if report is not None:
+            report = dict(report, compress=self.compress or "none",
+                          axis_name=str(self.axis_name))
+        return report
 
     def sync(self, grads, residual=None):
         """Gradient all-reduce honoring ``message_size`` (``None``: per
         leaf). With ``compress="int8"`` or ``"int4"`` returns ``(grads,
         residual)``; pass the previous step's residual in (``None``
-        starts from zeros, step 0 of error feedback). Runs under a
-        profiler range ``ddp/sync``."""
+        starts from zeros, step 0 of error feedback). With ``numerics=``
+        set at construction, the per-module statistics (``grads/*`` of
+        the local pre-compression gradients, ``synced/*`` of the synced
+        ones) are appended as the last return element. Runs under the
+        ``ddp/sync`` span (a profiler range by that name)."""
         kw = dict(allreduce_always_fp32=self.allreduce_always_fp32,
                   gradient_average=self.gradient_average,
                   gradient_predivide_factor=self.gradient_predivide_factor)
@@ -400,12 +460,23 @@ class DistributedDataParallel:
                       compress_block_size=self.compress_block_size)
             if compression.needs_residual(self.compress):
                 kw["residual"] = residual
-        with record_function("ddp/sync"):
+        with _telemetry_trace.span("ddp/sync",
+                                   compress=self.compress or "none",
+                                   bucketed=bool(self.message_size),
+                                   numerics=bool(self.numerics)):
             if self.message_size:
-                return all_reduce_gradients_bucketed(
+                out = all_reduce_gradients_bucketed(
                     grads, self.axis_name, message_size=self.message_size,
                     **kw)
-            return all_reduce_gradients(grads, self.axis_name, **kw)
+            else:
+                out = all_reduce_gradients(grads, self.axis_name, **kw)
+            if not self.numerics:
+                return out
+            if compression.needs_residual(self.compress):
+                synced, new_residual = out
+                return synced, new_residual, _grad_sync_stats(
+                    grads, synced, self.numerics)
+            return out, _grad_sync_stats(grads, out, self.numerics)
 
     def __call__(self, *args, **kwargs):
         """Call the wrapped module: DDP is transparent in forward, and its

@@ -30,7 +30,8 @@ of :class:`~apex_tpu_torch.parallel.overlap.OverlappedDataParallel` over
 :func:`gpt2_segments`, each bucket's DP sync issued as its layer's
 backward finishes, the int8 residual in the bucket domain;
 ``mode="baseline"`` runs the full backward, then the bucketed sync, then
-SGD. The guarded step waits for resilience (ROADMAP item 7).
+SGD; ``mode="guarded"`` runs the overlapped step under
+``resilience.guarded_update``.
 """
 
 from dataclasses import dataclass
@@ -285,14 +286,18 @@ def _xent(logits, labels):
     return -torch.mean(picked)
 
 
-def gpt2_segments(labels, layers, head_dim, *, fused=False):
+def gpt2_segments(labels, layers, head_dim, *, poison=None, fused=False):
     """The per-layer segment chain ``segments[k](params_k, carry) ->
     carry``: segment 0 embeds the token batch, the last segment closes
-    over ``labels`` and returns the scalar loss."""
+    over ``labels`` and returns the scalar loss. ``poison`` (an additive
+    scalar, e.g. ``faults.inject_nan``'s output) enters at the embedding
+    output so a NaN reaches every gradient."""
 
     def seg0(p, tokens):
         emb = p["embed"]
         x = emb["wte"][tokens] + emb["wpe"][:tokens.shape[1]]
+        if poison is not None:
+            x = x + poison
         return _block(p["layer"], x, head_dim, fused=fused)
 
     def seg_mid(p, x):
@@ -329,7 +334,8 @@ def gpt2_loss(seg_params, tokens, labels, head_dim, *, fused=False):
 
 def build_train_step(mesh, seg_params, *, hidden, heads, mode="overlapped",
                      compress="int8", lr=0.05, fold_average=True,
-                     message_size=10000000, fused=False):
+                     message_size=10000000, guard_nan_step=None,
+                     fused=False):
     """One 2-D train step on this rank's shards:
     ``step(sp, res, tokens, labels) -> (sp, res, loss)``, where ``loss``
     is this rank's (its data row's batch) and ``sp`` the new shards.
@@ -342,16 +348,23 @@ def build_train_step(mesh, seg_params, *, hidden, heads, mode="overlapped",
     backward, then ``DistributedDataParallel(axis_name="data",
     compress=compress).sync``; ``res`` leaf-shaped. ``res`` is ``None``
     where ``compress`` keeps no residual. Then SGD ``w - lr * g``.
-    ``mode="guarded"`` raises, naming ROADMAP item 7. ``fused`` routes the
-    row-parallel projections through ``matmul_reduce_from``.
+    ``fused`` routes the row-parallel projections through
+    ``matmul_reduce_from``.
 
-    Returns ``(step, state)``, ``state`` the carry ``(shards, residual)``,
-    the shards on ``seg_params``' device."""
-    if mode == "guarded":
-        raise NotImplementedError(
-            "mode='guarded': the guard comes with resilience, ROADMAP "
-            "item 7")
-    if mode not in ("baseline", "overlapped"):
+    ``mode="guarded"``: the overlapped step under
+    ``resilience.guarded_update``, the local non-finite flag (the
+    overlap's ``guard_flag``) OR'd over every rank of the mesh with one
+    fp32 all-reduce; a skipped step leaves the shards and the residual
+    as they were (``torch.where`` on the device, no host sync):
+    ``step(sp, res, gst, step_idx, tokens, labels) -> (sp, res, gst,
+    loss)``. ``guard_nan_step`` arms ``faults.inject_nan`` at the
+    embedding output at that step (``step_idx`` a host int or a device
+    int tensor).
+
+    Returns ``(step, state)``, ``state`` the carry ``(shards, residual)``
+    (``(shards, residual, guard_state)`` when guarded), the shards on
+    ``seg_params``' device."""
+    if mode not in ("baseline", "overlapped", "guarded"):
         raise ValueError(f"unknown mode {mode!r}")
     head_dim = hidden // heads
     layers = len(seg_params)
@@ -361,6 +374,13 @@ def build_train_step(mesh, seg_params, *, hidden, heads, mode="overlapped",
     def sgd(leaves, grads):
         with torch.no_grad():
             return [w - lr * g for w, g in zip(leaves, grads)]
+
+    if mode == "guarded":
+        return _guarded_step(shards, layers, head_dim, compress=compress,
+                             lr=lr, fold_average=fold_average,
+                             message_size=message_size,
+                             guard_nan_step=guard_nan_step, fused=fused,
+                             sgd=sgd)
 
     if mode == "overlapped":
         odp = OverlappedDataParallel(axis_name=DATA_AXIS, compress=compress,
@@ -396,6 +416,47 @@ def build_train_step(mesh, seg_params, *, hidden, heads, mode="overlapped",
         return _rebuild(sp, sgd(leaves, _leaves(grads))), res, loss.detach()
 
     return step, (shards, residual)
+
+
+def _guarded_step(shards, layers, head_dim, *, compress, lr, fold_average,
+                  message_size, guard_nan_step, fused, sgd):
+    from apex_tpu_torch import resilience
+    from apex_tpu_torch.resilience import faults
+
+    stateful = compression.needs_residual(compress)
+    odp = OverlappedDataParallel(axis_name=DATA_AXIS, compress=compress,
+                                 fold_average=fold_average,
+                                 message_size=message_size, guard_flag=True)
+    residual = odp.init_residual(shards) if stateful else None
+    leaves0 = _leaves(shards)
+    device = leaves0[0].device
+
+    def step(sp, res, gst, step_idx, tokens, labels):
+        poison = faults.inject_nan(
+            torch.zeros((), dtype=torch.float32, device=device), step_idx,
+            nan_step=guard_nan_step)
+        segs = gpt2_segments(labels, layers, head_dim,
+                             poison=poison if guard_nan_step is not None
+                             else None, fused=fused)
+        if stateful:
+            loss, synced, new_res, flag = odp.value_and_sync(
+                segs, list(sp), tokens, residual=res)
+        else:
+            loss, synced, flag = odp.value_and_sync(segs, list(sp), tokens)
+            new_res = None
+
+        def commit(g, st, _flag):
+            prev_sp, _ = st
+            return (_rebuild(prev_sp, sgd(_leaves(prev_sp), _leaves(g))),
+                    new_res)
+
+        # every rank of the mesh is in the default group: the OR spans
+        # both axes, as JAX's psum over (data, model)
+        (sp, res), gst = resilience.guarded_update(
+            synced, commit, (sp, res), gst, axis_name="dp", flag=flag)
+        return sp, res, gst, loss
+
+    return step, (shards, residual, resilience.init_guard_state(device))
 
 
 def make_batch(mesh, *, batch_per_replica=2, seq=16, vocab=64, seed=1,

@@ -28,7 +28,14 @@ fixed: ``apex_tpu/parallel/overlap.py:217-231``).
 Profiler ranges: ``ddp_overlap_segment_<k>`` around segment k's backward,
 ``ddp_overlap_bucket_<n>`` around bucket n's collective (buckets numbered
 in emission order). As the DDP module, the collectives run at world 1
-too. ``guard_flag=`` and ``numerics=`` raise, naming ROADMAP item 7.
+too.
+
+Composition with the guard (``resilience.guarded_update``):
+``guard_flag=True`` also returns the LOCAL pre-compression non-finite
+flag (K7's counts, on the device) for the one fp32 all-reduce, and the
+bucket-domain residual reverts on a skipped step like any other state.
+``numerics=`` appends the same ``grads/*`` + ``synced/*`` statistics the
+DDP knob produces.
 """
 
 from typing import Any, Callable, NamedTuple, Optional, Sequence
@@ -41,13 +48,14 @@ from apex_tpu_torch.parallel import compression
 from apex_tpu_torch.parallel.distributed import (
     _div,
     _leaves,
+    _numerics_depth,
     _rebuild,
-    _refuse_numerics,
     flatten,
     plan_buckets,
     unflatten,
 )
 from apex_tpu_torch.parallel.groups import axis_group
+from apex_tpu_torch.telemetry import numerics as _numerics
 
 
 class Bucket(NamedTuple):
@@ -135,11 +143,6 @@ class OverlappedDataParallel:
                  numerics=None):
         if compress not in (None, "bf16", "int8", "int4"):
             raise ValueError(f"unknown compression mode {compress!r}")
-        if guard_flag:
-            raise NotImplementedError(
-                "guard_flag=True (the local non-finite flag for the guard) "
-                "comes with resilience, ROADMAP item 7")
-        _refuse_numerics(numerics)
         self.axis_name = axis_name
         self.message_size = message_size
         self.compress = compress
@@ -226,10 +229,13 @@ class OverlappedDataParallel:
         segment in reverse with each ready bucket's collective issued
         before the earlier segments' backward.
 
-        Returns ``loss`` (detached), ``synced`` (a list of per-segment
-        gradient trees, the averaging policy applied) and, in the int
-        modes, ``new_residual`` (bucket domain; ``residual=None`` starts
-        from zeros)."""
+        Returns, in order: ``loss`` (detached), ``synced`` (a list of
+        per-segment gradient trees, the averaging policy applied), then
+        ``new_residual`` (bucket domain, in the int modes;
+        ``residual=None`` starts from zeros), then the local non-finite
+        ``flag`` (iff ``guard_flag``), then the statistics dict (iff
+        ``numerics``; top-level leaf names should be unique across
+        segments)."""
         K = len(segments)
         plan = self.plan(segment_params)
         is_int = compression.needs_residual(self.compress)
@@ -237,12 +243,14 @@ class OverlappedDataParallel:
             residual = self.init_residual(segment_params)
         loss, tape = _forward(segments, segment_params, x)
 
-        synced, new_res = [None] * K, [None] * K
+        synced, new_res, local = [None] * K, [None] * K, [None] * K
         ct = torch.ones_like(loss)
         bucket_no = sum(len(s) for s in plan)
         for k in reversed(range(K)):
             with record_function(f"ddp_overlap_segment_{k}"):
                 gk, ct = _backward(tape, k, ct)
+            if self.guard_flag or self.numerics:
+                local[k] = _rebuild(segment_params[k], list(gk))
             out_leaves, seg_res = list(gk), []
             # buckets numbered in emission order: the last segment's first
             bucket_no -= len(plan[k])
@@ -257,9 +265,23 @@ class OverlappedDataParallel:
                     seg_res.append(err2d)
             synced[k] = _rebuild(segment_params[k], out_leaves)
             new_res[k] = tuple(seg_res)
+        outs = (loss.detach(), synced)
         if is_int:
-            return loss.detach(), synced, tuple(new_res)
-        return loss.detach(), synced
+            outs = outs + (tuple(new_res),)
+        if self.guard_flag:
+            from apex_tpu_torch.resilience.guard import nonfinite_flag
+
+            outs = outs + (nonfinite_flag(local, loss.device),)
+        if self.numerics:
+            depth = _numerics_depth(self.numerics)
+            stats = []
+            for k in range(K):
+                stats.append(_numerics.tree_stats(
+                    local[k], prefix_depth=depth, prefix="grads"))
+                stats.append(_numerics.tree_stats(
+                    synced[k], prefix_depth=depth, prefix="synced"))
+            outs = outs + (_numerics.merge(*stats),)
+        return outs
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +301,9 @@ def overlapped_zero_step(segments: Sequence[Callable],
     needs the global gradient norm before any update: its scatters still
     follow each segment's backward, its updates run after the walk.
 
-    Returns ``(loss, new_segment_params, new_state)``."""
+    Returns ``(loss, new_segment_params, new_state)``, plus the
+    ``grads/*`` statistics of the local gradients last when
+    ``opt.numerics`` is set."""
     from apex_tpu_torch.contrib.optimizers.distributed_fused_adam import (
         _BucketStep,
     )
@@ -289,14 +313,22 @@ def overlapped_zero_step(segments: Sequence[Callable],
                          "constructed with overlap=True")
     loss, tape = _forward(segments, segment_params, x)
     walk = _BucketStep(opt, state, segment_params, lr=lr, found_inf=found_inf)
+    numerics = getattr(opt, "numerics", None)
+    stats = []
     ct = torch.ones_like(loss)
     bucket_no = sum(len(s) for s in walk.plan)
     for k in reversed(range(len(segments))):
         with record_function(f"ddp_overlap_segment_{k}"):
             g_leaves, ct = _backward(tape, k, ct)
+        if numerics:
+            stats.append(_numerics.tree_stats(
+                _rebuild(segment_params[k], list(g_leaves)),
+                prefix_depth=_numerics_depth(numerics), prefix="grads"))
         bucket_no -= len(walk.plan[k])
         walk.reduce(k, g_leaves, scale, numbered=lambda bi, n=bucket_no:
                     record_function(f"ddp_overlap_bucket_{n + bi}"))
         del g_leaves
     new_params, new_state = walk.finish()
+    if numerics:
+        return loss.detach(), new_params, new_state, _numerics.merge(*stats)
     return loss.detach(), new_params, new_state

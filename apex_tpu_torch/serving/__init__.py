@@ -29,8 +29,8 @@ Tensor-parallel serving: under a tp grid every rank builds its engine
 over its shard with ``mesh=ServeMesh.from_grid()`` (JAX's ``(data=1,
 tp)`` mesh) and runs the same scheduler; the store holds each rank's
 heads, and tp rank 0 decides what a rank's clock would. The fleet router
-(ROADMAP queue A item 5(c)), CUDA graphs at tp > 1 (item 5(d)) and the
-telemetry hooks (item 7) are still to be ported.
+(ROADMAP queue A item 5(c)) and CUDA graphs at tp > 1 (item 5(d)) are
+still to be ported.
 """
 
 from apex_tpu_torch.serving.engine import (

@@ -71,9 +71,19 @@ the host, and no CUDA graph can capture it: at tp > 1 on the card the
 capture raises (graphs at tp > 1 over NCCL, ROADMAP queue A item 5(d)),
 so such an engine runs its bodies eagerly (``_capture = False``).
 
-Not ported yet (they raise ``NotImplementedError`` naming the item, see
-ROADMAP): a slot-sharded data axis (one replica a process: the fleet),
-the memory preflight and OOM guard, and a preemption ``guard``.
+Telemetry and resilience, as the JAX engine's: the store's allocation
+and the ladder's capture run under ``telemetry.memory.oom_guard``; each
+graph capture is a compile of the :class:`~apex_tpu_torch.telemetry.
+compile_watch.CompileWatcher` (``compile_count`` stays flat under any
+traffic); ``preflight`` measures the decode peak (weights + store + the
+ladder's graph pool) against capacity; every decode dispatch runs under
+``resilience.guarded_call`` with the injection points
+``faults.maybe_fail_decode`` / ``faults.poison_slot_for``; and the
+``serve/kv_cache_bytes`` gauge, ``serve/aot_compiles`` counter and
+``engine_start`` event land in the registry.
+
+Not ported yet (it raises ``NotImplementedError`` naming the item, see
+ROADMAP): a slot-sharded data axis (one replica a process: the fleet).
 
     engine = ServeEngine(model, ServeConfig(cache_mode="int8"))
     completed, stats = engine.serve(synthetic_trace(32, seed=0))
@@ -94,6 +104,9 @@ from apex_tpu_torch.parallel import compression
 from apex_tpu_torch.serving import kv_cache as kvc
 from apex_tpu_torch.serving import robust
 from apex_tpu_torch.serving.prefix_cache import PrefixStore
+from apex_tpu_torch.telemetry import compile_watch
+from apex_tpu_torch.telemetry import memory as tmemory
+from apex_tpu_torch.telemetry.registry import get_registry
 from apex_tpu_torch.transformer import parallel_state
 
 
@@ -142,9 +155,11 @@ class ServeConfig:
     names of a tensor-parallel engine's :class:`ServeMesh` axes; the
     model axis must be ``"tp"``, as JAX's. ``draft_params`` (a tp = 1
     ``state_dict``) loads the draft through ``split_params_for_tp``, as
-    the engine's ``params`` loads the target. ``preflight`` names a
-    feature of the JAX engine that is not ported yet: setting it
-    raises."""
+    the engine's ``params`` loads the target. ``preflight`` measures the
+    decode peak (weights + store + the graph pool) at construction
+    against the card's capacity (``$APEX_TPU_HBM_GB`` overrides it): a
+    warning over budget, or ``telemetry.memory.MemoryBudgetError`` with
+    ``preflight_strict``."""
 
     batch_buckets: Tuple[int, ...] = (1, 2, 4, 8)
     prefill_buckets: Tuple[int, ...] = (16, 32, 64)
@@ -163,7 +178,8 @@ class ServeConfig:
     num_draft_tokens: int = 4
     data_axis: str = "data"
     model_axis: str = "tp"
-    preflight: bool = False
+    preflight: bool = True
+    preflight_strict: bool = False
     prefix_cache: bool = False
     prefix_min_len: int = 4
     prefix_max_entries: int = 8
@@ -208,7 +224,7 @@ class ServeEngine:
     _capture = True
 
     def __init__(self, model, config: ServeConfig = None, *, mesh=None,
-                 name=None, params=None):
+                 name=None, params=None, registry=None, watcher=None):
         config = config or ServeConfig()
         tp = parallel_state.get_tensor_model_parallel_world_size()
         self.tp = tp
@@ -221,9 +237,6 @@ class ServeEngine:
                 f"NCCL come with ROADMAP queue A item 5(d), which needs a "
                 f"machine with two cards to check. Build the engine with "
                 f"_capture = False to run its bodies eagerly")
-        if config.preflight:
-            raise _not_ported("the memory preflight and OOM guard",
-                              "telemetry", 7)
         if not config.batch_buckets or not config.prefill_buckets:
             raise ValueError("empty bucket ladder")
         bb = tuple(sorted(set(int(b) for b in config.batch_buckets)))
@@ -279,16 +292,23 @@ class ServeEngine:
             min_len=config.prefix_min_len) if self._prefix else None
         self.last_prefill_hits = []
         self.max_len = limit
+        self._registry = registry
+        self._watcher = watcher if watcher is not None \
+            else compile_watch.get_watcher()
         self.spec = kvc.KVCacheSpec(model, config.num_slots,
                                     mode=config.cache_mode,
                                     block_size=config.block_size)
-        self._store = self.spec.allocate()
         self.draft_spec = self._draft_store = None
-        if self._spec_decode:
-            self.draft_spec = kvc.KVCacheSpec(
-                config.draft_model, config.num_slots, mode=config.cache_mode,
-                block_size=config.block_size)
-            self._draft_store = self.draft_spec.allocate()
+        # the store (the serving memory cost) allocated under the OOM
+        # post-mortem handler
+        labels = {"params": list(model.parameters())}
+        with tmemory.oom_guard(registry=registry, labels=labels):
+            self._store = self.spec.allocate()
+            if self._spec_decode:
+                self.draft_spec = kvc.KVCacheSpec(
+                    config.draft_model, config.num_slots,
+                    mode=config.cache_mode, block_size=config.block_size)
+                self._draft_store = self.draft_spec.allocate()
         # the seeded prefill's buffers, one per batch bucket and model:
         # static inputs of its graphs, shared by the bucket's seq buckets
         self._seeds = {}
@@ -309,13 +329,67 @@ class ServeEngine:
             self._generator.manual_seed(0)
         self._decode_calls = 0
         self.decode_retries_total = 0
-        self._poison = None
         self._graphs = {}
         self.graph_seconds = 0.0
         self.graph_pool = None
         self.graph_pool_bytes = 0
         if self.device.type == "cuda" and self._capture:
-            self._capture_ladder()
+            with tmemory.oom_guard(registry=registry,
+                                   labels=self.census_labels()):
+                self._capture_ladder()
+        self.memory_report = None
+        if config.preflight:
+            self.memory_report = self._preflight()
+        reg = self._reg()
+        if reg.enabled:
+            reg.gauge("serve/kv_cache_bytes").set(self.kv_cache_bytes())
+            reg.counter("serve/aot_compiles").inc(self.compile_count)
+            reg.event("serve", "engine_start",
+                      engine=name,
+                      batch_buckets=list(self.config.batch_buckets),
+                      prefill_buckets=list(self.config.prefill_buckets),
+                      num_slots=config.num_slots,
+                      cache_dtype=self.spec.cache_dtype_name(),
+                      kv_cache_bytes=self.kv_cache_bytes(),
+                      compile_count=self.compile_count,
+                      speculative=self._spec_decode,
+                      num_draft_tokens=(config.num_draft_tokens
+                                        if self._spec_decode else None),
+                      draft_kv_cache_bytes=(self.draft_kv_cache_bytes()
+                                            if self._spec_decode
+                                            else None),
+                      prefix_cache=self._prefix,
+                      aot_compile_seconds=round(self.graph_seconds, 4))
+
+    def _reg(self):
+        return self._registry or get_registry()
+
+    def weight_bytes(self):
+        """Bytes of the target's (and the draft's) parameters and
+        buffers."""
+        models = [self.model] + ([self.config.draft_model]
+                                 if self._spec_decode else [])
+        return int(sum(t.numel() * t.element_size() for m in models
+                       for t in list(m.parameters()) + list(m.buffers())))
+
+    def _preflight(self):
+        """The decode step's memory report: its peak is the weights, the
+        stores and the ladder's graph pool (every step's temporaries live
+        in the pool, measured at capture), against the card's capacity.
+        Over budget it warns, or raises ``MemoryBudgetError`` with
+        ``preflight_strict`` (JAX's ``headroom_frac < 0`` rule)."""
+        resident = self.weight_bytes() + self.kv_cache_bytes() + \
+            self.draft_kv_cache_bytes()
+        report = tmemory.make_report(
+            "serve/decode", peak_bytes=resident + self.graph_pool_bytes,
+            argument_bytes=resident, temp_bytes=self.graph_pool_bytes,
+            device=self.device)
+        tmemory.record_report(report, registry=self._registry)
+        return tmemory.judge(
+            report, strict=self.config.preflight_strict,
+            registry=self._registry,
+            what="the serve decode step (shrink num_slots, the bucket "
+                 "ladder, or switch cache_mode='int8')")
 
     # -- properties --------------------------------------------------------
 
@@ -379,6 +453,18 @@ class ServeEngine:
     def kv_cache_bytes(self):
         return self.spec.total_bytes()
 
+    def census_labels(self):
+        """OOM post-mortem attribution (``live_buffer_census`` matches
+        storages): the weights and the KV stores, the draft model's too
+        on a speculative engine."""
+        labels = {"params": list(self.model.parameters()),
+                  "kv_cache": self._store}
+        if self._spec_decode:
+            labels["draft_params"] = list(
+                self.config.draft_model.parameters())
+            labels["kv_cache_draft"] = self._draft_store
+        return labels
+
     def draft_kv_cache_bytes(self):
         return self.draft_spec.total_bytes() if self._spec_decode else 0
 
@@ -432,17 +518,15 @@ class ServeEngine:
     def poison_slot(self, slot, at_call=None):
         """Fault injection: make slot ``slot``'s logits NaN in decode call
         number ``at_call`` (the engine's lifetime decode-call counter,
-        0-based; default the next call), once. The step then quarantines
-        the slot on the device (its rows zeroed, the pad token sampled),
-        as a real non-finite slot would be."""
-        at = self._decode_calls if at_call is None else int(at_call)
-        self._poison = (int(slot), at)
+        0-based; default the next call), once, through
+        ``faults.arm_slot_nan`` (read by ``faults.poison_slot_for`` at
+        each dispatch, as the JAX engine reads it). The step then
+        quarantines the slot on the device (its rows zeroed, the pad
+        token sampled), as a real non-finite slot would be."""
+        from apex_tpu_torch.resilience import faults
 
-    def _poison_for(self, call):
-        if self._poison is None or self._poison[1] != call:
-            return -1
-        slot, self._poison = self._poison[0], None
-        return slot
+        at = self._decode_calls if at_call is None else int(at_call)
+        faults.arm_slot_nan(int(slot), at)
 
     # -- helpers -----------------------------------------------------------
 
@@ -510,16 +594,27 @@ class ServeEngine:
         """Capture one CUDA graph for each ladder entry, into one shared
         memory pool: each body runs once eagerly on a side stream first
         (the kernels' builds, cuBLAS's handles, the split counters), then
-        is captured with its launch counts recorded. The warm-up calls
-        write the store, so the stores and seed buffers are zeroed
-        after."""
+        is captured with its launch counts recorded. Each capture is a
+        compile of the compile watcher (``record_aot``, under this
+        engine's ``name``). The warm-up calls write the store, so the
+        stores and seed buffers are zeroed after."""
         self.graph_pool = torch.cuda.graph_pool_handle()
         t0 = time.perf_counter()
         keys = [("decode", b) for b in self.config.batch_buckets] + [
             ("prefill", b, s) for b, s in self.ladder()["prefill"]]
+        aot = f"{self.name}/serve" if self.name else "serve"
+        decode_tag = "spec_decode" if self._spec_decode else "decode"
+        prefill_tag = "seeded_prefill" if self._prefix else "prefill"
         with torch.no_grad():
             for key in keys:
+                t1 = time.perf_counter()
                 self._graphs[key] = self._capture_one(key)
+                tag = (f"{decode_tag}_b{key[1]}" if key[0] == "decode"
+                       else f"{prefill_tag}_b{key[1]}_s{key[2]}")
+                self._watcher.record_aot(
+                    f"{aot}/{self.config.cache_mode}/{tag}",
+                    [shape for _, shape in self._layout(key)],
+                    seconds=time.perf_counter() - t1)
         self.graph_pool_bytes = sum(
             seg["total_size"] for seg in torch.cuda.memory_snapshot()
             if tuple(seg["segment_pool_id"]) == tuple(
@@ -788,7 +883,7 @@ class ServeEngine:
 
     @torch.no_grad()
     def decode(self, slot_ids, tokens, *, pad_slot_ids=None, retries=0,
-               backoff_s=0.05, backoff_cap_s=1.0):
+               backoff_s=0.05, backoff_cap_s=1.0, guarded=True):
         """One decode step for the active ``slot_ids`` fed their last
         ``tokens``; returns ``(next_tokens, finite)``, each
         ``np.ndarray [len(slot_ids)]`` (``finite[i]`` False iff slot i's
@@ -799,7 +894,19 @@ class ServeEngine:
         step after a transient failure
         (:func:`~apex_tpu_torch.serving.robust.is_retryable_decode_error`)
         with capped exponential backoff; past the budget it raises
-        :class:`~apex_tpu_torch.serving.robust.DecodeFailedError`."""
+        :class:`~apex_tpu_torch.serving.robust.DecodeFailedError`.
+
+        Dispatch runs under ``resilience.guarded_call`` (``guarded=False``
+        opts out): an out-of-memory error mid-traffic writes the memory
+        post-mortem, its census labeled with the KV stores and weights,
+        and surfaces as ``HBMExhaustedError``. The injection points
+        (``faults.maybe_fail_decode`` before each attempt,
+        ``faults.poison_slot_for`` once a call) are keyed on the
+        engine's lifetime decode-call counter. Nothing records inside
+        the graph: the host reads one output after the replay."""
+        from apex_tpu_torch import resilience
+        from apex_tpu_torch.resilience import faults
+
         n = len(slot_ids)
         bbucket = self._pick_bucket(self.config.batch_buckets, n,
                                     "decode batch")
@@ -809,11 +916,21 @@ class ServeEngine:
         step_idx = self._decode_calls
         self._decode_calls += 1
         host = {"ids": ids, "tokens": toks,
-                "poison": [self._poison_for(step_idx)]}
+                "poison": [faults.poison_slot_for(step_idx)]}
+
+        def dispatch():
+            # one device-to-host copy a step: tokens and flags together
+            return self._run(("decode", bbucket), host).cpu().numpy()
+
         for attempt in range(int(retries) + 1):
             try:
-                # one device-to-host copy a step: tokens and flags together
-                out = self._run(("decode", bbucket), host).cpu().numpy()
+                faults.maybe_fail_decode(step_idx)
+                if guarded:
+                    out = resilience.guarded_call(
+                        dispatch, registry=self._registry,
+                        labels=self.census_labels())
+                else:
+                    out = dispatch()
                 break
             except Exception as e:  # noqa: BLE001 (classified below)
                 if not robust.is_retryable_decode_error(e):
@@ -825,6 +942,10 @@ class ServeEngine:
                         f"retry budget ({retries}) exhausted: {e}",
                         attempts=attempt + 1, last_error=e) from e
                 self.decode_retries_total += 1
+                reg = self._reg()
+                reg.counter("serve/decode_retries").inc()
+                reg.event("serve", "decode_retry", step=step_idx,
+                          attempt=attempt, error=type(e).__name__)
                 time.sleep(robust.retry_backoff_s(attempt, backoff_s,
                                                   backoff_cap_s))
         if self._spec_decode:
@@ -837,11 +958,12 @@ class ServeEngine:
         :class:`~apex_tpu_torch.serving.scheduler.Scheduler`; returns
         ``(completed, stats)``. ``robust`` (a
         :class:`~apex_tpu_torch.serving.robust.RobustConfig`) and
-        ``guard`` (not ported yet: it raises) pass through to the
-        scheduler."""
+        ``guard`` (a :class:`~apex_tpu_torch.resilience.PreemptionGuard`
+        whose signal starts the drain) pass through to the scheduler."""
         from apex_tpu_torch.serving.scheduler import Scheduler
 
-        sched = Scheduler(self, robust=robust, guard=guard)
+        sched = Scheduler(self, robust=robust, guard=guard,
+                          registry=self._registry)
         completed = sched.run(requests, **kw)
         return completed, sched.stats()
 

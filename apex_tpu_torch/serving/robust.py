@@ -39,6 +39,8 @@ Terminal statuses (``CompletedRequest.finish_reason``): ``length`` and
 import dataclasses
 from typing import Optional
 
+from apex_tpu_torch.resilience import guard as _guard
+
 ADMISSION_POLICIES = ("reject_newest", "shed_oldest")
 
 # finish_reason values that count toward goodput; every other terminal
@@ -82,6 +84,7 @@ class RobustConfig:
     retry_backoff_cap_s: float = 1.0
     drain_deadline_s: float = 30.0
     quarantine: bool = True
+    health_every: int = 0          # ticks between health events; 0 = end only
 
     def __post_init__(self):
         if self.admission_policy not in ADMISSION_POLICIES:
@@ -131,10 +134,10 @@ def is_retryable_decode_error(exc) -> bool:
     return any(marker in msg for marker in _RETRYABLE_MARKERS)
 
 
-class NonFiniteError(RuntimeError):
-    """Every slot of a decode batch produced non-finite logits at once:
-    poisoned weights or activations, not one poisoned request (the
-    counterpart of ``apex_tpu.resilience.NonFiniteError``)."""
+# every slot of a decode batch non-finite at once (poisoned weights or
+# activations, not one poisoned request) escalates to the resilience
+# guard's error, as in the JAX package
+NonFiniteError = _guard.NonFiniteError
 
 
 @dataclasses.dataclass
@@ -163,6 +166,9 @@ class DrainReport:
     cancelled_active: int          # evicted at the deadline, status "drained"
     cancelled_pending: int         # never admitted, status "drained"
     deadline_hit: bool
+
+    def as_event_fields(self):
+        return dataclasses.asdict(self)
 
 
 class ServeHealth:
@@ -195,3 +201,14 @@ class ServeHealth:
 
     def snapshot(self):
         return {name: getattr(self, name) for name in self.__slots__}
+
+    def emit(self, registry, *, tick, pending, active, free,
+             completed_ok, draining):
+        """Land the health snapshot: gauge + one structured event."""
+        if not registry.enabled:
+            return
+        registry.gauge("serve/pending_depth").set(pending)
+        registry.event(
+            "serve", "health", tick=tick, pending=pending, active=active,
+            free=free, completed_ok=completed_ok, draining=draining,
+            shed_rate=round(self.shed_rate(), 4), **self.snapshot())

@@ -39,9 +39,19 @@ collective.
 
 :meth:`Scheduler.stats` keeps its own latency samples (TTFT and
 per-token latency percentiles, tokens/s, decode steps, prefill calls).
-The JAX package's ``serve/*`` registry metrics and trace spans, and the
-``PreemptionGuard`` trigger, come with the telemetry and resilience
-slices.
+Telemetry (``serve/*``, the JAX package's names): ``serve/ttft`` and
+``serve/tok_latency`` histograms (milliseconds), ``serve/slot_occupancy``
+and ``serve/pending_depth`` gauges, ``serve/tokens_generated`` /
+``serve/requests_completed`` / ``serve/rejected`` / ``serve/expired`` /
+``serve/quarantined`` / ``serve/drained`` counters, a ``serve`` event per
+terminal request, ``health`` snapshots and a ``kv_cache`` census at the
+end of a run. With the registry enabled each request gets a
+``trace_id`` at submit (it survives ``dataclasses.replace``, so a
+migrated continuation keeps it) and its spans: ``serve/queued``,
+``serve/prefill``, ``serve/decode``, ``serve/evict`` under a root
+``serve/request``, plus one ``serve/decode_chunk`` a dispatch. A
+``guard=`` (:class:`~apex_tpu_torch.resilience.PreemptionGuard`) starts
+the drain when its signal arrives.
 """
 
 import dataclasses
@@ -53,6 +63,9 @@ import numpy as np
 
 from apex_tpu_torch.parallel import groups
 from apex_tpu_torch.serving import robust as robust_mod
+from apex_tpu_torch.telemetry.registry import get_registry
+from apex_tpu_torch.telemetry.trace import emit_span, new_span_id, \
+    new_trace_id
 from apex_tpu_torch.transformer.parallel_state import TENSOR_PARALLEL_AXIS
 
 
@@ -64,7 +77,10 @@ class Request:
     earlier). ``ttft_deadline_s`` / ``total_deadline_s`` override the
     scheduler's :class:`~apex_tpu_torch.serving.robust.RobustConfig`
     defaults for this request (None = inherit). ``tier`` is the SLO
-    class a fleet router reads (the scheduler itself is tier-blind)."""
+    class a fleet router reads (the scheduler itself is tier-blind).
+    ``trace_id`` is the request's causal identity (None = allocate at
+    submit when telemetry is on); it survives ``dataclasses.replace``,
+    so a migration continuation keeps the donor's id."""
 
     rid: int
     prompt: np.ndarray
@@ -73,6 +89,7 @@ class Request:
     ttft_deadline_s: Optional[float] = None
     total_deadline_s: Optional[float] = None
     tier: Optional[str] = None
+    trace_id: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -142,13 +159,20 @@ class Scheduler:
     completion and fast-forwards virtual time across idle gaps.
     """
 
-    def __init__(self, engine, *, clock=time.perf_counter, robust=None,
-                 guard=None):
-        if guard is not None:
-            raise NotImplementedError(
-                "a preemption guard is not ported yet; it comes with the "
-                "resilience slice (ROADMAP queue A item 7): call drain()")
+    def __init__(self, engine, *, registry=None, clock=time.perf_counter,
+                 robust=None, guard=None):
         self.engine = engine
+        self._registry = registry
+        # process-row key on every span this scheduler emits (the JAX
+        # package's fleet names a replica's here)
+        self.trace_label = "serve"
+        # rid -> {"trace_id", "root" (root span id), "submit_perf",
+        # "eligible_perf", "admit_perf"} — populated only while the
+        # registry is enabled; span timestamps use time.perf_counter()
+        # directly (not self._clock, which tests may virtualize) so they
+        # live on the registry's epoch clock
+        self._tr = {}
+        self.guard = guard
         self._tp = int(getattr(engine, "tp", 1))
         self._clock = clock
         self.robust = robust or robust_mod.RobustConfig()
@@ -182,15 +206,23 @@ class Scheduler:
         self._t_end = None
         self._retries_before = engine.decode_retries_total
 
+    def _reg(self):
+        return self._registry or get_registry()
+
     # -- submission & admission control ------------------------------------
 
     def _reject(self, request, reason, detail=""):
-        """Record one shed or bounced request. Returns False (the
-        ``submit`` contract)."""
+        """Record one shed or bounced request: host list + counter +
+        JSONL event. Returns False (the ``submit`` contract)."""
         self.rejected.append(robust_mod.RejectedRequest(
             rid=request.rid, reason=reason, tick=self.tick,
             prompt_len=len(request.prompt), detail=detail))
         self.health.rejected += 1
+        reg = self._reg()
+        reg.counter("serve/rejected").inc()
+        reg.event("serve", "rejected", rid=request.rid, reason=reason,
+                  tick=self.tick, prompt_len=len(request.prompt),
+                  detail=detail)
         return False
 
     def submit(self, request: Request):
@@ -234,20 +266,42 @@ class Scheduler:
             # the most patience
             oldest = self.pending.pop(0)
             self._known_rids.discard(oldest.rid)
+            self._tr.pop(oldest.rid, None)
             self._reject(oldest, "shed",
                          f"shed for rid {request.rid} "
                          f"(max_pending {rc.max_pending})")
         self._known_rids.add(request.rid)
+        reg = self._reg()
+        if reg.enabled:
+            if request.trace_id is None:
+                request.trace_id = new_trace_id()
+            self._tr[request.rid] = {
+                "trace_id": request.trace_id,
+                "root": new_span_id(),
+                "submit_perf": time.perf_counter(),
+            }
         self.pending.append(request)
         self.pending.sort(key=lambda r: (r.arrival, r.rid))
         return True
 
     # -- terminal bookkeeping ----------------------------------------------
 
+    _TERMINAL_COUNTERS = {
+        "deadline_exceeded": "serve/expired",
+        "poisoned": "serve/quarantined",
+        "failed": "serve/failed",
+        "drained": "serve/drained",
+        "max_steps": "serve/cancelled",
+    }
+
     def _terminal(self, req, reason, *, tokens=(), ttft_s=float("nan"),
-                  latencies=()):
-        """Land one request in a terminal state (every failure path
-        funnels through here, so no request vanishes silently)."""
+                  latencies=(), **event_fields):
+        """Land one request in a terminal state: completed-list record,
+        per-status counter, ``serve`` JSONL event (every failure path
+        funnels through here, so no request vanishes silently). When the
+        request is traced its phase spans close here too:
+        ``serve/decode`` (admission -> terminal), an instant
+        ``serve/evict``, and the root ``serve/request``."""
         rec = CompletedRequest(
             rid=req.rid,
             tokens=np.asarray(list(tokens), np.int32),
@@ -256,7 +310,46 @@ class Scheduler:
                                 if latencies else 0.0),
             finish_reason=reason)
         self.completed.append(rec)
+        reg = self._reg()
+        counter = self._TERMINAL_COUNTERS.get(reason)
+        if counter:
+            reg.counter(counter).inc()
+        reg.counter("serve/requests_completed").inc()
+        reg.counter("serve/tokens_generated").inc(len(rec.tokens))
+        tr = self._tr.pop(req.rid, None)
+        trace_fields = {}
+        if tr is not None:
+            trace_fields["trace_id"] = tr["trace_id"]
+            self._close_request_trace(tr, req, reason, reg,
+                                      tokens=len(rec.tokens))
+        reg.event("serve", "request_done", rid=req.rid,
+                  tokens=len(rec.tokens), prompt_len=len(req.prompt),
+                  ttft_ms=(round(rec.ttft_s * 1e3, 3)
+                           if np.isfinite(rec.ttft_s) else None),
+                  mean_tok_latency_ms=round(
+                      rec.mean_tok_latency_s * 1e3, 3),
+                  finish_reason=reason, **trace_fields, **event_fields)
         return rec
+
+    def _close_request_trace(self, tr, req, reason, reg, *, tokens):
+        """Emit the end-of-life spans for one traced request (see
+        :meth:`_terminal`). A request that never reached admission has
+        no ``serve/decode`` span: its whole life was the queue."""
+        now_p = time.perf_counter()
+        admit = tr.get("admit_perf")
+        if admit is not None:
+            emit_span("serve/decode", admit, now_p, registry=reg,
+                      trace_id=tr["trace_id"], parent_id=tr["root"],
+                      rid=req.rid, replica=self.trace_label,
+                      tokens=tokens)
+        emit_span("serve/evict", now_p, now_p, registry=reg,
+                  trace_id=tr["trace_id"], parent_id=tr["root"],
+                  rid=req.rid, reason=reason, replica=self.trace_label)
+        start = tr.get("eligible_perf", tr["submit_perf"])
+        emit_span("serve/request", start, now_p, registry=reg,
+                  trace_id=tr["trace_id"], span_id=tr["root"],
+                  rid=req.rid, tier=req.tier, finish_reason=reason,
+                  replica=self.trace_label, tokens=tokens)
 
     # -- the phases --------------------------------------------------------
 
@@ -283,7 +376,11 @@ class Scheduler:
         total-latency deadline. Returns (stop, late rids, late slots,
         the reading). At tp > 1 tp rank 0's decisions hold on every
         rank, over one broadcast a step, and a drain on rank 0 starts
-        every rank's."""
+        every rank's. A ``guard`` whose signal arrived starts the drain
+        (``"preempted"``)."""
+        if not self.draining and self.guard is not None \
+                and self.guard.preempted:
+            self.drain("preempted")
         stop = self.draining and (not self.active
                                   or self._drain_deadline_passed())
         if self._t_start is None:
@@ -314,26 +411,37 @@ class Scheduler:
         # eligibility is stamped here (not only at admission) so a
         # request stuck in the queue accrues wait time toward its TTFT
         # deadline from the moment it became eligible
+        now_p = time.perf_counter() if self._tr else None
         for r in self.pending:
             if r.arrival <= self.tick:
                 self._eligible_wall.setdefault(r.rid, now)
+                if now_p is not None and r.rid in self._tr:
+                    self._tr[r.rid].setdefault("eligible_perf", now_p)
         for r in [r for r in self.pending if r.rid in set(late_rids)]:
             self.pending.remove(r)
             self.health.expired += 1
-            self._terminal(r, "deadline_exceeded")
+            self._terminal(r, "deadline_exceeded", where="pending",
+                           waited_ms=round(
+                               (now - self._eligible_wall[r.rid]) * 1e3, 3))
         for slot in late_slots:
             st = self.active[slot]
             del self.active[slot]
             self._release(slot)
             self.health.expired += 1
-            self._terminal(st.req, "deadline_exceeded", tokens=st.tokens,
-                           ttft_s=st.ttft_s, latencies=st.latencies)
+            self._terminal(st.req, "deadline_exceeded", where="active",
+                           tokens=st.tokens, ttft_s=st.ttft_s,
+                           latencies=st.latencies, waited_ms=round(
+                               (now - self._eligible_wall[st.req.rid])
+                               * 1e3, 3))
 
     def _admit(self):
         now = self._clock()
+        now_p = time.perf_counter() if self._tr else None
         eligible = [r for r in self.pending if r.arrival <= self.tick]
         for r in eligible:
             self._eligible_wall.setdefault(r.rid, now)
+            if now_p is not None and r.rid in self._tr:
+                self._tr[r.rid].setdefault("eligible_perf", now_p)
         buckets = self.engine.config.batch_buckets
         while eligible and self.free:
             # the prefill call occupies a whole batch bucket (real + pad
@@ -347,16 +455,37 @@ class Scheduler:
             for r in group:
                 self.pending.remove(r)
             slots = [self.free.pop(0) for _ in group]
+            p0 = time.perf_counter() if self._tr else None
             first = self.engine.prefill(
                 slots, [r.prompt for r in group], pad_slot_ids=self.free)
             t1 = self._clock()
+            p1 = time.perf_counter() if self._tr else None
             self.prefill_calls += 1
             cuts = list(self.engine.last_prefill_hits or [0] * len(group))
+            reg = self._reg()
             for slot, r, tok, cut in zip(slots, group, first, cuts):
                 ttft = t1 - self._eligible_wall[r.rid]
                 self._ttft_ms.append(ttft * 1e3)
                 (self._ttft_hit_ms if cut
                  else self._ttft_miss_ms).append(ttft * 1e3)
+                reg.histogram("serve/ttft").observe(ttft * 1e3)
+                if cut:
+                    reg.histogram("serve/ttft_prefix_hit").observe(
+                        ttft * 1e3)
+                reg.counter("serve/requests_admitted").inc()
+                tr = self._tr.get(r.rid)
+                if tr is not None:
+                    emit_span("serve/queued",
+                              tr.get("eligible_perf", tr["submit_perf"]),
+                              p0, registry=reg, trace_id=tr["trace_id"],
+                              parent_id=tr["root"], rid=r.rid,
+                              replica=self.trace_label)
+                    emit_span("serve/prefill", p0, p1, registry=reg,
+                              trace_id=tr["trace_id"],
+                              parent_id=tr["root"], rid=r.rid,
+                              slot=slot, prefix_cut=int(cut),
+                              replica=self.trace_label)
+                    tr["admit_perf"] = p1
                 self.tokens_generated += 1
                 st = _Active(r, tok, ttft)
                 if self._finished(st):
@@ -375,12 +504,14 @@ class Scheduler:
             return
         rc = self.robust
         spec = self.engine.spec_enabled
+        trace_on = self._reg().enabled
         max_bucket = self.engine.config.batch_buckets[-1]
         slots = sorted(self.active)
         for i in range(0, len(slots), max_bucket):
             chunk = slots[i:i + max_bucket]
             toks = [self.active[s].last for s in chunk]
             t0 = self._clock()
+            p0 = time.perf_counter() if trace_on else None
             try:
                 out = self.engine.decode(
                     chunk, toks, pad_slot_ids=self.free,
@@ -391,19 +522,32 @@ class Scheduler:
                     emitted, counts, finite = out
                 else:
                     nxt, finite = out
-            except robust_mod.DecodeFailedError:
+            except robust_mod.DecodeFailedError as e:
                 # persistent failure: fail only this chunk's requests;
                 # other chunks (and future traffic) continue
                 self.health.decode_failures += 1
+                reg = self._reg()
+                reg.counter("serve/decode_failures").inc()
+                reg.event("serve", "decode_failed", slots=list(chunk),
+                          attempts=e.attempts,
+                          error=type(e.last_error).__name__)
                 for s in chunk:
                     st = self.active.pop(s)
                     self._release(s)
                     self.health.failed += 1
                     self._terminal(st.req, "failed", tokens=st.tokens,
-                                   ttft_s=st.ttft_s, latencies=st.latencies)
+                                   ttft_s=st.ttft_s, latencies=st.latencies,
+                                   attempts=e.attempts)
                 continue
             dt = self._clock() - t0
             self.decode_steps += 1
+            reg = self._reg()
+            reg.counter("serve/decode_steps").inc()
+            if p0 is not None and reg.enabled:
+                # engine-row span: one per dispatch, covering the chunk
+                emit_span("serve/decode_chunk", p0, registry=reg,
+                          slots=len(chunk), spec=spec,
+                          replica=self.trace_label, tick=self.tick)
             if rc.quarantine and len(chunk) >= 2 and not finite.any():
                 # every slot non-finite at once: poisoned weights or
                 # activations, not one poisoned request (a 1-slot batch
@@ -412,6 +556,8 @@ class Scheduler:
                 for s in chunk:
                     st = self.active.pop(s)
                     self._quarantine(s, st)
+                reg.event("serve", "all_slots_nonfinite",
+                          slots=list(chunk), tick=self.tick)
                 raise robust_mod.NonFiniteError(
                     f"every slot in the decode batch ({list(chunk)}) "
                     f"produced non-finite logits at tick {self.tick}: this "
@@ -421,9 +567,14 @@ class Scheduler:
                 # proposed = k per real slot; accepted = counts - 1 (the
                 # +1 is the target's own correction or bonus token)
                 k = int(self.engine.config.num_draft_tokens)
-                self.spec_proposed += k * len(chunk)
-                self.spec_accepted += int(sum(
-                    int(c) - 1 for c, ok in zip(counts, finite) if ok))
+                proposed = k * len(chunk)
+                accepted = int(sum(int(c) - 1
+                                   for c, ok in zip(counts, finite) if ok))
+                self.spec_proposed += proposed
+                self.spec_accepted += accepted
+                reg.counter("serve/spec_proposed").inc(proposed)
+                if accepted:
+                    reg.counter("serve/spec_accepted").inc(accepted)
                 blocks = [list(emitted[j][:int(counts[j])])
                           for j in range(len(chunk))]
             else:
@@ -445,6 +596,7 @@ class Scheduler:
                     st.last = int(tok)
                     st.latencies.append(per_tok)
                     self._tok_latency_ms.append(per_tok * 1e3)
+                    reg.histogram("serve/tok_latency").observe(per_tok * 1e3)
                     self.tokens_generated += 1
                     if self._finished(st):
                         done = True
@@ -464,7 +616,8 @@ class Scheduler:
         self._release(slot)
         self.health.quarantined += 1
         self._terminal(st.req, "poisoned", tokens=st.tokens,
-                       ttft_s=st.ttft_s, latencies=st.latencies)
+                       ttft_s=st.ttft_s, latencies=st.latencies,
+                       slot=slot, tick=self.tick)
 
     def _evict(self, slot, st):
         if slot in self.active:
@@ -488,8 +641,10 @@ class Scheduler:
         the id to the free pool, so ``engine.extract_kv_state`` can still
         read its rows after this sweep, as long as nothing prefills in
         between. ``which`` is ``"all"``, ``"active"`` or ``"pending"``.
-        ``reason`` names the sweep (the JAX package records it in its
-        telemetry events, which are not ported)."""
+        Each extraction ticks ``serve/extracted`` and lands a
+        ``serve``/``extracted`` event naming ``reason``; a traced
+        request's spans close here (the survivor opens a new root under
+        the same ``trace_id``)."""
         if which not in ("all", "active", "pending"):
             raise ValueError(f"which ({which!r}) not in "
                              f"('all', 'active', 'pending')")
@@ -508,10 +663,21 @@ class Scheduler:
                 out.append({"request": r, "tokens": [],
                             "ttft_s": float("nan"), "latencies": [],
                             "where": "pending", "slot": None})
+        reg = self._reg()
         for rec in out:
             rid = rec["request"].rid
             self._known_rids.discard(rid)
             self._eligible_wall.pop(rid, None)
+            reg.counter("serve/extracted").inc()
+            tr = self._tr.pop(rid, None)
+            trace_fields = {}
+            if tr is not None:
+                trace_fields["trace_id"] = tr["trace_id"]
+                self._close_request_trace(tr, rec["request"], reason, reg,
+                                          tokens=len(rec["tokens"]))
+            reg.event("serve", "extracted", rid=rid, reason=reason,
+                      where=rec["where"], tokens=len(rec["tokens"]),
+                      tick=self.tick, **trace_fields)
         return out
 
     # -- drain -------------------------------------------------------------
@@ -526,6 +692,9 @@ class Scheduler:
             self._drain_start_wall = self._clock()
             self._drain_start_tick = self.tick
             self._drain_completed_before = len(self.completed)
+            self._reg().event("serve", "drain_start", reason=reason,
+                              tick=self.tick, active=len(self.active),
+                              pending=len(self.pending))
 
     def _drain_deadline_passed(self):
         return (self._clock() - self._drain_start_wall
@@ -547,7 +716,7 @@ class Scheduler:
             self.pending.remove(r)
             self.health.drained += 1
             cancelled_pending += 1
-            self._terminal(r, "drained")
+            self._terminal(r, "drained", where="pending")
         self.drain_report = robust_mod.DrainReport(
             reason=self._drain_reason,
             started_tick=self._drain_start_tick,
@@ -558,6 +727,8 @@ class Scheduler:
             cancelled_active=cancelled_active,
             cancelled_pending=cancelled_pending,
             deadline_hit=cancelled_active > 0)
+        self._reg().event("serve", "drain_report",
+                          **self.drain_report.as_event_fields())
 
     # -- driving -----------------------------------------------------------
 
@@ -574,6 +745,11 @@ class Scheduler:
             self._admit()
         self._decode_once()
         self.tick += 1.0
+        self._reg().gauge("serve/slot_occupancy").set(
+            len(self.active) / self.num_slots)
+        every = self.robust.health_every
+        if every and int(self.tick) % every == 0:
+            self._health_event()
 
     def run(self, requests=None, *, max_steps=100_000):
         """Drive ``requests`` (plus anything already submitted) to a
@@ -607,6 +783,9 @@ class Scheduler:
          self.drain_report) = self._agree((
              self._t_start, self._t_end, self._ttft_ms, self._ttft_hit_ms,
              self._ttft_miss_ms, self._tok_latency_ms, self.drain_report))
+        self._census_event()
+        self._spec_prefix_events()
+        self._health_event()
         return self.completed
 
     def _exhaust_max_steps(self, max_steps):
@@ -623,12 +802,62 @@ class Scheduler:
         for r in list(self.pending):
             self.pending.remove(r)
             self.health.max_steps += 1
-            self._terminal(r, "max_steps")
+            self._terminal(r, "max_steps", where="pending")
+        self._reg().event("serve", "max_steps_exhausted",
+                          max_steps=max_steps, tick=self.tick,
+                          cancelled_active=stranded_active,
+                          cancelled_pending=stranded_pending)
         warnings.warn(
             f"scheduler exhausted max_steps ({max_steps}) with "
             f"{stranded_pending} pending / {stranded_active} active "
             f"request(s): all cancelled with terminal status 'max_steps' "
             f"(a request was not converging)", stacklevel=3)
+
+    def _census_event(self):
+        eng = self.engine
+        reg = self._reg()
+        reg.gauge("serve/kv_cache_bytes").set(eng.kv_cache_bytes())
+        reg.event("serve", "kv_cache",
+                  slots_total=self.num_slots,
+                  slots_used=len(self.active),
+                  slots_free=len(self.free),
+                  bytes_per_slot=eng.spec.bytes_per_slot(),
+                  cache_dtype=eng.spec.cache_dtype_name(),
+                  kv_cache_bytes=eng.kv_cache_bytes())
+
+    def _spec_prefix_events(self):
+        """End-of-run rollups for the two serving multipliers (only when
+        the engine runs them): speculative acceptance, prefix-store
+        hits."""
+        reg = self._reg()
+        if self.engine.spec_enabled:
+            rate = (self.spec_accepted / self.spec_proposed
+                    if self.spec_proposed else 0.0)
+            reg.gauge("serve/spec_acceptance_rate").set(rate)
+            reg.event("serve", "spec_report",
+                      proposed=self.spec_proposed,
+                      accepted=self.spec_accepted,
+                      acceptance_rate=round(rate, 4),
+                      num_draft_tokens=int(
+                          self.engine.config.num_draft_tokens),
+                      decode_steps=self.decode_steps,
+                      tokens_generated=self.tokens_generated)
+        store = getattr(self.engine, "prefix_store", None)
+        if store is not None:
+            s = store.stats()
+            reg.gauge("serve/prefix_hit_rate").set(s["hit_rate"])
+            reg.event("serve", "prefix_report", **s)
+
+    def _health_event(self):
+        self.health.decode_retries = (self.engine.decode_retries_total
+                                      - self._retries_before)
+        self.health.emit(
+            self._reg(), tick=self.tick, pending=len(self.pending),
+            active=len(self.active), free=len(self.free),
+            completed_ok=sum(
+                1 for c in self.completed
+                if c.finish_reason in robust_mod.OK_STATUSES),
+            draining=self.draining)
 
     # -- accounting --------------------------------------------------------
 

@@ -9,7 +9,8 @@ GPU and hold each of its CUDA kernels against its plain PyTorch version.
     python3 chip_smoke.py serve_bf16 serve_int8 serve_int8 serve_bf16
                                          # phases run in the order given
 
-Phases (any failure exits non-zero; nothing is caught and passed over):
+Phases (any failure exits non-zero; nothing is caught and passed over;
+each prints its seconds as ``chip_smoke: phase NAME S s``):
 
 1. build: compile every ``apex_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
    (one nvcc per source, all started together) and print the build time,
@@ -292,6 +293,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    tp = 1 by the near-tie rules, and times #25, #21, #14, #15 and #26 at
    a rank's shapes alone on the card. Times are labelled as two ranks
    sharing one H100 over gloo: not a TP speed.
+24. resilient_gpt2: GPT-2 345M (8 x 1024, flash) under amp O2 with
+   FusedAdam on fp32 masters, driven by the resilience Supervisor: each
+   step guarded (``guarded_update``: K7's statistics into a flight
+   recorder, amp's found_inf OR'd in, the fused optimizer's writes
+   skipped on the device), ``check_guard`` polled, the registry's JSONL
+   sink on, an AsyncCheckpointer every 4 steps (keep 2), hot snapshots
+   every 2. Planted once each: NaN gradients in one module (the state
+   hash-equal after the step, the scale halved, the post-mortem naming
+   the module), three NaN steps in a row (escalation, the snapshot
+   revert with the scale backed off, the ledger verified), a synthetic
+   RESOURCE_EXHAUSTED and a real CUDA OOM under ``guarded_call`` (memory
+   post-mortems naming the masters and moments), a torn checkpoint write
+   (restore walks back to the last verified step) and a real SIGTERM
+   (one final save, a clean exit; the resumed state hash-equal to the
+   unkilled one, then two more steps each). Then the guarded step with
+   telemetry off and on, and ``step_cost``'s FLOPs against 6 N T plus
+   flash's attention FLOPs (within FLOPS_CLOSED_FORM_RTOL), MFU <= 1.
+25. serve_guarded: the TinyLlama-1.1B engine on its CUDA graphs with
+   telemetry on and ``preflight=True``: serve_bf16's trace under
+   ``assert_no_recompiles`` with a decode failure retried once and one
+   active slot poisoned (evicted as ``poisoned``), launch counts exact,
+   every request traced; ``preflight_strict`` under the measured need
+   refused; tokens/s with telemetry off, on, off; then a SIGTERM after 4
+   scheduler steps drains a second engine's scheduler, its pending
+   requests extracted.
+26. guarded_tp_dp: mesh2d's ``mode="guarded"`` at tp_dp's shapes on a 1
+   x 1 mesh, fused (#20), NaN planted at step 1: that step leaves the
+   shards and the int8 residual bit for bit, the others commit.
 
 The kernel phase also holds amp's kernels against their plain versions:
 multi_tensor_scale (in place over GPT-2 345M's and BERT-large's O2
@@ -321,7 +350,12 @@ NOVOGRAD_V_RTOL of the plain version's and of float64 sums, two runs
 bit-identical) and lamb's stage 1 with a decay a tensor (the public
 two-stage op's route, a launch a distinct decay; kernel phase only),
 each with two planted faults through its own launch, timed beside its
-bound. A kernel's row in the JSON line is its first shape;
+bound; and K7 multi_tensor_stats (GPT-2 345M's O2 gradient list by
+module prefix, and 96 ragged views at 1-7 element offsets in three
+dtypes over two launches): counts and absmax exact, sums of squares
+within STATS_SUMSQ_RTOL, two runs bit-identical, two planted faults
+caught, timed beside its bound and torch._foreach_norm. A kernel's row
+in the JSON line is its first shape;
 the others follow under ``other_shapes``.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -9545,6 +9579,826 @@ def phase_tp_serve():
     return {"tp_serve": total}
 
 
+# ---------------------------------------------------------------------------
+# telemetry, resilience and checkpoints: K7, resilient_gpt2, serve_guarded,
+# guarded_tp_dp
+# ---------------------------------------------------------------------------
+
+# K7 against its plain version: counts and absmax exact; the sums of
+# squares are fp32 sums of the same non-negative terms in two orders, each
+# within (its depth of additions) x 2^-24 of the exact sum, relative: K7's
+# depth is 16 + 5 + 8 a chunk and ceil(chunks / 256) + 5 + 8 over the
+# chunks (under 60 for GPT-2's largest tensor, 51.5 M elements), torch's
+# sum's a few hundred at most; 1e-4 holds both with room, and a dropped or
+# doubled chunk moves the sum by a chunk's share (and its counts, exactly)
+STATS_SUMSQ_RTOL = 1e-4
+# the ragged list: sizes around K7's 4096-element batch and 65536-element
+# chunk, the dtypes K7 takes, views at 1-7 element offsets into flat
+# buffers, more than one launch's 64 tensors, groups that span the
+# launch boundary
+STATS_RAGGED_SIZES = (1, 3, 4095, 4097, 65535, 65536, 65537, 131073)
+STATS_RAGGED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+STATS_FAULTS = (("each tensor's last chunk's non-finite count dropped", 1),
+                ("each tensor's first chunk counted twice", 2))
+
+
+def _stats_plant(ts):
+    """Zeros in each tensor's first chunk, a NaN in the last chunk of
+    every third, an inf in every fifth, and fp16/bf16 range values."""
+    for k, t in enumerate(ts):
+        flat = t.view(-1)
+        n = flat.numel()
+        flat[:min(n, 7)] = 0
+        if n > 16:
+            flat[9] = 7e4 if t.dtype != torch.float16 else 6e4
+            flat[10] = 1e-6
+        if k % 3 == 0:
+            flat[-1] = float("nan")
+        if k % 5 == 0 and n > 2:
+            flat[n // 2] = float("inf")
+    return ts
+
+
+def _stats_gpt2(gen):
+    """GPT-2 345M's O2 gradient list (bf16, the norms' fp32) by name,
+    grouped by module prefix (depth 3), with planted values."""
+    from apex_tpu_torch.telemetry import numerics
+    meta = _gpt2_meta()
+    names = [n.replace(".", "/") for n, _ in meta.named_parameters()]
+    ts = _stats_plant(_like(gen, _o2_shapes(_gpt2_meta), scale=1e-3))
+    keys, leaves, ids, ns = numerics.grouping(dict(zip(names, ts)), 3)
+    return leaves, ids, len(keys)
+
+
+def _stats_ragged(gen):
+    ts, ids = [], []
+    for rep in range(4):
+        for s, n in enumerate(STATS_RAGGED_SIZES):
+            for d, dt in enumerate(STATS_RAGGED_DTYPES):
+                off = 1 + (rep + s + d) % 7
+                buf = (torch.randn(n + off, generator=gen, device="cuda")
+                       * 10.0 ** (d - 2)).to(dt)
+                ts.append(buf[off:])
+                ids.append((len(ts) - 1) // 5 % 9)
+    return _stats_plant(ts), ids, 9
+
+
+def _stats_held(label, got, want):
+    (gs, gc), (ws, wc) = got, want
+    rel = ((gs[:, 0].double() - ws[:, 0].double()).abs()
+           / ws[:, 0].double().clamp_min(1e-30)).max().item()
+    counts = torch.equal(gc, wc)
+    absmax = torch.equal(gs[:, 1], ws[:, 1])
+    log(f"multi_tensor_stats {label}: counts {'equal' if counts else 'DIFFER'}"
+        f", absmax {'equal' if absmax else 'DIFFERS'}, sums of squares "
+        f"within {rel:.3e} relative (limit {STATS_SUMSQ_RTOL})")
+    return counts and absmax and rel <= STATS_SUMSQ_RTOL
+
+
+def check_stats(gen):
+    """K7 against its plain version on GPT-2 345M's gradient list and on
+    the ragged, unaligned list: counts and absmax exact, sums of squares
+    within STATS_SUMSQ_RTOL, two runs bit-identical; each planted fault,
+    through K7's own C function, read past the same limits."""
+    from apex_tpu_torch.kernels import stats as k7
+    entries = []
+    for label, (ts, ids, G) in (("GPT-2 345M O2 grads", _stats_gpt2(gen)),
+                                ("ragged views", _stats_ragged(gen))):
+        want = k7.stats_plain(ts, ids, G)
+        got = k7.multi_tensor_stats(ts, ids, G)
+        again = k7.multi_tensor_stats(ts, ids, G)
+        assert _stats_held(label, got, want), label
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        for what, code in STATS_FAULTS:
+            sums = torch.zeros((G, 2), dtype=torch.float32, device="cuda")
+            counts = torch.zeros((G, 6), dtype=torch.int64, device="cuda")
+            k7.launch_stats([t.contiguous() for t in ts], ids, sums, counts,
+                            fault=code)
+            caught = not _stats_held(f"{label}, planted: {what}",
+                                     (sums, counts), want)
+            log(f"multi_tensor_stats {label}: planted fault ({what}) "
+                f"{'caught' if caught else 'NOT caught'}")
+            assert caught, what
+        n = sum(t.numel() for t in ts)
+        nbytes = sum(t.numel() * t.element_size() for t in ts)
+        log(f"multi_tensor_stats {label}: {len(ts)} tensors, {n} elements "
+            f"({nbytes / 1e9:.3f} GB), {G} groups; two runs bit-identical")
+        if label.startswith("GPT-2"):
+            entries.append(dict(entry(
+                "multi_tensor_stats", f"{len(ts)} tensors, {n} elements",
+                got[0][:, 0], want[0][:, 0],
+                f"counts, absmax exact; sumsq rtol {STATS_SUMSQ_RTOL}",
+                lambda: k7.multi_tensor_stats(ts, ids, G),
+                lambda: k7.stats_plain(ts, ids, G),
+                lambda: torch._foreach_norm(ts),
+                bound(nbytes, 2 * n, FP32_OPS_PER_S)),
+                library="torch._foreach_norm, the l2 norm of each tensor: "
+                        "one of K7's eight fields"))
+    return entries
+
+
+# resilient_gpt2: GPT-2 345M (bench_gpt2's 8 x 1024, flash), amp O2 with
+# FusedAdam on fp32 masters, under the Supervisor with guarded_update, a
+# flight recorder, the registry's JSONL sink and an AsyncCheckpointer. The
+# faults, each once, by the step it fires at (the lineage's step number):
+RESILIENT_STEPS = 10                 # the supervised run's last step + 1
+RESILIENT_SNAPSHOT_EVERY, RESILIENT_CKPT_EVERY = 2, 4
+RESILIENT_NAN_STEP = 1               # one module's gradients poisoned
+RESILIENT_NAN_PREFIX = "transformer/layers/5/mlp"
+RESILIENT_STREAK = (3, 4, 5)         # three in a row: check_guard escalates
+RESILIENT_ALLOC_STEP = 6             # a synthetic RESOURCE_EXHAUSTED
+RESILIENT_OOM_STEP = 7               # a real CUDA out-of-memory
+RESILIENT_TORN_STEP = 8              # the checkpoint written entering it tears
+RESILIENT_PREEMPT_STEP = 9           # a real SIGTERM during this step
+RESILIENT_RESUME_STEPS = 2           # the resumed and unkilled runs' steps
+RESILIENT_TIMED = 3                  # steps timed with telemetry off / on
+RECORDER_DEPTH = 3                   # the recorder's groups: transformer/layers/k
+FLOPS_CLOSED_FORM_RTOL = 0.10
+
+
+def _fingerprint(tensors):
+    """A hash of the tensors' bits: per tensor the sum of its bit
+    patterns and their sum weighted by position (int64 on the card, one
+    copy to the host for all of them), hashed with sha256."""
+    import hashlib
+    parts = []
+    for t in tensors:
+        flat = t.detach().reshape(-1)
+        bits = flat.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                          8: torch.int64}[flat.element_size()]).long()
+        w = torch.arange(1, bits.numel() + 1, device=bits.device,
+                         dtype=torch.int64) % 1000003
+        parts.append(torch.stack([bits.sum(), (bits * w).sum()]))
+    host = torch.stack(parts).cpu().numpy().tobytes()
+    return hashlib.sha256(host).hexdigest()[:16]
+
+
+class _ResilientRun:
+    """The model, the amp optimizer, the guard and the recorder of the
+    phase, and its supervised step."""
+
+    def __init__(self, label, sink):
+        import math
+
+        from apex_tpu_torch import amp
+        from apex_tpu_torch.kernels import optim
+        from apex_tpu_torch.models import GPTModel, TransformerConfig
+        from apex_tpu_torch.optimizers import FusedAdam
+        from apex_tpu_torch.resilience import init_guard_state
+        from apex_tpu_torch.telemetry import FlightRecorder
+        self.label, self.sink = label, sink
+        cfg = TransformerConfig(**GPT2, compute_dtype=torch.bfloat16,
+                                use_flash_attention=True)
+        self.cfg = cfg
+        self.model = _new_model(label, lambda: GPTModel(cfg))
+        self.model, self.opt = amp.initialize(
+            self.model, FusedAdam(self.model.parameters(), lr=GPT2_LR),
+            opt_level="O2", verbosity=0)
+        self.params = list(self.model.parameters())
+        # the optimizer's state made now (a step makes it at its first),
+        # so the supervisor's state is whole from step 0
+        with torch.no_grad():
+            for g in self.opt.param_groups:
+                g["step"] = torch.zeros(1, dtype=torch.int32, device="cuda")
+            for p in self.params:
+                for name in ("exp_avg", "exp_avg_sq"):
+                    self.opt.state[p].setdefault(
+                        name, torch.zeros_like(p, dtype=torch.float32))
+        self.gst = init_guard_state("cuda")
+        self.rec = FlightRecorder(length=8, prefix_depth=RECORDER_DEPTH)
+        self.rstate = None
+        self.fired = set()
+        self.skips = []        # (step, state kept bit for bit, scale ratio)
+        self.postmortems = []
+        self.ckptr = None
+        self.ckpt_dir = os.path.join(sink, "async_ckpt")
+        self.saved = {}        # step -> fingerprint of the state saved
+        self.ckpt_outcome = None
+        L = cfg.num_layers
+        self.per_step = {"layer_norm": 2 * L + 1, "ln_bwd": 2 * L + 1,
+                         "flash_fwd": L, "flash_dq": L, "flash_dkv": L,
+                         "multi_tensor_stats": math.ceil(
+                             len(self.params) / optim.MAX_TENSORS)}
+
+    # -- the state the supervisor snapshots, checkpoints and restores --
+    def live(self):
+        st = self.opt.state
+        return {
+            "params": [p.data for p in self.params],
+            "masters": [st[p]["amp_master"] for p in self.params],
+            "exp_avg": [st[p]["exp_avg"] for p in self.params],
+            "exp_avg_sq": [st[p]["exp_avg_sq"] for p in self.params],
+            "step": [g["step"] for g in self.opt.param_groups],
+            "loss_scale": self.opt.scaler._state.loss_scale,
+            "unskipped": self.opt.scaler._state.unskipped,
+            "guard": list(self.gst)}
+
+    def model_tensors(self):
+        """What a skipped step must leave as it was: the parameters, the
+        masters, the moments and the device step count."""
+        s = self.live()
+        return (s["params"] + s["masters"] + s["exp_avg"] + s["exp_avg_sq"]
+                + s["step"])
+
+    def tensors(self, state=None):
+        s = state or self.live()
+        return (s["params"] + s["masters"] + s["exp_avg"] + s["exp_avg_sq"]
+                + s["step"] + [s["loss_scale"], s["unskipped"]] + s["guard"])
+
+    def load(self, state):
+        """Copy a (host) state into the live tensors."""
+        with torch.no_grad():
+            for dst, src in zip(self.tensors(), self.tensors(state)):
+                dst.copy_(src)
+
+    def batch(self, step):
+        """Tokens and labels from a generator seeded by the step number."""
+        gen = torch.Generator().manual_seed(SEED + 1000 + step)
+        shape = (GPT2_BATCH, GPT2_SEQ)
+        tokens = torch.randint(0, self.cfg.vocab_size, shape, generator=gen)
+        labels = torch.randint(0, self.cfg.vocab_size, shape, generator=gen)
+        return tokens.cuda(), labels.cuda()
+
+    def census_labels(self):
+        s = self.live()
+        return {"params": s["params"], "masters": s["masters"],
+                "moments": s["exp_avg"] + s["exp_avg_sq"]}
+
+    def once(self, kind, step, at):
+        hit = (step in at if isinstance(at, tuple) else step == at)
+        if hit and (kind, step) not in self.fired:
+            self.fired.add((kind, step))
+            return True
+        return False
+
+    # -- one guarded step ------------------------------------------------
+    def train_step(self, step, poison=None):
+        from apex_tpu_torch.models import gpt_loss_fn
+        from apex_tpu_torch.resilience import faults, guarded_update
+        from apex_tpu_torch.telemetry import numerics, span
+        tokens, labels = self.batch(step)
+        with span("train/fwd_bwd", step=step):
+            self.opt.zero_grad()
+            loss = gpt_loss_fn(self.model(tokens), labels)
+            self.opt.scale_loss(loss).backward()
+        _, found_inf = self.opt.unscale()
+        grads = numerics.module_grads(self.model)
+        if poison is not None:
+            with torch.no_grad():
+                for name, g in faults.inject_nan(
+                        grads, step, nan_step=step,
+                        path_filter=poison).items():
+                    grads[name].copy_(g)
+        if self.rstate is None:
+            self.rstate = self.rec.init_state(grads)
+
+        def opt_update(g, state, flag):
+            self.opt.apply(flag)
+            return state
+
+        with span("train/optimizer", step=step):
+            _, self.gst, self.opt.scaler._state, self.rstate = \
+                guarded_update(grads, opt_update, {}, self.gst,
+                               found_inf=found_inf, scaler=self.opt.scaler,
+                               scaler_state=self.opt.scaler._state,
+                               recorder=self.rec, recorder_state=self.rstate,
+                               step=step)
+        return loss
+
+    def step_fn(self, state, step):
+        """The supervised step: put a restored state back on the card, the
+        periodic async checkpoint, the planted faults (each once), the
+        guarded step under guarded_call, and check_guard's poll."""
+        from apex_tpu_torch import checkpoint
+        from apex_tpu_torch.resilience import (check_guard, faults,
+                                               guarded_call)
+        if state["params"][0].device.type == "cpu":
+            self.load(state)
+        # a checkpoint step's first visit writes; a replay after a revert
+        # does not write the step again (a 5.69 GB write on the host)
+        if step and step % RESILIENT_CKPT_EVERY == 0 and \
+                step not in self.saved:
+            self.checkpoint(step)
+        poison = None
+        if self.once("nan", step, RESILIENT_NAN_STEP):
+            poison = RESILIENT_NAN_PREFIX
+        elif self.once("streak", step, RESILIENT_STREAK):
+            poison = ""
+        before = _fingerprint(self.model_tensors()) \
+            if poison is not None else None
+        scale0 = float(self.opt.scaler._state.loss_scale) \
+            if poison is not None else None
+
+        def body():
+            if self.once("alloc", step, RESILIENT_ALLOC_STEP):
+                faults.inject_alloc_failure(step, alloc_step=step)
+            if self.once("oom", step, RESILIENT_OOM_STEP):
+                # more than the card's free bytes and the allocator's
+                # cached ones together: the allocator's retry after
+                # freeing its cache fails too
+                free, _ = torch.cuda.mem_get_info()
+                cached = (torch.cuda.memory_reserved()
+                          - torch.cuda.memory_allocated())
+                ask = free + cached + 2**30
+                log(f"{self.label}: step {step}: allocating "
+                    f"{ask / 2**30:.1f} GiB with {free / 2**30:.1f} GiB "
+                    f"free and {cached / 2**30:.1f} GiB cached")
+                torch.empty(ask, dtype=torch.uint8, device="cuda")
+            return self.train_step(step, poison)
+
+        guarded_call(body, oom_dir=self.sink, labels=self.census_labels())
+        if poison is not None:
+            self.skips.append((step,
+                               _fingerprint(self.model_tensors()) == before,
+                               float(self.opt.scaler._state.loss_scale)
+                               / scale0))
+        try:
+            check_guard(self.gst, 3, recorder=self.rec,
+                        recorder_state=self.rstate,
+                        postmortem_dir=self.sink)
+        finally:
+            if self.rec.last_postmortem is not None and (
+                    not self.postmortems or self.postmortems[-1]
+                    is not self.rec.last_postmortem):
+                self.postmortems.append(self.rec.last_postmortem)
+        if self.once("preempt", step, RESILIENT_PREEMPT_STEP):
+            faults.simulate_preemption()
+        if step == RESILIENT_TORN_STEP and self.ckpt_outcome and \
+                "settled" not in self.ckpt_outcome:
+            self.torn_outcome(checkpoint)
+        return self.live()
+
+    def checkpoint(self, step):
+        """The periodic async checkpoint of the state entering ``step``:
+        the previous write waited for (and its bytes and seconds logged)
+        first; the one at RESILIENT_TORN_STEP torn, and waited for inside
+        the fault's scope."""
+        from apex_tpu_torch import checkpoint
+        from apex_tpu_torch.resilience import faults
+        if self.ckptr is None:
+            self.ckptr = checkpoint.AsyncCheckpointer(keep_last_n=2)
+        self.finish_write()
+        self.saved[step] = _fingerprint(self.tensors())
+        state = {"state": self.live(), "step": step}
+        t0 = time.perf_counter()
+        if step == RESILIENT_TORN_STEP and not self.ckpt_outcome:
+            with faults.torn_checkpoint_write():
+                self.ckptr.save(self.ckpt_dir, step, state)
+                try:
+                    self.ckptr.wait_until_finished()
+                    self.ckpt_outcome = {"torn_detected_at_write": False}
+                except checkpoint.CheckpointCorruptError as e:
+                    self.ckpt_outcome = {
+                        "torn_detected_at_write": str(e)[:120]}
+            return
+        self.ckptr.save(self.ckpt_dir, step, state)
+        self.pending_write = (step, time.perf_counter() - t0)
+
+    def finish_write(self):
+        """Wait for the in-flight async write and log it."""
+        if getattr(self, "pending_write", None) is None:
+            return
+        step, queue_s = self.pending_write
+        self.pending_write = None
+        self.ckptr.wait_until_finished()
+        nbytes, secs = self.ckptr.last_bytes, self.ckptr.last_write_seconds
+        self.ckpt_stats = (nbytes, secs)
+        log(f"{self.label}: async checkpoint of step {step}: "
+            f"{nbytes / 1e9:.3f} GB written in {secs:.2f} s "
+            f"({nbytes / 1e9 / secs:.2f} GB/s: pickle, the manifest's "
+            f"crc32s and sha256, the verify before pruning); the step "
+            f"held {queue_s * 1e3:.1f} ms to queue the copy to pinned "
+            f"memory")
+
+    def torn_outcome(self, checkpoint):
+        """The torn step-8 write: restore() walks back to the last
+        verified step, whose state is the one saved there."""
+        import warnings
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            payload, meta = checkpoint.restore(self.ckpt_dir,
+                                               with_metadata=True)
+        restored = _fingerprint([t.cuda() for t in self.tensors(
+            payload["state"])])
+        self.ckpt_outcome.update(
+            settled=meta["settled_step"],
+            rejected=[r["step"] for r in meta["rejected"]],
+            restore_s=time.perf_counter() - t0,
+            equal=restored == self.saved.get(meta["settled_step"]),
+            warned=any("REJECTED" in str(w.message) for w in caught))
+        del payload
+
+
+def phase_resilient_gpt2():
+    """GPT-2 345M amp O2 under the Supervisor, every fault planted once:
+    a poisoned module (skipped bit for bit, scale halved, post-mortem
+    naming it), three poisoned steps in a row (escalation, hot-snapshot
+    revert, scale backoff, ledger verified), a synthetic and a real OOM
+    (memory post-mortems whose census names the masters and moments), a
+    torn checkpoint (restore walks back to the last verified step), a
+    real SIGTERM (one final save, clean exit; the resumed run's state
+    equal to the unkilled run's). Then the step with telemetry off and
+    on, and step_cost's FLOPs against the closed form."""
+    import json as _json
+    import shutil
+
+    from apex_tpu_torch import amp, telemetry
+    from apex_tpu_torch.kernels import registry
+    from apex_tpu_torch.resilience import (PreemptionGuard, Supervisor,
+                                           faults)
+    from apex_tpu_torch.telemetry import cost
+    label = "resilient_gpt2"
+    t_phase = time.perf_counter()
+    sink = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "resilient_gpt2")
+    shutil.rmtree(sink, ignore_errors=True)
+    os.makedirs(sink)
+    run = _ResilientRun(label, sink)
+    reg = telemetry.MetricsRegistry(jsonl_dir=sink)
+    final_dir = os.path.join(sink, "final_ckpt")
+
+    def sup_for(step_fn, state, guard=None, start=0):
+        return Supervisor(
+            step_fn, state, snapshot_every=RESILIENT_SNAPSHOT_EVERY,
+            checkpoint_dir=final_dir, keep_last_n=1, preemption_guard=guard,
+            snapshot_ok=lambda st: int(st["guard"][0]) == 0,
+            registry=reg, start_step=start, sleep=lambda s: None)
+
+    registry.reset()
+    t0 = time.perf_counter()
+    with telemetry.use_registry(reg), PreemptionGuard() as guard:
+        sup = sup_for(run.step_fn, run.live(), guard)
+        report = sup.run(RESILIENT_STEPS + 5)
+        run.finish_write()
+    launches = registry.launches()
+    run_s = time.perf_counter() - t0
+    exit_fp = _fingerprint(run.tensors())
+    log(f"{label}: supervised run {run_s:.1f} s: exit {report['exit']!r} at "
+        f"step {report['final_step']}, {report['dispatches']} dispatches, "
+        f"restarts {report['restarts']} {report['causes']}, snapshot "
+        f"restores {report['snapshot_restores']}, steps lost "
+        f"{report['steps_lost']}, MTTR {report['mttr_steps']} steps, goodput "
+        f"{report['goodput_step_ratio']:.3f}; ledger {report['ledger']}")
+    log(f"{label}: launches of the run {launches}")
+    # 1. the one poisoned module
+    nan = [s for s in run.skips if s[0] == RESILIENT_NAN_STEP]
+    first = run.postmortems[0]
+    log(f"{label}: NaN gradients in {RESILIENT_NAN_PREFIX} at step "
+        f"{RESILIENT_NAN_STEP}: skipped with the state hash-equal "
+        f"{nan[0][1]}, loss scale x{nan[0][2]}; post-mortem names "
+        f"{first['first_nonfinite_prefix']!r} at step "
+        f"{first['first_nonfinite_step']} ({first['path']})")
+    assert nan and nan[0][1] and nan[0][2] == 0.5, run.skips
+    assert RESILIENT_NAN_PREFIX.startswith(first["first_nonfinite_prefix"])
+    assert first["first_nonfinite_step"] == RESILIENT_NAN_STEP
+    # 2. the streak: escalation, snapshot revert with backoff
+    streak = [s for s in run.skips if s[0] in RESILIENT_STREAK]
+    log(f"{label}: poisoned steps {RESILIENT_STREAK}: skips {streak}; "
+        f"escalation post-mortem {run.postmortems[-1]['reason']!r}")
+    assert all(s[1] for s in streak), streak
+    assert report["causes"].get("numerics") == 1, report
+    assert report["ledger"]["monotonic"]
+    # 3. the OOMs
+    mem = [json_load(os.path.join(sink, "memory-postmortem-rank0.json"))]
+    labels = {g["label"] for g in mem[0]["census"]["groups"]}
+    log(f"{label}: OOM class {report['causes'].get('oom')} times (a "
+        f"synthetic RESOURCE_EXHAUSTED at step {RESILIENT_ALLOC_STEP}, a real "
+        f"CUDA OOM at step {RESILIENT_OOM_STEP}); the last memory "
+        f"post-mortem's census labels {sorted(labels)}, "
+        f"{mem[0]['census']['total_bytes'] / 2**30:.2f} GiB live; error "
+        f"{mem[0]['error'][:80]!r}")
+    assert report["causes"].get("oom") == 2, report
+    assert {"masters", "moments"} <= labels, labels
+    assert "OutOfMemoryError" in mem[0]["error"], mem[0]["error"]
+    # 4. the torn checkpoint
+    co = run.ckpt_outcome
+    log(f"{label}: torn checkpoint at step {RESILIENT_TORN_STEP}: {co}")
+    assert co and co["settled"] == RESILIENT_TORN_STEP - RESILIENT_CKPT_EVERY
+    assert co["rejected"] == [RESILIENT_TORN_STEP] and co["equal"], co
+    nbytes, write_s = run.ckpt_stats
+    # 5. the SIGTERM: one final save, a clean exit, the resume
+    assert report["exit"] == "preempted", report
+    assert report["final_step"] == RESILIENT_PREEMPT_STEP + 1, report
+    log(f"{label}: SIGTERM during step {RESILIENT_PREEMPT_STEP}: final "
+        f"checkpoint at step {report['final_step']}; handlers restored "
+        f"{signal_default()}")
+    resumed = _ResilientResume(run, sup_for, exit_fp, reg)
+    log(f"{label}: {resumed}")
+    assert resumed.restored_equal, resumed
+    # telemetry off / on, step_cost and the closed form
+    times = {}
+    for name, r in (("off", telemetry.MetricsRegistry()), ("on", reg)):
+        with telemetry.use_registry(r):
+            ms = []
+            for k in range(RESILIENT_TIMED):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                run.train_step(RESILIENT_STEPS + 10 + k)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+            times[name] = statistics.median(ms)
+    log(f"{label}: guarded step (flight recorder and K7 included) "
+        f"{times['off']:.2f} ms with telemetry off, {times['on']:.2f} ms "
+        f"with it on (median of {RESILIENT_TIMED}, host clock, synchronized)")
+    with telemetry.use_registry(telemetry.MetricsRegistry()):
+        c = cost.step_cost(run.train_step, RESILIENT_STEPS + 20)
+    closed = _gpt2_closed_form_flops(run.model)
+    util = cost.utilization(c["flops"], times["off"] / 1e3)
+    log(f"{label}: step_cost {c['flops']:.4e} FLOPs ({c['torch_flops']:.4e} "
+        f"counted by FlopCounterMode, {c['kernel_flops']:.4e} by the port's "
+        f"kernels: {sorted(c['by_kernel'])}); closed form 6 N T + attention "
+        f"with flash's recompute {closed:.4e}; ratio "
+        f"{c['flops'] / closed:.4f}; MFU {util['mfu']:.4f} of "
+        f"{cost.peak_table()[0] / 1e12:.0f} TFLOP/s bf16")
+    assert abs(c["flops"] / closed - 1) <= FLOPS_CLOSED_FORM_RTOL, (c, closed)
+    assert 0 < util["mfu"] <= 1, util
+    log(f"{label}: checkpoint {nbytes / 1e9:.3f} GB, written in "
+        f"{write_s:.2f} s ({nbytes / 1e9 / write_s:.2f} GB/s)")
+    reg.flush()
+    reg.disable()
+    _json.loads(open(os.path.join(sink, "telemetry-rank0.jsonl")
+                     ).readline())
+    amp.initialize(run.model, None, enabled=False)
+    faults.disarm_slot_nan()
+    del run, resumed
+    shutil.rmtree(sink, ignore_errors=True)
+    log(f"{label}: phase {time.perf_counter() - t_phase:.1f} s")
+    return {label: launches}
+
+
+def json_load(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def signal_default():
+    import signal
+    return signal.getsignal(signal.SIGTERM) is signal.SIG_DFL
+
+
+def _gpt2_closed_form_flops(model):
+    """6 N T (N the matmul weights: every 2-D parameter but the token and
+    position tables) plus the attention's with flash's recompute: per
+    layer and head, pairs = s (s + 1) / 2 causal query-key pairs times
+    d, 4 FLOPs a unit in the forward, 6 in the dq kernel and 8 in the
+    dk/dv kernel."""
+    cfg = model.config
+    n = sum(p.numel() for name, p in model.named_parameters()
+            if p.dim() == 2 and "embeddings" not in name)
+    T = GPT2_BATCH * GPT2_SEQ
+    d = cfg.hidden_size // cfg.num_attention_heads
+    pairs = GPT2_SEQ * (GPT2_SEQ + 1) // 2
+    attn = 18 * GPT2_BATCH * cfg.num_attention_heads * pairs * d
+    return 6 * n * T + cfg.num_layers * attn
+
+
+class _ResilientResume:
+    """The preempted run's final checkpoint, restored by a new supervisor
+    into the same live tensors (first overwritten with zeros to show the
+    load), must equal the unkilled state at that step; then the resumed
+    and the unkilled runs each take RESILIENT_RESUME_STEPS more steps
+    from it, and their states are compared (equal where the step is
+    deterministic on the card)."""
+
+    def __init__(self, run, sup_for, exit_fp, reg):
+        from apex_tpu_torch import telemetry
+        from apex_tpu_torch.resilience.supervisor import host_copy
+        step0 = RESILIENT_PREEMPT_STEP + 1
+        end = step0 + RESILIENT_RESUME_STEPS
+        unkilled_state = host_copy(run.live())
+        with telemetry.use_registry(reg):
+            sup = sup_for(run.step_fn, run.live(), start=step0)
+            sup.run(end)
+        self.unkilled = _fingerprint(run.tensors())
+        with torch.no_grad():
+            for t in run.tensors():
+                t.zero_()
+        t0 = time.perf_counter()
+        with telemetry.use_registry(reg):
+            sup2 = sup_for(run.step_fn, run.live())
+            meta = sup2.restore_from_checkpoint()
+        self.restore_s = time.perf_counter() - t0
+        run.load(sup2.state)
+        self.settled = meta["settled_step"]
+        self.restored = _fingerprint(run.tensors())
+        self.restored_equal = self.restored == exit_fp and \
+            self.settled == step0 and _fingerprint(
+                [t.cuda() for t in run.tensors(unkilled_state)]) == exit_fp
+        with telemetry.use_registry(reg):
+            sup2.run(end)
+        self.resumed = _fingerprint(run.tensors())
+
+    def __repr__(self):
+        return (f"resume from the final checkpoint (step {self.settled}, "
+                f"restored in {self.restore_s:.2f} s): state hash "
+                f"{self.restored} {'equal to' if self.restored_equal else 'DIFFERENT from'}"
+                f" the unkilled run's at that step; after "
+                f"{RESILIENT_RESUME_STEPS} more steps each, resumed "
+                f"{self.resumed} and unkilled {self.unkilled} "
+                f"({'equal' if self.resumed == self.unkilled else 'different: the step is not bit-deterministic on the card'})")
+
+
+# serve_guarded: the TinyLlama-1.1B engine (bf16, its CUDA graphs) with
+# telemetry on and preflight=True; a decode failure at a call, retried
+# once, and one active slot poisoned at a later call
+SERVE_FAIL_AT, SERVE_POISON_AT = 3, 6   # decode calls into the traffic
+SERVE_PREEMPT_AFTER = 4                 # scheduler steps before SIGTERM
+
+
+def phase_serve_guarded():
+    import dataclasses
+    import shutil
+
+    from apex_tpu_torch import telemetry
+    from apex_tpu_torch.kernels import registry
+    from apex_tpu_torch.resilience import PreemptionGuard, faults
+    from apex_tpu_torch.serving import RobustConfig, Scheduler, ServeEngine
+    from apex_tpu_torch.telemetry import compile_watch
+    from apex_tpu_torch.telemetry.memory import MemoryBudgetError
+    label = "serve_guarded"
+    t_phase = time.perf_counter()
+    sink = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "serve_guarded")
+    shutil.rmtree(sink, ignore_errors=True)
+    model = _serve_model()
+    L, vocab = model.num_layers, model.config.vocab_size
+    reg = telemetry.MetricsRegistry(jsonl_dir=sink)
+    events = []
+    reg.add_event_tap(events.append)
+    with telemetry.use_registry(reg):
+        engine = ServeEngine(model, _serve_config(cache_mode="bf16",
+                                                  preflight=True),
+                             registry=reg)
+    size = _ladder_report(label, engine)
+    rep = engine.memory_report
+    log(f"{label}: preflight: decode peak {rep['peak_bytes'] / 2**30:.3f} "
+        f"GiB = weights {engine.weight_bytes() / 2**30:.3f} + store "
+        f"{engine.kv_cache_bytes() / 2**30:.3f} + graph pool "
+        f"{engine.graph_pool_bytes / 2**30:.3f}, capacity "
+        f"{rep['capacity_bytes'] / 2**30:.2f} GiB, headroom "
+        f"{rep['headroom_frac']:.4f}")
+    engine.serve(_serve_trace(vocab, n=4, seed=0))  # warm
+    trace = _serve_trace(vocab)
+    robust = RobustConfig(decode_retries=1, retry_backoff_s=0.0)
+    registry.reset()
+    t0 = time.perf_counter()
+    with telemetry.use_registry(reg), \
+            compile_watch.assert_no_recompiles() as watcher:
+        sched = Scheduler(engine, robust=robust, registry=reg)
+        for r in trace:
+            sched.submit(r)
+        base = engine._decode_calls
+        fail = faults.arm_decode_failure(base + SERVE_FAIL_AT, True)
+        poisoned = None
+        while sched.pending or sched.active:
+            if poisoned is None and \
+                    engine._decode_calls >= base + SERVE_POISON_AT \
+                    and sched.active:
+                poisoned = faults.arm_slot_nan(min(sched.active),
+                                               engine._decode_calls)
+            if not sched.active and sched.pending and min(
+                    r.arrival for r in sched.pending) > sched.tick:
+                sched.tick = min(r.arrival for r in sched.pending)
+            sched.step()
+        done = sched.completed
+    wall = time.perf_counter() - t0
+    faults.disarm_decode_failure()
+    faults.disarm_slot_nan()
+    launches = registry.launches()
+    steps, calls = sched.decode_steps, sched.prefill_calls
+    reasons = sorted(c.finish_reason for c in done)
+    log(f"{label}: {len(done)} requests in {wall:.2f} s under "
+        f"assert_no_recompiles (compile_count {engine.compile_count}, "
+        f"flat); decode failure fired {fail['fired']} time(s), retried "
+        f"({engine.decode_retries_total} retries); slot "
+        f"{poisoned['slot'] if poisoned else None} poisoned at call "
+        f"{poisoned['step'] if poisoned else None} (fired "
+        f"{poisoned['fired'] if poisoned else 0}); finish reasons {reasons}")
+    assert fail["fired"] == 1 and engine.decode_retries_total == 1
+    assert poisoned and poisoned["fired"] == 1
+    assert reasons.count("poisoned") == 1 and len(done) == len(trace)
+    assert set(reasons) <= {"length", "poisoned"}, reasons
+    assert engine.compile_count == size
+    _expect(label, launches, {
+        "rms_norm": (2 * L + 1) * (steps + calls),
+        "gqa_decode": L * steps, "window_attention": L * calls})
+    spans = {}
+    for e in events:
+        if e["kind"] == "span" and e["name"].startswith("serve/"):
+            spans.setdefault(e.get("rid"), set()).add(e["name"])
+    traced = [c.rid for c in done if {"serve/request", "serve/prefill",
+                                      "serve/evict"} <= spans.get(c.rid,
+                                                                  set())]
+    ids = {e.get("trace_id") for e in events
+           if e["name"] == "request_done"}
+    log(f"{label}: {len(traced)} of {len(done)} requests traced (root, "
+        f"prefill, decode, evict spans), {len(ids - {None})} trace ids; "
+        f"{sum(e['kind'] == 'span' for e in events)} span events")
+    assert len(traced) == len(done) and None not in ids
+    # the strict preflight under the measured need (the capacity through
+    # $APEX_TPU_HBM_GB, decimal GB)
+    need = rep["peak_bytes"]
+    cfg = engine.config
+    engine.config = dataclasses.replace(cfg, preflight_strict=True)
+    os.environ["APEX_TPU_HBM_GB"] = str((need - 1000) / 1e9)
+    try:
+        engine._preflight()
+        refused = False
+    except MemoryBudgetError as e:
+        refused = str(e)[:100]
+    finally:
+        del os.environ["APEX_TPU_HBM_GB"]
+    engine.config = cfg
+    log(f"{label}: preflight_strict at {need - 1000} bytes: refused "
+        f"{refused!r}")
+    assert refused
+    # tokens/s with telemetry off and on, in this call
+    tps = {}
+    for name, r in (("off", telemetry.MetricsRegistry()),
+                    ("on", reg), ("off again", telemetry.MetricsRegistry())):
+        with telemetry.use_registry(r):
+            _, stats = engine.serve(_serve_trace(vocab))
+        tps[name] = stats["tokens_per_sec"]
+    log(f"{label}: tokens/s with telemetry off {tps['off']:.1f}, on "
+        f"{tps['on']:.1f}, off again {tps['off again']:.1f} (same trace, "
+        f"same engine, this call)")
+    # SIGTERM mid-traffic drains a second engine's scheduler
+    del engine
+    torch.cuda.empty_cache()
+    with telemetry.use_registry(reg):
+        engine = ServeEngine(model, _serve_config(cache_mode="bf16"),
+                             registry=reg)
+    with telemetry.use_registry(reg), PreemptionGuard() as guard:
+        drain = Scheduler(engine, guard=guard, registry=reg)
+        for r in _serve_trace(vocab):
+            drain.submit(r)
+        for _ in range(SERVE_PREEMPT_AFTER):
+            drain.step()
+        active = len(drain.active)
+        faults.simulate_preemption()
+        drain.step()
+        moved = drain.extract_unfinished(reason="preempted",
+                                         which="pending")
+        finished = drain.run()
+    log(f"{label}: SIGTERM after {SERVE_PREEMPT_AFTER} steps ({active} "
+        f"active): draining {drain.draining} ({drain._drain_reason}); "
+        f"{len(moved)} pending requests extracted, "
+        f"{len(finished)} finished in the drain "
+        f"{sorted({c.finish_reason for c in finished})}; report "
+        f"{drain.drain_report}")
+    assert drain.draining and drain._drain_reason == "preempted"
+    assert moved and len(moved) + len(finished) == SERVE_REQUESTS
+    reg.flush()
+    reg.disable()
+    shutil.rmtree(sink, ignore_errors=True)
+    del engine
+    log(f"{label}: phase {time.perf_counter() - t_phase:.1f} s")
+    return {label: launches}
+
+
+GUARD_NAN_STEP, GUARDED_STEPS = 1, 3
+
+
+def phase_guarded_tp_dp():
+    """mesh2d's guarded step at tp_dp's shapes on a 1 x 1 mesh (one-rank
+    NCCL group), fused (#20), the int8 sync, NaN planted at step
+    GUARD_NAN_STEP: that step leaves the shards and the residual bit for
+    bit, the steps around it commit."""
+    from apex_tpu_torch.kernels import registry
+    from apex_tpu_torch.parallel import mesh2d
+    from apex_tpu_torch.parallel.distributed import _leaves
+    label = "guarded_tp_dp"
+    t_phase = time.perf_counter()
+    m = TP_DP_MODEL
+    with tp_mesh() as mesh:
+        seg = mesh2d.gpt2_init(**m)
+        batch = mesh2d.make_batch(mesh, batch_per_replica=TP_DP_BATCH,
+                                  seq=m["max_seq"], vocab=m["vocab"])
+        step, (sp, res, gst) = mesh2d.build_train_step(
+            mesh, seg, hidden=m["hidden"], heads=m["heads"], mode="guarded",
+            fused=True, guard_nan_step=GUARD_NAN_STEP)
+        registry.reset()
+        outcome = []
+        for k in range(GUARDED_STEPS):
+            before = [t.clone() for t in _leaves(sp) + _leaves(res)]
+            sp, res, gst, loss = step(sp, res, gst, k, *batch)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(before, _leaves(sp) + _leaves(res)))
+            outcome.append((k, same, [int(v) for v in gst],
+                            float(loss)))
+        launches = registry.launches()
+    log(f"{label}: {m}, batch {TP_DP_BATCH} x {m['max_seq']}, fused, int8 "
+        f"sync: (step, state bit-identical, guard [streak, total, last], "
+        f"loss) {outcome}; launches {launches}")
+    assert [o[1] for o in outcome] == [k == GUARD_NAN_STEP
+                                       for k in range(GUARDED_STEPS)]
+    assert outcome[-1][2] == [0, 1, 0]
+    assert launches["tp_matmul"] > 0
+    log(f"{label}: phase {time.perf_counter() - t_phase:.1f} s")
+    return {label: launches}
+
+
 PROFILE_WATCH = ("ln_fwd_kernel", "warp_ln_fwd", "ln_bwd_dx",
                  "warp_softmax_fwd", "warp_causal_fwd", "causal_fwd_kernel",
                  "::bwd_kernel<", "warp_softmax_bwd",
@@ -9563,7 +10417,8 @@ PHASES = ("kernels", "serving", "serve_bf16", "serve_int8", "serve_spec",
           "bert_training", "mha", "mla_decode", "deepseek_v2_lite", "ddp_gpt2",
           "ddp_compressed", "zero_gpt2", "zero_bert", "tp_dp", "tp_gpt2",
           "amp_gpt2", "amp_o1_sgd", "amp_bert", "novograd_gpt2",
-          "adagrad_gpt2", "fp16_gpt2", "tp_serve")
+          "adagrad_gpt2", "fp16_gpt2", "tp_serve", "resilient_gpt2",
+          "serve_guarded", "guarded_tp_dp")
 # kernels that no path of this script launches: held against their plain
 # versions in the kernel phase only (the JAX serving engine does not take
 # the fused int8 verify either: it dequantizes with #15, then verifies;
@@ -9641,6 +10496,10 @@ SOURCES = {  # kernel -> (its source, the TPU kernel it replaces)
                  "apex_tpu/ops/multi_tensor.py:248"),
     "lamb_stage1_decay": ("apex_tpu_torch/csrc/lamb.cu",
                           "apex_tpu/ops/multi_tensor.py:431"),
+    # K7, telemetry's per-tensor statistics: the jnp reductions of
+    # numerics.py's _raw_sums (no Pallas counterpart)
+    "multi_tensor_stats": ("apex_tpu_torch/csrc/stats.cu",
+                           "apex_tpu/telemetry/numerics.py:82"),
 }
 
 
@@ -9675,9 +10534,11 @@ def main(argv):
     log(f"card: {card}")
 
     phase_build()
+    log(f"chip_smoke: phase build {time.perf_counter() - t_start:.1f} s")
 
     entries = []
     if "kernels" in phases:
+        t_phase = time.perf_counter()
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         entries = (check_rms_norm(gen) + check_window_attention(gen)
                    + check_gqa_decode(gen) + check_rms_bwd(gen)
@@ -9687,7 +10548,7 @@ def main(argv):
                    + check_quant(gen) + check_spec_verify(gen)
                    + check_mla_decode(gen) + check_quant4(gen)
                    + check_tp_matmul(gen) + check_amp_kernels(gen)
-                   + check_optimizer_kernels(gen))
+                   + check_optimizer_kernels(gen) + check_stats(gen))
         check_per_row_attention(gen)
         check_kv_splits(gen)
         check_refusals()
@@ -9711,11 +10572,16 @@ def main(argv):
                 + (f"; lse max abs err {e['lse_max_abs_err']:.3e}"
                    if "lse_max_abs_err" in e else ""))
         torch.cuda.empty_cache()
+        log(f"chip_smoke: phase kernels "
+            f"{time.perf_counter() - t_phase:.1f} s")
 
     by_path = {}
     if "serving" in phases:
+        t_phase = time.perf_counter()
         by_path.update(phase_serving())
         torch.cuda.empty_cache()
+        log(f"chip_smoke: phase serving "
+            f"{time.perf_counter() - t_phase:.1f} s")
     runs = {"serve_bf16": phase_serve_bf16, "serve_int8": phase_serve_int8,
             "serve_spec": phase_serve_spec,
             "serve_prefix": phase_serve_prefix, "training": phase_training,
@@ -9732,14 +10598,19 @@ def main(argv):
             "amp_bert": phase_amp_bert,
             "novograd_gpt2": phase_novograd_gpt2,
             "adagrad_gpt2": phase_adagrad_gpt2, "fp16_gpt2": phase_fp16_gpt2,
-            "tp_serve": phase_tp_serve}
+            "tp_serve": phase_tp_serve,
+            "resilient_gpt2": phase_resilient_gpt2,
+            "serve_guarded": phase_serve_guarded,
+            "guarded_tp_dp": phase_guarded_tp_dp}
     for name in phases:  # in the order given, repeats included
         if name not in runs:
             continue  # kernels and serving ran above
         if not name.startswith("serve"):
             _SERVE_MODEL.clear()  # the serve phases' model
+        t_phase = time.perf_counter()
         by_path.update(runs[name]())
         torch.cuda.empty_cache()
+        log(f"chip_smoke: phase {name} {time.perf_counter() - t_phase:.1f} s")
     log(f"chip_smoke: phases {phases} in "
         f"{time.perf_counter() - t_start:.1f} s")
     if list(phases) != list(PHASES):

@@ -465,8 +465,38 @@ def test_loss_scaler_eager_api_and_telemetry_placeholder():
     other = LossScaler("dynamic", device="cpu")
     other.load_state_dict(sd)
     assert other.state_dict() == sd
-    with pytest.raises(NotImplementedError, match="item 7"):
-        sc.record_update(sc._state, sc._state, torch.zeros(1))
+    # the telemetry: the same update sequence lands the same gauge,
+    # counters and events as JAX's eager scaler (timestamps aside)
+    from apex_tpu.telemetry import MetricsRegistry as JaxRegistry
+    from apex_tpu.telemetry import use_registry as jax_use_registry
+    from apex_tpu_torch.telemetry import MetricsRegistry, use_registry
+
+    flags = [0.0, 0.0, 1.0, 0.0, 0.0, 0.0]
+    recs = []
+    for make, use, scaler, flag_of in (
+            (JaxRegistry, jax_use_registry,
+             JaxLossScaler("dynamic", scale_window=2),
+             lambda f: jnp.float32(f)),
+            (MetricsRegistry, use_registry,
+             LossScaler("dynamic", device="cpu", scale_window=2),
+             lambda f: torch.full((1,), f))):
+        events = []
+        with use(make(enabled=True)) as reg:
+            reg.add_event_tap(events.append)
+            state = scaler._state
+            for f in flags:
+                state = scaler.update(state, flag_of(f))
+            snap = reg.snapshot()
+        recs.append(([{k: v for k, v in e.items() if k not in ("t", "ts")}
+                      for e in events],
+                     snap["counters"], snap["gauges"]))
+    assert recs[1] == recs[0]
+    assert recs[0][1] == {"amp/overflow": 1.0,
+                          "amp/scale_window_growth": 2.0}
+    # disabled (the default): nothing is recorded
+    with use_registry(MetricsRegistry()) as reg:
+        sc.record_update(sc._state, sc._state, torch.ones(1))
+        assert reg.snapshot()["counters"] == {}
 
 
 # ------------------------------------------------- the C interfaces

@@ -293,21 +293,44 @@ def test_int4_error_feedback_converges_within_2pct(world1):
         loss_int4, loss_fp32)
 
 
-def test_refusals_name_their_roadmap_items(world1):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        DistributedDataParallel(numerics=True)
+def test_refusals_name_their_roadmap_items(world1, dp_mesh):
+    """Expert parallelism (item 6) still raises; the telemetry knobs run:
+    ``numerics=`` appends the grads/synced statistics, held to JAX's
+    (counts and absmax exact, norms within 1e-6), and ``memory_report``
+    measures nothing without a card (None)."""
     with pytest.raises(NotImplementedError, match="item 6"):
         DistributedDataParallel(expert_param_predicate=lambda p: True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        distributed.all_reduce_gradients({"a": torch.zeros(2)},
-                                         numerics=True)
     with pytest.raises(NotImplementedError, match="item 6"):
         DistributedDataParallel(axis_name=("dp", "ep")).sync(
             {"a": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        DistributedDataParallel().memory_report(None)
     with pytest.raises(ValueError, match="unknown compression"):
         DistributedDataParallel(compress="int2")
+    from apex_tpu_torch.telemetry import numerics
+
+    mesh = dp_mesh(1)
+    g = _grads(7)
+    g["b0"][:3] = 0.0
+    for mode in (None, "int8"):
+        ddp_j = jax_ddp.DistributedDataParallel(
+            axis_name="dp", compress=mode, numerics=1)
+        ddp_t = DistributedDataParallel(axis_name="dp", compress=mode,
+                                        numerics=1)
+        want = _jax_sync(mesh, ddp_j, g, None)[-1]
+        got = numerics.stats_to_floats(ddp_t.sync(_to_torch(g))[-1])
+        assert sorted(got) == sorted(want) == sorted(
+            f"{pre}/{k}" for pre in ("grads", "synced") for k in g)
+        for key, row in got.items():
+            for field, v in row.items():
+                w = float(getattr(want[key], field))
+                if field in ("l2", "rms"):
+                    assert v == pytest.approx(w, rel=1e-6), (key, field)
+                else:
+                    assert v == w, (mode, key, field, v, w)
+    out, stats = distributed.all_reduce_gradients(_to_torch(g),
+                                                  numerics=True)
+    assert sorted(stats) == sorted(f"{p}/{k}" for p in ("grads", "synced")
+                                   for k in g)
+    assert DistributedDataParallel().memory_report(lambda: None) is None
 
 
 def test_all_reduce_flag_and_broadcast(world1, dp_mesh):

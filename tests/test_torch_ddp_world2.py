@@ -12,7 +12,10 @@ worker gets this file's ``inputs``), runs
 ``psum_compressed`` (bf16, int8, int4, with a residual), the int8 and
 int4 ``psum_scatter_compressed``, the int4 ``all_gather_compressed`` and
 ``DistributedDataParallel(compress="int4").sync`` over two steps, and
-writes its results under OUT. This test then runs JAX on the same inputs.
+three steps of the resilience guard (``guarded_update`` with the flag OR'd
+over the ranks, rank 1's gradients poisoned at step 1: both ranks skip
+it, as JAX's guard over the two-device mesh does), and writes its results
+under OUT. This test then runs JAX on the same inputs.
 World size 1 hides cross-rank faults (a MAX or a sum is the identity
 there); here a wrong rank slice, an int8 MAX taken of absmaxes instead of
 scales, or int4 scales derived before the MAX would show.
@@ -36,6 +39,7 @@ from jax.sharding import PartitionSpec as P
 
 from apex_tpu.parallel import compression as jax_comp
 from apex_tpu.parallel import distributed as jax_ddp
+from apex_tpu.resilience import guard as jax_guard
 from apex_tpu.testing import shard_map
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -80,6 +84,17 @@ for step in range(2):
     grads, res = ddp.sync(grads, res)
     for k in grads:
         out[f"ddp{step}_{k}"], out[f"ddp{step}_{k}_res"] = grads[k], res[k]
+from apex_tpu_torch.resilience import guarded_update, init_guard_state
+state, gst = {"w": torch.ones(5)}, init_guard_state()
+for step in range(3):
+    g = torch.full((5,), 0.5 * (rank + 1) + step)
+    if (rank, step) == (1, 1):
+        g[2] = float("nan")
+    state, gst = guarded_update(
+        {"w": g}, lambda gr, st, flag: {"w": st["w"] - 0.1 * gr["w"]},
+        state, gst, axis_name="dp")
+    out[f"guard_w{step}"] = state["w"].clone()
+    out[f"guard_g{step}"] = torch.stack(list(gst))
 np.savez(sys.argv[1] + f"/rank{rank}.npz",
          **{k: v.numpy() for k, v in out.items()})
 dist.destroy_process_group()
@@ -187,7 +202,32 @@ def test_two_gloo_ranks_match_jax_shard_map(tmp_path, dp_mesh):
             want[f"ddp{step}_{k}"], want[f"ddp{step}_{k}_res"] = (
                 grads[k], res[k])
 
+    def guard(x):
+        rank, state = x["rank"], {"w": jnp.ones(5)}
+        gst, out = jax_guard.init_guard_state(), {}
+        for step in range(3):
+            g = jnp.full((5,), 0.5 * (rank + 1) + step)
+            g = g.at[2].set(jnp.where((rank == 1) & (step == 1), jnp.nan,
+                                      g[2]))
+            state, gst = jax_guard.guarded_update(
+                {"w": g}, lambda gr, st: {"w": st["w"] - 0.1 * gr["w"]},
+                state, gst, axis_name="dp")
+            out[f"guard_w{step}"] = state["w"]
+            out[f"guard_g{step}"] = jnp.stack(list(gst))
+        return out
+
+    # jitted: the guard's few fp32 operations compile once, not op by op
+    body = shard_map(
+        lambda xs: jax.tree_util.tree_map(
+            lambda o: o[None], guard(jax.tree_util.tree_map(
+                lambda a: a[0], xs))),
+        mesh=mesh, in_specs=(P("dp"),), out_specs=P("dp"))
+    want.update(jax.tree_util.tree_map(np.asarray, jax.jit(body)(
+        {"rank": jnp.arange(WORLD, dtype=jnp.float32)})))
     for r in range(WORLD):
+        # one rank's NaN skipped the step on both
+        np.testing.assert_array_equal(got[r]["guard_w1"], got[r]["guard_w0"])
+        assert list(got[r]["guard_g1"]) == [1, 1, 1]
         assert set(got[r]) == set(want), sorted(set(got[r]) ^ set(want))
         for k, w in want.items():
             if k == "psum_bf16":

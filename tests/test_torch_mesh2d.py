@@ -237,14 +237,41 @@ def test_default_mode_is_overlapped_as_jax(world1):
         r.dim() == 2 and r.shape[1] == 256 for s in res for r in s)
 
 
-def test_modes_waiting_for_later_items_raise(world1):
-    mesh = mesh2d.mesh_2d(1, 1)
-    full = mesh2d.gpt2_init(**MODEL, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        mesh2d.build_train_step(mesh, full, hidden=64, heads=4,
-                                mode="guarded")
+def test_modes_waiting_for_later_items_raise(world1, interpret):
+    """A 2 x 2 mesh needs four ranks; ``mode="guarded"`` (resilience) runs:
+    the step armed by ``guard_nan_step`` is skipped with the shards and
+    the residual bit for bit as before it, the steps around it commit,
+    and the guard's counts and the parameters are JAX's guarded step's
+    (fused, the int8 sync)."""
     with pytest.raises(ValueError, match="takes every rank"):
         mesh2d.mesh_2d(2, 2)
+    hidden, heads = MODEL["hidden"], MODEL["heads"]
+    mesh_j = jax_mesh2d.mesh_2d(1, 1)
+    step_j, (sp_j, res_j, gst_j) = jax_mesh2d.build_train_step(
+        mesh_j, jax_mesh2d.gpt2_init(**MODEL), hidden=hidden, heads=heads,
+        mode="guarded", guard_nan_step=1, fused=True)
+    tok_j, lab_j = jax_mesh2d.make_batch(mesh_j, batch_per_replica=BATCH,
+                                         seq=SEQ, vocab=MODEL["vocab"])
+    mesh = mesh2d.mesh_2d(1, 1)
+    step, (sp, res, gst) = mesh2d.build_train_step(
+        mesh, mesh2d.gpt2_init(**MODEL, device="cpu"), hidden=hidden,
+        heads=heads, mode="guarded", guard_nan_step=1, fused=True)
+    tok, lab = mesh2d.make_batch(mesh, batch_per_replica=BATCH, seq=SEQ,
+                                 vocab=MODEL["vocab"], device="cpu")
+    quantum = _int8_quantum(tok, lab)
+    for k in range(STEPS):
+        before = [p.clone() for p in _leaves(sp)] + [
+            r.clone() for r in _leaves(res)]
+        sp_j, res_j, gst_j, loss_j = step_j(sp_j, res_j, gst_j,
+                                            jnp.int32(k), tok_j, lab_j)
+        sp, res, gst, loss = step(sp, res, gst, torch.tensor(k), tok, lab)
+        after = _leaves(sp) + _leaves(res)
+        same = all(torch.equal(a, b) for a, b in zip(before, after))
+        assert same == (k == 1), f"step {k}: skipped={same}"
+        assert [int(v) for v in gst] == [int(v) for v in gst_j], k
+        _close_params([p.numpy() for p in _leaves(sp)], _jax_leaves(sp_j),
+                      f"step {k + 1}", PARAM_ATOL + (k + 1) * quantum)
+    assert [int(v) for v in gst] == [0, 1, 0]
 
 
 # --------------------------------------------------------- 2 x 2 world

@@ -314,10 +314,34 @@ def test_overlapped_zero_step_lamb_within_summation_order(world1):
 
 
 def test_refusals_and_contract(world1):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        OverlappedDataParallel(guard_flag=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        OverlappedDataParallel(numerics=True)
+    # guard_flag= and numerics= (resilience, telemetry) run: the local
+    # non-finite flag and the grads/synced statistics, held to JAX's
+    # (flag and counts exact, norms within RTOL), on finite data and on
+    # data with a NaN (every gradient poisoned)
+    from apex_tpu_torch.telemetry import numerics
+
+    sp, (x, y) = _np_params(), _data()
+    kw = dict(message_size=MESSAGE_SIZE, guard_flag=True, numerics=1)
+    for poison in (False, True):
+        xp = x.copy()
+        if poison:
+            xp[0, 0] = np.nan
+        want = _jax_value_and_sync(JaxODP(axis_name="dp", **kw), sp, xp, y,
+                                   None)
+        got = OverlappedDataParallel(**kw).value_and_sync(
+            _torch_segments(torch.from_numpy(y)), _torch_tree(sp),
+            torch.from_numpy(xp))
+        assert len(got) == len(want) == 4
+        assert float(got[2]) == float(want[2]) == float(poison)
+        stats = numerics.stats_to_floats(got[3])
+        assert sorted(stats) == sorted(want[3])
+        for key, row in stats.items():
+            for field, v in row.items():
+                w = float(getattr(want[3][key], field))
+                if field in ("l2", "rms", "absmax") and not poison:
+                    assert v == pytest.approx(w, rel=RTOL), (key, field)
+                else:
+                    np.testing.assert_equal(v, w, err_msg=f"{key} {field}")
     with pytest.raises(ValueError, match="unknown compression"):
         OverlappedDataParallel(compress="fp8")
     with pytest.raises(NotImplementedError, match="item 6"):

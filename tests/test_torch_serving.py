@@ -79,6 +79,12 @@ def _interpret():
     jax_comp.force_interpret(False)
     jax_gqa.force_interpret(False)
     reg.force_interpret(False, ["fused_cc"])
+    # an engine's poison_slot arms the process-wide fault injector: never
+    # leave an arming for the next test's engine
+    from apex_tpu_torch.resilience import faults
+
+    faults.disarm_slot_nan()
+    faults.disarm_decode_failure()
 
 
 @functools.lru_cache(maxsize=None)
@@ -498,18 +504,40 @@ def test_admission_shedding_deadlines_and_drain():
     assert drained.drain_report.cancelled_pending == 1
 
 
-def test_not_ported_features_raise():
+def test_not_ported_features_raise(monkeypatch):
+    """A slot-sharded data axis (the fleet) still raises; the preflight
+    and the preemption guard (telemetry, resilience) run: the decode
+    peak is the weights and the store on the CPU (no graph pool), a
+    strict preflight under it refuses the engine, and a guard whose
+    signal arrived drains the run."""
+    from apex_tpu_torch.resilience import PreemptionGuard
+    from apex_tpu_torch.serving import ServeMesh
+    from apex_tpu_torch.telemetry.memory import MemoryBudgetError
+
     model = _models()[2]
     with pytest.raises(NotImplementedError, match="not ported"):
-        ServeEngine(model, ServeConfig(**SERVE, preflight=True))
+        ServeEngine(model, ServeConfig(**SERVE),
+                    mesh=ServeMesh(("data", "tp"), (2, 1)))
+    eng0 = ServeEngine(model, ServeConfig(**SERVE, preflight=True))
+    rep = eng0.memory_report
+    assert rep["peak_bytes"] == eng0.weight_bytes() + eng0.kv_cache_bytes()
+    assert rep["over_budget"] is False
+    monkeypatch.setenv("APEX_TPU_HBM_GB", str((rep["peak_bytes"] - 1000)
+                                              / 1e9))
+    with pytest.raises(MemoryBudgetError, match="exceeds"):
+        ServeEngine(model, ServeConfig(**SERVE, preflight_strict=True))
+    monkeypatch.delenv("APEX_TPU_HBM_GB")
+    guard = PreemptionGuard(signals=())
+    guard.trigger()
+    done, _ = eng0.serve([Request(rid=0, prompt=np.arange(4),
+                                  max_new_tokens=3)], guard=guard)
+    assert [c.finish_reason for c in done] == ["drained"]
     # model_axis "tp" is JAX's default, accepted; a mesh must be the
     # port's ServeMesh
     assert ServeEngine(model, ServeConfig(**SERVE, model_axis="tp")).tp == 1
     with pytest.raises(TypeError, match="ServeMesh"):
         ServeEngine(model, ServeConfig(**SERVE), mesh=object())
     eng = _engine()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        eng.serve([], guard=object())
     with pytest.raises(ValueError, match="num_slots"):
         ServeEngine(model, ServeConfig(batch_buckets=(8,), num_slots=4))
     with pytest.raises(ValueError, match="pad slot"):

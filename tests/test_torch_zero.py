@@ -208,12 +208,46 @@ def test_state_bytes_match_jax(world, compress):
 
 
 def test_refusals_name_their_items():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        DistributedFusedAdam(numerics=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        DistributedFusedLAMB(numerics=2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        dfa.zero_state_bytes(_torch(_np_tree(0)), world=2, registry=object())
+    # the telemetry knobs run (numerics=, the registry of
+    # zero_state_bytes), held to JAX's: the grads statistics appended to
+    # the step's return (counts and absmax exact), the same gauges and
+    # event from the byte report
+    from apex_tpu.telemetry import MetricsRegistry as JaxRegistry
+    from apex_tpu_torch.telemetry import MetricsRegistry, numerics
+
+    for jcls, tcls in ((JaxAdam, DistributedFusedAdam),
+                       (JaxLAMB, DistributedFusedLAMB)):
+        for overlap in (False, True):
+            kw = dict(numerics=1, overlap=overlap, message_size=MESSAGE_SIZE)
+            jopt, topt = jcls(**kw), tcls(**kw)
+            p0, g = _np_tree(0), _np_tree(10)
+            g["b"][:4] = 0.0
+            out_j = _jax_step(jopt)(_jax(g), jopt.init(_jax(p0)), _jax(p0))
+            tp = _torch(p0)
+            out_t = topt.step(_torch(g), topt.init(tp), tp)
+            assert len(out_t) == len(out_j) == 3
+            got = numerics.stats_to_floats(out_t[2])
+            assert sorted(got) == sorted(out_j[2]) == sorted(
+                f"grads/{k}" for k in SHAPES)
+            for key, row in got.items():
+                for field, v in row.items():
+                    w = float(getattr(out_j[2][key], field))
+                    if field in ("l2", "rms"):
+                        assert v == pytest.approx(w, rel=1e-6), (key, field)
+                    else:
+                        assert v == w, (key, field)
+    events = []
+    for reg, mod, tree in ((JaxRegistry(enabled=True), jax_dfa,
+                            _jax(_np_tree(0))),
+                           (MetricsRegistry(enabled=True), dfa,
+                            _torch(_np_tree(0)))):
+        got = []
+        reg.add_event_tap(got.append)
+        mod.zero_state_bytes(tree, world=2, grad_compress="int8",
+                             registry=reg)
+        events.append(([{k: v for k, v in e.items() if k not in ("t", "ts")}
+                        for e in got], reg.snapshot()["gauges"]))
+    assert events[1] == events[0] and events[0][1]
     opt = DistributedFusedAdam()
     with pytest.raises(NotImplementedError, match="item 6"):
         opt.state_dict_full({}, {}, world=(2, 2, 2), partition_dims={})
